@@ -1,0 +1,40 @@
+"""On-device conditioning of raw interrogator counts (the narrow wire).
+
+On ``wire="raw"`` the stored-dtype counts cross to the device untouched
+and the host readers' affine map — ``(x.float() - mean(x, time)) *
+scale_factor`` — runs on the device as the detection program's first
+pass. The port's copy of ``das4whales_tpu.ops.conditioning``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def condition(trace: torch.Tensor, scale, *, dtype=torch.float32) -> torch.Tensor:
+    """Raw counts -> strain: cast to ``dtype``, demean each channel along
+    time, multiply by the interrogator scale factor (rounded to
+    ``dtype`` first, as the JAX package's ``jnp.asarray(scale, dtype)``)."""
+    x = trace.to(dtype)
+    x = x - x.mean(dim=-1, keepdim=True)
+    return x * _scalar(scale, dtype)
+
+
+def condition_padded(trace: torch.Tensor, scale, n_real: int, *,
+                     dtype=torch.float32) -> torch.Tensor:
+    """:func:`condition` for a time-padded record whose real samples are
+    ``[..., :n_real]`` and whose tail is zero padding: the mean spans the
+    real samples only and the pad conditions to exactly 0."""
+    x = trace.to(dtype)
+    valid = torch.arange(x.shape[-1], device=x.device) < n_real
+    zero = torch.zeros((), dtype=dtype, device=x.device)
+    s = torch.where(valid, x, zero).sum(dim=-1, keepdim=True)
+    x = torch.where(valid, x - s / _scalar(n_real, dtype), zero)
+    return x * _scalar(scale, dtype)
+
+
+def _scalar(v, dtype) -> float:
+    """``v`` rounded to ``dtype`` and handed to torch as a Python scalar
+    (torch computes a float32 op with a Python scalar in float32)."""
+    return float(np.asarray(v, dtype=str(dtype).replace("torch.", "")))

@@ -1,0 +1,274 @@
+"""Sparse peak picking with exact scipy prominence semantics (plain PyTorch).
+
+The port's copy of the sparse candidate route of
+``das4whales_tpu.ops.peaks``: plateau-exact local maxima, the height
+prefilter (exact for nonnegative envelopes, whose prominence never
+exceeds their height), fixed-capacity candidate slots — ``"pack"``, the
+first K in time order, or ``"topk"``, the K tallest — and exact scipy
+prominences from per-block max/min tables in both directions. This is
+the plain version of the CUDA pick kernel (``ops.fused_picks``): the
+CPU route, and the reference ``chip_smoke.py`` holds the kernel against
+on the card.
+
+Three JAX idioms have no direct torch twin and are spelled out here:
+``jnp.argsort`` is stable (``torch.argsort(..., stable=True)``);
+``lax.top_k`` breaks ties toward the lower index while ``torch.topk``
+promises no order (a stable descending sort, first K); and
+``.at[].set(mode="drop")`` drops out-of-range writes (scatter into one
+extra slot, then slice it off).
+"""
+
+from __future__ import annotations
+
+import logging
+import warnings
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+
+class SparsePicks(NamedTuple):
+    """Fixed-capacity peak-pick result (one row per channel/correlogram).
+
+    ``positions [..., K]`` sample indices, ascending among selected slots
+    (every unselected slot holds N), ``heights``/``prominences`` float32,
+    ``selected`` the validity mask, ``saturated [...]`` set when more than
+    K candidates passed the height prefilter (only then can picks be
+    missed)."""
+
+    positions: torch.Tensor
+    heights: torch.Tensor
+    prominences: torch.Tensor
+    selected: torch.Tensor
+    saturated: torch.Tensor
+
+
+def _run_info(x: torch.Tensor):
+    """(run_start, rising) per sample: the start index of the sample's
+    equal-value run and whether the run was entered by a strict rise
+    (False for the run touching the left edge) — one cummax over the
+    packed key ``2*start + rising``."""
+    n = x.shape[-1]
+    chg = x[..., 1:] != x[..., :-1]
+    rising = x[..., 1:] > x[..., :-1]
+    idx1 = torch.arange(1, n, dtype=torch.int32, device=x.device)
+    key_tail = torch.where(chg, 2 * idx1 + rising.to(torch.int32),
+                           torch.full_like(idx1, -1))
+    zeros = torch.zeros(x.shape[:-1] + (1,), dtype=torch.int32, device=x.device)
+    carried = torch.cummax(torch.cat([zeros, key_tail], dim=-1), dim=-1).values
+    return carried >> 1, (carried & 1).to(torch.bool)
+
+
+def local_maxima(x: torch.Tensor) -> torch.Tensor:
+    """Boolean mask of local maxima with scipy plateau semantics: a run of
+    equal samples strictly greater than both neighbours, reported at its
+    floor-midpoint; runs touching either edge are not maxima."""
+    n = x.shape[-1]
+    idx = torch.arange(n, dtype=torch.int32, device=x.device)
+    run_start, rising = _run_info(x)
+    run_start_r, falling_r = _run_info(torch.flip(x, (-1,)))
+    run_end = (n - 1) - torch.flip(run_start_r, (-1,))
+    falling = torch.flip(falling_r, (-1,))
+    mid = torch.div(run_start + run_end, 2, rounding_mode="floor")
+    return rising & falling & (idx == mid)
+
+
+def _block_stats(x: torch.Tensor, nb: int):
+    """``[..., N] -> [..., B, nb]`` with per-block max/min (the pad is
+    -inf, excluded from the min)."""
+    n = x.shape[-1]
+    b = -(-n // nb)
+    pad = b * nb - n
+    xpad = torch.nn.functional.pad(x, (0, pad), value=-float("inf")) if pad else x
+    xb = xpad.reshape(x.shape[:-1] + (b, nb))
+    inf = torch.tensor(float("inf"), dtype=x.dtype, device=x.device)
+    return xb, xb.amax(dim=-1), torch.where(torch.isneginf(xb), inf, xb).amin(dim=-1)
+
+
+def _one_sided_base_min_sparse(xb, block_max, block_min, pos, h, nb: int):
+    """Exact scipy left-base minimum for candidate positions: for
+    ``pos [C, K]`` with heights ``h``, the min of x over ``(j, pos]`` where
+    j is the last index < pos with ``x[j] > h`` (or -1)."""
+    C, B, _ = xb.shape
+    K = pos.shape[1]
+    dev = xb.device
+    bp = torch.div(pos, nb, rounding_mode="floor")
+    tp = pos % nb
+    offs = torch.arange(nb, dtype=torch.int32, device=dev)
+    blocks = torch.arange(B, dtype=torch.int32, device=dev)
+    inf = torch.tensor(float("inf"), dtype=xb.dtype, device=dev)
+    big = torch.tensor(torch.finfo(xb.dtype).max, dtype=xb.dtype, device=dev)
+    neg1 = torch.tensor(-1, dtype=torch.int32, device=dev)
+
+    def block_gather(idx):
+        # [C, K, nb]: the row of block idx[c, k]
+        return xb.gather(1, idx.long()[..., None].expand(C, K, nb))
+
+    hk = h[..., None]
+    ob = block_gather(bp)
+
+    # 1) previous-greater inside the candidate's own block
+    m_own = (offs < tp[..., None]) & (ob > hk)
+    has_own = m_own.any(dim=-1)
+    j_own = torch.where(m_own, offs, neg1).amax(dim=-1)
+    seg_own = (offs > j_own[..., None]) & (offs <= tp[..., None])
+    min_own = torch.where(seg_own, ob, inf).amin(dim=-1)
+
+    # 2) previous-greater in an earlier block
+    bmask = (blocks < bp[..., None]) & (block_max[:, None, :] > hk)
+    has_blk = bmask.any(dim=-1)
+    bprev = torch.where(bmask, blocks, torch.zeros_like(blocks)).amax(dim=-1)
+    pb = block_gather(bprev)
+    j_pb = torch.where(pb > hk, offs, neg1).amax(dim=-1)
+    min_pb_suffix = torch.where(offs > j_pb[..., None], pb, inf).amin(dim=-1)
+
+    # full blocks strictly between bprev and bp (all blocks < bp if none)
+    lo = torch.where(has_blk, bprev, neg1)
+    mid_mask = (blocks > lo[..., None]) & (blocks < bp[..., None])
+    min_mid = torch.where(mid_mask, block_min[:, None, :], inf).amin(dim=-1)
+
+    min_own_prefix = torch.where(offs <= tp[..., None], ob, inf).amin(dim=-1)
+    other = torch.minimum(torch.where(has_blk, min_pb_suffix, big),
+                          torch.minimum(min_mid, min_own_prefix))
+    return torch.where(has_own, min_own, other)
+
+
+def _find_peaks_rows(x: torch.Tensor, thr_bc: torch.Tensor, max_peaks: int,
+                     nb: int, method: str) -> SparsePicks:
+    """The per-row core of :func:`find_peaks_sparse`: ``x [C, N]``,
+    ``thr_bc [C]``."""
+    C, N = x.shape
+    dev = x.device
+    K = max_peaks
+    neg_inf = torch.tensor(-float("inf"), dtype=x.dtype, device=dev)
+
+    mask = local_maxima(x) & (x >= thr_bc[:, None])
+    n_cand = mask.sum(dim=-1)
+    saturated = n_cand > K
+
+    if method == "pack":
+        cnt = torch.cumsum(mask.to(torch.int32), dim=-1)
+        # candidates past the K-th go to the extra slot K, sliced off below
+        dest = torch.where(mask & (cnt <= K), cnt - 1, K).long()
+        src = torch.arange(N, dtype=torch.int32, device=dev).expand(C, N)
+        pos = torch.full((C, K + 1), N, dtype=torch.int32, device=dev)
+        pos = pos.scatter(1, dest, src)[:, :K]
+        slot_valid = (torch.arange(K, device=dev)[None, :]
+                      < torch.clamp_max(n_cand, K)[:, None])
+        gpos = torch.where(slot_valid, pos, torch.zeros_like(pos))
+        heights = torch.where(slot_valid, x.gather(1, gpos.long()), neg_inf)
+        valid = slot_valid
+    elif method == "topk":
+        cand_scores = torch.where(mask, x, neg_inf)
+        # lax.top_k: K largest, ties toward the lower index
+        heights, order = torch.sort(cand_scores, dim=-1, descending=True, stable=True)
+        heights = heights[:, :K]
+        pos = order[:, :K].to(torch.int32)
+        valid = torch.isfinite(heights)
+        gpos = pos
+    else:
+        raise ValueError(f"unknown method {method!r}")
+
+    xb, bmax, bmin = _block_stats(x, nb)
+    left_min = _one_sided_base_min_sparse(xb, bmax, bmin, gpos, heights, nb)
+    xbf, bmaxf, bminf = _block_stats(torch.flip(x, (-1,)), nb)
+    right_min = _one_sided_base_min_sparse(xbf, bmaxf, bminf, (N - 1) - gpos,
+                                           heights, nb)
+    prom = heights - torch.maximum(left_min, right_min)
+    selected = valid & (prom >= thr_bc[:, None])
+
+    n_fill = torch.full_like(pos, N)
+    if method == "pack":
+        # slots are position-ascending by construction; an unselected
+        # slot never reports its position
+        return SparsePicks(torch.where(selected, pos, n_fill), heights, prom,
+                           selected, saturated)
+    key = torch.where(selected, pos, n_fill)
+    order = torch.argsort(key, dim=-1, stable=True)
+
+    def take(a):
+        return a.gather(1, order)
+
+    return SparsePicks(take(key), take(heights), take(prom), take(selected),
+                       saturated)
+
+
+def find_peaks_sparse(x: torch.Tensor, threshold, max_peaks: int = 256,
+                      nb: int = 128, method: str = "topk") -> SparsePicks:
+    """Threshold-prominence peak picking over the rows of ``x [C, N]``;
+    equals ``scipy.signal.find_peaks(x, prominence=threshold)`` for
+    nonnegative rows whenever ``saturated`` is False. ``method``:
+    ``"topk"`` keeps the K tallest candidates, ``"pack"`` the first K in
+    time order (identical results on rows that do not saturate)."""
+    C, N = x.shape
+    max_peaks = min(max_peaks, N)
+    thr = torch.as_tensor(threshold, dtype=x.dtype, device=x.device)
+    thr_bc = thr.expand(C) if thr.ndim <= 1 else thr
+    return _find_peaks_rows(x, thr_bc, max_peaks, nb, method)
+
+
+def find_peaks_sparse_batched(x: torch.Tensor, threshold, max_peaks: int = 256,
+                              nb: int = 128, method: str = "topk") -> SparsePicks:
+    """:func:`find_peaks_sparse` over arbitrary leading axes: ``x [..., T]``,
+    ``threshold`` broadcast to ``x.shape[:-1]``."""
+    lead = tuple(x.shape[:-1])
+    rows = int(np.prod(lead)) if lead else 1
+    thr = torch.as_tensor(threshold, dtype=x.dtype, device=x.device)
+    thr = thr.expand(lead).reshape(rows)
+    res = find_peaks_sparse(x.reshape(rows, x.shape[-1]), thr,
+                            max_peaks=max_peaks, nb=nb, method=method)
+    return SparsePicks(*(a.reshape(lead + tuple(a.shape[1:])) for a in res))
+
+
+def compact_picks_rowmajor(positions: torch.Tensor, selected: torch.Tensor,
+                           capacity: int):
+    """Stable on-device compaction of ``[B, R, K]`` picks into
+    ``capacity``-length buffers, in the row-major (row, slot) order
+    ``np.nonzero`` walks. Returns ``(rows [B, capacity] int32, times
+    [B, capacity] int32, count [B] int32)``; entries past ``count`` are
+    zero; ``count > capacity`` means overflow (nothing is truncated
+    silently: the caller must take its full-transfer route)."""
+    B, R, K = positions.shape
+    dev = positions.device
+    sel = selected.reshape(B, R * K)
+    pos = positions.reshape(B, R * K).to(torch.int32)
+    row_of = torch.div(torch.arange(R * K, dtype=torch.int32, device=dev), K,
+                       rounding_mode="floor").expand(B, R * K)
+    idx = torch.cumsum(sel.to(torch.int32), dim=-1) - 1
+    dest = torch.where(sel & (idx < capacity), idx, capacity).long()
+    rows_out = torch.zeros((B, capacity + 1), dtype=torch.int32, device=dev)
+    times_out = torch.zeros((B, capacity + 1), dtype=torch.int32, device=dev)
+    rows_out = rows_out.scatter(1, dest, row_of)[:, :capacity]
+    times_out = times_out.scatter(1, dest, pos)[:, :capacity]
+    count = sel.sum(dim=-1).to(torch.int32)
+    return rows_out, times_out, count
+
+
+def sparse_to_pick_times(positions, selected) -> np.ndarray:
+    """``[C, K]`` sparse picks -> stacked ``(2, n)`` [channel_idx, time_idx]
+    array in the reference's row-major order."""
+    positions = np.asarray(positions)
+    selected = np.asarray(selected)
+    chan, slot = np.nonzero(selected)
+    return np.asarray([chan, positions[chan, slot]], dtype=np.int64).reshape(2, -1)
+
+
+def escalation_method(k: int, k_full: int) -> str:
+    """The adaptive-K method policy: an attempt a larger-capacity rerun can
+    correct packs; the full-capacity run keeps the K tallest."""
+    return "pack" if k < k_full else "topk"
+
+
+def warn_saturated(saturated, label: str, max_peaks: int) -> bool:
+    """Surface pick-capacity saturation, as a log warning and a
+    ``warnings.warn``; returns True iff any row saturated."""
+    n = int(np.asarray(saturated).sum())
+    if not n:
+        return False
+    msg = (f"peak capacity saturated for {label} on {n} channel slots; "
+           f"picks beyond the {max_peaks} tallest were dropped — raise "
+           f"max_peaks to keep them")
+    logging.getLogger("das4whales_tpu_torch.ops.peaks").warning(msg)
+    warnings.warn(msg)
+    return True

@@ -1,0 +1,101 @@
+"""Cross-correlation for matched-filter detection (``torch.fft``).
+
+The port's copy of the true-length-template corrected correlation of
+``das4whales_tpu.ops.xcorr``: the reference pads each template to the
+record length and correlates at ``nfft = next_fast_len(2n - 1)``; the
+same correlogram is recovered exactly from the true-length template,
+
+    corr[k] = (sum_j x[k+j] y_true[j] - mu * suffix_sum(x)[k]) / s,
+
+at ``nfft = next_fast_len(n + m - 1)`` (``mu`` the padded template's
+mean, ``s`` its peak magnitude) — half the FFT length.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def next_fast_len(n: int) -> int:
+    """Smallest 5-smooth (2^a 3^b 5^c) integer >= n."""
+    if n <= 6:
+        return max(n, 1)
+    best = 1 << (n - 1).bit_length()
+    p5 = 1
+    while p5 < best:
+        p35 = p5
+        while p35 < best:
+            q = -(-n // p35)
+            p2 = 1 << max(q - 1, 0).bit_length()
+            cand = p2 * p35
+            if cand == n:
+                return n
+            if cand < best:
+                best = cand
+            p35 *= 3
+        p5 *= 5
+    return best
+
+
+def _xcorr_full_len(n: int, m: int) -> int:
+    """FFT length for a linear (non-circular) correlation of n and m."""
+    return next_fast_len(n + m - 1)
+
+
+def _demean_peak_normalize(x: torch.Tensor, guard_zero: bool = False) -> torch.Tensor:
+    """Demean each row, then divide by the peak magnitude of the RAW row;
+    ``guard_zero`` makes an all-zero row correlate to 0 instead of NaN."""
+    mx = x.abs().amax(dim=-1, keepdim=True)
+    if guard_zero:
+        mx = torch.clamp_min(mx, torch.finfo(x.dtype).tiny)
+    return (x - x.mean(dim=-1, keepdim=True)) / mx
+
+
+def normalized_block_and_suffix(data: torch.Tensor):
+    """Normalized block ``xn`` and its suffix sums
+    ``suffix[..., k] = sum_{i>=k} xn[..., i]``."""
+    xn = _demean_peak_normalize(data, guard_zero=True)
+    suffix = torch.flip(torch.cumsum(torch.flip(xn, (-1,)), dim=-1), (-1,))
+    return xn, suffix
+
+
+def corrected_from_raw(raw, suffix, mu, scale, dtype):
+    """Subtract the padded-template mean term and rescale: ``raw [nT, ..., n]``
+    is the positive-lag correlation against the true-length templates."""
+    nd = raw.ndim - 1
+    mu_b = mu.reshape((mu.shape[0],) + (1,) * nd)
+    scale_b = scale.reshape((scale.shape[0],) + (1,) * nd)
+    return ((raw - mu_b * suffix[None, ...]) / scale_b).to(dtype)
+
+
+def padded_template_stats(templates_padded):
+    """Decompose a trace-length zero-padded template stack into
+    ``(templates_true [nT, m], mu [nT], scale [nT])`` host numpy: the
+    stack cropped to the longest nonzero support, each padded template's
+    mean and its own peak magnitude."""
+    t = np.atleast_2d(np.asarray(templates_padded))
+    m = 1
+    for row in np.abs(t) > 0:
+        idx = np.nonzero(row)[0]
+        if idx.size:
+            m = max(m, int(idx[-1]) + 1)
+    mu = t.mean(axis=-1)
+    scale = np.max(np.abs(t), axis=-1)
+    return t[:, :m].copy(), mu.astype(t.dtype), scale.astype(t.dtype)
+
+
+def compute_cross_correlograms_corrected(
+    data: torch.Tensor, templates_true: torch.Tensor, mu: torch.Tensor,
+    scale: torch.Tensor,
+) -> torch.Tensor:
+    """Reference-normalized positive-lag correlograms of ``data [..., n]``
+    against every true-length template: returns ``[nT, ..., n]``."""
+    n, m = data.shape[-1], templates_true.shape[-1]
+    nfft = _xcorr_full_len(n, m)
+    xn, suffix = normalized_block_and_suffix(data)
+    X = torch.fft.rfft(xn, nfft, dim=-1)
+    Y = torch.fft.rfft(templates_true, nfft, dim=-1)
+    Yb = torch.conj(Y).reshape((Y.shape[0],) + (1,) * (xn.ndim - 1) + (Y.shape[-1],))
+    raw = torch.fft.irfft(X[None, ...] * Yb, nfft, dim=-1)[..., :n]
+    return corrected_from_raw(raw, suffix, mu, scale, data.dtype)

@@ -1,0 +1,93 @@
+"""The port stands alone: das4whales_tpu_torch and chip_smoke.py import
+neither ``jax`` nor anything of ``das4whales_tpu``, the port imports with
+both blocked, and its entry points refuse to run on a missing card
+instead of falling back to the CPU."""
+
+from __future__ import annotations
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "das4whales_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "das4whales_tpu")
+
+
+def _sources():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_package_import(path):
+    bad = sorted({m for m in _imported_roots(path) if m in FORBIDDEN})
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_port_imports_with_jax_blocked():
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "for m in ('jax', 'jaxlib', 'das4whales_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import das4whales_tpu_torch as p\n"
+        "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "assert 'jax' not in sys.modules or sys.modules['jax'] is None\n"
+        "print(len(mods))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 15
+
+
+def test_default_device_is_the_card_and_never_the_cpu():
+    from das4whales_tpu_torch.io.synth import SyntheticScene
+    from das4whales_tpu_torch.models.matched_filter import MatchedFilterDetector
+    from das4whales_tpu_torch.utils.device import resolve_device
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the refusal without one")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        MatchedFilterDetector(SyntheticScene(nx=24, ns=900).metadata, [0, 24, 1], (24, 900))
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    """Without a card the smoke run exits non-zero and prints no result
+    line; alone in a directory (no package beside it) it fails too."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    env = dict(os.environ, PYTHONPATH="")
+    here = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert here.returncode != 0 and '"ok"' not in here.stdout
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((ROOT / "chip_smoke.py").read_text())
+    lone = subprocess.run([sys.executable, str(alone)], cwd=str(tmp_path), env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert lone.returncode != 0 and '"ok"' not in lone.stdout
