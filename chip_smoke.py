@@ -3,13 +3,16 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from ``das4whales_tpu_torch/csrc`` with
-``nvcc`` (sm_90a), then runs five phases, one summary line each, and
-exits non-zero at the first failed check:
+Builds the port's two CUDA kernels from ``das4whales_tpu_torch/csrc`` with
+``nvcc`` (sm_90a), then runs eight phases, one summary line each (two for
+the detector runs, with their profiles), and exits non-zero at the first
+failed check; no phase's failure is caught:
 
 1. ``device``   the card's name and power limit (``nvidia-smi``), torch and
                 CUDA versions; no CUDA device -> exit 1, nothing else runs;
-2. ``build``    the ``nvcc`` build of ``csrc/fused_picks.cu`` and its seconds;
+2. ``build``    the ``nvcc`` builds of ``csrc/fused_picks.cu`` and
+                ``csrc/fused_stft.cu``, started together, each one's seconds
+                and ptxas line;
 3. ``kernels``  the fused pick kernel against its plain PyTorch version on
                 the card, at the main path's shapes (1024 rows x 12000
                 samples, ``pack`` K=64 and ``topk`` K=256) and on edge rows;
@@ -23,7 +26,24 @@ exits non-zero at the first failed check:
 5. ``cpu_vs_card`` the port on the card against the port on the CPU at
                 512 x 12000 (thresholds to rtol 1e-5, picks equal up to
                 rounding knife edges), at the defaults and with the K0
-                escalation and the capacity overflow forced.
+                escalation and the capacity overflow forced;
+6. ``stft_kernel`` the fused STFT-power kernel against its plain PyTorch
+                version and against ``torch.stft`` power on the card, at the
+                main path's launch (4096 x 12000, nfft 160, hop 8, centred)
+                and on edge cases (1570 channels, T = 11963, center=False,
+                window="ones", hop = nfft, T < nfft, and spans past 48 KB
+                at nfft 1024 and 2048); each within 5e-6 * max|reference|;
+                times, both bounds;
+7. ``spectro``  ``SpectroEvalAdapter(MatchedFilterDetector.from_design(...),
+                SpectroCorrDetector(meta))`` on the ``detect`` phase's scene,
+                conditioned on the host: one warm-up, three timed runs,
+                stage walls from CUDA events, 12 STFT-kernel launches and the
+                device->host reads per run, a profile; every injected call
+                must be picked (by either hat kernel) on its nearest channel
+                within 1 s of its arrival;
+8. ``spectro_cpu_vs_card`` the spectro family on the card against the CPU
+                at 512 x 12000, both bandpass modes: correlograms within
+                1e-4 * max|cpu|, picks equal up to rounding knife edges.
 
 Then it prints the kernel table as one JSON line, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``. It imports no JAX and nothing
@@ -75,13 +95,38 @@ def phase_device():
     return smi_line
 
 
+KERNELS = ("fused_picks", "fused_stft")
+
+
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
     from das4whales_tpu_torch.utils import build
 
-    path, seconds, report = build.build("fused_picks")
-    ptxas = " ".join(l.strip() for l in report.splitlines() if "registers" in l or "smem" in l)
-    say(f"build: csrc/fused_picks.cu -> {path.name} in {seconds:.2f} s "
-        f"(nvcc sm_90a; {ptxas or 'no ptxas report'})")
+    # one nvcc per source, all started together
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        built = list(pool.map(build.build, KERNELS))
+    for name, (path, seconds, report) in zip(KERNELS, built):
+        ptxas = " ".join(l.strip() for l in report.splitlines() if "registers" in l or "smem" in l)
+        fma = "-fmad=false" if "-fmad=false" in build.nvcc_flags(name) else "FMA contraction on"
+        say(f"build: csrc/{name}.cu -> {path.name} in {seconds:.2f} s "
+            f"(nvcc sm_90a, {fma}; {ptxas or 'no ptxas report'})")
+
+
+def _kernel_modules() -> dict:
+    from das4whales_tpu_torch.ops import fused_picks, fused_stft
+
+    return {"fused_picks": fused_picks, "fused_stft": fused_stft}
+
+
+def zero_launches() -> None:
+    """Set every kernel's launch count to 0 (just before a main path)."""
+    for mod in _kernel_modules().values():
+        mod.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: mod.launches for name, mod in _kernel_modules().items()}
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -280,7 +325,7 @@ def phase_detect():
 
     det.detect_picks(x)                      # warm-up: cuFFT plans, kernel load
     torch.cuda.synchronize()
-    fused_picks.launches = 0                 # the main path's runs start here
+    zero_launches()                          # the main path's runs start here
     det.syncs = det.dispatches = det.escalations = 0
     walls, stages, per_run = [], [], []
     res = None
@@ -295,7 +340,7 @@ def phase_detect():
         stages.append(timer.walls())
         per_run.append((fused_picks.launches - before[0], det.syncs - before[1],
                         det.dispatches - before[2]))
-    launches = fused_picks.launches
+    launches = read_launches()
     for k, (n_launch, n_sync, n_disp) in enumerate(per_run):
         if n_launch < n_tiles * n_disp:
             fail(f"detect: run {k} launched the pick kernel {n_launch} times in "
@@ -325,24 +370,23 @@ def phase_detect():
         f"attempts) {[r for r in per_run]}; all {len(scene.calls)} injected calls picked; "
         f"set-up: scene {t_scene:.1f} s, design {t_design:.1f} s, H2D {t_h2d * 1e3:.1f} ms; "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    try:
-        _profile_detect(det, x, statistics.median(walls))
-    except Exception as exc:  # noqa: BLE001 — the breakdown is optional; report, go on
-        say(f"profile: not measured ({type(exc).__name__}: {exc})")
-    return launches
+    _profile("detect_picks", lambda: det.detect_picks(x), statistics.median(walls),
+             "fused_picks")
+    return launches["fused_picks"], scene, raw, det.design
 
 
-def _profile_detect(det, x, wall_s: float) -> None:
-    """One more detection run under ``torch.profiler`` (outside the counted
-    runs): device time by kernel family, and the device's busy share of
-    the unprofiled median wall."""
+def _profile(label: str, run, wall_s: float, kernel: str) -> dict:
+    """One more run under ``torch.profiler`` (outside the counted runs):
+    device time by kernel family (``kernel``, cuFFT, other), and the
+    device's busy share of the unprofiled median wall. A profiler that
+    fails or records no device time fails the phase."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        det.detect_picks(x)
+        run()
         torch.cuda.synchronize()
-    fams = {"fused_picks": 0.0, "cuFFT": 0.0, "other": 0.0}
+    fams = {kernel: 0.0, "cuFFT": 0.0, "other": 0.0}
     per_kernel = []
     n_kernels = 0
     for ev in prof.key_averages():
@@ -354,21 +398,21 @@ def _profile_detect(det, x, wall_s: float) -> None:
                 continue
             n_kernels += ev.count
             name = ev.key.lower()
-            fam = ("fused_picks" if "fused_picks" in name
+            fam = (kernel if kernel in name
                    else "cuFFT" if "fft" in name else "other")
             fams[fam] += us / 1e3
             per_kernel.append((us / 1e3, ev.count, ev.key[:70]))
     busy = sum(fams.values())
     top = sorted(per_kernel, reverse=True)[:8]
     if busy == 0.0:
-        say("profile: not measured (the profiler recorded no device time)")
-        return
-    say(f"profile: one detect_picks under torch.profiler: device time by kernel family "
+        fail(f"profile: the profiler recorded no device time for {label}")
+    say(f"profile: one {label} under torch.profiler: device time by kernel family "
         f"{json.dumps({k: round(v, 3) for k, v in fams.items()})} ms over {n_kernels} "
         f"kernel launches; busy {busy:.3f} ms = {100 * busy / (wall_s * 1e3):.1f} % of the "
         f"unprofiled median wall {wall_s * 1e3:.1f} ms (idle share "
         f"{100 * max(0.0, 1 - busy / (wall_s * 1e3)):.1f} %); top kernels (ms, launches): "
         + "; ".join(f"{ms:.3f} x{n} {name}" for ms, n, name in top))
+    return fams
 
 
 def phase_cpu_vs_card():
@@ -416,6 +460,247 @@ def phase_cpu_vs_card():
     say(f"cpu_vs_card: {nx}x{ns}, thresholds within rtol 1e-5, differing picks all on "
         f"rounding knife edges; {'; '.join(notes)}")
 
+#: STFT of the spectro family at its defaults: 0.8 s window at 200 Hz,
+#: 95 % overlap
+NFFT, HOP = 160, 8
+STFT_REL_TOL = 5e-6
+
+
+def _stft_bounds(C: int, T: int, nfft: int, hop: int, center: bool = True) -> dict:
+    """The least time the card could take for one launch: the input read
+    once and the power written once over HBM, and the operations the
+    function needs over the float32 rate of the CUDA cores — per frame
+    the window (nfft), a real FFT (2.5 nfft log2 nfft, half the usual
+    5 N log2 N of a complex one) and the power (3 per bin). ``dft_*`` is
+    the kernel's own design, the DFT as a contraction (2 operations per
+    multiply-add, re and im): a side figure, not the bound."""
+    F = nfft // 2 + 1
+    nf = 1 + (T // hop if center else (T - nfft) // hop)
+    bytes_ = 4 * C * T + 4 * nfft * 2 * F + 4 * C * F * nf
+    ops = C * nf * (nfft + 2.5 * nfft * float(np.log2(nfft)) + 3 * F)
+    dft_ops = 2 * C * nf * nfft * 2 * F
+    b_ms, o_ms = bytes_ / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return {"bytes": bytes_, "ops": ops, "bytes_ms": b_ms, "ops_ms": o_ms,
+            "dft_ops": dft_ops, "dft_ops_ms": dft_ops / F32_OPS_PER_S * 1e3,
+            "bound_ms": max(b_ms, o_ms), "bound_by": "operations" if o_ms >= b_ms else "bytes"}
+
+
+def _torch_stft_power(x, nfft: int, hop: int, window: str = "hann", center: bool = True):
+    """The library yardstick: ``torch.stft`` (zero padding, as the port
+    centres) and its power. Timed here only; the port never calls it."""
+    import torch
+
+    win = (torch.hann_window(nfft, periodic=True, device=x.device) if window == "hann"
+           else torch.ones(nfft, device=x.device))
+    s = torch.stft(x, nfft, hop, window=win, center=center, pad_mode="constant",
+                   return_complex=True)
+    return s.real * s.real + s.imag * s.imag
+
+
+def phase_stft_kernel():
+    import torch
+
+    from das4whales_tpu_torch.ops import fused_stft
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 2)
+    cases = [  # (label, C, T, nfft, hop, center, window)
+        ("main 4096x12000", 4096, CANONICAL[1], NFFT, HOP, True, "hann"),
+        ("ragged 1570 channels", 1570, CANONICAL[1], NFFT, HOP, True, "hann"),
+        ("T=11963", 256, 11963, NFFT, HOP, True, "hann"),
+        ("center=False", 256, CANONICAL[1], NFFT, HOP, False, "hann"),
+        ('window="ones"', 256, CANONICAL[1], NFFT, HOP, True, "ones"),
+        ("hop=nfft", 256, CANONICAL[1], NFFT, NFFT, True, "hann"),
+        ("T<nfft", 3, 100, NFFT, HOP, True, "hann"),
+        # spans past 48 KB of shared memory: the per-chunk gather
+        ("nfft=1024 hop=384", 64, CANONICAL[1], 1024, 384, True, "hann"),
+        ("nfft=hop=2048", 64, CANONICAL[1], 2048, 2048, True, "hann"),
+    ]
+    err, notes, main = 0.0, [], None
+    for label, C, T, nfft, hop, center, window in cases:
+        x = torch.as_tensor(rng.standard_normal((C, T)).astype(np.float32), device=dev)
+        kw = dict(window=window, center=center)
+        k = fused_stft.stft_power_cuda(x, nfft, hop, **kw)
+        p = fused_stft.stft_power_plain(x, nfft, hop, **kw)
+        lib = _torch_stft_power(x, nfft, hop, window, center)
+        torch.cuda.synchronize()
+        if k.shape != p.shape or k.shape != lib.shape:
+            fail(f"stft_kernel: {label}: shapes kernel {tuple(k.shape)}, plain "
+                 f"{tuple(p.shape)}, torch.stft {tuple(lib.shape)}")
+        if not bool(torch.isfinite(k).all()):
+            fail(f"stft_kernel: {label}: non-finite kernel output")
+        e_plain = float((k - p).abs().max())
+        e_lib = float((k - lib).abs().max())
+        s_plain, s_lib = float(p.abs().max()), float(lib.abs().max())
+        if e_plain > STFT_REL_TOL * s_plain or e_lib > STFT_REL_TOL * s_lib:
+            fail(f"stft_kernel: {label}: max|kernel - plain| {e_plain:.3e} (limit "
+                 f"{STFT_REL_TOL * s_plain:.3e}), max|kernel - torch.stft| {e_lib:.3e} "
+                 f"(limit {STFT_REL_TOL * s_lib:.3e})")
+        err = max(err, e_plain)
+        notes.append(f"{label}: {e_plain / s_plain:.2e} / {e_lib / s_lib:.2e}")
+        if main is None:
+            main = dict(
+                ms=_cuda_ms(lambda: fused_stft.stft_power_cuda(x, nfft, hop, **kw), 20),
+                plain_ms=_cuda_ms(lambda: fused_stft.stft_power_plain(x, nfft, hop, **kw), 5),
+                library_ms=_cuda_ms(lambda: _torch_stft_power(x, nfft, hop, window, center), 10),
+                **_stft_bounds(C, T, nfft, hop, center))
+        del x, k, p, lib
+    m = main
+    say(f"stft_kernel: fused_stft within {STFT_REL_TOL} * max of its plain version and of "
+        f"torch.stft power on all {len(cases)} cases (relative max error plain / torch.stft: "
+        f"{'; '.join(notes)}); max_abs_err vs plain {err:.3e}; 4096x12000 nfft {NFFT} hop {HOP}: "
+        f"kernel {m['ms']:.4f} ms, plain {m['plain_ms']:.3f} ms, torch.stft + power "
+        f"{m['library_ms']:.3f} ms; bound {m['bound_ms']:.4f} ms by {m['bound_by']} (bytes "
+        f"{m['bytes']:.3e} -> {m['bytes_ms']:.4f} ms at 3.35 TB/s; FFT-form operations "
+        f"{m['ops']:.3e} -> {m['ops_ms']:.4f} ms at 67 TFLOP/s f32); kernel at "
+        f"{100 * m['bound_ms'] / m['ms']:.1f} % of its bound; this design's DFT-form "
+        f"operations {m['dft_ops']:.3e} -> {m['dft_ops_ms']:.4f} ms")
+    return main, err
+
+
+def _condition_on_host(raw: np.ndarray, scale: float) -> np.ndarray:
+    """The conditioned wire as the host readers produce it: demean each
+    channel, scale to strain, float32 (row blocks keep the float64
+    temporaries small)."""
+    out = np.empty(raw.shape, np.float32)
+    for lo in range(0, raw.shape[0], 2048):
+        r = raw[lo : lo + 2048].astype(np.float64)
+        out[lo : lo + 2048] = (r - r.mean(axis=1, keepdims=True)) * scale
+    return out
+
+
+def phase_spectro(scene, raw, design):
+    import torch
+
+    from das4whales_tpu_torch.eval import SpectroEvalAdapter
+    from das4whales_tpu_torch.models.matched_filter import MatchedFilterDetector
+    from das4whales_tpu_torch.models.spectro import FUSED_DEFAULT_BATCH, SpectroCorrDetector
+
+    nx, ns = raw.shape
+    meta = scene.metadata
+    t0 = time.perf_counter()
+    cond = _condition_on_host(raw, meta.scale_factor)
+    t_cond = time.perf_counter() - t0
+    # the detect phase's design spares a second f-k design
+    prefilter = MatchedFilterDetector.from_design(design, meta, wire="conditioned")
+    det = SpectroCorrDetector(meta)
+    adapter = SpectroEvalAdapter(prefilter, det)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    x = torch.as_tensor(cond).to("cuda")
+    del cond
+    n_chunks = -(-nx // FUSED_DEFAULT_BATCH)
+    want_launches = len(det.kernels) * n_chunks
+
+    adapter(x)                                # warm-up: cuFFT plans, kernel load
+    torch.cuda.synchronize()
+    zero_launches()                           # the main path's runs start here
+    det.syncs = det.escalations = 0
+    walls, stages, per_run = [], [], []
+    res = None
+    for _ in range(3):
+        before = (read_launches()["fused_stft"], det.syncs, det.escalations)
+        timer = StageTimer()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = adapter(x, stage_hook=timer)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        stages.append(timer.walls())
+        per_run.append((read_launches()["fused_stft"] - before[0], det.syncs - before[1],
+                        det.escalations - before[2]))
+    launches = read_launches()
+    nK = len(det.kernels)
+    for k, (n_launch, n_sync, n_esc) in enumerate(per_run):
+        if n_launch != want_launches:
+            fail(f"spectro: run {k} launched the STFT kernel {n_launch} times, expected "
+                 f"{want_launches} ({nK} hat kernels x {n_chunks} chunks)")
+        # a saturation check and a packed fetch per hat kernel, one more read
+        # per escalation, at most one more per kernel on a capacity overflow
+        if not 2 * nK + n_esc <= n_sync <= 3 * nK + n_esc:
+            fail(f"spectro: run {k} made {n_sync} device->host reads with {n_esc} escalations")
+    for name, p in res.picks.items():
+        if p.ndim != 2 or p.shape[0] != 2:
+            fail(f"spectro: kernel {name} returned picks of shape {p.shape}")
+        if not (np.all((p[0] >= 0) & (p[0] < nx)) and np.all((p[1] >= 0) & (p[1] <= ns))):
+            fail(f"spectro: kernel {name} has picks outside the block")
+    misses = _check_calls(scene, res.picks)
+    if misses:
+        fail(f"spectro: injected calls not picked on their nearest channel within 1 s: {misses}")
+    med = {k: statistics.median(s[k] for s in stages) for k in stages[0]}
+    wall = statistics.median(walls)
+    say(f"spectro: {nx}x{ns} conditioned float32, SpectroEvalAdapter(from_design prefilter, "
+        f"SpectroCorrDetector defaults: window {det.win_size} s, overlap {det.overlap_pct}, "
+        f"threshold {det.threshold}, kernels {'/'.join(det.kernels)}, engine "
+        f"{det.stft_engine!r}, {n_chunks} chunks of {FUSED_DEFAULT_BATCH}); median wall "
+        f"{wall * 1e3:.1f} ms (runs {', '.join(f'{w * 1e3:.1f}' for w in walls)} ms); stage "
+        f"walls (median, CUDA events, summed over chunks) "
+        f"{json.dumps({k: round(v, 3) for k, v in med.items()})} ms; per run (fused_stft "
+        f"launches, device->host reads, escalations) {per_run}; picks "
+        f"{json.dumps({k: int(v.shape[1]) for k, v in res.picks.items()})}; all "
+        f"{len(scene.calls)} injected calls picked; host conditioning {t_cond:.1f} s; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    _profile("SpectroEvalAdapter call", lambda: adapter(x), wall, "fused_stft")
+    return launches["fused_stft"]
+
+
+def phase_spectro_cpu_vs_card():
+    """The spectro family on the card against the CPU, in both bandpass
+    modes, on one design: correlograms within 1e-4 * max|cpu|, frame-unit
+    picks equal up to rounding knife edges of the correlogram."""
+    import torch
+
+    from das4whales_tpu_torch.eval import SpectroEvalAdapter
+    from das4whales_tpu_torch.io.synth import synthesize_scene, to_raw_counts
+    from das4whales_tpu_torch.models.matched_filter import MatchedFilterDetector
+    from das4whales_tpu_torch.models.spectro import SpectroCorrDetector
+    from das4whales_tpu_torch.utils.parity import unexplained_differences
+    from das4whales_tpu_torch.workflows.spectrodetect import campaign_detector
+
+    nx, ns = 512, CANONICAL[1]
+    scene = _scene(nx, ns, n_calls=1, seed=SEED + 1)
+    cond = _condition_on_host(to_raw_counts(synthesize_scene(scene), scene.metadata),
+                              scene.metadata.scale_factor)
+    notes, worst = [], 0.0
+    for fused in (True, False):
+        card = campaign_detector(scene.metadata, [0, nx, 1], (nx, ns), fused_bandpass=fused)
+        cpu = SpectroEvalAdapter(
+            MatchedFilterDetector.from_design(card.prefilter.design, scene.metadata,
+                                              fused_bandpass=fused, device="cpu"),
+            SpectroCorrDetector(scene.metadata, device="cpu"))
+        out = {}
+        for dev, ad in (("cuda", card), ("cpu", cpu)):
+            out[dev] = ad.det(ad.prefilter.filter_block(cond))
+        n_diff = 0
+        for name, c_cpu in out["cpu"][0].items():
+            c_cpu = c_cpu.numpy()
+            c_card = out["cuda"][0][name].cpu().numpy()
+            err = float(np.abs(c_card - c_cpu).max())
+            scale = float(np.abs(c_cpu).max())
+            worst = max(worst, err / scale)
+            if not err <= 1e-4 * scale:
+                fail(f"spectro_cpu_vs_card: fused_bandpass={fused}: kernel {name} correlograms "
+                     f"differ by {err:.3e} > 1e-4 * {scale:.3e}")
+            a, b = out["cuda"][1][name], out["cpu"][1][name]
+            bad = unexplained_differences(a, b, c_cpu, card.det.threshold)
+            if bad:
+                fail(f"spectro_cpu_vs_card: fused_bandpass={fused}: kernel {name}: picks "
+                     f"differ beyond rounding at {bad[:10]}")
+            n_diff += len({tuple(p) for p in a.T.tolist()} ^ {tuple(p) for p in b.T.tolist()})
+        if out["cuda"][2] != out["cpu"][2]:
+            fail(f"spectro_cpu_vs_card: spectro_fs {out['cuda'][2]} vs {out['cpu'][2]}")
+        res = card(cond)                     # the adapter itself, in sample units
+        if _check_calls(scene, res.picks):
+            fail(f"spectro_cpu_vs_card: fused_bandpass={fused}: the injected call was not "
+                 f"picked on the card")
+        notes.append(f"fused_bandpass={fused}: picks "
+                     f"{json.dumps({k: int(v.shape[1]) for k, v in out['cuda'][1].items()})} on "
+                     f"the card, {n_diff} differing")
+        torch.cuda.synchronize()
+    say(f"spectro_cpu_vs_card: {nx}x{ns}, correlograms within 1e-4 * max|cpu| (measured max "
+        f"relative error {worst:.3e}), differing picks all on rounding knife edges; "
+        f"{'; '.join(notes)}")
+
 
 def main() -> int:
     import torch
@@ -423,8 +708,12 @@ def main() -> int:
     smi_line = phase_device()
     phase_build()
     kern, err = phase_kernels()
-    launches = phase_detect()
+    launches, scene, raw, design = phase_detect()
     phase_cpu_vs_card()
+    stft, stft_err = phase_stft_kernel()
+    stft_launches = phase_spectro(scene, raw, design)
+    del scene, raw, design
+    phase_spectro_cpu_vs_card()
     pk = kern["pack"]
     print(json.dumps({"kernels": [{
         "name": "fused_picks",
@@ -438,6 +727,18 @@ def main() -> int:
         "bound_ms": pk["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
+    }, {
+        "name": "fused_stft",
+        "route": "cuda",
+        "source": "das4whales_tpu_torch/csrc/fused_stft.cu",
+        "replaces": "das4whales_tpu/ops/pallas_stft.py:71",
+        "launches": stft_launches,
+        "max_abs_err": stft_err,
+        "ms": stft["ms"],
+        "plain_ms": stft["plain_ms"],
+        "bound_ms": stft["bound_ms"],
+        "bound_by": stft["bound_by"],
+        "library_ms": stft["library_ms"],
     }]}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

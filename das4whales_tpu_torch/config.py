@@ -4,11 +4,13 @@ Immutable acquisition metadata, the strided channel selection, the f-k
 and call-template design parameters, the reference's scientific defaults
 and the device-memory budget that routes the detector between its
 monolithic and channel-tiled correlate. Values and semantics are those of
-the JAX package; only what the matched-filter path needs is carried.
+the JAX package; only what the matched-filter and spectrogram-correlation
+paths need is carried.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from dataclasses import dataclass
 from typing import Mapping
@@ -38,6 +40,11 @@ class AcquisitionMetadata:
             "scale_factor": self.scale_factor,
         }
 
+    def with_shape(self, nx: int, ns: int) -> "AcquisitionMetadata":
+        """Copy with the block shape a strided selection actually produced
+        (nx/ns describe the loaded array, not the raw file)."""
+        return dataclasses.replace(self, nx=int(nx), ns=int(ns))
+
     @classmethod
     def from_dict(cls, d: Mapping, interrogator: str = "optasense") -> "AcquisitionMetadata":
         return cls(
@@ -65,6 +72,10 @@ class ChannelSelection:
 
     def to_list(self) -> list:
         return [self.start, self.stop, self.step]
+
+    def n_channels(self, nx: int | None = None) -> int:
+        stop = self.stop if nx is None else min(self.stop, nx)
+        return max(0, -(-(stop - self.start) // self.step))
 
 
 @dataclass(frozen=True)
@@ -100,6 +111,12 @@ SCRIPT_FK = FkFilterConfig(cs_min=1350.0, cp_min=1450.0, cp_max=3300.0,
 FIN_HF_NOTE = CallTemplateConfig(fmin=17.8, fmax=28.8, duration=0.68,
                                  threshold_factor=0.9)
 FIN_LF_NOTE = CallTemplateConfig(fmin=14.7, fmax=21.8, duration=0.78)
+
+#: Spectrogram-correlation hat kernels (main_spectrodetect.py): the
+#: hyperbolic contour from ``f0`` down to ``f1`` [Hz] over ``dur`` [s],
+#: hat half-width ``bdwidth`` [Hz].
+SPECTRO_HF_KERNEL = {"f0": 27.0, "f1": 17.0, "dur": 0.8, "bdwidth": 4.0}
+SPECTRO_LF_KERNEL = {"f0": 20.0, "f1": 14.0, "dur": 1.2, "bdwidth": 4.0}
 
 
 def as_metadata(metadata) -> AcquisitionMetadata:

@@ -1,13 +1,16 @@
 """State carried across from the JAX package.
 
-The matched-filter path has no learned weights: its state is the
-design — the f-k mask, the bandpass gain and the template stack with
-its threshold policy. ``design_from_arrays`` builds the port's
+Neither detector family has learned weights. The matched filter's state
+is its design — the f-k mask, the bandpass gain and the template stack
+with its threshold policy. ``design_from_arrays`` builds the port's
 ``MatchedFilterDesign`` from the JAX design's fields given as numpy
 arrays and Python scalars, so both packages can run on one and the same
 mask and template stack; ``MatchedFilterDetector.from_design`` then
-builds a detector on it. Nothing here imports the JAX package: the
-caller hands over plain arrays.
+builds a detector on it (and, as the spectro family's prefilter, the
+same design serves that family). The spectro family's own state is its
+configuration; its hat kernels are rebuilt from it on the host:
+``spectro_from_jax_config``. Nothing here imports the JAX package: the
+caller hands over plain arrays and values.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from typing import Mapping
 import numpy as np
 
 from .models.matched_filter import MatchedFilterDesign
+from .models.spectro import SpectroCorrDetector
 
 #: The design fields carried across, by their JAX names.
 DESIGN_FIELDS = (
@@ -46,4 +50,37 @@ def design_from_arrays(d: Mapping) -> MatchedFilterDesign:
         fk_channels=int(d["fk_channels"]),
         threshold_factors=np.array(d["threshold_factors"]),
         threshold_scope=str(d["threshold_scope"]),
+    )
+
+
+#: The spectro detector's configuration carried across, by its JAX names.
+SPECTRO_FIELDS = (
+    "flims", "kernels", "win_size", "overlap_pct", "threshold", "max_peaks",
+    "batch_channels",
+)
+
+
+def spectro_from_jax_config(det_fields: Mapping, metadata, *, stft_engine: str | None = None,
+                            device=None) -> SpectroCorrDetector:
+    """``{field: value}`` for every name in :data:`SPECTRO_FIELDS` (read
+    off a JAX ``SpectroCorrDetector``) and its metadata -> the port's
+    ``SpectroCorrDetector`` with the same configuration. The STFT engine
+    is the port's own vocabulary (``ops.spectral.STFT_ENGINES``)."""
+    missing = [f for f in SPECTRO_FIELDS if f not in det_fields]
+    if missing:
+        raise KeyError(f"spectro fields missing: {missing}")
+    d = det_fields
+    batch = d["batch_channels"]
+    return SpectroCorrDetector(
+        metadata,
+        flims=tuple(float(f) for f in d["flims"]),
+        kernels={str(name): {str(k): float(v) for k, v in ker.items()}
+                 for name, ker in d["kernels"].items()},
+        win_size=float(d["win_size"]),
+        overlap_pct=float(d["overlap_pct"]),
+        threshold=float(d["threshold"]),
+        max_peaks=int(d["max_peaks"]),
+        batch_channels=None if batch is None else int(batch),
+        stft_engine=stft_engine,
+        device=device,
     )

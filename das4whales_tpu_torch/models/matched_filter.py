@@ -6,7 +6,9 @@ The port of ``das4whales_tpu.models.matched_filter``'s main path:
 
 1. raw-wire conditioning (``ops.conditioning``);
 2. the bandpass folded into the banded f-k mask, one rfft-in-time /
-   FFT-in-channel pass (``mf_filter_fused`` -> ``ops.fk``);
+   FFT-in-channel pass (``mf_filter_fused`` -> ``ops.fk``), or with
+   ``fused_bandpass=False`` the staged bandpass — odd extension, its own
+   rfft round trip — ahead of the f-k pass (``mf_filter_only``);
 3. the channel-tiled corrected correlograms (``mf_correlate_tiled`` ->
    ``ops.xcorr``);
 4. the in-graph threshold ``0.5 * max * factor``;
@@ -21,9 +23,10 @@ device->host copy of the packed ``(chan, times, count, sat_count, thr)``
 (counted in ``MatchedFilterDetector.syncs``); nothing before it reads a
 device value on the host.
 
-This slice carries ``mf_engine="fft"``, ``fk_engine="fft"`` and
-``fused_bandpass=True`` only; every other value raises
-``NotImplementedError`` naming the ROADMAP item that brings it.
+This slice carries ``mf_engine="fft"`` and ``fk_engine="fft"`` only;
+every other value raises ``NotImplementedError`` naming the ROADMAP item
+that brings it. ``condition_input`` and ``filter_block`` are the
+prefilter the other detector families share (``workflows.common``).
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ from ..config import hbm_budget_bytes as _default_hbm_budget_bytes
 from ..ops import conditioning, fused_picks, xcorr
 from ..ops import fk as fk_ops
 from ..ops import peaks as peak_ops
-from ..ops.filters import butter_zero_phase_gain
+from ..ops.filters import butter_zero_phase_gain, fft_zero_phase_apply
 from ..utils.device import resolve_device
 from .templates import resolve_bank
 
@@ -63,14 +66,12 @@ def _not_in_slice(what: str, item: str) -> NotImplementedError:
     )
 
 
-def check_engines(mf_engine: str, fk_engine: str, fused_bandpass: bool) -> None:
+def check_engines(mf_engine: str, fk_engine: str) -> None:
     """Raise for every engine setting this slice does not carry."""
     if mf_engine != "fft":
         raise _not_in_slice(f"mf_engine={mf_engine!r}", "Matmul engines")
     if fk_engine != "fft":
         raise _not_in_slice(f"fk_engine={fk_engine!r}", "Matmul engines")
-    if not fused_bandpass:
-        raise _not_in_slice("fused_bandpass=False", "Staged bandpass")
 
 
 def reference_threshold_factors(n_templates: int) -> np.ndarray:
@@ -149,6 +150,15 @@ def mf_filter_fused(trace: torch.Tensor, fused_mask_band: torch.Tensor,
     return fk_ops.fk_filter_apply_rfft_banded(trace, fused_mask_band, band_lo, band_hi)
 
 
+def mf_filter_only(trace: torch.Tensor, fk_mask_band: torch.Tensor, bp_gain: torch.Tensor,
+                   band_lo: int, band_hi: int, bp_padlen: int) -> torch.Tensor:
+    """The staged bandpass, then the banded f-k filter: odd extension by
+    ``bp_padlen``, one rfft round trip times ``bp_gain`` (the rFFT bins of
+    the extended length), crop, then the f-k pass on the gainless mask."""
+    tr_bp = fft_zero_phase_apply(trace, bp_gain, bp_padlen)
+    return fk_ops.fk_filter_apply_rfft_banded(tr_bp, fk_mask_band, band_lo, band_hi)
+
+
 def mf_correlate_tiled(trf_fk: torch.Tensor, templates_true: torch.Tensor,
                        mu: torch.Tensor, scale: torch.Tensor, tile: int):
     """Correlograms over channel tiles, one tile at a time (the JAX
@@ -203,6 +213,7 @@ class ProgramOutputs(NamedTuple):
 def mf_detect_picks_program(
     trace: torch.Tensor,
     mask_band: torch.Tensor,
+    bp_gain: torch.Tensor,
     templates_true: torch.Tensor,
     mu: torch.Tensor,
     scale: torch.Tensor,
@@ -211,6 +222,8 @@ def mf_detect_picks_program(
     *,
     band_lo: int,
     band_hi: int,
+    bp_padlen: int,
+    staged_bp: bool,
     tile: int | None,
     max_peaks: int,
     capacity: int,
@@ -223,8 +236,9 @@ def mf_detect_picks_program(
     stage_hook: Callable[[str], None] | None = None,
 ) -> ProgramOutputs:
     """The whole detection step: [raw-wire conditioning ->] fused
-    bandpass/f-k filter -> correlate -> threshold -> analytic signal ->
-    fused pick kernel -> row-major compaction. ``tile=None`` correlates
+    bandpass/f-k filter (``staged_bp``: the staged bandpass, then the
+    f-k filter on the gainless ``mask_band``) -> correlate -> threshold
+    -> analytic signal -> fused pick kernel -> row-major compaction. ``tile=None`` correlates
     the block at once; an int walks channel tiles (one correlate sweep,
     the threshold off the tiles' maxima, then one pick sweep).
     ``thr_scope="global"`` bases every template's threshold on one max
@@ -245,7 +259,10 @@ def mf_detect_picks_program(
             trace = conditioning.condition_padded(trace, cond_scale, cond_n_real,
                                                   dtype=templates_true.dtype)
     hook("condition")
-    trf = mf_filter_fused(trace, mask_band, band_lo, band_hi)
+    if staged_bp:
+        trf = mf_filter_only(trace, mask_band, bp_gain, band_lo, band_hi, bp_padlen)
+    else:
+        trf = mf_filter_fused(trace, mask_band, band_lo, band_hi)
     del trace   # the conditioned block is dead once filtered
     hook("fk")
 
@@ -332,14 +349,14 @@ class MatchedFilterDetector:
         fk_engine: str = "fft",
         device=None,
     ):
-        check_engines(mf_engine, fk_engine, fused_bandpass)
+        check_engines(mf_engine, fk_engine)
         meta = as_metadata(metadata)
         design = design_matched_filter(trace_shape, selected_channels, meta,
                                        fk_config, bp_band, templates,
                                        channel_pad=channel_pad)
         self._setup(design, meta, max_peaks=max_peaks, channel_tile=channel_tile,
-                    hbm_budget_bytes=hbm_budget_bytes, pick_pack_cap=pick_pack_cap,
-                    wire=wire, device=device)
+                    hbm_budget_bytes=hbm_budget_bytes, fused_bandpass=fused_bandpass,
+                    pick_pack_cap=pick_pack_cap, wire=wire, device=device)
 
     @classmethod
     def from_design(cls, design: MatchedFilterDesign, metadata, *,
@@ -350,23 +367,25 @@ class MatchedFilterDetector:
                     device=None) -> "MatchedFilterDetector":
         """A detector on an existing design (e.g. one carried over from the
         JAX package by ``convert.design_from_arrays``)."""
-        check_engines(mf_engine, fk_engine, fused_bandpass)
+        check_engines(mf_engine, fk_engine)
         if design.fk_channels != design.trace_shape[0]:
             raise _not_in_slice("a channel-padded design", "channel_pad")
         det = cls.__new__(cls)
         det._setup(design, as_metadata(metadata), max_peaks=max_peaks,
                    channel_tile=channel_tile, hbm_budget_bytes=hbm_budget_bytes,
-                   pick_pack_cap=pick_pack_cap, wire=wire, device=device)
+                   fused_bandpass=fused_bandpass, pick_pack_cap=pick_pack_cap,
+                   wire=wire, device=device)
         return det
 
     def _setup(self, design, meta, *, max_peaks, channel_tile, hbm_budget_bytes,
-               pick_pack_cap, wire, device):
+               fused_bandpass, pick_pack_cap, wire, device):
         if wire not in ("conditioned", "raw"):
             raise ValueError(f"unknown wire {wire!r}; expected 'conditioned' or 'raw'")
         self.device = resolve_device(device)
         self.metadata = meta
         self.design = design
         self.wire = wire
+        self.fused_bandpass = fused_bandpass
         self.threshold_scope = design.threshold_scope
         self.max_peaks = max_peaks
         # adaptive K: run at K0 first, rerun at max_peaks only if a row
@@ -379,11 +398,14 @@ class MatchedFilterDetector:
         self.dispatches = self.syncs = self.escalations = 0
 
         mask_band, self._band_lo, self._band_hi = fk_ops.banded_mask_half(design.fk_mask)
-        gain_n = butter_zero_phase_gain(design.trace_shape[1], design.fs, design.bp_band,
-                                        order=design.bp_order)
-        mask_band = mask_band * gain_n[self._band_lo : self._band_hi][None, :]
+        if fused_bandpass:
+            # fold |H(f)|^2 into the mask; staged, the mask stays gainless
+            gain_n = butter_zero_phase_gain(design.trace_shape[1], design.fs, design.bp_band,
+                                            order=design.bp_order)
+            mask_band = mask_band * gain_n[self._band_lo : self._band_hi][None, :]
         dev = self.device
         self._mask_band = torch.as_tensor(mask_band, device=dev)
+        self._bp_gain = torch.as_tensor(design.bp_gain, device=dev)
         t_true, t_mu, t_scale = xcorr.padded_template_stats(design.templates)
         self._templates_true = torch.as_tensor(t_true, device=dev)
         self._template_mu = torch.as_tensor(t_mu, device=dev)
@@ -419,6 +441,25 @@ class MatchedFilterDetector:
             return t.to(self.device)
         return t.to(self.device, torch.float32)
 
+    def condition_input(self, trace) -> torch.Tensor:
+        """The block as float32 strain on the device: raw counts are
+        conditioned there (``ops.conditioning``), a conditioned block is
+        cast."""
+        x = self._as_input(trace)
+        if self.wire != "raw":
+            return x
+        return conditioning.condition(x, self._cond_scale, dtype=self._templates_true.dtype)
+
+    def filter_block(self, trace) -> torch.Tensor:
+        """The detector's filter alone, in its bandpass mode: the
+        prefilter of the other detector families and what
+        ``utils.parity.envelopes`` correlates."""
+        x = self.condition_input(trace)
+        if self.fused_bandpass:
+            return mf_filter_fused(x, self._mask_band, self._band_lo, self._band_hi)
+        return mf_filter_only(x, self._mask_band, self._bp_gain, self._band_lo,
+                              self._band_hi, self.design.bp_padlen)
+
     def detect_picks(self, trace, threshold: float | None = None,
                      n_real: int | None = None,
                      stage_hook: Callable[[str], None] | None = None) -> MatchedFilterResult:
@@ -453,9 +494,10 @@ class MatchedFilterDetector:
         def run(k):
             self.dispatches += 1
             return mf_detect_picks_program(
-                trace, self._mask_band, self._templates_true, self._template_mu,
-                self._template_scale, thr_in, self._thr_factors,
-                band_lo=self._band_lo, band_hi=self._band_hi, tile=tile,
+                trace, self._mask_band, self._bp_gain, self._templates_true,
+                self._template_mu, self._template_scale, thr_in, self._thr_factors,
+                band_lo=self._band_lo, band_hi=self._band_hi,
+                bp_padlen=self.design.bp_padlen, staged_bp=not self.fused_bandpass, tile=tile,
                 max_peaks=k, capacity=cap, use_threshold=use_thr,
                 pick_method=peak_ops.escalation_method(k, self.max_peaks),
                 condition=self.wire == "raw", cond_scale=self._cond_scale,

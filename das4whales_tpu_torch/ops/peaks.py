@@ -8,7 +8,10 @@ first K in time order, or ``"topk"``, the K tallest — and exact scipy
 prominences from per-block max/min tables in both directions. This is
 the plain version of the CUDA pick kernel (``ops.fused_picks``): the
 CPU route, and the reference ``chip_smoke.py`` holds the kernel against
-on the card.
+on the card. The spectrogram-correlation family picks on its
+correlograms with this plain route on every device, as the JAX package
+does, through the adaptive-K escalation and the on-device compaction
+below, whose device->host reads a :class:`SyncCounter` counts.
 
 Three JAX idioms have no direct torch twin and are spelled out here:
 ``jnp.argsort`` is stable (``torch.argsort(..., stable=True)``);
@@ -252,6 +255,84 @@ def sparse_to_pick_times(positions, selected) -> np.ndarray:
     selected = np.asarray(selected)
     chan, slot = np.nonzero(selected)
     return np.asarray([chan, positions[chan, slot]], dtype=np.int64).reshape(2, -1)
+
+
+class SyncCounter:
+    """A count of device->host reads. The functions below that read a
+    device value on the host take one as ``syncs`` and add one per read."""
+
+    __slots__ = ("count",)
+
+    def __init__(self):
+        self.count = 0
+
+    def add(self, n: int = 1) -> None:
+        self.count += n
+
+
+def _count(syncs: SyncCounter | None) -> None:
+    if syncs is not None:
+        syncs.add()
+
+
+def picks_with_escalation(run, k0: int, k_full: int, syncs: SyncCounter | None = None):
+    """Adaptive-K sparse picking: ``run(k)`` returns a result with a
+    ``.saturated`` row mask. Runs at ``k0`` and reruns at ``k_full`` only
+    when a row saturated — identical to running at ``k_full`` directly,
+    since a row that does not saturate is exact at any K. The saturation
+    read is one device->host read (counted)."""
+    res = run(k0)
+    if k0 < k_full:
+        saturated = bool(res.saturated.any())
+        _count(syncs)
+        if saturated:
+            res = run(k_full)
+    return res
+
+
+def compacted_to_host(rows_d: torch.Tensor, times_d: torch.Tensor, cnt_d: torch.Tensor,
+                      capacity: int, syncs: SyncCounter | None = None):
+    """Bring :func:`compact_picks_rowmajor` outputs to the host in ONE
+    packed device->host read (counted), or report overflow. Returns
+    ``(rows int64 [..., kpad], times int64 [..., kpad], count [...])``
+    with the slot axis cut to the pow2-rounded max count, as the JAX
+    package returns it, or ``None`` when a count exceeds ``capacity``
+    (the caller takes its exact full-grid route)."""
+    lead = tuple(cnt_d.shape)
+    packed = torch.cat([rows_d.reshape(-1).to(torch.int32), times_d.reshape(-1).to(torch.int32),
+                        cnt_d.reshape(-1).to(torch.int32)]).cpu().numpy()
+    _count(syncs)
+    n = rows_d.numel()
+    cnt = packed[2 * n :].reshape(lead)
+    kmax = int(cnt.max(initial=0))
+    if kmax > capacity:
+        return None
+    kpad = min(capacity, 1 << max(kmax - 1, 0).bit_length())
+    rows = packed[:n].reshape(tuple(rows_d.shape))[..., :kpad].astype(np.int64)
+    times = packed[n : 2 * n].reshape(tuple(times_d.shape))[..., :kpad].astype(np.int64)
+    return rows, times, cnt
+
+
+def pick_times_compacted(positions: torch.Tensor, selected: torch.Tensor,
+                         capacity: int = 1 << 18,
+                         syncs: SyncCounter | None = None) -> np.ndarray:
+    """``[C, K]`` sparse picks -> the reference's ``(2, n)``
+    [channel_idx, time_idx] int64 array, compacted on the device so that
+    only O(capacity) ints cross to the host in one read; on capacity
+    overflow the exact full transfer (one more read) and
+    :func:`sparse_to_pick_times`. Order and dtype equal
+    :func:`sparse_to_pick_times`'s."""
+    C, K = positions.shape
+    cap = int(min(C * K, capacity))
+    rows_d, times_d, cnt_d = compact_picks_rowmajor(positions[None], selected[None], cap)
+    packed = compacted_to_host(rows_d, times_d, cnt_d, cap, syncs)
+    if packed is None:
+        pos, sel = positions.cpu().numpy(), selected.cpu().numpy()
+        _count(syncs)
+        return sparse_to_pick_times(pos, sel)
+    rows, times, cnt = packed
+    k = int(cnt[0])
+    return np.asarray([rows[0, :k], times[0, :k]])
 
 
 def escalation_method(k: int, k_full: int) -> str:

@@ -1,12 +1,14 @@
 """Spectral transforms on ``torch.fft``: the Hann window, the analytic
-signal and the Hilbert envelope (the port's copy of the matched-filter
-half of ``das4whales_tpu.ops.spectral``)."""
+signal, the Hilbert envelope and the STFT magnitude with its engine
+switch (the port's copy of what the detectors use of
+``das4whales_tpu.ops.spectral``)."""
 
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 
 def hann_window(n: int, *, periodic: bool = False, dtype=torch.float32,
@@ -50,3 +52,70 @@ def magnitude_sqrt(z: torch.Tensor) -> torch.Tensor:
 def envelope_sqrt(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """Hilbert envelope of real ``x`` as the explicit ``sqrt(re² + im²)``."""
     return magnitude_sqrt(analytic_signal(x, dim=dim))
+
+
+def stft(x: torch.Tensor, n_fft: int, hop: int, *, window: str = "hann",
+         center: bool = True) -> torch.Tensor:
+    """Complex short-time Fourier transform with librosa's conventions:
+    periodic Hann window, centred frames with zero padding, output
+    ``[..., n_fft//2 + 1, n_frames]`` with ``n_frames = 1 + n//hop``
+    (``1 + (n - n_fft)//hop`` without centring). The frames are an
+    ``unfold`` view; one batched rfft transforms them all."""
+    if window == "hann":
+        win = hann_window(n_fft, periodic=True, dtype=x.dtype, device=x.device)
+    elif window == "ones":
+        win = torch.ones(n_fft, dtype=x.dtype, device=x.device)
+    else:
+        raise ValueError(f"unknown window {window!r}")
+    n = x.shape[-1]
+    if not center and n < n_fft:
+        raise ValueError(f"center=False needs at least n_fft={n_fft} samples, got {n}")
+    n_frames = 1 + (n // hop if center else (n - n_fft) // hop)
+    if center:
+        x = F.pad(x, (n_fft // 2, n_fft // 2))
+    need = (n_frames - 1) * hop + n_fft
+    if x.shape[-1] < need:
+        # an odd n_fft leaves the last frame one sample short: it reads zero
+        x = F.pad(x, (0, need - x.shape[-1]))
+    frames = x.unfold(-1, n_fft, hop)[..., :n_frames, :] * win   # [..., n_frames, n_fft]
+    return torch.fft.rfft(frames, dim=-1).transpose(-1, -2)
+
+
+#: STFT-magnitude engines of the port. ``"rfft"`` is the batched-FFT
+#: path (:func:`stft`); ``"fused"`` the CUDA kernel of ``ops.fused_stft``
+#: (the counterpart of the JAX package's ``"pallas"``), its plain version
+#: on a CPU tensor; ``"matmul"`` is not in the port yet.
+STFT_ENGINES = ("rfft", "matmul", "fused")
+
+
+def resolve_stft_engine(engine: str | None = "auto") -> str:
+    """``None`` and ``"auto"`` resolve to ``"fused"`` on every device (on
+    the CPU that runs the kernel's plain version); ``"rfft"`` and
+    ``"fused"`` pass through; ``"matmul"`` raises ``NotImplementedError``."""
+    if engine is None or engine == "auto":
+        return "fused"
+    if engine == "matmul":
+        raise NotImplementedError(
+            "stft engine 'matmul' is not in this slice of the port; it comes with "
+            "the ROADMAP item 'Matmul engines' (ROADMAP.md, 'Open items', 1)"
+        )
+    if engine not in STFT_ENGINES:
+        raise ValueError(f"unknown stft engine {engine!r}; expected one of "
+                         f"{STFT_ENGINES + ('auto',)}")
+    return engine
+
+
+def stft_magnitude(x: torch.Tensor, nfft: int, hop: int, *,
+                   engine: str | None = "auto") -> torch.Tensor:
+    """``|STFT|`` of ``x [..., T]``, ``[..., nfft//2 + 1, n_frames]``,
+    centred, periodic Hann. ``"rfft"``: ``abs`` of :func:`stft`;
+    ``"fused"``: ``sqrt`` of the kernel's power (``ops.fused_stft``) —
+    each engine keeps its own form, as in the JAX package."""
+    engine = resolve_stft_engine(engine)
+    if engine == "rfft":
+        return torch.abs(stft(x, nfft, hop))
+    from .fused_stft import stft_power
+
+    lead = tuple(x.shape[:-1])
+    power = stft_power(x.reshape(-1, x.shape[-1]), nfft, hop)
+    return torch.sqrt(power).reshape(lead + tuple(power.shape[1:]))

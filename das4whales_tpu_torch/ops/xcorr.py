@@ -1,9 +1,11 @@
-"""Cross-correlation for matched-filter detection (``torch.fft``).
+"""Cross-correlation and FFT convolution (``torch.fft``).
 
-The port's copy of the true-length-template corrected correlation of
-``das4whales_tpu.ops.xcorr``: the reference pads each template to the
-record length and correlates at ``nfft = next_fast_len(2n - 1)``; the
-same correlogram is recovered exactly from the true-length template,
+The port's copy of ``das4whales_tpu.ops.xcorr``: the same-mode FFT
+convolutions of the spectrogram-correlation family, and the
+true-length-template corrected correlation of the matched filter. The
+reference pads each template to the record length and correlates at
+``nfft = next_fast_len(2n - 1)``; the same correlogram is recovered
+exactly from the true-length template,
 
     corr[k] = (sum_j x[k+j] y_true[j] - mu * suffix_sum(x)[k]) / s,
 
@@ -99,3 +101,30 @@ def compute_cross_correlograms_corrected(
     Yb = torch.conj(Y).reshape((Y.shape[0],) + (1,) * (xn.ndim - 1) + (Y.shape[-1],))
     raw = torch.fft.irfft(X[None, ...] * Yb, nfft, dim=-1)[..., :n]
     return corrected_from_raw(raw, suffix, mu, scale, data.dtype)
+
+
+def fftconvolve_same_time(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """FFT convolution along the last (time) axis, ``mode='same'``,
+    batched over leading axes (``scipy.signal.fftconvolve(..., mode='same',
+    axes=-1)``)."""
+    n, m = x.shape[-1], kernel.shape[-1]
+    nfft = _xcorr_full_len(n, m)
+    X = torch.fft.rfft(x, nfft, dim=-1)
+    K = torch.fft.rfft(kernel, nfft, dim=-1)
+    full = torch.fft.irfft(X * K, nfft, dim=-1)[..., : n + m - 1]
+    start = (m - 1) // 2
+    return full[..., start : start + n]
+
+
+def fftconvolve2d_same(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """2-D FFT convolution over the last two axes, ``mode='same'``,
+    batched over leading axes (``scipy.signal.fftconvolve(image, kernel,
+    mode='same')``)."""
+    n1, n2 = x.shape[-2], x.shape[-1]
+    m1, m2 = kernel.shape[-2], kernel.shape[-1]
+    s = (n1 + m1 - 1, n2 + m2 - 1)
+    X = torch.fft.rfft2(x, s)
+    K = torch.fft.rfft2(kernel, s)
+    full = torch.fft.irfft2(X * K, s)
+    a1, a2 = (m1 - 1) // 2, (m2 - 1) // 2
+    return full[..., a1 : a1 + n1, a2 : a2 + n2]

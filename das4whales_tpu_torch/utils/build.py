@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 into ``build/kernels/<name>-<hash>.so`` at the repository root (a
 directory ``.gitignore`` lists), where ``<hash>`` covers the source and
-the flags, so an edited kernel never loads a stale library. The library
+that kernel's own flags (:func:`nvcc_flags`), so an edited kernel never
+loads a stale library. The library
 is loaded with ``ctypes``; callers declare ``argtypes`` with
 ``ctypes.c_void_p`` for every pointer and the stream, so no pointer is
 cut to 32 bits. A failed build raises with the compiler's output: there
@@ -36,6 +37,18 @@ NVCC_FLAGS = (
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+#: Kernels compared with their plain version by tolerance, not bit for
+#: bit, keep FMA contraction on: ``-fmad=false`` would split every FMA of
+#: a contraction in two and halve its float32 rate.
+FMA_KERNELS = frozenset({"fused_stft"})
+
+
+def nvcc_flags(name: str) -> tuple:
+    """The flags ``csrc/<name>.cu`` is compiled with."""
+    if name in FMA_KERNELS:
+        return tuple(f for f in NVCC_FLAGS if f != "-fmad=false")
+    return NVCC_FLAGS
+
 
 def nvcc_path() -> str:
     """``nvcc`` on ``PATH``, else under ``CUDA_HOME`` or /usr/local/cuda."""
@@ -54,7 +67,7 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    digest = hashlib.sha1(src.read_bytes() + " ".join(nvcc_flags(name)).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
@@ -71,7 +84,7 @@ def build(name: str) -> tuple[Path, float, str]:
     # once each produce a whole library and the last rename wins
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
+    cmd = [nvcc_path(), *nvcc_flags(name), "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0

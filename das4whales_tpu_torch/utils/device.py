@@ -11,9 +11,8 @@ allow_tf32`` already defaults to False, but ``torch.backends.cudnn.
 allow_tf32`` defaults to True and would round float32 convolutions to
 about three decimal digits; the port's parity contract with the JAX
 package is float32, so both switches are set to False here, once, by
-:func:`resolve_device`. (This slice's path runs no matmul or
-convolution — its transforms are cuFFT — so the switches guard the
-slices that will.)
+:func:`resolve_device`. (The STFT kernel's plain version is a float32
+``torch.matmul``; on the card it must not round to TF32.)
 """
 
 from __future__ import annotations

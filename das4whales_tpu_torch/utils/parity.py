@@ -19,16 +19,14 @@ import scipy.signal as sp
 
 def envelopes(det, trace) -> np.ndarray:
     """The Hilbert envelopes ``[nT, C, n]`` (host numpy) that ``det``'s
-    detection program picks on, for the margin check. Computes the
-    stages on ``det.device`` at once, untiled (correlograms are per
-    row, so tiling moves a value by rounding at most)."""
-    from ..ops import conditioning, spectral, xcorr
-    from ..models.matched_filter import mf_filter_fused
+    detection program picks on, for the margin check. Runs the
+    detector's own filter (``det.filter_block``, so its bandpass mode,
+    fused or staged) and the later stages on ``det.device`` at once,
+    untiled (correlograms are per row, so tiling moves a value by
+    rounding at most)."""
+    from ..ops import spectral, xcorr
 
-    x = det._as_input(trace)
-    if det.wire == "raw":
-        x = conditioning.condition(x, det._cond_scale)
-    trf = mf_filter_fused(x, det._mask_band, det._band_lo, det._band_hi)
+    trf = det.filter_block(trace)
     corr = xcorr.compute_cross_correlograms_corrected(
         trf, det._templates_true, det._template_mu, det._template_scale)
     return spectral.envelope_sqrt(corr).cpu().numpy()

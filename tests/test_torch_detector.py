@@ -153,7 +153,7 @@ def test_detector_designs_like_jax_and_dispatches(scenes):
 
 @pytest.mark.parametrize("kw", [
     {"mf_engine": "matmul"}, {"mf_engine": "auto"}, {"fk_engine": "matmul"},
-    {"fused_bandpass": False}, {"channel_pad": "auto"},
+    {"templates": "blue"}, {"channel_pad": "auto"},
 ])
 def test_settings_outside_the_slice_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -39,6 +39,14 @@ def test_no_jax_or_reference_package_import(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_the_scan_covers_every_module_of_the_port():
+    scanned = {str(p.relative_to(ROOT)) for p in _sources()}
+    for mod in ("models/spectro.py", "ops/fused_stft.py", "ops/spectral.py", "eval.py",
+                "workflows/common.py", "workflows/spectrodetect.py", "convert.py"):
+        assert f"das4whales_tpu_torch/{mod}" in scanned
+    assert "chip_smoke.py" in scanned
+
+
 def test_port_imports_with_jax_blocked():
     code = (
         "import sys, pkgutil, importlib\n"
@@ -56,7 +64,7 @@ def test_port_imports_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    assert int(out.stdout.strip()) >= 20
 
 
 def test_default_device_is_the_card_and_never_the_cpu():

@@ -1,0 +1,201 @@
+"""Port parity, the STFT: ``ops.fused_stft`` and the STFT routes of
+``ops.spectral`` of das4whales_tpu_torch (on the CPU, so the kernel's
+plain version) against das4whales_tpu (float32, x64 off): the Pallas
+kernel in interpret mode and the rFFT route.
+
+Tolerance: ``atol = 5e-6 * max|ref|`` for the power, the contract
+``tests/test_pallas_stft.py`` holds the JAX kernel to against the rFFT
+route (the DFT as a product and as an FFT round differently).
+"""
+
+from __future__ import annotations
+
+import hashlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from das4whales_tpu.ops import pallas_stft as jps
+from das4whales_tpu.ops import spectral as jspec
+from das4whales_tpu_torch.ops import fused_stft, spectral
+from das4whales_tpu_torch.utils import build
+
+POWER_REL = 5e-6
+
+#: the five shapes of tests/test_pallas_stft.py, then center=False and
+#: window="ones"
+CASES = [
+    (8, 512, 128, 32, True, "hann"),
+    (5, 300, 64, 16, True, "hann"),
+    (3, 1000, 256, 60, True, "hann"),
+    (8, 256, 128, 128, True, "hann"),
+    (2, 150, 128, 25, True, "hann"),
+    (4, 400, 128, 32, False, "hann"),
+    (6, 700, 160, 8, True, "ones"),
+]
+
+#: spans past the kernel's 48 KB of shared memory (its per-chunk gather)
+LARGE_SPANS = [
+    (2, 4000, 1024, 384, True, "hann"),
+    (2, 4000, 2048, 2048, True, "hann"),
+]
+
+
+def _x(c, n, seed=0):
+    return np.random.default_rng(seed).standard_normal((c, n)).astype(np.float32)
+
+
+def _assert_rel(ref, got, rel):
+    ref, got = np.asarray(ref), np.asarray(got)
+    assert ref.shape == got.shape, (ref.shape, got.shape)
+    scale = float(np.abs(ref).max())
+    assert scale > 0
+    np.testing.assert_allclose(got, ref, rtol=0, atol=rel * scale)
+
+
+@pytest.mark.parametrize("c,n,nfft,hop,center,window", CASES)
+def test_stft_power_matches_pallas_kernel(c, n, nfft, hop, center, window):
+    x = _x(c, n)
+    with jax.enable_x64(False):
+        ref = np.array(jps.stft_power(x, nfft, hop, window=window, center=center,
+                                      interpret=True))
+    got = fused_stft.stft_power(torch.from_numpy(x), nfft, hop, window=window, center=center)
+    assert got.dtype == torch.float32
+    _assert_rel(ref, got.numpy(), POWER_REL)
+
+
+@pytest.mark.parametrize("c,n,nfft,hop,center,window", CASES + LARGE_SPANS)
+def test_stft_power_matches_rfft_power(c, n, nfft, hop, center, window):
+    x = _x(c, n, seed=1)
+    with jax.enable_x64(False):
+        ref = np.abs(np.array(jspec.stft(jnp.asarray(x), nfft, hop, window=window,
+                                         center=center))) ** 2
+    got = fused_stft.stft_power(torch.from_numpy(x), nfft, hop, window=window, center=center)
+    _assert_rel(ref, got.numpy(), POWER_REL)
+
+
+@pytest.mark.parametrize("nfft", [64, 128, 160, 256])
+@pytest.mark.parametrize("window", ["hann", "ones"])
+def test_dft_matrix_is_bitwise_the_jax_kernels(nfft, window):
+    win = (0.5 * (1.0 - np.cos(2.0 * np.pi * np.arange(nfft) / nfft)) if window == "hann"
+           else np.ones(nfft))
+    ref = jps._dft_matrix(nfft, win)
+    got = fused_stft._dft_matrix(nfft, fused_stft._window(nfft, window))
+    assert got.dtype == np.float32 and got.shape == (nfft, 2 * (nfft // 2 + 1))
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_stft_power_validates_args_like_jax():
+    x = torch.from_numpy(_x(2, 64))
+    bad = [
+        (x[0], 32, 8, {}),                       # not 2-D
+        (x, 32, 0, {}),                          # hop < 1
+        (x, 32, 33, {}),                         # hop > nfft
+        (x, 32, 8, {"window": "nuttall"}),
+        (x, 128, 8, {"center": False}),          # n < nfft: no full frame
+    ]
+    for arr, nfft, hop, kw in bad:
+        with pytest.raises(ValueError):
+            jps.stft_power(arr.numpy(), nfft, hop, **kw)
+        with pytest.raises(ValueError):
+            fused_stft.stft_power(arr, nfft, hop, **kw)
+    with pytest.raises(ValueError, match="center=False"):
+        spectral.stft(x, 128, 8, center=False)
+
+
+def test_cuda_route_refuses_a_cpu_tensor():
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fused_stft.stft_power_cuda(torch.zeros(2, 64), 32, 8)
+    assert fused_stft.launches == 0
+
+
+@pytest.mark.parametrize("c,n,nfft,hop,center", [
+    (3, 701, 160, 8, True), (2, 500, 64, 16, False), (2, 303, 65, 13, True),
+])
+def test_stft_matches_jax(c, n, nfft, hop, center):
+    x = _x(c, n, seed=2)
+    with jax.enable_x64(False):
+        ref = np.array(jspec.stft(jnp.asarray(x), nfft, hop, center=center))
+    got = spectral.stft(torch.from_numpy(x), nfft, hop, center=center).numpy()
+    assert got.dtype == np.complex64
+    _assert_rel(ref.real, got.real, 1e-5)
+    _assert_rel(ref.imag, got.imag, 1e-5)
+
+
+@pytest.mark.parametrize("engine,jax_engine", [("rfft", "rfft"), ("fused", "pallas")])
+def test_stft_magnitude_engines_match_jax(engine, jax_engine):
+    x = _x(6, 700, seed=3)[None]                  # a leading axis flattens and comes back
+    with jax.enable_x64(False):
+        ref = np.array(jspec.stft_magnitude(jnp.asarray(x), 160, 8, engine=jax_engine))
+    got = spectral.stft_magnitude(torch.from_numpy(x), 160, 8, engine=engine).numpy()
+    assert got.shape == (1, 6, 81, 88)
+    _assert_rel(ref, got, POWER_REL)
+
+
+def test_stft_engine_vocabulary():
+    assert spectral.STFT_ENGINES == ("rfft", "matmul", "fused")
+    assert spectral.resolve_stft_engine(None) == "fused"
+    assert spectral.resolve_stft_engine("auto") == "fused"
+    assert spectral.resolve_stft_engine("rfft") == "rfft"
+    with pytest.raises(NotImplementedError, match="Matmul engines"):
+        spectral.resolve_stft_engine("matmul")
+    with pytest.raises(ValueError):
+        spectral.resolve_stft_engine("pallas")
+
+
+def test_each_kernel_builds_with_its_own_flags():
+    # the pick kernel keeps -fmad=false (bitwise with its plain version)
+    # and its library name; the STFT kernel keeps FMA contraction on
+    assert build.nvcc_flags("fused_picks") == build.NVCC_FLAGS
+    assert "-fmad=false" in build.nvcc_flags("fused_picks")
+    assert "-fmad=false" not in build.nvcc_flags("fused_stft")
+    assert set(build.nvcc_flags("fused_stft")) == set(build.NVCC_FLAGS) - {"-fmad=false"}
+    src = (build.CSRC_DIR / "fused_picks.cu").read_bytes()
+    digest = hashlib.sha1(src + " ".join(build.NVCC_FLAGS).encode()).hexdigest()[:12]
+    assert build.library_path("fused_picks").name == f"fused_picks-{digest}.so"
+    assert build.library_path("fused_stft").name.startswith("fused_stft-")
+
+
+def test_each_engine_keeps_its_own_magnitude_form():
+    # "rfft" is abs of the complex STFT, "fused" the sqrt of the power, as
+    # in the JAX package
+    x = torch.from_numpy(_x(3, 500, seed=4))
+    assert torch.equal(spectral.stft_magnitude(x, 160, 8, engine="rfft"),
+                       torch.abs(spectral.stft(x, 160, 8)))
+    assert torch.equal(spectral.stft_magnitude(x, 160, 8, engine="fused"),
+                       torch.sqrt(fused_stft.stft_power(x, 160, 8)))
+
+
+@pytest.mark.parametrize("center,window", [(True, "hann"), (False, "hann"), (True, "ones")])
+def test_the_library_yardstick_pads_with_zeros(center, window):
+    """chip_smoke.py's ``torch.stft`` yardstick centres with zeros, as the
+    port does; ``torch.stft``'s default reflect padding would part at the
+    record's edges."""
+    import chip_smoke
+
+    x = torch.from_numpy(_x(4, 1000, seed=5))
+    lib = chip_smoke._torch_stft_power(x, 160, 8, window, center)
+    _assert_rel(fused_stft.stft_power(x, 160, 8, window=window, center=center).numpy(),
+                lib.numpy(), POWER_REL)
+    if center:
+        win = torch.hann_window(160, periodic=True) if window == "hann" else torch.ones(160)
+        s = torch.stft(x, 160, 8, window=win, center=True, return_complex=True)
+        reflect = (s.real * s.real + s.imag * s.imag).numpy()
+        assert np.abs(reflect - lib.numpy()).max() > 1e-3 * np.abs(lib.numpy()).max()
+
+
+def test_the_kernel_bound_counts_the_fft_form():
+    """The kernel line's bound is the function's, not the design's: at
+    the main launch the FFT form's operations (2.0e10) take less time than
+    the bytes, so bytes bound it; the DFT-form contraction (3.19e11) is a
+    side figure."""
+    import chip_smoke
+
+    b = chip_smoke._stft_bounds(4096, 12000, 160, 8)
+    assert b["bound_by"] == "bytes" and b["bound_ms"] == b["bytes_ms"]
+    assert b["bytes"] == 4 * 4096 * 12000 + 4 * 160 * 162 + 4 * 4096 * 81 * 1501
+    assert 1.9e10 < b["ops"] < 2.2e10 and b["ops_ms"] < b["bytes_ms"]
+    assert b["dft_ops"] == 2 * 4096 * 1501 * 160 * 162 and b["dft_ops_ms"] > b["bound_ms"]
