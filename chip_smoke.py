@@ -12,7 +12,8 @@ failed check; no phase's failure is caught:
                 CUDA versions; no CUDA device -> exit 1, nothing else runs;
 2. ``build``    the ``nvcc`` builds of ``csrc/fused_picks.cu`` and
                 ``csrc/fused_stft.cu``, started together, each one's seconds
-                and ptxas line;
+                and ptxas line, then the STFT kernel's registers and spills
+                per instantiation (the main launch's must not spill);
 3. ``kernels``  the fused pick kernel against its plain PyTorch version on
                 the card, at the main path's shapes (1024 rows x 12000
                 samples, ``pack`` K=64 and ``topk`` K=256) and on edge rows;
@@ -31,9 +32,10 @@ failed check; no phase's failure is caught:
                 version and against ``torch.stft`` power on the card, at the
                 main path's launch (4096 x 12000, nfft 160, hop 8, centred)
                 and on edge cases (1570 channels, T = 11963, center=False,
-                window="ones", hop = nfft, T < nfft, and spans past 48 KB
-                at nfft 1024 and 2048); each within 5e-6 * max|reference|;
-                times, both bounds;
+                window="ones", hop = nfft, T < nfft, spans past 48 KB at
+                nfft 1024 and 2048, odd nfft 65, nfft 162 with no
+                self-paired bin); each within 5e-6 * max|reference|; times,
+                the bound and the dense and folded DFT forms;
 7. ``spectro``  ``SpectroEvalAdapter(MatchedFilterDetector.from_design(...),
                 SpectroCorrDetector(meta))`` on the ``detect`` phase's scene,
                 conditioned on the host: one warm-up, three timed runs,
@@ -97,6 +99,32 @@ def phase_device():
 
 KERNELS = ("fused_picks", "fused_stft")
 
+#: the STFT kernel's instantiation at the main launch (1501 frames: R = 4
+#: frames a thread; the span fits in shared memory)
+STFT_MAIN_INSTANCE = (4, True)
+
+
+def stft_ptxas(report: str) -> dict:
+    """``{(R, span): (registers, spill store bytes, spill load bytes)}``
+    for each ``fused_stft_kernel<R, kSpan>`` in an ``nvcc -Xptxas -v``
+    report."""
+    import re
+
+    out, cur, spill = {}, None, (0, 0)
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '\S*fused_stft_kernelILi(\d+)ELb([01])E", line)
+        if m:
+            cur, spill = (int(m.group(1)), m.group(2) == "1"), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur is not None:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            out[cur] = (int(m.group(1)),) + spill
+            cur = None
+    return out
+
 
 def phase_build():
     from concurrent.futures import ThreadPoolExecutor
@@ -111,6 +139,14 @@ def phase_build():
         fma = "-fmad=false" if "-fmad=false" in build.nvcc_flags(name) else "FMA contraction on"
         say(f"build: csrc/{name}.cu -> {path.name} in {seconds:.2f} s "
             f"(nvcc sm_90a, {fma}; {ptxas or 'no ptxas report'})")
+    inst = stft_ptxas(built[KERNELS.index("fused_stft")][2])
+    if STFT_MAIN_INSTANCE not in inst:
+        fail(f"build: no ptxas report for fused_stft_kernel<{STFT_MAIN_INSTANCE}>: {inst}")
+    say("build: fused_stft ptxas per instantiation (R, span): " + "; ".join(
+        f"R={r} {'span' if sp else 'gather'}: {regs} registers, {st} B spill stores, "
+        f"{ld} B spill loads" for (r, sp), (regs, st, ld) in sorted(inst.items())))
+    if any(inst[STFT_MAIN_INSTANCE][1:]):
+        fail(f"build: fused_stft_kernel<{STFT_MAIN_INSTANCE}>, the main launch's, spills")
 
 
 def _kernel_modules() -> dict:
@@ -472,16 +508,23 @@ def _stft_bounds(C: int, T: int, nfft: int, hop: int, center: bool = True) -> di
     function needs over the float32 rate of the CUDA cores — per frame
     the window (nfft), a real FFT (2.5 nfft log2 nfft, half the usual
     5 N log2 N of a complex one) and the power (3 per bin). ``dft_*`` is
-    the kernel's own design, the DFT as a contraction (2 operations per
-    multiply-add, re and im): a side figure, not the bound."""
+    the earlier design's dense DFT contraction (2 operations per
+    multiply-add, re and im) and ``fold_*`` the kernel's folded DFT (per
+    frame (re, im) multiply-adds over taps n <= N/2 and k <= N/4 — every
+    k < F for odd N — the folds u, v, the E/O pairing and the power):
+    side figures, not the bound."""
     F = nfft // 2 + 1
     nf = 1 + (T // hop if center else (T - nfft) // hop)
     bytes_ = 4 * C * T + 4 * nfft * 2 * F + 4 * C * F * nf
     ops = C * nf * (nfft + 2.5 * nfft * float(np.log2(nfft)) + 3 * F)
     dft_ops = 2 * C * nf * nfft * 2 * F
+    even = nfft % 2 == 0
+    taps, K2 = nfft // 2 + 1, nfft // 4 + 1 if even else F
+    fold_ops = C * nf * (4 * taps * K2 + 2 * (taps - 1) + (4 if even else 2) * K2 + 3 * F)
     b_ms, o_ms = bytes_ / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
     return {"bytes": bytes_, "ops": ops, "bytes_ms": b_ms, "ops_ms": o_ms,
             "dft_ops": dft_ops, "dft_ops_ms": dft_ops / F32_OPS_PER_S * 1e3,
+            "fold_ops": fold_ops, "fold_ops_ms": fold_ops / F32_OPS_PER_S * 1e3,
             "bound_ms": max(b_ms, o_ms), "bound_by": "operations" if o_ms >= b_ms else "bytes"}
 
 
@@ -512,9 +555,12 @@ def phase_stft_kernel():
         ('window="ones"', 256, CANONICAL[1], NFFT, HOP, True, "ones"),
         ("hop=nfft", 256, CANONICAL[1], NFFT, NFFT, True, "hann"),
         ("T<nfft", 3, 100, NFFT, HOP, True, "hann"),
-        # spans past 48 KB of shared memory: the per-chunk gather
+        # spans past 48 KB of shared memory: the fold straight from x
         ("nfft=1024 hop=384", 64, CANONICAL[1], 1024, 384, True, "hann"),
         ("nfft=hop=2048", 64, CANONICAL[1], 2048, 2048, True, "hann"),
+        # odd nfft (the first fold only), and nfft = 2 mod 4 (no self-paired bin)
+        ("nfft=65", 256, CANONICAL[1], 65, HOP, True, "hann"),
+        ("nfft=162", 256, CANONICAL[1], 162, HOP, True, "hann"),
     ]
     err, notes, main = 0.0, [], None
     for label, C, T, nfft, hop, center, window in cases:
@@ -524,13 +570,18 @@ def phase_stft_kernel():
         p = fused_stft.stft_power_plain(x, nfft, hop, **kw)
         lib = _torch_stft_power(x, nfft, hop, window, center)
         torch.cuda.synchronize()
-        if k.shape != p.shape or k.shape != lib.shape:
+        # centred odd nfft: torch.stft pads nfft // 2 a side and frames
+        # 1 + (T - 1) // hop, one less than the port's 1 + T // hop where hop
+        # divides T (that last frame reads zeros past the padding); it is
+        # compared on the frames it has
+        k_lib = k[..., :lib.shape[-1]] if nfft % 2 and center else k
+        if k.shape != p.shape or k_lib.shape != lib.shape:
             fail(f"stft_kernel: {label}: shapes kernel {tuple(k.shape)}, plain "
                  f"{tuple(p.shape)}, torch.stft {tuple(lib.shape)}")
         if not bool(torch.isfinite(k).all()):
             fail(f"stft_kernel: {label}: non-finite kernel output")
         e_plain = float((k - p).abs().max())
-        e_lib = float((k - lib).abs().max())
+        e_lib = float((k_lib - lib).abs().max())
         s_plain, s_lib = float(p.abs().max()), float(lib.abs().max())
         if e_plain > STFT_REL_TOL * s_plain or e_lib > STFT_REL_TOL * s_lib:
             fail(f"stft_kernel: {label}: max|kernel - plain| {e_plain:.3e} (limit "
@@ -544,7 +595,7 @@ def phase_stft_kernel():
                 plain_ms=_cuda_ms(lambda: fused_stft.stft_power_plain(x, nfft, hop, **kw), 5),
                 library_ms=_cuda_ms(lambda: _torch_stft_power(x, nfft, hop, window, center), 10),
                 **_stft_bounds(C, T, nfft, hop, center))
-        del x, k, p, lib
+        del x, k, k_lib, p, lib
     m = main
     say(f"stft_kernel: fused_stft within {STFT_REL_TOL} * max of its plain version and of "
         f"torch.stft power on all {len(cases)} cases (relative max error plain / torch.stft: "
@@ -553,8 +604,10 @@ def phase_stft_kernel():
         f"{m['library_ms']:.3f} ms; bound {m['bound_ms']:.4f} ms by {m['bound_by']} (bytes "
         f"{m['bytes']:.3e} -> {m['bytes_ms']:.4f} ms at 3.35 TB/s; FFT-form operations "
         f"{m['ops']:.3e} -> {m['ops_ms']:.4f} ms at 67 TFLOP/s f32); kernel at "
-        f"{100 * m['bound_ms'] / m['ms']:.1f} % of its bound; this design's DFT-form "
-        f"operations {m['dft_ops']:.3e} -> {m['dft_ops_ms']:.4f} ms")
+        f"{100 * m['bound_ms'] / m['ms']:.1f} % of its bound; the folded DFT this kernel "
+        f"computes {m['fold_ops']:.3e} operations -> {m['fold_ops_ms']:.4f} ms (kernel at "
+        f"{100 * m['fold_ops_ms'] / m['ms']:.1f} % of that floor); the dense DFT form of "
+        f"the earlier design {m['dft_ops']:.3e} -> {m['dft_ops_ms']:.4f} ms")
     return main, err
 
 

@@ -2,11 +2,13 @@
 
 The counterpart of ``das4whales_tpu.ops.pallas_stft``. The kernel is
 CUDA C++ for Hopper (``csrc/fused_stft.cu``, built by ``utils.build`` at
-first use): every frame's windowed real DFT as one framed contraction
-against ``_dft_matrix``, the frames built in shared memory from the
-span they cover, the power ``re² + im²`` fused before the write. Its
-plain version, :func:`stft_power_plain`, is ``F.pad`` + ``unfold`` +
-``torch.matmul`` against the same matrix. Both compute librosa's
+first use): every frame's windowed real DFT against ``_dft_matrix``,
+folded by the real DFT's two symmetries (it reads rows n <= nfft/2 and
+columns k <= nfft/4 of the matrix), the frames built in shared memory
+from the span they cover, the power ``re² + im²`` fused before the
+write. Its plain version, :func:`stft_power_plain`, is ``F.pad`` +
+``unfold`` + ``torch.matmul`` against the same matrix (all of it,
+unfolded). Both compute librosa's
 conventions (periodic Hann, centred zero padding,
 ``n_frames = 1 + T // hop``) and return ``[C, nfft//2 + 1, n_frames]``
 float32 power.
