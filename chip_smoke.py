@@ -66,6 +66,7 @@ import numpy as np
 #: (non-tensor-core) operations/s
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+SMS = 132
 
 CANONICAL = (22050, 12000)
 SEED = 2026
@@ -103,18 +104,23 @@ KERNELS = ("fused_picks", "fused_stft")
 #: frames a thread; the span fits in shared memory)
 STFT_MAIN_INSTANCE = (4, True)
 
+#: the pick kernel's instantiation at the main launch (untimed)
+PICKS_MAIN_INSTANCE = (False,)
 
-def stft_ptxas(report: str) -> dict:
-    """``{(R, span): (registers, spill store bytes, spill load bytes)}``
-    for each ``fused_stft_kernel<R, kSpan>`` in an ``nvcc -Xptxas -v``
-    report."""
+
+def ptxas_instances(report: str, kernel: str) -> dict:
+    """``{template arguments: (registers, spill store bytes, spill load
+    bytes)}`` for each instantiation of ``kernel`` in an ``nvcc -Xptxas -v``
+    report; int arguments read as ints, bool ones as bools."""
     import re
 
     out, cur, spill = {}, None, (0, 0)
     for line in report.splitlines():
-        m = re.search(r"Compiling entry function '\S*fused_stft_kernelILi(\d+)ELb([01])E", line)
+        m = re.search(rf"Compiling entry function '\S*{kernel}I((?:L[ib]\d+E)+)E", line)
         if m:
-            cur, spill = (int(m.group(1)), m.group(2) == "1"), (0, 0)
+            cur = tuple(v == "1" if t == "b" else int(v)
+                        for t, v in re.findall(r"L([ib])(\d+)E", m.group(1)))
+            spill = (0, 0)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and cur is not None:
@@ -124,6 +130,13 @@ def stft_ptxas(report: str) -> dict:
             out[cur] = (int(m.group(1)),) + spill
             cur = None
     return out
+
+
+def stft_ptxas(report: str) -> dict:
+    """``{(R, span): (registers, spill store bytes, spill load bytes)}``
+    for each ``fused_stft_kernel<R, kSpan>`` in an ``nvcc -Xptxas -v``
+    report."""
+    return ptxas_instances(report, "fused_stft_kernel")
 
 
 def phase_build():
@@ -147,6 +160,14 @@ def phase_build():
         f"{ld} B spill loads" for (r, sp), (regs, st, ld) in sorted(inst.items())))
     if any(inst[STFT_MAIN_INSTANCE][1:]):
         fail(f"build: fused_stft_kernel<{STFT_MAIN_INSTANCE}>, the main launch's, spills")
+    inst = ptxas_instances(built[KERNELS.index("fused_picks")][2], "fused_picks_kernel")
+    if PICKS_MAIN_INSTANCE not in inst:
+        fail(f"build: no ptxas report for fused_picks_kernel<{PICKS_MAIN_INSTANCE}>: {inst}")
+    say("build: fused_picks ptxas per instantiation (template arguments): " + "; ".join(
+        f"{args}: {regs} registers, {st} B spill stores, {ld} B spill loads"
+        for args, (regs, st, ld) in sorted(inst.items())))
+    if any(inst[PICKS_MAIN_INSTANCE][1:]):
+        fail(f"build: fused_picks_kernel<{PICKS_MAIN_INSTANCE}>, the main launch's, spills")
 
 
 def _kernel_modules() -> dict:
@@ -204,6 +225,30 @@ def _edge_rows(T: int, rng) -> tuple:
     return re, im, thr
 
 
+def _spikes(T: int, n: int, rng) -> np.ndarray:
+    """A row of zeros with n isolated spikes of random heights in [1, 2):
+    exactly n local maxima above a threshold of 0.5."""
+    row = np.zeros(T)
+    row[np.linspace(1, T - 2, n).round().astype(int)] = 1.0 + rng.random(n)
+    return row
+
+
+def _count_rows(T: int, K: int, rng) -> tuple:
+    """(re, im, thr) of two rows, with exactly K and K + 1 candidates."""
+    re = np.stack([_spikes(T, K, rng), _spikes(T, K + 1, rng)]).astype(np.float32)
+    return re, np.zeros_like(re), np.full(2, 0.5, np.float32)
+
+
+def _alternating_row(T: int, rng) -> tuple:
+    """(re, im, thr) of one row whose every odd sample but the last is a
+    local maximum above the threshold: T // 2 - 1 + T % 2 candidates, the
+    most a row can hold."""
+    re = np.zeros((1, T))
+    re[0, 1::2] = 1.0 + rng.random(len(re[0, 1::2]))
+    re = re.astype(np.float32)
+    return re, np.zeros_like(re), np.full(1, 0.5, np.float32)
+
+
 def _compare(a, b) -> float:
     """Bitwise equality of the five outputs; returns the max abs error
     over the finite float entries (0.0 when bitwise equal)."""
@@ -226,6 +271,36 @@ def _compare(a, b) -> float:
             bad = int((x != y).sum())
             fail(f"kernels: {name} differs from the plain version in {bad} entries")
     return err
+
+
+def _phase_split(stamps, kernel_ms: float) -> dict:
+    """Per-phase figures of one phase-timed launch from its stamps
+    ``[rows, 2, phases + 1]`` (``%globaltimer`` ns, ``clock64`` cycles)."""
+    from das4whales_tpu_torch.ops import fused_picks
+
+    st = stamps.cpu().numpy().astype(np.float64)
+    ns, clk = np.diff(st[:, 0], axis=1), np.diff(st[:, 1], axis=1)
+    cta_ns = st[:, 0, -1] - st[:, 0, 0]
+    span_ns = st[:, 0, -1].max() - st[:, 0, 0].min()
+    return dict(
+        phases={name: (float(ns[:, k].mean()), float(ns[:, k].max()), float(clk[:, k].mean()))
+                for k, name in enumerate(fused_picks.PHASES)},
+        cta_mean_ns=float(cta_ns.mean()), cta_max_ns=float(cta_ns.max()),
+        span_ns=float(span_ns), kernel_ms=kernel_ms,
+        ghz=float(clk.sum() / ns.sum()),
+        # CTAs resident on an SM, averaged over the launch's span
+        resident=float(cta_ns.sum() / span_ns / SMS))
+
+
+def _say_phase_split(label: str, sp: dict) -> None:
+    say(f"kernels: fused_picks phase split, {label} (thread 0 of each CTA; mean / max ns "
+        f"from %globaltimer, mean cycles from clock64): " + "; ".join(
+            f"{name} {m:.0f} / {mx:.0f} ns ({cyc:.0f} cyc)"
+            for name, (m, mx, cyc) in sp["phases"].items())
+        + f"; CTA {sp['cta_mean_ns']:.0f} mean / {sp['cta_max_ns']:.0f} max ns, first start "
+        f"to last end {sp['span_ns'] / 1e3:.2f} us against the timed launch's "
+        f"{sp['kernel_ms'] * 1e3:.2f} us (CUDA events); SM clock {sp['ghz']:.3f} GHz "
+        f"(cycles / ns); {sp['resident']:.2f} CTAs resident an SM on average")
 
 
 def phase_kernels():
@@ -256,23 +331,55 @@ def phase_kernels():
         plain_ms = _cuda_ms(lambda: fused_picks.picks_plain(X, thr, K, method), 3)
         bytes_ = rows * T * 8 + rows * 4 + rows * K * 13 + rows
         bound_ms = max(bytes_ / HBM_BYTES_PER_S, rows * T * 4 / F32_OPS_PER_S) * 1e3
+        # the phase-timed instantiation: the same outputs, then its split
+        t_out, _ = fused_picks.picks_cuda_timed(X, thr, K, method)
+        torch.cuda.synchronize()
+        err = max(err, _compare(t_out, p_out))
+        timed_ms = _cuda_ms(lambda: fused_picks.picks_cuda_timed(X, thr, K, method), 20)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, stamps = fused_picks.picks_cuda_timed(X, thr, K, method)
+        end.record()
+        torch.cuda.synchronize()
+        split = _phase_split(stamps, start.elapsed_time(end))
         out[method] = dict(K=K, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                           n_sel=n_sel, n_sat=n_sat)
+                           n_sel=n_sel, n_sat=n_sat, timed_ms=timed_ms, split=split)
     # edge rows at T and at a length that is no multiple of nb = 128
+    cases = []
     for TT in (T, T - 37):
-        re, im, ethr = _edge_rows(TT, rng)
+        cases.append((f"edge rows T={TT}", _edge_rows(TT, rng), (("pack", 64), ("topk", 256))))
+    for method, K in (("pack", 64), ("topk", 256)):
+        cases.append((f"K and K+1 candidates ({method} K={K})", _count_rows(T, K, rng),
+                      ((method, K),)))
+    cases.append(("every other sample a maximum", _alternating_row(T, rng),
+                  (("pack", 64), ("topk", 256))))
+    short = (rng.standard_normal((3, 40)).astype(np.float32),
+             rng.standard_normal((3, 40)).astype(np.float32),
+             np.asarray([0.5, 1.0, 1.5], np.float32))
+    cases.append(("T=40, 3 rows", short, (("pack", 64), ("topk", 256))))
+    for label, (re, im, ethr), runs in cases:
         Xe = torch.complex(torch.as_tensor(re, device=dev), torch.as_tensor(im, device=dev))
         te = torch.as_tensor(ethr, device=dev)
-        for method, K in (("pack", 64), ("topk", 256)):
-            err = max(err, _compare(fused_picks.picks_cuda(Xe, te, K, method),
-                                    fused_picks.picks_plain(Xe, te, K, method)))
+        for method, K in runs:
+            k_out = fused_picks.picks_cuda(Xe, te, K, method)
+            p_out = fused_picks.picks_plain(Xe, te, K, method)
+            torch.cuda.synchronize()
+            err = max(err, _compare(k_out, p_out))
+            if label.startswith("K and K+1"):
+                want = [False, True]
+                if k_out.saturated.tolist() != want:
+                    fail(f"kernels: {label}: saturated {k_out.saturated.tolist()}, want {want}")
     torch.cuda.synchronize()
     pk, tk = out["pack"], out["topk"]
     say(f"kernels: fused_picks == plain, bitwise on all five outputs (max_abs_err {err}); "
         f"1024x{T} pack K=64: {pk['ms']:.4f} ms (bound {pk['bound_ms']:.4f} ms, plain "
         f"{pk['plain_ms']:.3f} ms, {pk['n_sel']} selected, {pk['n_sat']} rows saturated); "
         f"topk K=256: {tk['ms']:.4f} ms (bound {tk['bound_ms']:.4f} ms, plain "
-        f"{tk['plain_ms']:.3f} ms, {tk['n_sel']} selected); edge rows at T={T} and {T - 37} equal")
+        f"{tk['plain_ms']:.3f} ms, {tk['n_sel']} selected); the timed instantiation "
+        f"{pk['timed_ms']:.4f} / {tk['timed_ms']:.4f} ms, equal too; cases "
+        + ", ".join(c[0] for c in cases) + " equal")
+    for method in ("pack", "topk"):
+        _say_phase_split(f"1024x{T} {method} K={out[method]['K']}", out[method]["split"])
     return out, err
 
 

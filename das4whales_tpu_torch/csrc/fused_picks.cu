@@ -216,12 +216,31 @@ __device__ float right_base_min(const float* env, const float* bmax,
   return m;
 }
 
+constexpr int kPhases = 6;
+
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// kTimed: thread 0 stamps %globaltimer and clock64 at the start and after
+// each phase's closing __syncthreads into stamps[row][2][kPhases + 1]
+template <bool kTimed>
 __global__ void __launch_bounds__(kThreads)
 fused_picks_kernel(const float2* __restrict__ X, const float* __restrict__ thr_in,
                    int32_t* __restrict__ pos_out, float* __restrict__ h_out,
                    float* __restrict__ prom_out, uint8_t* __restrict__ sel_out,
                    uint8_t* __restrict__ sat_out, int T, int K, int method,
-                   int nb) {
+                   int nb, long long* __restrict__ stamps) {
+  long long t_ns[kPhases + 1], t_clk[kPhases + 1];
+  auto stamp = [&](int k) {
+    if (kTimed && threadIdx.x == 0) {
+      t_ns[k] = global_ns();
+      t_clk[k] = clock64();
+    }
+  };
+  stamp(0);
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout L = make_layout(T, K, nb);
   float* env = reinterpret_cast<float*>(smem + L.env);
@@ -250,6 +269,7 @@ fused_picks_kernel(const float2* __restrict__ X, const float* __restrict__ thr_i
     flags[i] = 0;
   }
   __syncthreads();
+  stamp(1);
 
   // 2. per-block max/min tables
   for (int b = warp; b < B; b += kWarps) {
@@ -281,6 +301,7 @@ fused_picks_kernel(const float2* __restrict__ X, const float* __restrict__ thr_i
     }
   }
   __syncthreads();
+  stamp(2);
 
   // 4. candidates in time order: chunked count, block scan, compaction
   const int chunk = (T + kThreads - 1) / kThreads;
@@ -292,6 +313,7 @@ fused_picks_kernel(const float2* __restrict__ X, const float* __restrict__ thr_i
   for (int i = lo; i < hi; ++i)
     if (flags[i]) cand[w++] = i;
   __syncthreads();
+  stamp(3);
 
   // 5. slots
   int nS;
@@ -376,6 +398,7 @@ fused_picks_kernel(const float2* __restrict__ X, const float* __restrict__ thr_i
     }
   }
   __syncthreads();
+  stamp(4);
 
   // 6. exact prominences, one warp per slot
   for (int s = warp; s < K; s += kWarps) {
@@ -391,6 +414,7 @@ fused_picks_kernel(const float2* __restrict__ X, const float* __restrict__ thr_i
     }
   }
   __syncthreads();
+  stamp(5);
 
   // 7. outputs: pack keeps slot order; topk orders the slots by
   //    (selected ? position : T), stable in slot order
@@ -414,6 +438,37 @@ fused_picks_kernel(const float2* __restrict__ X, const float* __restrict__ thr_i
     sel_out[base + dst] = sel;
   }
   if (tid == 0) sat_out[row] = n_cand > K;
+  if (kTimed) {
+    __syncthreads();
+    stamp(6);
+    if (tid == 0) {
+      long long* out = stamps + row * 2 * (kPhases + 1);
+      for (int k = 0; k <= kPhases; ++k) {
+        out[k] = t_ns[k];
+        out[kPhases + 1 + k] = t_clk[k];
+      }
+    }
+  }
+}
+
+template <bool kTimed>
+int launch(const void* X, const void* thr, void* pos, void* heights, void* prom,
+           void* sel, void* sat, int rows, int T, int K, int method, int nb,
+           void* stamps, void* stream) {
+  const size_t bytes = make_layout(T, K, nb).bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_picks_kernel<kTimed>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  if (rows == 0) return 0;
+  fused_picks_kernel<kTimed>
+      <<<rows, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float2*>(X), static_cast<const float*>(thr),
+          static_cast<int32_t*>(pos), static_cast<float*>(heights),
+          static_cast<float*>(prom), static_cast<uint8_t*>(sel),
+          static_cast<uint8_t*>(sat), T, K, method, nb,
+          static_cast<long long*>(stamps));
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -443,18 +498,18 @@ const char* fused_picks_error_string(int code) {
 int fused_picks_launch(const void* X, const void* thr, void* pos, void* heights,
                        void* prom, void* sel, void* sat, int rows, int T, int K,
                        int method, int nb, void* stream) {
-  const size_t bytes = make_layout(T, K, nb).bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_picks_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  if (rows == 0) return 0;
-  fused_picks_kernel<<<rows, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(X), static_cast<const float*>(thr),
-      static_cast<int32_t*>(pos), static_cast<float*>(heights),
-      static_cast<float*>(prom), static_cast<uint8_t*>(sel),
-      static_cast<uint8_t*>(sat), T, K, method, nb);
-  return (int)cudaGetLastError();
+  return launch<false>(X, thr, pos, heights, prom, sel, sat, rows, T, K, method,
+                       nb, nullptr, stream);
+}
+
+// The phase-timed instantiation: the same outputs, and `stamps`
+// [rows, 2, kPhases + 1] int64 (%globaltimer ns, then clock64 cycles).
+int fused_picks_launch_timed(const void* X, const void* thr, void* pos,
+                             void* heights, void* prom, void* sel, void* sat,
+                             int rows, int T, int K, int method, int nb,
+                             void* stamps, void* stream) {
+  return launch<true>(X, thr, pos, heights, prom, sel, sat, rows, T, K, method,
+                      nb, stamps, stream);
 }
 
 }  // extern "C"

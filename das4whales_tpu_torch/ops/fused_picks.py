@@ -30,6 +30,9 @@ launches = 0
 
 _METHODS = {"pack": 0, "topk": 1}
 
+#: The kernel's phases, in order, as the timed instantiation stamps them.
+PHASES = ("load", "tables+maxima", "candidates", "slots", "prominences", "outputs")
+
 
 def _lib():
     from ..utils import build
@@ -37,6 +40,9 @@ def _lib():
     lib = build.load("fused_picks")
     lib.fused_picks_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.fused_picks_launch.restype = ctypes.c_int
+    lib.fused_picks_launch_timed.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
+    lib.fused_picks_launch_timed.restype = ctypes.c_int
     lib.fused_picks_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.fused_picks_smem_bytes.restype = ctypes.c_longlong
     lib.fused_picks_smem_limit.argtypes = []
@@ -52,6 +58,20 @@ def picks_cuda(X: torch.Tensor, thr: torch.Tensor, max_peaks: int,
     as float2 through ``torch.view_as_real``) with per-row thresholds
     ``thr [rows]``, on the current stream. Raises on what the kernel does
     not take and on a refused launch."""
+    return _launch(X, thr, max_peaks, method, nb, timed=False)[0]
+
+
+def picks_cuda_timed(X: torch.Tensor, thr: torch.Tensor, max_peaks: int,
+                     method: str, nb: int = 128):
+    """:func:`picks_cuda` through the kernel's phase-timed instantiation:
+    the same outputs, and ``stamps [rows, 2, len(PHASES) + 1]`` int64 —
+    per CTA, thread 0's ``%globaltimer`` (ns) and then ``clock64``
+    (cycles) at the start and after each phase of :data:`PHASES`. For
+    measurement only; the detectors never call it."""
+    return _launch(X, thr, max_peaks, method, nb, timed=True)
+
+
+def _launch(X, thr, max_peaks, method, nb, timed):
     global launches
     if not X.is_cuda:
         raise ValueError(f"the CUDA pick kernel needs a CUDA tensor, got one on {X.device}")
@@ -78,19 +98,21 @@ def picks_cuda(X: torch.Tensor, thr: torch.Tensor, max_peaks: int,
     prom = torch.empty((rows, K), dtype=torch.float32, device=dev)
     sel = torch.empty((rows, K), dtype=torch.bool, device=dev)
     sat = torch.empty((rows,), dtype=torch.bool, device=dev)
+    stamps = (torch.zeros((rows, 2, len(PHASES) + 1), dtype=torch.int64, device=dev)
+              if timed else None)
+    args = (Xr.data_ptr(), thr.data_ptr(), pos.data_ptr(), heights.data_ptr(),
+            prom.data_ptr(), sel.data_ptr(), sat.data_ptr(),
+            rows, T, K, _METHODS[method], nb)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fused_picks_launch(
-            Xr.data_ptr(), thr.data_ptr(), pos.data_ptr(), heights.data_ptr(),
-            prom.data_ptr(), sel.data_ptr(), sat.data_ptr(),
-            rows, T, K, _METHODS[method], nb, stream,
-        )
+        rc = (lib.fused_picks_launch_timed(*args, stamps.data_ptr(), stream) if timed
+              else lib.fused_picks_launch(*args, stream))
     if rc != 0:
         raise RuntimeError(
             f"fused_picks kernel launch failed: {lib.fused_picks_error_string(rc).decode()}"
         )
     launches += 1
-    return peak_ops.SparsePicks(pos, heights, prom, sel, sat)
+    return peak_ops.SparsePicks(pos, heights, prom, sel, sat), stamps
 
 
 def picks_plain(X: torch.Tensor, thr: torch.Tensor, max_peaks: int,
