@@ -12,12 +12,16 @@ failed check; no phase's failure is caught:
                 CUDA versions; no CUDA device -> exit 1, nothing else runs;
 2. ``build``    the ``nvcc`` builds of ``csrc/fused_picks.cu`` and
                 ``csrc/fused_stft.cu``, started together, each one's seconds
-                and ptxas line, then the STFT kernel's registers and spills
-                per instantiation (the main launch's must not spill);
+                and ptxas line, then both kernels' registers and spills per
+                instantiation (the main launches' must not spill);
 3. ``kernels``  the fused pick kernel against its plain PyTorch version on
                 the card, at the main path's shapes (1024 rows x 12000
-                samples, ``pack`` K=64 and ``topk`` K=256) and on edge rows;
-                all five outputs must be bitwise equal; times, bound;
+                samples, ``pack`` K=64 and ``topk`` K=256) and on edge rows
+                (plateaus, ties, K and K+1 candidates, every other sample a
+                maximum, T = 40); all five outputs must be bitwise equal;
+                the device time a launch (profiler), the bound, the CTAs an
+                SM (at least the design's), and the phase split of the
+                kernel's phase-timed instantiation;
 4. ``detect``   ``MatchedFilterDetector.detect_picks`` on the canonical OOI
                 block, 22050 channels x 12000 samples at 200 Hz, raw int32
                 counts, the ``fin`` bank, injected calls: one warm-up, three
@@ -104,8 +108,11 @@ KERNELS = ("fused_picks", "fused_stft")
 #: frames a thread; the span fits in shared memory)
 STFT_MAIN_INSTANCE = (4, True)
 
-#: the pick kernel's instantiation at the main launch (untimed)
-PICKS_MAIN_INSTANCE = (False,)
+#: the pick kernel's instantiation at the main launch (pack, untimed), and
+#: the CTAs an SM its design holds for each method at the main launch's
+#: row length (pack K=64, topk K=256)
+PICKS_MAIN_INSTANCE = (0, False)
+PICKS_CTAS_PER_SM = {"pack": 4, "topk": 3}
 
 
 def ptxas_instances(report: str, kernel: str) -> dict:
@@ -225,6 +232,32 @@ def _edge_rows(T: int, rng) -> tuple:
     return re, im, thr
 
 
+def _device_ms(fn, reps: int, kernel: str) -> float:
+    """Device time of one launch of ``kernel``: its CUPTI records under
+    ``torch.profiler`` over ``reps`` calls of ``fn``, after one warm-up.
+    Unlike CUDA events around the calls, it leaves out the host's time
+    per call, which a kernel shorter than the wrapper's own work would
+    otherwise show."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us, n = 0.0, 0
+    for ev in prof.key_averages():
+        if str(getattr(ev, "device_type", "")).endswith("CUDA") and kernel in ev.key:
+            t = getattr(ev, "self_device_time_total", None)
+            us += t if t is not None else getattr(ev, "self_cuda_time_total", 0.0)
+            n += ev.count
+    if n != reps or us <= 0:
+        fail(f"kernels: the profiler recorded {n} launches of {kernel} ({us} us) in {reps} calls")
+    return us / n / 1e3
+
+
 def _spikes(T: int, n: int, rng) -> np.ndarray:
     """A row of zeros with n isolated spikes of random heights in [1, 2):
     exactly n local maxima above a threshold of 0.5."""
@@ -297,10 +330,11 @@ def _say_phase_split(label: str, sp: dict) -> None:
         f"from %globaltimer, mean cycles from clock64): " + "; ".join(
             f"{name} {m:.0f} / {mx:.0f} ns ({cyc:.0f} cyc)"
             for name, (m, mx, cyc) in sp["phases"].items())
-        + f"; CTA {sp['cta_mean_ns']:.0f} mean / {sp['cta_max_ns']:.0f} max ns, first start "
-        f"to last end {sp['span_ns'] / 1e3:.2f} us against the timed launch's "
-        f"{sp['kernel_ms'] * 1e3:.2f} us (CUDA events); SM clock {sp['ghz']:.3f} GHz "
-        f"(cycles / ns); {sp['resident']:.2f} CTAs resident an SM on average")
+        + f"; CTA {sp['cta_mean_ns']:.0f} mean / {sp['cta_max_ns']:.0f} max ns; first start "
+        f"to last end {sp['span_ns'] / 1e3:.2f} us against {sp['kernel_ms'] * 1e3:.2f} us a "
+        f"launch of the timed instantiation (profiler, 20 launches); SM clock "
+        f"{sp['ghz']:.3f} GHz (cycles / ns); {sp['resident']:.2f} CTAs resident an SM on "
+        f"average")
 
 
 def phase_kernels():
@@ -327,7 +361,8 @@ def phase_kernels():
         n_sat = int(k_out.saturated.sum())
         if n_sel == 0:
             fail(f"kernels: {method} selected nothing; the comparison proves nothing")
-        ms = _cuda_ms(lambda: fused_picks.picks_cuda(X, thr, K, method), 20)
+        ms = _device_ms(lambda: fused_picks.picks_cuda(X, thr, K, method), 20, "fused_picks")
+        call_ms = _cuda_ms(lambda: fused_picks.picks_cuda(X, thr, K, method), 20)
         plain_ms = _cuda_ms(lambda: fused_picks.picks_plain(X, thr, K, method), 3)
         bytes_ = rows * T * 8 + rows * 4 + rows * K * 13 + rows
         bound_ms = max(bytes_ / HBM_BYTES_PER_S, rows * T * 4 / F32_OPS_PER_S) * 1e3
@@ -335,15 +370,16 @@ def phase_kernels():
         t_out, _ = fused_picks.picks_cuda_timed(X, thr, K, method)
         torch.cuda.synchronize()
         err = max(err, _compare(t_out, p_out))
-        timed_ms = _cuda_ms(lambda: fused_picks.picks_cuda_timed(X, thr, K, method), 20)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
+        timed_ms = _device_ms(lambda: fused_picks.picks_cuda_timed(X, thr, K, method), 20,
+                              "fused_picks")
         _, stamps = fused_picks.picks_cuda_timed(X, thr, K, method)
-        end.record()
-        torch.cuda.synchronize()
-        split = _phase_split(stamps, start.elapsed_time(end))
-        out[method] = dict(K=K, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                           n_sel=n_sel, n_sat=n_sat, timed_ms=timed_ms, split=split)
+        split = _phase_split(stamps, timed_ms)
+        ctas = fused_picks.ctas_per_sm(T, K, method)
+        if ctas < PICKS_CTAS_PER_SM[method]:
+            fail(f"kernels: fused_picks {method} K={K} fits {ctas} CTAs an SM, its design "
+                 f"{PICKS_CTAS_PER_SM[method]}")
+        out[method] = dict(K=K, ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           n_sel=n_sel, n_sat=n_sat, timed_ms=timed_ms, split=split, ctas=ctas)
     # edge rows at T and at a length that is no multiple of nb = 128
     cases = []
     for TT in (T, T - 37):
@@ -372,10 +408,12 @@ def phase_kernels():
     torch.cuda.synchronize()
     pk, tk = out["pack"], out["topk"]
     say(f"kernels: fused_picks == plain, bitwise on all five outputs (max_abs_err {err}); "
-        f"1024x{T} pack K=64: {pk['ms']:.4f} ms (bound {pk['bound_ms']:.4f} ms, plain "
-        f"{pk['plain_ms']:.3f} ms, {pk['n_sel']} selected, {pk['n_sat']} rows saturated); "
-        f"topk K=256: {tk['ms']:.4f} ms (bound {tk['bound_ms']:.4f} ms, plain "
-        f"{tk['plain_ms']:.3f} ms, {tk['n_sel']} selected); the timed instantiation "
+        f"device time a launch (profiler): 1024x{T} pack K=64: {pk['ms']:.4f} ms (a call, "
+        f"CUDA events: {pk['call_ms']:.4f} ms; bound {pk['bound_ms']:.4f} ms, plain "
+        f"{pk['plain_ms']:.3f} ms, {pk['n_sel']} selected, {pk['n_sat']} rows saturated, "
+        f"{pk['ctas']} CTAs an SM); topk K=256: {tk['ms']:.4f} ms (a call {tk['call_ms']:.4f} "
+        f"ms; bound {tk['bound_ms']:.4f} ms, plain {tk['plain_ms']:.3f} ms, {tk['n_sel']} "
+        f"selected, {tk['ctas']} CTAs an SM); the timed instantiation "
         f"{pk['timed_ms']:.4f} / {tk['timed_ms']:.4f} ms, equal too; cases "
         + ", ".join(c[0] for c in cases) + " equal")
     for method in ("pack", "topk"):

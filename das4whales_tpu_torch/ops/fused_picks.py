@@ -16,6 +16,7 @@ outside the kernel, on ``torch.fft``, as the JAX package leaves it to XLA.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -34,6 +35,7 @@ _METHODS = {"pack": 0, "topk": 1}
 PHASES = ("load", "tables+maxima", "candidates", "slots", "prominences", "outputs")
 
 
+@functools.lru_cache(maxsize=None)
 def _lib():
     from ..utils import build
 
@@ -47,6 +49,8 @@ def _lib():
     lib.fused_picks_smem_bytes.restype = ctypes.c_longlong
     lib.fused_picks_smem_limit.argtypes = []
     lib.fused_picks_smem_limit.restype = ctypes.c_int
+    lib.fused_picks_ctas_per_sm.argtypes = [ctypes.c_int] * 4
+    lib.fused_picks_ctas_per_sm.restype = ctypes.c_int
     lib.fused_picks_error_string.argtypes = [ctypes.c_int]
     lib.fused_picks_error_string.restype = ctypes.c_char_p
     return lib
@@ -69,6 +73,16 @@ def picks_cuda_timed(X: torch.Tensor, thr: torch.Tensor, max_peaks: int,
     (cycles) at the start and after each phase of :data:`PHASES`. For
     measurement only; the detectors never call it."""
     return _launch(X, thr, max_peaks, method, nb, timed=True)
+
+
+def ctas_per_sm(T: int, max_peaks: int, method: str, nb: int = 128) -> int:
+    """CTAs of the kernel that fit on one SM at once for rows of ``T``
+    samples (CUDA's occupancy calculator: registers, threads, shared
+    memory)."""
+    n = _lib().fused_picks_ctas_per_sm(T, min(int(max_peaks), T), _METHODS[method], nb)
+    if n < 0:
+        raise RuntimeError("fused_picks: the occupancy query failed")
+    return n
 
 
 def _launch(X, thr, max_peaks, method, nb, timed):
@@ -98,7 +112,7 @@ def _launch(X, thr, max_peaks, method, nb, timed):
     prom = torch.empty((rows, K), dtype=torch.float32, device=dev)
     sel = torch.empty((rows, K), dtype=torch.bool, device=dev)
     sat = torch.empty((rows,), dtype=torch.bool, device=dev)
-    stamps = (torch.zeros((rows, 2, len(PHASES) + 1), dtype=torch.int64, device=dev)
+    stamps = (torch.empty((rows, 2, len(PHASES) + 1), dtype=torch.int64, device=dev)
               if timed else None)
     args = (Xr.data_ptr(), thr.data_ptr(), pos.data_ptr(), heights.data_ptr(),
             prom.data_ptr(), sel.data_ptr(), sat.data_ptr(),

@@ -198,3 +198,221 @@ def test_magnitude_is_the_kernel_envelope():
                       torch.from_numpy(rng.normal(size=50).astype(np.float32)))
     np.testing.assert_array_equal(tspec.magnitude_sqrt(z).numpy(),
                                   np.sqrt(z.real.numpy() ** 2 + z.imag.numpy() ** 2))
+
+
+# --- a numpy model of the CUDA kernel's candidate logic -----------------------
+# csrc/fused_picks.cu keeps one candidate bit a sample in 32-bit words, ranks
+# the candidates by a scan of the words' popcounts, packs rank s < K into slot
+# s, and for topk runs an 8-bit radix select over the set bits. The model below
+# follows those steps; check a change of the kernel's candidate logic here
+# first, against JAX's Pallas kernel and the port's plain version.
+
+
+def _popcount(words):
+    return np.unpackbits(words.view(np.uint8)).reshape(len(words), 32).sum(axis=1)
+
+
+def _order_key(v):
+    """float32 -> uint32 with the same order, as the kernel's order_key."""
+    u = np.asarray(v, np.float32).view(np.uint32)
+    return np.where(u & np.uint32(0x80000000), ~u, u | np.uint32(0x80000000))
+
+
+def _candidate_words(x, thr):
+    """The maxima sweep: the sample at a strict rise walks its run; a run
+    that falls again sets the bit of its floor-midpoint."""
+    T = len(x)
+    words = np.zeros(-(-T // 32), np.uint32)
+    for i in np.nonzero((x[1:-1] > x[:-2]) & (x[1:-1] >= thr))[0] + 1:
+        j = i + 1
+        while j < T and x[j] == x[i]:
+            j += 1
+        if j < T and x[j] < x[i]:
+            mid = (i + j - 1) >> 1
+            words[mid >> 5] |= np.uint32(1 << (mid & 31))
+    return words
+
+
+def _ranked_candidates(words):
+    """(positions, ranks, n_cand) from the words' exclusive popcount scan:
+    each candidate's rank is its word's base plus the set bits below it."""
+    counts = _popcount(words)
+    base = np.cumsum(counts) - counts
+    pos, rank = [], []
+    for w in np.nonzero(words)[0]:
+        for b in range(32):
+            if int(words[w]) >> b & 1:
+                below = np.uint32(int(words[w]) & ((1 << b) - 1))
+                pos.append(32 * w + b)
+                rank.append(int(base[w]) + int(_popcount(np.asarray([below]))[0]))
+    return np.asarray(pos, np.int64), np.asarray(rank, np.int64), int(counts.sum())
+
+
+def _radix_select(keys, K):
+    """Which of ``keys`` (rank order) the kernel keeps: the K largest, of the
+    keys equal to the K-th the first ones in rank order."""
+    prefix, mask, k_rem = 0, 0, K
+    for shift in (24, 16, 8, 0):
+        live = keys[(keys & np.uint32(mask)) == np.uint32(prefix)]
+        hist = np.bincount((live >> np.uint32(shift)) & np.uint32(255), minlength=256)
+        above, b = 0, 255
+        while b > 0 and above + hist[b] < k_rem:
+            above += hist[b]
+            b -= 1
+        k_rem -= above
+        prefix |= b << shift
+        mask |= 255 << shift
+    eq = keys == np.uint32(prefix)
+    return (keys > np.uint32(prefix)) | (eq & (np.cumsum(eq) <= k_rem))
+
+
+def _base_min(x, p, h, step):
+    """scipy's base: the min of x from p to the first sample past it (in
+    direction ``step``) that is above h, or to the edge."""
+    side = x[p::step] if step > 0 else x[p::-1]
+    above = np.nonzero(side[1:] > h)[0]
+    return side[: above[0] + 1 if len(above) else len(side)].min()
+
+
+def _bitmask_model(env, thr, K, method):
+    """The five outputs of the kernel as its candidate bitmask computes them
+    from the envelope ``env [rows, T]`` float32."""
+    rows, T = env.shape
+    K = min(K, T)
+    out = dict(positions=np.zeros((rows, K), np.int32),
+               heights=np.zeros((rows, K), np.float32),
+               prominences=np.zeros((rows, K), np.float32),
+               selected=np.zeros((rows, K), bool), saturated=np.zeros(rows, bool))
+    for r in range(rows):
+        x = env[r]
+        pos, rank, n_cand = _ranked_candidates(_candidate_words(x, thr[r]))
+        np.testing.assert_array_equal(rank, np.arange(n_cand))   # time order
+        if method == "pack":
+            slots = pos[:K]
+        else:
+            keys = _order_key(x[pos])
+            kept = pos if n_cand <= K else pos[_radix_select(keys, K)]
+            kept_keys = _order_key(x[kept])
+            slots = kept[np.lexsort((kept, ~kept_keys))]      # height desc, index asc
+        nS = len(slots)
+        slot_pos = np.zeros(K, np.int64)
+        slot_pos[:nS] = slots
+        h = np.full(K, -np.inf, np.float32)
+        h[:nS] = x[slots]
+        prom = np.full(K, np.float32(-np.inf) - x[0], np.float32)
+        for s in range(nS):
+            p = int(slot_pos[s])
+            prom[s] = h[s] - max(_base_min(x, p, h[s], -1), _base_min(x, p, h[s], 1))
+        sel = (np.arange(K) < nS) & (prom >= thr[r])
+        key = np.where(sel, slot_pos, T)
+        order = np.arange(K) if method == "pack" else np.argsort(key, kind="stable")
+        out["positions"][r] = key[order]
+        out["heights"][r] = h[order]
+        out["prominences"][r] = prom[order]
+        out["selected"][r] = sel[order]
+        out["saturated"][r] = n_cand > K
+    return tfused.peak_ops.SparsePicks(*(torch.from_numpy(out[f]) for f in (
+        "positions", "heights", "prominences", "selected", "saturated")))
+
+
+def _spike_row(T, n, rng):
+    """Zeros with n isolated spikes in [1, 2): exactly n candidates above 0.5."""
+    row = np.zeros(T, np.float32)
+    row[np.linspace(1, T - 2, n).round().astype(int)] = 1.0 + rng.random(n)
+    return row
+
+
+def _model_rows(T, K, seed):
+    """(re, im, thr): random analytic rows over a spread of thresholds, rows
+    with exactly K and K + 1 candidates, and at T = 1000 the special rows."""
+    rng = np.random.default_rng(seed)
+    re = [(2.0 * rng.normal(size=T)) for _ in range(4)]
+    im = [(2.0 * rng.normal(size=T)) for _ in range(4)]
+    thr = [0.05, 1.0, 2.5, 4.0]
+    for n in (K, K + 1):
+        re.append(_spike_row(T, n, rng))
+        im.append(np.zeros(T))
+        thr.append(0.5)
+    if T == 1000:
+        env, sthr = _special_rows(T)
+        re += list(env)
+        im += [np.zeros(T)] * len(env)
+        thr += list(sthr)
+    return (np.stack(re).astype(np.float32), np.stack(im).astype(np.float32),
+            np.asarray(thr, np.float32))
+
+
+_PALLAS_CASES = {(1, 1000), (8, 963), (64, 1000), (256, 963)}
+
+
+@pytest.mark.parametrize("T", [1000, 963])
+@pytest.mark.parametrize("K", [1, 8, 64, 256])
+@pytest.mark.parametrize("method", ["pack", "topk"])
+def test_bitmask_model_matches_pallas_kernel_and_plain(method, K, T):
+    """The kernel's candidate bitmask, modelled in numpy, gives the plain
+    version's five outputs bit for bit, and JAX's Pallas kernel's picks
+    (for each K at one of the two lengths)."""
+    re, im, thr = _model_rows(T, K, seed=T + K)
+    X = torch.complex(torch.from_numpy(re), torch.from_numpy(im))
+    # the port's envelope: torch's CPU sqrt is not correctly rounded
+    # everywhere (an ulp low on about 1 sample in 140 here), where numpy's
+    # and the card's __fsqrt_rn are; the model is about candidates, not that
+    model = _bitmask_model(tspec.magnitude_sqrt(X).numpy(), thr, K, method)
+    plain = tfused.picks_plain(X, torch.from_numpy(thr), K, method)
+    for f in ("positions", "heights", "prominences", "selected", "saturated"):
+        np.testing.assert_array_equal(getattr(model, f).numpy(), getattr(plain, f).numpy(),
+                                      err_msg=f)
+    if (K, T) in _PALLAS_CASES:                  # each K once: interpret mode is slow
+        j = _j32(jpallas.envelope_peaks_sparse, re, im, thr, max_peaks=K, method=method,
+                 interpret=True)
+        _assert_same_picks(model, j)
+    sat = model.saturated.numpy()
+    assert not sat[4] and sat[5]                  # exactly K, then K + 1 candidates
+    assert int(model.selected.sum()) > 0
+
+
+def test_timed_kernel_needs_cuda_and_names_its_phases():
+    """The phase-timed entry routes like the kernel's: a CPU tensor raises
+    (it never falls back to the plain version); its stamps carry one
+    column per phase boundary."""
+    X = torch.zeros((2, 100), dtype=torch.complex64)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tfused.picks_cuda_timed(X, torch.zeros(2), 8, "pack")
+    assert tfused.PHASES == ("load", "tables+maxima", "candidates", "slots",
+                             "prominences", "outputs")
+
+
+def test_chip_smoke_reads_the_phase_stamps():
+    """chip_smoke.py's split of the timed launch: per phase the mean and max
+    of the %globaltimer differences and the mean clock64 cycles, the CTA
+    time, the launch's span and the CTAs resident an SM."""
+    import chip_smoke
+
+    P = len(tfused.PHASES)
+    ns = np.zeros((2, P + 1), np.int64)
+    ns[0] = 1000 + np.arange(P + 1) * 100             # CTA 0: 100 ns a phase
+    ns[1] = 1300 + np.arange(P + 1) * 300             # CTA 1: 300 ns a phase
+    stamps = torch.from_numpy(np.stack([ns, 2 * ns], axis=1))   # 2 cycles a ns
+    sp = chip_smoke._phase_split(stamps, 0.005)
+    assert sp["phases"]["load"] == (200.0, 300.0, 400.0)
+    assert sp["cta_mean_ns"] == 200.0 * P and sp["cta_max_ns"] == 300.0 * P
+    assert sp["span_ns"] == 1300 + 300 * P - 1000 and sp["ghz"] == 2.0
+    assert sp["resident"] == pytest.approx(400 * P / sp["span_ns"] / chip_smoke.SMS)
+
+
+def test_chip_smoke_reads_the_pick_kernels_ptxas():
+    """chip_smoke.py reads registers and spills of each
+    ``fused_picks_kernel<method, timed>``, to show that the main launch's
+    ``pack`` instantiation does not spill."""
+    import chip_smoke
+
+    fn = "_ZN46_GLOBAL__N__0e7b6d0a_14_fused_picks_cu_b1f9c1a118fused_picks_kernelILi{}ELb{}EEEvPK6float2PKfPiPfS7_PhS8_iiiPx"
+    report = "\n".join(
+        line for m, t, regs, spill in ((0, 0, 56, 0), (1, 1, 72, 8)) for line in (
+            f"ptxas info    : Compiling entry function '{fn.format(m, t)}' for 'sm_90a'",
+            f"ptxas info    : Function properties for {fn.format(m, t)}",
+            f"    0 bytes stack frame, {spill} bytes spill stores, {spill} bytes spill loads",
+            f"ptxas info    : Used {regs} registers, used 1 barriers"))
+    got = chip_smoke.ptxas_instances(report, "fused_picks_kernel")
+    assert got == {(0, False): (56, 0, 0), (1, True): (72, 8, 8)}
+    assert chip_smoke.PICKS_MAIN_INSTANCE == (0, False)
