@@ -19,9 +19,11 @@ failed check; no phase's failure is caught:
                 samples, ``pack`` K=64 and ``topk`` K=256) and on edge rows
                 (plateaus, ties, K and K+1 candidates, every other sample a
                 maximum, T = 40); all five outputs must be bitwise equal;
-                the device time a launch (profiler), the bound, the CTAs an
-                SM (at least the design's), and the phase split of the
-                kernel's phase-timed instantiation;
+                a call's time by CUDA events (the kernel table's ``ms``),
+                the device time a launch (profiler, ``device_ms``) and the
+                host time a call, the bound, the CTAs an SM (at least the
+                design's), and the phase split of the kernel's phase-timed
+                instantiation;
 4. ``detect``   ``MatchedFilterDetector.detect_picks`` on the canonical OOI
                 block, 22050 channels x 12000 samples at 200 Hz, raw int32
                 counts, the ``fin`` bank, injected calls: one warm-up, three
@@ -38,8 +40,9 @@ failed check; no phase's failure is caught:
                 and on edge cases (1570 channels, T = 11963, center=False,
                 window="ones", hop = nfft, T < nfft, spans past 48 KB at
                 nfft 1024 and 2048, odd nfft 65, nfft 162 with no
-                self-paired bin); each within 5e-6 * max|reference|; times,
-                the bound and the dense and folded DFT forms;
+                self-paired bin); each within 5e-6 * max|reference|; times
+                (a call, and the device time a launch), the bound and the
+                dense and folded DFT forms;
 7. ``spectro``  ``SpectroEvalAdapter(MatchedFilterDetector.from_design(...),
                 SpectroCorrDetector(meta))`` on the ``detect`` phase's scene,
                 conditioned on the host: one warm-up, three timed runs,
@@ -139,13 +142,6 @@ def ptxas_instances(report: str, kernel: str) -> dict:
     return out
 
 
-def stft_ptxas(report: str) -> dict:
-    """``{(R, span): (registers, spill store bytes, spill load bytes)}``
-    for each ``fused_stft_kernel<R, kSpan>`` in an ``nvcc -Xptxas -v``
-    report."""
-    return ptxas_instances(report, "fused_stft_kernel")
-
-
 def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
@@ -159,7 +155,7 @@ def phase_build():
         fma = "-fmad=false" if "-fmad=false" in build.nvcc_flags(name) else "FMA contraction on"
         say(f"build: csrc/{name}.cu -> {path.name} in {seconds:.2f} s "
             f"(nvcc sm_90a, {fma}; {ptxas or 'no ptxas report'})")
-    inst = stft_ptxas(built[KERNELS.index("fused_stft")][2])
+    inst = ptxas_instances(built[KERNELS.index("fused_stft")][2], "fused_stft_kernel")
     if STFT_MAIN_INSTANCE not in inst:
         fail(f"build: no ptxas report for fused_stft_kernel<{STFT_MAIN_INSTANCE}>: {inst}")
     say("build: fused_stft ptxas per instantiation (R, span): " + "; ".join(
@@ -194,6 +190,9 @@ def read_launches() -> dict:
 
 
 def _cuda_ms(fn, reps: int) -> float:
+    """Time of one call of ``fn``: CUDA events around ``reps`` calls in a
+    row, after one warm-up. Where the host takes longer over a call than
+    the card, this is the host's time a call."""
     import torch
 
     fn()
@@ -232,12 +231,28 @@ def _edge_rows(T: int, rng) -> tuple:
     return re, im, thr
 
 
+def _host_us(fn, reps: int) -> float:
+    """Host time of one call of ``fn`` in microseconds, over ``reps`` calls
+    that are not waited for (the launch queue holds them)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def _device_ms(fn, reps: int, kernel: str) -> float:
     """Device time of one launch of ``kernel``: its CUPTI records under
     ``torch.profiler`` over ``reps`` calls of ``fn``, after one warm-up.
-    Unlike CUDA events around the calls, it leaves out the host's time
-    per call, which a kernel shorter than the wrapper's own work would
-    otherwise show."""
+    Unlike CUDA events around the calls (:func:`_cuda_ms`), it leaves out
+    the host's time a call where that is the longer. The mean is over the
+    launches the profiler kept: it has dropped the last few records of a
+    long run (17 of 20 launches of 4.6 ms each, once)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -253,7 +268,7 @@ def _device_ms(fn, reps: int, kernel: str) -> float:
             t = getattr(ev, "self_device_time_total", None)
             us += t if t is not None else getattr(ev, "self_cuda_time_total", 0.0)
             n += ev.count
-    if n != reps or us <= 0:
+    if not 0 < n <= reps or us <= 0:
         fail(f"kernels: the profiler recorded {n} launches of {kernel} ({us} us) in {reps} calls")
     return us / n / 1e3
 
@@ -361,8 +376,10 @@ def phase_kernels():
         n_sat = int(k_out.saturated.sum())
         if n_sel == 0:
             fail(f"kernels: {method} selected nothing; the comparison proves nothing")
-        ms = _device_ms(lambda: fused_picks.picks_cuda(X, thr, K, method), 20, "fused_picks")
-        call_ms = _cuda_ms(lambda: fused_picks.picks_cuda(X, thr, K, method), 20)
+        ms = _cuda_ms(lambda: fused_picks.picks_cuda(X, thr, K, method), 20)
+        device_ms = _device_ms(lambda: fused_picks.picks_cuda(X, thr, K, method), 20,
+                               "fused_picks")
+        host_us = _host_us(lambda: fused_picks.picks_cuda(X, thr, K, method), 200)
         plain_ms = _cuda_ms(lambda: fused_picks.picks_plain(X, thr, K, method), 3)
         bytes_ = rows * T * 8 + rows * 4 + rows * K * 13 + rows
         bound_ms = max(bytes_ / HBM_BYTES_PER_S, rows * T * 4 / F32_OPS_PER_S) * 1e3
@@ -378,7 +395,8 @@ def phase_kernels():
         if ctas < PICKS_CTAS_PER_SM[method]:
             fail(f"kernels: fused_picks {method} K={K} fits {ctas} CTAs an SM, its design "
                  f"{PICKS_CTAS_PER_SM[method]}")
-        out[method] = dict(K=K, ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        out[method] = dict(K=K, ms=ms, device_ms=device_ms, host_us=host_us, plain_ms=plain_ms,
+                           bound_ms=bound_ms,
                            n_sel=n_sel, n_sat=n_sat, timed_ms=timed_ms, split=split, ctas=ctas)
     # edge rows at T and at a length that is no multiple of nb = 128
     cases = []
@@ -408,13 +426,14 @@ def phase_kernels():
     torch.cuda.synchronize()
     pk, tk = out["pack"], out["topk"]
     say(f"kernels: fused_picks == plain, bitwise on all five outputs (max_abs_err {err}); "
-        f"device time a launch (profiler): 1024x{T} pack K=64: {pk['ms']:.4f} ms (a call, "
-        f"CUDA events: {pk['call_ms']:.4f} ms; bound {pk['bound_ms']:.4f} ms, plain "
-        f"{pk['plain_ms']:.3f} ms, {pk['n_sel']} selected, {pk['n_sat']} rows saturated, "
-        f"{pk['ctas']} CTAs an SM); topk K=256: {tk['ms']:.4f} ms (a call {tk['call_ms']:.4f} "
-        f"ms; bound {tk['bound_ms']:.4f} ms, plain {tk['plain_ms']:.3f} ms, {tk['n_sel']} "
+        f"a call (CUDA events, 20 in a row) / device time a launch (profiler) / host time a "
+        f"call: 1024x{T} pack K=64: {pk['ms']:.4f} / {pk['device_ms']:.4f} ms / "
+        f"{pk['host_us']:.1f} us (bound {pk['bound_ms']:.4f} ms, plain {pk['plain_ms']:.3f} "
+        f"ms, {pk['n_sel']} selected, {pk['n_sat']} rows saturated, {pk['ctas']} CTAs an "
+        f"SM); topk K=256: {tk['ms']:.4f} / {tk['device_ms']:.4f} ms / {tk['host_us']:.1f} us "
+        f"(bound {tk['bound_ms']:.4f} ms, plain {tk['plain_ms']:.3f} ms, {tk['n_sel']} "
         f"selected, {tk['ctas']} CTAs an SM); the timed instantiation "
-        f"{pk['timed_ms']:.4f} / {tk['timed_ms']:.4f} ms, equal too; cases "
+        f"{pk['timed_ms']:.4f} / {tk['timed_ms']:.4f} ms of device time, equal too; cases "
         + ", ".join(c[0] for c in cases) + " equal")
     for method in ("pack", "topk"):
         _say_phase_split(f"1024x{T} {method} K={out[method]['K']}", out[method]["split"])
@@ -737,6 +756,8 @@ def phase_stft_kernel():
         if main is None:
             main = dict(
                 ms=_cuda_ms(lambda: fused_stft.stft_power_cuda(x, nfft, hop, **kw), 20),
+                device_ms=_device_ms(lambda: fused_stft.stft_power_cuda(x, nfft, hop, **kw),
+                                     20, "fused_stft"),
                 plain_ms=_cuda_ms(lambda: fused_stft.stft_power_plain(x, nfft, hop, **kw), 5),
                 library_ms=_cuda_ms(lambda: _torch_stft_power(x, nfft, hop, window, center), 10),
                 **_stft_bounds(C, T, nfft, hop, center))
@@ -745,7 +766,7 @@ def phase_stft_kernel():
     say(f"stft_kernel: fused_stft within {STFT_REL_TOL} * max of its plain version and of "
         f"torch.stft power on all {len(cases)} cases (relative max error plain / torch.stft: "
         f"{'; '.join(notes)}); max_abs_err vs plain {err:.3e}; 4096x12000 nfft {NFFT} hop {HOP}: "
-        f"kernel {m['ms']:.4f} ms, plain {m['plain_ms']:.3f} ms, torch.stft + power "
+        f"kernel {m['ms']:.4f} ms a call (device time {m['device_ms']:.4f} ms), plain {m['plain_ms']:.3f} ms, torch.stft + power "
         f"{m['library_ms']:.3f} ms; bound {m['bound_ms']:.4f} ms by {m['bound_by']} (bytes "
         f"{m['bytes']:.3e} -> {m['bytes_ms']:.4f} ms at 3.35 TB/s; FFT-form operations "
         f"{m['ops']:.3e} -> {m['ops_ms']:.4f} ms at 67 TFLOP/s f32); kernel at "
@@ -921,6 +942,7 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": err,
         "ms": pk["ms"],
+        "device_ms": pk["device_ms"],
         "plain_ms": pk["plain_ms"],
         "bound_ms": pk["bound_ms"],
         "bound_by": "bytes",
@@ -933,6 +955,7 @@ def main() -> int:
         "launches": stft_launches,
         "max_abs_err": stft_err,
         "ms": stft["ms"],
+        "device_ms": stft["device_ms"],
         "plain_ms": stft["plain_ms"],
         "bound_ms": stft["bound_ms"],
         "bound_by": stft["bound_by"],

@@ -75,6 +75,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -83,6 +85,7 @@ constexpr int kLoads = 4;  // float4 loads in flight a thread before it uses one
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kScratch = kWarps + 8;
 constexpr int kPhases = 6;
+constexpr int kMaxDevices = 64;  // devices whose opt-in prepare() records
 
 struct Layout {
   int T, K, nb, B, W;
@@ -600,23 +603,31 @@ fused_picks_kernel(const float2* __restrict__ X, const float* __restrict__ thr_i
   }
 }
 
-// Opts the instantiation in to `bytes` of dynamic shared memory, once for
-// the largest size asked so far (the attribute is per function).
+// Opts the instantiation in to `bytes` of dynamic shared memory on the
+// current device, once a device for the largest size asked there so far
+// (function attributes are per device). Callers on several threads may set
+// the same attributes twice, which is harmless; the record only grows.
 template <int kMethod, bool kTimed>
 cudaError_t prepare(size_t bytes) {
-  static size_t granted = 0;
-  if (bytes <= granted) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_picks_kernel<kMethod, kTimed>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  static std::atomic<size_t> granted[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const bool kept = dev >= 0 && dev < kMaxDevices;
+  if (kept && bytes <= granted[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  err = cudaFuncSetAttribute(fused_picks_kernel<kMethod, kTimed>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   // all of the SM's unified memory as shared memory: four CTAs need 4 x
   // 52 KB of it, more than the carveout CUDA may choose by itself
   err = cudaFuncSetAttribute(fused_picks_kernel<kMethod, kTimed>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
-  if (err == cudaSuccess) granted = bytes;
-  return err;
+  if (err != cudaSuccess || !kept) return err;
+  size_t g = granted[dev].load(std::memory_order_acquire);
+  while (g < bytes && !granted[dev].compare_exchange_weak(g, bytes)) {
+  }
+  return cudaSuccess;
 }
 
 template <int kMethod, bool kTimed>
@@ -664,10 +675,10 @@ int ctas_per_sm(int T, int K, int nb) {
 
 extern "C" {
 
-// dynamic shared memory one CTA needs for a row of T samples at K slots
-// (the larger of the two methods' layouts)
-long long fused_picks_smem_bytes(int T, int K, int nb) {
-  return (long long)make_layout(T, K, nb, 1).bytes;
+// dynamic shared memory one CTA of `method` needs for a row of T samples
+// at K slots: the layout its launch uses
+long long fused_picks_smem_bytes(int T, int K, int method, int nb) {
+  return (long long)make_layout(T, K, nb, method).bytes;
 }
 
 // the most dynamic shared memory a block may opt in to on this device

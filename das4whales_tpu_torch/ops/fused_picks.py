@@ -45,7 +45,7 @@ def _lib():
     lib.fused_picks_launch_timed.argtypes = (
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
     lib.fused_picks_launch_timed.restype = ctypes.c_int
-    lib.fused_picks_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.fused_picks_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.fused_picks_smem_bytes.restype = ctypes.c_longlong
     lib.fused_picks_smem_limit.argtypes = []
     lib.fused_picks_smem_limit.restype = ctypes.c_int
@@ -59,7 +59,7 @@ def _lib():
 def picks_cuda(X: torch.Tensor, thr: torch.Tensor, max_peaks: int,
                method: str, nb: int = 128) -> peak_ops.SparsePicks:
     """Launch the CUDA kernel on ``X [rows, T]`` complex64 (read in place
-    as float2 through ``torch.view_as_real``) with per-row thresholds
+    as float2) with per-row thresholds
     ``thr [rows]``, on the current stream. Raises on what the kernel does
     not take and on a refused launch."""
     return _launch(X, thr, max_peaks, method, nb, timed=False)[0]
@@ -85,6 +85,23 @@ def ctas_per_sm(T: int, max_peaks: int, method: str, nb: int = 128) -> int:
     return n
 
 
+@functools.lru_cache(maxsize=None)
+def _check_fits(T: int, K: int, method: str, nb: int, device_index: int) -> None:
+    """Raise unless one CTA's shared memory for this shape, in the layout
+    its method launches with, fits the device's opt-in limit; a shape is
+    checked once a device."""
+    lib = _lib()
+    with torch.cuda.device(device_index):
+        need = lib.fused_picks_smem_bytes(T, K, _METHODS[method], nb)
+        limit = lib.fused_picks_smem_limit()
+    if need > limit:
+        raise ValueError(
+            f"a row of T={T} samples at K={K} ({method}) needs {need} bytes of "
+            f"shared memory; this device allows {limit} per block. Longer "
+            "records come with a later slice of the port"
+        )
+
+
 def _launch(X, thr, max_peaks, method, nb, timed):
     global launches
     if not X.is_cuda:
@@ -93,34 +110,35 @@ def _launch(X, thr, max_peaks, method, nb, timed):
         raise ValueError(f"X must be a [rows, T] complex64 tensor, got {X.dtype} {tuple(X.shape)}")
     if method not in _METHODS:
         raise ValueError(f"unknown method {method!r}")
+    idx = X.get_device()
+    if idx != torch.cuda.current_device():  # a launch goes to the current device
+        with torch.cuda.device(idx):
+            return _launch(X, thr, max_peaks, method, nb, timed)
+    # A launch at the main path's shape takes less time on the card than
+    # this function on the host, so it keeps to the calls it needs: the fit
+    # check is cached, the stream is read raw, and the five outputs are
+    # views of two allocations (an allocation costs the host about what the
+    # launch does).
     rows, T = X.shape
     K = min(int(max_peaks), T)
-    lib = _lib()
-    need = lib.fused_picks_smem_bytes(T, K, nb)
-    limit = lib.fused_picks_smem_limit()
-    if need > limit:
-        raise ValueError(
-            f"a row of T={T} samples at K={K} needs {need} bytes of shared "
-            f"memory; this device allows {limit} per block. Longer records "
-            "come with a later slice of the port"
-        )
-    Xr = torch.view_as_real(X.contiguous())
+    _check_fits(T, K, method, nb, idx)
+    X = X.contiguous()  # complex64 is interleaved (re, im): the kernel's float2
     thr = thr.to(device=X.device, dtype=torch.float32).contiguous()
     dev = X.device
-    pos = torch.empty((rows, K), dtype=torch.int32, device=dev)
-    heights = torch.empty((rows, K), dtype=torch.float32, device=dev)
-    prom = torch.empty((rows, K), dtype=torch.float32, device=dev)
-    sel = torch.empty((rows, K), dtype=torch.bool, device=dev)
-    sat = torch.empty((rows,), dtype=torch.bool, device=dev)
+    pos, heights, prom = torch.empty((3, rows, K), dtype=torch.int32, device=dev).unbind(0)
+    heights, prom = heights.view(torch.float32), prom.view(torch.float32)
+    sel, sat = torch.empty((rows * K + rows,), dtype=torch.bool, device=dev).split(
+        [rows * K, rows])
+    sel = sel.view(rows, K)
     stamps = (torch.empty((rows, 2, len(PHASES) + 1), dtype=torch.int64, device=dev)
               if timed else None)
-    args = (Xr.data_ptr(), thr.data_ptr(), pos.data_ptr(), heights.data_ptr(),
+    args = (X.data_ptr(), thr.data_ptr(), pos.data_ptr(), heights.data_ptr(),
             prom.data_ptr(), sel.data_ptr(), sat.data_ptr(),
             rows, T, K, _METHODS[method], nb)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = (lib.fused_picks_launch_timed(*args, stamps.data_ptr(), stream) if timed
-              else lib.fused_picks_launch(*args, stream))
+    stream = torch._C._cuda_getCurrentRawStream(idx)
+    lib = _lib()
+    rc = (lib.fused_picks_launch_timed(*args, stamps.data_ptr(), stream) if timed
+          else lib.fused_picks_launch(*args, stream))
     if rc != 0:
         raise RuntimeError(
             f"fused_picks kernel launch failed: {lib.fused_picks_error_string(rc).decode()}"

@@ -201,15 +201,26 @@ def test_magnitude_is_the_kernel_envelope():
 
 
 # --- a numpy model of the CUDA kernel's candidate logic -----------------------
-# csrc/fused_picks.cu keeps one candidate bit a sample in 32-bit words, ranks
-# the candidates by a scan of the words' popcounts, packs rank s < K into slot
-# s, and for topk runs an 8-bit radix select over the set bits. The model below
-# follows those steps; check a change of the kernel's candidate logic here
-# first, against JAX's Pallas kernel and the port's plain version.
+# csrc/fused_picks.cu as its threads split the work: the load's index map (a
+# head sample where a row starts 8 bytes past a 16-byte boundary, two samples
+# a float4, an odd tail), the sweep that sets one candidate bit a sample (a
+# full 128-sample block at four samples a lane, the lanes' nibbles OR-ed into
+# words; any other block 32 samples a step, its ballot shifted into one word
+# or two), the ranks from a scan of the popcounts of each thread's run of
+# words, pack's slot = rank and topk's 8-bit radix select with its tie scan.
+# Check a change of the kernel's candidate logic here first, against JAX's
+# Pallas kernel and the port's plain version.
+
+KERNEL_THREADS = 256
 
 
-def _popcount(words):
-    return np.unpackbits(words.view(np.uint8)).reshape(len(words), 32).sum(axis=1)
+def _load_map(row, T):
+    """The sample each of row ``row``'s loads writes, in the kernel's
+    order (rows of complex64 from a 16-byte aligned base)."""
+    head = min((row * T) & 1, T)
+    n4 = (T - head) >> 1
+    idx = [0] * head + (head + np.arange(2 * n4)).tolist()
+    return idx + [T - 1] * (head + 2 * n4 < T)
 
 
 def _order_key(v):
@@ -218,39 +229,63 @@ def _order_key(v):
     return np.where(u & np.uint32(0x80000000), ~u, u | np.uint32(0x80000000))
 
 
-def _candidate_words(x, thr):
-    """The maxima sweep: the sample at a strict rise walks its run; a run
-    that falls again sets the bit of its floor-midpoint."""
+def _sweep_words(x, thr, nb):
+    """The candidate words as the kernel's sweep sets them: the thread at a
+    strict rise above thr marks a peak, or walks its plateau and marks the
+    floor-midpoint when the run falls again; samples 0 and T-1 never."""
     T = len(x)
-    words = np.zeros(-(-T // 32), np.uint32)
-    for i in np.nonzero((x[1:-1] > x[:-2]) & (x[1:-1] >= thr))[0] + 1:
-        j = i + 1
+    words = [0] * -(-T // 32)
+
+    def plateau(i):
+        j = i + 2
         while j < T and x[j] == x[i]:
             j += 1
         if j < T and x[j] < x[i]:
             mid = (i + j - 1) >> 1
-            words[mid >> 5] |= np.uint32(1 << (mid & 31))
+            words[mid >> 5] |= 1 << (mid & 31)
+
+    for b in range(-(-T // nb)):
+        i0 = b * nb
+        if nb == 128 and i0 + 128 <= T:          # a float4 a lane, neighbours by shuffles
+            v = x[i0 : i0 + 128].reshape(32, 4)
+            l = np.r_[x[i0 - 1] if i0 > 0 else np.inf, v[:-1, 3]]
+            r = np.r_[v[1:, 0], x[i0 + 128] if i0 + 128 < T else np.inf]
+            s = np.concatenate([l[:, None], v, r[:, None]], axis=1)
+            rise = (s[:, :4] < s[:, 1:5]) & (s[:, 1:5] >= thr)
+            nib = ((rise & (s[:, 2:] < s[:, 1:5])) << np.arange(4)).sum(axis=1)
+            for w in range(4):                   # lanes 8w..8w+7 make word w of the block
+                words[(i0 >> 5) + w] |= sum(int(nib[8 * w + k]) << 4 * k for k in range(8))
+            for lane, k in zip(*np.nonzero(rise & (s[:, 2:] == s[:, 1:5]))):
+                plateau(i0 + 4 * int(lane) + int(k))
+            continue
+        end = min(i0 + nb, T)
+        for j0 in range(i0, end, 32):            # 32 samples a step, one ballot
+            i = np.arange(j0, min(j0 + 32, end))
+            v, l, r = x[i], x[np.maximum(i - 1, 0)], x[np.minimum(i + 1, T - 1)]
+            rise = (i > 0) & (i < T - 1) & (l < v) & (v >= thr)
+            m = sum(1 << int(k) for k in np.nonzero(rise & (r < v))[0])
+            for k in np.nonzero(rise & (r == v))[0]:
+                plateau(j0 + int(k))
+            w0, off = j0 >> 5, j0 & 31
+            words[w0] |= (m << off) & 0xFFFFFFFF
+            if off and m >> (32 - off):
+                words[w0 + 1] |= m >> (32 - off)
     return words
 
 
-def _ranked_candidates(words):
-    """(positions, ranks, n_cand) from the words' exclusive popcount scan:
-    each candidate's rank is its word's base plus the set bits below it."""
-    counts = _popcount(words)
-    base = np.cumsum(counts) - counts
-    pos, rank = [], []
-    for w in np.nonzero(words)[0]:
-        for b in range(32):
-            if int(words[w]) >> b & 1:
-                below = np.uint32(int(words[w]) & ((1 << b) - 1))
-                pos.append(32 * w + b)
-                rank.append(int(base[w]) + int(_popcount(np.asarray([below]))[0]))
-    return np.asarray(pos, np.int64), np.asarray(rank, np.int64), int(counts.sum())
+def _thread_runs(words):
+    """Each thread's candidates, from its contiguous run of words, and the
+    exclusive scan of their counts: its first candidate's rank."""
+    chunk = -(-len(words) // KERNEL_THREADS)
+    runs = [[32 * w + b for w in range(t * chunk, min(t * chunk + chunk, len(words)))
+             for b in range(32) if words[w] >> b & 1] for t in range(KERNEL_THREADS)]
+    counts = np.asarray([len(run) for run in runs])
+    return runs, np.cumsum(counts) - counts, int(counts.sum())
 
 
 def _radix_select(keys, K):
-    """Which of ``keys`` (rank order) the kernel keeps: the K largest, of the
-    keys equal to the K-th the first ones in rank order."""
+    """The K-th largest of ``keys``, 8 bits at a time: (its key, how many of
+    the keys equal to it go in)."""
     prefix, mask, k_rem = 0, 0, K
     for shift in (24, 16, 8, 0):
         live = keys[(keys & np.uint32(mask)) == np.uint32(prefix)]
@@ -262,8 +297,34 @@ def _radix_select(keys, K):
         k_rem -= above
         prefix |= b << shift
         mask |= 255 << shift
-    eq = keys == np.uint32(prefix)
-    return (keys > np.uint32(prefix)) | (eq & (np.cumsum(eq) <= k_rem))
+    return np.uint32(prefix), k_rem
+
+
+def _slots(runs, rank0, n_cand, x, K, method):
+    """pack: each thread whose first rank is under K writes its candidates
+    to slots rank0, rank0 + 1, ... below K. topk: all candidates, or those
+    above the K-th key and, of the keys equal to it, the first k_rem by an
+    exclusive scan of each thread's count; then height desc, index asc."""
+    nS = min(n_cand, K)
+    if method == "pack":
+        slots = np.zeros(nS, np.int64)
+        for run, r in zip(runs, rank0):
+            for p in run[: max(0, K - r)]:
+                slots[r] = p
+                r += 1
+        return slots
+    kept = [p for run in runs for p in run]
+    if n_cand > K:
+        prefix, k_rem = _radix_select(_order_key(x[kept]), K)
+        eq = np.asarray([int((_order_key(x[run]) == prefix).sum()) for run in runs])
+        kept = []
+        for run, t in zip(runs, np.cumsum(eq) - eq):
+            for p, u in zip(run, _order_key(x[run])):
+                if u > prefix or (u == prefix and t < k_rem):
+                    kept.append(p)
+                t += u == prefix
+    kept = np.asarray(kept, np.int64)
+    return kept[np.lexsort((kept, ~_order_key(x[kept])))]
 
 
 def _base_min(x, p, h, step):
@@ -274,7 +335,7 @@ def _base_min(x, p, h, step):
     return side[: above[0] + 1 if len(above) else len(side)].min()
 
 
-def _bitmask_model(env, thr, K, method):
+def _bitmask_model(env, thr, K, method, nb=128):
     """The five outputs of the kernel as its candidate bitmask computes them
     from the envelope ``env [rows, T]`` float32."""
     rows, T = env.shape
@@ -284,16 +345,11 @@ def _bitmask_model(env, thr, K, method):
                prominences=np.zeros((rows, K), np.float32),
                selected=np.zeros((rows, K), bool), saturated=np.zeros(rows, bool))
     for r in range(rows):
-        x = env[r]
-        pos, rank, n_cand = _ranked_candidates(_candidate_words(x, thr[r]))
-        np.testing.assert_array_equal(rank, np.arange(n_cand))   # time order
-        if method == "pack":
-            slots = pos[:K]
-        else:
-            keys = _order_key(x[pos])
-            kept = pos if n_cand <= K else pos[_radix_select(keys, K)]
-            kept_keys = _order_key(x[kept])
-            slots = kept[np.lexsort((kept, ~kept_keys))]      # height desc, index asc
+        idx = _load_map(r, T)
+        np.testing.assert_array_equal(np.sort(idx), np.arange(T))   # each sample once
+        x = env[r, idx][np.argsort(idx)]
+        runs, rank0, n_cand = _thread_runs(_sweep_words(x, thr[r], nb))
+        slots = _slots(runs, rank0, n_cand, x, K, method)
         nS = len(slots)
         slot_pos = np.zeros(K, np.int64)
         slot_pos[:nS] = slots
@@ -368,6 +424,22 @@ def test_bitmask_model_matches_pallas_kernel_and_plain(method, K, T):
         _assert_same_picks(model, j)
     sat = model.saturated.numpy()
     assert not sat[4] and sat[5]                  # exactly K, then K + 1 candidates
+    assert int(model.selected.sum()) > 0
+
+
+@pytest.mark.parametrize("T", [1000, 963])
+@pytest.mark.parametrize("method", ["pack", "topk"])
+def test_bitmask_model_blocks_off_the_word_grid(method, T):
+    """At nb = 100 every block takes the sweep's 32-sample path, most of
+    its ballots straddle two words, and the outputs stay the plain
+    version's (which do not depend on nb)."""
+    re, im, thr = _model_rows(T, 64, seed=2 * T)
+    X = torch.complex(torch.from_numpy(re), torch.from_numpy(im))
+    model = _bitmask_model(tspec.magnitude_sqrt(X).numpy(), thr, 64, method, nb=100)
+    plain = tfused.picks_plain(X, torch.from_numpy(thr), 64, method, nb=100)
+    for f in ("positions", "heights", "prominences", "selected", "saturated"):
+        np.testing.assert_array_equal(getattr(model, f).numpy(), getattr(plain, f).numpy(),
+                                      err_msg=f)
     assert int(model.selected.sum()) > 0
 
 

@@ -312,7 +312,7 @@ def test_ptxas_report_is_read_per_instantiation():
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 127 registers, used 1 barriers",
     ])
-    got = chip_smoke.stft_ptxas(report)
+    got = chip_smoke.ptxas_instances(report, "fused_stft_kernel")
     assert got == {(1, True): (48, 4, 4), (4, True): (127, 0, 0)}
     assert chip_smoke.STFT_MAIN_INSTANCE == (4, True)
 
