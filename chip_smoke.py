@@ -4,14 +4,17 @@
     python3 chip_smoke.py
 
 Builds the port's two CUDA kernels from ``das4whales_tpu_torch/csrc`` with
-``nvcc`` (sm_90a), then runs eight phases, one summary line each (two for
-the detector runs, with their profiles), and exits non-zero at the first
-failed check; no phase's failure is caught:
+``nvcc`` (sm_90a) and the native ingest reader from
+``das4whales_tpu_torch/native/ingest.cpp`` with ``g++``, then runs ten
+phases, one summary line each (more for the detector runs, with their
+profiles), and exits non-zero at the first failed check; no phase's
+failure is caught:
 
 1. ``device``   the card's name and power limit (``nvidia-smi``), torch and
                 CUDA versions; no CUDA device -> exit 1, nothing else runs;
 2. ``build``    the ``nvcc`` builds of ``csrc/fused_picks.cu`` and
-                ``csrc/fused_stft.cu``, started together, each one's seconds
+                ``csrc/fused_stft.cu`` and the ``g++`` build of
+                ``native/ingest.cpp``, started together, each one's seconds
                 and ptxas line, then both kernels' registers and spills per
                 instantiation (the main launches' must not spill);
 3. ``kernels``  the fused pick kernel against its plain PyTorch version on
@@ -52,11 +55,40 @@ failed check; no phase's failure is caught:
                 within 1 s of its arrival;
 8. ``spectro_cpu_vs_card`` the spectro family on the card against the CPU
                 at 512 x 12000, both bandpass modes: correlograms within
-                1e-4 * max|cpu|, picks equal up to rounding knife edges.
+                1e-4 * max|cpu|, picks equal up to rounding knife edges;
+9. ``slab``     the batched ingest route at the campaign's defaults: five
+                Silixa TDMS files (four 22050 x 12000, one 22050 x 11000,
+                raw int32; the card's machine has no ``h5py``) written by
+                the port, streamed by ``stream_batched_slabs`` (batch 4,
+                pow2 buckets, the format reader, conditioned wire) into [4, 22050, 16384] slabs through
+                pinned memory on a side stream, and detected by
+                ``BatchedMatchedFilterDetector.dispatch_batch(...,
+                with_health=True)`` in the batched and the serial mode (a
+                warm-up pass, then a timed pass each); per file the picks
+                must equal ``detect_picks`` on the same card (serial:
+                bitwise; batched: thresholds within 1 ulp), every injected
+                call be picked, the health show 0 non-finite, 0 clipped,
+                rms within 1e-5 of float64 and no breach; one read per
+                attempt, 44 pick launches a tile sweep (batched: per slab;
+                serial: per file), peak device memory under 80 GB; it prints
+                the slab's detect wall, its stages (the health stage among
+                them) and busy share, per-file read and conditioning
+                seconds, the copy's ms, GB/s and bytes, the pass's wall
+                against the sum of its parts, and the stream alone on the
+                native engine, both wires (the host's read ceiling);
+10. ``slab_cpu_vs_card`` the slab route on the card (batched mode) against
+                the CPU (serial mode) at 512 channels, both wires, batch 2,
+                a clip level, and a float32 file with 3 NaNs and 5 samples
+                at the clip (on the raw wire it flushes a partial slab):
+                thresholds within rtol 1e-5, picks equal up to knife
+                edges, health counts equal, the float32 file alone
+                breaching; then ``BatchedSpectroDetector`` on one slab
+                against its adapter file by file on the card.
 
 Then it prints the kernel table as one JSON line, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``. It imports no JAX and nothing
-of the JAX package.
+of the JAX package. ``--only PHASE[,PHASE]`` runs the named phases after
+``device`` and ``build``, for development; it prints no result line.
 """
 
 from __future__ import annotations
@@ -145,11 +177,18 @@ def ptxas_instances(report: str, kernel: str) -> dict:
 def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
+    from das4whales_tpu_torch.io import native
     from das4whales_tpu_torch.utils import build
 
-    # one nvcc per source, all started together
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
+    # one nvcc per source and the g++ of the native reader, all started together
+    with ThreadPoolExecutor(len(KERNELS) + 1) as pool:
+        ingest = pool.submit(native.build)
         built = list(pool.map(build.build, KERNELS))
+        so = ingest.result()
+    if not native.available():
+        fail(f"build: the native ingest library {so.name} built but does not load")
+    say(f"build: native/ingest.cpp -> build/native/{so.name} in {native.build_seconds:.2f} s "
+        f"(g++ {' '.join(native.GXX_FLAGS)})")
     for name, (path, seconds, report) in zip(KERNELS, built):
         ptxas = " ".join(l.strip() for l in report.splitlines() if "registers" in l or "smem" in l)
         fma = "-fmad=false" if "-fmad=false" in build.nvcc_flags(name) else "FMA contraction on"
@@ -921,9 +960,421 @@ def phase_spectro_cpu_vs_card():
         f"{'; '.join(notes)}")
 
 
-def main() -> int:
+#: the slab phase's files: four canonical OOI blocks and a shorter one,
+#: in one pow2 bucket of 16384 samples (22050 x 12000 and x 11000 raw int32)
+SLAB_FILES = ((2026, 12000), (2028, 12000), (2029, 12000), (2030, 12000), (2031, 11000))
+SLAB_BATCH = 4
+SLAB_BUCKET = 16384
+CARD_BYTES = 80e9
+
+
+def _write_files(d, specs, nx, n_calls, float_file=None):
+    """Silixa TDMS files of ``(seed, ns)`` scenes' raw int32 counts, through
+    the port's writer (the card's machine has no ``h5py``, so no HDF5);
+    returns ``(paths, scenes, seconds)``. ``float_file(raw)`` turns the
+    last file's counts into a float32 block (written as float32)."""
+    from datetime import datetime
+
+    from das4whales_tpu_torch.io.synth import synthesize_scene, to_raw_counts
+    from das4whales_tpu_torch.io.tdms import write_tdms
+
+    t0 = time.perf_counter()
+    paths, scenes = [], []
+    for k, (seed, ns) in enumerate(specs):
+        scene = _scene(nx, ns, n_calls=n_calls, seed=seed)
+        raw = to_raw_counts(synthesize_scene(scene), scene.metadata)
+        if float_file is not None and k == len(specs) - 1:
+            raw = float_file(raw)
+        props = {"SamplingFrequency[Hz]": float(scene.fs), "SpatialResolution[m]": float(scene.dx),
+                 "FibreIndex": float(scene.n), "GaugeLength": float(scene.gauge_length),
+                 "GPSTimeStamp": datetime(2021, 11, 4, 1, 59, 2 + k)}
+        paths.append(write_tdms(str(d / f"file{k}_seed{seed}.tdms"), props, "Measurement",
+                                {f"ch{i:05d}": raw[i] for i in range(nx)}))
+        scenes.append(scene)
+        del raw
+    return paths, scenes, time.perf_counter() - t0
+
+
+def _rms64(block: np.ndarray) -> float:
+    """float64 rms of a host block, in row chunks."""
+    acc = 0.0
+    for lo in range(0, block.shape[0], 2048):
+        r = block[lo : lo + 2048].astype(np.float64)
+        acc += float(np.sum(r * r))
+    return float(np.sqrt(acc / block.size))
+
+
+def _within_ulp(a: float, b: float) -> bool:
+    a, b = np.float32(a), np.float32(b)
+    return bool(abs(a - b) <= np.spacing(max(abs(a), abs(b))))
+
+
+def _slab_pass(stream, bd, with_refs=None):
+    """One pass over the slab stream: dispatch + resolve each slab as it
+    arrives. Returns per-slab records and the pass's wall. ``with_refs``
+    (a detector) also computes each file's ``detect_picks`` reference and
+    float64 rms, outside the pass's timing."""
     import torch
 
+    from das4whales_tpu_torch.ops import fused_picks
+
+    det = bd.det
+    slabs, refs = [], []
+    t0 = time.perf_counter()
+    t_ref = 0.0
+    t_prev = t0
+    for slab in stream:
+        t_got = time.perf_counter()
+        before = (fused_picks.launches, det.syncs, det.dispatches, det.escalations)
+        res = bd.dispatch_batch(slab.stack, n_real=slab.n_real, n_valid=slab.n_valid,
+                                with_health=True).resolve()
+        t_done = time.perf_counter()
+        slabs.append(dict(
+            res=res, n_valid=slab.n_valid, n_real=slab.n_real, index0=slab.index0,
+            copies=slab.copies, wait_s=t_got - t_prev, detect_s=t_done - t_got,
+            read_s=[b.read_s for b in slab.blocks], cond_s=[b.condition_s for b in slab.blocks],
+            launches=fused_picks.launches - before[0], syncs=det.syncs - before[1],
+            dispatches=det.dispatches - before[2], escalations=det.escalations - before[3]))
+        if with_refs is not None:
+            t1 = time.perf_counter()
+            for j in range(slab.n_valid):
+                r = with_refs.detect_picks(slab.stack[j], n_real=slab.n_real[j], with_health=True)
+                refs.append((r, _rms64(np.asarray(slab.blocks[j].trace))))
+            torch.cuda.synchronize()
+            t_ref += time.perf_counter() - t1
+        del slab
+        t_prev = time.perf_counter()
+    torch.cuda.synchronize()
+    return slabs, refs, time.perf_counter() - t0 - t_ref
+
+
+def phase_slab():
+    """The campaign's default batched route at full width: five TDMS
+    files streamed into [4, 22050, 16384] slabs through pinned memory,
+    detected by BatchedMatchedFilterDetector with the health stats, in
+    the batched and the serial mode."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from das4whales_tpu_torch.config import DataHealthConfig
+    from das4whales_tpu_torch.io.stream import stream_batched_slabs
+    from das4whales_tpu_torch.models.matched_filter import MatchedFilterDetector
+    from das4whales_tpu_torch.ops import fused_picks
+    from das4whales_tpu_torch.parallel.batch import BatchedMatchedFilterDetector, trim_picks
+
+    t_phase = time.perf_counter()
+    nx = CANONICAL[0]
+    sel = [0, nx, 1]
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    d = Path(tempfile.mkdtemp(prefix="slab_files_", dir=root))
+    try:
+        paths, scenes, t_write = _write_files(d, SLAB_FILES, nx, n_calls=6)
+        meta = scenes[0].metadata
+        t0 = time.perf_counter()
+        ref = MatchedFilterDetector(meta, sel, (nx, SLAB_BUCKET), templates="fin",
+                                    wire="conditioned")
+        t_design = time.perf_counter() - t0
+        n_tiles = -(-nx // ref.effective_channel_tile)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        def stream():
+            return stream_batched_slabs(paths, sel, meta, batch=SLAB_BATCH, bucket="pow2",
+                                        device="cuda")
+
+        refs, out, launch_by_mode = None, {}, {}
+        for mode, serial in (("batched", False), ("serial", True)):
+            det = MatchedFilterDetector.from_design(ref.design, meta, wire="conditioned")
+            bd = BatchedMatchedFilterDetector(det, serial=serial)
+            # warm-up pass: FFT plans, allocator pools; the references ride it
+            _, r, _ = _slab_pass(stream(), bd, with_refs=ref if refs is None else None)
+            refs = refs or r
+            zero_launches()                          # the main path's timed pass starts here
+            det.syncs = det.dispatches = det.escalations = 0
+            slabs, _, wall = _slab_pass(stream(), bd)
+            launch_by_mode[mode] = read_launches()["fused_picks"]
+            # per-file checks against detect_picks on the same card
+            files = [(s, j) for s in slabs for j in range(s["n_valid"])]
+            if len(files) != len(SLAB_FILES) or [s["n_valid"] for s in slabs] != [4, 1]:
+                fail(f"slab: {mode}: slabs of {[s['n_valid'] for s in slabs]} files, "
+                     "expected a full slab of 4 and a partial slab of 1")
+            health_cfg = DataHealthConfig()
+            for k, (s, j) in enumerate(files):
+                picks, thr, health = s["res"][j]
+                rref, rms64 = refs[k]
+                n_real = s["n_real"][j]
+                a, b = trim_picks(picks, n_real), trim_picks(rref.picks, n_real)
+                for name in b:
+                    if not np.array_equal(a[name], b[name]):
+                        fail(f"slab: {mode}: file {k} template {name}: picks differ from "
+                             f"detect_picks ({a[name].shape[1]} vs {b[name].shape[1]})")
+                    same = (thr[name] == rref.thresholds[name] if serial
+                            else _within_ulp(thr[name], rref.thresholds[name]))
+                    if not same:
+                        fail(f"slab: {mode}: file {k} template {name}: threshold "
+                             f"{thr[name]!r} vs detect_picks {rref.thresholds[name]!r}")
+                if serial and health != rref.health:
+                    fail(f"slab: {mode}: file {k}: health differs from detect_picks")
+                misses = _check_calls(scenes[k], a)
+                if misses:
+                    fail(f"slab: {mode}: file {k}: injected calls missed: {misses}")
+                if health["nonfinite"] or health["clipped"]:
+                    fail(f"slab: {mode}: file {k}: health {health['nonfinite']} non-finite, "
+                         f"{health['clipped']} clipped")
+                if abs(health["rms"] - rms64) > 1e-5 * rms64:
+                    fail(f"slab: {mode}: file {k}: rms {health['rms']!r} vs float64 {rms64!r}")
+                if health_cfg.breach(health) is not None:
+                    fail(f"slab: {mode}: file {k}: breach {health_cfg.breach(health)}")
+            for s in slabs:
+                want = n_tiles * s["dispatches"] * (s["n_valid"] if serial else 1)
+                if s["syncs"] != s["dispatches"] or s["dispatches"] != 1 + s["escalations"]:
+                    fail(f"slab: {mode}: {s['syncs']} reads for {s['dispatches']} attempts "
+                         f"({s['escalations']} escalations)")
+                if s["launches"] != want:
+                    fail(f"slab: {mode}: {s['launches']} fused_picks launches in a slab of "
+                         f"{s['n_valid']} files, expected {want}")
+            # the first (full) slab again, already on the card: detect wall, stages
+            first = next(stream())
+            walls, stages = [], []
+            for _ in range(3):
+                timer = StageTimer()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                bd.dispatch_batch(first.stack, n_real=first.n_real, n_valid=first.n_valid,
+                                  with_health=True, stage_hook=timer).resolve()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                stages.append(timer.walls())
+            detect_wall = statistics.median(walls)
+            n_first = first.n_valid
+            med = {k: statistics.median(st[k] for st in stages) for k in stages[0]}
+            fams = _profile(f"{mode} slab of {first.n_valid}", lambda: bd.dispatch_batch(
+                first.stack, n_real=first.n_real, n_valid=first.n_valid,
+                with_health=True).resolve(), detect_wall, "fused_picks")
+            del first
+            copies = [[(a.elapsed_time(b), n) for a, b, n in s["copies"]] for s in slabs]
+            out[mode] = dict(slabs=slabs, wall=wall, detect_wall=detect_wall, stages=med,
+                             copies=copies, busy=sum(fams.values()))
+            h2d = [sum(ms for ms, _ in c) for c in copies]
+            nbytes = [sum(n for _, n in c) for c in copies]
+            read = [x for s in slabs for x in s["read_s"]]
+            cond = [x for s in slabs for x in s["cond_s"]]
+            detect = [s["detect_s"] for s in slabs]
+            parts = sum(read) + sum(cond) + sum(h2d) / 1e3 + sum(detect)
+            say(f"slab: {mode} (serial={serial}), {len(SLAB_FILES)} files in slabs of "
+                f"{[s['n_valid'] for s in slabs]}, bucket {SLAB_BUCKET}, TDMS int32, conditioned "
+                f"wire, format reader (engine='h5py'), with_health: slab detect wall (dispatch to resolve, slab on the "
+                f"card, median of 3) {detect_wall * 1e3:.1f} ms (runs "
+                f"{', '.join(f'{w * 1e3:.1f}' for w in walls)}) = "
+                f"{detect_wall * 1e3 / n_first:.1f} ms a file; stage walls (median, CUDA "
+                f"events) {json.dumps({k: round(v, 3) for k, v in med.items()})} ms, of which "
+                f"health {med.get('health', 0.0):.3f} ms; device busy "
+                f"{100 * out[mode]['busy'] / (detect_wall * 1e3):.1f} % of the detect wall "
+                f"(profiler); per file host read s {[round(x, 3) for x in read]}, host "
+                f"conditioning s {[round(x, 3) for x in cond]}; per slab H2D "
+                f"{[round(x, 3) for x in h2d]} ms, "
+                f"{[round(n / (ms * 1e6), 2) for n, ms in zip(nbytes, h2d)]} GB/s, bytes "
+                f"{nbytes}; per slab detect (host clock, dispatch to resolve) "
+                f"{[round(x * 1e3, 1) for x in detect]} ms, wait for the slab "
+                f"{[round(s['wait_s'] * 1e3, 1) for s in slabs]} ms; timed pass (stream + "
+                f"detect) {wall:.3f} s = {wall / len(SLAB_FILES):.3f} s a file against a sum of "
+                f"parts (read + conditioning + H2D + detect) {parts:.3f} s: {parts - wall:.3f} s "
+                f"hidden by overlap; per slab (fused_picks launches, reads, attempts, "
+                f"escalations) {[(s['launches'], s['syncs'], s['dispatches'], s['escalations']) for s in slabs]}; "
+                f"picks equal detect_picks on the card for every file "
+                f"({'bitwise, thresholds equal' if serial else 'thresholds within 1 ulp'}), all "
+                f"injected calls picked, health 0 non-finite, 0 clipped, rms within 1e-5 of "
+                f"float64, no breach")
+            del bd, det
+        peak = torch.cuda.max_memory_allocated()
+        if peak >= CARD_BYTES:
+            fail(f"slab: peak device memory {peak / 1e9:.2f} GB, over the card's 80 GB")
+        # the host's read ceiling: the stream alone on the native engine, the
+        # raw wire (counts to the card) and the conditioned wire (the C++
+        # reader's fused demean and scale)
+        alone = {}
+        for wire in ("raw", "conditioned"):
+            t0 = time.perf_counter()
+            n = 0
+            for slab in stream_batched_slabs(paths, sel, meta, batch=SLAB_BATCH, bucket="pow2",
+                                             wire=wire, engine="native", device="cuda"):
+                n += slab.n_valid
+                del slab
+            torch.cuda.synchronize()
+            alone[wire] = (time.perf_counter() - t0) / n
+        say(f"slab: the host's read ceiling, the stream alone on the native engine (5 files "
+            f"to the card): wire='raw' (int32 counts) {alone['raw']:.3f} s a file, "
+            f"wire='conditioned' (the C++ fused read, demean and scale) "
+            f"{alone['conditioned']:.3f} s a file; peak device memory over the phase "
+            f"{peak / 2**30:.2f} GiB; files written in {t_write:.1f} s; f-k design at the "
+            f"bucket shape {t_design:.1f} s (host); phase {time.perf_counter() - t_phase:.1f} s")
+        return launch_by_mode
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+#: the card-vs-CPU slab files: three int32 blocks and a float32 one with
+#: NaNs and samples at the clip level
+SLAB_CPU_FILES = ((2027, 12000), (2032, 12000), (2033, 12000), (2034, 11000))
+CLIP_COUNTS = 3000.0
+N_NAN, N_CLIP = 3, 5
+
+
+def _poison(raw: np.ndarray) -> np.ndarray:
+    """float32 counts with N_NAN NaNs (one a channel) and N_CLIP samples at
+    +-CLIP_COUNTS, all inside the record."""
+    x = raw.astype(np.float32)
+    for i in range(N_NAN):
+        x[10 + 100 * i, 500 + 7 * i] = np.nan
+    for i in range(N_CLIP):
+        x[50 + 90 * i, 2000 + 11 * i] = CLIP_COUNTS * (1 if i % 2 else -1)
+    return x
+
+
+def phase_slab_cpu_vs_card():
+    """The slab route on the card against the CPU at 512 channels, both
+    wires, with the health stats and a clip level; then the spectro
+    facade on one slab against its per-file adapter on the card."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from das4whales_tpu_torch.config import DataHealthConfig
+    from das4whales_tpu_torch.io.stream import stream_batched_slabs
+    from das4whales_tpu_torch.models.matched_filter import MatchedFilterDetector
+    from das4whales_tpu_torch.ops import conditioning
+    from das4whales_tpu_torch.parallel.batch import BatchedMatchedFilterDetector, batched_detector_for
+    from das4whales_tpu_torch.utils.parity import envelopes, unexplained_differences
+    from das4whales_tpu_torch.workflows.spectrodetect import campaign_detector
+
+    nx = 512
+    sel = [0, nx, 1]
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    d = Path(tempfile.mkdtemp(prefix="slab_cpu_files_", dir=root))
+    notes = []
+    try:
+        paths, scenes, _ = _write_files(d, SLAB_CPU_FILES, nx, n_calls=1, float_file=_poison)
+        meta = scenes[0].metadata
+        design = MatchedFilterDetector(meta, sel, (nx, SLAB_BUCKET), device="cpu").design
+        for wire in ("raw", "conditioned"):
+            clip = CLIP_COUNTS if wire == "raw" else 0.8 * CLIP_COUNTS * meta.scale_factor
+            cfg = DataHealthConfig(clip_abs=clip)
+            res, shapes = {}, {}
+            for dev in ("cuda", "cpu"):
+                det = MatchedFilterDetector.from_design(design, meta, wire=wire, device=dev)
+                bd = BatchedMatchedFilterDetector(det)
+                res[dev], shapes[dev] = [], []
+                for slab in stream_batched_slabs(paths, sel, meta, batch=2, bucket="pow2",
+                                                 wire=wire, device=dev):
+                    shapes[dev].append((slab.n_valid, str(slab.stack.dtype)))
+                    got = bd.detect_batch(slab.stack, n_real=slab.n_real, n_valid=slab.n_valid,
+                                          with_health=True, health_clip=clip)
+                    res[dev] += [(r, slab.stack[j].cpu(), slab.n_real[j])
+                                 for j, r in enumerate(got)]
+                if bd.serial is not (dev == "cpu"):
+                    fail(f"slab_cpu_vs_card: the {dev} facade resolved serial={bd.serial}")
+            want_shapes = ([(2, "torch.int32"), (1, "torch.int32"), (1, "torch.float32")]
+                           if wire == "raw" else [(2, "torch.float32"), (2, "torch.float32")])
+            if shapes["cuda"] != shapes["cpu"] or shapes["cuda"] != want_shapes:
+                fail(f"slab_cpu_vs_card: {wire}: slabs {shapes}, expected {want_shapes}")
+            n_diff = 0
+            cpu_det = MatchedFilterDetector.from_design(design, meta, wire="conditioned",
+                                                        device="cpu")
+            for k, ((gp, gt, gh), block, n_real), ((cp, ct, ch), _, _) in zip(
+                    range(len(paths)), res["cuda"], res["cpu"]):
+                for key in ("nonfinite", "clipped", "bin_nonfinite", "bin_clipped", "bin_dead",
+                            "n_samples"):
+                    if gh[key] != ch[key]:
+                        fail(f"slab_cpu_vs_card: {wire}: file {k}: health {key} card "
+                             f"{gh[key]} vs cpu {ch[key]}")
+                poisoned = k == len(paths) - 1
+                if wire == "raw" and poisoned and (gh["nonfinite"], gh["clipped"]) != (N_NAN, N_CLIP):
+                    fail(f"slab_cpu_vs_card: raw: the float32 file reads {gh['nonfinite']} "
+                         f"non-finite and {gh['clipped']} clipped, expected {N_NAN} and {N_CLIP}")
+                if (cfg.breach(gh) is not None) != poisoned or (cfg.breach(ch) is not None) != poisoned:
+                    fail(f"slab_cpu_vs_card: {wire}: file {k}: breach card {cfg.breach(gh)!r}, "
+                         f"cpu {cfg.breach(ch)!r}")
+                x = block
+                if wire == "raw":
+                    x = conditioning.condition_padded(x, det._cond_scale, int(n_real))
+                env = None
+                for i, name in enumerate(cp):
+                    a, b = gp[name], cp[name]
+                    if not (np.isclose(gt[name], ct[name], rtol=1e-5, atol=0)
+                            or (poisoned and np.isnan(gt[name]) and np.isnan(ct[name]))):
+                        fail(f"slab_cpu_vs_card: {wire}: file {k} template {name}: threshold "
+                             f"card {gt[name]} vs cpu {ct[name]}")
+                    if not np.array_equal(a, b):
+                        env = envelopes(cpu_det, x) if env is None else env
+                        bad = unexplained_differences(a, b, env[i], ct[name])
+                        if bad:
+                            fail(f"slab_cpu_vs_card: {wire}: file {k} template {name}: picks "
+                                 f"differ beyond rounding at {bad[:10]}")
+                        n_diff += len({tuple(p) for p in a.T.tolist()}
+                                      ^ {tuple(p) for p in b.T.tolist()})
+                if not poisoned and _check_calls(scenes[k], gp):
+                    fail(f"slab_cpu_vs_card: {wire}: file {k}: the injected call was missed")
+            last = res["cuda"][-1][0][2]
+            notes.append(f"{wire}: slabs {[s[0] for s in shapes['cuda']]} "
+                         f"({', '.join(s[1] for s in shapes['cuda'])}), clip {clip:.4g}, the "
+                         f"float32 file {last['nonfinite']} non-finite / {last['clipped']} "
+                         f"clipped (breach), {n_diff} differing picks")
+        # the spectro facade on one slab against its per-file adapter, on the card
+        ad = campaign_detector(meta, sel, (nx, SLAB_BUCKET))
+        bd = batched_detector_for(ad)
+        slab = next(stream_batched_slabs(paths, sel, meta, batch=2, bucket="pow2"))
+        got = bd.detect_batch(slab.stack, n_real=slab.n_real, n_valid=slab.n_valid)
+        n_diff = n_picks = 0
+        for j in range(slab.n_valid):
+            one = ad(slab.stack[j])
+            corr = ad.det.correlograms(ad.prefilter.filter_block(slab.stack[j]))
+            for name, b in one.picks.items():
+                a = got[j][0][name]
+                n_picks += b.shape[1]
+                if np.array_equal(a, b):
+                    continue
+                env = corr[name].cpu().numpy()
+                k_ = meta.ns / env.shape[-1]      # the adapter's frame -> sample factor
+                fa, fb = (np.stack([p[0], np.round(p[1] / k_).astype(int)]) for p in (a, b))
+                bad = unexplained_differences(fa, fb, env, ad.det.threshold)
+                if bad:
+                    fail(f"slab_cpu_vs_card: spectro facade file {j} kernel {name}: picks "
+                         f"differ from the adapter beyond rounding at {bad[:10]}")
+                n_diff += len({tuple(p) for p in fa.T.tolist()} ^ {tuple(p) for p in fb.T.tolist()})
+        if n_picks == 0:
+            fail("slab_cpu_vs_card: the spectro adapter picked nothing; the comparison proves nothing")
+        del slab
+        torch.cuda.synchronize()
+        notes.append(f"BatchedSpectroDetector (serial={bd.serial}) on one slab of 2: "
+                     f"{n_picks} adapter picks, {n_diff} differing")
+        say(f"slab_cpu_vs_card: {nx} channels, files {[ns for _, ns in SLAB_CPU_FILES]} "
+            f"samples, batch 2, pow2 bucket {SLAB_BUCKET}, card (batched mode) vs CPU (serial "
+            f"mode): thresholds within rtol 1e-5, differing picks all on rounding knife edges, "
+            f"health counts equal; {'; '.join(notes)}")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def main(argv: list) -> int:
+    import torch
+
+    if argv[:1] == ["--only"]:
+        # a development run of the named phases after device and build, e.g.
+        # --only slab,slab_cpu_vs_card; it prints no result line
+        phase_device()
+        phase_build()
+        for name in argv[1].split(","):
+            globals()[f"phase_{name}"]()
+        return 0
+    if argv:
+        fail(f"unknown arguments {argv}; run with none, or --only PHASE[,PHASE]")
     smi_line = phase_device()
     phase_build()
     kern, err = phase_kernels()
@@ -933,6 +1384,8 @@ def main() -> int:
     stft_launches = phase_spectro(scene, raw, design)
     del scene, raw, design
     phase_spectro_cpu_vs_card()
+    slab_launches = phase_slab()
+    phase_slab_cpu_vs_card()
     pk = kern["pack"]
     print(json.dumps({"kernels": [{
         "name": "fused_picks",
@@ -940,6 +1393,8 @@ def main() -> int:
         "source": "das4whales_tpu_torch/csrc/fused_picks.cu",
         "replaces": "das4whales_tpu/ops/pallas_picks.py:71",
         "launches": launches,
+        "launches_by_path": {"detect": launches, "slab_batched": slab_launches["batched"],
+                             "slab_serial": slab_launches["serial"]},
         "max_abs_err": err,
         "ms": pk["ms"],
         "device_ms": pk["device_ms"],
@@ -969,4 +1424,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -9,8 +9,13 @@ prefilter -> per-chunk |STFT|^2 -> band slice -> hat-kernel correlation
 -> adaptive-K picks). Transforms go to ``torch.fft`` (cuFFT on the card);
 the pick stage and the STFT are hand-written CUDA kernels for Hopper
 (``csrc/fused_picks.cu``, ``csrc/fused_stft.cu``), built with ``nvcc`` at
-first use. Module paths and names mirror ``das4whales_tpu`` so each
-counterpart is easy to find. Entry points run on ``cuda`` unless the caller passes
+first use. The batched ingest path feeds them: ``io.stream`` streams
+OptaSense HDF5 or Silixa TDMS files into ``[B, C, T_bucket]`` slabs on
+the card through pinned memory (``io.staging``), and
+``parallel.batch.BatchedMatchedFilterDetector`` detects a slab with the
+data-health stats (``ops.health``) in one packed read per attempt.
+Module paths and names mirror ``das4whales_tpu`` so each counterpart is
+easy to find. Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; on the CPU every kernel wrapper runs its plain PyTorch
 version.
 

@@ -9,8 +9,11 @@ mask and template stack; ``MatchedFilterDetector.from_design`` then
 builds a detector on it (and, as the spectro family's prefilter, the
 same design serves that family). The spectro family's own state is its
 configuration; its hat kernels are rebuilt from it on the host:
-``spectro_from_jax_config``. Nothing here imports the JAX package: the
-caller hands over plain arrays and values.
+``spectro_from_jax_config``. The batched ingest's configuration — the
+data-health thresholds and the shape buckets — is carried as plain
+fields (``health_config_from_fields``, ``bucket_config_from_fields``).
+Nothing here imports the JAX package: the caller hands over plain arrays
+and values.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import Mapping
 
 import numpy as np
 
+from .config import BatchBucketConfig, DataHealthConfig
 from .models.matched_filter import MatchedFilterDesign
 from .models.spectro import SpectroCorrDetector
 
@@ -84,3 +88,39 @@ def spectro_from_jax_config(det_fields: Mapping, metadata, *, stft_engine: str |
         stft_engine=stft_engine,
         device=device,
     )
+
+
+#: ``DataHealthConfig``'s fields carried across, by their JAX names.
+HEALTH_FIELDS = ("max_nonfinite", "clip_abs", "max_clip_frac", "max_rms", "min_rms")
+
+#: ``BatchBucketConfig``'s fields carried across, by their JAX names.
+BUCKET_FIELDS = ("mode", "lengths", "min_length")
+
+
+def _missing(d: Mapping, fields: tuple, what: str) -> None:
+    missing = [f for f in fields if f not in d]
+    if missing:
+        raise KeyError(f"{what} fields missing: {missing}")
+
+
+def _opt_float(v):
+    return None if v is None else float(v)
+
+
+def health_config_from_fields(d: Mapping) -> DataHealthConfig:
+    """``{field: value}`` for every name in :data:`HEALTH_FIELDS` (read off
+    a JAX ``DataHealthConfig``) -> the port's ``DataHealthConfig``."""
+    _missing(d, HEALTH_FIELDS, "health")
+    return DataHealthConfig(
+        max_nonfinite=int(d["max_nonfinite"]), clip_abs=_opt_float(d["clip_abs"]),
+        max_clip_frac=float(d["max_clip_frac"]), max_rms=_opt_float(d["max_rms"]),
+        min_rms=_opt_float(d["min_rms"]),
+    )
+
+
+def bucket_config_from_fields(d: Mapping) -> BatchBucketConfig:
+    """``{field: value}`` for every name in :data:`BUCKET_FIELDS` (read off
+    a JAX ``BatchBucketConfig``) -> the port's ``BatchBucketConfig``."""
+    _missing(d, BUCKET_FIELDS, "bucket")
+    return BatchBucketConfig(mode=str(d["mode"]), lengths=tuple(int(v) for v in d["lengths"]),
+                             min_length=int(d["min_length"]))

@@ -96,3 +96,38 @@ def to_raw_counts(amplitude_block: np.ndarray, metadata: AcquisitionMetadata, co
     """Quantize a unit-scale amplitude block to int32 raw counts such that
     demean + ``metadata.scale_factor`` recovers the strain block."""
     return np.round(amplitude_block * counts_scale).astype(np.int32)
+
+
+def write_synthetic_file(filepath: str, scene: SyntheticScene, counts_scale: float = 1000.0) -> str:
+    """Render a scene and write it through the OptaSense-schema HDF5 writer."""
+    from .hdf5 import write_optasense
+
+    block = synthesize_scene(scene)
+    raw = to_raw_counts(block, scene.metadata, counts_scale)
+    return write_optasense(
+        filepath, raw, fs=scene.fs, dx=scene.dx,
+        gauge_length=scene.gauge_length, n=scene.n,
+    )
+
+
+def write_synthetic_tdms(filepath: str, scene: SyntheticScene, counts_scale: float = 1000.0) -> str:
+    """Render a scene through the Silixa-schema TDMS writer (int16 channel
+    data, the property set ``get_metadata_silixa`` reads, and a
+    ``GPSTimeStamp``): the offline fixture of the TDMS ingest path."""
+    from datetime import datetime
+
+    from .tdms import write_tdms
+
+    block = synthesize_scene(scene)
+    raw = np.round(block * counts_scale).astype(np.int16)
+    props = {
+        "SamplingFrequency[Hz]": float(scene.fs),
+        "SpatialResolution[m]": float(scene.dx),
+        "FibreIndex": float(scene.n),
+        "GaugeLength": float(scene.gauge_length),
+        "GPSTimeStamp": datetime(2021, 11, 4, 1, 59, 2),
+    }
+    # zero-padded names keep natural == lexicographic order; the loader's
+    # numeric-aware sort must not depend on that
+    chans = {f"ch{i:05d}": raw[i] for i in range(scene.nx)}
+    return write_tdms(filepath, props, "Measurement", chans)

@@ -17,11 +17,15 @@ The port of ``das4whales_tpu.models.matched_filter``'s main path:
    ``"pack"`` and again at K = 256 with ``"topk"`` when a row saturates;
 7. row-major compaction (``ops.peaks.compact_picks_rowmajor``),
 
-eagerly on torch tensors: JAX's ``jit`` becomes an eager call and its
-``lax.map`` over channel tiles a Python loop. Each attempt ends in ONE
+with ``with_health=True`` preceded by the data-health stats of the input
+block (``ops.health``), eagerly on torch tensors: JAX's ``jit`` becomes
+an eager call and its ``lax.map`` over channel tiles a Python loop. On a
+``[B, C, T]`` stack the program runs every stage over the file axis at
+once (the batched route, ``parallel.batch``). Each attempt ends in ONE
 device->host copy of the packed ``(chan, times, count, sat_count, thr)``
-(counted in ``MatchedFilterDetector.syncs``); nothing before it reads a
-device value on the host.
+and, with ``with_health=True``, the health rows (counted in
+``MatchedFilterDetector.syncs``); nothing before it reads a device value
+on the host.
 
 This slice carries ``mf_engine="fft"`` and ``fk_engine="fft"`` only;
 every other value raises ``NotImplementedError`` naming the ROADMAP item
@@ -31,7 +35,7 @@ prefilter the other detector families share (``workflows.common``).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Dict, NamedTuple
 
 import numpy as np
@@ -45,8 +49,10 @@ from ..config import (
     FkFilterConfig,
     as_metadata,
 )
+from ..config import not_in_slice as _not_in_slice
 from ..config import hbm_budget_bytes as _default_hbm_budget_bytes
 from ..ops import conditioning, fused_picks, xcorr
+from ..ops import health as health_ops
 from ..ops import fk as fk_ops
 from ..ops import peaks as peak_ops
 from ..ops.filters import butter_zero_phase_gain, fft_zero_phase_apply
@@ -57,13 +63,6 @@ from .templates import resolve_bank
 #: per template by its factor; HF_FACTOR is the HF fin note's factor.
 REL_THRESHOLD = 0.5
 HF_FACTOR = FIN_HF_NOTE.threshold_factor
-
-
-def _not_in_slice(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not in this slice of the port; it comes with the ROADMAP "
-        f"item '{item}' (ROADMAP.md, 'Open items', 1)"
-    )
 
 
 def check_engines(mf_engine: str, fk_engine: str) -> None:
@@ -161,30 +160,37 @@ def mf_filter_only(trace: torch.Tensor, fk_mask_band: torch.Tensor, bp_gain: tor
 
 def mf_correlate_tiled(trf_fk: torch.Tensor, templates_true: torch.Tensor,
                        mu: torch.Tensor, scale: torch.Tensor, tile: int):
-    """Correlograms over channel tiles, one tile at a time (the JAX
-    package's ``lax.map``, here a Python loop). Returns
-    ``(corr_tiles, gmax)``: a list of ``[nT, rows, n]`` tiles (the last
-    one ragged — no padding rows) and each template's max over all
-    channels ``[nT]``."""
-    C = trf_fk.shape[0]
+    """Correlograms of ``trf_fk [..., C, n]`` over channel tiles, one tile
+    at a time (the JAX package's ``lax.map``, here a Python loop; a
+    leading axis stacks files). Returns ``(corr_tiles, gmax)``: a list of
+    ``[nT, ..., rows, n]`` tiles (the last one ragged — no padding rows)
+    and each template's max over all channels ``[nT, ...]``."""
+    C = trf_fk.shape[-2]
     tiles, maxes = [], []
     for lo in range(0, C, tile):
         corr = xcorr.compute_cross_correlograms_corrected(
-            trf_fk[lo : lo + tile], templates_true, mu, scale
+            trf_fk[..., lo : lo + tile, :], templates_true, mu, scale
         )
         tiles.append(corr)
-        maxes.append(corr.amax(dim=(1, 2)))
+        maxes.append(corr.amax(dim=(-2, -1)))
     return tiles, torch.stack(maxes).amax(dim=0)
 
 
 def mf_compact_tiled_picks(positions: torch.Tensor, selected: torch.Tensor,
                            n_channels: int, capacity: int):
-    """``[nT, R, K]`` picks -> per-template compacted (channel, time)
-    buffers on the device, in the row-major order of
-    :func:`merge_tiled_picks`; rows ``>= n_channels`` are dropped."""
-    R = positions.shape[1]
-    valid = (torch.arange(R, device=positions.device) < n_channels)[None, :, None]
-    return peak_ops.compact_picks_rowmajor(positions, selected & valid, capacity)
+    """``[nT, ..., R, K]`` picks -> per-template compacted (channel, time)
+    buffers ``[..., nT, capacity]`` and counts ``[..., nT]`` on the
+    device, in the row-major order of :func:`merge_tiled_picks`; rows
+    ``>= n_channels`` are dropped."""
+    R, K = positions.shape[-2:]
+    lead = tuple(positions.shape[1:-2])
+    valid = (torch.arange(R, device=positions.device) < n_channels)[:, None]
+    rows, times, count = peak_ops.compact_picks_rowmajor(
+        positions.movedim(0, -3).reshape(-1, R, K),
+        (selected & valid).movedim(0, -3).reshape(-1, R, K), capacity)
+    nT = positions.shape[0]
+    return (rows.reshape(lead + (nT, capacity)), times.reshape(lead + (nT, capacity)),
+            count.reshape(lead + (nT,)))
 
 
 def merge_tiled_picks(positions: np.ndarray, selected: np.ndarray,
@@ -199,7 +205,9 @@ def merge_tiled_picks(positions: np.ndarray, selected: np.ndarray,
 
 class ProgramOutputs(NamedTuple):
     """One attempt's device results: the packed compaction the caller
-    fetches, and the slot grid it keeps for the exact overflow route."""
+    fetches, and the slot grid it keeps for the exact overflow route.
+    Over a ``[B, C, T]`` stack every field gains a leading file axis
+    ``[B, ...]``, except ``positions``/``selected`` (``[nT, B, C, K]``)."""
 
     chan: torch.Tensor        # [nT, capacity] int32
     times: torch.Tensor       # [nT, capacity] int32
@@ -208,6 +216,7 @@ class ProgramOutputs(NamedTuple):
     thr: torch.Tensor         # [nT] float32 thresholds
     positions: torch.Tensor   # [nT, C, K] int32
     selected: torch.Tensor    # [nT, C, K] bool
+    health: tuple | None = None   # with_health: (counts, rms, bin_counts, bin_rms)
 
 
 def mf_detect_picks_program(
@@ -233,6 +242,8 @@ def mf_detect_picks_program(
     cond_scale: float = 1.0,
     cond_n_real: int | None = None,
     thr_scope: str = "global",
+    with_health: bool = False,
+    health_clip: float | None = None,
     stage_hook: Callable[[str], None] | None = None,
 ) -> ProgramOutputs:
     """The whole detection step: [raw-wire conditioning ->] fused
@@ -244,14 +255,36 @@ def mf_detect_picks_program(
     ``thr_scope="global"`` bases every template's threshold on one max
     over all correlograms, ``"per_template"`` on each template's own.
     ``stage_hook(name)``, when given, is called after each stage
-    (``condition``, ``fk``, ``correlate``, ``pick``, ``compact``) — a
-    timer's hook; it must not synchronize. ``thr_factors [nT]`` are the
-    per-template threshold factors; ``use_threshold`` takes ``thr_in``
-    instead of the relative policy."""
+    (``health`` with ``with_health``, ``condition``, ``fk``,
+    ``correlate``, ``pick``, ``compact``) — a timer's hook; it must not
+    synchronize. ``thr_factors [nT]`` are the per-template threshold
+    factors; ``use_threshold`` takes ``thr_in`` instead of the relative
+    policy.
+
+    ``with_health=True`` adds the data-health stats
+    (``ops.health.health_stats_profiled``) of the INPUT block as it
+    enters — raw counts on the raw wire, strain on the conditioned wire —
+    over its real samples ``[:, :cond_n_real]`` when that is given, to
+    the outputs (``health``); ``health_clip`` is the clipped-sample
+    magnitude (None: clip accounting off).
+
+    ``trace [B, C, T]`` runs every stage over the leading file axis at
+    once (JAX's ``vmap`` of the program; ``parallel.batch``'s batched
+    mode): the FFTs over ``[B, tile, ...]``, the pick kernel once a tile
+    on ``nT * B * tile`` rows with per-file thresholds; ``cond_n_real`` is
+    then None or one real length per file. Each file's outputs are those
+    of its own run up to the batched FFTs' rounding."""
     if thr_scope not in ("global", "per_template"):
         raise ValueError(f"unknown thr_scope {thr_scope!r}")
     hook = stage_hook or (lambda name: None)
-    C = trace.shape[0]
+    C = trace.shape[-2]
+    nT = templates_true.shape[0]
+    lead = tuple(trace.shape[:-2])          # () for one file, (B,) for a stack
+    health = None
+    if with_health:
+        health = health_ops.health_stats_profiled(
+            trace, float("inf") if health_clip is None else health_clip, n_real=cond_n_real)
+        hook("health")
     if condition:
         if cond_n_real is None:
             trace = conditioning.condition(trace, cond_scale, dtype=templates_true.dtype)
@@ -266,17 +299,19 @@ def mf_detect_picks_program(
     del trace   # the conditioned block is dead once filtered
     hook("fk")
 
-    def resolve_thr(gmax_vec):
+    def resolve_thr(gmax):
+        # gmax [nT, ...]: each file's threshold from its own maxima
+        per = (nT,) + (1,) * len(lead)
         if use_threshold:
-            return thr_in.to(torch.float32)
-        fac = thr_factors.to(torch.float32)
+            return thr_in.to(torch.float32).reshape(per).expand((nT,) + lead)
+        fac = thr_factors.to(torch.float32).reshape(per)
         if thr_scope == "per_template":
-            return (REL_THRESHOLD * gmax_vec) * fac
-        return (REL_THRESHOLD * gmax_vec.amax()) * fac
+            return (REL_THRESHOLD * gmax) * fac
+        return (REL_THRESHOLD * gmax.amax(dim=0))[None] * fac
 
     if tile is None:
         corr_tiles = [xcorr.compute_cross_correlograms_corrected(trf, templates_true, mu, scale)]
-        thr = resolve_thr(corr_tiles[0].amax(dim=(1, 2)))
+        thr = resolve_thr(corr_tiles[0].amax(dim=(-2, -1)))
     else:
         corr_tiles, gmax = mf_correlate_tiled(trf, templates_true, mu, scale, tile)
         thr = resolve_thr(gmax)
@@ -286,25 +321,28 @@ def mf_detect_picks_program(
     picks = []
     for i in range(len(corr_tiles)):
         picks.append(fused_picks.analytic_envelope_peaks(
-            corr_tiles[i], thr[:, None], max_peaks=max_peaks, method=pick_method
+            corr_tiles[i], thr[..., None], max_peaks=max_peaks, method=pick_method
         ))
         corr_tiles[i] = None   # free each tile's correlograms once picked
-    positions = torch.cat([p.positions for p in picks], dim=1)
-    selected = torch.cat([p.selected for p in picks], dim=1)
-    saturated = torch.cat([p.saturated for p in picks], dim=1)
+    positions = torch.cat([p.positions for p in picks], dim=-2)
+    selected = torch.cat([p.selected for p in picks], dim=-2)
+    saturated = torch.cat([p.saturated for p in picks], dim=-1)
     hook("pick")
 
     chan, times, count = mf_compact_tiled_picks(positions, selected, C, capacity)
-    sat_count = saturated.sum(dim=-1).to(torch.int32)
+    sat_count = saturated.sum(dim=-1).to(torch.int32).movedim(0, -1)
     hook("compact")
-    return ProgramOutputs(chan, times, count, sat_count, thr.to(torch.float32),
-                          positions, selected)
+    return ProgramOutputs(chan, times, count, sat_count,
+                          thr.to(torch.float32).movedim(0, -1), positions, selected, health)
 
 
 @dataclass
 class MatchedFilterResult:
     picks: Dict[str, np.ndarray]          # (2, n_picks) [channel_idx, time_idx]
     thresholds: Dict[str, float]
+    #: the data-health stats (``ops.health.stats_to_dict``) with
+    #: ``with_health=True``; empty otherwise
+    health: Dict[str, float] = field(default_factory=dict)
 
 
 class InFlightResult:
@@ -461,15 +499,18 @@ class MatchedFilterDetector:
                               self._band_hi, self.design.bp_padlen)
 
     def detect_picks(self, trace, threshold: float | None = None,
-                     n_real: int | None = None,
+                     n_real: int | None = None, with_health: bool = False,
+                     health_clip: float | None = None,
                      stage_hook: Callable[[str], None] | None = None) -> MatchedFilterResult:
         """Picks-only detection: one program run and one packed fetch per
         attempt (``dispatch_picks(...).resolve()``)."""
         return self.dispatch_picks(trace, threshold=threshold, n_real=n_real,
+                                   with_health=with_health, health_clip=health_clip,
                                    stage_hook=stage_hook).resolve()
 
     def dispatch_picks(self, trace, threshold: float | None = None,
-                       n_real: int | None = None,
+                       n_real: int | None = None, with_health: bool = False,
+                       health_clip: float | None = None,
                        stage_hook: Callable[[str], None] | None = None) -> InFlightResult:
         """Run the K0 attempt (queued on the card, nothing fetched) and
         return an :class:`InFlightResult`. ``resolve()`` fetches the K0
@@ -478,7 +519,13 @@ class MatchedFilterDetector:
         set from the same attempt's slot grid — never a truncated one.
 
         ``n_real`` marks a time-padded block whose real samples are
-        ``[:, :n_real]``; on the raw wire the demean spans them alone."""
+        ``[:, :n_real]``; on the raw wire the demean spans them alone.
+
+        ``with_health=True`` computes the data-health stats of the input
+        block in the same program (over its real samples on either wire);
+        they ride the attempt's packed fetch and land in
+        ``result.health``. ``health_clip`` is the clipped-sample
+        magnitude, in the wire's units."""
         trace = self._as_input(trace)
         C = trace.shape[0]
         nT = self.design.templates.shape[0]
@@ -489,7 +536,9 @@ class MatchedFilterDetector:
                             dtype=torch.float32, device=self.device)
         tile = self.effective_channel_tile if self._route() == "tiled" else None
         pad_real = n_real is not None and int(n_real) != trace.shape[1]
-        cond_nr = int(n_real) if (self.wire == "raw" and pad_real) else None
+        # the health stats mask the pad on either wire (the conditioned
+        # wire's pad is zeros, but it would dilute the rms)
+        cond_nr = int(n_real) if ((self.wire == "raw" or with_health) and pad_real) else None
 
         def run(k):
             self.dispatches += 1
@@ -501,23 +550,25 @@ class MatchedFilterDetector:
                 max_peaks=k, capacity=cap, use_threshold=use_thr,
                 pick_method=peak_ops.escalation_method(k, self.max_peaks),
                 condition=self.wire == "raw", cond_scale=self._cond_scale,
-                cond_n_real=cond_nr, thr_scope=self.threshold_scope, stage_hook=stage_hook,
+                cond_n_real=cond_nr, thr_scope=self.threshold_scope,
+                with_health=with_health, health_clip=health_clip, stage_hook=stage_hook,
             )
+
+        health = {}
+        n_samples = C * (int(n_real) if pad_real else trace.shape[1])
 
         def fetch(outs: ProgramOutputs):
             # THE one device->host copy of an attempt
-            packed = torch.cat([
-                outs.chan.reshape(-1), outs.times.reshape(-1), outs.count,
-                outs.sat_count, outs.thr.view(torch.int32),
-            ]).cpu().numpy()
+            parts = [outs.chan, outs.times, outs.count, outs.sat_count,
+                     outs.thr.view(torch.int32)]
+            if with_health:
+                parts += health_parts(outs.health)
+            chan, times, count, satc, thr, *h = unpack(
+                torch.cat([p.reshape(-1) for p in parts]).cpu().numpy(), parts)
             self.syncs += 1
-            n = nT * cap
-            chan = packed[:n].reshape(nT, cap)
-            times = packed[n : 2 * n].reshape(nT, cap)
-            count = packed[2 * n : 2 * n + nT]
-            satc = packed[2 * n + nT : 2 * n + 2 * nT]
-            thr = packed[2 * n + 2 * nT :].view(np.float32)
-            return chan, times, count, satc, thr
+            if with_health:
+                health.update(health_from_parts(h, n_samples, C))
+            return chan, times, count, satc, thr.view(np.float32)
 
         outs = run(self.pick_k0)
 
@@ -544,6 +595,31 @@ class MatchedFilterDetector:
             for i, name in enumerate(names):
                 thr_out[name] = float(thr[i])
                 peak_ops.warn_saturated(int(satc[i]), f"template {name}", self.max_peaks)
-            return MatchedFilterResult(picks=picks, thresholds=thr_out)
+            return MatchedFilterResult(picks=picks, thresholds=thr_out, health=health)
 
         return InFlightResult(resolve)
+
+
+def health_parts(health: tuple) -> list:
+    """The health rows of a program's outputs as int32 tensors for the
+    packed fetch (the float rows viewed bit for bit)."""
+    counts, rms, bin_counts, bin_rms = health
+    return [counts, rms.view(torch.int32), bin_counts, bin_rms.view(torch.int32)]
+
+
+def unpack(packed: np.ndarray, parts: list) -> list:
+    """Split the fetched int32 vector back into the shapes of ``parts``."""
+    out, at = [], 0
+    for p in parts:
+        n = p.numel()
+        out.append(packed[at : at + n].reshape(tuple(p.shape)))
+        at += n
+    return out
+
+
+def health_from_parts(h: list, n_samples: int, n_channels: int) -> dict:
+    """One record's fetched health rows -> its ``ops.health`` stats dict."""
+    counts, rms, bin_counts, bin_rms = h
+    return health_ops.stats_to_dict(counts, rms.view(np.float32), n_samples,
+                                    bin_counts=bin_counts, bin_rms=bin_rms.view(np.float32),
+                                    n_channels=n_channels)

@@ -21,16 +21,23 @@ def condition(trace: torch.Tensor, scale, *, dtype=torch.float32) -> torch.Tenso
     return x * _scalar(scale, dtype)
 
 
-def condition_padded(trace: torch.Tensor, scale, n_real: int, *,
+def condition_padded(trace: torch.Tensor, scale, n_real, *,
                      dtype=torch.float32) -> torch.Tensor:
     """:func:`condition` for a time-padded record whose real samples are
     ``[..., :n_real]`` and whose tail is zero padding: the mean spans the
-    real samples only and the pad conditions to exactly 0."""
+    real samples only and the pad conditions to exactly 0. ``n_real`` is
+    an int, or one length per record of a ``[B, C, T]`` stack."""
     x = trace.to(dtype)
-    valid = torch.arange(x.shape[-1], device=x.device) < n_real
     zero = torch.zeros((), dtype=dtype, device=x.device)
+    if isinstance(n_real, int):
+        valid = torch.arange(x.shape[-1], device=x.device) < n_real
+        count = _scalar(n_real, dtype)
+    else:
+        nr = torch.as_tensor(n_real, device=x.device).reshape(-1, 1, 1)
+        valid = torch.arange(x.shape[-1], device=x.device) < nr
+        count = nr.to(dtype)
     s = torch.where(valid, x, zero).sum(dim=-1, keepdim=True)
-    x = torch.where(valid, x - s / _scalar(n_real, dtype), zero)
+    x = torch.where(valid, x - s / count, zero)
     return x * _scalar(scale, dtype)
 
 

@@ -123,13 +123,14 @@ def banded_mask_half(mask, tol: float = 1e-6) -> tuple:
 def fk_filter_apply_rfft_banded(
     trace: torch.Tensor, mask_band: torch.Tensor, lo: int, hi: int
 ) -> torch.Tensor:
-    """Band-limited half-spectrum f-k apply of a ``[C, n]`` block: rfft
-    along time, FFT along channels on rfft bins ``[lo, hi)`` only, mask,
-    inverse channel FFT, irfft. Bins outside the band are zero."""
-    nns = trace.shape[1]
-    Xf = torch.fft.rfft(trace, dim=1)                          # [C, F]
-    Ys = torch.fft.fft(Xf[:, lo:hi], dim=0) * mask_band.to(Xf.real.dtype)
+    """Band-limited half-spectrum f-k apply of a ``[..., C, n]`` block (a
+    leading axis stacks records): rfft along time, FFT along channels on
+    rfft bins ``[lo, hi)`` only, mask, inverse channel FFT, irfft. Bins
+    outside the band are zero."""
+    nns = trace.shape[-1]
+    Xf = torch.fft.rfft(trace, dim=-1)                         # [..., C, F]
+    Ys = torch.fft.fft(Xf[..., lo:hi], dim=-2) * mask_band.to(Xf.real.dtype)
     Z = torch.zeros_like(Xf)
-    Z[:, lo:hi] = torch.fft.ifft(Ys, dim=0)
+    Z[..., lo:hi] = torch.fft.ifft(Ys, dim=-2)
     del Xf, Ys
-    return torch.fft.irfft(Z, n=nns, dim=1).to(trace.dtype)
+    return torch.fft.irfft(Z, n=nns, dim=-1).to(trace.dtype)

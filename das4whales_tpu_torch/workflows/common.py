@@ -1,10 +1,84 @@
-"""The prefilter every signal-processing family shares (the port's copy
-of ``das4whales_tpu.workflows.common.mf_prefilter``)."""
+"""Shared workflow prologue and prefilter (the port's copy of
+``das4whales_tpu.workflows.common``): download -> metadata -> channel
+selection in meters -> load, with an offline synthetic scene when no
+file is given, and the bandpass + f-k prefilter every signal-processing
+family shares."""
 
 from __future__ import annotations
 
-from ..config import ChannelSelection, as_metadata
+import logging
+import os
+from typing import Sequence
+
+from ..config import SELECTED_CHANNELS_M, ChannelSelection, as_metadata
+from ..io import synth
+from ..io.download import dl_file
+from ..io.hdf5 import load_das_data
+from ..io.interrogators import get_acquisition_parameters
 from ..models.matched_filter import MatchedFilterDetector
+
+log = logging.getLogger("das4whales_tpu_torch.workflows")
+
+
+def default_scene(nx: int = 512, ns: int = 12000) -> synth.SyntheticScene:
+    """A 60 s OOI-like scene with HF+LF fin-call pairs at three sites."""
+    calls = []
+    for k, x0 in enumerate((800.0, 2000.0, 3400.0)):
+        t0 = 8.0 + 14.0 * k
+        calls.append(synth.SyntheticCall(t0=t0, x0_m=x0, fmin=17.8, fmax=28.8,
+                                         duration=0.68, amplitude=4.0))
+        calls.append(synth.SyntheticCall(t0=t0 + 12.0, x0_m=x0, fmin=14.7, fmax=21.8,
+                                         duration=0.78, amplitude=4.0))
+    return synth.SyntheticScene(nx=nx, ns=ns, calls=calls, seed=42)
+
+
+def channels_m_to_idx(selected_channels_m: Sequence[float], dx: float) -> list:
+    """Meters -> channel indices, the caller-side convention of every
+    reference script."""
+    return [int(m // dx) for m in selected_channels_m]
+
+
+def acquire(
+    url: str | None = None,
+    *,
+    datadir: str = "data",
+    interrogator: str = "optasense",
+    selected_channels_m: Sequence[float] | None = None,
+    scene: synth.SyntheticScene | None = None,
+    dtype=None,
+    device=None,
+):
+    """Resolve ``url`` (remote URL, local path, or None -> the synthetic
+    scene written to ``datadir``), read metadata, and load the strided
+    channel selection as strain onto ``device`` (``None``: the card).
+
+    Returns ``(block, metadata, selected_channels)`` where ``block`` is a
+    :class:`~das4whales_tpu_torch.io.hdf5.StrainBlock`.
+    """
+    if url is None:
+        scene = scene or default_scene()
+        os.makedirs(datadir, exist_ok=True)
+        filepath = os.path.join(datadir, "synthetic_ooi.h5")
+        synth.write_synthetic_file(filepath, scene)
+        log.info("synthesized offline scene at %s (%d calls)", filepath, len(scene.calls))
+    elif url.startswith(("http://", "https://")):
+        filepath = dl_file(url, datadir=datadir)
+    else:
+        filepath = url
+
+    meta = as_metadata(get_acquisition_parameters(filepath, interrogator=interrogator))
+    log.info("metadata: %s", meta)
+    if selected_channels_m is None:
+        # the canonical 20-65 km selection when it fits, else the whole array
+        if meta.nx * meta.dx > SELECTED_CHANNELS_M[1]:
+            selected_channels_m = SELECTED_CHANNELS_M
+        else:
+            selected_channels_m = (0.0, meta.nx * meta.dx, meta.dx)
+    selected_channels = channels_m_to_idx(selected_channels_m, meta.dx)
+
+    kwargs = {} if dtype is None else {"dtype": dtype}
+    block = load_das_data(filepath, selected_channels, meta, device=device, **kwargs)
+    return block, meta, selected_channels
 
 
 def mf_prefilter(metadata, selected_channels, trace_shape=None, *,

@@ -42,7 +42,10 @@ def test_no_jax_or_reference_package_import(path):
 def test_the_scan_covers_every_module_of_the_port():
     scanned = {str(p.relative_to(ROOT)) for p in _sources()}
     for mod in ("models/spectro.py", "ops/fused_stft.py", "ops/spectral.py", "eval.py",
-                "workflows/common.py", "workflows/spectrodetect.py", "convert.py"):
+                "workflows/common.py", "workflows/spectrodetect.py", "convert.py",
+                "ops/health.py", "io/hdf5.py", "io/tdms.py", "io/interrogators.py",
+                "io/stream.py", "io/staging.py", "io/native.py", "io/download.py",
+                "parallel/batch.py"):
         assert f"das4whales_tpu_torch/{mod}" in scanned
     assert "chip_smoke.py" in scanned
 
@@ -83,6 +86,29 @@ def test_default_device_is_the_card_and_never_the_cpu():
     assert resolve_device("cpu") == torch.device("cpu")
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_ingest_and_batched_route_default_to_the_card(tmp_path):
+    """The slab stream, the single-file loader and the pinned stager take
+    the card by default and refuse without one; nothing drops to the CPU
+    or to a pageable copy."""
+    import numpy as np
+
+    from das4whales_tpu_torch.io.hdf5 import load_das_data, write_optasense
+    from das4whales_tpu_torch.io.staging import PinnedStager
+    from das4whales_tpu_torch.io.stream import stream_batched_slabs, stream_strain_blocks
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the refusal without one")
+    path = write_optasense(str(tmp_path / "f.h5"), np.zeros((8, 64), np.int32), fs=200.0, dx=2.0)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        next(stream_batched_slabs([path], [0, 8, 1], batch=2))
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        next(stream_strain_blocks([path], [0, 8, 1]))
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        load_das_data(path, [0, 8, 1], {"fs": 200.0, "dx": 2.0, "nx": 8, "ns": 64})
+    with pytest.raises(ValueError, match="CUDA device"):
+        PinnedStager(torch.device("cpu"))
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
