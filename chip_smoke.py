@@ -74,16 +74,18 @@ failure is caught:
                 the slab's detect wall, its stages (the health stage among
                 them) and busy share, per-file read and conditioning
                 seconds, the copy's ms, GB/s and bytes, the pass's wall
-                against the sum of its parts, and the stream alone on the
-                native engine, both wires (the host's read ceiling);
+                against the sum of its parts, the batched pass again with
+                the native reader, and the stream alone on the native
+                engine, both wires (the host's read ceiling);
 10. ``slab_cpu_vs_card`` the slab route on the card (batched mode) against
                 the CPU (serial mode) at 512 channels, both wires, batch 2,
                 a clip level, and a float32 file with 3 NaNs and 5 samples
                 at the clip (on the raw wire it flushes a partial slab):
                 thresholds within rtol 1e-5, picks equal up to knife
                 edges, health counts equal, the float32 file alone
-                breaching; then ``BatchedSpectroDetector`` on one slab
-                against its adapter file by file on the card.
+                breaching; ``stream_strain_blocks`` on the card against
+                the host read, bit for bit; then ``BatchedSpectroDetector``
+                on one slab against its adapter file by file on the card.
 
 Then it prints the kernel table as one JSON line, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``. It imports no JAX and nothing
@@ -1190,6 +1192,24 @@ def phase_slab():
                 f"injected calls picked, health 0 non-finite, 0 clipped, rms within 1e-5 of "
                 f"float64, no breach")
             del bd, det
+        # the same batched pass with the native reader (engine="native": the
+        # C++ fused read, demean and scale) in place of the format reader
+        det = MatchedFilterDetector.from_design(ref.design, meta, wire="conditioned")
+        bd = BatchedMatchedFilterDetector(det, serial=False)
+        slabs, _, wall_native = _slab_pass(stream_batched_slabs(
+            paths, sel, meta, batch=SLAB_BATCH, bucket="pow2", engine="native",
+            device="cuda"), bd)
+        files = [(s, j) for s in slabs for j in range(s["n_valid"])]
+        for k, (s, j) in enumerate(files):
+            misses = _check_calls(scenes[k], trim_picks(s["res"][j][0], s["n_real"][j]))
+            if misses:
+                fail(f"slab: native reader: file {k}: injected calls missed: {misses}")
+        say(f"slab: batched, engine='native' (the C++ fused read, demean and scale): timed pass "
+            f"{wall_native:.3f} s = {wall_native / len(files):.3f} s a file; host read (fused) "
+            f"s {[round(x, 3) for s in slabs for x in s['read_s']]}; per slab detect "
+            f"{[round(s['detect_s'] * 1e3, 1) for s in slabs]} ms, wait for the slab "
+            f"{[round(s['wait_s'] * 1e3, 1) for s in slabs]} ms; all injected calls picked")
+        del bd, det
         peak = torch.cuda.max_memory_allocated()
         if peak >= CARD_BYTES:
             fail(f"slab: peak device memory {peak / 1e9:.2f} GB, over the card's 80 GB")
@@ -1246,7 +1266,7 @@ def phase_slab_cpu_vs_card():
     import torch
 
     from das4whales_tpu_torch.config import DataHealthConfig
-    from das4whales_tpu_torch.io.stream import stream_batched_slabs
+    from das4whales_tpu_torch.io.stream import stream_batched_slabs, stream_strain_blocks
     from das4whales_tpu_torch.models.matched_filter import MatchedFilterDetector
     from das4whales_tpu_torch.ops import conditioning
     from das4whales_tpu_torch.parallel.batch import BatchedMatchedFilterDetector, batched_detector_for
@@ -1326,6 +1346,21 @@ def phase_slab_cpu_vs_card():
                          f"({', '.join(s[1] for s in shapes['cuda'])}), clip {clip:.4g}, the "
                          f"float32 file {last['nonfinite']} non-finite / {last['clipped']} "
                          f"clipped (breach), {n_diff} differing picks")
+        # the per-block stream on the card (pinned staging from the read
+        # workers, or at yield time): each block bit for bit its host read
+        for wire in ("raw", "conditioned"):
+            host = [np.ascontiguousarray(b.trace) for b in stream_strain_blocks(
+                paths, sel, meta, wire=wire, as_numpy=True)]
+            for overlap in (True, False):
+                card = [b.trace for b in stream_strain_blocks(
+                    paths, sel, meta, wire=wire, device="cuda", overlap_transfers=overlap)]
+                same = [c.is_cuda and c.cpu().numpy().tobytes() == h.tobytes()
+                        for c, h in zip(card, host)]
+                if len(card) != len(host) or not all(same):
+                    fail(f"slab_cpu_vs_card: stream_strain_blocks on the card, wire={wire}, "
+                         f"overlap_transfers={overlap}: blocks equal to the host read {same}")
+        notes.append("stream_strain_blocks on the card equal to the host read bit for bit "
+                     "(both wires, with and without overlap)")
         # the spectro facade on one slab against its per-file adapter, on the card
         ad = campaign_detector(meta, sel, (nx, SLAB_BUCKET))
         bd = batched_detector_for(ad)

@@ -54,6 +54,24 @@ from ..ops import health as health_ops
 from ..ops import peaks as peak_ops
 
 
+def _batched_body(stack: torch.Tensor, arrays: tuple, n_real, *, serial: bool,
+                  **kw) -> ProgramOutputs:
+    """The detection program over a ``[n, C, T]`` stack: at once over the
+    file axis, or (``serial``) file by file with the outputs stacked.
+    ``arrays`` are the program's positional device arrays, ``n_real``
+    None or one real length per file, ``kw`` its keyword arguments."""
+    if not serial:
+        return mf_detect_picks_program(stack, *arrays, cond_n_real=n_real, **kw)
+    outs = [mf_detect_picks_program(stack[b], *arrays,
+                                    cond_n_real=None if n_real is None else n_real[b], **kw)
+            for b in range(stack.shape[0])]
+    health = (tuple(torch.stack(h) for h in zip(*(o.health for o in outs)))
+              if outs[0].health is not None else None)
+    return ProgramOutputs(*(torch.stack([getattr(o, f) for o in outs])
+                            for f in ("chan", "times", "count", "sat_count", "thr")),
+                          None, None, health)
+
+
 def trim_picks(picks: Dict[str, np.ndarray], n_real: int) -> Dict[str, np.ndarray]:
     """Drop picks in a bucket-padded record's pad region (``time >=
     n_real``): the pad holds no signal, so anything picked there is
@@ -156,18 +174,8 @@ class BatchedMatchedFilterDetector:
 
         def run(k) -> ProgramOutputs:
             det.dispatches += 1
-            method = peak_ops.escalation_method(k, det.max_peaks)
-            if not self.serial:
-                return mf_detect_picks_program(stack, *arrays, max_peaks=k, pick_method=method,
-                                               cond_n_real=nr, **kw)
-            outs = [mf_detect_picks_program(stack[b], *arrays, max_peaks=k, pick_method=method,
-                                            cond_n_real=None if nr is None else nr[b], **kw)
-                    for b in range(nv)]
-            health = (tuple(torch.stack(h) for h in zip(*(o.health for o in outs)))
-                      if with_health else None)
-            return ProgramOutputs(*(torch.stack([getattr(o, f) for o in outs])
-                                    for f in ("chan", "times", "count", "sat_count", "thr")),
-                                  None, None, health)
+            return _batched_body(stack, arrays, nr, serial=self.serial, max_peaks=k,
+                                 pick_method=peak_ops.escalation_method(k, det.max_peaks), **kw)
 
         def fetch(outs: ProgramOutputs):
             # THE one device->host read of an attempt, every file's rows in it
