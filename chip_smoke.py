@@ -70,7 +70,14 @@ failure is caught:
                 call be picked, the health show 0 non-finite, 0 clipped,
                 rms within 1e-5 of float64 and no breach; one read per
                 attempt, 44 pick launches a tile sweep (batched: per slab;
-                serial: per file), peak device memory under 80 GB; it prints
+                serial: per file), peak device memory under 80 GB; in each
+                mode the pick kernel against its plain version, all five
+                outputs bitwise for ``pack`` K=64 and ``topk`` K=256, on
+                the inputs the route gave its first and last launch of
+                the first slab (batched: 4096 and 272 rows x 16384, the
+                files' own thresholds), and its CTAs an SM at 16384
+                samples (the design's, or as many as the shared memory
+                holds); it prints
                 the slab's detect wall, its stages (the health stage among
                 them) and busy share, per-file read and conditioning
                 seconds, the copy's ms, GB/s and bytes, the pass's wall
@@ -85,7 +92,11 @@ failure is caught:
                 edges, health counts equal, the float32 file alone
                 breaching; ``stream_strain_blocks`` on the card against
                 the host read, bit for bit; then ``BatchedSpectroDetector``
-                on one slab against its adapter file by file on the card.
+                on one slab against its adapter file by file on the card,
+                its ``fused_stft`` launches counted (one a hat kernel and
+                4096-channel chunk) and the kernel held against its plain
+                version within 5e-6 * max on the facade's own launch
+                (1024 x 16384).
 
 Then it prints the kernel table as one JSON line, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``. It imports no JAX and nothing
@@ -95,6 +106,7 @@ of the JAX package. ``--only PHASE[,PHASE]`` runs the named phases after
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -150,6 +162,12 @@ STFT_MAIN_INSTANCE = (4, True)
 #: row length (pack K=64, topk K=256)
 PICKS_MAIN_INSTANCE = (0, False)
 PICKS_CTAS_PER_SM = {"pack": 4, "topk": 3}
+
+#: an H100 SM's shared memory for resident CTAs, and what CUDA reserves of
+#: it for each CTA (the occupancy calculator's sharedMemPerMultiprocessor
+#: and reservedSharedMemPerBlock)
+SM_SMEM_BYTES = 228 * 1024
+CTA_RESERVED_SMEM = 1024
 
 
 def ptxas_instances(report: str, kernel: str) -> dict:
@@ -338,16 +356,17 @@ def _alternating_row(T: int, rng) -> tuple:
     return re, np.zeros_like(re), np.full(1, 0.5, np.float32)
 
 
-def _compare(a, b) -> float:
+def _compare(a, b, where: str = "kernels") -> float:
     """Bitwise equality of the five outputs; returns the max abs error
-    over the finite float entries (0.0 when bitwise equal)."""
+    over the finite float entries (0.0 when bitwise equal). ``where``
+    names the phase in a failure."""
     import torch
 
     names = ("positions", "heights", "prominences", "selected", "saturated")
     err = 0.0
     for name, x, y in zip(names, a, b):
         if x.shape != y.shape or x.dtype != y.dtype:
-            fail(f"kernels: {name} shape/dtype {tuple(x.shape)} {x.dtype} != {tuple(y.shape)} {y.dtype}")
+            fail(f"{where}: {name} shape/dtype {tuple(x.shape)} {x.dtype} != {tuple(y.shape)} {y.dtype}")
         if x.dtype.is_floating_point:
             same = torch.equal(x.isnan(), y.isnan()) and torch.equal(
                 torch.nan_to_num(x, nan=0.0), torch.nan_to_num(y, nan=0.0))
@@ -358,8 +377,90 @@ def _compare(a, b) -> float:
             same = torch.equal(x, y)
         if not same:
             bad = int((x != y).sum())
-            fail(f"kernels: {name} differs from the plain version in {bad} entries")
+            fail(f"{where}: {name} differs from the plain version in {bad} entries")
     return err
+
+
+@contextlib.contextmanager
+def _capture(mod, name: str):
+    """Replace ``mod.name`` for the block by a function that forwards every
+    call and keeps clones of the arguments of the first call and of the
+    latest: yields ``{"n": calls, "first": (args, kw), "last": (args,
+    kw)}`` (``"last"`` is the first where there was one call). The inputs
+    a main path gives a kernel, held against the plain version after."""
+    import torch
+
+    orig = getattr(mod, name)
+    got = {"n": 0}
+
+    def clone(v):
+        return v.clone() if isinstance(v, torch.Tensor) else v
+
+    def spy(*args, **kw):
+        rec = (tuple(clone(a) for a in args), {k: clone(v) for k, v in kw.items()})
+        got["first" if got["n"] == 0 else "last"] = rec
+        got["n"] += 1
+        return orig(*args, **kw)
+
+    setattr(mod, name, spy)
+    try:
+        yield got
+    finally:
+        setattr(mod, name, orig)
+        if got["n"]:
+            got.setdefault("last", got["first"])
+
+
+def _picks_ctas_want(T: int, K: int, method: str) -> int:
+    """CTAs of the pick kernel an SM must hold at rows of ``T`` samples:
+    the design's (:data:`PICKS_CTAS_PER_SM`), or as many as an SM's shared
+    memory holds where that is fewer (at the 16384-sample bucket the
+    envelope alone takes 64 KiB a CTA, so 3 fit)."""
+    from das4whales_tpu_torch.ops import fused_picks
+
+    fit = SM_SMEM_BYTES // (fused_picks.smem_bytes(T, K, method) + CTA_RESERVED_SMEM)
+    return min(PICKS_CTAS_PER_SM[method], fit)
+
+
+def _picks_at_main_path(where: str, calls: dict, want_rows: dict) -> tuple:
+    """The pick kernel against its plain version on the inputs a main path
+    gave it (its first and last launch, from :func:`_capture`): all five
+    outputs bitwise, for both methods (``pack`` K=64, ``topk`` K=256);
+    and its CTAs an SM at that row length. ``want_rows`` maps ``first`` /
+    ``last`` to the rows each launch must have. Returns ``(max_abs_err,
+    notes)``."""
+    import torch
+
+    from das4whales_tpu_torch.ops import fused_picks
+
+    err, notes = 0.0, []
+    for which in ("first", "last"):
+        (X, thr, *_), _ = calls[which]
+        rows, T = X.shape
+        if rows != want_rows[which]:
+            fail(f"{where}: the {which} pick launch had {rows} rows, expected {want_rows[which]}")
+        for method, K in (("pack", 64), ("topk", 256)):
+            k_out = fused_picks.picks_cuda(X, thr, K, method)
+            p_out = fused_picks.picks_plain(X, thr, K, method)
+            torch.cuda.synchronize()
+            err = max(err, _compare(k_out, p_out, where))
+            n_sel, n_sat = int(k_out.selected.sum()), int(k_out.saturated.sum())
+            if which == "first" and n_sel == 0:
+                fail(f"{where}: {method} selected nothing at the first launch; the comparison "
+                     "proves nothing")
+            notes.append(f"{which} launch {rows}x{T} {method} K={K}: {n_sel} selected, "
+                         f"{n_sat} rows saturated")
+    T = calls["first"][0][0].shape[-1]
+    for method, K in (("pack", 64), ("topk", 256)):
+        ctas, want = fused_picks.ctas_per_sm(T, K, method), _picks_ctas_want(T, K, method)
+        if ctas < want:
+            fail(f"{where}: fused_picks {method} K={K} at T={T} fits {ctas} CTAs an SM, "
+                 f"expected {want} ({fused_picks.smem_bytes(T, K, method)} bytes of shared "
+                 f"memory a CTA)")
+        notes.append(f"{method} K={K} at T={T}: {ctas} CTAs an SM (design "
+                     f"{PICKS_CTAS_PER_SM[method]}, shared memory "
+                     f"{fused_picks.smem_bytes(T, K, method)} bytes a CTA)")
+    return err, notes
 
 
 def _phase_split(stamps, kernel_ms: float) -> dict:
@@ -1080,7 +1181,9 @@ def phase_slab():
         ref = MatchedFilterDetector(meta, sel, (nx, SLAB_BUCKET), templates="fin",
                                     wire="conditioned")
         t_design = time.perf_counter() - t0
-        n_tiles = -(-nx // ref.effective_channel_tile)
+        tile = ref.effective_channel_tile
+        n_tiles = -(-nx // tile)
+        nT = ref.design.templates.shape[0]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
 
@@ -1088,7 +1191,7 @@ def phase_slab():
             return stream_batched_slabs(paths, sel, meta, batch=SLAB_BATCH, bucket="pow2",
                                         device="cuda")
 
-        refs, out, launch_by_mode = None, {}, {}
+        refs, out, launch_by_mode, kernel_err = None, {}, {}, 0.0
         for mode, serial in (("batched", False), ("serial", True)):
             det = MatchedFilterDetector.from_design(ref.design, meta, wire="conditioned")
             bd = BatchedMatchedFilterDetector(det, serial=serial)
@@ -1157,7 +1260,21 @@ def phase_slab():
             fams = _profile(f"{mode} slab of {first.n_valid}", lambda: bd.dispatch_batch(
                 first.stack, n_real=first.n_real, n_valid=first.n_valid,
                 with_health=True).resolve(), detect_wall, "fused_picks")
-            del first
+            # the pick kernel on the inputs this mode gives it: the first
+            # (a full tile) and the last (the ragged tile) launch of the
+            # first slab, with the files' own thresholds, against its plain
+            # version; these launches are not the main path's
+            with _capture(fused_picks, "picks_cuda") as calls:
+                bd.dispatch_batch(first.stack, n_real=first.n_real, n_valid=first.n_valid,
+                                  with_health=True).resolve()
+            lanes = 1 if serial else n_first         # files a launch carries
+            err, notes = _picks_at_main_path(f"slab: {mode}", calls, {
+                "first": nT * lanes * tile, "last": nT * lanes * (nx - (n_tiles - 1) * tile)})
+            kernel_err = max(kernel_err, err)
+            say(f"slab: {mode}: fused_picks == plain, bitwise on all five outputs, on the "
+                f"first slab's first and last launch ({calls['n']} launches in the "
+                f"dispatch): {'; '.join(notes)}")
+            del first, calls
             copies = [[(a.elapsed_time(b), n) for a, b, n in s["copies"]] for s in slabs]
             out[mode] = dict(slabs=slabs, wall=wall, detect_wall=detect_wall, stages=med,
                              copies=copies, busy=sum(fams.values()))
@@ -1232,7 +1349,7 @@ def phase_slab():
             f"{alone['conditioned']:.3f} s a file; peak device memory over the phase "
             f"{peak / 2**30:.2f} GiB; files written in {t_write:.1f} s; f-k design at the "
             f"bucket shape {t_design:.1f} s (host); phase {time.perf_counter() - t_phase:.1f} s")
-        return launch_by_mode
+        return launch_by_mode, kernel_err
     finally:
         shutil.rmtree(d, ignore_errors=True)
 
@@ -1268,7 +1385,8 @@ def phase_slab_cpu_vs_card():
     from das4whales_tpu_torch.config import DataHealthConfig
     from das4whales_tpu_torch.io.stream import stream_batched_slabs, stream_strain_blocks
     from das4whales_tpu_torch.models.matched_filter import MatchedFilterDetector
-    from das4whales_tpu_torch.ops import conditioning
+    from das4whales_tpu_torch.models.spectro import FUSED_DEFAULT_BATCH
+    from das4whales_tpu_torch.ops import conditioning, fused_stft
     from das4whales_tpu_torch.parallel.batch import BatchedMatchedFilterDetector, batched_detector_for
     from das4whales_tpu_torch.utils.parity import envelopes, unexplained_differences
     from das4whales_tpu_torch.workflows.spectrodetect import campaign_detector
@@ -1365,7 +1483,34 @@ def phase_slab_cpu_vs_card():
         ad = campaign_detector(meta, sel, (nx, SLAB_BUCKET))
         bd = batched_detector_for(ad)
         slab = next(stream_batched_slabs(paths, sel, meta, batch=2, bucket="pow2"))
-        got = bd.detect_batch(slab.stack, n_real=slab.n_real, n_valid=slab.n_valid)
+        zero_launches()                         # the facade's batched route starts here
+        with _capture(fused_stft, "stft_power_cuda") as calls:
+            got = bd.detect_batch(slab.stack, n_real=slab.n_real, n_valid=slab.n_valid)
+        stft_launches = read_launches()["fused_stft"]
+        rows = slab.n_valid * nx                # the facade's [n * C, T] correlogram input
+        chunk = ad.det.batch_channels or FUSED_DEFAULT_BATCH
+        want = len(ad.det.kernels) * -(-rows // chunk)
+        if stft_launches != want:
+            fail(f"slab_cpu_vs_card: the spectro facade launched fused_stft {stft_launches} "
+                 f"times, expected {want} ({len(ad.det.kernels)} hat kernels x "
+                 f"{-(-rows // chunk)} chunks of {rows} channels)")
+        # the STFT kernel on the facade's own launch, against its plain version
+        (x, nfft, hop), kw = calls["first"]
+        if tuple(x.shape) != (min(rows, chunk), SLAB_BUCKET):
+            fail(f"slab_cpu_vs_card: the facade's STFT launch took {tuple(x.shape)}, expected "
+                 f"{(min(rows, chunk), SLAB_BUCKET)}")
+        k_pow = fused_stft.stft_power_cuda(x, nfft, hop, **kw)
+        p_pow = fused_stft.stft_power_plain(x, nfft, hop, **kw)
+        torch.cuda.synchronize()
+        stft_err, stft_scale = float((k_pow - p_pow).abs().max()), float(p_pow.abs().max())
+        if not (bool(torch.isfinite(k_pow).all()) and stft_err <= STFT_REL_TOL * stft_scale):
+            fail(f"slab_cpu_vs_card: fused_stft at the facade's launch {tuple(x.shape)}: "
+                 f"max|kernel - plain| {stft_err:.3e} (limit {STFT_REL_TOL * stft_scale:.3e})")
+        notes.append(f"BatchedSpectroDetector: {stft_launches} fused_stft launches on the slab "
+                     f"of {slab.n_valid}; fused_stft within {STFT_REL_TOL} * max of its plain "
+                     f"version at the facade's launch {tuple(x.shape)} nfft {nfft} hop {hop} "
+                     f"(relative max error {stft_err / stft_scale:.2e})")
+        del x, k_pow, p_pow, calls
         n_diff = n_picks = 0
         for j in range(slab.n_valid):
             one = ad(slab.stack[j])
@@ -1393,6 +1538,7 @@ def phase_slab_cpu_vs_card():
             f"samples, batch 2, pow2 bucket {SLAB_BUCKET}, card (batched mode) vs CPU (serial "
             f"mode): thresholds within rtol 1e-5, differing picks all on rounding knife edges, "
             f"health counts equal; {'; '.join(notes)}")
+        return stft_launches, stft_err
     finally:
         shutil.rmtree(d, ignore_errors=True)
 
@@ -1419,8 +1565,8 @@ def main(argv: list) -> int:
     stft_launches = phase_spectro(scene, raw, design)
     del scene, raw, design
     phase_spectro_cpu_vs_card()
-    slab_launches = phase_slab()
-    phase_slab_cpu_vs_card()
+    slab_launches, slab_picks_err = phase_slab()
+    slab_stft_launches, slab_stft_err = phase_slab_cpu_vs_card()
     pk = kern["pack"]
     print(json.dumps({"kernels": [{
         "name": "fused_picks",
@@ -1430,7 +1576,7 @@ def main(argv: list) -> int:
         "launches": launches,
         "launches_by_path": {"detect": launches, "slab_batched": slab_launches["batched"],
                              "slab_serial": slab_launches["serial"]},
-        "max_abs_err": err,
+        "max_abs_err": max(err, slab_picks_err),
         "ms": pk["ms"],
         "device_ms": pk["device_ms"],
         "plain_ms": pk["plain_ms"],
@@ -1443,7 +1589,8 @@ def main(argv: list) -> int:
         "source": "das4whales_tpu_torch/csrc/fused_stft.cu",
         "replaces": "das4whales_tpu/ops/pallas_stft.py:71",
         "launches": stft_launches,
-        "max_abs_err": stft_err,
+        "launches_by_path": {"spectro": stft_launches, "slab_spectro": slab_stft_launches},
+        "max_abs_err": max(stft_err, slab_stft_err),
         "ms": stft["ms"],
         "device_ms": stft["device_ms"],
         "plain_ms": stft["plain_ms"],

@@ -26,10 +26,12 @@ def condition_padded(trace: torch.Tensor, scale, n_real, *,
     """:func:`condition` for a time-padded record whose real samples are
     ``[..., :n_real]`` and whose tail is zero padding: the mean spans the
     real samples only and the pad conditions to exactly 0. ``n_real`` is
-    an int, or one length per record of a ``[B, C, T]`` stack."""
+    a scalar (a Python or numpy integer, or a 0-d array), or one length
+    per record of a ``[B, C, T]`` stack."""
     x = trace.to(dtype)
     zero = torch.zeros((), dtype=dtype, device=x.device)
-    if isinstance(n_real, int):
+    if np.ndim(n_real) == 0:
+        n_real = int(n_real)
         valid = torch.arange(x.shape[-1], device=x.device) < n_real
         count = _scalar(n_real, dtype)
     else:

@@ -85,6 +85,13 @@ def ctas_per_sm(T: int, max_peaks: int, method: str, nb: int = 128) -> int:
     return n
 
 
+def smem_bytes(T: int, max_peaks: int, method: str, nb: int = 128) -> int:
+    """Shared memory of one CTA for rows of ``T`` samples, in the layout
+    its method launches with (what bounds :func:`ctas_per_sm` at long
+    rows: the envelope alone takes ``4 T`` bytes)."""
+    return int(_lib().fused_picks_smem_bytes(T, min(int(max_peaks), T), _METHODS[method], nb))
+
+
 @functools.lru_cache(maxsize=None)
 def _check_fits(T: int, K: int, method: str, nb: int, device_index: int) -> None:
     """Raise unless one CTA's shared memory for this shape, in the layout

@@ -65,6 +65,29 @@ def test_stats_and_profile_match_jax(shape, n_real, clip, n_bins):
     assert got[0][..., 0].min() >= (1 if n_real is None else 0) + 2
 
 
+@pytest.mark.parametrize("shape,n_real", CASES)
+@pytest.mark.parametrize("clip", [2.0, float("inf")])
+def test_scalar_stats_match_jax(shape, n_real, clip):
+    x = _block(shape)
+    want = _jax(jh.health_stats, x, clip, n_real=n_real)
+    got = [v.numpy() for v in th.health_stats(torch.from_numpy(x), clip, n_real=n_real)]
+    assert got[0].dtype == np.int32 and got[1].dtype == np.float32
+    assert got[0].shape == want[0].shape and got[1].shape == want[1].shape
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-6)
+
+
+@pytest.mark.parametrize("n_real", [[90, 100, 50], np.asarray([90, 100, 50])])
+def test_scalar_stats_per_record_lengths_match_jax(n_real):
+    x = _block((3, 37, 100), seed=1)
+    counts, rms = (v.numpy() for v in th.health_stats(torch.from_numpy(x), 2.0, n_real=n_real))
+    assert counts.shape == (3, 2) and rms.shape == (3,)
+    for b, nr in enumerate(n_real):
+        want = _jax(jh.health_stats, x[b], 2.0, n_real=int(nr))
+        np.testing.assert_array_equal(counts[b], want[0])
+        np.testing.assert_allclose(rms[b], want[1], rtol=1e-6)
+
+
 def test_per_record_lengths_match_jax_record_by_record():
     x = _block((3, 37, 100), seed=1)
     n_real = [90, 100, 50]

@@ -80,6 +80,18 @@ def test_condition_padded_matches():
     assert np.all(got[:, 900:] == 0)
 
 
+@pytest.mark.parametrize("n_real", [np.int64(900), np.int32(900), np.asarray(900),
+                                    torch.tensor(900)])
+def test_condition_padded_takes_any_scalar_length(n_real):
+    rng = np.random.default_rng(2)
+    raw = np.zeros((16, 1024), np.int32)
+    raw[:, :900] = rng.integers(-3000, 3000, size=(16, 900))
+    want = tcond.condition_padded(_t(raw), 2.5e-9, 900)
+    got = tcond.condition_padded(_t(raw), 2.5e-9, n_real)
+    assert got.shape == (16, 1024)
+    assert torch.equal(got, want)
+
+
 def test_fk_apply_banded_matches(block, design):
     _, mask_band, lo, hi = design
     ref = _j32(jfk.fk_filter_apply_rfft_banded, block, mask_band, lo=lo, hi=hi)

@@ -472,6 +472,48 @@ def test_chip_smoke_reads_the_phase_stamps():
     assert sp["resident"] == pytest.approx(400 * P / sp["span_ns"] / chip_smoke.SMS)
 
 
+def test_chip_smoke_captures_the_inputs_a_main_path_gives_a_kernel():
+    """chip_smoke.py's spy forwards every call of the routed function and
+    keeps clones of the first and the latest call's arguments, then puts
+    the function back."""
+    import chip_smoke
+
+    rng = np.random.default_rng(5)
+    corr = torch.from_numpy(rng.standard_normal((2, 3, 4, 200)).astype(np.float32))
+    thr = torch.tensor([[1.0], [2.0]])
+    orig = tfused.picks_plain
+    with chip_smoke._capture(tfused, "picks_plain") as calls:
+        want = [tfused.analytic_envelope_peaks(corr[:, :, k], thr, max_peaks=8, method="pack")
+                for k in range(4)]
+    assert tfused.picks_plain is orig and calls["n"] == 4
+    for which, k in (("first", 0), ("last", 3)):
+        (X, t, K, method, nb), kw = calls[which]
+        assert (K, method, nb, kw) == (8, "pack", 128, {})
+        assert torch.equal(X, tspec.analytic_signal(corr[:, :, k]).reshape(6, 200))
+        assert torch.equal(t, torch.tensor([1.0, 1.0, 1.0, 2.0, 2.0, 2.0]))
+        got = tfused.picks_plain(X, t, K, method)
+        assert torch.equal(got.positions, want[k].positions.reshape(6, 8))
+    with chip_smoke._capture(tfused, "picks_plain") as calls:
+        tfused.analytic_envelope_peaks(corr[0, 0, 0], 1.0, max_peaks=8)
+    assert calls["n"] == 1 and calls["last"] is calls["first"]
+
+
+@pytest.mark.parametrize("T,pack_bytes,topk_bytes,want", [
+    (12000, 51344, 56144, {"pack": 4, "topk": 3}),
+    (16384, 69696, 74816, {"pack": 3, "topk": 3}),
+    (60000, 241000, 246000, {"pack": 0, "topk": 0})])
+def test_chip_smoke_holds_the_ctas_an_sm_to_the_shared_memory(monkeypatch, T, pack_bytes,
+                                                              topk_bytes, want):
+    """Past the row length where the design's CTAs fit an SM's 228 KiB of
+    shared memory (each CTA reserving 1 KiB more), chip_smoke.py expects
+    as many as fit."""
+    import chip_smoke
+
+    monkeypatch.setattr(tfused, "smem_bytes", lambda T_, K, method: {
+        "pack": pack_bytes, "topk": topk_bytes}[method])
+    assert {m: chip_smoke._picks_ctas_want(T, 64, m) for m in want} == want
+
+
 def test_chip_smoke_reads_the_pick_kernels_ptxas():
     """chip_smoke.py reads registers and spills of each
     ``fused_picks_kernel<method, timed>``, to show that the main launch's
