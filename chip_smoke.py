@@ -5,7 +5,7 @@
 
 Builds the port's two CUDA kernels from ``das4whales_tpu_torch/csrc`` with
 ``nvcc`` (sm_90a) and the native ingest reader from
-``das4whales_tpu_torch/native/ingest.cpp`` with ``g++``, then runs ten
+``das4whales_tpu_torch/native/ingest.cpp`` with ``g++``, then runs twelve
 phases, one summary line each (more for the detector runs, with their
 profiles), and exits non-zero at the first failed check; no phase's
 failure is caught:
@@ -96,7 +96,33 @@ failure is caught:
                 its ``fused_stft`` launches counted (one a hat kernel and
                 4096-channel chunk) and the kernel held against its plain
                 version within 5e-6 * max on the facade's own launch
-                (1024 x 16384).
+                (1024 x 16384);
+11. ``campaign`` ``run_campaign_batched`` at its defaults (batch 4, pow2
+                buckets, conditioned wire, the format reader, the mf
+                family, health, dispatch depth 2) over the slab phase's
+                five files, ``interrogator="silixa"``: every file ``done``
+                at ``batched:4`` with no downshift event, 44 ``fused_picks``
+                launches and one read an attempt, each file's saved picks
+                bitwise the slab phase's batched picks, every injected call
+                picked; then the same call again (resume) settles nothing
+                and reads nothing, ``summarize_campaign`` counts 5 done and
+                ``fsck_outdir`` finds nothing. It prints the pass a file,
+                the bucket's design seconds, the picks-artifact and
+                manifest write seconds, the peak device memory and the busy
+                share of one slab of the campaign's facade (profiler);
+12. ``campaign_cpu_vs_card`` both entries at 512 x 12000 on the card
+                against ``device="cpu"`` (five int32 files, a corrupt and a
+                NaN file; records equal file by file — status, rung,
+                attempts — picks equal up to knife edges); a pinned
+                ``FaultPlan``: an oom at ``batched:4`` that fits from
+                ``batched:2`` (one downshift; serial mode: picks bitwise
+                the fault-free run's), a corrupt file ``failed``, a NaN
+                file ``quarantined``; a wedged dispatch under
+                ``dispatch_deadline_s`` (``timeout`` for that file only);
+                the spectro family on one slab (``fused_stft`` launches,
+                picks equal to ``BatchedSpectroDetector``'s); and a design
+                saved by the port and loaded again (bitwise the same
+                picks).
 
 Then it prints the kernel table as one JSON line, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``. It imports no JAX and nothing
@@ -108,6 +134,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -1151,15 +1178,42 @@ def _slab_pass(stream, bd, with_refs=None):
     return slabs, refs, time.perf_counter() - t0 - t_ref
 
 
+#: the slab phase's TDMS files, written once and shared with the campaign
+#: phase (``slab_files``); removed at the end of the run
+_SHARED: dict = {}
+
+
+def slab_files() -> dict:
+    """The five canonical TDMS files of the ``slab`` and ``campaign``
+    phases, written on first use under ``build/``: ``{"dir", "paths",
+    "scenes", "t_write", "picks"}``, where ``picks`` collects the slab
+    phase's batched picks a file (trimmed to the file's samples)."""
+    import tempfile
+    from pathlib import Path
+
+    if not _SHARED:
+        root = Path(__file__).resolve().parent / "build"
+        root.mkdir(exist_ok=True)
+        d = Path(tempfile.mkdtemp(prefix="slab_files_", dir=root))
+        _SHARED["dir"] = d
+        paths, scenes, t_write = _write_files(d, SLAB_FILES, CANONICAL[0], n_calls=6)
+        _SHARED.update(paths=paths, scenes=scenes, t_write=t_write, picks={})
+    return _SHARED
+
+
+def remove_slab_files() -> None:
+    import shutil
+
+    if _SHARED:
+        shutil.rmtree(_SHARED["dir"], ignore_errors=True)
+        _SHARED.clear()
+
+
 def phase_slab():
     """The campaign's default batched route at full width: five TDMS
     files streamed into [4, 22050, 16384] slabs through pinned memory,
     detected by BatchedMatchedFilterDetector with the health stats, in
     the batched and the serial mode."""
-    import shutil
-    import tempfile
-    from pathlib import Path
-
     import torch
 
     from das4whales_tpu_torch.config import DataHealthConfig
@@ -1171,189 +1225,184 @@ def phase_slab():
     t_phase = time.perf_counter()
     nx = CANONICAL[0]
     sel = [0, nx, 1]
-    root = Path(__file__).resolve().parent / "build"
-    root.mkdir(exist_ok=True)
-    d = Path(tempfile.mkdtemp(prefix="slab_files_", dir=root))
-    try:
-        paths, scenes, t_write = _write_files(d, SLAB_FILES, nx, n_calls=6)
-        meta = scenes[0].metadata
-        t0 = time.perf_counter()
-        ref = MatchedFilterDetector(meta, sel, (nx, SLAB_BUCKET), templates="fin",
-                                    wire="conditioned")
-        t_design = time.perf_counter() - t0
-        tile = ref.effective_channel_tile
-        n_tiles = -(-nx // tile)
-        nT = ref.design.templates.shape[0]
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+    shared = slab_files()
+    paths, scenes, t_write = shared["paths"], shared["scenes"], shared["t_write"]
+    meta = scenes[0].metadata
+    t0 = time.perf_counter()
+    ref = MatchedFilterDetector(meta, sel, (nx, SLAB_BUCKET), templates="fin",
+                                wire="conditioned")
+    t_design = time.perf_counter() - t0
+    tile = ref.effective_channel_tile
+    n_tiles = -(-nx // tile)
+    nT = ref.design.templates.shape[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
 
-        def stream():
-            return stream_batched_slabs(paths, sel, meta, batch=SLAB_BATCH, bucket="pow2",
-                                        device="cuda")
+    def stream():
+        return stream_batched_slabs(paths, sel, meta, batch=SLAB_BATCH, bucket="pow2",
+                                    device="cuda")
 
-        refs, out, launch_by_mode, kernel_err = None, {}, {}, 0.0
-        for mode, serial in (("batched", False), ("serial", True)):
-            det = MatchedFilterDetector.from_design(ref.design, meta, wire="conditioned")
-            bd = BatchedMatchedFilterDetector(det, serial=serial)
-            # warm-up pass: FFT plans, allocator pools; the references ride it
-            _, r, _ = _slab_pass(stream(), bd, with_refs=ref if refs is None else None)
-            refs = refs or r
-            zero_launches()                          # the main path's timed pass starts here
-            det.syncs = det.dispatches = det.escalations = 0
-            slabs, _, wall = _slab_pass(stream(), bd)
-            launch_by_mode[mode] = read_launches()["fused_picks"]
-            # per-file checks against detect_picks on the same card
-            files = [(s, j) for s in slabs for j in range(s["n_valid"])]
-            if len(files) != len(SLAB_FILES) or [s["n_valid"] for s in slabs] != [4, 1]:
-                fail(f"slab: {mode}: slabs of {[s['n_valid'] for s in slabs]} files, "
-                     "expected a full slab of 4 and a partial slab of 1")
-            health_cfg = DataHealthConfig()
-            for k, (s, j) in enumerate(files):
-                picks, thr, health = s["res"][j]
-                rref, rms64 = refs[k]
-                n_real = s["n_real"][j]
-                a, b = trim_picks(picks, n_real), trim_picks(rref.picks, n_real)
-                for name in b:
-                    if not np.array_equal(a[name], b[name]):
-                        fail(f"slab: {mode}: file {k} template {name}: picks differ from "
-                             f"detect_picks ({a[name].shape[1]} vs {b[name].shape[1]})")
-                    same = (thr[name] == rref.thresholds[name] if serial
-                            else _within_ulp(thr[name], rref.thresholds[name]))
-                    if not same:
-                        fail(f"slab: {mode}: file {k} template {name}: threshold "
-                             f"{thr[name]!r} vs detect_picks {rref.thresholds[name]!r}")
-                if serial and health != rref.health:
-                    fail(f"slab: {mode}: file {k}: health differs from detect_picks")
-                misses = _check_calls(scenes[k], a)
-                if misses:
-                    fail(f"slab: {mode}: file {k}: injected calls missed: {misses}")
-                if health["nonfinite"] or health["clipped"]:
-                    fail(f"slab: {mode}: file {k}: health {health['nonfinite']} non-finite, "
-                         f"{health['clipped']} clipped")
-                if abs(health["rms"] - rms64) > 1e-5 * rms64:
-                    fail(f"slab: {mode}: file {k}: rms {health['rms']!r} vs float64 {rms64!r}")
-                if health_cfg.breach(health) is not None:
-                    fail(f"slab: {mode}: file {k}: breach {health_cfg.breach(health)}")
-            for s in slabs:
-                want = n_tiles * s["dispatches"] * (s["n_valid"] if serial else 1)
-                if s["syncs"] != s["dispatches"] or s["dispatches"] != 1 + s["escalations"]:
-                    fail(f"slab: {mode}: {s['syncs']} reads for {s['dispatches']} attempts "
-                         f"({s['escalations']} escalations)")
-                if s["launches"] != want:
-                    fail(f"slab: {mode}: {s['launches']} fused_picks launches in a slab of "
-                         f"{s['n_valid']} files, expected {want}")
-            # the first (full) slab again, already on the card: detect wall, stages
-            first = next(stream())
-            walls, stages = [], []
-            for _ in range(3):
-                timer = StageTimer()
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                bd.dispatch_batch(first.stack, n_real=first.n_real, n_valid=first.n_valid,
-                                  with_health=True, stage_hook=timer).resolve()
-                torch.cuda.synchronize()
-                walls.append(time.perf_counter() - t0)
-                stages.append(timer.walls())
-            detect_wall = statistics.median(walls)
-            n_first = first.n_valid
-            med = {k: statistics.median(st[k] for st in stages) for k in stages[0]}
-            fams = _profile(f"{mode} slab of {first.n_valid}", lambda: bd.dispatch_batch(
-                first.stack, n_real=first.n_real, n_valid=first.n_valid,
-                with_health=True).resolve(), detect_wall, "fused_picks")
-            # the pick kernel on the inputs this mode gives it: the first
-            # (a full tile) and the last (the ragged tile) launch of the
-            # first slab, with the files' own thresholds, against its plain
-            # version; these launches are not the main path's
-            with _capture(fused_picks, "picks_cuda") as calls:
-                bd.dispatch_batch(first.stack, n_real=first.n_real, n_valid=first.n_valid,
-                                  with_health=True).resolve()
-            lanes = 1 if serial else n_first         # files a launch carries
-            err, notes = _picks_at_main_path(f"slab: {mode}", calls, {
-                "first": nT * lanes * tile, "last": nT * lanes * (nx - (n_tiles - 1) * tile)})
-            kernel_err = max(kernel_err, err)
-            say(f"slab: {mode}: fused_picks == plain, bitwise on all five outputs, on the "
-                f"first slab's first and last launch ({calls['n']} launches in the "
-                f"dispatch): {'; '.join(notes)}")
-            del first, calls
-            copies = [[(a.elapsed_time(b), n) for a, b, n in s["copies"]] for s in slabs]
-            out[mode] = dict(slabs=slabs, wall=wall, detect_wall=detect_wall, stages=med,
-                             copies=copies, busy=sum(fams.values()))
-            h2d = [sum(ms for ms, _ in c) for c in copies]
-            nbytes = [sum(n for _, n in c) for c in copies]
-            read = [x for s in slabs for x in s["read_s"]]
-            cond = [x for s in slabs for x in s["cond_s"]]
-            detect = [s["detect_s"] for s in slabs]
-            parts = sum(read) + sum(cond) + sum(h2d) / 1e3 + sum(detect)
-            say(f"slab: {mode} (serial={serial}), {len(SLAB_FILES)} files in slabs of "
-                f"{[s['n_valid'] for s in slabs]}, bucket {SLAB_BUCKET}, TDMS int32, conditioned "
-                f"wire, format reader (engine='h5py'), with_health: slab detect wall (dispatch to resolve, slab on the "
-                f"card, median of 3) {detect_wall * 1e3:.1f} ms (runs "
-                f"{', '.join(f'{w * 1e3:.1f}' for w in walls)}) = "
-                f"{detect_wall * 1e3 / n_first:.1f} ms a file; stage walls (median, CUDA "
-                f"events) {json.dumps({k: round(v, 3) for k, v in med.items()})} ms, of which "
-                f"health {med.get('health', 0.0):.3f} ms; device busy "
-                f"{100 * out[mode]['busy'] / (detect_wall * 1e3):.1f} % of the detect wall "
-                f"(profiler); per file host read s {[round(x, 3) for x in read]}, host "
-                f"conditioning s {[round(x, 3) for x in cond]}; per slab H2D "
-                f"{[round(x, 3) for x in h2d]} ms, "
-                f"{[round(n / (ms * 1e6), 2) for n, ms in zip(nbytes, h2d)]} GB/s, bytes "
-                f"{nbytes}; per slab detect (host clock, dispatch to resolve) "
-                f"{[round(x * 1e3, 1) for x in detect]} ms, wait for the slab "
-                f"{[round(s['wait_s'] * 1e3, 1) for s in slabs]} ms; timed pass (stream + "
-                f"detect) {wall:.3f} s = {wall / len(SLAB_FILES):.3f} s a file against a sum of "
-                f"parts (read + conditioning + H2D + detect) {parts:.3f} s: {parts - wall:.3f} s "
-                f"hidden by overlap; per slab (fused_picks launches, reads, attempts, "
-                f"escalations) {[(s['launches'], s['syncs'], s['dispatches'], s['escalations']) for s in slabs]}; "
-                f"picks equal detect_picks on the card for every file "
-                f"({'bitwise, thresholds equal' if serial else 'thresholds within 1 ulp'}), all "
-                f"injected calls picked, health 0 non-finite, 0 clipped, rms within 1e-5 of "
-                f"float64, no breach")
-            del bd, det
-        # the same batched pass with the native reader (engine="native": the
-        # C++ fused read, demean and scale) in place of the format reader
+    refs, out, launch_by_mode, kernel_err = None, {}, {}, 0.0
+    for mode, serial in (("batched", False), ("serial", True)):
         det = MatchedFilterDetector.from_design(ref.design, meta, wire="conditioned")
-        bd = BatchedMatchedFilterDetector(det, serial=False)
-        slabs, _, wall_native = _slab_pass(stream_batched_slabs(
-            paths, sel, meta, batch=SLAB_BATCH, bucket="pow2", engine="native",
-            device="cuda"), bd)
+        bd = BatchedMatchedFilterDetector(det, serial=serial)
+        # warm-up pass: FFT plans, allocator pools; the references ride it
+        _, r, _ = _slab_pass(stream(), bd, with_refs=ref if refs is None else None)
+        refs = refs or r
+        zero_launches()                          # the main path's timed pass starts here
+        det.syncs = det.dispatches = det.escalations = 0
+        slabs, _, wall = _slab_pass(stream(), bd)
+        launch_by_mode[mode] = read_launches()["fused_picks"]
+        # per-file checks against detect_picks on the same card
         files = [(s, j) for s in slabs for j in range(s["n_valid"])]
+        if len(files) != len(SLAB_FILES) or [s["n_valid"] for s in slabs] != [4, 1]:
+            fail(f"slab: {mode}: slabs of {[s['n_valid'] for s in slabs]} files, "
+                 "expected a full slab of 4 and a partial slab of 1")
+        health_cfg = DataHealthConfig()
         for k, (s, j) in enumerate(files):
-            misses = _check_calls(scenes[k], trim_picks(s["res"][j][0], s["n_real"][j]))
+            picks, thr, health = s["res"][j]
+            rref, rms64 = refs[k]
+            n_real = s["n_real"][j]
+            a, b = trim_picks(picks, n_real), trim_picks(rref.picks, n_real)
+            for name in b:
+                if not np.array_equal(a[name], b[name]):
+                    fail(f"slab: {mode}: file {k} template {name}: picks differ from "
+                         f"detect_picks ({a[name].shape[1]} vs {b[name].shape[1]})")
+                same = (thr[name] == rref.thresholds[name] if serial
+                        else _within_ulp(thr[name], rref.thresholds[name]))
+                if not same:
+                    fail(f"slab: {mode}: file {k} template {name}: threshold "
+                         f"{thr[name]!r} vs detect_picks {rref.thresholds[name]!r}")
+            if serial and health != rref.health:
+                fail(f"slab: {mode}: file {k}: health differs from detect_picks")
+            if mode == "batched":
+                shared["picks"][k] = a       # the campaign phase holds its picks to these
+            misses = _check_calls(scenes[k], a)
             if misses:
-                fail(f"slab: native reader: file {k}: injected calls missed: {misses}")
-        say(f"slab: batched, engine='native' (the C++ fused read, demean and scale): timed pass "
-            f"{wall_native:.3f} s = {wall_native / len(files):.3f} s a file; host read (fused) "
-            f"s {[round(x, 3) for s in slabs for x in s['read_s']]}; per slab detect "
-            f"{[round(s['detect_s'] * 1e3, 1) for s in slabs]} ms, wait for the slab "
-            f"{[round(s['wait_s'] * 1e3, 1) for s in slabs]} ms; all injected calls picked")
-        del bd, det
-        peak = torch.cuda.max_memory_allocated()
-        if peak >= CARD_BYTES:
-            fail(f"slab: peak device memory {peak / 1e9:.2f} GB, over the card's 80 GB")
-        # the host's read ceiling: the stream alone on the native engine, the
-        # raw wire (counts to the card) and the conditioned wire (the C++
-        # reader's fused demean and scale)
-        alone = {}
-        for wire in ("raw", "conditioned"):
-            t0 = time.perf_counter()
-            n = 0
-            for slab in stream_batched_slabs(paths, sel, meta, batch=SLAB_BATCH, bucket="pow2",
-                                             wire=wire, engine="native", device="cuda"):
-                n += slab.n_valid
-                del slab
+                fail(f"slab: {mode}: file {k}: injected calls missed: {misses}")
+            if health["nonfinite"] or health["clipped"]:
+                fail(f"slab: {mode}: file {k}: health {health['nonfinite']} non-finite, "
+                     f"{health['clipped']} clipped")
+            if abs(health["rms"] - rms64) > 1e-5 * rms64:
+                fail(f"slab: {mode}: file {k}: rms {health['rms']!r} vs float64 {rms64!r}")
+            if health_cfg.breach(health) is not None:
+                fail(f"slab: {mode}: file {k}: breach {health_cfg.breach(health)}")
+        for s in slabs:
+            want = n_tiles * s["dispatches"] * (s["n_valid"] if serial else 1)
+            if s["syncs"] != s["dispatches"] or s["dispatches"] != 1 + s["escalations"]:
+                fail(f"slab: {mode}: {s['syncs']} reads for {s['dispatches']} attempts "
+                     f"({s['escalations']} escalations)")
+            if s["launches"] != want:
+                fail(f"slab: {mode}: {s['launches']} fused_picks launches in a slab of "
+                     f"{s['n_valid']} files, expected {want}")
+        # the first (full) slab again, already on the card: detect wall, stages
+        first = next(stream())
+        walls, stages = [], []
+        for _ in range(3):
+            timer = StageTimer()
             torch.cuda.synchronize()
-            alone[wire] = (time.perf_counter() - t0) / n
-        say(f"slab: the host's read ceiling, the stream alone on the native engine (5 files "
-            f"to the card): wire='raw' (int32 counts) {alone['raw']:.3f} s a file, "
-            f"wire='conditioned' (the C++ fused read, demean and scale) "
-            f"{alone['conditioned']:.3f} s a file; peak device memory over the phase "
-            f"{peak / 2**30:.2f} GiB; files written in {t_write:.1f} s; f-k design at the "
-            f"bucket shape {t_design:.1f} s (host); phase {time.perf_counter() - t_phase:.1f} s")
-        return launch_by_mode, kernel_err
-    finally:
-        shutil.rmtree(d, ignore_errors=True)
-
-
+            t0 = time.perf_counter()
+            bd.dispatch_batch(first.stack, n_real=first.n_real, n_valid=first.n_valid,
+                              with_health=True, stage_hook=timer).resolve()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            stages.append(timer.walls())
+        detect_wall = statistics.median(walls)
+        n_first = first.n_valid
+        med = {k: statistics.median(st[k] for st in stages) for k in stages[0]}
+        fams = _profile(f"{mode} slab of {first.n_valid}", lambda: bd.dispatch_batch(
+            first.stack, n_real=first.n_real, n_valid=first.n_valid,
+            with_health=True).resolve(), detect_wall, "fused_picks")
+        # the pick kernel on the inputs this mode gives it: the first
+        # (a full tile) and the last (the ragged tile) launch of the
+        # first slab, with the files' own thresholds, against its plain
+        # version; these launches are not the main path's
+        with _capture(fused_picks, "picks_cuda") as calls:
+            bd.dispatch_batch(first.stack, n_real=first.n_real, n_valid=first.n_valid,
+                              with_health=True).resolve()
+        lanes = 1 if serial else n_first         # files a launch carries
+        err, notes = _picks_at_main_path(f"slab: {mode}", calls, {
+            "first": nT * lanes * tile, "last": nT * lanes * (nx - (n_tiles - 1) * tile)})
+        kernel_err = max(kernel_err, err)
+        say(f"slab: {mode}: fused_picks == plain, bitwise on all five outputs, on the "
+            f"first slab's first and last launch ({calls['n']} launches in the "
+            f"dispatch): {'; '.join(notes)}")
+        del first, calls
+        copies = [[(a.elapsed_time(b), n) for a, b, n in s["copies"]] for s in slabs]
+        out[mode] = dict(slabs=slabs, wall=wall, detect_wall=detect_wall, stages=med,
+                         copies=copies, busy=sum(fams.values()))
+        h2d = [sum(ms for ms, _ in c) for c in copies]
+        nbytes = [sum(n for _, n in c) for c in copies]
+        read = [x for s in slabs for x in s["read_s"]]
+        cond = [x for s in slabs for x in s["cond_s"]]
+        detect = [s["detect_s"] for s in slabs]
+        parts = sum(read) + sum(cond) + sum(h2d) / 1e3 + sum(detect)
+        say(f"slab: {mode} (serial={serial}), {len(SLAB_FILES)} files in slabs of "
+            f"{[s['n_valid'] for s in slabs]}, bucket {SLAB_BUCKET}, TDMS int32, conditioned "
+            f"wire, format reader (engine='h5py'), with_health: slab detect wall (dispatch to resolve, slab on the "
+            f"card, median of 3) {detect_wall * 1e3:.1f} ms (runs "
+            f"{', '.join(f'{w * 1e3:.1f}' for w in walls)}) = "
+            f"{detect_wall * 1e3 / n_first:.1f} ms a file; stage walls (median, CUDA "
+            f"events) {json.dumps({k: round(v, 3) for k, v in med.items()})} ms, of which "
+            f"health {med.get('health', 0.0):.3f} ms; device busy "
+            f"{100 * out[mode]['busy'] / (detect_wall * 1e3):.1f} % of the detect wall "
+            f"(profiler); per file host read s {[round(x, 3) for x in read]}, host "
+            f"conditioning s {[round(x, 3) for x in cond]}; per slab H2D "
+            f"{[round(x, 3) for x in h2d]} ms, "
+            f"{[round(n / (ms * 1e6), 2) for n, ms in zip(nbytes, h2d)]} GB/s, bytes "
+            f"{nbytes}; per slab detect (host clock, dispatch to resolve) "
+            f"{[round(x * 1e3, 1) for x in detect]} ms, wait for the slab "
+            f"{[round(s['wait_s'] * 1e3, 1) for s in slabs]} ms; timed pass (stream + "
+            f"detect) {wall:.3f} s = {wall / len(SLAB_FILES):.3f} s a file against a sum of "
+            f"parts (read + conditioning + H2D + detect) {parts:.3f} s: {parts - wall:.3f} s "
+            f"hidden by overlap; per slab (fused_picks launches, reads, attempts, "
+            f"escalations) {[(s['launches'], s['syncs'], s['dispatches'], s['escalations']) for s in slabs]}; "
+            f"picks equal detect_picks on the card for every file "
+            f"({'bitwise, thresholds equal' if serial else 'thresholds within 1 ulp'}), all "
+            f"injected calls picked, health 0 non-finite, 0 clipped, rms within 1e-5 of "
+            f"float64, no breach")
+        del bd, det
+    # the same batched pass with the native reader (engine="native": the
+    # C++ fused read, demean and scale) in place of the format reader
+    det = MatchedFilterDetector.from_design(ref.design, meta, wire="conditioned")
+    bd = BatchedMatchedFilterDetector(det, serial=False)
+    slabs, _, wall_native = _slab_pass(stream_batched_slabs(
+        paths, sel, meta, batch=SLAB_BATCH, bucket="pow2", engine="native",
+        device="cuda"), bd)
+    files = [(s, j) for s in slabs for j in range(s["n_valid"])]
+    for k, (s, j) in enumerate(files):
+        misses = _check_calls(scenes[k], trim_picks(s["res"][j][0], s["n_real"][j]))
+        if misses:
+            fail(f"slab: native reader: file {k}: injected calls missed: {misses}")
+    say(f"slab: batched, engine='native' (the C++ fused read, demean and scale): timed pass "
+        f"{wall_native:.3f} s = {wall_native / len(files):.3f} s a file; host read (fused) "
+        f"s {[round(x, 3) for s in slabs for x in s['read_s']]}; per slab detect "
+        f"{[round(s['detect_s'] * 1e3, 1) for s in slabs]} ms, wait for the slab "
+        f"{[round(s['wait_s'] * 1e3, 1) for s in slabs]} ms; all injected calls picked")
+    del bd, det
+    peak = torch.cuda.max_memory_allocated()
+    if peak >= CARD_BYTES:
+        fail(f"slab: peak device memory {peak / 1e9:.2f} GB, over the card's 80 GB")
+    # the host's read ceiling: the stream alone on the native engine, the
+    # raw wire (counts to the card) and the conditioned wire (the C++
+    # reader's fused demean and scale)
+    alone = {}
+    for wire in ("raw", "conditioned"):
+        t0 = time.perf_counter()
+        n = 0
+        for slab in stream_batched_slabs(paths, sel, meta, batch=SLAB_BATCH, bucket="pow2",
+                                         wire=wire, engine="native", device="cuda"):
+            n += slab.n_valid
+            del slab
+        torch.cuda.synchronize()
+        alone[wire] = (time.perf_counter() - t0) / n
+    say(f"slab: the host's read ceiling, the stream alone on the native engine (5 files "
+        f"to the card): wire='raw' (int32 counts) {alone['raw']:.3f} s a file, "
+        f"wire='conditioned' (the C++ fused read, demean and scale) "
+        f"{alone['conditioned']:.3f} s a file; peak device memory over the phase "
+        f"{peak / 2**30:.2f} GiB; files written in {t_write:.1f} s; f-k design at the "
+        f"bucket shape {t_design:.1f} s (host); phase {time.perf_counter() - t_phase:.1f} s")
+    return launch_by_mode, kernel_err
 #: the card-vs-CPU slab files: three int32 blocks and a float32 one with
 #: NaNs and samples at the clip level
 SLAB_CPU_FILES = ((2027, 12000), (2032, 12000), (2033, 12000), (2034, 11000))
@@ -1543,16 +1592,429 @@ def phase_slab_cpu_vs_card():
         shutil.rmtree(d, ignore_errors=True)
 
 
+
+@contextlib.contextmanager
+def _timing(mod, name: str, keep: bool = False):
+    """Replace ``mod.name`` for the block by a function that forwards every
+    call, counting the calls and summing their host seconds; with
+    ``keep`` it also keeps each call's result. Yields ``{"n", "s",
+    "out"}``."""
+    orig = getattr(mod, name)
+    got = {"n": 0, "s": 0.0, "out": []}
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        out = orig(*args, **kw)
+        got["s"] += time.perf_counter() - t0
+        got["n"] += 1
+        if keep:
+            got["out"].append(out)
+        return out
+
+    setattr(mod, name, timed)
+    try:
+        yield got
+    finally:
+        setattr(mod, name, orig)
+
+
+@contextlib.contextmanager
+def _first_slab(stream_mod):
+    """Count ``stream_batched_slabs`` calls for the block and keep the host
+    blocks of the first slab they yield: ``{"calls", "slab"}``."""
+    orig = stream_mod.stream_batched_slabs
+    got = {"calls": 0, "slab": None}
+
+    def spy(*args, **kw):
+        got["calls"] += 1
+        gen = orig(*args, **kw)
+        try:
+            for slab in gen:
+                if got["slab"] is None:
+                    got["slab"] = (slab.blocks, slab.paths, slab.n_real, slab.bucket_ns)
+                yield slab
+        finally:
+            gen.close()
+
+    stream_mod.stream_batched_slabs = spy
+    try:
+        yield got
+    finally:
+        stream_mod.stream_batched_slabs = orig
+
+
+def _downshifts(outdir) -> list:
+    from das4whales_tpu_torch.utils.artifacts import read_records
+
+    return [(e["from"], e["to"]) for e in read_records(str(outdir / "manifest.jsonl"))
+            if e.get("event") == "downshift"]
+
+
+def phase_campaign():
+    """``run_campaign_batched`` at its defaults over the slab phase's five
+    canonical TDMS files, then again on the same outdir (resume)."""
+    import shutil
+
+    import torch
+
+    from das4whales_tpu_torch import fsck
+    from das4whales_tpu_torch.config import dispatch_depth_default
+    from das4whales_tpu_torch.io import stream as stream_mod
+    from das4whales_tpu_torch.io.stream import assemble_slab
+    from das4whales_tpu_torch.parallel.batch import batched_detector_for
+    from das4whales_tpu_torch.telemetry import metrics
+    from das4whales_tpu_torch.workflows import campaign as cmod
+
+    t_phase = time.perf_counter()
+    nx = CANONICAL[0]
+    sel = [0, nx, 1]
+    shared = slab_files()
+    paths, scenes = shared["paths"], shared["scenes"]
+    meta = scenes[0].metadata
+    out = shared["dir"] / "campaign_out"
+    shutil.rmtree(out, ignore_errors=True)
+    def slab_wall_totals():
+        rows = metrics.snapshot().get("das_slab_wall_seconds", {}).get("values", [])
+        return sum(r["sum"] for r in rows), sum(r["count"] for r in rows)
+
+    before_hist = slab_wall_totals()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()                      # the campaign's main path starts here
+    with _timing(cmod, "family_detector", keep=True) as design_t, \
+            _timing(cmod, "_save_picks") as picks_t, \
+            _timing(cmod, "_append_manifest") as manifest_t, \
+            _timing(cmod.fsck, "startup_check") as fsck_t, \
+            _first_slab(stream_mod) as first:
+        t0 = time.perf_counter()
+        res = cmod.run_campaign_batched(paths, sel, str(out), metadata=meta,
+                                        interrogator="silixa")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = read_launches()["fused_picks"]
+    peak = torch.cuda.max_memory_allocated()
+    hist = slab_wall_totals()
+    slab_walls = (hist[0] - before_hist[0], hist[1] - before_hist[1])
+    if design_t["n"] != 1:
+        fail(f"campaign: {design_t['n']} detectors built for one bucket")
+    det = design_t["out"][0]
+    attempts, reads, escalations = det.dispatches, det.syncs, det.escalations
+    n_tiles = -(-nx // det.effective_channel_tile)
+    recs = [(r.status, r.rung) for r in res.records]
+    if recs != [("done", "batched:4")] * len(paths):
+        fail(f"campaign: records {recs}; every file must be done at batched:4")
+    moves = _downshifts(out)
+    if moves:
+        fail(f"campaign: downshift events {moves} on the canonical files")
+    if attempts != 2 + escalations or reads != attempts:
+        fail(f"campaign: {attempts} attempts and {reads} reads for 2 slabs "
+             f"({escalations} escalations)")
+    if launches != n_tiles * attempts:
+        fail(f"campaign: {launches} fused_picks launches for {attempts} attempts, "
+             f"expected {n_tiles} an attempt")
+    n_same = 0
+    for k, rec in enumerate(res.records):
+        got = cmod.load_picks(rec.picks_file)
+        ref = shared["picks"].get(k)
+        if ref is not None:
+            for name in ref:
+                if not np.array_equal(got[name], ref[name]):
+                    fail(f"campaign: file {k} template {name}: saved picks differ from the "
+                         f"slab phase's batched picks ({got[name].shape[1]} vs "
+                         f"{ref[name].shape[1]})")
+            n_same += 1
+        misses = _check_calls(scenes[k], got)
+        if misses:
+            fail(f"campaign: file {k}: injected calls missed: {misses}")
+    if shared["picks"] and n_same != len(paths):
+        fail(f"campaign: {n_same} of {len(paths)} files held to the slab phase's picks")
+    # resume: the same call settles nothing and reads nothing
+    with _first_slab(stream_mod) as again:
+        t0 = time.perf_counter()
+        res2 = cmod.run_campaign_batched(paths, sel, str(out), metadata=meta,
+                                         interrogator="silixa")
+        resume_wall = time.perf_counter() - t0
+    if [r.status for r in res2.records] != ["skipped"] * len(paths) or again["calls"]:
+        fail(f"campaign: resume gave {[r.status for r in res2.records]} with "
+             f"{again['calls']} streams; it must settle nothing and read nothing")
+    summary = cmod.summarize_campaign(str(out))
+    if summary["n_done"] != len(paths) or summary["downshifts"]:
+        fail(f"campaign: summary counts {summary['n_done']} done, "
+             f"{summary['downshifts']} downshifts")
+    findings = fsck.fsck_outdir(str(out))
+    if findings:
+        fail(f"campaign: fsck found {fsck.render_findings(findings)}")
+    # the device's busy share on one slab of the campaign's own facade
+    blocks, spaths, n_real, bucket_ns = first["slab"]
+    host = assemble_slab(blocks, spaths, 0, SLAB_BATCH, bucket_ns)
+    stack = torch.from_numpy(host.stack).cuda()
+    del host
+    bd = batched_detector_for(det)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        bd.dispatch_batch(stack, n_real=n_real, n_valid=len(blocks), with_health=True).resolve()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    slab_wall = statistics.median(walls)
+    fams = _profile("campaign slab of 4 (the campaign's own facade)", lambda: bd.dispatch_batch(
+        stack, n_real=n_real, n_valid=len(blocks), with_health=True).resolve(),
+        slab_wall, "fused_picks")
+    del stack, bd
+    t_design = design_t["s"]
+    per_file = (wall - t_design) / len(paths)
+    writes = picks_t["s"] + manifest_t["s"]
+    say(f"campaign: run_campaign_batched at its defaults (batch 4, bucket pow2, conditioned "
+        f"wire, engine='h5py' (the TDMS format reader), family 'mf', health, dispatch depth "
+        f"{dispatch_depth_default()}), "
+        f"interrogator 'silixa', {len(paths)} files of {nx} channels "
+        f"({', '.join(str(ns) for _, ns in SLAB_FILES)} samples): wall {wall:.3f} s, of which "
+        f"the bucket's design {t_design:.3f} s (one bucket of {SLAB_BUCKET}); pass "
+        f"{per_file:.3f} s a file (wall less design, over {len(paths)} files; the slab phase's "
+        f"timed pass is its yardstick); {slab_walls[1]} slabs, their resolve walls (each "
+        f"slab's wait on its packed read, behind the pipelined dispatch; "
+        f"das_slab_wall_seconds) sum {slab_walls[0]:.3f} s; picks "
+        f"artifacts {picks_t['n']} writes {picks_t['s']:.4f} s, manifest {manifest_t['n']} "
+        f"appends {manifest_t['s']:.4f} s, startup check {fsck_t['s']:.4f} s: the campaign's "
+        f"own writes {writes:.4f} s = {100 * writes / (wall - t_design):.2f} % of the pass; "
+        f"fused_picks launches {launches} over {attempts} attempts ({n_tiles} an "
+        f"attempt), {reads} reads, {escalations} escalations; peak device memory "
+        f"{peak / 2**30:.2f} GiB; downshift events {len(moves)}; every file done at "
+        f"batched:4, {n_same} files' saved picks bitwise the slab phase's batched picks, "
+        f"every injected call picked; resume {resume_wall:.3f} s: {len(paths)} skipped, 0 "
+        f"streams; summarize_campaign {summary['n_done']} done; fsck_outdir clean; one slab "
+        f"of the campaign's facade {slab_wall * 1e3:.1f} ms (runs "
+        f"{', '.join(f'{w * 1e3:.1f}' for w in walls)}), device busy "
+        f"{100 * sum(fams.values()) / (slab_wall * 1e3):.1f} %; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    shutil.rmtree(out, ignore_errors=True)
+    return launches
+
+
+#: the card-vs-CPU campaign files: 512 channels x 12000 samples, int32
+#: (seeds), a float32 one with NaNs and a garbage file
+CAMPAIGN_CPU_FILES = ((2040, 12000), (2041, 12000), (2042, 12000), (2043, 12000),
+                      (2044, 12000))
+
+
+def _compare_campaigns(label, card, cpu, cpu_det, blocks, scenes, records=True):
+    """Two campaigns: with ``records``, file, status, rung and attempts
+    equal record for record; the files done in both: picks equal up to
+    rounding knife edges and every injected call picked. Returns the
+    count of differing picks."""
+    from das4whales_tpu_torch.utils.parity import envelopes, unexplained_differences
+    from das4whales_tpu_torch.workflows.campaign import load_picks
+
+    a = [(r.path, r.status, r.rung, r.attempts) for r in card.records]
+    b = [(r.path, r.status, r.rung, r.attempts) for r in cpu.records]
+    if records and a != b:
+        fail(f"campaign_cpu_vs_card: {label}: records differ: {a} vs {b}")
+    n_diff = 0
+    for k, (ra, rb) in enumerate(zip(card.records, cpu.records)):
+        if ra.status != "done" or rb.status != "done" or ra.path != rb.path:
+            continue
+        pa, pb = load_picks(ra.picks_file), load_picks(rb.picks_file)
+        env = None
+        for i, name in enumerate(pb):
+            if np.array_equal(pa[name], pb[name]):
+                continue
+            with np.load(rb.picks_file) as z:
+                thr = float(z["thresholds"][i])
+            env = envelopes(cpu_det, blocks[ra.path]) if env is None else env
+            bad = unexplained_differences(pa[name], pb[name], env[i], thr)
+            if bad:
+                fail(f"campaign_cpu_vs_card: {label}: file {k} template {name}: picks "
+                     f"differ beyond rounding at {bad[:10]}")
+            n_diff += len({tuple(p) for p in pa[name].T.tolist()}
+                          ^ {tuple(p) for p in pb[name].T.tolist()})
+        scene = scenes.get(ra.path)
+        if scene is not None and _check_calls(scene, pa):
+            fail(f"campaign_cpu_vs_card: {label}: file {k}: the injected call was missed")
+    return n_diff
+
+
+def phase_campaign_cpu_vs_card():
+    """Both campaign entries on the card against the CPU at 512 channels,
+    then the resilience contract on the card: an oom that downshifts once,
+    a corrupt file, a NaN file, a wedged dispatch under the watchdog, the
+    spectro family on one slab and a design checkpoint."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from das4whales_tpu_torch import faults
+    from das4whales_tpu_torch.io.stream import stream_batched_slabs
+    from das4whales_tpu_torch.models.matched_filter import MatchedFilterDetector
+    from das4whales_tpu_torch.ops import fused_stft
+    from das4whales_tpu_torch.parallel.batch import batched_detector_for, trim_picks
+    from das4whales_tpu_torch.utils.checkpoint import save_design
+    from das4whales_tpu_torch.workflows import campaign as cmod
+    from das4whales_tpu_torch.workflows.spectrodetect import campaign_detector
+
+    nx = 512
+    sel = [0, nx, 1]
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    d = Path(tempfile.mkdtemp(prefix="campaign_cpu_files_", dir=root))
+    notes = []
+    t_phase = time.perf_counter()
+    try:
+        clean, scenes_l, _ = _write_files(d, CAMPAIGN_CPU_FILES, nx, n_calls=1)
+        (d / "nan").mkdir()
+        nan_path, _, _ = _write_files(d / "nan", ((2045, 12000),), nx, n_calls=1,
+                                      float_file=_poison)
+        (d / "bad.tdms").write_bytes(b"TDSm garbage, not a TDMS segment " * 32)
+        meta = scenes_l[0].metadata
+        scenes = dict(zip(clean, scenes_l))
+        files = clean[:2] + [str(d / "bad.tdms")] + clean[2:3] + nan_path + clean[3:]
+        design = MatchedFilterDetector(meta, sel, (nx, SLAB_BUCKET), device="cpu").design
+        dpath = save_design(str(d / "design_16384"), design)
+        cpu_det = MatchedFilterDetector.from_design(design, meta, device="cpu")
+        blocks = {}
+        for slab in stream_batched_slabs(clean, sel, meta, batch=1, bucket="pow2", as_numpy=True):
+            blocks[slab.paths[0]] = slab.stack[0]
+        kw = dict(metadata=meta, interrogator="silixa", design=dpath)
+
+        def run(entry, out, **extra):
+            return entry(files if "files" not in extra else extra.pop("files"), sel,
+                         str(d / out), **kw, **extra)
+
+        # 1. both entries, card against CPU, record for record
+        res = {}
+        pf_design = MatchedFilterDetector(meta, sel, (nx, 12000), device="cpu").design
+        for dev in ("cuda", "cpu"):
+            res[("batched", dev)] = run(cmod.run_campaign_batched, f"b_{dev}", device=dev)
+            res[("file", dev)] = cmod.run_campaign(
+                files, sel, str(d / f"f_{dev}"), metadata=meta, interrogator="silixa",
+                detector=MatchedFilterDetector.from_design(pf_design, meta, device=dev))
+        want = ["done", "done", "failed", "done", "quarantined", "done", "done"]
+        for route in ("batched", "file"):
+            got = [r.status for r in res[(route, "cuda")].records]
+            if got != want:
+                fail(f"campaign_cpu_vs_card: {route}: statuses {got}, expected {want}")
+            det_for = cpu_det if route == "batched" else MatchedFilterDetector.from_design(
+                pf_design, meta, device="cpu")
+            blk = blocks if route == "batched" else {
+                p: b[:, :12000] for p, b in blocks.items()}
+            n_diff = _compare_campaigns(route, res[(route, "cuda")], res[(route, "cpu")],
+                                        det_for, blk, scenes)
+            notes.append(f"run_campaign{'_batched' if route == 'batched' else ''} card vs "
+                         f"CPU: records equal (file, status, rung, attempts: "
+                         f"{[(r.status, r.rung) for r in res[(route, 'cuda')].records]}), "
+                         f"{n_diff} differing picks, all on knife edges")
+        # 2. the chaos plan: an oom at batched:4 (fits from batched:2), a
+        # corrupt file, a NaN file — serial mode (each file its own program,
+        # so the picks are bitwise at every B) and the default batched mode
+        name = os.path.basename
+        pinned = {
+            name(clean[0]): faults.FaultSpec("oom", "dispatch", 10**9, ("batched", 2)),
+            name(clean[2]): faults.FaultSpec("truncated", "read", 10**9),
+            name(clean[4]): faults.FaultSpec("nan", "read", 10**9),
+        }
+        for mode, serial in (("serial", True), ("batched", False)):
+            free = cmod.run_campaign_batched(clean, sel, str(d / f"free_{mode}"), serial=serial,
+                                             **kw)
+            plan = faults.FaultPlan(7, rate=0.0, pinned=pinned)
+            hurt = cmod.run_campaign_batched(clean, sel, str(d / f"chaos_{mode}"),
+                                             serial=serial, fault_plan=plan, **kw)
+            got = [(r.status, r.rung) for r in hurt.records]
+            want_c = [("done", "batched:2"), ("done", "batched:2"), ("failed", ""),
+                      ("done", "batched:2"), ("quarantined", "batched:2")]
+            moves = _downshifts(d / f"chaos_{mode}")
+            if got != want_c or moves != [("batched:4", "batched:2")]:
+                fail(f"campaign_cpu_vs_card: chaos ({mode}): records {got}, downshifts "
+                     f"{moves}; expected {want_c} and one batched:4 -> batched:2")
+            same = all(
+                np.array_equal(cmod.load_picks(h.picks_file)[t], cmod.load_picks(f.picks_file)[t])
+                for h, f in zip(hurt.records, free.records) if h.status == "done"
+                for t in cmod.load_picks(f.picks_file))
+            if serial and not same:
+                fail("campaign_cpu_vs_card: chaos (serial): the downshifted picks differ "
+                     "from the fault-free run")
+            if not same:
+                _compare_campaigns(f"chaos ({mode}) vs fault-free", hurt, free, cpu_det,
+                                   blocks, scenes, records=False)
+            notes.append(f"chaos ({mode} mode): one oom at batched:4 -> one downshift to "
+                         f"batched:2, a corrupt file failed, a NaN file quarantined; picks "
+                         f"{'bitwise equal to' if same else 'within knife edges of'} the "
+                         f"fault-free run")
+        # 3. the watchdog: a wedged dispatch times out that file only
+        plan = faults.FaultPlan(0, rate=0.0, hang_s=4.0, pinned={
+            name(clean[1]): faults.FaultSpec("hang_dispatch", "dispatch", 10**9)})
+        t0 = time.perf_counter()
+        hung = cmod.run_campaign_batched(clean[:4], sel, str(d / "hang"), fault_plan=plan,
+                                         dispatch_deadline_s=2.0, **kw)
+        got = [(r.status, r.rung) for r in hung.records]
+        if got != [("done", "file"), ("timeout", "file"), ("done", "file"), ("done", "file")]:
+            fail(f"campaign_cpu_vs_card: watchdog: records {got}; the wedged slab's files "
+                 "run one by one at the per-file rung, the wedged one times out")
+        notes.append(f"watchdog (dispatch_deadline_s 2.0, a 4.0 s wedge): "
+                     f"{[(r.status, r.rung) for r in hung.records]} in "
+                     f"{time.perf_counter() - t0:.1f} s")
+        # 4. the spectro family on one slab: fused_stft launches, the facade's picks
+        sfiles = clean[:2]
+        zero_launches()                      # the spectro campaign's main path starts here
+        sres = cmod.run_campaign_batched(sfiles, sel, str(d / "spectro"), family="spectro",
+                                         batch=2, metadata=meta, interrogator="silixa")
+        stft_launches = read_launches()["fused_stft"]
+        if [(r.status, r.rung) for r in sres.records] != [("done", "batched:2")] * 2:
+            fail(f"campaign_cpu_vs_card: spectro: {[(r.status, r.rung) for r in sres.records]}")
+        if stft_launches < 1:
+            fail("campaign_cpu_vs_card: the spectro campaign launched no fused_stft")
+        bd = batched_detector_for(campaign_detector(meta, sel, (nx, 12000)))
+        slab = next(stream_batched_slabs(sfiles, sel, meta, batch=2, bucket="exact"))
+        facade = bd.detect_batch(slab.stack, n_real=slab.n_real, n_valid=slab.n_valid)
+        for k, rec in enumerate(sres.records):
+            got = cmod.load_picks(rec.picks_file)
+            ref = trim_picks(facade[k][0], slab.n_real[k])
+            for t in ref:
+                if not np.array_equal(got[t], ref[t]):
+                    fail(f"campaign_cpu_vs_card: spectro: file {k} kernel {t}: the "
+                         "campaign's picks differ from the facade's")
+        del slab
+        notes.append(f"spectro campaign: 2 files done at batched:2, {stft_launches} fused_stft "
+                     f"launches, picks equal to BatchedSpectroDetector's")
+        # 5. a design checkpoint saved by the port and loaded again: the
+        # same files (so the same slabs) as the card's batched run of 1.
+        det = MatchedFilterDetector.from_design(design, meta)
+        dpath2 = save_design(str(d / "design_again"), det.design)
+        again = cmod.run_campaign_batched(files, sel, str(d / "design_again_out"),
+                                          metadata=meta, interrogator="silixa", design=dpath2)
+        base = res[("batched", "cuda")]
+        if [(r.status, r.rung) for r in again.records] != [(r.status, r.rung) for r in base.records]:
+            fail(f"campaign_cpu_vs_card: checkpoint run: {[r.status for r in again.records]}")
+        for r, b_ in zip(again.records, base.records):
+            if r.status != "done":
+                continue
+            a, b = cmod.load_picks(r.picks_file), cmod.load_picks(b_.picks_file)
+            if any(not np.array_equal(a[t], b[t]) for t in b):
+                fail("campaign_cpu_vs_card: the reloaded design's picks differ")
+        notes.append("a design saved by the port and loaded again: bitwise the same picks")
+        torch.cuda.synchronize()
+        say(f"campaign_cpu_vs_card: {nx} channels x 12000 samples, 5 int32 files, a corrupt and "
+            f"a NaN file, batch 4, pow2 bucket {SLAB_BUCKET}: {'; '.join(notes)}; phase "
+            f"{time.perf_counter() - t_phase:.1f} s")
+        return stft_launches
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
 def main(argv: list) -> int:
     import torch
 
     if argv[:1] == ["--only"]:
         # a development run of the named phases after device and build, e.g.
-        # --only slab,slab_cpu_vs_card; it prints no result line
+        # --only campaign,campaign_cpu_vs_card; it prints no result line
         phase_device()
         phase_build()
-        for name in argv[1].split(","):
-            globals()[f"phase_{name}"]()
+        try:
+            for name in argv[1].split(","):
+                globals()[f"phase_{name}"]()
+        finally:
+            remove_slab_files()
         return 0
     if argv:
         fail(f"unknown arguments {argv}; run with none, or --only PHASE[,PHASE]")
@@ -1565,8 +2027,13 @@ def main(argv: list) -> int:
     stft_launches = phase_spectro(scene, raw, design)
     del scene, raw, design
     phase_spectro_cpu_vs_card()
-    slab_launches, slab_picks_err = phase_slab()
-    slab_stft_launches, slab_stft_err = phase_slab_cpu_vs_card()
+    try:
+        slab_launches, slab_picks_err = phase_slab()
+        slab_stft_launches, slab_stft_err = phase_slab_cpu_vs_card()
+        campaign_launches = phase_campaign()
+    finally:
+        remove_slab_files()
+    campaign_stft_launches = phase_campaign_cpu_vs_card()
     pk = kern["pack"]
     print(json.dumps({"kernels": [{
         "name": "fused_picks",
@@ -1575,7 +2042,8 @@ def main(argv: list) -> int:
         "replaces": "das4whales_tpu/ops/pallas_picks.py:71",
         "launches": launches,
         "launches_by_path": {"detect": launches, "slab_batched": slab_launches["batched"],
-                             "slab_serial": slab_launches["serial"]},
+                             "slab_serial": slab_launches["serial"],
+                             "campaign": campaign_launches},
         "max_abs_err": max(err, slab_picks_err),
         "ms": pk["ms"],
         "device_ms": pk["device_ms"],
@@ -1589,7 +2057,8 @@ def main(argv: list) -> int:
         "source": "das4whales_tpu_torch/csrc/fused_stft.cu",
         "replaces": "das4whales_tpu/ops/pallas_stft.py:71",
         "launches": stft_launches,
-        "launches_by_path": {"spectro": stft_launches, "slab_spectro": slab_stft_launches},
+        "launches_by_path": {"spectro": stft_launches, "slab_spectro": slab_stft_launches,
+                             "campaign_spectro": campaign_stft_launches},
         "max_abs_err": max(stft_err, slab_stft_err),
         "ms": stft["ms"],
         "device_ms": stft["device_ms"],

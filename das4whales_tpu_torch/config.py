@@ -6,8 +6,9 @@ and the device-memory budget that routes the detector between its
 monolithic and channel-tiled correlate. Values and semantics are those of
 the JAX package; only what the matched-filter and spectrogram-correlation
 paths need is carried, with the batched ingest's shape buckets
-(:class:`BatchBucketConfig`) and the data-health quarantine thresholds
-(:class:`DataHealthConfig`).
+(:class:`BatchBucketConfig`), the data-health quarantine thresholds
+(:class:`DataHealthConfig`) and the campaign's env defaults (dispatch
+watchdog, dispatch depth, memory preflight).
 """
 
 from __future__ import annotations
@@ -319,3 +320,41 @@ def hbm_budget_bytes() -> int:
         float(os.environ.get("DAS_HBM_BUDGET_GB", DEFAULT_HBM_BUDGET_GB))
         * 2**30
     )
+
+
+def memory_preflight_default() -> bool:
+    """Whether batched campaigns run the memory preflight when the caller
+    passes ``preflight=None`` (``DAS_MEMORY_PREFLIGHT`` env; default
+    off). The preflight itself is not in this slice: a campaign that
+    resolves it on raises, naming its ROADMAP item."""
+    return os.environ.get("DAS_MEMORY_PREFLIGHT", "0") not in ("0", "", "false")
+
+
+def dispatch_deadline_default() -> float | None:
+    """Default campaign dispatch-watchdog deadline in seconds
+    (``DAS_DISPATCH_DEADLINE_S`` env; unset/empty = no watchdog). The
+    watchdog bounds how long a campaign waits on any ONE device dispatch
+    (program launch + packed fetch): a wedged CUDA runtime becomes
+    ``status="timeout"`` instead of a stalled run
+    (``faults.call_with_deadline``)."""
+    raw = os.environ.get("DAS_DISPATCH_DEADLINE_S", "")
+    return float(raw) if raw else None
+
+
+#: Default depth of the campaign's software-pipelined dispatch queue.
+DEFAULT_DISPATCH_DEPTH = 2
+
+
+def dispatch_depth_default() -> int:
+    """Depth D of the campaigns' software-pipelined dispatch queue
+    (``DAS_DISPATCH_DEPTH`` env; default :data:`DEFAULT_DISPATCH_DEPTH`).
+    Depth D keeps up to D slabs'/files' detection programs IN FLIGHT
+    (queued on the card, packed fetch not yet taken), so H2D, compute and
+    the packed fetch of different slabs overlap instead of serializing
+    on a per-slab sync (``parallel.dispatch``). ``<= 1`` disables
+    pipelining: the synchronous dispatch-then-fetch behavior."""
+    raw = os.environ.get("DAS_DISPATCH_DEPTH", "")
+    try:
+        return int(raw) if raw else DEFAULT_DISPATCH_DEPTH
+    except ValueError:
+        return DEFAULT_DISPATCH_DEPTH

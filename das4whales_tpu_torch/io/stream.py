@@ -24,21 +24,30 @@ buffers however large the slab. ``as_numpy=True`` yields the padded host
 stack instead (:func:`assemble_slab`), which :func:`subdivide_slab`
 rebuilds from.
 
-Not in this slice: ``read_deadline_s`` and ``fault_plan`` come with the
-campaign (ROADMAP item 'Campaign'), the telemetry spans with it, and
-``stream_file_batches`` (the sharded multi-device stacks) with
-'Multi-GPU'.
+The campaign's resilience hooks ride the threaded reader:
+``read_deadline_s`` bounds the wait on any one file's read (a hung reader
+raises ``faults.DeadlineExceeded`` at that file's own position and is
+abandoned, never joined), and ``fault_plan`` (``faults.FaultPlan``)
+injects the chaos harness's faults at the reader and transfer
+boundaries. Each read and each host->card copy is a ``read`` / ``h2d``
+span of the flight recorder (``telemetry.trace``; free when tracing is
+off).
+
+Not in this slice: ``sharding`` and ``stream_file_batches`` (the sharded
+multi-device stacks) come with the ROADMAP item 'Multi-GPU'.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 import queue
 import threading
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import TimeoutError as FutureTimeout
 from dataclasses import dataclass
 from typing import Iterator, Sequence
 
@@ -52,6 +61,7 @@ from ..config import (
     as_metadata,
 )
 from ..config import not_in_slice as _not_in_slice
+from ..telemetry import trace as _trace
 from ..utils.device import resolve_device
 from . import native
 from .hdf5 import StrainBlock, assemble_block
@@ -61,11 +71,7 @@ from .staging import PinnedStager, torch_dtype
 WIRE_FORMATS = ("conditioned", "raw")
 
 
-def _check_not_in_slice(read_deadline_s, fault_plan, sharding) -> None:
-    if read_deadline_s is not None:
-        raise _not_in_slice("read_deadline_s", "Campaign")
-    if fault_plan is not None:
-        raise _not_in_slice("fault_plan", "Campaign")
+def _check_not_in_slice(sharding) -> None:
     if sharding is not None:
         raise _not_in_slice("sharding", "Multi-GPU")
 
@@ -220,8 +226,20 @@ def stream_strain_blocks(
     breaks that assumption raises — pass ``engine="h5py"`` for
     heterogeneous sets. Each block carries its host ``read_s`` and
     ``condition_s``.
+
+    ``read_deadline_s`` bounds how long the consumer waits on any ONE
+    file's read: a hung reader raises ``faults.DeadlineExceeded`` at that
+    file's own yield position instead of stalling the stream. The hung
+    worker thread cannot be killed — its pool is shut down without
+    joining, and it keeps its memory until the read returns.
+    ``fault_plan`` (``faults.FaultPlan``) injects the chaos harness's
+    scheduled faults at the reader boundary (``on_read`` /
+    ``poison_read`` on the read worker) and, for card-bound streams, at
+    the transfer boundary (``on_transfer`` before the copy). Both need
+    the threaded reader: ``engine="native"`` refuses them,
+    ``engine="auto"`` takes the threaded reader when either is set.
     """
-    _check_not_in_slice(read_deadline_s, fault_plan, sharding)
+    _check_not_in_slice(sharding)
     if prefetch < 1:
         raise ValueError("prefetch must be >= 1")
     if engine not in ("auto", "native", "h5py"):
@@ -268,6 +286,14 @@ def stream_strain_blocks(
     use_native = engine in ("auto", "native") and first.layout is not None
     if engine == "native" and not use_native:
         raise ValueError(f"engine='native' but {files[0]} is not natively readable")
+    if use_native and (read_deadline_s is not None or fault_plan is not None):
+        if engine == "native":
+            raise ValueError(
+                "read_deadline_s / fault_plan need the threaded reader; the "
+                "native C++ prefetcher has no bounded wait or injection "
+                "hooks — pass engine='h5py'"
+            )
+        use_native = False  # engine='auto': prefer the resilience contract
 
     # probe lazily, right before each read, and DEFER errors to the failing
     # file's own position in the yield order
@@ -286,21 +312,48 @@ def stream_strain_blocks(
     reader = functools.partial(_read_host_raw, engine=engine) if wire == "raw" else _read_host
 
     def probe_and_read(i):
-        spec = spec_for(i) if i == 0 else _probe(files[i], interrogator, metas[i])
-        host, read_s, cond_s = reader(spec, sel)
+        name = os.path.basename(files[i])
+        with _trace.span("read", file=name):
+            spec = spec_for(i) if i == 0 else _probe(files[i], interrogator, metas[i])
+            if fault_plan is not None:
+                fault_plan.on_read(files[i])    # chaos harness: raise/hang
+            host, read_s, cond_s = reader(spec, sel)
+            if fault_plan is not None:
+                host = fault_plan.poison_read(files[i], host)
         if overlap and not as_numpy:
             # start the copy from the read worker, the moment the read is done
-            return spec, place(host), read_s, cond_s
+            if fault_plan is not None:
+                fault_plan.on_transfer(files[i])
+            with _trace.span("h2d", file=name):
+                return spec, place(host), read_s, cond_s
         return spec, host, read_s, cond_s
 
-    with ThreadPoolExecutor(max_workers=prefetch, thread_name_prefix="das-read") as ex:
+    # not a `with` block: with a deadline the pool must NEVER be joined at
+    # teardown — a hung worker may never return, and shutdown(wait=True)
+    # would turn one hung file into a hung campaign
+    ex = ThreadPoolExecutor(max_workers=prefetch, thread_name_prefix="das-read")
+    try:
         futs = {i: ex.submit(probe_and_read, i) for i in range(min(prefetch, len(files)))}
         for i in range(len(files)):
             fut = futs.pop(i)
             nxt = i + prefetch
             if nxt < len(files):
                 futs[nxt] = ex.submit(probe_and_read, nxt)
-            yield finish(*fut.result())        # submission order
+            try:
+                got = fut.result(read_deadline_s)        # submission order
+            except FutureTimeout as exc:
+                # concurrent.futures.TimeoutError IS the builtin TimeoutError:
+                # a TimeoutError the reader raised itself is the file's own
+                # (transient-class) failure, not a deadline violation
+                if fut.done() and fut.exception() is exc:
+                    raise
+                from .. import faults
+
+                raise faults.DeadlineExceeded(files[i], read_deadline_s)
+            yield finish(*got)
+    finally:
+        wait = read_deadline_s is None
+        ex.shutdown(wait=wait, cancel_futures=not wait)
 
 
 def _native_stream(files, sel, specs, spec_for, prefetch, place, finish, as_numpy, overlap):
@@ -454,13 +507,16 @@ class SlabReadError(RuntimeError):
 
 
 def _bucketed_blocks(files, selected_channels, metadata, *, bucket_cfg, interrogator,
-                     prefetch, engine, wire):
+                     prefetch, engine, wire, read_deadline_s=None, fault_plan=None):
     """The ordered host blocks of ``files`` with their slab key
     ``(channels, bucket_ns, dtype)``: yields ``(i, block, key)``; a file
-    that fails to probe, read or bucket raises :class:`SlabReadError`."""
+    that fails to probe, read or bucket raises :class:`SlabReadError`
+    (a deadline violation or an injected fault included, its ``cause``
+    keeping the original class for the campaign's failure taxonomy)."""
     stream = stream_strain_blocks(
         files, selected_channels, metadata, interrogator=interrogator,
         prefetch=prefetch, engine=engine, as_numpy=True, wire=wire,
+        read_deadline_s=read_deadline_s, fault_plan=fault_plan,
     )
     try:
         for i in range(len(files)):
@@ -545,15 +601,19 @@ def stream_batched_slabs(
 
     A file that fails to probe/read/bucket raises :class:`SlabReadError`
     carrying its index — after any partial slab of earlier healthy files
-    has been yielded.
+    has been yielded. ``read_deadline_s`` / ``fault_plan`` pass through
+    to the underlying stream (see :func:`stream_strain_blocks`); a
+    deadline violation or injected read fault surfaces wrapped in the
+    same :class:`SlabReadError` attribution.
     """
-    _check_not_in_slice(read_deadline_s, fault_plan, sharding)
+    _check_not_in_slice(sharding)
     if batch < 1:
         raise ValueError("batch must be >= 1")
     if in_flight < 1:
         raise ValueError("in_flight must be >= 1")
     kw = dict(bucket_cfg=as_bucket_config(bucket), interrogator=interrogator,
-              prefetch=prefetch, engine=engine, wire=wire)
+              prefetch=prefetch, engine=engine, wire=wire,
+              read_deadline_s=read_deadline_s, fault_plan=fault_plan)
     files = list(files)
     if as_numpy:
         if device is not None:
@@ -609,7 +669,8 @@ def _device_slabs(files, selected_channels, metadata, *, batch, in_flight, devic
                                blocks=[], idx0=i, key=key)
                 j, host = len(cur["blocks"]), np.asarray(blk.trace)
                 n = host.shape[1]
-                stager.copy_into(cur["stack"][j, :, :n], host)
+                with _trace.span("h2d", file=os.path.basename(files[i]), index=i):
+                    stager.copy_into(cur["stack"][j, :, :n], host)
                 if n < key[1]:
                     stager.zero(cur["stack"][j, :, n:])
                 cur["blocks"].append(blk)

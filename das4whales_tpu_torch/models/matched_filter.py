@@ -25,7 +25,14 @@ once (the batched route, ``parallel.batch``). Each attempt ends in ONE
 device->host copy of the packed ``(chan, times, count, sat_count, thr)``
 and, with ``with_health=True``, the health rows (counted in
 ``MatchedFilterDetector.syncs``); nothing before it reads a device value
-on the host.
+on the host. On the card that copy is queued right behind the program,
+into pinned memory with an event after it (:class:`PackedFetch`), so a
+later resolve waits on that event alone while the programs dispatched
+after it keep the card busy (the campaign's pipelined dispatch).
+
+The resource ladder's rung views (``tiled_view``, ``host_view``) are
+shallow copies sharing the design: channel-tiled correlation, and the
+same program on the CPU with the design tensors there.
 
 This slice carries ``mf_engine="fft"`` and ``fk_engine="fft"`` only;
 every other value raises ``NotImplementedError`` naming the ROADMAP item
@@ -56,7 +63,9 @@ from ..ops import health as health_ops
 from ..ops import fk as fk_ops
 from ..ops import peaks as peak_ops
 from ..ops.filters import butter_zero_phase_gain, fft_zero_phase_apply
+from ..utils.checkpoint import register_design
 from ..utils.device import resolve_device
+from ..utils.views import cached_shallow_view
 from .templates import resolve_bank
 
 #: The reference threshold policy: ``thres = REL_THRESHOLD * max``, scaled
@@ -81,6 +90,7 @@ def reference_threshold_factors(n_templates: int) -> np.ndarray:
     return fac
 
 
+@register_design
 @dataclass
 class MatchedFilterDesign:
     """Precomputed, shape-specific design artifacts (host numpy)."""
@@ -345,6 +355,38 @@ class MatchedFilterResult:
     health: Dict[str, float] = field(default_factory=dict)
 
 
+class PackedFetch:
+    """An attempt's one device->host copy, started where it is made.
+
+    ``parts`` (int32 tensors) are concatenated and, on the card, copied
+    asynchronously into a pinned host buffer on the current stream with
+    an event recorded after the copy; :meth:`wait` blocks on that event
+    only, then splits the buffer back into numpy arrays of the parts'
+    shapes. On the CPU the copy is the concatenation itself."""
+
+    def __init__(self, parts: list):
+        self._shapes = [tuple(p.shape) for p in parts]
+        flat = torch.cat([p.reshape(-1) for p in parts])
+        self._event = None
+        if flat.is_cuda:
+            self._host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+            self._host.copy_(flat, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = flat
+
+    def wait(self) -> list:
+        if self._event is not None:
+            self._event.synchronize()
+        out, at, flat = [], 0, self._host.numpy()
+        for shape in self._shapes:
+            n = int(np.prod(shape, dtype=np.int64))
+            out.append(flat[at : at + n].reshape(shape))
+            at += n
+        return out
+
+
 class InFlightResult:
     """Handle for a dispatched detection: :meth:`resolve` performs the
     packed fetch (the attempt's one device->host copy) and the host-side
@@ -366,7 +408,20 @@ class MatchedFilterDetector:
 
     Plain counters on the instance: ``dispatches`` (program runs),
     ``syncs`` (device->host copies) and ``escalations`` (K0 -> K reruns).
+    The campaign's planner reads the capability flags
+    ``supports_fused_health`` and ``pick_mode`` (``"sparse"``: the packed
+    one-program route, which dispatches asynchronously), and the engine
+    labels ``mf_engine``,
+    ``fk_engine`` and ``pick_engine`` (the fused pick kernel on the card,
+    its plain version on the CPU).
     """
+
+    #: the health stats ride the detection program's own packed fetch
+    supports_fused_health = True
+    #: the port's one pick route: device compaction, one packed fetch
+    pick_mode = "sparse"
+    mf_engine = "fft"
+    fk_engine = "fft"
 
     def __init__(
         self,
@@ -420,6 +475,7 @@ class MatchedFilterDetector:
         if wire not in ("conditioned", "raw"):
             raise ValueError(f"unknown wire {wire!r}; expected 'conditioned' or 'raw'")
         self.device = resolve_device(device)
+        self.host_device = torch.device("cpu")
         self.metadata = meta
         self.design = design
         self.wire = wire
@@ -471,13 +527,50 @@ class MatchedFilterDetector:
     def effective_channel_tile(self) -> int:
         return self.channel_tile if isinstance(self.channel_tile, int) else 512
 
+    @property
+    def pick_engine(self) -> str:
+        return "cuda" if self.device.type == "cuda" else "plain"
+
+    def tiled_view(self) -> "MatchedFilterDetector":
+        """A shallow view with the channel-TILED correlate route forced —
+        the resource ladder's memory-lean per-file rung
+        (``workflows.planner``). Shares the design and device tensors.
+        Cached: repeated calls return the same view."""
+
+        def mutate(det):
+            det.channel_tile = self.effective_channel_tile
+
+        return cached_shallow_view(self, "_tiled_view_cache", mutate)
+
+    def host_view(self) -> "MatchedFilterDetector":
+        """A view of this detector on the CPU — the resource ladder's
+        LAST rung: where no card rung fits, detection still completes
+        (slowly) in host memory. Its design tensors are copied to the
+        CPU, where every stage runs its plain PyTorch version (the pick
+        kernel's included); channel-tiled, lean on the host too. Cached:
+        repeated calls return the same view."""
+        cpu = self.host_device
+
+        def mutate(det):
+            det.channel_tile = self.effective_channel_tile
+            det.device = cpu
+            for attr in ("_mask_band", "_bp_gain", "_templates_true", "_template_mu",
+                         "_template_scale", "_thr_factors"):
+                setattr(det, attr, getattr(self, attr).to(cpu))
+
+        return cached_shallow_view(self, "_host_view_cache", mutate)
+
     def _as_input(self, trace) -> torch.Tensor:
         """Raw wire keeps the stored dtype across the transfer; the
-        conditioned wire casts to float32."""
+        conditioned wire casts to float32. A host block bound for the card
+        crosses from a pinned copy, asynchronously: a copy from pageable
+        memory would first wait for every program already queued on the
+        stream (the campaign's pipelined dispatch queues one ahead)."""
         t = torch.as_tensor(trace)
-        if self.wire == "raw":
-            return t.to(self.device)
-        return t.to(self.device, torch.float32)
+        dtype = t.dtype if self.wire == "raw" else torch.float32
+        if t.device.type == "cpu" and self.device.type == "cuda":
+            return t.to(dtype).pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device, dtype)
 
     def condition_input(self, trace) -> torch.Tensor:
         """The block as float32 strain on the device: raw counts are
@@ -557,28 +650,31 @@ class MatchedFilterDetector:
         health = {}
         n_samples = C * (int(n_real) if pad_real else trace.shape[1])
 
-        def fetch(outs: ProgramOutputs):
-            # THE one device->host copy of an attempt
+        def start_fetch(outs: ProgramOutputs) -> PackedFetch:
+            # THE one device->host copy of an attempt, queued behind it
             parts = [outs.chan, outs.times, outs.count, outs.sat_count,
                      outs.thr.view(torch.int32)]
             if with_health:
                 parts += health_parts(outs.health)
-            chan, times, count, satc, thr, *h = unpack(
-                torch.cat([p.reshape(-1) for p in parts]).cpu().numpy(), parts)
+            return PackedFetch(parts)
+
+        def fetch(pending: PackedFetch):
+            chan, times, count, satc, thr, *h = pending.wait()
             self.syncs += 1
             if with_health:
                 health.update(health_from_parts(h, n_samples, C))
             return chan, times, count, satc, thr.view(np.float32)
 
         outs = run(self.pick_k0)
+        pending = start_fetch(outs)
 
         def resolve():
             nonlocal outs
-            chan, times, count, satc, thr = fetch(outs)
+            chan, times, count, satc, thr = fetch(pending)
             if self.pick_k0 < self.max_peaks and int(satc.sum()):
                 self.escalations += 1
                 outs = run(self.max_peaks)
-                chan, times, count, satc, thr = fetch(outs)
+                chan, times, count, satc, thr = fetch(start_fetch(outs))
             picks, thr_out = {}, {}
             if int(count.max(initial=0)) > cap:
                 # capacity overflow: the exact full pick set from this
@@ -605,16 +701,6 @@ def health_parts(health: tuple) -> list:
     packed fetch (the float rows viewed bit for bit)."""
     counts, rms, bin_counts, bin_rms = health
     return [counts, rms.view(torch.int32), bin_counts, bin_rms.view(torch.int32)]
-
-
-def unpack(packed: np.ndarray, parts: list) -> list:
-    """Split the fetched int32 vector back into the shapes of ``parts``."""
-    out, at = [], 0
-    for p in parts:
-        n = p.numel()
-        out.append(packed[at : at + n].reshape(tuple(p.shape)))
-        at += n
-    return out
 
 
 def health_from_parts(h: list, n_samples: int, n_channels: int) -> dict:

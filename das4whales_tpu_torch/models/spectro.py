@@ -35,6 +35,7 @@ from ..config import SPECTRO_HF_KERNEL, SPECTRO_LF_KERNEL, as_metadata
 from ..ops import peaks as peak_ops
 from ..ops import spectral, xcorr
 from ..utils.device import resolve_device
+from ..utils.views import cached_shallow_view
 from .templates import gen_hyperbolic_chirp
 
 #: Channel-chunk defaults of the spectrogram sweep, by STFT engine: the
@@ -271,6 +272,33 @@ class SpectroCorrDetector:
         # a forced "rfft" or "fused" as given, None/"auto" to "fused"
         self.stft_engine = spectral.resolve_stft_engine(stft_engine)
         self.syncs = self.escalations = 0
+
+    def tiled_view(self) -> "SpectroCorrDetector":
+        """A shallow view sweeping the spectrogram in smaller channel
+        chunks — the planner ladder's memory-lean rung for this family
+        (``workflows.planner.SpectroProgram``): the live STFT temps
+        shrink proportionally, and every stage is per-channel math, so
+        the picks are the untiled sweep's. Never larger than the chunk
+        that just ran out of memory, and strictly smaller whenever the
+        16-channel floor allows. Cached: repeated calls return the same
+        view."""
+        base = self.batch_channels or (
+            FUSED_DEFAULT_BATCH if self.stft_engine == "fused" else RFFT_DEFAULT_BATCH)
+
+        def mutate(det):
+            det.batch_channels = min(base, max(16, base // 8))
+
+        return cached_shallow_view(self, "_tiled_view_cache", mutate)
+
+    def host_view(self) -> "SpectroCorrDetector":
+        """This detector on the CPU (the ladder's host rung): every stage
+        runs its plain PyTorch version there, the STFT kernel's included.
+        Cached: repeated calls return the same view."""
+
+        def mutate(det):
+            det.device = torch.device("cpu")
+
+        return cached_shallow_view(self, "_host_view_cache", mutate)
 
     def correlograms(self, trf_fk, stage_hook: Callable[[str], None] | None = None
                      ) -> Dict[str, torch.Tensor]:

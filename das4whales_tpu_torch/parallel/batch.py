@@ -26,10 +26,17 @@ run. Heterogeneous record lengths ride shape buckets: on the raw wire
 the program demeans each file over its own real samples (``n_real``),
 and the health stats exclude the pad on either wire.
 
-Not in this slice: ``split_views`` (it raises) and ``program_spec``
-(absent) wait for the campaign's resource ladder and memory preflight
-(ROADMAP item 'Campaign'); the gabor and learned facades come with
-'Gabor and learned'.
+An attempt's packed read is queued on the card right behind its program
+(``models.matched_filter.PackedFetch``): ``dispatch_batch`` returns with
+the program and the copy in flight, and ``resolve()`` waits on the
+copy's event alone — the campaign's pipelined dispatch enqueues the next
+slab's program before it.
+
+Not in this slice: ``split_views`` (it raises) waits for the banks with
+decoupled thresholds (ROADMAP item 'Template banks beyond fin'),
+``program_spec`` (absent) for the memory preflight ('Campaign
+preflight'); the gabor and learned facades come with 'Gabor and
+learned'.
 """
 
 from __future__ import annotations
@@ -44,11 +51,11 @@ from ..eval import SpectroEvalAdapter
 from ..models.matched_filter import (
     InFlightResult,
     MatchedFilterDetector,
+    PackedFetch,
     ProgramOutputs,
     health_from_parts,
     health_parts,
     mf_detect_picks_program,
-    unpack,
 )
 from ..ops import health as health_ops
 from ..ops import peaks as peak_ops
@@ -110,7 +117,7 @@ class BatchedMatchedFilterDetector:
 
     def split_views(self) -> tuple:
         raise _not_in_slice("split_views (the bank-split rung of the resource ladder)",
-                            "Campaign")
+                            "Template banks beyond fin")
 
     def detect_batch(self, stack, n_real=None, n_valid: int | None = None,
                      with_health: bool = False, health_clip: float | None = None,
@@ -177,17 +184,21 @@ class BatchedMatchedFilterDetector:
             return _batched_body(stack, arrays, nr, serial=self.serial, max_peaks=k,
                                  pick_method=peak_ops.escalation_method(k, det.max_peaks), **kw)
 
-        def fetch(outs: ProgramOutputs):
-            # THE one device->host read of an attempt, every file's rows in it
+        def start_fetch(outs: ProgramOutputs) -> PackedFetch:
+            # THE one device->host read of an attempt, every file's rows
+            # in it, queued right behind the program
             parts = [outs.chan, outs.times, outs.count, outs.sat_count,
                      outs.thr.view(torch.int32)]
             if with_health:
                 parts += health_parts(outs.health)
-            vals = unpack(torch.cat([p.reshape(-1) for p in parts]).cpu().numpy(), parts)
+            return PackedFetch(parts)
+
+        def fetch(pending: PackedFetch):
+            vals = pending.wait()
             det.syncs += 1
             return vals
 
-        state = {"k0": run(det.pick_k0)}
+        state = {"k0": start_fetch(run(det.pick_k0))}
 
         def resolve() -> List[tuple | None]:
             chan, times, cnt, satc, thr, *h = fetch(state.pop("k0"))
@@ -195,7 +206,7 @@ class BatchedMatchedFilterDetector:
                 # a row saturated at K0: the full-capacity rerun, decided
                 # from the packed K0 payload already read
                 det.escalations += 1
-                chan, times, cnt, satc, thr, *h = fetch(run(det.max_peaks))
+                chan, times, cnt, satc, thr, *h = fetch(start_fetch(run(det.max_peaks)))
             thr = thr.view(np.float32)
             out: List[tuple | None] = []
             for b in range(nv):

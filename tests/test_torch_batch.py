@@ -262,7 +262,7 @@ def test_facade_defaults_and_refusals(route):
     assert isinstance(batched_detector_for(td), BatchedMatchedFilterDetector)
     with pytest.raises(TypeError, match="no batched facade"):
         batched_detector_for(object())
-    with pytest.raises(NotImplementedError, match="Campaign"):
+    with pytest.raises(NotImplementedError, match="Template banks beyond fin"):
         BatchedMatchedFilterDetector(td).split_views()
     with pytest.raises(ValueError, match="one batched detector serves one bucket"):
         BatchedMatchedFilterDetector(td).detect_batch(np.zeros((2, NX, 512), np.float32))

@@ -45,7 +45,11 @@ def test_the_scan_covers_every_module_of_the_port():
                 "workflows/common.py", "workflows/spectrodetect.py", "convert.py",
                 "ops/health.py", "io/hdf5.py", "io/tdms.py", "io/interrogators.py",
                 "io/stream.py", "io/staging.py", "io/native.py", "io/download.py",
-                "parallel/batch.py"):
+                "parallel/batch.py", "utils/log.py", "crashpoints.py", "utils/artifacts.py",
+                "telemetry/__init__.py", "telemetry/metrics.py", "telemetry/trace.py",
+                "telemetry/probes.py", "telemetry/progress.py", "utils/views.py", "faults.py",
+                "fsck.py", "utils/checkpoint.py", "parallel/dispatch.py",
+                "workflows/planner.py", "workflows/campaign.py"):
         assert f"das4whales_tpu_torch/{mod}" in scanned
     assert "chip_smoke.py" in scanned
 
@@ -109,6 +113,44 @@ def test_ingest_and_batched_route_default_to_the_card(tmp_path):
         load_das_data(path, [0, 8, 1], {"fs": 200.0, "dx": 2.0, "nx": 8, "ns": 64})
     with pytest.raises(ValueError, match="CUDA device"):
         PinnedStager(torch.device("cpu"))
+
+
+def test_campaigns_default_to_the_card(tmp_path):
+    """Both campaign entries take the card by default and refuse without
+    one before reading a file: no manifest is written, nothing runs on
+    the CPU, no file is failed for it."""
+    import numpy as np
+
+    from das4whales_tpu_torch.io.hdf5 import write_optasense
+    from das4whales_tpu_torch.workflows.campaign import run_campaign, run_campaign_batched
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the refusal without one")
+    path = write_optasense(str(tmp_path / "f.h5"), np.zeros((8, 64), np.int32), fs=200.0, dx=2.0)
+    for entry in (run_campaign, run_campaign_batched):
+        out = tmp_path / entry.__name__
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            entry([path], [0, 8, 1], str(out))
+        assert not (out / "manifest.jsonl").exists()
+
+
+def test_telemetry_is_free_when_off_and_annotates_the_profiler_when_on():
+    """Disabled, a span is one shared no-op object (no clock, no torch
+    work); enabled, it enters ``torch.profiler.record_function`` under
+    its name, so a profile of the card carries the campaign's spans."""
+    from das4whales_tpu_torch.telemetry import trace
+
+    assert not trace.enabled()
+    assert trace.span("a", x=1) is trace.span("b")
+    trace.enable(clear=True)
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            with trace.span("slab", n=2):
+                torch.ones(4).sum()
+    finally:
+        trace.disable()
+    assert "slab" in {e.key for e in prof.key_averages()}
+    assert [s["name"] for s in trace.take_spans()] == ["slab"]
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

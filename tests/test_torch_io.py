@@ -147,12 +147,14 @@ def test_stream_probes_per_file_and_keeps_order(file_set):
 
 def test_stream_refusals(file_set):
     paths, _ = file_set
-    for kw, item in ((dict(read_deadline_s=1.0), "Campaign"), (dict(fault_plan=object()), "Campaign"),
-                     (dict(sharding=object()), "Multi-GPU")):
-        with pytest.raises(NotImplementedError, match=item):
-            list(stream.stream_strain_blocks(paths, SEL, as_numpy=True, **kw))
-        with pytest.raises(NotImplementedError, match=item):
-            list(stream.stream_batched_slabs(paths, SEL, batch=2, as_numpy=True, **kw))
+    with pytest.raises(NotImplementedError, match="Multi-GPU"):
+        list(stream.stream_strain_blocks(paths, SEL, as_numpy=True, sharding=object()))
+    with pytest.raises(NotImplementedError, match="Multi-GPU"):
+        list(stream.stream_batched_slabs(paths, SEL, batch=2, as_numpy=True, sharding=object()))
+    # the reader deadline and the chaos hooks need the threaded reader
+    for kw in (dict(read_deadline_s=1.0), dict(fault_plan=object())):
+        with pytest.raises(ValueError, match="threaded reader"):
+            list(stream.stream_strain_blocks(paths, SEL, as_numpy=True, engine="native", **kw))
     with pytest.raises(NotImplementedError, match="Multi-GPU"):
         stream.stream_file_batches(paths, SEL, batch=2)
     with pytest.raises(ValueError, match="as_numpy"):
