@@ -490,6 +490,31 @@ def _picks_at_main_path(where: str, calls: dict, want_rows: dict) -> tuple:
     return err, notes
 
 
+def _stft_at_main_path(where: str, calls: dict, want_shape: tuple) -> tuple:
+    """The STFT kernel against its plain version on the inputs a main path
+    gave it (its first and last launch, from :func:`_capture`), each
+    within ``STFT_REL_TOL`` of the plain version's max. Returns
+    ``(max_abs_err, relative max error, (nfft, hop))``."""
+    import torch
+
+    from das4whales_tpu_torch.ops import fused_stft
+
+    err = rel = 0.0
+    for which in ("first", "last"):
+        (x, nfft, hop), kw = calls[which]
+        if which == "first" and tuple(x.shape) != want_shape:
+            fail(f"{where}: the {which} STFT launch took {tuple(x.shape)}, expected {want_shape}")
+        k_pow = fused_stft.stft_power_cuda(x, nfft, hop, **kw)
+        p_pow = fused_stft.stft_power_plain(x, nfft, hop, **kw)
+        torch.cuda.synchronize()
+        e, scale = float((k_pow - p_pow).abs().max()), float(p_pow.abs().max())
+        if not (bool(torch.isfinite(k_pow).all()) and e <= STFT_REL_TOL * scale):
+            fail(f"{where}: fused_stft at the {which} launch {tuple(x.shape)} nfft {nfft} hop "
+                 f"{hop}: max|kernel - plain| {e:.3e} (limit {STFT_REL_TOL * scale:.3e})")
+        err, rel = max(err, e), max(rel, e / scale)
+    return err, rel, (calls["first"][0][1], calls["first"][0][2])
+
+
 def _phase_split(stamps, kernel_ms: float) -> dict:
     """Per-phase figures of one phase-timed launch from its stamps
     ``[rows, 2, phases + 1]`` (``%globaltimer`` ns, ``clock64`` cycles)."""
@@ -1543,23 +1568,14 @@ def phase_slab_cpu_vs_card():
             fail(f"slab_cpu_vs_card: the spectro facade launched fused_stft {stft_launches} "
                  f"times, expected {want} ({len(ad.det.kernels)} hat kernels x "
                  f"{-(-rows // chunk)} chunks of {rows} channels)")
-        # the STFT kernel on the facade's own launch, against its plain version
-        (x, nfft, hop), kw = calls["first"]
-        if tuple(x.shape) != (min(rows, chunk), SLAB_BUCKET):
-            fail(f"slab_cpu_vs_card: the facade's STFT launch took {tuple(x.shape)}, expected "
-                 f"{(min(rows, chunk), SLAB_BUCKET)}")
-        k_pow = fused_stft.stft_power_cuda(x, nfft, hop, **kw)
-        p_pow = fused_stft.stft_power_plain(x, nfft, hop, **kw)
-        torch.cuda.synchronize()
-        stft_err, stft_scale = float((k_pow - p_pow).abs().max()), float(p_pow.abs().max())
-        if not (bool(torch.isfinite(k_pow).all()) and stft_err <= STFT_REL_TOL * stft_scale):
-            fail(f"slab_cpu_vs_card: fused_stft at the facade's launch {tuple(x.shape)}: "
-                 f"max|kernel - plain| {stft_err:.3e} (limit {STFT_REL_TOL * stft_scale:.3e})")
+        # the STFT kernel on the facade's own launches, against its plain version
+        shape = (min(rows, chunk), SLAB_BUCKET)
+        stft_err, rel, (nfft, hop) = _stft_at_main_path("slab_cpu_vs_card", calls, shape)
         notes.append(f"BatchedSpectroDetector: {stft_launches} fused_stft launches on the slab "
                      f"of {slab.n_valid}; fused_stft within {STFT_REL_TOL} * max of its plain "
-                     f"version at the facade's launch {tuple(x.shape)} nfft {nfft} hop {hop} "
-                     f"(relative max error {stft_err / stft_scale:.2e})")
-        del x, k_pow, p_pow, calls
+                     f"version at the facade's first and last launch {shape} nfft {nfft} hop "
+                     f"{hop} (relative max error {rel:.2e})")
+        del calls
         n_diff = n_picks = 0
         for j in range(slab.n_valid):
             one = ad(slab.stack[j])
@@ -1643,6 +1659,147 @@ def _first_slab(stream_mod):
         stream_mod.stream_batched_slabs = orig
 
 
+@contextlib.contextmanager
+def _pipeline_probe(cls):
+    """Replace ``cls.dispatch_batch`` for the block by a function that
+    forwards every call and keeps, per dispatched slab: the host seconds
+    of the dispatch; CUDA events recorded just before and just after it
+    on the dispatching stream (the slab's device time between them);
+    the host clock at its resolve's start and its seconds; whether its
+    own program had finished when its resolve started
+    (``done_at_resolve``); and whether the NEXT slab's program was still
+    running when its resolve started and when it returned
+    (``next_busy``, a pair; None for the last slab). Yields the list of
+    slabs."""
+    import torch
+
+    orig = cls.dispatch_batch
+    slabs = []
+
+    def spy(self, *args, **kw):
+        k = len(slabs)
+        rec = {"start": torch.cuda.Event(enable_timing=True),
+               "end": torch.cuda.Event(enable_timing=True)}
+        slabs.append(rec)
+        rec["start"].record()
+        rec["t_dispatch"] = time.perf_counter()
+        handle = orig(self, *args, **kw)
+        rec["dispatch_s"] = time.perf_counter() - rec["t_dispatch"]
+        rec["end"].record()
+        resolve = handle.resolve
+
+        def probed():
+            nxt = slabs[k + 1]["end"] if k + 1 < len(slabs) else None
+            rec["t_resolve"] = time.perf_counter()
+            rec["done_at_resolve"] = rec["end"].query()
+            busy0 = nxt is not None and not nxt.query()
+            out = resolve()
+            rec["resolve_s"] = time.perf_counter() - rec["t_resolve"]
+            rec["next_busy"] = None if nxt is None else (busy0, not nxt.query())
+            return out
+
+        handle.resolve = probed
+        return handle
+
+    cls.dispatch_batch = spy
+    try:
+        yield slabs
+    finally:
+        cls.dispatch_batch = orig
+
+
+def _check_pipeline(where: str, slabs: list) -> str:
+    """Hold a depth-2 campaign run to its pipeline's order (from
+    :func:`_pipeline_probe`): slab k+1's program enqueued before slab k's
+    fetch started. Returns the per-slab figures as text. How long a
+    dispatch holds the host, and so whether slab k+1 still runs around
+    slab k's fetch, depends on the host's pace and the launch queue: it
+    is reported; :func:`_check_fetch_waits_on_its_slab` holds the fetch
+    to its own slab."""
+    parts = []
+    for k, r in enumerate(slabs):
+        dev_ms = r["start"].elapsed_time(r["end"])
+        text = (f"slab {k}: dispatch {r['dispatch_s'] * 1e3:.1f} ms of host, program "
+                f"{dev_ms:.1f} ms on the card (events around the dispatch), done when its "
+                f"fetch started {r['done_at_resolve']}, fetch {r['resolve_s'] * 1e3:.1f} ms"
+                + ("" if r["next_busy"] is None else
+                   f", slab {k + 1} still running at that fetch's start, end "
+                   f"{r['next_busy']}"))
+        if k + 1 < len(slabs) and not slabs[k + 1]["t_dispatch"] < r["t_resolve"]:
+            fail(f"{where}: slab {k + 1} was dispatched after slab {k}'s fetch started ({text})")
+        parts.append(text)
+    return "; ".join(parts)
+
+
+def _check_fetch_waits_on_its_slab(where: str, bd, stack, **kw) -> str:
+    """The pipeline's promises on one facade and slab, at depth 2: slab
+    B's dispatch returns while its program still runs, and slab A's
+    fetch, taken after B was queued, returns while B's kernels run (it
+    waits on A's event, not on the stream). Returns the figures, with
+    the host's lead: how long B ran on after its dispatch returned (the
+    window the host has to settle slab A before the card idles)."""
+    import torch
+
+    torch.cuda.synchronize()
+    h_a = bd.dispatch_batch(stack, **kw)
+    start_b = torch.cuda.Event(enable_timing=True)
+    end_b = torch.cuda.Event(enable_timing=True)
+    start_b.record()
+    t0 = time.perf_counter()
+    h_b = bd.dispatch_batch(stack, **kw)
+    t_back = time.perf_counter()
+    end_b.record()
+    busy_dispatched = not end_b.query()
+    h_a.resolve()
+    fetch_s = time.perf_counter() - t_back
+    started, busy_fetched = start_b.query(), not end_b.query()
+    end_b.synchronize()
+    lead_s = time.perf_counter() - t_back
+    h_b.resolve()
+    torch.cuda.synchronize()
+    text = (f"slab B's dispatch {(t_back - t0) * 1e3:.1f} ms of host against its program "
+            f"{start_b.elapsed_time(end_b):.1f} ms on the card; slab A's fetch {fetch_s * 1e3:.1f} "
+            f"ms; B still running after its dispatch {busy_dispatched}; B's kernels running "
+            f"when A's fetch returned {started and busy_fetched}; B ran on {lead_s * 1e3:.1f} ms "
+            f"after its dispatch returned (the host's lead)")
+    if not busy_dispatched:
+        fail(f"{where}: slab B's dispatch held the host until its program ended ({text})")
+    if not (started and busy_fetched):
+        fail(f"{where}: slab A's fetch did not return while slab B's kernels ran ({text})")
+    return text
+
+
+@contextlib.contextmanager
+def _no_host_sync(cls, name: str):
+    """Run every call of ``cls.name`` for the block under
+    ``torch.cuda.set_sync_debug_mode("error")``: an operation inside it
+    that would make the host wait on the card raises there. Yields
+    ``{"n": calls, "syncs": [first line of each such error]}`` (a caller
+    may swallow the error; the record stays)."""
+    import torch
+
+    orig = getattr(cls, name)
+    got = {"n": 0, "syncs": []}
+
+    def guarded(*args, **kw):
+        got["n"] += 1
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return orig(*args, **kw)
+        except RuntimeError as exc:
+            if "synchroniz" in str(exc):
+                got["syncs"].append(str(exc).splitlines()[0])
+            raise
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    setattr(cls, name, guarded)
+    try:
+        yield got
+    finally:
+        setattr(cls, name, orig)
+
+
 def _downshifts(outdir) -> list:
     from das4whales_tpu_torch.utils.artifacts import read_records
 
@@ -1661,7 +1818,8 @@ def phase_campaign():
     from das4whales_tpu_torch.config import dispatch_depth_default
     from das4whales_tpu_torch.io import stream as stream_mod
     from das4whales_tpu_torch.io.stream import assemble_slab
-    from das4whales_tpu_torch.parallel.batch import batched_detector_for
+    from das4whales_tpu_torch.parallel.batch import (BatchedMatchedFilterDetector,
+                                                     batched_detector_for)
     from das4whales_tpu_torch.telemetry import metrics
     from das4whales_tpu_torch.workflows import campaign as cmod
 
@@ -1685,6 +1843,8 @@ def phase_campaign():
             _timing(cmod, "_save_picks") as picks_t, \
             _timing(cmod, "_append_manifest") as manifest_t, \
             _timing(cmod.fsck, "startup_check") as fsck_t, \
+            _pipeline_probe(BatchedMatchedFilterDetector) as piped, \
+            _no_host_sync(BatchedMatchedFilterDetector, "dispatch_batch") as guard, \
             _first_slab(stream_mod) as first:
         t0 = time.perf_counter()
         res = cmod.run_campaign_batched(paths, sel, str(out), metadata=meta,
@@ -1712,6 +1872,10 @@ def phase_campaign():
     if launches != n_tiles * attempts:
         fail(f"campaign: {launches} fused_picks launches for {attempts} attempts, "
              f"expected {n_tiles} an attempt")
+    if len(piped) != 2 or guard["syncs"]:
+        fail(f"campaign: {len(piped)} pipelined dispatches for 2 slabs, host syncs inside "
+             f"them: {guard['syncs']}")
+    pipeline = _check_pipeline("campaign", piped)
     n_same = 0
     for k, rec in enumerate(res.records):
         got = cmod.load_picks(rec.picks_file)
@@ -1758,6 +1922,8 @@ def phase_campaign():
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t1)
     slab_wall = statistics.median(walls)
+    ab = _check_fetch_waits_on_its_slab("campaign", bd, stack, n_real=n_real,
+                                        n_valid=len(blocks), with_health=True)
     fams = _profile("campaign slab of 4 (the campaign's own facade)", lambda: bd.dispatch_batch(
         stack, n_real=n_real, n_valid=len(blocks), with_health=True).resolve(),
         slab_wall, "fused_picks")
@@ -1774,7 +1940,9 @@ def phase_campaign():
         f"{per_file:.3f} s a file (wall less design, over {len(paths)} files; the slab phase's "
         f"timed pass is its yardstick); {slab_walls[1]} slabs, their resolve walls (each "
         f"slab's wait on its packed read, behind the pipelined dispatch; "
-        f"das_slab_wall_seconds) sum {slab_walls[0]:.3f} s; picks "
+        f"das_slab_wall_seconds) sum {slab_walls[0]:.3f} s; the depth-2 pipeline (no host "
+        f"sync inside a dispatch, set_sync_debug_mode): {pipeline}; two dispatches of the "
+        f"campaign's first slab back to back: {ab}; picks "
         f"artifacts {picks_t['n']} writes {picks_t['s']:.4f} s, manifest {manifest_t['n']} "
         f"appends {manifest_t['s']:.4f} s, startup check {fsck_t['s']:.4f} s: the campaign's "
         f"own writes {writes:.4f} s = {100 * writes / (wall - t_design):.2f} % of the pass; "
@@ -1848,9 +2016,12 @@ def phase_campaign_cpu_vs_card():
     from das4whales_tpu_torch import faults
     from das4whales_tpu_torch.io.stream import stream_batched_slabs
     from das4whales_tpu_torch.models.matched_filter import MatchedFilterDetector
+    from das4whales_tpu_torch.models.spectro import FUSED_DEFAULT_BATCH
     from das4whales_tpu_torch.ops import fused_stft
-    from das4whales_tpu_torch.parallel.batch import batched_detector_for, trim_picks
+    from das4whales_tpu_torch.parallel.batch import (BatchedMatchedFilterDetector,
+                                                     batched_detector_for, trim_picks)
     from das4whales_tpu_torch.utils.checkpoint import save_design
+    from das4whales_tpu_torch.workflows.planner import MatchedFilterProgram
     from das4whales_tpu_torch.workflows import campaign as cmod
     from das4whales_tpu_torch.workflows.spectrodetect import campaign_detector
 
@@ -1886,10 +2057,21 @@ def phase_campaign_cpu_vs_card():
         res = {}
         pf_design = MatchedFilterDetector(meta, sel, (nx, 12000), device="cpu").design
         for dev in ("cuda", "cpu"):
-            res[("batched", dev)] = run(cmod.run_campaign_batched, f"b_{dev}", device=dev)
-            res[("file", dev)] = cmod.run_campaign(
-                files, sel, str(d / f"f_{dev}"), metadata=meta, interrogator="silixa",
-                detector=MatchedFilterDetector.from_design(pf_design, meta, device=dev))
+            # on the card, no pipelined dispatch may make the host wait
+            with _no_host_sync(BatchedMatchedFilterDetector, "dispatch_batch") as g_b, \
+                    _no_host_sync(MatchedFilterProgram, "dispatch") as g_f:
+                res[("batched", dev)] = run(cmod.run_campaign_batched, f"b_{dev}", device=dev)
+                res[("file", dev)] = cmod.run_campaign(
+                    files, sel, str(d / f"f_{dev}"), metadata=meta, interrogator="silixa",
+                    detector=MatchedFilterDetector.from_design(pf_design, meta, device=dev))
+            if dev != "cuda":
+                continue
+            if g_b["syncs"] or g_f["syncs"] or not g_b["n"] or not g_f["n"]:
+                fail(f"campaign_cpu_vs_card: pipelined dispatches on the card: batched "
+                     f"{g_b['n']}, per-file {g_f['n']}; host syncs inside them "
+                     f"{g_b['syncs'] + g_f['syncs']}")
+            notes.append(f"pipelined dispatches on the card without a host sync: {g_b['n']} "
+                         f"batched, {g_f['n']} per-file")
         want = ["done", "done", "failed", "done", "quarantined", "done", "done"]
         for route in ("batched", "file"):
             got = [r.status for r in res[(route, "cuda")].records]
@@ -1954,17 +2136,30 @@ def phase_campaign_cpu_vs_card():
         notes.append(f"watchdog (dispatch_deadline_s 2.0, a 4.0 s wedge): "
                      f"{[(r.status, r.rung) for r in hung.records]} in "
                      f"{time.perf_counter() - t0:.1f} s")
-        # 4. the spectro family on one slab: fused_stft launches, the facade's picks
+        # 4. the spectro family on one slab: fused_stft launches (each held
+        # against its plain version on the campaign's own inputs), the
+        # facade's picks
         sfiles = clean[:2]
+        ad = campaign_detector(meta, sel, (nx, 12000))
+        rows = len(sfiles) * nx              # the facade's [n * C, T] correlogram input
+        chunk = ad.det.batch_channels or FUSED_DEFAULT_BATCH
+        want = len(ad.det.kernels) * -(-rows // chunk)
         zero_launches()                      # the spectro campaign's main path starts here
-        sres = cmod.run_campaign_batched(sfiles, sel, str(d / "spectro"), family="spectro",
-                                         batch=2, metadata=meta, interrogator="silixa")
+        with _capture(fused_stft, "stft_power_cuda") as calls:
+            sres = cmod.run_campaign_batched(sfiles, sel, str(d / "spectro"), family="spectro",
+                                             batch=2, metadata=meta, interrogator="silixa")
         stft_launches = read_launches()["fused_stft"]
         if [(r.status, r.rung) for r in sres.records] != [("done", "batched:2")] * 2:
             fail(f"campaign_cpu_vs_card: spectro: {[(r.status, r.rung) for r in sres.records]}")
-        if stft_launches < 1:
-            fail("campaign_cpu_vs_card: the spectro campaign launched no fused_stft")
-        bd = batched_detector_for(campaign_detector(meta, sel, (nx, 12000)))
+        if stft_launches != want:
+            fail(f"campaign_cpu_vs_card: the spectro campaign launched fused_stft "
+                 f"{stft_launches} times, expected {want} ({len(ad.det.kernels)} hat kernels x "
+                 f"{-(-rows // chunk)} chunks of {rows} channels)")
+        shape = (min(rows, chunk), 12000)
+        stft_err, rel, (nfft, hop) = _stft_at_main_path("campaign_cpu_vs_card: spectro", calls,
+                                                        shape)
+        del calls
+        bd = batched_detector_for(ad)
         slab = next(stream_batched_slabs(sfiles, sel, meta, batch=2, bucket="exact"))
         facade = bd.detect_batch(slab.stack, n_real=slab.n_real, n_valid=slab.n_valid)
         for k, rec in enumerate(sres.records):
@@ -1976,7 +2171,10 @@ def phase_campaign_cpu_vs_card():
                          "campaign's picks differ from the facade's")
         del slab
         notes.append(f"spectro campaign: 2 files done at batched:2, {stft_launches} fused_stft "
-                     f"launches, picks equal to BatchedSpectroDetector's")
+                     f"launches (as expected), fused_stft within {STFT_REL_TOL} * max of its "
+                     f"plain version at the campaign's first and last launch {shape} nfft "
+                     f"{nfft} hop {hop} (relative max error {rel:.2e}), picks equal to "
+                     f"BatchedSpectroDetector's")
         # 5. a design checkpoint saved by the port and loaded again: the
         # same files (so the same slabs) as the card's batched run of 1.
         det = MatchedFilterDetector.from_design(design, meta)
@@ -1997,7 +2195,7 @@ def phase_campaign_cpu_vs_card():
         say(f"campaign_cpu_vs_card: {nx} channels x 12000 samples, 5 int32 files, a corrupt and "
             f"a NaN file, batch 4, pow2 bucket {SLAB_BUCKET}: {'; '.join(notes)}; phase "
             f"{time.perf_counter() - t_phase:.1f} s")
-        return stft_launches
+        return stft_launches, stft_err
     finally:
         shutil.rmtree(d, ignore_errors=True)
 
@@ -2033,7 +2231,7 @@ def main(argv: list) -> int:
         campaign_launches = phase_campaign()
     finally:
         remove_slab_files()
-    campaign_stft_launches = phase_campaign_cpu_vs_card()
+    campaign_stft_launches, campaign_stft_err = phase_campaign_cpu_vs_card()
     pk = kern["pack"]
     print(json.dumps({"kernels": [{
         "name": "fused_picks",
@@ -2059,7 +2257,7 @@ def main(argv: list) -> int:
         "launches": stft_launches,
         "launches_by_path": {"spectro": stft_launches, "slab_spectro": slab_stft_launches,
                              "campaign_spectro": campaign_stft_launches},
-        "max_abs_err": max(stft_err, slab_stft_err),
+        "max_abs_err": max(stft_err, slab_stft_err, campaign_stft_err),
         "ms": stft["ms"],
         "device_ms": stft["device_ms"],
         "plain_ms": stft["plain_ms"],

@@ -30,9 +30,9 @@ into pinned memory with an event after it (:class:`PackedFetch`), so a
 later resolve waits on that event alone while the programs dispatched
 after it keep the card busy (the campaign's pipelined dispatch).
 
-The resource ladder's rung views (``tiled_view``, ``host_view``) are
-shallow copies sharing the design: channel-tiled correlation, and the
-same program on the CPU with the design tensors there.
+The resource ladder's rung views share the design: ``tiled_view`` is a
+shallow copy with channel-tiled correlation, ``host_view`` the same
+detector built with ``device="cpu"``.
 
 This slice carries ``mf_engine="fft"`` and ``fk_engine="fft"`` only;
 every other value raises ``NotImplementedError`` naming the ROADMAP item
@@ -408,18 +408,11 @@ class MatchedFilterDetector:
 
     Plain counters on the instance: ``dispatches`` (program runs),
     ``syncs`` (device->host copies) and ``escalations`` (K0 -> K reruns).
-    The campaign's planner reads the capability flags
-    ``supports_fused_health`` and ``pick_mode`` (``"sparse"``: the packed
-    one-program route, which dispatches asynchronously), and the engine
-    labels ``mf_engine``,
-    ``fk_engine`` and ``pick_engine`` (the fused pick kernel on the card,
-    its plain version on the CPU).
+    The engine labels ``mf_engine``, ``fk_engine`` and ``pick_engine``
+    (the fused pick kernel on the card, its plain version on the CPU) go
+    into the campaign's downshift events.
     """
 
-    #: the health stats ride the detection program's own packed fetch
-    supports_fused_health = True
-    #: the port's one pick route: device compaction, one packed fetch
-    pick_mode = "sparse"
     mf_engine = "fft"
     fk_engine = "fft"
 
@@ -475,7 +468,6 @@ class MatchedFilterDetector:
         if wire not in ("conditioned", "raw"):
             raise ValueError(f"unknown wire {wire!r}; expected 'conditioned' or 'raw'")
         self.device = resolve_device(device)
-        self.host_device = torch.device("cpu")
         self.metadata = meta
         self.design = design
         self.wire = wire
@@ -543,34 +535,28 @@ class MatchedFilterDetector:
         return cached_shallow_view(self, "_tiled_view_cache", mutate)
 
     def host_view(self) -> "MatchedFilterDetector":
-        """A view of this detector on the CPU — the resource ladder's
-        LAST rung: where no card rung fits, detection still completes
-        (slowly) in host memory. Its design tensors are copied to the
-        CPU, where every stage runs its plain PyTorch version (the pick
+        """This detector on the CPU — the resource ladder's LAST rung:
+        where no card rung fits, detection still completes (slowly) in
+        host memory. The same design and settings with ``device="cpu"``,
+        where every stage runs its plain PyTorch version (the pick
         kernel's included); channel-tiled, lean on the host too. Cached:
         repeated calls return the same view."""
-        cpu = self.host_device
-
-        def mutate(det):
-            det.channel_tile = self.effective_channel_tile
-            det.device = cpu
-            for attr in ("_mask_band", "_bp_gain", "_templates_true", "_template_mu",
-                         "_template_scale", "_thr_factors"):
-                setattr(det, attr, getattr(self, attr).to(cpu))
-
-        return cached_shallow_view(self, "_host_view_cache", mutate)
+        view = getattr(self, "_host_view_cache", None)
+        if view is None:
+            view = self._host_view_cache = type(self).from_design(
+                self.design, self.metadata, max_peaks=self.max_peaks,
+                channel_tile=self.effective_channel_tile,
+                hbm_budget_bytes=self.hbm_budget_bytes, fused_bandpass=self.fused_bandpass,
+                pick_pack_cap=self.pick_pack_cap, wire=self.wire, device="cpu")
+        return view
 
     def _as_input(self, trace) -> torch.Tensor:
         """Raw wire keeps the stored dtype across the transfer; the
-        conditioned wire casts to float32. A host block bound for the card
-        crosses from a pinned copy, asynchronously: a copy from pageable
-        memory would first wait for every program already queued on the
-        stream (the campaign's pipelined dispatch queues one ahead)."""
+        conditioned wire casts to float32."""
         t = torch.as_tensor(trace)
-        dtype = t.dtype if self.wire == "raw" else torch.float32
-        if t.device.type == "cpu" and self.device.type == "cuda":
-            return t.to(dtype).pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device, dtype)
+        if self.wire == "raw":
+            return t.to(self.device)
+        return t.to(self.device, torch.float32)
 
     def condition_input(self, trace) -> torch.Tensor:
         """The block as float32 strain on the device: raw counts are

@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.device import to_device_async
+
 
 def condition(trace: torch.Tensor, scale, *, dtype=torch.float32) -> torch.Tensor:
     """Raw counts -> strain: cast to ``dtype``, demean each channel along
@@ -35,7 +37,7 @@ def condition_padded(trace: torch.Tensor, scale, n_real, *,
         valid = torch.arange(x.shape[-1], device=x.device) < n_real
         count = _scalar(n_real, dtype)
     else:
-        nr = torch.as_tensor(n_real, device=x.device).reshape(-1, 1, 1)
+        nr = to_device_async(n_real, torch.int64, x.device).reshape(-1, 1, 1)
         valid = torch.arange(x.shape[-1], device=x.device) < nr
         count = nr.to(dtype)
     s = torch.where(valid, x, zero).sum(dim=-1, keepdim=True)

@@ -31,6 +31,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.device import to_device_async
+
 #: Number of scalar slots in the packed health-count vector.
 N_COUNTS = 2
 
@@ -64,7 +66,7 @@ class _TorchNamespace:
         return torch.zeros(shape, dtype=dtype, device=self.device)
 
     def asarray(self, v, dtype):
-        return torch.as_tensor(v, dtype=dtype, device=self.device)
+        return to_device_async(v, dtype, self.device)
 
     def sum(self, a, axis, dtype=None):
         # keep the input's dtype unless told: int32 counts stay int32

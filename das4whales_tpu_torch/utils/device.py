@@ -17,6 +17,7 @@ package is float32, so both switches are set to False here, once, by
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -40,3 +41,18 @@ def resolve_device(device=None) -> torch.device:
         raise ValueError(f"unsupported device {dev}; expected cuda or cpu")
     disable_tf32()
     return dev
+
+
+def to_device_async(v, dtype, device: torch.device) -> torch.Tensor:
+    """A small host value (a scalar, or a vector such as per-record
+    lengths) as a tensor on ``device`` without a host sync: on a card, a
+    scalar is a fill and an array crosses from pinned memory
+    asynchronously. A copy from pageable memory would wait for every
+    program already queued on the stream (a campaign queues one ahead)."""
+    if device.type != "cuda":
+        return torch.as_tensor(v, dtype=dtype, device=device)
+    if np.ndim(v) == 0:
+        return torch.full((), v.item() if isinstance(v, np.generic) else v, dtype=dtype,
+                          device=device)
+    return torch.as_tensor(np.asarray(v), dtype=dtype).pin_memory().to(device,
+                                                                        non_blocking=True)

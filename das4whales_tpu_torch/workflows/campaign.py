@@ -602,15 +602,13 @@ def run_campaign(
 
     def try_dispatch_file(path, block):
         """The pipeline's dispatch phase: queue this file's program on
-        the card when the family supports async dispatch + fused health
-        and the campaign rides the healthy per-file rung. None -> the
-        synchronous path (also taken for the first file, which builds
-        the detector)."""
+        the card when the family has an async route and the campaign
+        rides the healthy per-file rung. None -> the synchronous path
+        (also taken for the first file, which builds the detector, and
+        for a family whose ``dispatch`` returns None)."""
         if not pipe.enabled or route is None or rz.health_cfg is None:
             return None
-        if not (route.program.supports_dispatch
-                and route.program.supports_fused_health
-                and route.current(_BUCKET) == ("file", 1)):
+        if route.current(_BUCKET) != ("file", 1):
             return None
         if scale_mismatch(block):
             return None   # detect_one fails it per-file on the sync path
@@ -899,7 +897,6 @@ def run_campaign_batched(
         recovered = False
         results = None
         rung = ladder.current(key)
-        shape = (int(slab.stack.shape[1]), slab.bucket_ns)
         try:
             if fault_plan is not None:
                 # the slab is one transfer and one program: a planned
@@ -929,7 +926,7 @@ def run_campaign_batched(
                     if fclass == "fatal":
                         raise
                     if fclass == "resource":
-                        nxt = ladder.downshift(key, rung, exc, shape)
+                        nxt = ladder.downshift(key, rung, exc)
                         if nxt is not None:
                             rung = nxt
                             recovered = True
@@ -989,7 +986,7 @@ def run_campaign_batched(
                         # resource exhaustion in the fallback too: keep
                         # descending (a route change, not a retry — refund
                         # the attempt)
-                        nxt = ladder.downshift(key, pf_rung, exc, shape)
+                        nxt = ladder.downshift(key, pf_rung, exc)
                         if nxt is not None:
                             rz.state.unattempt(path)
                             pf_rung = nxt

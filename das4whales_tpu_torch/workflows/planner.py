@@ -2,9 +2,9 @@
 ``das4whales_tpu.workflows.planner``): the executor every detector
 family of the campaigns inherits.
 
-* :class:`DetectorProgram` — the per-family adapter: capability flags
-  (supported ladder stages, fused vs host health stats, async dispatch)
-  plus ``detect(rung, trace)``, the family's program at one ladder rung.
+* :class:`DetectorProgram` — the per-family adapter: the ladder stages
+  the family supports, ``detect(rung, trace)`` (the family's program at
+  one ladder rung) and ``dispatch(trace)`` (an async launch, or None).
 * :class:`DownshiftLadder` — the sticky per-bucket rung bookkeeping of
   the elastic resource ladder, filtered to the family's declared stages,
   every move a ``downshift`` event in the manifest. The bank-split rung
@@ -23,9 +23,9 @@ family of the campaigns inherits.
 The rungs on one card: ``file`` (the per-file program), ``tiled`` (the
 family's memory-lean view — channel-tiled correlation for the matched
 filter, smaller spectrogram chunks for spectro), ``timeshard`` (time-
-sharded over a multi-device mesh — one card has none: the ladder never
-lists it, and a pinned ``timeshard`` rung raises the resource text so
-the ladder moves on) and ``host`` (the family's detector views with
+sharded over a multi-device mesh — the port shards nothing, ROADMAP
+item 'Multi-GPU': the ladder never lists it, and a pinned ``timeshard``
+rung raises the resource text so the ladder moves on) and ``host`` (the family's detector views with
 ``device="cpu"``: the design tensors on the CPU, every stage the plain
 PyTorch version). The host rung is reached only through a resource-class
 failure, and the move is a ``downshift`` event like any other.
@@ -78,22 +78,6 @@ def engine_labels(detector) -> Dict[str, str]:
     return out
 
 
-def _device_count() -> int:
-    """Devices a time-sharded rung could span: the visible CUDA devices
-    (the port shards nothing yet, ROADMAP item 'Multi-GPU')."""
-    return torch.cuda.device_count() if torch.cuda.is_available() else 1
-
-
-def viable_time_mesh_size(trace_shape, n_devices: int) -> int | None:
-    """The largest mesh size ``p >= 2`` that could serve ``trace_shape``
-    time-sharded (both axes divisible by ``p``), or None."""
-    C, T = trace_shape
-    for p in range(min(int(n_devices), C, T), 1, -1):
-        if C % p == 0 and T % p == 0:
-            return p
-    return None
-
-
 class DetectorProgram:
     """One detector family's executor contract.
 
@@ -105,18 +89,13 @@ class DetectorProgram:
     * ``stages`` — the ladder stages this family's math supports, in
       ladder order. Must include ``"file"`` (the entry rung) and should
       include ``"host"`` (the rung of last resort).
-    * ``supports_fused_health`` — the family fuses ``ops.health`` stats
-      into its detection program (stats ride the program's own fetch);
-      otherwise the planner computes host-side stats on the
-      already-host-resident block (same values, one numpy pass).
-    * ``supports_dispatch`` — :meth:`dispatch` can launch the program
-      asynchronously (the depth-D pipelined campaign dispatch).
+    * :meth:`dispatch` — launches the program asynchronously (the depth-D
+      pipelined campaign dispatch), or returns None where the family has
+      no async route; its health stats then come from the host block.
     """
 
     family = "generic"
     stages: Tuple[str, ...] = ("file", "host")
-    supports_fused_health = False
-    supports_dispatch = False
 
     def __init__(self, detector):
         self.det = detector
@@ -193,16 +172,15 @@ class MatchedFilterProgram(DetectorProgram):
     family = "mf"
     stages = ("file", "tiled", "timeshard", "host")
 
-    def __init__(self, detector):
-        super().__init__(detector)
-        self.supports_fused_health = bool(
-            getattr(detector, "supports_fused_health", False)
-        )
-        self.supports_dispatch = getattr(detector, "pick_mode", "") == "sparse"
-
     def dispatch(self, trace, *, with_health=False, clip=None):
-        if not self.supports_dispatch:
-            return None
+        """Queue the file's program behind the one in flight. A host
+        block bound for the card crosses through pinned memory on a side
+        stream (``io.staging.to_device``): a copy from pageable memory
+        would first wait for every program already queued."""
+        if self.det.device.type == "cuda" and not isinstance(trace, torch.Tensor):
+            from ..io.staging import to_device
+
+            trace = to_device(np.asarray(trace), self.det.device)
         return self.det.dispatch_picks(trace, with_health=with_health,
                                        health_clip=clip)
 
@@ -295,7 +273,7 @@ class DownshiftLadder:
     One campaign, one ladder: per bucket key it remembers the WINNING
     rung — ``("batched", B)`` at shrinking B, then ``("file", 1)`` (the
     per-file route), ``("tiled", 1)`` (the family's memory-lean view),
-    ``("timeshard", 1)`` (only where several devices divide the shape),
+    (never ``("timeshard", 1)``: the port shards nothing),
     ``("host", 1)`` (the CPU). ``stages`` filters the ladder to the
     family's declared support; ``family`` labels the manifest's
     ``downshift`` events. A resource-class failure advances the bucket's
@@ -305,14 +283,13 @@ class DownshiftLadder:
     """
 
     def __init__(self, rz, outdir: str, batch: int = 1,
-                 write: bool = True, timeshard: bool = True,
+                 write: bool = True,
                  stages=faults.DOWNSHIFT_STAGES, family: str = "",
                  engines: Dict[str, str] | None = None):
         self.rz = rz
         self.outdir = outdir
         self.batch = int(batch)
         self.write = write
-        self.allow_timeshard = timeshard
         self.stages = tuple(stages)
         self.family = family
         self.engines = dict(engines or {})
@@ -326,7 +303,7 @@ class DownshiftLadder:
     def engines_for(self, key) -> Dict[str, str]:
         return self._engines_by_key.get(key, self.engines)
 
-    def rungs(self, trace_shape=None) -> list:
+    def rungs(self) -> list:
         out = []
         if "batched" in self.stages:
             b = self.batch
@@ -336,10 +313,6 @@ class DownshiftLadder:
         out.append(("file", 1))
         if "tiled" in self.stages:
             out.append(("tiled", 1))
-        if ("timeshard" in self.stages and self.allow_timeshard
-                and trace_shape is not None
-                and viable_time_mesh_size(trace_shape, _device_count())):
-            out.append(("timeshard", 1))
         if "host" in self.stages:
             out.append(("host", 1))
         return out
@@ -373,12 +346,12 @@ class DownshiftLadder:
                 event["span_id"] = sp.span_id
             _append_event(self.outdir, event)
 
-    def downshift(self, key, rung, exc, trace_shape=None):
+    def downshift(self, key, rung, exc):
         """Advance ``key``'s sticky rung past ``rung`` after a
         resource-class failure; returns the new rung, or None when the
         ladder is exhausted (the failure dispositions per-file)."""
         nxt = None
-        for cand in self.rungs(trace_shape):
+        for cand in self.rungs():
             if faults.rung_rank(cand) > faults.rung_rank(rung):
                 nxt = cand
                 break
@@ -409,7 +382,7 @@ class RoutePlanner:
     """
 
     def __init__(self, rz, outdir: str, program: DetectorProgram, *,
-                 write: bool = True, timeshard: bool = True,
+                 write: bool = True,
                  dispatch_deadline_s: float | None = None, fault_plan=None):
         self.rz = rz
         self.program = program
@@ -417,7 +390,7 @@ class RoutePlanner:
         self.deadline_s = dispatch_deadline_s
         self.top = ("file", 1)
         self.ladder = DownshiftLadder(
-            rz, outdir, batch=1, write=write, timeshard=timeshard,
+            rz, outdir, batch=1, write=write,
             stages=program.stages, family=program.family,
             engines=program.engines,
         )
@@ -437,7 +410,6 @@ class RoutePlanner:
         from ..parallel import dispatch as dispatch_mod
 
         recovered = False
-        shape = np.shape(trace)
         with telemetry.span("file", file=os.path.basename(path),
                             family=self.program.family):
             while True:   # rung loop: resource failures downshift, sticky
@@ -466,7 +438,7 @@ class RoutePlanner:
                 except Exception as exc:  # noqa: BLE001 — ladder absorbs resource
                     inflight = None   # spent/abandoned: never consume twice
                     if (faults.classify_failure(exc) == "resource"
-                            and self.ladder.downshift(key, rung, exc, shape)):
+                            and self.ladder.downshift(key, rung, exc)):
                         recovered = True
                         continue
                     raise

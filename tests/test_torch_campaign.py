@@ -327,7 +327,7 @@ def test_wedged_dispatch_times_out_that_file_only(data, tmp_path):
     assert "DispatchDeadlineExceeded" in res.records[1].error
 
 
-def test_timeshard_rung_is_absent_and_raises_on_one_device(data):
+def test_timeshard_rung_is_absent_and_raises_on_one_device(data, monkeypatch):
     from das4whales_tpu_torch.workflows.planner import DownshiftLadder, MatchedFilterProgram
 
     class _Rz:
@@ -335,12 +335,76 @@ def test_timeshard_rung_is_absent_and_raises_on_one_device(data):
             pass
 
     ladder = DownshiftLadder(_Rz(), "", batch=4, write=False)
-    assert ("timeshard", 1) not in ladder.rungs((NX, T_BUCKET))
+    assert ("timeshard", 1) not in ladder.rungs()
+    # the port shards nothing: a host with several cards lists no
+    # time-shard rung either
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
+    assert ("timeshard", 1) not in ladder.rungs()
     td = MatchedFilterDetector.from_design(campaign._load_design(
         data["designs"][T_BUCKET][1]), data["meta"], device="cpu")
     with pytest.raises(RuntimeError, match="RESOURCE_EXHAUSTED: no viable time-shard mesh") as ei:
         MatchedFilterProgram(td).detect(("timeshard", 1), np.zeros((NX, T_BUCKET), np.float32))
     assert faults.classify_failure(ei.value) == "resource"
+
+
+def test_batched_dispatch_is_pipelined_at_depth_2(data, tmp_path, monkeypatch):
+    """Depth 2: two slabs stay dispatched and unresolved, so slab k+1's
+    (and k+2's) program is dispatched before slab k's fetch, and each
+    fetch resolves its own slab, in file order."""
+    from das4whales_tpu_torch.parallel.batch import BatchedMatchedFilterDetector
+
+    log = []
+    orig = BatchedMatchedFilterDetector.dispatch_batch
+
+    def spy(self, *args, **kw):
+        k = sum(1 for e in log if e[0] == "dispatch")
+        log.append(("dispatch", k))
+        handle = orig(self, *args, **kw)
+        resolve = handle.resolve
+
+        def probed():
+            log.append(("resolve", k))
+            return resolve()
+
+        handle.resolve = probed
+        return handle
+
+    monkeypatch.setattr(BatchedMatchedFilterDetector, "dispatch_batch", spy)
+    files = _files(data, CLEAN + ("f4",))
+    res = _port_batched(data, files, tmp_path / "piped", batch=2, dispatch_depth=2)
+    assert [r.status for r in res.records] == ["done"] * 5
+    assert log == [("dispatch", 0), ("dispatch", 1), ("dispatch", 2), ("resolve", 0),
+                   ("resolve", 1), ("resolve", 2)]
+    log.clear()
+    _port_batched(data, files, tmp_path / "serial", batch=2, dispatch_depth=1)
+    # depth 1: each slab dispatched and fetched in turn, on the synchronous path
+    assert log == [("dispatch", 0), ("resolve", 0), ("dispatch", 1), ("resolve", 1),
+                   ("dispatch", 2), ("resolve", 2)]
+
+
+def test_host_view_is_the_detector_on_the_cpu(data):
+    """The host rung's view: the same design and settings with
+    ``device="cpu"``, channel-tiled, cached; bitwise the CPU detector's
+    picks."""
+    design = campaign._load_design(data["designs"][T_BUCKET][1])
+    det = MatchedFilterDetector.from_design(design, data["meta"], max_peaks=128,
+                                            wire="raw", device="cpu")
+    view = det.host_view()
+    assert view is det.host_view() and view is not det
+    assert view.device.type == "cpu" and view.design is design
+    assert (view.max_peaks, view.wire, view.fused_bandpass, view.pick_pack_cap) == (
+        128, "raw", True, det.pick_pack_cap)
+    assert view.channel_tile == det.effective_channel_tile
+    block = np.random.default_rng(7).integers(-2000, 2000, (NX, T_BUCKET), dtype=np.int32)
+    a = det.tiled_view().detect_picks(block, with_health=True)
+    b = view.detect_picks(block, with_health=True)
+    for name in a.picks:
+        np.testing.assert_array_equal(a.picks[name], b.picks[name])
+    assert a.thresholds == b.thresholds and a.health == b.health
+
+
+SPECTRO_NX, SPECTRO_NS = 32, 2000
 
 
 SPECTRO_NX, SPECTRO_NS = 32, 2000
