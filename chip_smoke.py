@@ -5,7 +5,7 @@
 
 Builds the port's two CUDA kernels from ``das4whales_tpu_torch/csrc`` with
 ``nvcc`` (sm_90a) and the native ingest reader from
-``das4whales_tpu_torch/native/ingest.cpp`` with ``g++``, then runs twelve
+``das4whales_tpu_torch/native/ingest.cpp`` with ``g++``, then runs sixteen
 phases, one summary line each (more for the detector runs, with their
 profiles), and exits non-zero at the first failed check; no phase's
 failure is caught:
@@ -33,11 +33,37 @@ failure is caught:
                 timed runs, per-stage walls from CUDA events, launches and
                 syncs; every injected call must be picked on its nearest
                 channel within 1 s of its arrival;
-5. ``cpu_vs_card`` the port on the card against the port on the CPU at
+5. ``full``     ``MatchedFilterDetector(...)(trace, with_snr=True)``, the
+                flagship workflow's full-artifact call at its settings
+                (sparse picks on the card, correlograms kept), on the
+                ``detect`` phase's block and design: one warm-up, three timed
+                runs, stage walls from CUDA events, 44 pick launches a run
+                (88 with an escalation), syncs, peak memory, a profile; picks
+                and thresholds bitwise ``detect_picks``' on the same detector,
+                ``trf_fk`` bitwise ``filter_block``'s, correlograms finite,
+                the SNR without NaN or +inf, every injected call picked, the
+                pick kernel bitwise its plain version at the route's first
+                and last launch; then ``pick_mode="dense"`` at 512 x 12000:
+                picks and peak masks equal the sparse route's;
+6. ``full_cpu_vs_card`` the same call on the card against ``device="cpu"``
+                at 512 x 12000: thresholds rtol 1e-5, ``trf_fk`` and
+                correlograms within 1e-4 * max, the SNR within 0.01 dB where
+                it lies within 60 dB of its max, picks up to knife edges;
+7. ``channel_pad`` the canonical block on a design padded to 22500
+                channels (``channel_pad="auto"``): ``filter_block`` padded and
+                unpadded by CUDA events in turns, ``detect_picks`` walls and
+                stage walls of both, every injected call picked padded;
+8. ``bank``     ``detect_picks`` with the ``fin-variants`` bank (4 templates,
+                per-template thresholds) on the canonical block: wall, stage
+                walls, 44 pick launches of 2048 rows, the kernel bitwise its
+                plain version at the first and last launch, every injected
+                call picked, and the ``split_views`` halves' picks and
+                thresholds bitwise the full bank's rows;
+9. ``cpu_vs_card`` the port on the card against the port on the CPU at
                 512 x 12000 (thresholds to rtol 1e-5, picks equal up to
                 rounding knife edges), at the defaults and with the K0
                 escalation and the capacity overflow forced;
-6. ``stft_kernel`` the fused STFT-power kernel against its plain PyTorch
+10. ``stft_kernel`` the fused STFT-power kernel against its plain PyTorch
                 version and against ``torch.stft`` power on the card, at the
                 main path's launch (4096 x 12000, nfft 160, hop 8, centred)
                 and on edge cases (1570 channels, T = 11963, center=False,
@@ -46,17 +72,17 @@ failure is caught:
                 self-paired bin); each within 5e-6 * max|reference|; times
                 (a call, and the device time a launch), the bound and the
                 dense and folded DFT forms;
-7. ``spectro``  ``SpectroEvalAdapter(MatchedFilterDetector.from_design(...),
+11. ``spectro``  ``SpectroEvalAdapter(MatchedFilterDetector.from_design(...),
                 SpectroCorrDetector(meta))`` on the ``detect`` phase's scene,
                 conditioned on the host: one warm-up, three timed runs,
                 stage walls from CUDA events, 12 STFT-kernel launches and the
                 device->host reads per run, a profile; every injected call
                 must be picked (by either hat kernel) on its nearest channel
                 within 1 s of its arrival;
-8. ``spectro_cpu_vs_card`` the spectro family on the card against the CPU
+12. ``spectro_cpu_vs_card`` the spectro family on the card against the CPU
                 at 512 x 12000, both bandpass modes: correlograms within
                 1e-4 * max|cpu|, picks equal up to rounding knife edges;
-9. ``slab``     the batched ingest route at the campaign's defaults: five
+13. ``slab``     the batched ingest route at the campaign's defaults: five
                 Silixa TDMS files (four 22050 x 12000, one 22050 x 11000,
                 raw int32; the card's machine has no ``h5py``) written by
                 the port, streamed by ``stream_batched_slabs`` (batch 4,
@@ -84,7 +110,7 @@ failure is caught:
                 against the sum of its parts, the batched pass again with
                 the native reader, and the stream alone on the native
                 engine, both wires (the host's read ceiling);
-10. ``slab_cpu_vs_card`` the slab route on the card (batched mode) against
+14. ``slab_cpu_vs_card`` the slab route on the card (batched mode) against
                 the CPU (serial mode) at 512 channels, both wires, batch 2,
                 a clip level, and a float32 file with 3 NaNs and 5 samples
                 at the clip (on the raw wire it flushes a partial slab):
@@ -97,7 +123,7 @@ failure is caught:
                 4096-channel chunk) and the kernel held against its plain
                 version within 5e-6 * max on the facade's own launch
                 (1024 x 16384);
-11. ``campaign`` ``run_campaign_batched`` at its defaults (batch 4, pow2
+15. ``campaign`` ``run_campaign_batched`` at its defaults (batch 4, pow2
                 buckets, conditioned wire, the format reader, the mf
                 family, health, dispatch depth 2) over the slab phase's
                 five files, ``interrogator="silixa"``: every file ``done``
@@ -110,7 +136,7 @@ failure is caught:
                 the bucket's design seconds, the picks-artifact and
                 manifest write seconds, the peak device memory and the busy
                 share of one slab of the campaign's facade (profiler);
-12. ``campaign_cpu_vs_card`` both entries at 512 x 12000 on the card
+16. ``campaign_cpu_vs_card`` both entries at 512 x 12000 on the card
                 against ``device="cpu"`` (five int32 files, a corrupt and a
                 NaN file; records equal file by file — status, rung,
                 attempts — picks equal up to knife edges); a pinned
@@ -122,10 +148,13 @@ failure is caught:
                 the spectro family on one slab (``fused_stft`` launches,
                 picks equal to ``BatchedSpectroDetector``'s); and a design
                 saved by the port and loaded again (bitwise the same
-                picks).
+                picks); a ``fin-variants`` campaign whose full-bank slab
+                program is refused: ``batched:2 -> bank:2``, every file done
+                there with the healthy run's picks bit for bit, on the card
+                and on the CPU.
 
-Then it prints the kernel table as one JSON line, the ``nvidia-smi`` line,
-and last ``{"ok": true, "device": {...}}``. It imports no JAX and nothing
+Then it prints the kernel table as one JSON line, the run's total
+seconds, the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. It imports no JAX and nothing
 of the JAX package. ``--only PHASE[,PHASE]`` runs the named phases after
 ``device`` and ``build``, for development; it prints no result line.
 """
@@ -133,6 +162,7 @@ of the JAX package. ``--only PHASE[,PHASE]`` runs the named phases after
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import statistics
@@ -853,6 +883,373 @@ def phase_cpu_vs_card():
                      f" on the card, {n_diff} differing")
     say(f"cpu_vs_card: {nx}x{ns}, thresholds within rtol 1e-5, differing picks all on "
         f"rounding knife edges; {'; '.join(notes)}")
+
+@functools.lru_cache(maxsize=1)
+def _canonical_inputs():
+    """``(scene, raw, design)``: the ``detect`` phase's canonical block and
+    its fin design, made once for the phases that run without ``detect``
+    before them (``--only``; the design is about half a minute of host
+    work)."""
+    from das4whales_tpu_torch.io.synth import synthesize_scene, to_raw_counts
+    from das4whales_tpu_torch.models.matched_filter import design_matched_filter
+
+    nx, ns = CANONICAL
+    scene = _scene(nx, ns, n_calls=6, seed=SEED)
+    return (scene, to_raw_counts(synthesize_scene(scene), scene.metadata),
+            design_matched_filter((nx, ns), [0, nx, 1], scene.metadata, templates="fin"))
+
+
+def _timed_runs(call, counters, n: int = 3):
+    """``n`` runs of ``call(stage_hook)`` after the caller's warm-up: each
+    run's wall (host clock around a synchronised call), its stage walls
+    (CUDA events) and the change of each counter (``{name: getter}``)
+    over it. Returns ``(walls, stages, deltas, last result)``."""
+    import torch
+
+    walls, stages, deltas, res = [], [], [], None
+    for _ in range(n):
+        before = {k: get() for k, get in counters.items()}
+        res = None                           # the previous run's result is freed first
+        timer = StageTimer()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = call(timer)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        stages.append(timer.walls())
+        deltas.append({k: get() - before[k] for k, get in counters.items()})
+    return walls, stages, deltas, res
+
+
+def _median_stages(stages: list) -> dict:
+    return {k: round(statistics.median(s[k] for s in stages), 3) for k in stages[0]}
+
+
+def phase_full(scene=None, raw=None, design=None):
+    """``MatchedFilterDetector(...)(trace, with_snr=True)`` — the flagship
+    ``main_mfdetect.py``'s full-artifact call, at the workflow's settings
+    (``pick_mode`` auto -> sparse on the card, ``keep_correlograms``) — on
+    the canonical block, on ``detect``'s design; then ``pick_mode="dense"``
+    against the sparse route at 512 x 12000."""
+    import warnings
+
+    import torch
+
+    from das4whales_tpu_torch.io.synth import synthesize_scene, to_raw_counts
+    from das4whales_tpu_torch.models.matched_filter import MatchedFilterDetector
+    from das4whales_tpu_torch.ops import fused_picks
+    from das4whales_tpu_torch.ops.peaks import convert_pick_times
+
+    if design is None:
+        scene, raw, design = _canonical_inputs()
+    nx, ns = raw.shape
+    det = MatchedFilterDetector.from_design(design, scene.metadata, wire="raw")
+    if (det.pick_mode, det.keep_correlograms, det._route()) != ("sparse", True, "tiled"):
+        fail(f"full: the detector resolved pick_mode {det.pick_mode!r}, keep_correlograms "
+             f"{det.keep_correlograms}, route {det._route()!r}; expected sparse, True, tiled")
+    tile = det.effective_channel_tile
+    n_tiles = -(-nx // tile)
+    nT = len(det.design.template_names)
+    x = torch.as_tensor(raw).to("cuda")
+    det(x, with_snr=True)                    # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()                          # the main path's runs start here
+    det.syncs = det.escalations = 0
+    walls, stages, deltas, res = _timed_runs(
+        lambda hook: det(x, with_snr=True, stage_hook=hook),
+        {"launches": lambda: fused_picks.launches, "syncs": lambda: det.syncs,
+         "escalations": lambda: det.escalations})
+    launches = read_launches()["fused_picks"]
+    peak = torch.cuda.max_memory_allocated()
+    for k, d in enumerate(deltas):
+        if d["launches"] != n_tiles * (1 + d["escalations"]):
+            fail(f"full: run {k} launched the pick kernel {d['launches']} times with "
+                 f"{d['escalations']} escalations, expected {n_tiles} an attempt")
+    ref = det.detect_picks(x)                # the one-program route, same detector
+    for name in ref.picks:
+        if not np.array_equal(res.picks[name], ref.picks[name]):
+            fail(f"full: template {name}: __call__'s picks differ from detect_picks'")
+        if res.thresholds[name] != ref.thresholds[name]:
+            fail(f"full: template {name}: threshold {res.thresholds[name]} != detect_picks' "
+                 f"{ref.thresholds[name]}")
+    misses = _check_calls(scene, res.picks)
+    if misses:
+        fail(f"full: injected calls not picked on their nearest channel within 1 s: {misses}")
+    if not torch.equal(res.trf_fk, det.filter_block(x)):
+        fail("full: trf_fk differs from filter_block(trace)")
+    n_neginf = 0
+    for name in det.design.template_names:
+        c, s = res.correlograms[name], res.snr[name]
+        if tuple(c.shape) != (nx, ns) or not bool(torch.isfinite(c).all()):
+            fail(f"full: template {name}: correlograms {tuple(c.shape)} not all finite")
+        # 10 log10(|a|^2 / std^2): -inf only where the envelope is exactly 0
+        if tuple(s.shape) != (nx, ns) or bool(torch.isnan(s).any() | torch.isposinf(s).any()):
+            fail(f"full: template {name}: SNR {tuple(s.shape)} has NaN or +inf")
+        n_neginf += int(torch.isneginf(s).sum())
+    wall = statistics.median(walls)
+    fams = _profile("__call__(with_snr=True)", lambda: det(x, with_snr=True), wall, "fused_picks")
+    del res, ref
+    with _capture(fused_picks, "picks_cuda") as calls:
+        det(x, with_snr=True)
+        torch.cuda.synchronize()
+    err, notes = _picks_at_main_path("full", calls, {"first": nT * tile,
+                                                     "last": nT * (nx - (n_tiles - 1) * tile)})
+    del calls, x, det
+    torch.cuda.empty_cache()
+    say(f"full: {nx}x{ns} raw int32, fin bank, MatchedFilterDetector(...)(trace, "
+        f"with_snr=True) at mfdetect.main's settings (pick_mode sparse, keep_correlograms), "
+        f"route tiled ({n_tiles} tiles of {tile}); median wall {wall * 1e3:.1f} ms (runs "
+        f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms); stage walls (median, CUDA events) "
+        f"{json.dumps(_median_stages(stages))} ms; per run (kernel launches, syncs, "
+        f"escalations) {[tuple(d.values()) for d in deltas]}; peak device memory "
+        f"{peak / 2**30:.2f} GiB; picks and thresholds bitwise detect_picks' on the same "
+        f"detector, trf_fk bitwise filter_block's, correlograms finite, SNR without NaN or "
+        f"+inf ({n_neginf} samples at -inf); all {len(scene.calls)} injected calls picked; "
+        f"fused_picks bitwise its plain version at the route's first and last launch: "
+        f"{'; '.join(notes)}")
+
+    # pick_mode="dense" against the sparse route, on the card, at 512 x 12000
+    nx2 = 512
+    scene2 = _scene(nx2, ns, n_calls=1, seed=SEED + 1)
+    raw2 = to_raw_counts(synthesize_scene(scene2), scene2.metadata)
+    sparse = MatchedFilterDetector(scene2.metadata, [0, nx2, 1], (nx2, ns), wire="raw")
+    dense = MatchedFilterDetector.from_design(sparse.design, scene2.metadata, wire="raw",
+                                              pick_mode="dense")
+    x2 = torch.as_tensor(raw2).to("cuda")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        rs = sparse(x2)
+        dense(x2)                            # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rd = dense(x2)
+        t_dense = time.perf_counter() - t0
+    if any("saturated" in str(w.message) for w in caught):
+        fail("full: dense vs sparse: a sparse row saturated; the comparison needs none")
+    n_picks = 0
+    for name in rs.picks:
+        mask = np.zeros((nx2, ns), bool)
+        mask[rs.picks[name][0], rs.picks[name][1]] = True
+        if not (np.array_equal(rd.picks[name], rs.picks[name])
+                and np.array_equal(rd.peak_masks[name], mask)
+                and np.array_equal(convert_pick_times(rd.peak_masks[name]), rd.picks[name])
+                and rd.thresholds[name] == rs.thresholds[name]):
+            fail(f"full: template {name}: the dense route's picks or peak mask differ from "
+                 "the sparse route's")
+        n_picks += rs.picks[name].shape[1]
+    if n_picks == 0 or _check_calls(scene2, rd.picks):
+        fail("full: dense: no picks, or the injected call was missed")
+    say(f"full: pick_mode dense at {nx2}x{ns} on the card (route {dense._route()}, peak_block "
+        f"{dense.peak_block}): picks and peak masks equal the sparse route's ({n_picks} "
+        f"picks, no row saturated), thresholds equal; dense call {t_dense * 1e3:.1f} ms")
+    return launches, err, {"wall_ms": wall * 1e3, "stages": _median_stages(stages),
+                           "peak_gib": peak / 2**30, "fams": fams}
+
+
+def phase_full_cpu_vs_card():
+    """``__call__(trace, with_snr=True)`` on the card against
+    ``device="cpu"`` at 512 x 12000, each at its defaults (sparse on the
+    card, scipy on the CPU)."""
+    from das4whales_tpu_torch.io.synth import synthesize_scene, to_raw_counts
+    from das4whales_tpu_torch.models.matched_filter import MatchedFilterDetector
+    from das4whales_tpu_torch.ops import spectral
+    from das4whales_tpu_torch.utils.parity import unexplained_differences
+
+    nx, ns = 512, CANONICAL[1]
+    scene = _scene(nx, ns, n_calls=1, seed=SEED + 1)
+    raw = to_raw_counts(synthesize_scene(scene), scene.metadata)
+    card = MatchedFilterDetector(scene.metadata, [0, nx, 1], (nx, ns), wire="raw")
+    cpu = MatchedFilterDetector.from_design(card.design, scene.metadata, wire="raw",
+                                            device="cpu")
+    rc, rp = card(raw, with_snr=True), cpu(raw, with_snr=True)
+    worst = {"trf_fk": 0.0, "correlograms": 0.0, "snr_db": 0.0}
+
+    def rel(a, b):
+        return float((a.cpu() - b).abs().max()) / float(b.abs().max())
+
+    worst["trf_fk"] = rel(rc.trf_fk, rp.trf_fk)
+    n_diff = 0
+    for name in rp.picks:
+        tg, tc = rc.thresholds[name], rp.thresholds[name]
+        if not np.isclose(tg, tc, rtol=1e-5, atol=0):
+            fail(f"full_cpu_vs_card: template {name} threshold card {tg} vs cpu {tc}")
+        worst["correlograms"] = max(worst["correlograms"],
+                                    rel(rc.correlograms[name], rp.correlograms[name]))
+        s, sp_ = rc.snr[name].cpu().numpy(), rp.snr[name].numpy()
+        near = sp_ > sp_.max() - 60.0
+        if not np.isfinite(s[near]).all():
+            fail(f"full_cpu_vs_card: template {name}: card SNR not finite where the CPU's is")
+        worst["snr_db"] = max(worst["snr_db"], float(np.abs(s - sp_)[near].max()))
+        env = spectral.envelope_sqrt(rp.correlograms[name]).numpy()
+        a, b = rc.picks[name], rp.picks[name]
+        bad = unexplained_differences(a, b, env, tc)
+        if bad:
+            fail(f"full_cpu_vs_card: template {name}: picks differ beyond rounding at "
+                 f"{bad[:10]}")
+        n_diff += len({tuple(p) for p in a.T.tolist()} ^ {tuple(p) for p in b.T.tolist()})
+    if worst["trf_fk"] > 1e-4 or worst["correlograms"] > 1e-4 or worst["snr_db"] > 0.01:
+        fail(f"full_cpu_vs_card: beyond tolerance (trf_fk and correlograms 1e-4 * max, SNR "
+             f"0.01 dB within 60 dB of its max): {worst}")
+    if _check_calls(scene, rc.picks):
+        fail("full_cpu_vs_card: the injected call was not picked on the card")
+    say(f"full_cpu_vs_card: {nx}x{ns}, __call__(with_snr=True), card ({card.pick_mode}, route "
+        f"{card._route()}) against CPU ({cpu.pick_mode}): thresholds within rtol 1e-5; "
+        f"relative max error trf_fk {worst['trf_fk']:.2e}, correlograms "
+        f"{worst['correlograms']:.2e} (limit 1e-4); SNR max |card - cpu| "
+        f"{worst['snr_db']:.2e} dB within 60 dB of its max (limit 0.01 dB); picks "
+        f"{json.dumps({k: int(v.shape[1]) for k, v in rc.picks.items()})} on the card, "
+        f"{n_diff} differing, all on rounding knife edges")
+
+
+def phase_channel_pad(scene=None, raw=None, design=None):
+    """The canonical block on a design padded to 22500 channels
+    (``channel_pad="auto"``): the f-k stage padded against unpadded, in
+    turns, the padded ``detect_picks`` wall and its recall."""
+    import torch
+
+    from das4whales_tpu_torch.models.matched_filter import (MatchedFilterDetector,
+                                                            design_matched_filter)
+    from das4whales_tpu_torch.ops import fused_picks
+    from das4whales_tpu_torch.ops.xcorr import next_fast_len
+
+    if design is None:
+        scene, raw, design = _canonical_inputs()
+    nx, ns = raw.shape
+    t0 = time.perf_counter()
+    pdesign = design_matched_filter((nx, ns), [0, nx, 1], scene.metadata, templates="fin",
+                                    channel_pad="auto")
+    t_design = time.perf_counter() - t0
+    want = next_fast_len(nx)                 # 22050 -> 22500
+    if pdesign.fk_channels != want or pdesign.fk_mask.shape != (want, ns):
+        fail(f"channel_pad: 'auto' gave {pdesign.fk_channels} channels, expected {want}")
+    dets = {"unpadded": MatchedFilterDetector.from_design(design, scene.metadata, wire="raw"),
+            "padded": MatchedFilterDetector.from_design(pdesign, scene.metadata, wire="raw")}
+    x = torch.as_tensor(raw).to("cuda")
+    for d in dets.values():
+        d.detect_picks(x)                    # warm-up: each shape's cuFFT plans
+    torch.cuda.synchronize()
+    fk_ms = {k: [] for k in dets}
+    for label in ("unpadded", "padded", "padded", "unpadded"):   # in turns
+        fk_ms[label].append(_cuda_ms(lambda d=dets[label]: d.filter_block(x), 10))
+    zero_launches()
+    out = {}
+    for label in ("unpadded", "padded"):
+        d = dets[label]
+        walls, stages, deltas, res = _timed_runs(
+            lambda hook, d=d: d.detect_picks(x, stage_hook=hook),
+            {"launches": lambda: fused_picks.launches, "attempts": lambda d=d: d.dispatches})
+        hit = len(scene.calls) - len(_check_calls(scene, res.picks))
+        out[label] = dict(wall=statistics.median(walls), stages=_median_stages(stages),
+                          deltas=[tuple(v.values()) for v in deltas], recall=hit,
+                          picks={k: int(v.shape[1]) for k, v in res.picks.items()})
+    if out["padded"]["recall"] != len(scene.calls):
+        fail(f"channel_pad: the padded design picked {out['padded']['recall']} of "
+             f"{len(scene.calls)} injected calls")
+    del dets, x
+    torch.cuda.empty_cache()
+    p, u = out["padded"], out["unpadded"]
+    say(f"channel_pad: {nx}x{ns} raw int32 on a design padded to {pdesign.fk_channels} "
+        f"channels (host design {t_design:.1f} s): filter_block (condition + f-k) by CUDA "
+        f"events, 10 calls, in turns unpadded/padded/padded/unpadded: unpadded "
+        f"{', '.join(f'{v:.3f}' for v in fk_ms['unpadded'])} ms, padded "
+        f"{', '.join(f'{v:.3f}' for v in fk_ms['padded'])} ms; detect_picks median wall "
+        f"padded {p['wall'] * 1e3:.1f} ms, unpadded {u['wall'] * 1e3:.1f} ms; stage walls "
+        f"(median, CUDA events) padded {json.dumps(p['stages'])}, unpadded "
+        f"{json.dumps(u['stages'])} ms; per run (launches, attempts) padded {p['deltas']}; "
+        f"recall padded {p['recall']}/{len(scene.calls)}, unpadded "
+        f"{u['recall']}/{len(scene.calls)}; picks padded {json.dumps(p['picks'])}, unpadded "
+        f"{json.dumps(u['picks'])} (not compared: the pad moves the wrap edge)")
+    return {"fk_ms": fk_ms, "padded": p, "unpadded": u}
+
+
+def phase_bank(scene=None, raw=None, design=None):
+    """The canonical block through ``detect_picks`` with the
+    ``fin-variants`` bank (4 templates, per-template thresholds), on
+    ``detect``'s f-k design with the bank's stack compiled in; then the
+    bank's ``split_views`` halves against the full bank's rows, bit for
+    bit, on the card."""
+    import dataclasses
+
+    import torch
+
+    from das4whales_tpu_torch.models.matched_filter import MatchedFilterDetector
+    from das4whales_tpu_torch.models.templates import resolve_bank
+    from das4whales_tpu_torch.ops import fused_picks
+
+    if design is None:
+        scene, raw, design = _canonical_inputs()
+    nx, ns = raw.shape
+    bank = resolve_bank("fin-variants")
+    # what design_matched_filter(templates=bank) makes: the same mask and
+    # gain, the bank's stack and threshold policy
+    bdesign = dataclasses.replace(
+        design, templates=bank.compile(ns, scene.metadata.fs), template_names=bank.names,
+        threshold_factors=bank.threshold_factors(), threshold_scope=bank.threshold_scope)
+    det = MatchedFilterDetector.from_design(bdesign, scene.metadata, templates=bank, wire="raw")
+    if not det.supports_bank_split or det._route() != "tiled":
+        fail("bank: the fin-variants detector is not splittable or not tiled")
+    tile = det.effective_channel_tile
+    n_tiles = -(-nx // tile)
+    nT = len(bank)
+    x = torch.as_tensor(raw).to("cuda")
+    det.detect_picks(x)                      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()                          # the main path's runs start here
+    walls, stages, deltas, res = _timed_runs(
+        lambda hook: det.detect_picks(x, stage_hook=hook),
+        {"launches": lambda: fused_picks.launches, "attempts": lambda: det.dispatches,
+         "syncs": lambda: det.syncs})
+    launches = read_launches()["fused_picks"]
+    peak = torch.cuda.max_memory_allocated()
+    for k, d in enumerate(deltas):
+        if d["launches"] != n_tiles * d["attempts"]:
+            fail(f"bank: run {k} launched the pick kernel {d['launches']} times in "
+                 f"{d['attempts']} attempts, expected {n_tiles} each")
+    misses = _check_calls(scene, res.picks)
+    if misses:
+        fail(f"bank: injected calls not picked on their nearest channel within 1 s: {misses}")
+    halves, split_ms = det.split_views(), []
+    n_same = 0
+    for h in halves:
+        h.detect_picks(x)                    # warm-up of the half's shapes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hr = h.detect_picks(x)
+        split_ms.append((time.perf_counter() - t0) * 1e3)
+        for name in hr.picks:
+            if not np.array_equal(hr.picks[name], res.picks[name]):
+                a = {tuple(p) for p in hr.picks[name].T.tolist()}
+                b = {tuple(p) for p in res.picks[name].T.tolist()}
+                fail(f"bank: split_views half {h.design.template_names}: template {name}'s "
+                     f"picks differ from the full bank's row ({len(a ^ b)} of {len(b)} picks)")
+            if hr.thresholds[name] != res.thresholds[name]:
+                fail(f"bank: split_views half: template {name} threshold "
+                     f"{hr.thresholds[name]} != the full bank's {res.thresholds[name]}")
+            n_same += int(hr.picks[name].shape[1])
+    with _capture(fused_picks, "picks_cuda") as calls:
+        det.detect_picks(x)
+        torch.cuda.synchronize()
+    err, notes = _picks_at_main_path("bank", calls, {"first": nT * tile,
+                                                     "last": nT * (nx - (n_tiles - 1) * tile)})
+    wall = statistics.median(walls)
+    del calls, x, det, halves
+    torch.cuda.empty_cache()
+    say(f"bank: {nx}x{ns} raw int32, bank fin-variants ({nT} templates, "
+        f"{bank.threshold_scope} scope), detect_picks, route tiled ({n_tiles} tiles of "
+        f"{tile}, {nT * tile} rows a pick launch); median wall {wall * 1e3:.1f} ms (runs "
+        f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms); stage walls (median, CUDA events) "
+        f"{json.dumps(_median_stages(stages))} ms; per run (launches, attempts, syncs) "
+        f"{[tuple(d.values()) for d in deltas]}; picks "
+        f"{json.dumps({k: int(v.shape[1]) for k, v in res.picks.items()})}; all "
+        f"{len(scene.calls)} injected calls picked; peak device memory {peak / 2**30:.2f} GiB; "
+        f"split_views halves (2 + 2 templates, {split_ms[0]:.1f} and {split_ms[1]:.1f} ms): "
+        f"picks and thresholds bitwise the full bank's rows ({n_same} picks); fused_picks "
+        f"bitwise its plain version at the route's first and last launch: {'; '.join(notes)}")
+    return launches, err, {"wall_ms": wall * 1e3, "stages": _median_stages(stages),
+                           "peak_gib": peak / 2**30, "split_ms": split_ms}
+
 
 #: STFT of the spectro family at its defaults: 0.8 s window at 200 Hz,
 #: 95 % overlap
@@ -1800,6 +2197,29 @@ def _no_host_sync(cls, name: str):
         setattr(cls, name, orig)
 
 
+@contextlib.contextmanager
+def _oom_full_bank(cls, n_templates: int):
+    """For the block, ``cls.dispatch_batch`` of a detector with
+    ``n_templates`` templates (the full bank) raises the injected resource
+    error, as a card that cannot hold the full-bank slab program would;
+    the sub-bank halves run."""
+    from das4whales_tpu_torch import faults
+
+    orig = cls.dispatch_batch
+
+    def oom(self, *args, **kw):
+        if self.det.design.templates.shape[0] == n_templates:
+            raise faults.InjectedResourceExhausted(
+                "injected: the full-bank slab program exhausts device memory")
+        return orig(self, *args, **kw)
+
+    cls.dispatch_batch = oom
+    try:
+        yield
+    finally:
+        cls.dispatch_batch = orig
+
+
 def _downshifts(outdir) -> list:
     from das4whales_tpu_torch.utils.artifacts import read_records
 
@@ -2002,11 +2422,58 @@ def _compare_campaigns(label, card, cpu, cpu_det, blocks, scenes, records=True):
     return n_diff
 
 
+def _bank_split_campaigns(d, files, sel, meta, design) -> list:
+    """A ``fin-variants`` batched campaign (batch 2) whose full-bank slab
+    program always runs out of memory (:func:`_oom_full_bank`) must move
+    ``batched:2 -> bank:2`` once and keep the healthy run's picks bit for
+    bit, on the card and on the CPU. ``design`` is the bucket's fin
+    design; the bank's stack is compiled into it. Returns notes."""
+    import dataclasses
+
+    from das4whales_tpu_torch.models.templates import resolve_bank
+    from das4whales_tpu_torch.parallel.batch import BatchedMatchedFilterDetector
+    from das4whales_tpu_torch.utils.checkpoint import save_design
+    from das4whales_tpu_torch.workflows import campaign as cmod
+
+    bank = resolve_bank("fin-variants")
+    ns = design.trace_shape[1]
+    bpath = save_design(str(d / "design_bank"), dataclasses.replace(
+        design, templates=bank.compile(ns, meta.fs), template_names=bank.names,
+        threshold_factors=bank.threshold_factors(), threshold_scope=bank.threshold_scope))
+    kw = dict(metadata=meta, interrogator="silixa", design=bpath, templates=bank.name, batch=2)
+    notes = []
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        healthy = cmod.run_campaign_batched(files, sel, str(d / f"bank_ok_{dev}"), device=dev,
+                                            **kw)
+        with _oom_full_bank(BatchedMatchedFilterDetector, len(bank)):
+            split = cmod.run_campaign_batched(files, sel, str(d / f"bank_split_{dev}"),
+                                              device=dev, **kw)
+        got = [(r.status, r.rung) for r in split.records]
+        moves = _downshifts(d / f"bank_split_{dev}")
+        if ([(r.status, r.rung) for r in healthy.records] != [("done", "batched:2")] * len(files)
+                or got != [("done", "bank:2")] * len(files) or moves != [("batched:2", "bank:2")]):
+            fail(f"campaign_cpu_vs_card: bank split ({dev}): records {got}, downshifts {moves}; "
+                 "expected every file done at bank:2 after one batched:2 -> bank:2")
+        n_picks = 0
+        for h, s_ in zip(healthy.records, split.records):
+            a, b = cmod.load_picks(h.picks_file), cmod.load_picks(s_.picks_file)
+            if set(a) != set(bank.names) or any(not np.array_equal(a[t], b[t]) for t in a):
+                fail(f"campaign_cpu_vs_card: bank split ({dev}): {os.path.basename(h.path)}: "
+                     "the bank:2 picks differ from the healthy run's")
+            n_picks += sum(int(v.shape[1]) for v in b.values())
+        notes.append(f"bank split ({dev}): fin-variants, the full-bank slab program refused: "
+                     f"batched:2 -> bank:2, {len(files)} files done there, {n_picks} picks "
+                     f"bitwise the healthy run's ({time.perf_counter() - t0:.1f} s)")
+    return notes
+
+
 def phase_campaign_cpu_vs_card():
     """Both campaign entries on the card against the CPU at 512 channels,
     then the resilience contract on the card: an oom that downshifts once,
     a corrupt file, a NaN file, a wedged dispatch under the watchdog, the
-    spectro family on one slab and a design checkpoint."""
+    spectro family on one slab, a design checkpoint, and the bank-split
+    rung on the card and the CPU."""
     import shutil
     import tempfile
     from pathlib import Path
@@ -2191,6 +2658,8 @@ def phase_campaign_cpu_vs_card():
             if any(not np.array_equal(a[t], b[t]) for t in b):
                 fail("campaign_cpu_vs_card: the reloaded design's picks differ")
         notes.append("a design saved by the port and loaded again: bitwise the same picks")
+        # 6. the bank-split rung, on the card and on the CPU
+        notes += _bank_split_campaigns(d, clean[:4], sel, meta, design)
         torch.cuda.synchronize()
         say(f"campaign_cpu_vs_card: {nx} channels x 12000 samples, 5 int32 files, a corrupt and "
             f"a NaN file, batch 4, pow2 bucket {SLAB_BUCKET}: {'; '.join(notes)}; phase "
@@ -2216,10 +2685,15 @@ def main(argv: list) -> int:
         return 0
     if argv:
         fail(f"unknown arguments {argv}; run with none, or --only PHASE[,PHASE]")
+    t_start = time.perf_counter()
     smi_line = phase_device()
     phase_build()
     kern, err = phase_kernels()
     launches, scene, raw, design = phase_detect()
+    full_launches, full_err, _ = phase_full(scene, raw, design)
+    phase_full_cpu_vs_card()
+    phase_channel_pad(scene, raw, design)
+    bank_launches, bank_err, _ = phase_bank(scene, raw, design)
     phase_cpu_vs_card()
     stft, stft_err = phase_stft_kernel()
     stft_launches = phase_spectro(scene, raw, design)
@@ -2239,10 +2713,11 @@ def main(argv: list) -> int:
         "source": "das4whales_tpu_torch/csrc/fused_picks.cu",
         "replaces": "das4whales_tpu/ops/pallas_picks.py:71",
         "launches": launches,
-        "launches_by_path": {"detect": launches, "slab_batched": slab_launches["batched"],
+        "launches_by_path": {"detect": launches, "full": full_launches, "bank": bank_launches,
+                             "slab_batched": slab_launches["batched"],
                              "slab_serial": slab_launches["serial"],
                              "campaign": campaign_launches},
-        "max_abs_err": max(err, slab_picks_err),
+        "max_abs_err": max(err, slab_picks_err, full_err, bank_err),
         "ms": pk["ms"],
         "device_ms": pk["device_ms"],
         "plain_ms": pk["plain_ms"],
@@ -2265,6 +2740,7 @@ def main(argv: list) -> int:
         "bound_by": stft["bound_by"],
         "library_ms": stft["library_ms"],
     }]}))
+    say(f"total: {time.perf_counter() - t_start:.1f} s, the kernels' builds included")
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -322,6 +322,14 @@ def hbm_budget_bytes() -> int:
     )
 
 
+def template_bank_default() -> str:
+    """The template bank a detector builds when the caller passes
+    ``templates=None``: ``DAS_TEMPLATE_BANK`` (a registered bank name or a
+    chirp-grid spec, ``models.templates.resolve_bank``), ``"fin"`` when
+    unset or empty."""
+    return os.environ.get("DAS_TEMPLATE_BANK", "") or "fin"
+
+
 def memory_preflight_default() -> bool:
     """Whether batched campaigns run the memory preflight when the caller
     passes ``preflight=None`` (``DAS_MEMORY_PREFLIGHT`` env; default

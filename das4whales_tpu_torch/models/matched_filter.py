@@ -30,9 +30,30 @@ into pinned memory with an event after it (:class:`PackedFetch`), so a
 later resolve waits on that event alone while the programs dispatched
 after it keep the card busy (the campaign's pipelined dispatch).
 
+``MatchedFilterDetector.__call__`` is the full-artifact route of the
+reference's ``main_mfdetect.py``: it keeps the filtered block
+(``trf_fk``), the correlograms and, with ``with_snr=True``, the envelope
+SNR matrices, and picks in one of three modes (``pick_mode``): ``sparse``
+(the pick kernel through ``fused_picks.analytic_envelope_peaks``, the
+default on the card), ``scipy`` (per-channel scipy on the host, the
+default on the CPU) or ``dense`` (every sample's exact prominence,
+``ops.peaks.find_peaks_prominence_blocked``). Untiled it correlates at
+the trace length (``_call_full``); past the memory budget it walks
+channel tiles (``_call_tiled``) with the threshold computed on the host
+from the tiles' maxima. In the campaign configuration (``sparse``,
+``keep_correlograms=False``, no SNR) it is ``detect_picks``.
+
+``design_matched_filter(channel_pad=...)`` designs the f-k mask on a
+channel axis padded to a 5-smooth length (``"auto"``) or a given one;
+every filter variant pads the block with silent channels before the
+channel FFT and crops after (``_fk_apply_padded``).
+
 The resource ladder's rung views share the design: ``tiled_view`` is a
 shallow copy with channel-tiled correlation, ``host_view`` the same
-detector built with ``device="cpu"``.
+detector built with ``device="cpu"``, and ``bank_view(lo, hi)`` a shallow
+copy on the sub-bank ``[lo:hi)`` that slices the parent's template
+tensors (``split_views`` halves a bank with decoupled thresholds, the
+ladder's bank-split rung).
 
 This slice carries ``mf_engine="fft"`` and ``fk_engine="fft"`` only;
 every other value raises ``NotImplementedError`` naming the ROADMAP item
@@ -42,6 +63,8 @@ prefilter the other detector families share (``workflows.common``).
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Callable, Dict, NamedTuple
 
@@ -58,14 +81,14 @@ from ..config import (
 )
 from ..config import not_in_slice as _not_in_slice
 from ..config import hbm_budget_bytes as _default_hbm_budget_bytes
-from ..ops import conditioning, fused_picks, xcorr
+from ..ops import conditioning, fused_picks, spectral, xcorr
 from ..ops import health as health_ops
 from ..ops import fk as fk_ops
 from ..ops import peaks as peak_ops
 from ..ops.filters import butter_zero_phase_gain, fft_zero_phase_apply
 from ..utils.checkpoint import register_design
 from ..utils.device import resolve_device
-from ..utils.views import cached_shallow_view
+from ..utils.views import _VIEW_CACHE_ATTRS, cached_shallow_view
 from .templates import resolve_bank
 
 #: The reference threshold policy: ``thres = REL_THRESHOLD * max``, scaled
@@ -114,6 +137,36 @@ class MatchedFilterDesign:
         if self.threshold_factors is None:
             self.threshold_factors = reference_threshold_factors(self.templates.shape[0])
 
+    def resolve_threshold_policy(self, hf_factor=None, threshold_factors=None,
+                                 threshold_scope=None):
+        """The one resolution of the bank threshold policy: ``(factors [nT]
+        float32, scope)``. An explicit legacy ``hf_factor`` rebuilds the
+        index-0-is-HF vector and pins the global scope (unless
+        ``threshold_scope`` overrides); an explicit ``threshold_factors``
+        vector comes next; else the design's own vector and scope."""
+        n = self.templates.shape[0]
+        if hf_factor is not None:
+            fac = np.ones(n, np.float32)
+            fac[0] = float(hf_factor)
+            scope = threshold_scope or "global"
+        elif threshold_factors is not None:
+            fac = np.asarray(threshold_factors, np.float32)
+            scope = threshold_scope or self.threshold_scope
+        else:
+            fac = np.asarray(self.threshold_factors, np.float32)
+            scope = threshold_scope or self.threshold_scope
+        if fac.shape != (n,):
+            raise ValueError(f"threshold factors shape {fac.shape} != ({n},)")
+        if scope not in ("global", "per_template"):
+            raise ValueError(
+                f"unknown threshold_scope {scope!r}; expected 'global' or 'per_template'"
+            )
+        return fac, scope
+
+    def sparsity_report(self, verbose: bool = False) -> dict:
+        """Dense against sparse storage of the f-k mask (host numpy)."""
+        return fk_ops.compression_report(self.fk_mask, verbose=verbose)
+
 
 def design_matched_filter(trace_shape, selected_channels, metadata,
                           fk_config: FkFilterConfig = SCRIPT_FK,
@@ -121,14 +174,27 @@ def design_matched_filter(trace_shape, selected_channels, metadata,
                           channel_pad=None) -> MatchedFilterDesign:
     """Design the pipeline for one block shape: the hybrid_ninf f-k mask
     with the script fan, the 14-30 Hz Butterworth-8 zero-phase gain and
-    the template bank's ``[T, time]`` stack with its threshold policy."""
-    if channel_pad is not None:
-        raise _not_in_slice("channel_pad", "channel_pad")
+    the template bank's ``[T, time]`` stack with its threshold policy.
+
+    ``channel_pad`` pads the f-k transform's CHANNEL axis: ``"auto"`` to
+    the next 5-smooth length (22050 = 2·3²·5²·7² becomes 22500 =
+    2²·3²·5⁴), an int to that length, ``None`` keeps the count. The mask
+    is designed on the padded wavenumber grid (``fk_channels`` rows); the
+    filter pads the block with silent channels and crops after, which
+    changes only the circular wrap at the array's ends."""
     meta = as_metadata(metadata)
     sel = ChannelSelection.from_list(selected_channels)
     bank = resolve_bank(templates)
+    if channel_pad == "auto":
+        fk_channels = xcorr.next_fast_len(trace_shape[0])
+    elif channel_pad:
+        if int(channel_pad) < trace_shape[0]:
+            raise ValueError(f"channel_pad={channel_pad} < channel count {trace_shape[0]}")
+        fk_channels = int(channel_pad)
+    else:
+        fk_channels = trace_shape[0]
     mask = fk_ops.hybrid_ninf_filter_design(
-        tuple(trace_shape), sel.to_list(), meta.dx, meta.fs,
+        (fk_channels, trace_shape[1]), sel.to_list(), meta.dx, meta.fs,
         cs_min=fk_config.cs_min, cp_min=fk_config.cp_min,
         cp_max=fk_config.cp_max, cs_max=fk_config.cs_max,
         fmin=fk_config.fmin, fmax=fk_config.fmax,
@@ -145,27 +211,42 @@ def design_matched_filter(trace_shape, selected_channels, metadata,
         trace_shape=tuple(trace_shape),
         fs=float(meta.fs),
         bp_band=(float(bp_band[0]), float(bp_band[1])),
-        fk_channels=int(trace_shape[0]),
+        fk_channels=fk_channels,
         threshold_factors=bank.threshold_factors(),
         threshold_scope=bank.threshold_scope,
     )
 
 
+def _fk_apply_padded(x: torch.Tensor, mask_band: torch.Tensor, band_lo: int,
+                     band_hi: int, pad_rows: int) -> torch.Tensor:
+    """The banded f-k apply of every filter variant: ``pad_rows`` silent
+    channels appended on ``dim=-2`` (the mask's ``fk_channels`` rows),
+    the banded apply, and the crop back to the real channels."""
+    if not pad_rows:
+        return fk_ops.fk_filter_apply_rfft_banded(x, mask_band, band_lo, band_hi)
+    C = x.shape[-2]
+    x = torch.nn.functional.pad(x, (0, 0, 0, pad_rows))
+    return fk_ops.fk_filter_apply_rfft_banded(x, mask_band, band_lo, band_hi)[..., :C, :]
+
+
 def mf_filter_fused(trace: torch.Tensor, fused_mask_band: torch.Tensor,
-                    band_lo: int, band_hi: int) -> torch.Tensor:
+                    band_lo: int, band_hi: int, pad_rows: int = 0) -> torch.Tensor:
     """Bandpass ∘ f-k filter as ONE banded spectral multiply: the mask
     carries ``|H(f)|^2`` folded in (circular edges, as in the JAX
-    package's fused route)."""
-    return fk_ops.fk_filter_apply_rfft_banded(trace, fused_mask_band, band_lo, band_hi)
+    package's fused route). ``pad_rows``: the padded design's silent
+    channels (:func:`_fk_apply_padded`)."""
+    return _fk_apply_padded(trace, fused_mask_band, band_lo, band_hi, pad_rows)
 
 
 def mf_filter_only(trace: torch.Tensor, fk_mask_band: torch.Tensor, bp_gain: torch.Tensor,
-                   band_lo: int, band_hi: int, bp_padlen: int) -> torch.Tensor:
+                   band_lo: int, band_hi: int, bp_padlen: int,
+                   pad_rows: int = 0) -> torch.Tensor:
     """The staged bandpass, then the banded f-k filter: odd extension by
     ``bp_padlen``, one rfft round trip times ``bp_gain`` (the rFFT bins of
-    the extended length), crop, then the f-k pass on the gainless mask."""
+    the extended length), crop, then the f-k pass on the gainless mask
+    (padded by ``pad_rows`` channels, :func:`_fk_apply_padded`)."""
     tr_bp = fft_zero_phase_apply(trace, bp_gain, bp_padlen)
-    return fk_ops.fk_filter_apply_rfft_banded(tr_bp, fk_mask_band, band_lo, band_hi)
+    return _fk_apply_padded(tr_bp, fk_mask_band, band_lo, band_hi, pad_rows)
 
 
 def mf_correlate_tiled(trf_fk: torch.Tensor, templates_true: torch.Tensor,
@@ -184,6 +265,57 @@ def mf_correlate_tiled(trf_fk: torch.Tensor, templates_true: torch.Tensor,
         tiles.append(corr)
         maxes.append(corr.amax(dim=(-2, -1)))
     return tiles, torch.stack(maxes).amax(dim=0)
+
+
+def mf_pick_tiled(corr_tiles: list, thresholds: torch.Tensor, max_peaks: int,
+                  pick_method: str = "topk", release: bool = False) -> peak_ops.SparsePicks:
+    """The pick stage over channel tiles: per tile the Hilbert analytic
+    signal and the fused pick kernel (``fused_picks.analytic_envelope_peaks``,
+    its plain version on the CPU), with ``thresholds [nT, ...]`` one per
+    template (and file). The tiles' slots concatenate back to ``[nT, ...,
+    C, K]`` (``saturated [nT, ..., C]``). ``release`` drops each tile from
+    ``corr_tiles`` once picked (the picks-only program keeps no
+    correlograms)."""
+    picks = []
+    for i in range(len(corr_tiles)):
+        picks.append(fused_picks.analytic_envelope_peaks(
+            corr_tiles[i], thresholds[..., None], max_peaks=max_peaks, method=pick_method
+        ))
+        if release:
+            corr_tiles[i] = None
+    return peak_ops.SparsePicks(
+        *(torch.cat([getattr(p, f) for p in picks], dim=-2)
+          for f in ("positions", "heights", "prominences", "selected")),
+        torch.cat([p.saturated for p in picks], dim=-1))
+
+
+def mf_envelope_tiled(corr_tiles: list) -> torch.Tensor:
+    """The Hilbert envelopes ``sqrt(re² + im²)`` of the tiles' correlograms,
+    untiled: ``[nT, ..., C, n]`` (what the scipy and dense pickers read)."""
+    return torch.cat([spectral.envelope_sqrt(ct) for ct in corr_tiles], dim=-2)
+
+
+def _relative_thresholds(gmax: torch.Tensor, thr_factors: torch.Tensor,
+                         thr_scope: str) -> torch.Tensor:
+    """The bank threshold policy from each template's correlogram maximum
+    ``gmax [nT, ...]`` (a trailing axis per file on a stack): ``0.5 * max``
+    of all templates' (``"global"``) or of each template's own
+    (``"per_template"``), times each template's factor."""
+    fac = thr_factors.to(gmax.dtype).reshape((-1,) + (1,) * (gmax.ndim - 1))
+    if thr_scope == "per_template":
+        return (REL_THRESHOLD * gmax) * fac
+    return (REL_THRESHOLD * gmax.amax(dim=0, keepdim=True)) * fac
+
+
+def mf_envelope_and_threshold(corr: torch.Tensor, thr_factors: torch.Tensor,
+                              thr_scope: str = "global"):
+    """The envelopes ``sqrt(re² + im²)`` of untiled correlograms
+    ``[nT, C, n]`` and their thresholds (:func:`_relative_thresholds`).
+    The envelopes are taken a template at a time, the transform shape of
+    the sparse route's (``fused_picks.analytic_envelope_peaks`` on
+    ``corr[i]``), so every pick mode reads the same rounding."""
+    env = torch.stack([spectral.envelope_sqrt(c) for c in corr])
+    return env, _relative_thresholds(corr.amax(dim=(1, 2)), thr_factors, thr_scope)
 
 
 def mf_compact_tiled_picks(positions: torch.Tensor, selected: torch.Tensor,
@@ -244,6 +376,7 @@ def mf_detect_picks_program(
     bp_padlen: int,
     staged_bp: bool,
     tile: int | None,
+    pad_rows: int = 0,
     max_peaks: int,
     capacity: int,
     use_threshold: bool,
@@ -269,7 +402,7 @@ def mf_detect_picks_program(
     ``correlate``, ``pick``, ``compact``) — a timer's hook; it must not
     synchronize. ``thr_factors [nT]`` are the per-template threshold
     factors; ``use_threshold`` takes ``thr_in`` instead of the relative
-    policy.
+    policy. ``pad_rows`` is a channel-padded design's silent channels.
 
     ``with_health=True`` adds the data-health stats
     (``ops.health.health_stats_profiled``) of the INPUT block as it
@@ -303,21 +436,18 @@ def mf_detect_picks_program(
                                                   dtype=templates_true.dtype)
     hook("condition")
     if staged_bp:
-        trf = mf_filter_only(trace, mask_band, bp_gain, band_lo, band_hi, bp_padlen)
+        trf = mf_filter_only(trace, mask_band, bp_gain, band_lo, band_hi, bp_padlen, pad_rows)
     else:
-        trf = mf_filter_fused(trace, mask_band, band_lo, band_hi)
+        trf = mf_filter_fused(trace, mask_band, band_lo, band_hi, pad_rows)
     del trace   # the conditioned block is dead once filtered
     hook("fk")
 
     def resolve_thr(gmax):
         # gmax [nT, ...]: each file's threshold from its own maxima
-        per = (nT,) + (1,) * len(lead)
         if use_threshold:
+            per = (nT,) + (1,) * len(lead)
             return thr_in.to(torch.float32).reshape(per).expand((nT,) + lead)
-        fac = thr_factors.to(torch.float32).reshape(per)
-        if thr_scope == "per_template":
-            return (REL_THRESHOLD * gmax) * fac
-        return (REL_THRESHOLD * gmax.amax(dim=0))[None] * fac
+        return _relative_thresholds(gmax, thr_factors, thr_scope)
 
     if tile is None:
         corr_tiles = [xcorr.compute_cross_correlograms_corrected(trf, templates_true, mu, scale)]
@@ -328,22 +458,15 @@ def mf_detect_picks_program(
     del trf
     hook("correlate")
 
-    picks = []
-    for i in range(len(corr_tiles)):
-        picks.append(fused_picks.analytic_envelope_peaks(
-            corr_tiles[i], thr[..., None], max_peaks=max_peaks, method=pick_method
-        ))
-        corr_tiles[i] = None   # free each tile's correlograms once picked
-    positions = torch.cat([p.positions for p in picks], dim=-2)
-    selected = torch.cat([p.selected for p in picks], dim=-2)
-    saturated = torch.cat([p.saturated for p in picks], dim=-1)
+    sp = mf_pick_tiled(corr_tiles, thr, max_peaks, pick_method, release=True)
     hook("pick")
 
-    chan, times, count = mf_compact_tiled_picks(positions, selected, C, capacity)
-    sat_count = saturated.sum(dim=-1).to(torch.int32).movedim(0, -1)
+    chan, times, count = mf_compact_tiled_picks(sp.positions, sp.selected, C, capacity)
+    sat_count = sp.saturated.sum(dim=-1).to(torch.int32).movedim(0, -1)
     hook("compact")
     return ProgramOutputs(chan, times, count, sat_count,
-                          thr.to(torch.float32).movedim(0, -1), positions, selected, health)
+                          thr.to(torch.float32).movedim(0, -1), sp.positions, sp.selected,
+                          health)
 
 
 @dataclass
@@ -353,6 +476,16 @@ class MatchedFilterResult:
     #: the data-health stats (``ops.health.stats_to_dict``) with
     #: ``with_health=True``; empty otherwise
     health: Dict[str, float] = field(default_factory=dict)
+    #: the full-artifact route's (``__call__``): the filtered block
+    #: ``[C, n]`` on the detector's device (None from ``detect_picks``),
+    #: the ``[C, n]`` correlograms by template (with
+    #: ``keep_correlograms``), the dense route's ``[C, n]`` boolean peak
+    #: masks (host numpy) and, with ``with_snr``, the ``[C, n]`` envelope
+    #: SNR in dB by template
+    trf_fk: torch.Tensor | None = None
+    correlograms: Dict[str, torch.Tensor] = field(default_factory=dict)
+    peak_masks: Dict[str, np.ndarray] = field(default_factory=dict)
+    snr: Dict[str, torch.Tensor] = field(default_factory=dict)
 
 
 class PackedFetch:
@@ -411,6 +544,12 @@ class MatchedFilterDetector:
     The engine labels ``mf_engine``, ``fk_engine`` and ``pick_engine``
     (the fused pick kernel on the card, its plain version on the CPU) go
     into the campaign's downshift events.
+
+    ``pick_mode`` (``"auto"``: ``"sparse"`` on the card, ``"scipy"`` on
+    the CPU, as the JAX package resolves it per backend), ``peak_block``
+    and ``keep_correlograms`` shape :meth:`__call__`'s full-artifact
+    route; :meth:`detect_picks` is the one-program sparse route whatever
+    the pick mode.
     """
 
     mf_engine = "fft"
@@ -424,9 +563,12 @@ class MatchedFilterDetector:
         fk_config: FkFilterConfig = SCRIPT_FK,
         bp_band=(14.0, 30.0),
         templates=None,
+        peak_block: int = 1024,
+        pick_mode: str = "auto",
         max_peaks: int = 256,
         channel_tile: int | str | None = "auto",
         hbm_budget_bytes: int | None = None,
+        keep_correlograms: bool = True,
         channel_pad=None,
         fused_bandpass: bool = True,
         pick_pack_cap: int = 1 << 18,
@@ -437,39 +579,65 @@ class MatchedFilterDetector:
     ):
         check_engines(mf_engine, fk_engine)
         meta = as_metadata(metadata)
+        bank = resolve_bank(templates)
         design = design_matched_filter(trace_shape, selected_channels, meta,
-                                       fk_config, bp_band, templates,
+                                       fk_config, bp_band, bank,
                                        channel_pad=channel_pad)
-        self._setup(design, meta, max_peaks=max_peaks, channel_tile=channel_tile,
-                    hbm_budget_bytes=hbm_budget_bytes, fused_bandpass=fused_bandpass,
-                    pick_pack_cap=pick_pack_cap, wire=wire, device=device)
+        self._setup(design, meta, bank=bank, peak_block=peak_block, pick_mode=pick_mode,
+                    max_peaks=max_peaks, channel_tile=channel_tile,
+                    hbm_budget_bytes=hbm_budget_bytes, keep_correlograms=keep_correlograms,
+                    fused_bandpass=fused_bandpass, pick_pack_cap=pick_pack_cap, wire=wire,
+                    device=device)
 
     @classmethod
-    def from_design(cls, design: MatchedFilterDesign, metadata, *,
+    def from_design(cls, design: MatchedFilterDesign, metadata, *, templates=None,
+                    peak_block: int = 1024, pick_mode: str = "auto",
                     max_peaks: int = 256, channel_tile: int | str | None = "auto",
-                    hbm_budget_bytes: int | None = None, fused_bandpass: bool = True,
+                    hbm_budget_bytes: int | None = None, keep_correlograms: bool = True,
+                    fused_bandpass: bool = True,
                     pick_pack_cap: int = 1 << 18, wire: str = "conditioned",
                     mf_engine: str = "fft", fk_engine: str = "fft",
                     device=None) -> "MatchedFilterDetector":
         """A detector on an existing design (e.g. one carried over from the
-        JAX package by ``convert.design_from_arrays``)."""
+        JAX package by ``convert.design_from_arrays``, padded or not).
+        ``templates`` names the bank the design was compiled from (its
+        entry names must be the design's); without it the detector has no
+        ``bank`` and takes the bank's split policy from the design's
+        threshold scope."""
         check_engines(mf_engine, fk_engine)
-        if design.fk_channels != design.trace_shape[0]:
-            raise _not_in_slice("a channel-padded design", "channel_pad")
+        bank = None
+        if templates is not None:
+            bank = resolve_bank(templates)
+            if bank.names != tuple(design.template_names):
+                raise ValueError(f"bank {bank.name!r} entries {bank.names} are not the "
+                                 f"design's templates {tuple(design.template_names)}")
         det = cls.__new__(cls)
-        det._setup(design, as_metadata(metadata), max_peaks=max_peaks,
-                   channel_tile=channel_tile, hbm_budget_bytes=hbm_budget_bytes,
+        det._setup(design, as_metadata(metadata), bank=bank, peak_block=peak_block,
+                   pick_mode=pick_mode, max_peaks=max_peaks, channel_tile=channel_tile,
+                   hbm_budget_bytes=hbm_budget_bytes, keep_correlograms=keep_correlograms,
                    fused_bandpass=fused_bandpass, pick_pack_cap=pick_pack_cap,
                    wire=wire, device=device)
         return det
 
-    def _setup(self, design, meta, *, max_peaks, channel_tile, hbm_budget_bytes,
-               fused_bandpass, pick_pack_cap, wire, device):
+    def _setup(self, design, meta, *, bank, peak_block, pick_mode, max_peaks, channel_tile,
+               hbm_budget_bytes, keep_correlograms, fused_bandpass, pick_pack_cap, wire,
+               device):
         if wire not in ("conditioned", "raw"):
             raise ValueError(f"unknown wire {wire!r}; expected 'conditioned' or 'raw'")
         self.device = resolve_device(device)
+        if pick_mode == "auto":
+            pick_mode = "sparse" if self.device.type == "cuda" else "scipy"
+        if pick_mode not in ("sparse", "scipy", "dense"):
+            raise ValueError(f"unknown pick_mode {pick_mode!r}")
+        self.pick_mode = pick_mode
+        self.peak_block = peak_block
+        self.keep_correlograms = keep_correlograms
         self.metadata = meta
         self.design = design
+        # the template bank (None for a design given without one); name ->
+        # config mapping of its entries
+        self.bank = bank
+        self.template_configs = None if bank is None else bank.configs
         self.wire = wire
         self.fused_bandpass = fused_bandpass
         self.threshold_scope = design.threshold_scope
@@ -492,6 +660,7 @@ class MatchedFilterDetector:
         dev = self.device
         self._mask_band = torch.as_tensor(mask_band, device=dev)
         self._bp_gain = torch.as_tensor(design.bp_gain, device=dev)
+        self._templates_dev = torch.as_tensor(design.templates, device=dev)
         t_true, t_mu, t_scale = xcorr.padded_template_stats(design.templates)
         self._templates_true = torch.as_tensor(t_true, device=dev)
         self._template_mu = torch.as_tensor(t_mu, device=dev)
@@ -523,6 +692,11 @@ class MatchedFilterDetector:
     def pick_engine(self) -> str:
         return "cuda" if self.device.type == "cuda" else "plain"
 
+    @property
+    def fk_pad_rows(self) -> int:
+        """The silent channels a channel-padded design appends."""
+        return self.design.fk_channels - self.design.trace_shape[0]
+
     def tiled_view(self) -> "MatchedFilterDetector":
         """A shallow view with the channel-TILED correlate route forced —
         the resource ladder's memory-lean per-file rung
@@ -544,11 +718,81 @@ class MatchedFilterDetector:
         view = getattr(self, "_host_view_cache", None)
         if view is None:
             view = self._host_view_cache = type(self).from_design(
-                self.design, self.metadata, max_peaks=self.max_peaks,
+                self.design, self.metadata, templates=self.bank, peak_block=self.peak_block,
+                pick_mode=self.pick_mode, max_peaks=self.max_peaks,
                 channel_tile=self.effective_channel_tile,
-                hbm_budget_bytes=self.hbm_budget_bytes, fused_bandpass=self.fused_bandpass,
+                hbm_budget_bytes=self.hbm_budget_bytes,
+                keep_correlograms=self.keep_correlograms, fused_bandpass=self.fused_bandpass,
                 pick_pack_cap=self.pick_pack_cap, wire=self.wire, device="cpu")
         return view
+
+    @property
+    def supports_bank_split(self) -> bool:
+        """True when the ladder's bank-split rung may run this detector as
+        two sub-banks with the full bank's picks bit for bit: decoupled
+        per-template thresholds (``threshold_scope="per_template"``) and
+        T >= 2 (``TemplateBank.splittable``)."""
+        return self.threshold_scope == "per_template" and self.design.templates.shape[0] >= 2
+
+    @property
+    def _bank_name(self) -> str:
+        return "custom" if self.bank is None else self.bank.name
+
+    def bank_view(self, lo: int, hi: int) -> "MatchedFilterDetector":
+        """A shallow view on the contiguous sub-bank ``[lo:hi)`` of the
+        template stack: the unit of the bank-split rung.
+
+        It SLICES the parent's device tensors (true-length templates,
+        their means and scales, the factor vector) rather than deriving
+        them again: every template keeps the bank-wide true length ``m``
+        (a row's zero tail is exact), so the correlate runs at the bank's
+        FFT length and, under the ``per_template`` scope, a sub-bank's
+        picks equal the full bank's rows bit for bit wherever the
+        transforms are row-independent. A detector designed on the
+        sub-bank alone would take its own ``m`` and FFT length. Shares the
+        f-k design and mask; cached per ``(lo, hi)``."""
+        key = (int(lo), int(hi))
+        cache = self.__dict__.setdefault("_bank_view_cache", {})
+        view = cache.get(key)
+        if view is not None:
+            return view
+        nT = self.design.templates.shape[0]
+        if not 0 <= key[0] < key[1] <= nT:
+            raise ValueError(f"sub-bank [{key[0]}:{key[1]}] out of range for T={nT}")
+        view = copy.copy(self)
+        for attr in _VIEW_CACHE_ATTRS:
+            view.__dict__.pop(attr, None)
+        if self.bank is not None:
+            view.bank = self.bank.subset(*key)
+            view.template_configs = view.bank.configs
+        view.design = dataclasses.replace(
+            self.design, templates=self.design.templates[lo:hi],
+            template_names=tuple(self.design.template_names[lo:hi]),
+            threshold_factors=np.asarray(self.design.threshold_factors[lo:hi]),
+        )
+        for attr in ("_templates_dev", "_templates_true", "_template_mu", "_template_scale",
+                     "_thr_factors"):
+            setattr(view, attr, getattr(self, attr)[lo:hi])
+        cache[key] = view
+        return view
+
+    def split_views(self) -> tuple:
+        """The bank-split rung's ``(first half, second half)`` views
+        (T -> ceil(T/2) + floor(T/2)); needs :attr:`supports_bank_split`."""
+        nT = self.design.templates.shape[0]
+        if not self.supports_bank_split:
+            raise ValueError(
+                f"bank {self._bank_name!r} is not splittable "
+                f"(threshold_scope={self.threshold_scope!r}, T={nT}): sub-bank picks "
+                "would not be bit-identical to the one-dispatch bank"
+            )
+        mid = (nT + 1) // 2
+        return self.bank_view(0, mid), self.bank_view(mid, nT)
+
+    def _warn_saturated(self, name: str, n_saturated: int) -> None:
+        # name the bank entry, bank-qualified for a named bank other than fin
+        label = name if self._bank_name in ("fin", "custom") else f"{self._bank_name}/{name}"
+        peak_ops.warn_saturated(n_saturated, f"template {label}", self.max_peaks)
 
     def _as_input(self, trace) -> torch.Tensor:
         """Raw wire keeps the stored dtype across the transfer; the
@@ -573,16 +817,194 @@ class MatchedFilterDetector:
         ``utils.parity.envelopes`` correlates."""
         x = self.condition_input(trace)
         if self.fused_bandpass:
-            return mf_filter_fused(x, self._mask_band, self._band_lo, self._band_hi)
+            return mf_filter_fused(x, self._mask_band, self._band_lo, self._band_hi,
+                                   self.fk_pad_rows)
         return mf_filter_only(x, self._mask_band, self._bp_gain, self._band_lo,
-                              self._band_hi, self.design.bp_padlen)
+                              self._band_hi, self.design.bp_padlen, self.fk_pad_rows)
+
+    def __call__(self, trace, threshold: float | None = None, with_snr: bool = False,
+                 stage_hook: Callable[[str], None] | None = None) -> MatchedFilterResult:
+        """Detect calls in one ``[channel x time]`` block, the reference's
+        full artifact set: ``trf_fk``, the correlograms (with
+        ``keep_correlograms``), the picks and thresholds, the dense
+        route's peak masks and, with ``with_snr``, the envelope SNR. In the
+        campaign configuration — ``pick_mode="sparse"``,
+        ``keep_correlograms=False``, no SNR — this is :meth:`detect_picks`
+        (no ``trf_fk``, no correlograms). ``stage_hook(name)`` is called
+        after each stage (``fk``, ``correlate``, ``threshold``, ``pick``,
+        ``correlograms`` on the tiled route, ``snr``), as
+        ``mf_detect_picks_program`` calls it."""
+        trace = self._as_input(trace)
+        if self.pick_mode == "sparse" and not self.keep_correlograms and not with_snr:
+            return self.detect_picks(trace, threshold=threshold, stage_hook=stage_hook)
+        return self._call_full(trace, threshold=threshold, with_snr=with_snr,
+                               stage_hook=stage_hook)
+
+    def _call_full(self, trace, threshold: float | None = None, with_snr: bool = False,
+                   stage_hook: Callable[[str], None] | None = None) -> MatchedFilterResult:
+        """The full-artifact route, untiled: the filter, correlograms at
+        the trace length (``compute_cross_correlograms_multi``), the
+        threshold on the device, then each template's picks in the pick
+        mode; :meth:`_call_tiled` where the route is tiled."""
+        if self._route() == "tiled":
+            return self._call_tiled(trace, threshold=threshold, with_snr=with_snr,
+                                    stage_hook=stage_hook)
+        hook = stage_hook or (lambda name: None)
+        trf_fk = self.filter_block(trace)
+        hook("fk")
+        corr = xcorr.compute_cross_correlograms_multi(trf_fk, self._templates_dev)
+        hook("correlate")
+        env = None
+        if self.pick_mode == "sparse":
+            thresholds = _relative_thresholds(corr.amax(dim=(1, 2)), self._thr_factors,
+                                              self.threshold_scope)
+        else:
+            env, thresholds = mf_envelope_and_threshold(corr, self._thr_factors,
+                                                        self.threshold_scope)
+        if threshold is not None:
+            thresholds = torch.full_like(thresholds, threshold)
+        thr_host = thresholds.cpu().numpy()
+        syncs = peak_ops.SyncCounter()
+        syncs.add()
+        hook("threshold")
+
+        names = self.design.template_names
+        correlograms, peak_masks, picks, thr_out, snr = {}, {}, {}, {}, {}
+        for i, name in enumerate(names):
+            if self.keep_correlograms:
+                correlograms[name] = corr[i]
+            thr_out[name] = float(thr_host[i])
+            if self.pick_mode == "sparse":
+                # the pick kernel on the card, its plain version on the CPU;
+                # adaptive K with the exact escalation on saturation
+                def run(k, i=i):
+                    return fused_picks.analytic_envelope_peaks(
+                        corr[i], thresholds[i], max_peaks=k,
+                        method=peak_ops.escalation_method(k, self.max_peaks))
+
+                sp = peak_ops.picks_with_escalation(run, self.pick_k0, self.max_peaks, syncs)
+                picks[name] = peak_ops.pick_times_compacted(sp.positions, sp.selected,
+                                                            syncs=syncs)
+                self._warn_saturated(name, int(sp.saturated.sum()))
+            elif self.pick_mode == "scipy":
+                picks[name] = peak_ops.find_peaks_scipy_host(env[i], thr_host[i])
+            else:
+                mask = peak_ops.find_peaks_prominence_blocked(env[i], thresholds[i],
+                                                              self.peak_block)
+                peak_masks[name] = mask.cpu().numpy()
+                picks[name] = peak_ops.convert_pick_times(peak_masks[name])
+        self.syncs += syncs.count
+        del env
+        hook("pick")
+        if with_snr:
+            for i, name in enumerate(names):
+                snr[name] = spectral.snr_tr_array(corr[i], env=True)
+            hook("snr")
+        return MatchedFilterResult(picks=picks, thresholds=thr_out, trf_fk=trf_fk,
+                                   correlograms=correlograms, peak_masks=peak_masks, snr=snr)
+
+    def _call_tiled(self, trace, threshold: float | None = None, with_snr: bool = False,
+                    stage_hook: Callable[[str], None] | None = None) -> MatchedFilterResult:
+        """The memory-lean full-artifact route: the filter over the whole
+        block, then the correlate over channel tiles
+        (:func:`mf_correlate_tiled`, as the program's), the thresholds on
+        the host from the tiles' maxima (``0.5 * max * factor`` in numpy
+        float32, as the JAX package computes them), the picks over the
+        tiles in the pick mode; sparse picks are compacted on the device
+        (capacity ``min(C * max_peaks, 2^20)``, the exact slot-grid merge
+        on overflow)."""
+        hook = stage_hook or (lambda name: None)
+        tile = self.effective_channel_tile
+        C, n = trace.shape
+        nT = self.design.templates.shape[0]
+        names = self.design.template_names
+
+        trf_fk = self.filter_block(trace)
+        hook("fk")
+        corr_tiles, gmax = mf_correlate_tiled(trf_fk, self._templates_true,
+                                              self._template_mu, self._template_scale, tile)
+        hook("correlate")
+        if threshold is None:
+            fac = np.asarray(self.design.threshold_factors, np.float32)
+            g = gmax.cpu().numpy()
+            self.syncs += 1
+            if self.threshold_scope == "per_template":
+                thr_np = (REL_THRESHOLD * g) * fac
+            else:
+                thr_np = (REL_THRESHOLD * float(g.max())) * fac
+        else:
+            thr_np = np.full((nT,), float(threshold), dtype=np.float32)
+        thr_dev = torch.as_tensor(thr_np, dtype=torch.float32).to(self.device)
+        hook("threshold")
+
+        correlograms, peak_masks, picks, thr_out, snr = {}, {}, {}, {}, {}
+        if self.pick_mode == "sparse":
+            def attempt(k):
+                sp = mf_pick_tiled(corr_tiles, thr_dev, k,
+                                   peak_ops.escalation_method(k, self.max_peaks))
+                satc = sp.saturated.sum(dim=-1).cpu().numpy()
+                self.syncs += 1
+                return sp, satc
+
+            sp, satc = attempt(self.pick_k0)
+            if self.pick_k0 < self.max_peaks and int(satc.sum()):
+                self.escalations += 1
+                sp, satc = attempt(self.max_peaks)
+            cap = min(C * self.max_peaks, 1 << 20)
+            chan_d, times_d, cnt_d = mf_compact_tiled_picks(sp.positions, sp.selected, C, cap)
+            syncs = peak_ops.SyncCounter()
+            packed = peak_ops.compacted_to_host(chan_d, times_d, cnt_d, cap, syncs)
+            if packed is None:
+                pos, sel = sp.positions.cpu().numpy(), sp.selected.cpu().numpy()
+                syncs.add()
+            self.syncs += syncs.count
+            for i, name in enumerate(names):
+                if packed is not None:
+                    chan_np, times_np, cnt = packed
+                    k = int(cnt[i])
+                    picks[name] = np.asarray([chan_np[i, :k], times_np[i, :k]])
+                else:
+                    picks[name] = merge_tiled_picks(pos, sel, i, C)
+                self._warn_saturated(name, int(satc[i]))
+        else:
+            env_full = mf_envelope_tiled(corr_tiles)
+            for i, name in enumerate(names):
+                if self.pick_mode == "scipy":
+                    picks[name] = peak_ops.find_peaks_scipy_host(env_full[i], thr_np[i])
+                else:
+                    mask = peak_ops.find_peaks_prominence_blocked(
+                        env_full[i], torch.as_tensor(thr_np[i]).to(self.device),
+                        self.peak_block)
+                    peak_masks[name] = mask.cpu().numpy()
+                    picks[name] = peak_ops.convert_pick_times(peak_masks[name])
+            del env_full
+        hook("pick")
+
+        # the user-facing [C, n] correlograms, untiled once (the reference
+        # keeps them for its plots); skipped without keep_correlograms
+        # unless the SNR needs them
+        corr_full = (torch.cat(corr_tiles, dim=-2)
+                     if self.keep_correlograms or with_snr else None)
+        del corr_tiles
+        hook("correlograms")
+        for i, name in enumerate(names):
+            thr_out[name] = float(thr_np[i])
+            if self.keep_correlograms:
+                correlograms[name] = corr_full[i]
+            if with_snr:
+                snr[name] = spectral.snr_tr_array(corr_full[i], env=True)
+        if with_snr:
+            hook("snr")
+        return MatchedFilterResult(picks=picks, thresholds=thr_out, trf_fk=trf_fk,
+                                   correlograms=correlograms, peak_masks=peak_masks, snr=snr)
 
     def detect_picks(self, trace, threshold: float | None = None,
                      n_real: int | None = None, with_health: bool = False,
                      health_clip: float | None = None,
                      stage_hook: Callable[[str], None] | None = None) -> MatchedFilterResult:
         """Picks-only detection: one program run and one packed fetch per
-        attempt (``dispatch_picks(...).resolve()``)."""
+        attempt (``dispatch_picks(...).resolve()``), the sparse route
+        whatever ``pick_mode`` says."""
         return self.dispatch_picks(trace, threshold=threshold, n_real=n_real,
                                    with_health=with_health, health_clip=health_clip,
                                    stage_hook=stage_hook).resolve()
@@ -626,7 +1048,7 @@ class MatchedFilterDetector:
                 self._template_mu, self._template_scale, thr_in, self._thr_factors,
                 band_lo=self._band_lo, band_hi=self._band_hi,
                 bp_padlen=self.design.bp_padlen, staged_bp=not self.fused_bandpass, tile=tile,
-                max_peaks=k, capacity=cap, use_threshold=use_thr,
+                pad_rows=self.fk_pad_rows, max_peaks=k, capacity=cap, use_threshold=use_thr,
                 pick_method=peak_ops.escalation_method(k, self.max_peaks),
                 condition=self.wire == "raw", cond_scale=self._cond_scale,
                 cond_n_real=cond_nr, thr_scope=self.threshold_scope,
@@ -676,7 +1098,7 @@ class MatchedFilterDetector:
                     picks[name] = np.asarray([chan[i, :k], times[i, :k]], dtype=np.int64)
             for i, name in enumerate(names):
                 thr_out[name] = float(thr[i])
-                peak_ops.warn_saturated(int(satc[i]), f"template {name}", self.max_peaks)
+                self._warn_saturated(name, int(satc[i]))
             return MatchedFilterResult(picks=picks, thresholds=thr_out, health=health)
 
         return InFlightResult(resolve)

@@ -134,3 +134,20 @@ def fk_filter_apply_rfft_banded(
     Z[..., lo:hi] = torch.fft.ifft(Ys, dim=-2)
     del Xf, Ys
     return torch.fft.irfft(Z, n=nns, dim=-1).to(trace.dtype)
+
+
+def compression_report(mask: np.ndarray, itemsize: int = 8, verbose: bool = True) -> dict:
+    """Dense against sparse storage of an f-k mask (the reference's
+    ``tools.disp_comprate``): the port keeps the mask dense, so this is a
+    cost report only."""
+    mask = np.asarray(mask)
+    nnz = int(np.count_nonzero(mask))
+    sparse_gib = nnz * itemsize / 1024**3
+    dense_gib = mask.size * itemsize / 1024**3
+    ratio = dense_gib / sparse_gib if sparse_gib > 0 else float("inf")
+    pct = abs(dense_gib - sparse_gib) * 100 / dense_gib if dense_gib else 0.0
+    if verbose:
+        print(f"The size of the sparse filter is {sparse_gib:.4f} Gib")
+        print(f"The size of the dense filter is {dense_gib:.2f} Gib")
+        print(f"The compression ratio is {ratio:.2f} ({pct:.1f} %)")
+    return {"sparse_gib": sparse_gib, "dense_gib": dense_gib, "ratio": ratio, "pct": pct}

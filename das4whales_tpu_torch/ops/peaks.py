@@ -1,7 +1,12 @@
-"""Sparse peak picking with exact scipy prominence semantics (plain PyTorch).
+"""Peak picking with exact scipy prominence semantics (plain PyTorch).
 
-The port's copy of the sparse candidate route of
-``das4whales_tpu.ops.peaks``: plateau-exact local maxima, the height
+The port's copy of ``das4whales_tpu.ops.peaks``. The dense exact picker
+(:func:`find_peaks_prominence`, channel-blocked in
+:func:`find_peaks_prominence_blocked`) takes every sample's prominence
+by binary lifting over sliding-window max/min tables, O(N log N); the
+host route (:func:`find_peaks_scipy_host`) runs scipy per channel; the
+reference-shaped converters (:func:`convert_pick_times` and friends)
+are host numpy. The sparse candidate route: plateau-exact local maxima, the height
 prefilter (exact for nonnegative envelopes, whose prominence never
 exceeds their height), fixed-capacity candidate slots — ``"pack"``, the
 first K in time order, or ``"topk"``, the K tallest — and exact scipy
@@ -25,7 +30,7 @@ from __future__ import annotations
 
 import logging
 import warnings
-from typing import NamedTuple
+from typing import List, NamedTuple
 
 import numpy as np
 import torch
@@ -75,6 +80,117 @@ def local_maxima(x: torch.Tensor) -> torch.Tensor:
     falling = torch.flip(falling_r, (-1,))
     mid = torch.div(run_start + run_end, 2, rounding_mode="floor")
     return rising & falling & (idx == mid)
+
+
+def _window_tables(x: torch.Tensor, levels: int):
+    """Sparse tables of sliding-window max and min: level k holds the
+    max/min over the window of length 2^k ending at each index."""
+    n = x.shape[-1]
+    tmax, tmin = [x], [x]
+    for k in range(1, levels + 1):
+        half = 1 << (k - 1)
+        prev_max, prev_min = tmax[-1], tmin[-1]
+        pad_max = torch.nn.functional.pad(prev_max, (half, 0), value=-float("inf"))[..., :n]
+        pad_min = torch.nn.functional.pad(prev_min, (half, 0), value=float("inf"))[..., :n]
+        tmax.append(torch.maximum(prev_max, pad_max))
+        tmin.append(torch.minimum(prev_min, pad_min))
+    return tmax, tmin
+
+
+def _one_sided_base_min(x: torch.Tensor, levels: int) -> torch.Tensor:
+    """For each index i: ``min(x[j+1..i])`` where j is the nearest index
+    < i with ``x[j] > x[i]`` (or the signal start) — scipy's left-base
+    minimum — by a greedy high-to-low descent over the window tables."""
+    n = x.shape[-1]
+    tmax, tmin = _window_tables(x, levels)
+    pos = torch.arange(n, device=x.device).expand(x.shape)
+    base_min = torch.full_like(x, float("inf"))
+    for k in range(levels, -1, -1):
+        width = 1 << k
+        can = pos >= (width - 1)               # the window lies inside the signal
+        gpos = pos.clamp(0, n - 1)
+        blk_max = tmax[k].gather(-1, gpos)
+        blk_min = tmin[k].gather(-1, gpos)
+        skip = can & (blk_max <= x)
+        base_min = torch.where(skip, torch.minimum(base_min, blk_min), base_min)
+        pos = torch.where(skip, pos - width, pos)
+    return base_min
+
+
+def peak_prominences_dense(x: torch.Tensor) -> torch.Tensor:
+    """The prominence of every sample taken as a peak: at local maxima
+    ``scipy.signal.peak_prominences`` exactly (``wlen=None``)."""
+    n = x.shape[-1]
+    levels = max(1, int(np.ceil(np.log2(n))))
+    left_min = _one_sided_base_min(x, levels)
+    right_min = torch.flip(_one_sided_base_min(torch.flip(x, (-1,)), levels), (-1,))
+    return x - torch.maximum(left_min, right_min)
+
+
+def find_peaks_prominence(x: torch.Tensor, threshold) -> torch.Tensor:
+    """Boolean mask of the peaks with prominence >= ``threshold`` along the
+    last axis: ``scipy.signal.find_peaks(x, prominence=threshold)``,
+    batched. ``threshold`` compares in ``x``'s dtype."""
+    thr = torch.as_tensor(threshold, dtype=x.dtype, device=x.device)
+    return local_maxima(x) & (peak_prominences_dense(x) >= thr)
+
+
+def find_peaks_prominence_blocked(x: torch.Tensor, threshold,
+                                  block_size: int = 1024) -> torch.Tensor:
+    """:func:`find_peaks_prominence` over ``[channel x time]`` in blocks of
+    ``block_size`` channels, one after the other: the window tables of a
+    whole 22k-channel block would not fit the card."""
+    return torch.cat([find_peaks_prominence(x[lo : lo + block_size], threshold)
+                      for lo in range(0, x.shape[0], block_size)])
+
+
+def find_peaks_scipy_host(env, threshold) -> np.ndarray:
+    """Per-channel ``scipy.signal.find_peaks(prominence=threshold)`` on the
+    host: the stacked ``(2, n)`` [channel_idx, time_idx] int64 picks. The
+    route for envelopes that live on the CPU anyway."""
+    import scipy.signal as sp
+
+    env = env.cpu().numpy() if isinstance(env, torch.Tensor) else np.asarray(env)
+    thr = np.broadcast_to(np.asarray(threshold), (env.shape[0],))
+    chan: list = []
+    time: list = []
+    for i in range(env.shape[0]):
+        pk = sp.find_peaks(env[i], prominence=thr[i])[0]
+        chan.extend([i] * len(pk))
+        time.extend(pk.tolist())
+    return np.asarray([chan, time], dtype=np.int64).reshape(2, -1)
+
+
+def _host(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def mask_to_pick_lists(mask) -> List[np.ndarray]:
+    """Dense peak mask -> the reference's ragged list of per-channel index
+    arrays, in channel order."""
+    return [np.nonzero(row)[0] for row in np.atleast_2d(_host(mask))]
+
+
+def convert_pick_times(peaks_indexes_m) -> np.ndarray:
+    """Ragged pick lists, or a dense boolean mask, -> the stacked
+    ``(channel_idx[], time_idx[])`` array (reference
+    ``detect.convert_pick_times``)."""
+    if isinstance(peaks_indexes_m, (np.ndarray, torch.Tensor)) and _host(peaks_indexes_m).dtype == bool:
+        chan, time = np.nonzero(_host(peaks_indexes_m))
+        return np.asarray([chan, time])
+    chan: list = []
+    time: list = []
+    for i, picks in enumerate(peaks_indexes_m):
+        chan.extend([i] * len(picks))
+        time.extend(list(picks))
+    return np.asarray([chan, time])
+
+
+def select_picked_times(idx_tp, tstart: float, tend: float, fs: float):
+    """Restrict picks to the window ``[tstart, tend]`` seconds (reference
+    ``detect.select_picked_times``)."""
+    sel = (idx_tp[1] >= tstart * fs) & (idx_tp[1] <= tend * fs)
+    return idx_tp[0][sel], idx_tp[1][sel]
 
 
 def _block_stats(x: torch.Tensor, nb: int):

@@ -1,6 +1,6 @@
 """Spectral transforms on ``torch.fft``: the Hann window, the analytic
-signal, the Hilbert envelope and the STFT magnitude with its engine
-switch (the port's copy of what the detectors use of
+signal, the Hilbert envelope, the envelope SNR and the STFT magnitude
+with its engine switch (the port's copy of what the detectors use of
 ``das4whales_tpu.ops.spectral``)."""
 
 from __future__ import annotations
@@ -52,6 +52,22 @@ def magnitude_sqrt(z: torch.Tensor) -> torch.Tensor:
 def envelope_sqrt(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """Hilbert envelope of real ``x`` as the explicit ``sqrt(re² + im²)``."""
     return magnitude_sqrt(analytic_signal(x, dim=dim))
+
+
+def envelope(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Hilbert envelope as ``abs`` of the complex analytic signal (the
+    reference's form; :func:`envelope_sqrt` is the detectors')."""
+    return torch.abs(analytic_signal(x, dim=dim))
+
+
+def snr_tr_array(trace: torch.Tensor, env: bool = False) -> torch.Tensor:
+    """Per-sample SNR in dB against each row's standard deviation
+    (population, ddof 0, as ``jnp.std``): ``10 log10(num / std^2)`` with
+    ``num`` the squared samples, or with ``env`` the squared ``abs`` of the
+    analytic signal (``abs`` first, then the square, as the reference)."""
+    std = torch.std(trace, dim=-1, keepdim=True, correction=0)
+    num = torch.abs(analytic_signal(trace, dim=-1)) ** 2 if env else trace ** 2
+    return 10.0 * torch.log10(num / std ** 2)
 
 
 def stft(x: torch.Tensor, n_fft: int, hop: int, *, window: str = "hann",

@@ -71,6 +71,22 @@ def corrected_from_raw(raw, suffix, mu, scale, dtype):
     return ((raw - mu_b * suffix[None, ...]) / scale_b).to(dtype)
 
 
+def compute_cross_correlograms_multi(data: torch.Tensor, templates: torch.Tensor) -> torch.Tensor:
+    """Reference-normalized correlograms of ``data [..., n]`` against
+    trace-length templates ``[nT, n]`` (both demeaned and peak-normalized),
+    one forward rfft of the data shared by every template, at
+    ``nfft = next_fast_len(2n - 1)``: returns ``[nT, ..., n]``. The
+    full-artifact route's untiled correlate."""
+    xn = _demean_peak_normalize(data)
+    t = _demean_peak_normalize(templates)
+    n, m = data.shape[-1], t.shape[-1]
+    nfft = _xcorr_full_len(n, m)
+    X = torch.fft.rfft(xn, nfft, dim=-1)
+    Y = torch.fft.rfft(t, nfft, dim=-1)
+    Yb = torch.conj(Y).reshape((Y.shape[0],) + (1,) * (X.ndim - 1) + (Y.shape[-1],))
+    return torch.fft.irfft(X[None, ...] * Yb, nfft, dim=-1)[..., :n].to(data.dtype)
+
+
 def padded_template_stats(templates_padded):
     """Decompose a trace-length zero-padded template stack into
     ``(templates_true [nT, m], mu [nT], scale [nT])`` host numpy: the

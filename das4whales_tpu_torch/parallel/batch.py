@@ -32,11 +32,13 @@ the program and the copy in flight, and ``resolve()`` waits on the
 copy's event alone — the campaign's pipelined dispatch enqueues the next
 slab's program before it.
 
-Not in this slice: ``split_views`` (it raises) waits for the banks with
-decoupled thresholds (ROADMAP item 'Template banks beyond fin'),
-``program_spec`` (absent) for the memory preflight ('Campaign
-preflight'); the gabor and learned facades come with 'Gabor and
-learned'.
+``split_views`` gives the ladder's bank-split rung: two facades over the
+halves of a bank with decoupled thresholds, each on the parent's sliced
+template tensors (``MatchedFilterDetector.split_views``).
+
+Not in this slice: ``program_spec`` (absent) for the memory preflight
+('Campaign preflight'); the gabor and learned facades come with 'Gabor
+and learned'.
 """
 
 from __future__ import annotations
@@ -116,8 +118,19 @@ class BatchedMatchedFilterDetector:
         self.serial = bool(serial)
 
     def split_views(self) -> tuple:
-        raise _not_in_slice("split_views (the bank-split rung of the resource ladder)",
-                            "Template banks beyond fin")
+        """The bank-split rung's pair of sub-bank facades (T ->
+        ceil(T/2) + floor(T/2) over the same bucket shape and mode,
+        ``MatchedFilterDetector.split_views``): two dispatches, each with
+        about half the correlate and pick working set, before the ladder
+        gives up batch size. Neither donates. Cached: one pair a facade."""
+        cached = self.__dict__.get("_split_cache")
+        if cached is None:
+            a, b = self.det.split_views()
+            cached = self.__dict__["_split_cache"] = (
+                BatchedMatchedFilterDetector(a, donate=False, serial=self.serial),
+                BatchedMatchedFilterDetector(b, donate=False, serial=self.serial),
+            )
+        return cached
 
     def detect_batch(self, stack, n_real=None, n_valid: int | None = None,
                      with_health: bool = False, health_clip: float | None = None,
@@ -171,7 +184,8 @@ class BatchedMatchedFilterDetector:
                 nr = full
         kw = dict(
             band_lo=det._band_lo, band_hi=det._band_hi, bp_padlen=det.design.bp_padlen,
-            staged_bp=not det.fused_bandpass, tile=tile, capacity=cap, use_threshold=False,
+            staged_bp=not det.fused_bandpass, tile=tile, pad_rows=det.fk_pad_rows,
+            capacity=cap, use_threshold=False,
             condition=det.wire == "raw", cond_scale=det._cond_scale,
             thr_scope=det.threshold_scope, with_health=with_health, health_clip=health_clip,
             stage_hook=stage_hook,
@@ -218,7 +232,7 @@ class BatchedMatchedFilterDetector:
                     k = int(cnt[b, i])
                     picks[name] = np.asarray([chan[b, i, :k], times[b, i, :k]], dtype=np.int64)
                     thr_out[name] = float(thr[b, i])
-                    peak_ops.warn_saturated(int(satc[b, i]), f"template {name}", det.max_peaks)
+                    det._warn_saturated(name, int(satc[b, i]))
                 if with_health:
                     ns_b = n_reals[b] if n_reals is not None and b < len(n_reals) else T
                     out.append((picks, thr_out, health_from_parts(

@@ -26,9 +26,10 @@ Two entries process an arbitrary file list to an output directory:
 * **the elastic downshift ladder** (``workflows.planner``) — a
   resource-class failure (``torch.cuda.OutOfMemoryError``, an allocator
   text such as cuFFT's ``CUFFT_ALLOC_FAILED``) retries the slab at
-  ``B -> B/2 -> ... -> 1``, then the per-file route, the channel-tiled
-  view and finally the host (the CPU), each move a sticky ``downshift``
-  event in the manifest;
+  ``B -> B/2 -> ... -> 1`` (a splittable template bank first as two T/2
+  sub-bank dispatches at each B), then the per-file route, the
+  channel-tiled view and finally the host (the CPU), each move a sticky
+  ``downshift`` event in the manifest;
 * **depth-D pipelined dispatch** (``parallel.dispatch``) — slab k+1's
   program is queued on the card before slab k's packed fetch is taken.
 
@@ -425,11 +426,13 @@ def family_detector(family: str, metadata, selected_channels, trace_shape,
         raise ValueError(f"design shape {tuple(design.trace_shape)} != bucket shape "
                          f"{tuple(trace_shape)}")
     if family == "mf":
+        # the campaign configuration: sparse picks, no kept correlograms
+        kw = dict(pick_mode="sparse", keep_correlograms=False, **detector_kwargs)
         if design is not None:
             return MatchedFilterDetector.from_design(design, metadata, wire=wire,
-                                                     device=device, **detector_kwargs)
+                                                     device=device, **kw)
         return MatchedFilterDetector(metadata, selected_channels, trace_shape, wire=wire,
-                                     device=device, **detector_kwargs)
+                                     device=device, **kw)
     if family == "spectro":
         from .spectrodetect import campaign_detector
 
@@ -729,8 +732,9 @@ def run_campaign_batched(
     per-file route on the assembler's host blocks before failing any of
     them, so one poisoned file costs one file, not a slab. Resource
     exhaustion rides the elastic downshift ladder: ``B -> B/2 -> ... ->
-    1`` (sub-slabs rebuilt from the host blocks), then the per-file
-    route, the tiled view and the host; the winning rung is STICKY per
+    1`` (sub-slabs rebuilt from the host blocks; with a splittable
+    template bank each B first as two T/2 sub-bank dispatches, ``bank:B``),
+    then the per-file route, the tiled view and the host; the winning rung is STICKY per
     bucket, one ``downshift`` event a move, and per-file picks are
     bitwise equal at every card rung of one facade mode.
 
@@ -810,6 +814,10 @@ def run_campaign_batched(
             dets[key] = bdet
             progs[key] = program_for(per_file_det)
             ladder.set_engines(key, progs[key].engines)
+            if getattr(bdet.det, "supports_bank_split", False):
+                # a splittable template bank: this bucket's ladder gains the
+                # bank-split rungs (T/2 sub-banks before B shrinks)
+                ladder.enable_bank_split(key)
         return bdet
 
     def dispatched(paths, rung, fn):
@@ -860,6 +868,30 @@ def run_campaign_batched(
                         with_health=with_health, health_clip=clip,
                     )
                 entries.extend(dispatched(list(sub.paths), rung, fn)[: sub.n_valid])
+            return entries
+        if stage == "bank":
+            # the bank-split rung: the same batch as two T/2 sub-bank
+            # dispatches (``split_views``), their picks merged — bitwise the
+            # full bank's under the per_template scope. Only the first half
+            # computes the health stats: they describe the input block.
+            subs = [slab] if b >= batch else subdivide_slab(slab, b)
+            half_a, half_b = bdet.split_views()
+            entries = []
+            for sub in subs:
+                halves = []
+                for j, hdet in enumerate((half_a, half_b)):
+                    def fn(sub=sub, hdet=hdet, j=j):
+                        return hdet.detect_batch(
+                            sub.stack, n_real=sub.n_real, n_valid=sub.n_valid,
+                            with_health=with_health and j == 0, health_clip=clip,
+                        )
+                    halves.append(dispatched(list(sub.paths), rung, fn)[: sub.n_valid])
+                for ea, eb in zip(*halves):
+                    if ea is None or eb is None:
+                        entries.append(None)   # overflow: the exact per-file route
+                        continue
+                    merged = ({**ea[0], **eb[0]}, {**ea[1], **eb[1]})
+                    entries.append(merged + (ea[2],) if with_health else merged)
             return entries
         entries = []
         for k in range(slab.n_valid):

@@ -7,10 +7,11 @@ family of the campaigns inherits.
   one ladder rung) and ``dispatch(trace)`` (an async launch, or None).
 * :class:`DownshiftLadder` — the sticky per-bucket rung bookkeeping of
   the elastic resource ladder, filtered to the family's declared stages,
-  every move a ``downshift`` event in the manifest. The bank-split rung
-  (``faults.BANK_STAGE``) stays absent: it serves banks with decoupled
-  thresholds, which come with the ROADMAP item 'Template banks beyond
-  fin'.
+  every move a ``downshift`` event in the manifest. A key whose detector
+  rides a splittable template bank (decoupled per-template thresholds,
+  T >= 2) also gets the bank-split rungs (``faults.BANK_STAGE``): the
+  same batch as two T/2 sub-bank dispatches, interleaved after each
+  batch size's full-bank rung (``enable_bank_split``).
 * :class:`RoutePlanner` — the routed executor: resolves each file
   through the family program at the bucket's sticky rung, bounds every
   dispatch with the watchdog (``faults.call_with_deadline``), fires the
@@ -20,7 +21,9 @@ family of the campaigns inherits.
   ``MatchedFilterDetector``, the spectro eval adapter, or any callable
   returning ``.picks``) to its :class:`DetectorProgram`.
 
-The rungs on one card: ``file`` (the per-file program), ``tiled`` (the
+The rungs on one card: ``file`` (the per-file program), ``bank`` (the
+per-file program as two sub-bank halves, splittable banks only),
+``tiled`` (the
 family's memory-lean view — channel-tiled correlation for the matched
 filter, smaller spectrogram chunks for spectro), ``timeshard`` (time-
 sharded over a multi-device mesh — the port shards nothing, ROADMAP
@@ -172,6 +175,13 @@ class MatchedFilterProgram(DetectorProgram):
     family = "mf"
     stages = ("file", "tiled", "timeshard", "host")
 
+    def __init__(self, detector):
+        super().__init__(detector)
+        if getattr(detector, "supports_bank_split", False):
+            # a splittable template bank: the ladder gains the bank-split
+            # rung, T/2 sub-bank dispatches before the route itself goes
+            self.stages = ("file", "bank", "tiled", "timeshard", "host")
+
     def dispatch(self, trace, *, with_health=False, clip=None):
         """Queue the file's program behind the one in flight. A host
         block bound for the card crosses through pinned memory on a side
@@ -188,6 +198,19 @@ class MatchedFilterProgram(DetectorProgram):
                clip=None):
         det = self.det
         stage = rung[0]
+        if stage == "bank":
+            # the bank-split rung: the two sub-bank views, their picks
+            # merged — bitwise the full bank's under the per_template scope.
+            # The health stats describe the input block: the first half's.
+            picks, thresholds, stats = {}, {}, {}
+            for i, d in enumerate(det.split_views()):
+                res = d.detect_picks(trace, n_real=n_real, with_health=with_health and i == 0,
+                                     health_clip=clip)
+                picks.update(res.picks)
+                thresholds.update(res.thresholds)
+                if i == 0:
+                    stats = res.health
+            return picks, thresholds, stats
         if stage == "timeshard":
             # one card holds no time-shard mesh: the resource text moves
             # the ladder on, as where the JAX package finds no mesh
@@ -271,8 +294,10 @@ class DownshiftLadder:
     """The elastic resource ladder's sticky bookkeeping.
 
     One campaign, one ladder: per bucket key it remembers the WINNING
-    rung — ``("batched", B)`` at shrinking B, then ``("file", 1)`` (the
-    per-file route), ``("tiled", 1)`` (the family's memory-lean view),
+    rung — ``("batched", B)`` at shrinking B (each followed by ``("bank",
+    B)`` where the key's bank split is enabled), then ``("file", 1)`` (the
+    per-file route; ``("bank", 1)`` after it likewise), ``("tiled", 1)``
+    (the family's memory-lean view),
     (never ``("timeshard", 1)``: the port shards nothing),
     ``("host", 1)`` (the CPU). ``stages`` filters the ladder to the
     family's declared support; ``family`` labels the manifest's
@@ -295,6 +320,21 @@ class DownshiftLadder:
         self.engines = dict(engines or {})
         self._engines_by_key: Dict = {}
         self.sticky: Dict[tuple, tuple] = {}
+        # keys whose detector rides a splittable template bank: only they
+        # get the interleaved bank-split rungs
+        self._bank_keys: set = set()
+        self._bank_all = False
+
+    def enable_bank_split(self, key=None) -> None:
+        """Arm the bank-split rung for ``key`` (None: every key — the
+        unbatched planner, whose one program serves the whole run)."""
+        if key is None:
+            self._bank_all = True
+        else:
+            self._bank_keys.add(key)
+
+    def bank_split_enabled(self, key=None) -> bool:
+        return self._bank_all or key in self._bank_keys
 
     def set_engines(self, key, labels) -> None:
         """Record ``key``'s own resolved engine labels."""
@@ -303,14 +343,21 @@ class DownshiftLadder:
     def engines_for(self, key) -> Dict[str, str]:
         return self._engines_by_key.get(key, self.engines)
 
-    def rungs(self) -> list:
+    def rungs(self, key=None) -> list:
+        bank = self.bank_split_enabled(key)
         out = []
         if "batched" in self.stages:
             b = self.batch
             while b > 1:
                 out.append(("batched", b))
+                if bank:
+                    # the T axis goes before B: the same batch as two T/2
+                    # sub-bank dispatches
+                    out.append(("bank", b))
                 b //= 2
         out.append(("file", 1))
+        if bank:
+            out.append(("bank", 1))
         if "tiled" in self.stages:
             out.append(("tiled", 1))
         if "host" in self.stages:
@@ -351,7 +398,7 @@ class DownshiftLadder:
         resource-class failure; returns the new rung, or None when the
         ladder is exhausted (the failure dispositions per-file)."""
         nxt = None
-        for cand in self.rungs():
+        for cand in self.rungs(key):
             if faults.rung_rank(cand) > faults.rung_rank(rung):
                 nxt = cand
                 break
@@ -394,6 +441,10 @@ class RoutePlanner:
             stages=program.stages, family=program.family,
             engines=program.engines,
         )
+        if "bank" in program.stages:
+            # one program serves the whole unbatched run: the split holds
+            # for every ladder key
+            self.ladder.enable_bank_split()
 
     def current(self, key: str = "campaign") -> tuple:
         return self.ladder.current(key)

@@ -1,13 +1,17 @@
-"""Spectrogram-correlation detection wiring (the port's copy of
-``das4whales_tpu.workflows.spectrodetect.campaign_detector``): the shared
-bandpass + f-k prefilter feeding a :class:`SpectroCorrDetector`, behind
-the eval adapter."""
+"""Spectrogram-correlation detection (the port's copy of
+``das4whales_tpu.workflows.spectrodetect``, the reference's
+``main_spectrodetect.py``): the shared bandpass + f-k prefilter feeding a
+:class:`SpectroCorrDetector` — behind the eval adapter for the campaigns
+(``campaign_detector``), or as the workflow ``main``. The figures come
+with the ROADMAP item 'Workflow mains and plots'."""
 
 from __future__ import annotations
 
+from ..config import not_in_slice
 from ..eval import SpectroEvalAdapter
+from ..models.matched_filter import MatchedFilterDetector
 from ..models.spectro import SpectroCorrDetector
-from .common import mf_prefilter
+from .common import acquire, mf_prefilter
 
 
 def campaign_detector(metadata, selected_channels, trace_shape=None, *,
@@ -21,3 +25,36 @@ def campaign_detector(metadata, selected_channels, trace_shape=None, *,
         mf, SpectroCorrDetector(mf.metadata, threshold=threshold, device=mf.device,
                                 **spectro_kwargs),
     )
+
+
+def main(url: str | None = None, outdir: str | None = None, show: bool = False,
+         selected_channels_m=None, threshold: float = 14.0, device=None):
+    """Run the spectro workflow on ``url`` (None: the offline synthetic
+    scene) on ``device`` (None: the card): the matched filter's
+    ``filter_block`` as prefilter, then the spectrogram correlation; picks
+    are in spectrogram frames (``spectro_fs``). ``outdir``/``show`` (the
+    figures) raise: no plots in this slice."""
+    if outdir is not None or show:
+        raise not_in_slice("the figures (outdir, show)", "Workflow mains and plots")
+    block, meta, sel = acquire(url, selected_channels_m=selected_channels_m, device=device)
+
+    mf = MatchedFilterDetector(meta, sel, tuple(block.trace.shape), device=device)
+    trf_fk = mf.filter_block(block.trace)
+
+    det = SpectroCorrDetector(meta.with_shape(*block.trace.shape), threshold=threshold,
+                              device=mf.device)
+    correlograms, picks, spectro_fs = det(trf_fk)
+    return {
+        "picks": picks,
+        "correlograms": correlograms,
+        "spectro_fs": spectro_fs,
+        "trf_fk": trf_fk,
+        "block": block,
+        "figures": {},
+    }
+
+
+if __name__ == "__main__":
+    import sys
+
+    main(sys.argv[1] if len(sys.argv) > 1 else None)

@@ -95,8 +95,8 @@ def test_threshold_factors_and_banks():
     np.testing.assert_array_equal(fin.threshold_factors(), jtpl.FIN_BANK.threshold_factors())
     custom = ttpl.resolve_bank({"a": tcfg.FIN_LF_NOTE})
     assert custom.threshold_scope == "global" and custom.names == ("a",)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttpl.resolve_bank("blue")
+    blue = ttpl.resolve_bank("blue")
+    assert blue.names == jtpl.BLUE_BANK.names and blue.threshold_scope == "per_template"
 
 
 @pytest.mark.parametrize("shape", SHAPES[:2])
@@ -151,5 +151,11 @@ def test_next_fast_len_matches():
 
 
 def test_channel_pad_is_not_in_the_slice():
-    with pytest.raises(NotImplementedError, match="channel_pad"):
-        tmf.design_matched_filter((24, 900), [0, 24, 1], _meta(24, 900), channel_pad="auto")
+    """channel_pad is in the port now: it designs as the JAX package
+    does (the mask on the padded grid, ``fk_channels`` riding along)."""
+    tmeta = tsynth.SyntheticScene(nx=24, ns=900).metadata
+    for pad, want in (("auto", 24), (25, 25)):   # 24 is already 5-smooth
+        dj = jmf.design_matched_filter((24, 900), [0, 24, 1], _meta(24, 900), channel_pad=pad)
+        dt = tmf.design_matched_filter((24, 900), [0, 24, 1], tmeta, channel_pad=pad)
+        assert dt.fk_channels == dj.fk_channels == want
+        np.testing.assert_array_equal(dt.fk_mask, dj.fk_mask)

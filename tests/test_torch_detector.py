@@ -153,7 +153,7 @@ def test_detector_designs_like_jax_and_dispatches(scenes):
 
 @pytest.mark.parametrize("kw", [
     {"mf_engine": "matmul"}, {"mf_engine": "auto"}, {"fk_engine": "matmul"},
-    {"templates": "blue"}, {"channel_pad": "auto"},
+    {"mf_engine": "matmul-fused"}, {"fk_engine": "auto"},
 ])
 def test_settings_outside_the_slice_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -49,7 +49,8 @@ def test_the_scan_covers_every_module_of_the_port():
                 "telemetry/__init__.py", "telemetry/metrics.py", "telemetry/trace.py",
                 "telemetry/probes.py", "telemetry/progress.py", "utils/views.py", "faults.py",
                 "fsck.py", "utils/checkpoint.py", "parallel/dispatch.py",
-                "workflows/planner.py", "workflows/campaign.py"):
+                "workflows/planner.py", "workflows/campaign.py", "workflows/mfdetect.py",
+                "utils/profiling.py", "models/templates.py", "ops/peaks.py", "ops/fk.py"):
         assert f"das4whales_tpu_torch/{mod}" in scanned
     assert "chip_smoke.py" in scanned
 
