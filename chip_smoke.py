@@ -5,7 +5,7 @@
 
 Builds the port's two CUDA kernels from ``das4whales_tpu_torch/csrc`` with
 ``nvcc`` (sm_90a) and the native ingest reader from
-``das4whales_tpu_torch/native/ingest.cpp`` with ``g++``, then runs sixteen
+``das4whales_tpu_torch/native/ingest.cpp`` with ``g++``, then runs eighteen
 phases, one summary line each (more for the detector runs, with their
 profiles), and exits non-zero at the first failed check; no phase's
 failure is caught:
@@ -151,7 +151,35 @@ failure is caught:
                 picks); a ``fin-variants`` campaign whose full-bank slab
                 program is refused: ``batched:2 -> bank:2``, every file done
                 there with the healthy run's picks bit for bit, on the card
-                and on the CPU.
+                and on the CPU;
+17. ``gabor``    the Gabor/image family at ``main_gabordetect.py``'s settings
+                (c0 1500 m/s, bin 0.1, ksize 100, thresholds 9100 / 150, HF
+                and LF notes, the ``"fft"`` engine) on the ``detect`` phase's
+                block, conditioned on the host, through
+                ``gabordetect.campaign_detector(..., design=)``: one
+                warm-up, three timed runs, stage walls from CUDA events
+                (prefilter, trace2image, binning, the two Gabor scores, the
+                upsample and smooth, the masked matched filter, the picks), 2
+                ``fused_picks`` launches a call (+1 a note that escalates),
+                syncs, peak memory, a profile; the pick kernel bitwise its
+                plain version at the route's first and last launch; every
+                injected call picked (where the reference's thresholds miss
+                one, the phase says so and runs the thresholds a JAX CPU run
+                keeps every call at); the ``"conv"`` engine once, its score
+                within 1e-5 * max of ``"fft"``'s, walls in turns; the
+                batched facade's peak at [4, 22050, 16384] (a smaller B where
+                the card runs out); ``run_campaign_batched(family="gabor")``
+                over the slab files of 12000 samples: every file done, the
+                rung that served, every call picked;
+18. ``gabor_cpu_vs_card`` the Gabor family on the card against
+                ``device="cpu"`` at 512 x 12000 on one design and one set of
+                notes: score and correlograms within 1e-4 * max|cpu|, binary
+                image and mask equal up to counted knife edges, picks up to
+                knife edges; ``run_campaign_batched`` (batch 2) and
+                ``run_campaign`` with ``family="gabor"`` over three TDMS
+                files on both devices, manifests equal record by record
+                (less wall times, span ids and pick counts), picks up to
+                knife edges, every injected call picked.
 
 Then it prints the kernel table as one JSON line, the run's total
 seconds, the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. It imports no JAX and nothing
@@ -1601,8 +1629,12 @@ def _slab_pass(stream, bd, with_refs=None):
 
 
 #: the slab phase's TDMS files, written once and shared with the campaign
-#: phase (``slab_files``); removed at the end of the run
+#: and gabor phases (``slab_files``); removed at the end of the run
 _SHARED: dict = {}
+
+#: the slab phase's fin design at the 16384 bucket, kept for the gabor
+#: phase's batched-peak measurement (a design is about 40 s of host work)
+_SLAB_DESIGN: dict = {}
 
 
 def slab_files() -> dict:
@@ -1654,6 +1686,7 @@ def phase_slab():
     ref = MatchedFilterDetector(meta, sel, (nx, SLAB_BUCKET), templates="fin",
                                 wire="conditioned")
     t_design = time.perf_counter() - t0
+    _SLAB_DESIGN["design"] = ref.design      # the gabor phase's batched bucket reuses it
     tile = ref.effective_channel_tile
     n_tiles = -(-nx // tile)
     nT = ref.design.templates.shape[0]
@@ -2669,6 +2702,429 @@ def phase_campaign_cpu_vs_card():
         shutil.rmtree(d, ignore_errors=True)
 
 
+#: main_gabordetect.py's thresholds (set on OOI data)
+GABOR_THRESHOLDS = (9100.0, 150.0)
+#: thresholds that keep every injected call of the synthetic scene in a JAX
+#: CPU run (``scripts/gabor_threshold_check.py``, 2205 x 12000, which keeps
+#: them at 9100 / 150 too); the gabor phase runs them only where the
+#: reference's miss a call on the card
+GABOR_FALLBACK_THRESHOLDS = (2000.0, 50.0)
+#: the "conv" engine's score against the "fft" engine's, of max|score|
+#: (10201-tap direct sums against an FFT product)
+GABOR_ENGINE_REL = 1e-5
+#: card against CPU: score and correlograms within this of max|cpu|
+GABOR_CARD_REL = 1e-4
+GABOR_BATCH = 4
+GABOR_CPU_FILES = ((2050, 12000), (2051, 12000), (2052, 12000))
+
+
+def _gabor_adapter(meta, nx, ns, design, **kw):
+    """``gabordetect.campaign_detector`` on ``design`` (the campaign's
+    adapter without a second f-k design)."""
+    from das4whales_tpu_torch.workflows.gabordetect import campaign_detector
+
+    return campaign_detector(meta, [0, nx, 1], (nx, ns), design=design, **kw)
+
+
+def _gabor_batched_peak(meta, nx, x, notes):
+    """``BatchedGaborDetector`` (batched mode) on a [4, nx, 16384] slab of
+    the canonical block zero-padded to the slab bucket: the peak device
+    memory, or, where the card runs out, the same at B = 2 and 1 (the
+    ladder's batched rungs). Appends to ``notes``; returns the B that
+    served and its peak in bytes."""
+    import torch
+
+    from das4whales_tpu_torch import faults
+    from das4whales_tpu_torch.eval import GaborEvalAdapter
+    from das4whales_tpu_torch.models.gabor import GaborDetector
+    from das4whales_tpu_torch.models.matched_filter import MatchedFilterDetector
+    from das4whales_tpu_torch.parallel.batch import BatchedGaborDetector
+
+    design16 = _SLAB_DESIGN.get("design")
+    if design16 is None:
+        t0 = time.perf_counter()
+        design16 = MatchedFilterDetector(meta, [0, nx, 1], (nx, SLAB_BUCKET), templates="fin",
+                                         device="cpu").design
+        notes.append(f"designed the {SLAB_BUCKET} bucket here ({time.perf_counter() - t0:.1f} s)")
+    ns = x.shape[-1]
+    bd = BatchedGaborDetector(GaborEvalAdapter(
+        MatchedFilterDetector.from_design(design16, meta, wire="conditioned"),
+        GaborDetector(meta, [0, nx, 1], gabor_engine="fft")), serial=False)
+    for b in (GABOR_BATCH, 2, 1):
+        stack = torch.zeros((b, nx, SLAB_BUCKET), device="cuda")
+        stack[:, :, :ns] = x
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            out = bd.detect_batch(stack)
+        except Exception as exc:  # noqa: BLE001 — an out-of-memory moves to a smaller B
+            if faults.classify_failure(exc) != "resource":
+                raise
+            del stack
+            torch.cuda.empty_cache()
+            notes.append(f"[{b}, {nx}, {SLAB_BUCKET}] ran out of memory ({type(exc).__name__})")
+            continue
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        if len(out) != b or any(not p[k].shape[1] for p, _ in out for k in p):
+            fail(f"gabor: the batched facade at [{b}, {nx}, {SLAB_BUCKET}] returned "
+                 f"{len(out)} entries or an empty pick set")
+        notes.append(f"BatchedGaborDetector (batched mode) at [{b}, {nx}, {SLAB_BUCKET}]: "
+                     f"{wall * 1e3:.1f} ms (first call), peak device memory "
+                     f"{peak / 2**30:.2f} GiB; served at batched:{b}")
+        del stack, out
+        torch.cuda.empty_cache()
+        return b, peak
+    fail(f"gabor: the batched facade ran out of memory at every B down to 1")
+
+
+def _gabor_campaign(meta, nx, design, launches_before, notes):
+    """``run_campaign_batched(family="gabor", batch=4)`` over the slab
+    phase's four 12000-sample TDMS files (one exact bucket, [4, nx, 12000])
+    on ``design``: every file done, the rung that served and any downshift
+    reported, every injected call picked, two ``fused_picks`` launches a
+    file (+1 a note that escalated). Returns the launches."""
+    import shutil
+
+    import torch
+
+    from das4whales_tpu_torch.workflows import campaign as cmod
+
+    shared = slab_files()
+    files = [p for p, (_, ns) in zip(shared["paths"], SLAB_FILES) if ns == CANONICAL[1]]
+    scenes = dict(zip(shared["paths"], shared["scenes"]))
+    out = shared["dir"] / "gabor_out"
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _timing(cmod, "family_detector", keep=True) as built:
+        t0 = time.perf_counter()
+        res = cmod.run_campaign_batched(files, [0, nx, 1], str(out), metadata=meta,
+                                        interrogator="silixa", batch=GABOR_BATCH,
+                                        family="gabor", design=design, gabor_engine="fft")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_launches()["fused_picks"] - launches_before
+    rungs = sorted({r.rung for r in res.records})
+    if [r.status for r in res.records] != ["done"] * len(files) or len(rungs) != 1:
+        fail(f"gabor: campaign records {[(r.status, r.rung) for r in res.records]}")
+    if built["n"] != 1:
+        fail(f"gabor: campaign built {built['n']} detectors for one bucket")
+    esc = built["out"][0].det.escalations
+    if launches != 2 * len(files) + esc:
+        fail(f"gabor: campaign launched fused_picks {launches} times for {len(files)} files "
+             f"({esc} escalations)")
+    for rec in res.records:
+        misses = _check_calls(scenes[rec.path], cmod.load_picks(rec.picks_file))
+        if misses:
+            fail(f"gabor: campaign: {rec.path}: injected calls missed {misses}")
+    moves = _downshifts(out)
+    notes.append(f"run_campaign_batched(family='gabor', batch {GABOR_BATCH}) over {len(files)} "
+                 f"canonical TDMS files (one exact bucket [{GABOR_BATCH}, {nx}, "
+                 f"{CANONICAL[1]}]): {wall:.1f} s, every file done at {rungs[0]}, downshifts "
+                 f"{moves or 'none'}, {launches} fused_picks launches, every injected call "
+                 f"picked, peak device memory {peak / 2**30:.2f} GiB")
+    shutil.rmtree(out, ignore_errors=True)
+    return launches
+
+
+def phase_gabor(scene=None, raw=None, design=None):
+    """The Gabor family at main_gabordetect.py's settings on the canonical
+    block, conditioned on the host, through ``campaign_detector``'s adapter
+    on the ``detect`` phase's design: timed runs, stage walls, the pick kernel's
+    launches and its bitwise check at the route's first and last launch,
+    the "conv" engine once, the batched facade's peak at the slab bucket
+    and a Gabor campaign over the slab files."""
+    import torch
+
+    from das4whales_tpu_torch.ops import fused_picks
+
+    if design is None:
+        scene, raw, design = _canonical_inputs()
+    t_phase = time.perf_counter()
+    nx, ns = raw.shape
+    meta = scene.metadata
+    t0 = time.perf_counter()
+    x = torch.as_tensor(_condition_on_host(raw, meta.scale_factor)).to("cuda")
+    t_cond = time.perf_counter() - t0
+    thr1, thr2 = GABOR_THRESHOLDS
+    adapter = _gabor_adapter(meta, nx, ns, design, threshold1=thr1, threshold2=thr2,
+                             gabor_engine="fft")
+    det = adapter.det
+    n_notes = len(det.notes)
+    if (det.design.bin_factor, det.design.gabor_up.shape, det.gabor_engine) != (
+            0.1, (101, 101), "fft"):
+        fail(f"gabor: the detector resolved bin {det.design.bin_factor}, kernel "
+             f"{det.design.gabor_up.shape}, engine {det.gabor_engine!r}")
+    adapter(x)                                # warm-up: cuFFT plans, kernel load
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()                           # the main path's runs start here
+    det.syncs = det.escalations = 0
+    walls, stages, deltas, res = _timed_runs(
+        lambda hook: adapter(x, stage_hook=hook),
+        {"launches": lambda: fused_picks.launches, "syncs": lambda: det.syncs,
+         "escalations": lambda: det.escalations})
+    launches = read_launches()["fused_picks"]
+    peak = torch.cuda.max_memory_allocated()
+    for k, d in enumerate(deltas):
+        if d["launches"] != n_notes + d["escalations"]:
+            fail(f"gabor: run {k} launched the pick kernel {d['launches']} times with "
+                 f"{d['escalations']} escalations, expected one a note and attempt")
+        # the max, then per note a saturation check and a packed fetch (+1 an
+        # escalation, +1 a capacity overflow)
+        if not 1 + 2 * n_notes + d["escalations"] <= d["syncs"] <= 1 + 3 * n_notes + d["escalations"]:
+            fail(f"gabor: run {k} made {d['syncs']} device->host reads")
+    for name, p in res.picks.items():
+        if p.ndim != 2 or p.shape[0] != 2 or not p.shape[1]:
+            fail(f"gabor: note {name} returned picks of shape {p.shape}")
+        if not (np.all((p[0] >= 0) & (p[0] < nx)) and np.all((p[1] >= 0) & (p[1] < ns))):
+            fail(f"gabor: note {name} has picks outside the block")
+    if not all(np.isfinite(t) and t > 0 for t in res.thresholds.values()):
+        fail(f"gabor: thresholds {res.thresholds}")
+    notes = []
+    misses = _check_calls(scene, res.picks)
+    if misses:
+        fb1, fb2 = GABOR_FALLBACK_THRESHOLDS
+        notes.append(f"the reference's thresholds {thr1:g} / {thr2:g} MISS injected calls "
+                     f"{misses} on this synthetic scene; rerun at {fb1:g} / {fb2:g} (the "
+                     "thresholds a JAX CPU run keeps every call at, "
+                     "scripts/gabor_threshold_check.py)")
+        fb = _gabor_adapter(meta, nx, ns, design, threshold1=fb1, threshold2=fb2,
+                            gabor_engine="fft")
+        miss_fb = _check_calls(scene, fb(x).picks)
+        if miss_fb:
+            fail(f"gabor: injected calls missed at the fallback thresholds too: {miss_fb}")
+        del fb
+    else:
+        notes.append(f"the reference's thresholds {thr1:g} / {thr2:g} keep every injected call")
+    wall = statistics.median(walls)
+    fams = _profile("GaborEvalAdapter call", lambda: adapter(x), wall, "fused_picks")
+    mask_frac = float(det(adapter.prefilter.filter_block(x))["mask"].float().mean())
+    with _capture(fused_picks, "picks_cuda") as calls:
+        adapter(x)
+        torch.cuda.synchronize()
+    err, pick_notes = _picks_at_main_path("gabor", calls, {"first": nx, "last": nx})
+    del calls
+
+    # the "conv" engine once, on the same filtered block
+    from das4whales_tpu_torch.models.gabor import GaborDetector
+
+    trf = adapter.prefilter.filter_block(x)
+    conv = GaborDetector(meta, [0, nx, 1], threshold1=thr1, threshold2=thr2, gabor_engine="conv")
+    eng_ms = {}
+    score = {}
+    for label, d in (("fft", det), ("conv", conv), ("conv", conv), ("fft", det)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        score[label] = d.correlograms(trf)[0]
+        torch.cuda.synchronize()
+        eng_ms.setdefault(label, []).append((time.perf_counter() - t0) * 1e3)
+    e = float((score["conv"] - score["fft"]).abs().max())
+    scale = float(score["fft"].abs().max())
+    if not e <= GABOR_ENGINE_REL * scale:
+        fail(f"gabor: the conv engine's score is {e:.3e} from the fft engine's (limit "
+             f"{GABOR_ENGINE_REL} * {scale:.3e})")
+    del trf, score, conv
+    torch.cuda.empty_cache()
+
+    b_served, b_peak = _gabor_batched_peak(meta, nx, x, notes)
+    del x, adapter
+    torch.cuda.empty_cache()
+    campaign_launches = _gabor_campaign(meta, nx, design, read_launches()["fused_picks"], notes)
+    say(f"gabor: {nx}x{ns} conditioned float32, gabordetect.campaign_detector on the detect "
+        f"design (main_gabordetect.py: c0 1500 m/s, bin {det.design.bin_factor}, ksize 100 -> "
+        f"101x101, thresholds {thr1:g} / {thr2:g}, notes {'/'.join(det.notes)}, engine "
+        f"{det.gabor_engine!r}); median wall {wall * 1e3:.1f} ms (runs "
+        f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms); stage walls (median, CUDA events) "
+        f"{json.dumps(_median_stages(stages))} ms; per run (fused_picks launches, syncs, "
+        f"escalations) {[tuple(d.values()) for d in deltas]}; picks "
+        f"{json.dumps({k: int(v.shape[1]) for k, v in res.picks.items()})}; thresholds "
+        f"{json.dumps({k: round(v, 6) for k, v in res.thresholds.items()})}; binned mask "
+        f"{100 * mask_frac:.2f} % set; peak device memory {peak / 2**30:.2f} GiB; host "
+        f"conditioning {t_cond:.1f} s; fused_picks bitwise its plain version at the route's "
+        f"first and last launch: {'; '.join(pick_notes)}")
+    say(f"gabor: engine 'conv' (F.conv2d, TF32 off) score within {e / scale:.3e} * max of "
+        f"'fft''s (limit {GABOR_ENGINE_REL}); correlograms stage (mask + masked MF) wall "
+        f"fft {', '.join(f'{v:.1f}' for v in eng_ms['fft'])} ms, conv "
+        f"{', '.join(f'{v:.1f}' for v in eng_ms['conv'])} ms (in turns fft, conv, conv, fft)")
+    say(f"gabor: {'; '.join(notes)}; phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, campaign_launches, err, {"wall_ms": wall * 1e3, "peak": peak,
+                                              "batched": (b_served, b_peak), "fams": fams}
+
+
+def _gabor_knife_edges(label, score_ref, thr, got, rel):
+    """Pixels where the boolean image ``got`` differs from ``score_ref > thr``,
+    each required to lie within ``rel * max|score_ref|`` of ``thr`` (a
+    rounding knife edge). Returns the count."""
+    diff = (score_ref > thr) != got
+    edge = (score_ref - thr).abs() <= rel * float(score_ref.abs().max())
+    bad = int((diff & ~edge).sum())
+    if bad:
+        fail(f"gabor_cpu_vs_card: {label}: {bad} pixels flipped off the knife edge")
+    return int(diff.sum())
+
+
+def _manifest_records(outdir) -> list:
+    """A campaign's manifest lines without wall times, span ids, pick
+    counts and the directories of paths."""
+    from das4whales_tpu_torch.utils.artifacts import read_records
+
+    out = []
+    for rec in read_records(str(outdir / "manifest.jsonl")):
+        rec = {k: v for k, v in rec.items() if k not in ("wall_s", "span_id", "n_picks")}
+        for k in ("path", "picks_file"):
+            if rec.get(k):
+                rec[k] = os.path.basename(rec[k])
+        out.append(rec)
+    return out
+
+
+def phase_gabor_cpu_vs_card():
+    """The Gabor family on the card against ``device="cpu"`` at 512 x 12000
+    on one design and one set of notes: score and correlograms within
+    1e-4 * max|cpu|, binary image and mask equal up to counted knife
+    edges, picks equal up to knife edges; then ``run_campaign_batched``
+    (batch 2) and ``run_campaign`` with ``family="gabor"`` over three TDMS
+    files on both devices, manifests equal record by record."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from das4whales_tpu_torch import convert
+    from das4whales_tpu_torch.eval import GaborEvalAdapter
+    from das4whales_tpu_torch.io.synth import synthesize_scene, to_raw_counts
+    from das4whales_tpu_torch.io.stream import stream_batched_slabs
+    from das4whales_tpu_torch.models import gabor as gmod
+    from das4whales_tpu_torch.models.matched_filter import MatchedFilterDetector
+    from das4whales_tpu_torch.ops import image as img_ops
+    from das4whales_tpu_torch.ops import spectral
+    from das4whales_tpu_torch.utils.parity import unexplained_differences
+    from das4whales_tpu_torch.workflows import campaign as cmod
+    from das4whales_tpu_torch.workflows.gabordetect import campaign_detector
+
+    t_phase = time.perf_counter()
+    nx, ns = 512, CANONICAL[1]
+    sel = [0, nx, 1]
+    scene = _scene(nx, ns, n_calls=2, seed=SEED + 3)
+    meta = scene.metadata
+    cond = _condition_on_host(to_raw_counts(synthesize_scene(scene), meta), meta.scale_factor)
+    card = campaign_detector(meta, sel, (nx, ns), gabor_engine="fft")
+    cpu = GaborEvalAdapter(
+        MatchedFilterDetector.from_design(card.prefilter.design, meta, device="cpu"),
+        convert.gabor_detector_from_jax(convert.gabor_detector_to_arrays(card.det), meta,
+                                        gabor_engine="fft", device="cpu"))
+    out = {}
+    for dev, ad in (("cuda", card), ("cpu", cpu)):
+        r = ad.det(ad.prefilter.filter_block(cond))
+        out[dev] = {k: (v.cpu() if isinstance(v, torch.Tensor) else
+                        {n: t.cpu() for n, t in v.items()} if k == "correlograms" else v)
+                    for k, v in r.items()}
+    g, c = out["cuda"], out["cpu"]
+    e = float((g["score"] - c["score"]).abs().max()) / float(c["score"].abs().max())
+    if not e <= GABOR_CARD_REL:
+        fail(f"gabor_cpu_vs_card: score {e:.3e} * max apart (limit {GABOR_CARD_REL})")
+    d = cpu.det.design
+    n_bin = _gabor_knife_edges("binary", c["score"], d.threshold1, g["score"] > d.threshold1,
+                               GABOR_CARD_REL)
+    # the mask: the CPU's second score of the CARD's binary image, so a binary
+    # knife edge cannot hide a mask fault
+    up, down = cpu.det._kernels
+    s2 = gmod._gabor_score((g["score"] > d.threshold1).float(), up, down)
+    n_mask = _gabor_knife_edges("mask", s2, d.threshold2, g["mask"], GABOR_CARD_REL)
+    ref_corr = c["correlograms"]
+    if not torch.equal(g["mask"], c["mask"]):
+        # the CPU's masked matched filter on the card's mask: the correlograms
+        # the card's mask gives, on the CPU
+        trf = cpu.prefilter.filter_block(cond)
+        masked = img_ops.apply_smooth_mask(trf, img_ops.resize_linear(
+            g["mask"].float(), tuple(trf.shape), antialias=False))
+        ref_corr = {n: gmod.masked_matched_filter(masked, note)
+                    for n, note in cpu.det.notes.items()}
+    worst, n_diff = e, 0
+    picks_ref, _, thresholds = cpu.det.picks_from_correlograms(ref_corr)
+    for name, rc in ref_corr.items():
+        ec = float((g["correlograms"][name] - rc).abs().max()) / float(rc.abs().max())
+        worst = max(worst, ec)
+        if not ec <= GABOR_CARD_REL:
+            fail(f"gabor_cpu_vs_card: note {name} correlograms {ec:.3e} * max apart")
+        if not np.isclose(g["thresholds"][name], thresholds[name], rtol=1e-5, atol=0):
+            fail(f"gabor_cpu_vs_card: note {name} threshold card {g['thresholds'][name]} vs "
+                 f"cpu {thresholds[name]}")
+        env = spectral.envelope_sqrt(rc).numpy()
+        a, b = g["picks"][name], picks_ref[name]
+        bad = unexplained_differences(a, b, env, thresholds[name])
+        if bad:
+            fail(f"gabor_cpu_vs_card: note {name}: picks differ beyond rounding at {bad[:10]}")
+        n_diff += len({tuple(p) for p in a.T.tolist()} ^ {tuple(p) for p in b.T.tolist()})
+    if _check_calls(scene, card(cond).picks):
+        fail("gabor_cpu_vs_card: an injected call was not picked on the card")
+
+    # both campaign entries, card against CPU, on one design
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    dd = Path(tempfile.mkdtemp(prefix="gabor_cpu_files_", dir=root))
+    try:
+        files, scenes_l, _ = _write_files(dd, GABOR_CPU_FILES, nx, n_calls=2)
+        scenes = dict(zip(files, scenes_l))
+        blocks = {}
+        for slab in stream_batched_slabs(files, sel, meta, batch=1, bucket="exact",
+                                         as_numpy=True):
+            blocks[slab.paths[0]] = slab.stack[0]
+        kw = dict(metadata=meta, interrogator="silixa", family="gabor",
+                  design=card.prefilter.design, gabor_engine="fft")
+        res = {}
+        for entry, extra in ((cmod.run_campaign_batched, dict(batch=2)), (cmod.run_campaign, {})):
+            for dev in ("cuda", "cpu"):
+                res[(entry.__name__, dev)] = entry(files, sel, str(dd / f"{entry.__name__}_{dev}"),
+                                                   device=dev, **kw, **extra)
+        camp_notes = []
+        for name in ("run_campaign_batched", "run_campaign"):
+            ca, cb = res[(name, "cuda")], res[(name, "cpu")]
+            ra = [(Path(r.path).name, r.status, r.rung, r.family, r.attempts) for r in ca.records]
+            want_rung = "batched:2" if name == "run_campaign_batched" else "file"
+            if {(r[1], r[2], r[3]) for r in ra} != {("done", want_rung, "gabor")}:
+                fail(f"gabor_cpu_vs_card: {name}: records on the card {ra}")
+            # the manifests record by record, less what a run's clock and
+            # directory give and the pick counts (compared as pick sets below)
+            ma, mb = (_manifest_records(dd / f"{name}_{dev}") for dev in ("cuda", "cpu"))
+            if ma != mb:
+                fail(f"gabor_cpu_vs_card: {name}: manifests differ: {ma} vs {mb}")
+            n_camp = 0
+            for x, y in zip(ca.records, cb.records):
+                pa, pb = cmod.load_picks(x.picks_file), cmod.load_picks(y.picks_file)
+                if _check_calls(scenes[x.path], pa):
+                    fail(f"gabor_cpu_vs_card: {name}: {x.path}: an injected call was missed")
+                if all(np.array_equal(pa[k], pb[k]) for k in pb):
+                    continue
+                corr = cpu.det.correlograms(cpu.prefilter.filter_block(blocks[x.path]))[3]
+                with np.load(y.picks_file) as z:
+                    thr = dict(zip([str(t) for t in z["template_names"]], z["thresholds"].tolist()))
+                for k in pb:
+                    env = spectral.envelope_sqrt(corr[k]).numpy()
+                    bad = unexplained_differences(pa[k], pb[k], env, thr[k])
+                    if bad:
+                        fail(f"gabor_cpu_vs_card: {name}: {x.path} note {k}: picks differ "
+                             f"beyond rounding at {bad[:10]}")
+                    n_camp += len({tuple(p) for p in pa[k].T.tolist()}
+                                  ^ {tuple(p) for p in pb[k].T.tolist()})
+            camp_notes.append(f"{name}: {len(ra)} files done at {want_rung} on both, manifests "
+                              f"equal record by record, {n_camp} picks differing (knife edges)")
+    finally:
+        shutil.rmtree(dd, ignore_errors=True)
+    say(f"gabor_cpu_vs_card: {nx}x{ns}, one design and one set of notes: score and "
+        f"correlograms within {GABOR_CARD_REL} * max|cpu| (measured max relative error "
+        f"{worst:.3e}), {n_bin} binary and {n_mask} mask pixels flipped, all on knife edges; "
+        f"picks {json.dumps({k: int(v.shape[1]) for k, v in g['picks'].items()})} on the card, "
+        f"{n_diff} differing, all on knife edges; {'; '.join(camp_notes)}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv: list) -> int:
     import torch
 
@@ -2697,15 +3153,17 @@ def main(argv: list) -> int:
     phase_cpu_vs_card()
     stft, stft_err = phase_stft_kernel()
     stft_launches = phase_spectro(scene, raw, design)
-    del scene, raw, design
     phase_spectro_cpu_vs_card()
     try:
         slab_launches, slab_picks_err = phase_slab()
         slab_stft_launches, slab_stft_err = phase_slab_cpu_vs_card()
         campaign_launches = phase_campaign()
+        gabor_launches, gabor_campaign_launches, gabor_err, _ = phase_gabor(scene, raw, design)
     finally:
         remove_slab_files()
+    del scene, raw, design
     campaign_stft_launches, campaign_stft_err = phase_campaign_cpu_vs_card()
+    phase_gabor_cpu_vs_card()
     pk = kern["pack"]
     print(json.dumps({"kernels": [{
         "name": "fused_picks",
@@ -2716,8 +3174,9 @@ def main(argv: list) -> int:
         "launches_by_path": {"detect": launches, "full": full_launches, "bank": bank_launches,
                              "slab_batched": slab_launches["batched"],
                              "slab_serial": slab_launches["serial"],
-                             "campaign": campaign_launches},
-        "max_abs_err": max(err, slab_picks_err, full_err, bank_err),
+                             "campaign": campaign_launches, "gabor": gabor_launches,
+                             "campaign_gabor": gabor_campaign_launches},
+        "max_abs_err": max(err, slab_picks_err, full_err, bank_err, gabor_err),
         "ms": pk["ms"],
         "device_ms": pk["device_ms"],
         "plain_ms": pk["plain_ms"],

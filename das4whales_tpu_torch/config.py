@@ -125,6 +125,10 @@ FIN_LF_NOTE = CallTemplateConfig(fmin=14.7, fmax=21.8, duration=0.78)
 SPECTRO_HF_KERNEL = {"f0": 27.0, "f1": 17.0, "dur": 0.8, "bdwidth": 4.0}
 SPECTRO_LF_KERNEL = {"f0": 20.0, "f1": 14.0, "dur": 1.2, "bdwidth": 4.0}
 
+#: Reference sound speed in sea water [m/s]: the Gabor detector orients its
+#: kernel pair along this moveout (main_gabordetect.py).
+C0_WATER = 1500.0
+
 
 def as_metadata(metadata) -> AcquisitionMetadata:
     """Accept an AcquisitionMetadata, a reference-style dict, or any

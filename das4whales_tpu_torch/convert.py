@@ -1,6 +1,6 @@
 """State carried across from the JAX package.
 
-Neither detector family has learned weights. The matched filter's state
+No detector family here has learned weights. The matched filter's state
 is its design — the f-k mask, the bandpass gain and the template stack
 with its threshold policy. ``design_from_arrays`` builds the port's
 ``MatchedFilterDesign`` from the JAX design's fields given as numpy
@@ -9,7 +9,12 @@ mask and template stack; ``MatchedFilterDetector.from_design`` then
 builds a detector on it (and, as the spectro family's prefilter, the
 same design serves that family). The spectro family's own state is its
 configuration; its hat kernels are rebuilt from it on the host:
-``spectro_from_jax_config``. The batched ingest's configuration — the
+``spectro_from_jax_config``. The Gabor family's state is its
+``GaborDesign`` (the oriented kernel pair, its angle, the bin factor and
+the two thresholds) and its call notes: ``gabor_design_from_arrays`` and
+``gabor_detector_from_jax`` carry them across, and
+``gabor_design_to_arrays`` / ``gabor_detector_to_arrays`` give them back
+as the fields JAX's ``GaborDesign`` takes. The batched ingest's configuration — the
 data-health thresholds and the shape buckets — is carried as plain
 fields (``health_config_from_fields``, ``bucket_config_from_fields``).
 Nothing here imports the JAX package: the caller hands over plain arrays
@@ -21,8 +26,10 @@ from __future__ import annotations
 from typing import Mapping
 
 import numpy as np
+import torch
 
 from .config import BatchBucketConfig, DataHealthConfig
+from .models.gabor import GaborDesign, GaborDetector
 from .models.matched_filter import MatchedFilterDesign
 from .models.spectro import SpectroCorrDetector
 
@@ -88,6 +95,65 @@ def spectro_from_jax_config(det_fields: Mapping, metadata, *, stft_engine: str |
         stft_engine=stft_engine,
         device=device,
     )
+
+
+#: The Gabor design's fields carried across, by their JAX names.
+GABOR_DESIGN_FIELDS = ("gabor_up", "gabor_down", "theta_c0", "bin_factor", "threshold1",
+                       "threshold2")
+
+#: The Gabor detector's own fields besides its design: ``note_params``
+#: ``{name: (fmin, fmax, duration)}``, ``notes`` ``{name: samples}`` and
+#: ``max_peaks``.
+GABOR_DETECTOR_FIELDS = ("note_params", "notes", "max_peaks")
+
+
+def gabor_design_from_arrays(d: Mapping) -> GaborDesign:
+    """``{field: numpy array or Python scalar}`` for every name in
+    :data:`GABOR_DESIGN_FIELDS` -> the port's ``GaborDesign``; the kernel
+    pair is copied with its dtype unchanged, bit for bit."""
+    _missing(d, GABOR_DESIGN_FIELDS, "gabor design")
+    return GaborDesign(
+        gabor_up=np.array(d["gabor_up"]), gabor_down=np.array(d["gabor_down"]),
+        theta_c0=float(d["theta_c0"]), bin_factor=float(d["bin_factor"]),
+        threshold1=float(d["threshold1"]), threshold2=float(d["threshold2"]),
+    )
+
+
+def gabor_design_to_arrays(design) -> dict:
+    """A Gabor design (either package's) -> ``{field: numpy array or
+    Python scalar}``: ``GaborDesign(**fields)`` of either package rebuilds
+    it."""
+    out = {f: getattr(design, f) for f in GABOR_DESIGN_FIELDS}
+    out["gabor_up"], out["gabor_down"] = np.array(out["gabor_up"]), np.array(out["gabor_down"])
+    return {k: (v if isinstance(v, np.ndarray) else float(v)) for k, v in out.items()}
+
+
+def gabor_detector_from_jax(fields: Mapping, metadata, *, gabor_engine: str | None = None,
+                            device=None) -> GaborDetector:
+    """``{field: value}`` for every name in :data:`GABOR_DESIGN_FIELDS` and
+    :data:`GABOR_DETECTOR_FIELDS` (read off a JAX ``GaborDetector``: its
+    design's fields, ``note_params``, ``notes`` as numpy and
+    ``max_peaks``) and its metadata -> the port's ``GaborDetector`` on the
+    same design and the same note samples."""
+    _missing(fields, GABOR_DESIGN_FIELDS + GABOR_DETECTOR_FIELDS, "gabor detector")
+    params = {str(n): tuple(float(v) for v in p) for n, p in fields["note_params"].items()}
+    return GaborDetector(
+        metadata, None, notes=params, max_peaks=int(fields["max_peaks"]),
+        gabor_engine=gabor_engine, device=device,
+        design=gabor_design_from_arrays(fields),
+        note_arrays={str(n): np.array(a, np.float32) for n, a in fields["notes"].items()},
+    )
+
+
+def gabor_detector_to_arrays(det) -> dict:
+    """A Gabor detector (either package's) -> the fields
+    :func:`gabor_detector_from_jax` takes, as numpy and Python values."""
+    out = gabor_design_to_arrays(det.design)
+    out["note_params"] = {n: tuple(float(v) for v in p) for n, p in det.note_params.items()}
+    out["notes"] = {n: np.array(a.cpu() if isinstance(a, torch.Tensor) else a, np.float32)
+                    for n, a in det.notes.items()}
+    out["max_peaks"] = int(det.max_peaks)
+    return out
 
 
 #: ``DataHealthConfig``'s fields carried across, by their JAX names.

@@ -1,6 +1,6 @@
-"""The spectro family's adapter to the evaluation protocol (the port's
-copy of ``_EvalResult`` and ``SpectroEvalAdapter`` of
-``das4whales_tpu.eval``)."""
+"""The spectro and Gabor families' adapters to the evaluation protocol
+(the port's copy of ``_EvalResult``, ``SpectroEvalAdapter`` and
+``GaborEvalAdapter`` of ``das4whales_tpu.eval``)."""
 
 from __future__ import annotations
 
@@ -8,6 +8,8 @@ from dataclasses import dataclass
 from typing import Callable, Dict
 
 import numpy as np
+
+from .utils.views import cached_shallow_view
 
 
 @dataclass
@@ -61,3 +63,47 @@ class SpectroEvalAdapter:
         # one absolute correlogram threshold serves every kernel
         thr = float(self.det.threshold if threshold is None else threshold)
         return _EvalResult(picks=out, thresholds={name: thr for name in out})
+
+
+class GaborEvalAdapter:
+    """Adapts the Gabor/image family to the detector protocol
+    ``adapter(block, threshold=None) -> result.picks``.
+
+    ``prefilter`` is the shared bandpass + f-k front end
+    (main_gabordetect.py:10-74): a ``MatchedFilterDetector`` (its
+    ``filter_block``) or any callable mapping a block to ``trf_fk``. The
+    Gabor picks are in sample units already; the notes' ``(fmin, fmax,
+    duration)`` become the template configurations."""
+
+    def __init__(self, prefilter, gabor_detector):
+        self.prefilter = prefilter
+        self.det = gabor_detector
+        self.template_configs = {
+            name: {"f0": fmax, "f1": fmin, "dur": dur}
+            for name, (fmin, fmax, dur) in gabor_detector.note_params.items()
+        }
+
+    def host_view(self) -> "GaborEvalAdapter":
+        """This adapter on the CPU (the ladder's host rung): the prefilter's
+        and the detector's host views. Cached: repeated calls return the
+        same view."""
+
+        def mutate(adapter):
+            adapter.prefilter = self.prefilter.host_view()
+            adapter.det = self.det.host_view()
+
+        return cached_shallow_view(self, "_host_view_cache", mutate)
+
+    def __call__(self, block, threshold: float | None = None,
+                 stage_hook: Callable[[str], None] | None = None) -> _EvalResult:
+        """Picks of one block and the per-note thresholds. ``threshold``
+        overrides the relative policy with an absolute value;
+        ``stage_hook(name)`` is called after ``prefilter`` and passed on to
+        the detector."""
+        filt = getattr(self.prefilter, "filter_block", self.prefilter)
+        trf_fk = filt(block)
+        if stage_hook is not None:
+            stage_hook("prefilter")
+        out = self.det(trf_fk, threshold=threshold, stage_hook=stage_hook)
+        return _EvalResult(picks={k: np.asarray(v) for k, v in out["picks"].items()},
+                           thresholds=out.get("thresholds"))

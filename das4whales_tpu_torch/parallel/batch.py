@@ -37,8 +37,7 @@ halves of a bank with decoupled thresholds, each on the parent's sliced
 template tensors (``MatchedFilterDetector.split_views``).
 
 Not in this slice: ``program_spec`` (absent) for the memory preflight
-('Campaign preflight'); the gabor and learned facades come with 'Gabor
-and learned'.
+('Campaign preflight'); the learned facade comes with 'Learned'.
 """
 
 from __future__ import annotations
@@ -49,7 +48,7 @@ import numpy as np
 import torch
 
 from ..config import not_in_slice as _not_in_slice
-from ..eval import SpectroEvalAdapter
+from ..eval import GaborEvalAdapter, SpectroEvalAdapter
 from ..models.matched_filter import (
     InFlightResult,
     MatchedFilterDetector,
@@ -246,7 +245,7 @@ class BatchedMatchedFilterDetector:
 
 class _BatchedFamilyDetector:
     """Batched-facade machinery for the detector families without a fused
-    program (spectro here): a ``[B, C, T]`` slab in, per-file ``(picks,
+    program (spectro and Gabor here): a ``[B, C, T]`` slab in, per-file ``(picks,
     thresholds[, stats])`` entries out. The heavy stage (prefilter +
     correlograms) runs file by file (``serial``) or over the file axis
     at once; the finalize stage is the family's own per-file picking.
@@ -361,19 +360,55 @@ class BatchedSpectroDetector(_BatchedFamilyDetector):
         return out, {name: thr for name in out}
 
 
+class BatchedGaborDetector(_BatchedFamilyDetector):
+    """Batched facade over one ``eval.GaborEvalAdapter``: the heavy stage
+    is the shared bandpass + f-k prefilter, the oriented Gabor pair and
+    the per-note masked matched filter, and it keeps the correlograms
+    only (batched: every stage over ``[n, C, T]`` at once, each file with
+    its own image scale and mask renormalisation); finalize is the
+    detector's relative-threshold policy and per-note picks per file.
+    Gabor batches over FILES, so the channel seams that forbid the
+    family's tiled rung (``workflows.planner.GaborProgram``) never
+    arise."""
+
+    family = "gabor"
+
+    def _device(self) -> torch.device:
+        return self.det.det.device
+
+    def _design_shape(self):
+        design = getattr(self.det.prefilter, "design", None)
+        return getattr(design, "trace_shape", None)
+
+    def _heavy(self, stack):
+        adapter = self.det
+        filt = getattr(adapter.prefilter, "filter_block", adapter.prefilter)
+        if self.serial:
+            per = [adapter.det.correlograms(filt(stack[b]))[3] for b in range(stack.shape[0])]
+            return {name: torch.stack([p[name] for p in per]) for name in per[0]}
+        return adapter.det.correlograms(filt(stack))[3]
+
+    def _finalize_one(self, heavy, b: int):
+        picks, _, thresholds = self.det.det.picks_from_correlograms(
+            {name: v[b] for name, v in heavy.items()})
+        return {k: np.asarray(v) for k, v in picks.items()}, dict(thresholds)
+
+
 def batched_detector_for(detector, *, donate: bool = True, serial: bool | None = None,
                          trace_shape=None):
-    """Any campaign detector -> its batched facade: the matched filter and
-    the spectro family. Gabor and learned come with their ROADMAP item."""
+    """Any campaign detector -> its batched facade: the matched filter, the
+    spectro and the Gabor family. Learned comes with its ROADMAP item."""
     if isinstance(detector, MatchedFilterDetector):
         return BatchedMatchedFilterDetector(detector, donate=donate, serial=serial)
     if isinstance(detector, SpectroEvalAdapter):
         return BatchedSpectroDetector(detector, donate=donate, serial=serial,
                                       trace_shape=trace_shape)
-    if type(detector).__name__ in ("GaborEvalAdapter", "LearnedDetector"):
-        raise _not_in_slice(f"the batched facade of {type(detector).__name__}",
-                            "Gabor and learned")
+    if isinstance(detector, GaborEvalAdapter):
+        return BatchedGaborDetector(detector, donate=donate, serial=serial,
+                                    trace_shape=trace_shape)
+    if type(detector).__name__ == "LearnedDetector":
+        raise _not_in_slice(f"the batched facade of {type(detector).__name__}", "Learned")
     raise TypeError(
         f"no batched facade for detector type {type(detector).__name__}; "
-        "families with one: matched filter, spectro"
+        "families with one: matched filter, spectro, gabor"
     )

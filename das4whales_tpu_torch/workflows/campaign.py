@@ -40,9 +40,9 @@ raises instead of failing every file.
 Not in this slice: the memory preflight (``preflight=True``; ROADMAP
 item 'Campaign preflight'), the cost cards and the quality observatory
 (``cost_cards=True``, ``quality=True``; 'Service and fleet'), the
-sharded and multi-process campaigns ('Multi-GPU'), the gabor and learned
-families ('Gabor and learned') and the density plot ('Workflow mains and
-plots'). Each raises, naming its item.
+sharded and multi-process campaigns ('Multi-GPU'), the learned family
+('Learned') and the density plot ('Workflow mains and plots'). Each
+raises, naming its item.
 """
 
 from __future__ import annotations
@@ -108,7 +108,7 @@ class FileRecord:
     attempts: int = 1
     #: data-health stats (ops.health) when the campaign computed them
     health: Dict[str, float] = field(default_factory=dict)
-    #: detector family that processed the file ("mf" | "spectro")
+    #: detector family that processed the file ("mf" | "spectro" | "gabor")
     family: str = ""
     #: the route rung that actually executed (faults.rung_label —
     #: "batched:4" / "file" / "tiled" / "host")
@@ -412,12 +412,13 @@ def family_detector(family: str, metadata, selected_channels, trace_shape,
     """One bucket's PER-FILE detector at the bucket shape, on ``device``
     (None: the card) — the family builder behind
     :func:`run_campaign_batched`. ``detector_kwargs`` are the family
-    constructor's: ``MatchedFilterDetector``'s for ``"mf"``, the spectro
-    ``campaign_detector``'s for ``"spectro"``.
+    constructor's: ``MatchedFilterDetector``'s for ``"mf"``, the
+    ``campaign_detector``'s of ``workflows.spectrodetect`` and
+    ``workflows.gabordetect`` for ``"spectro"`` and ``"gabor"``.
 
     ``design=`` (a ``MatchedFilterDesign`` or the path of its checkpoint,
     written by either package's ``save_design``) builds the matched
-    filter — or the spectro family's prefilter — on that design instead
+    filter — or the spectro or Gabor family's prefilter — on that design instead
     of designing it: the f-k mask's host design is tens of seconds at the
     canonical shape, so a campaign over many days of one cable loads it.
     Its ``trace_shape`` must be the bucket's."""
@@ -448,8 +449,13 @@ def family_detector(family: str, metadata, selected_channels, trace_shape,
                 mf.metadata, threshold=kw.pop("threshold", 14.0), device=mf.device, **kw))
         return campaign_detector(metadata, selected_channels, trace_shape,
                                  device=device, **detector_kwargs)
-    if family in ("gabor", "learned"):
-        raise _not_in_slice(f"family={family!r}", "Gabor and learned")
+    if family == "gabor":
+        from .gabordetect import campaign_detector
+
+        return campaign_detector(metadata, selected_channels, trace_shape, device=device,
+                                 design=design, **detector_kwargs)
+    if family == "learned":
+        raise _not_in_slice(f"family={family!r}", "Learned")
     raise ValueError(
         f"unknown detector family {family!r}; expected one of {FAMILIES}"
     )
@@ -476,15 +482,20 @@ def run_campaign(
     quality: bool | None = None,
     fault_plan=None,
     device=None,
+    family: str = "mf",
     **detector_kwargs,
 ) -> CampaignResult:
     """Detect over ``files`` one file a program, tolerating per-file
     failures and resuming past completed work.
 
-    ``detector=None`` builds a ``MatchedFilterDetector`` on ``device``
-    (None: the card; ``"cpu"``: the plain versions on the CPU) from the
-    first readable file's shape/metadata (extra ``detector_kwargs`` pass
-    through, ``design=`` among them: :func:`family_detector`).
+    ``detector=None`` builds the ``family``'s detector (``"mf"``: a
+    ``MatchedFilterDetector``; ``"spectro"``, ``"gabor"``: the family's
+    eval adapter, conditioned wire only) on ``device`` (None: the card;
+    ``"cpu"``: the plain versions on the CPU) from the first readable
+    file's shape/metadata (extra ``detector_kwargs`` pass through,
+    ``design=`` among them: :func:`family_detector`). The JAX package's
+    ``run_campaign`` has no ``family``: a family's detector comes there
+    as ``detector=``, which this one takes too.
     ``wire="raw"`` streams stored-dtype counts and conditions them on the
     card — a caller-supplied ``detector`` must have been built with the
     same ``wire``. Returns a :class:`CampaignResult`; durable state lives
@@ -514,6 +525,13 @@ def run_campaign(
 
     _check_not_in_slice(quality=quality, cost_cards=False, preflight=False)
     if detector is None:
+        if family not in FAMILIES:
+            raise ValueError(f"unknown detector family {family!r}; expected one of {FAMILIES}")
+        if family == "learned":
+            raise _not_in_slice(f"family={family!r}", "Learned")
+        if family != "mf" and wire != "conditioned":
+            raise ValueError(f"family={family!r} requires wire='conditioned' (got "
+                             f"wire={wire!r})")
         device = resolve_device(device)   # before any file is read
     if dispatch_deadline_s is None:
         dispatch_deadline_s = dispatch_deadline_default()
@@ -540,7 +558,7 @@ def run_campaign(
         )
         rz.family = route.program.family
     else:
-        rz.family = "mf"   # detector=None builds a MatchedFilterDetector
+        rz.family = family   # detector=None builds the family's detector
     _BUCKET = "campaign"   # one unbatched campaign = one sticky ladder key
 
     def scale_mismatch(block) -> bool:
@@ -558,7 +576,7 @@ def run_campaign(
             fault_plan.on_transfer(path)
         if detector is None:
             detector = family_detector(
-                "mf", block.metadata, selected_channels, np.shape(block.trace),
+                family, block.metadata, selected_channels, np.shape(block.trace),
                 wire=wire, device=device, **detector_kwargs)
         if route is None:
             route = RoutePlanner(
@@ -719,9 +737,10 @@ def run_campaign_batched(
     plain versions on the CPU), and the batched facade
     (``parallel.batch.batched_detector_for``) detects the whole slab in
     one program and one packed read. ``family`` is ``"mf"`` (the
-    default) or ``"spectro"``; spectro requires ``wire="conditioned"``
-    and buckets exactly (its thresholds depend on the record's own
-    maximum, so a padded record would change its picks).
+    default), ``"spectro"`` or ``"gabor"``; the latter two require
+    ``wire="conditioned"`` and bucket exactly (their thresholds depend
+    on the record's own maximum, so a padded record would change its
+    picks).
     ``detector_kwargs`` go to :func:`family_detector` (``design=`` loads
     a design checkpoint instead of designing). ``serial`` picks the
     facade's mode (None: serial on the CPU, batched on the card).
@@ -762,8 +781,8 @@ def run_campaign_batched(
             f"unknown detector family {family!r}; batched campaigns serve "
             f"{', '.join(FAMILIES)}"
         )
-    if family in ("gabor", "learned"):
-        raise _not_in_slice(f"family={family!r}", "Gabor and learned")
+    if family == "learned":
+        raise _not_in_slice(f"family={family!r}", "Learned")
     if family != "mf" and wire != "conditioned":
         raise ValueError(
             f"family={family!r} requires wire='conditioned': the family's "

@@ -18,8 +18,8 @@ family of the campaigns inherits.
   chaos harness's ``on_dispatch(path, rung)`` hook INSIDE the deadline,
   and absorbs resource-class failures by descending the ladder.
 * :func:`program_for` — the family registry: a campaign detector (the
-  ``MatchedFilterDetector``, the spectro eval adapter, or any callable
-  returning ``.picks``) to its :class:`DetectorProgram`.
+  ``MatchedFilterDetector``, the spectro or Gabor eval adapter, or any
+  callable returning ``.picks``) to its :class:`DetectorProgram`.
 
 The rungs on one card: ``file`` (the per-file program), ``bank`` (the
 per-file program as two sub-bank halves, splittable banks only),
@@ -251,12 +251,26 @@ class SpectroProgram(DetectorProgram):
         return adapter
 
 
+class GaborProgram(DetectorProgram):
+    """Gabor/image family (``eval.GaborEvalAdapter``): per-file and host
+    rungs only — the oriented Gabor pair couples about a thousand channels
+    of the t-x image, so a channel-tiled rung would change the detection
+    at tile seams. The batched slab route
+    (``parallel.batch.BatchedGaborDetector``) batches over FILES, where
+    no seam arises. The host rung is the adapter's ``host_view``."""
+
+    family = "gabor"
+    stages = ("file", "host")
+    supports_batched = True
+
+
 #: family name -> the family's program class (the batched campaign
 #: resolves ladder stages and per-file-rung programs through this table;
 #: ``program_for`` stays the detector-instance registry)
 FAMILY_PROGRAMS = {
     "mf": MatchedFilterProgram,
     "spectro": SpectroProgram,
+    "gabor": GaborProgram,
 }
 
 
@@ -280,13 +294,15 @@ def program_for(detector) -> DetectorProgram:
     health stats)."""
     if isinstance(detector, DetectorProgram):
         return detector
-    from ..eval import SpectroEvalAdapter
+    from ..eval import GaborEvalAdapter, SpectroEvalAdapter
     from ..models.matched_filter import MatchedFilterDetector
 
     if isinstance(detector, MatchedFilterDetector):
         return MatchedFilterProgram(detector)
     if isinstance(detector, SpectroEvalAdapter):
         return SpectroProgram(detector)
+    if isinstance(detector, GaborEvalAdapter):
+        return GaborProgram(detector)
     return GenericProgram(detector)
 
 

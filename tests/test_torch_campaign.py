@@ -443,6 +443,150 @@ def test_spectro_family_matches_jax(tmp_path):
     assert total > 0
 
 
+GABOR_NX, GABOR_NS = 64, 2000
+GABOR_KW = dict(bin_factor=0.25)       # the reference's thresholds, 9100 / 150
+
+
+@pytest.fixture(scope="module")
+def gabor_data(tmp_path_factory):
+    """Three 64 x 2000 files with an HF and an LF call each, a corrupt
+    one, JAX's prefilter design at that shape (its checkpoint) and JAX's
+    float32 notes: the port's family runs on both, so the packages
+    differ only by rounding."""
+    from das4whales_tpu.models.gabor import GaborDetector as JaxGabor
+
+    d = tmp_path_factory.mktemp("gabor_files")
+    files = []
+    for k in range(3):
+        scene = SyntheticScene(nx=GABOR_NX, ns=GABOR_NS, noise_rms=0.05, seed=60 + k, calls=[
+            SyntheticCall(t0=2.0 + 0.5 * k, x0_m=(16 + 8 * k) * 2.042, amplitude=1.0),
+            SyntheticCall(t0=6.0, x0_m=(48 - 4 * k) * 2.042, amplitude=1.0, fmin=14.7,
+                          fmax=21.8, duration=0.78)])
+        files.append(write_synthetic_file(str(d / f"g{k}.h5"), scene))
+    (d / "gbad.h5").write_bytes(b"\x00 not an hdf5 file " * 64)
+    files.insert(2, str(d / "gbad.h5"))
+    meta = SyntheticScene(nx=GABOR_NX, ns=GABOR_NS).metadata
+    sel = [0, GABOR_NX, 1]
+    with jax.enable_x64(False):
+        jd = JaxDetector(meta, sel, (GABOR_NX, GABOR_NS), mf_engine="fft", fk_engine="fft")
+        notes = {k: np.array(v) for k, v in JaxGabor(meta, sel, **GABOR_KW).notes.items()}
+    return dict(files=files, sel=sel, meta=meta,
+                design=jsave_design(str(d / "gabor_design.npz"), jd.design),
+                port_kw=dict(GABOR_KW, note_arrays=notes))
+
+
+def _assert_gabor_picks(jm, tm):
+    """Saved picks of every done file: equal, or every pick in the
+    symmetric difference on a rounding knife edge of the port's own
+    correlogram envelope (``utils.parity``) at the saved threshold."""
+    from das4whales_tpu_torch.io.hdf5 import load_das_data
+    from das4whales_tpu_torch.ops import spectral
+    from das4whales_tpu_torch.workflows.gabordetect import campaign_detector
+
+    meta = SyntheticScene(nx=GABOR_NX, ns=GABOR_NS).metadata
+    sel = [0, GABOR_NX, 1]
+    n = 0
+    for a, b in zip(jm, tm):
+        if a.get("status") != "done":
+            continue
+        pa, pb = jcampaign.load_picks(a["picks_file"]), campaign.load_picks(b["picks_file"])
+        thr = _thresholds(b["picks_file"])
+        if all(np.array_equal(pa[k], pb[k]) for k in pa):
+            n += sum(v.shape[1] for v in pb.values())
+            continue
+        ad = campaign_detector(meta, sel, (GABOR_NX, GABOR_NS), device="cpu", **GABOR_KW)
+        blk = load_das_data(a["path"], sel, meta, device="cpu")
+        corr = ad.det.correlograms(ad.prefilter.filter_block(blk.trace))[3]
+        for name in pa:
+            env = spectral.envelope_sqrt(corr[name]).numpy()
+            bad = unexplained_differences(pa[name], pb[name], env, thr[name])
+            assert not bad, f"{a['path']} {name}: picks differ beyond rounding at {bad}"
+            n += pb[name].shape[1]
+    assert n > 0
+
+
+class _JaxPinnedPlan(jfaults.FaultPlan):
+    """JAX's chaos plan with a chosen fault for named files (the port's
+    ``FaultPlan(pinned=...)``; JAX's plan draws only)."""
+
+    def __init__(self, pinned):
+        super().__init__(0, rate=0.0)
+        self.pinned = pinned
+
+    def spec_for(self, path):
+        return self.pinned.get(os.path.basename(path))
+
+
+def _gabor_oom_plan(mod, files):
+    """Every clean file's dispatch runs out of memory until the host rung."""
+    pinned = {os.path.basename(f): mod.FaultSpec("oom", "dispatch", 10**9, ("host", 1))
+              for f in files if "gbad" not in f}
+    return _JaxPinnedPlan(pinned) if mod is jfaults else mod.FaultPlan(0, pinned=pinned)
+
+
+@pytest.mark.parametrize("oom", [False, True], ids=["healthy", "oom_to_host"])
+def test_gabor_family_batched_matches_jax(gabor_data, tmp_path, oom):
+    """``run_campaign_batched(family="gabor")`` at batch 2 on both packages:
+    manifests equal record by record (status, rung, family, attempts,
+    error, health, the downshift events); with a pinned oom at every
+    dispatch the ladder walks ``batched:2 -> file -> host`` on both."""
+    files, sel = gabor_data["files"], gabor_data["sel"]
+    jkw = dict(family="gabor", batch=2, persistent_cache=False, **GABOR_KW)
+    tkw = dict(family="gabor", batch=2, device="cpu", design=gabor_data["design"],
+               **gabor_data["port_kw"])
+    if oom:
+        jkw["fault_plan"] = _gabor_oom_plan(jfaults, files)
+        tkw["fault_plan"] = _gabor_oom_plan(faults, files)
+    with jax.enable_x64(False):
+        jcampaign.run_campaign_batched(files, sel, str(tmp_path / "jax"), **jkw)
+    tres = campaign.run_campaign_batched(files, sel, str(tmp_path / "port"), **tkw)
+    jm, tm = _assert_manifests_match(tmp_path / "jax", tmp_path / "port")
+    rung = "host" if oom else "batched:2"
+    assert [(r.status, r.rung, r.family) for r in tres.records] == [
+        ("done", rung, "gabor"), ("done", rung, "gabor"), ("failed", "", "gabor"),
+        ("done", rung, "gabor")]
+    moves = [(e["from"], e["to"]) for e in tm if e.get("event") == "downshift"]
+    assert moves == ([("batched:2", "file"), ("file", "host")] if oom else [])
+    _assert_gabor_picks(jm, tm)
+
+
+def test_gabor_family_serial_batched_is_bitwise_the_per_file_campaign(gabor_data, tmp_path):
+    """Within the port, one device: the serial facade's saved picks equal
+    the per-file ``run_campaign(family="gabor")``'s bit for bit, and that
+    campaign's manifest equals JAX's ``run_campaign`` on its Gabor
+    adapter; a pinned oom there moves ``file -> host``."""
+    from das4whales_tpu.workflows.gabordetect import campaign_detector as jcampaign_detector
+
+    files, sel, meta = gabor_data["files"], gabor_data["sel"], gabor_data["meta"]
+    tkw = dict(device="cpu", design=gabor_data["design"], **gabor_data["port_kw"])
+    batched = campaign.run_campaign_batched(files, sel, str(tmp_path / "b"), family="gabor",
+                                            batch=2, **tkw)
+    with jax.enable_x64(False):
+        jdet = jcampaign_detector(meta, sel, (GABOR_NX, GABOR_NS), **GABOR_KW)
+        jcampaign.run_campaign(files, sel, str(tmp_path / "jax"), detector=jdet)
+    per_file = campaign.run_campaign(files, sel, str(tmp_path / "port"), family="gabor", **tkw)
+    jm, tm = _assert_manifests_match(tmp_path / "jax", tmp_path / "port")
+    assert [(r.status, r.rung, r.family) for r in per_file.records] == [
+        ("done", "file", "gabor")] * 2 + [("failed", "", "gabor"), ("done", "file", "gabor")]
+    _assert_gabor_picks(jm, tm)
+    a, b = _picks_by_file(batched), _picks_by_file(per_file)
+    assert len(a) == 3
+    for name in a:
+        for t in a[name]:
+            np.testing.assert_array_equal(a[name][t], b[name][t])
+    with jax.enable_x64(False):
+        jcampaign.run_campaign(files, sel, str(tmp_path / "jax_oom"), detector=jdet,
+                               fault_plan=_gabor_oom_plan(jfaults, files))
+    host = campaign.run_campaign(files, sel, str(tmp_path / "port_oom"), family="gabor",
+                                 fault_plan=_gabor_oom_plan(faults, files), **tkw)
+    _assert_manifests_match(tmp_path / "jax_oom", tmp_path / "port_oom")
+    assert [r.rung for r in host.records] == ["host", "host", "", "host"]
+    c = _picks_by_file(host)
+    for name in a:
+        for t in a[name]:
+            np.testing.assert_array_equal(c[name][t], a[name][t])
+
+
 def test_compact_batch_picks_matches_jax():
     rng = np.random.default_rng(3)
     pos = rng.integers(0, 1200, (2, 3, 5, 4)).astype(np.int32)
@@ -490,11 +634,13 @@ def test_not_in_slice_settings_raise(data, tmp_path):
     for kw, item in ((dict(preflight=True), "Campaign preflight"),
                      (dict(cost_cards=True), "Service and fleet"),
                      (dict(quality=True), "Service and fleet"),
-                     (dict(family="gabor"), "Gabor and learned")):
+                     (dict(family="learned"), "Learned")):
         with pytest.raises(NotImplementedError, match=item):
             campaign.run_campaign_batched(files, SEL, str(tmp_path / "x"), device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="Service and fleet"):
         campaign.run_campaign(files, SEL, str(tmp_path / "x"), device="cpu", quality=True)
+    with pytest.raises(NotImplementedError, match="Learned"):
+        campaign.run_campaign(files, SEL, str(tmp_path / "x"), device="cpu", family="learned")
     for fn, item in ((campaign.run_campaign_sharded, "Multi-GPU"),
                      (campaign.run_campaign_multiprocess, "Multi-GPU"),
                      (lambda: campaign.plot_campaign_density({}), "Workflow mains and plots")):
