@@ -5,7 +5,7 @@
 
 Builds the port's two CUDA kernels from ``das4whales_tpu_torch/csrc`` with
 ``nvcc`` (sm_90a) and the native ingest reader from
-``das4whales_tpu_torch/native/ingest.cpp`` with ``g++``, then runs eighteen
+``das4whales_tpu_torch/native/ingest.cpp`` with ``g++``, then runs twenty
 phases, one summary line each (more for the detector runs, with their
 profiles), and exits non-zero at the first failed check; no phase's
 failure is caught:
@@ -179,7 +179,33 @@ failure is caught:
                 ``run_campaign`` with ``family="gabor"`` over three TDMS
                 files on both devices, manifests equal record by record
                 (less wall times, span ids and pick counts), picks up to
-                knife edges, every injected call picked.
+                knife edges, every injected call picked;
+19. ``learned``  the learned CNN family on the ``detect`` phase's block,
+                conditioned on the host, through ``family_detector("learned",
+                ...)`` with the pretrained ``fin_cnn`` at full width: one
+                warm-up, three timed runs, stage walls from CUDA events
+                (stft, features, cnn, finalize), exactly one ``fused_stft``
+                launch and one read a call, the kernel within 5e-6 * max of
+                its plain version at the route's launch, peak memory, every
+                injected call picked, a profile; the kernel alone at this
+                shape (22050 x 12000, nfft 128, hop 32) beside its plain
+                version, ``torch.stft`` + power and its bound; the tiled view
+                against the one-program sweep; ``BatchedLearnedDetector`` at
+                [4, 22050, 12000] serial (picks bitwise the per-file calls')
+                and batched (scores within 1e-5, picks up to knife edges),
+                with its peak and the kernel held again at the slab's launch;
+                ``run_campaign_batched`` (batch 4) and ``run_campaign`` with
+                ``family="learned"`` over the slab files of 12000 samples:
+                every file done at ``batched:4`` / ``file`` (or the rung
+                served named), every call picked, one launch a slab / a file,
+                records equal to the same campaigns on the CPU over every
+                40th channel, those channels' picks up to knife edges;
+20. ``learned_cpu_vs_card`` the card's full-width scores on the channels
+                near the calls against ``device="cpu"`` on the same rows
+                (within 1e-5, picks up to knife edges); ``fit`` on JAX's test
+                scenes (2 x 32 x 3000, 25 epochs) on the card and on the CPU:
+                loss histories within 1e-3 (relative), the card's model
+                picking the held-out scene's calls.
 
 Then it prints the kernel table as one JSON line, the run's total
 seconds, the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. It imports no JAX and nothing
@@ -390,31 +416,54 @@ def _host_us(fn, reps: int) -> float:
     return us
 
 
-def _device_ms(fn, reps: int, kernel: str) -> float:
+#: host seconds a profiler session waits, the card idle, before the work it
+#: times: in a long run the profiler has lost the records of the first
+#: kernels of a session (a learned call's first 33 of 53 launches, once;
+#: all 20 launches of a 5 ms kernel, once)
+PROFILER_SETTLE_S = 0.5
+
+
+def _profiled(run):
+    """``torch.profiler`` over ``run()`` after ``PROFILER_SETTLE_S`` of
+    idle time inside the session; returns the profile."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILER_SETTLE_S)
+        run()
+        torch.cuda.synchronize()
+    return prof
+
+
+def _device_ms(fn, reps: int, kernel: str, required: bool = True) -> float | None:
     """Device time of one launch of ``kernel``: its CUPTI records under
     ``torch.profiler`` over ``reps`` calls of ``fn``, after one warm-up.
     Unlike CUDA events around the calls (:func:`_cuda_ms`), it leaves out
     the host's time a call where that is the longer. The mean is over the
-    launches the profiler kept: it has dropped the last few records of a
-    long run (17 of 20 launches of 4.6 ms each, once)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+    launches the profiler kept: it has dropped records of a long run (17
+    of 20 launches of 4.6 ms each, once; all of them, once), so a session
+    that kept none is tried twice more; then the phase fails, or, where
+    not ``required``, the time is not measured (None)."""
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us, n = 0.0, 0
-    for ev in prof.key_averages():
-        if str(getattr(ev, "device_type", "")).endswith("CUDA") and kernel in ev.key:
-            t = getattr(ev, "self_device_time_total", None)
-            us += t if t is not None else getattr(ev, "self_cuda_time_total", 0.0)
-            n += ev.count
-    if not 0 < n <= reps or us <= 0:
-        fail(f"kernels: the profiler recorded {n} launches of {kernel} ({us} us) in {reps} calls")
-    return us / n / 1e3
+    for _ in range(3):
+        prof = _profiled(lambda: [fn() for _ in range(reps)])
+        us, n = 0.0, 0
+        for ev in prof.key_averages():
+            if str(getattr(ev, "device_type", "")).endswith("CUDA") and kernel in ev.key:
+                t = getattr(ev, "self_device_time_total", None)
+                us += t if t is not None else getattr(ev, "self_cuda_time_total", 0.0)
+                n += ev.count
+        if n > reps or (n and us <= 0):
+            fail(f"kernels: the profiler recorded {n} launches of {kernel} ({us} us) in "
+                 f"{reps} calls")
+        if n:
+            return us / n / 1e3
+    if required:
+        fail(f"kernels: the profiler recorded no launch of {kernel} in three sessions of "
+             f"{reps} calls")
+    return None
 
 
 def _spikes(T: int, n: int, rng) -> np.ndarray:
@@ -548,6 +597,11 @@ def _picks_at_main_path(where: str, calls: dict, want_rows: dict) -> tuple:
     return err, notes
 
 
+#: rows of the STFT kernel's plain version a pass when a route's launch is
+#: held against it
+STFT_CHECK_ROWS = 8192
+
+
 def _stft_at_main_path(where: str, calls: dict, want_shape: tuple) -> tuple:
     """The STFT kernel against its plain version on the inputs a main path
     gave it (its first and last launch, from :func:`_capture`), each
@@ -563,9 +617,15 @@ def _stft_at_main_path(where: str, calls: dict, want_shape: tuple) -> tuple:
         if which == "first" and tuple(x.shape) != want_shape:
             fail(f"{where}: the {which} STFT launch took {tuple(x.shape)}, expected {want_shape}")
         k_pow = fused_stft.stft_power_cuda(x, nfft, hop, **kw)
-        p_pow = fused_stft.stft_power_plain(x, nfft, hop, **kw)
+        # the plain version in row blocks: at a slab's 88200 rows its frames
+        # and products would take tens of GB at once
+        e = scale = 0.0
+        for lo in range(0, x.shape[0], STFT_CHECK_ROWS):
+            p_pow = fused_stft.stft_power_plain(x[lo : lo + STFT_CHECK_ROWS], nfft, hop, **kw)
+            e = max(e, float((k_pow[lo : lo + STFT_CHECK_ROWS] - p_pow).abs().max()))
+            scale = max(scale, float(p_pow.abs().max()))
+            del p_pow
         torch.cuda.synchronize()
-        e, scale = float((k_pow - p_pow).abs().max()), float(p_pow.abs().max())
         if not (bool(torch.isfinite(k_pow).all()) and e <= STFT_REL_TOL * scale):
             fail(f"{where}: fused_stft at the {which} launch {tuple(x.shape)} nfft {nfft} hop "
                  f"{hop}: max|kernel - plain| {e:.3e} (limit {STFT_REL_TOL * scale:.3e})")
@@ -832,12 +892,7 @@ def _profile(label: str, run, wall_s: float, kernel: str) -> dict:
     device time by kernel family (``kernel``, cuFFT, other), and the
     device's busy share of the unprofiled median wall. A profiler that
     fails or records no device time fails the phase."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
+    prof = _profiled(run)
     fams = {kernel: 0.0, "cuFFT": 0.0, "other": 0.0}
     per_kernel = []
     n_kernels = 0
@@ -913,18 +968,25 @@ def phase_cpu_vs_card():
         f"rounding knife edges; {'; '.join(notes)}")
 
 @functools.lru_cache(maxsize=1)
-def _canonical_inputs():
-    """``(scene, raw, design)``: the ``detect`` phase's canonical block and
-    its fin design, made once for the phases that run without ``detect``
-    before them (``--only``; the design is about half a minute of host
-    work)."""
+def _canonical_block():
+    """``(scene, raw)``: the ``detect`` phase's canonical block, for the
+    phases that run without ``detect`` before them (``--only``)."""
     from das4whales_tpu_torch.io.synth import synthesize_scene, to_raw_counts
-    from das4whales_tpu_torch.models.matched_filter import design_matched_filter
 
     nx, ns = CANONICAL
     scene = _scene(nx, ns, n_calls=6, seed=SEED)
-    return (scene, to_raw_counts(synthesize_scene(scene), scene.metadata),
-            design_matched_filter((nx, ns), [0, nx, 1], scene.metadata, templates="fin"))
+    return scene, to_raw_counts(synthesize_scene(scene), scene.metadata)
+
+
+def _canonical_inputs():
+    """``(scene, raw, design)``: the canonical block and its fin design
+    (the design is about half a minute of host work)."""
+    from das4whales_tpu_torch.models.matched_filter import design_matched_filter
+
+    nx, ns = CANONICAL
+    scene, raw = _canonical_block()
+    return scene, raw, design_matched_filter((nx, ns), [0, nx, 1], scene.metadata,
+                                             templates="fin")
 
 
 def _timed_runs(call, counters, n: int = 3):
@@ -3125,6 +3187,410 @@ def phase_gabor_cpu_vs_card():
         f"{time.perf_counter() - t_phase:.1f} s")
 
 
+#: the learned family's card against CPU: scores within this (absolute;
+#: sigmoid scores lie in [0, 1]), picks equal up to knife edges within it
+LEARNED_CARD_ABS = 1e-5
+#: the one-program sweep against the tiled view and the batched facade on
+#: the card: scores within this (cuDNN may pick another algorithm for
+#: another batch size)
+LEARNED_CHUNK_ABS = 1e-5
+#: the CPU side of the learned campaigns reads every 40th channel (552 of
+#: 22050): scores are per channel, so those rows' picks are the card's
+LEARNED_CPU_STRIDE = 40
+#: fit on the card against fit on the CPU: each epoch's mean loss within
+#: this, relative
+LEARNED_FIT_REL = 1e-3
+LEARNED_BATCH = 4
+#: the CNN's operations a window (multiply-adds as 2): conv0 16x4 outputs
+#: x 16 channels x 9 taps, conv1 8x2 outputs x 32 channels x 9 x 16 taps
+LEARNED_CONV_OPS = 2 * (16 * 4 * 16 * 9 + 8 * 2 * 32 * 9 * 16)
+
+
+def _learned_rows(scene, nx: int) -> list:
+    """The channels within 8 of each injected call's nearest channel."""
+    return sorted({min(nx - 1, max(0, int(round(c.x0_m / scene.dx)) + d))
+                   for c in scene.calls for d in range(-8, 9)})
+
+
+def _learned_knife(label, a, b, scores, centers, thr, tol=LEARNED_CARD_ABS) -> int:
+    """Picks ``a`` and ``b`` equal up to knife edges of ``scores``; returns
+    the count of differing picks."""
+    from das4whales_tpu_torch.utils.parity import unexplained_learned_differences
+
+    bad = unexplained_learned_differences(a, b, scores, centers, thr, tol)
+    if bad:
+        fail(f"{label}: picks differ beyond rounding at {bad[:10]}")
+    return len({tuple(p) for p in np.asarray(a).T.tolist()}
+               ^ {tuple(p) for p in np.asarray(b).T.tolist()})
+
+
+def _learned_facade(det, x, notes):
+    """``BatchedLearnedDetector`` on a [4, nx, ns] slab of the canonical
+    block rolled along the channels (four distinct files), serial and
+    batched, against the per-file call on each file: serial picks bitwise,
+    batched scores within ``LEARNED_CHUNK_ABS`` and picks up to knife
+    edges; the peak of each mode, one ``fused_stft`` launch a slab
+    (batched) or a file (serial), the kernel held against its plain
+    version at the batched slab's launch. Returns ``(launches, err)``."""
+    import torch
+
+    from das4whales_tpu_torch.ops import fused_stft
+    from das4whales_tpu_torch.parallel.batch import LEARNED_BATCH_ROWS, batched_detector_for
+
+    nx, ns = x.shape
+    shifts = [k * nx // LEARNED_BATCH for k in range(LEARNED_BATCH)]
+    stack = torch.stack([x.roll(sh, 0) for sh in shifts])
+    refs = [det(stack[b]) for b in range(LEARNED_BATCH)]
+    out = {}
+    for serial in (True, False):
+        bd = batched_detector_for(det, serial=serial, trace_shape=(nx, ns))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        det.syncs = 0
+        t0 = time.perf_counter()
+        res = bd.detect_batch(stack)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_launches()
+        want = LEARNED_BATCH if serial else 1
+        if got != {"fused_picks": 0, "fused_stft": want} or det.syncs != 1:
+            fail(f"learned: the {'serial' if serial else 'batched'} facade launched {got} and "
+                 f"read {det.syncs} times, expected {want} fused_stft launches and one read")
+        out[serial] = (res, wall, torch.cuda.max_memory_allocated(), got["fused_stft"])
+    n_diff, worst = 0, 0.0
+    slab_scores = bd._fetch(bd._heavy(stack))      # the batched heavy stage's scores
+    for b, ref in enumerate(refs):
+        for k in ref.picks:
+            if not np.array_equal(out[True][0][b][0][k], ref.picks[k]):
+                fail(f"learned: the serial facade's picks of file {b} differ from the per-file "
+                     "call's")
+        worst = max(worst, float(np.abs(slab_scores[b] - ref.scores).max()))
+        n_diff += _learned_knife("learned: batched facade", ref.picks["CALL"],
+                                 out[False][0][b][0]["CALL"], ref.scores, ref.centers,
+                                 ref.thresholds["CALL"], LEARNED_CHUNK_ABS)
+    walls = {k: v[1:] for k, v in out.items()}       # (wall, peak, launches) by mode
+    del out, refs, slab_scores
+    torch.cuda.empty_cache()
+    with _capture(fused_stft, "stft_power_cuda") as calls:
+        bd.detect_batch(stack)
+        torch.cuda.synchronize()
+    del stack
+    torch.cuda.empty_cache()
+    err, rel, _ = _stft_at_main_path("learned: batched facade", calls,
+                                     (LEARNED_BATCH * nx, ns))
+    del calls
+    if not worst <= LEARNED_CHUNK_ABS:
+        fail(f"learned: the batched facade's scores are {worst:.3e} from the per-file call's "
+             f"(limit {LEARNED_CHUNK_ABS})")
+    notes.append(
+        f"BatchedLearnedDetector at [{LEARNED_BATCH}, {nx}, {ns}]: serial {walls[True][0] * 1e3:.1f}"
+        f" ms, peak {walls[True][1] / 2**30:.2f} GiB, picks bitwise the per-file calls'; batched "
+        f"(CNN passes of {LEARNED_BATCH_ROWS} rows) {walls[False][0] * 1e3:.1f} ms, peak "
+        f"{walls[False][1] / 2**30:.2f} GiB, scores within {worst:.3e} of the per-file calls', "
+        f"{n_diff} picks differing (knife "
+        f"edges); fused_stft within {rel:.2e} * max of plain at the slab's launch "
+        f"[{LEARNED_BATCH * nx}, {ns}]")
+    return walls[False][2], err
+
+
+def _learned_campaigns(meta, nx, notes):
+    """Both campaign entries with ``family="learned"`` over the slab phase's
+    four 12000-sample TDMS files on the card (batch 4, full width), every
+    file done at ``batched:4`` (else the rung served is named) and every
+    injected call picked; ``fused_stft`` launched once a slab and once a
+    file; the same campaigns on the CPU over every ``LEARNED_CPU_STRIDE``-th
+    channel, records equal (status, rung, attempts, family) and those
+    channels' picks equal up to knife edges. Returns ``(launches, err)``."""
+    import shutil
+
+    import torch
+
+    from das4whales_tpu_torch.io.stream import stream_batched_slabs
+    from das4whales_tpu_torch.models.learned import LearnedDetector, load_pretrained
+    from das4whales_tpu_torch.ops import fused_stft
+    from das4whales_tpu_torch.workflows import campaign as cmod
+
+    shared = slab_files()
+    files = [p for p, (_, ns) in zip(shared["paths"], SLAB_FILES) if ns == CANONICAL[1]]
+    scenes = dict(zip(shared["paths"], shared["scenes"]))
+    sub = [0, nx, LEARNED_CPU_STRIDE]
+    kw = dict(metadata=meta, interrogator="silixa", family="learned")
+    entries = ((cmod.run_campaign_batched, dict(batch=LEARNED_BATCH)), (cmod.run_campaign, {}))
+    res, walls, launches, err, rel = {}, {}, 0, 0.0, 0.0
+    for entry, extra in entries:
+        out = shared["dir"] / f"learned_{entry.__name__}_cuda"
+        shutil.rmtree(out, ignore_errors=True)
+        zero_launches()
+        with _capture(fused_stft, "stft_power_cuda") as calls:
+            t0 = time.perf_counter()
+            res[(entry.__name__, "cuda")] = entry(files, [0, nx, 1], str(out), **kw, **extra)
+            torch.cuda.synchronize()
+            walls[entry.__name__] = time.perf_counter() - t0
+        got = read_launches()
+        want = 1 if entry is cmod.run_campaign_batched else len(files)
+        if got != {"fused_picks": 0, "fused_stft": want}:
+            fail(f"learned: {entry.__name__} launched {got}, expected {want} fused_stft")
+        launches += got["fused_stft"]
+        e, r, _ = _stft_at_main_path(f"learned: {entry.__name__}", calls,
+                                     ((LEARNED_BATCH if want == 1 else 1) * nx, CANONICAL[1]))
+        err, rel = max(err, e), max(rel, r)
+        del calls
+        res[(entry.__name__, "cpu")] = entry(files, sub, str(shared["dir"] / f"learned_"
+                                             f"{entry.__name__}_cpu"), device="cpu", **kw, **extra)
+    cpu_det = LearnedDetector(*load_pretrained(), device="cpu")
+    blocks = {}
+    for slab in stream_batched_slabs(files, sub, meta, batch=1, bucket="exact",
+                                     interrogator="silixa", as_numpy=True):
+        blocks[slab.paths[0]] = slab.stack[0]
+    for name, want_rung in (("run_campaign_batched", f"batched:{LEARNED_BATCH}"),
+                            ("run_campaign", "file")):
+        ca, cb = res[(name, "cuda")], res[(name, "cpu")]
+        ra = [(os.path.basename(r.path), r.status, r.rung, r.family, r.attempts)
+              for r in ca.records]
+        rb = [(os.path.basename(r.path), r.status, r.rung, r.family, r.attempts)
+              for r in cb.records]
+        moves = _downshifts(shared["dir"] / f"learned_{name}_cuda")
+        if {(r[1], r[3]) for r in ra} != {("done", "learned")}:
+            fail(f"learned: {name}: records on the card {ra}")
+        if moves:
+            notes.append(f"{name} on the card downshifted {moves}: served at "
+                         f"{sorted({r[2] for r in ra})}")
+        elif ra != rb or {r[2] for r in ra} != {want_rung}:
+            fail(f"learned: {name}: records card {ra} vs cpu {rb}")
+        n_diff = 0
+        for x, y in zip(ca.records, cb.records):
+            pa, pb = cmod.load_picks(x.picks_file), cmod.load_picks(y.picks_file)
+            if _check_calls(scenes[x.path], pa):
+                fail(f"learned: {name}: {x.path}: an injected call was missed")
+            keep = pa["CALL"][0] % LEARNED_CPU_STRIDE == 0
+            a = np.asarray([pa["CALL"][0][keep] // LEARNED_CPU_STRIDE, pa["CALL"][1][keep]])
+            r = cpu_det(blocks[x.path])
+            n_diff += _learned_knife(f"learned: {name}: {x.path}", a, pb["CALL"], r.scores,
+                                     r.centers, 0.5)
+        notes.append(f"{name}(family='learned') over {len(files)} canonical TDMS files: card "
+                     f"{walls[name]:.1f} s, reads included, at {sorted({r[2] for r in ra})}, "
+                     f"every injected call picked; records equal to the CPU's over every "
+                     f"{LEARNED_CPU_STRIDE}th channel, {n_diff} of those channels' picks "
+                     "differing (knife edges)")
+    notes.append(f"the campaigns' fused_stft launches within {rel:.2e} * max of plain")
+    for d in shared["dir"].glob("learned_*"):
+        shutil.rmtree(d, ignore_errors=True)
+    return launches, err
+
+
+def phase_learned(scene=None, raw=None):
+    """The learned CNN family on the canonical block, conditioned on the
+    host, through ``family_detector("learned", ...)`` with the pretrained
+    ``fin_cnn`` at full width: timed runs, stage walls, one ``fused_stft``
+    launch and one read a call, the kernel against its plain version at
+    the route's launch, the peak, the injected calls, a profile; the
+    kernel alone at this shape; the tiled view against the one-program
+    sweep; the batched facade; both campaign entries. Returns
+    ``(launches, err, {...})``."""
+    import torch
+
+    from das4whales_tpu_torch.ops import fused_stft
+    from das4whales_tpu_torch.workflows.campaign import family_detector
+
+    if raw is None:
+        scene, raw = _canonical_block()
+    t_phase = time.perf_counter()
+    nx, ns = raw.shape
+    meta = scene.metadata
+    x = torch.as_tensor(_condition_on_host(raw, meta.scale_factor)).to("cuda")
+    det = family_detector("learned", meta, [0, nx, 1], (nx, ns))
+    cfg = det.cfg
+    if (det.device.type, det.row_chunk, cfg.compute_dtype, cfg.nfft, cfg.hop) != (
+            "cuda", None, "float32", 128, 32):
+        fail(f"learned: the detector resolved {det.device}, row_chunk {det.row_chunk}, {cfg}")
+    det(x)                                    # warm-up: cuDNN's algorithm choice, kernel load
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()                           # the main path's runs start here
+    det.syncs = 0
+    walls, stages, deltas, res = _timed_runs(
+        lambda hook: det(x, stage_hook=hook),
+        {"launches": lambda: fused_stft.launches, "syncs": lambda: det.syncs})
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    if launches["fused_picks"] or any(d != {"launches": 1, "syncs": 1} for d in deltas):
+        fail(f"learned: runs launched and read {deltas}, {launches}; expected one fused_stft "
+             "launch and one read a call")
+    n_win = (1 + ns // cfg.hop - cfg.win_frames) // cfg.win_stride + 1
+    if res.scores.shape != (nx, n_win) or not np.all((res.scores >= 0) & (res.scores <= 1)):
+        fail(f"learned: scores of shape {res.scores.shape}, range "
+             f"[{res.scores.min()}, {res.scores.max()}]")
+    p = res.picks["CALL"]
+    if p.shape[0] != 2 or not (np.all((p[0] >= 0) & (p[0] < nx)) and np.all((p[1] >= 0)
+                                                                               & (p[1] < ns))):
+        fail(f"learned: picks of shape {p.shape} or outside the block")
+    misses = _check_calls(scene, res.picks)
+    if misses:
+        fail(f"learned: injected calls missed {misses}")
+    wall = statistics.median(walls)
+    fams = _profile("LearnedDetector call", lambda: det(x), wall, "fused_stft")
+    with _capture(fused_stft, "stft_power_cuda") as calls:
+        det(x)
+        torch.cuda.synchronize()
+    err, rel, _ = _stft_at_main_path("learned", calls, (nx, ns))
+    del calls
+
+    # the kernel alone at the learned shape, beside its plain version and
+    # torch.stft + power
+    nfft, hop = cfg.nfft, cfg.hop
+    kern = dict(ms=_cuda_ms(lambda: fused_stft.stft_power_cuda(x, nfft, hop), 20),
+                device_ms=_device_ms(lambda: fused_stft.stft_power_cuda(x, nfft, hop), 20,
+                                     "fused_stft", required=False),
+                plain_ms=_cuda_ms(lambda: fused_stft.stft_power_plain(x, nfft, hop), 3),
+                library_ms=_cuda_ms(lambda: _torch_stft_power(x, nfft, hop), 10),
+                **_stft_bounds(nx, ns, nfft, hop))
+    torch.cuda.empty_cache()
+    conv_ops = LEARNED_CONV_OPS * nx * n_win
+
+    # the tiled view (window rows in chunks) against the one-program sweep
+    notes = []
+    tv = det.tiled_view()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r_t = tv(x)
+    torch.cuda.synchronize()
+    t_tiled = time.perf_counter() - t0
+    e_t = float(np.abs(r_t.scores - res.scores).max())
+    if not e_t <= LEARNED_CHUNK_ABS:
+        fail(f"learned: the tiled view's scores are {e_t:.3e} from the one-program sweep's")
+    n_t = _learned_knife("learned: tiled view", res.picks["CALL"], r_t.picks["CALL"],
+                         res.scores, res.centers, res.thresholds["CALL"], LEARNED_CHUNK_ABS)
+    notes.append(f"tiled view ({tv.row_chunk}-row CNN passes) {t_tiled * 1e3:.1f} ms, scores "
+                 f"{'bitwise' if e_t == 0 else f'within {e_t:.3e} of'} the one-program "
+                 f"sweep's ({nx * n_win} rows in one pass: conv1's padded input "
+                 f"{nx * n_win * cfg.features[0] * 17 * 5:.3e} elements), {n_t} picks differing")
+    del r_t, tv
+    torch.cuda.empty_cache()
+    batched_launches, b_err = _learned_facade(det, x, notes)
+    torch.cuda.empty_cache()
+    card = {"scores": res.scores, "centers": res.centers, "picks": res.picks["CALL"],
+            "rows": _learned_rows(scene, nx)}
+    rows = card["rows"]
+    card["x_rows"] = x[rows].cpu().numpy()
+    del x, det
+    torch.cuda.empty_cache()
+    camp_launches, c_err = _learned_campaigns(meta, nx, notes)
+    minutes = ns / meta.fs / 60.0
+    # the device's share of the wall from the CUDA-event stage walls (the
+    # stages before finalize run on the card; finalize is the read and the
+    # host's NMS): the profiler has dropped records of this call's kernels
+    med = _median_stages(stages)
+    dev_ms = med["stft"] + med["features"] + med["cnn"]
+    say(f"learned: {nx}x{ns} conditioned float32, family_detector('learned') with the "
+        f"pretrained fin_cnn (nfft {nfft}, hop {hop}, {cfg.win_frames}-frame windows every "
+        f"{cfg.win_stride}, {cfg.fmax_bin} bins, features {cfg.features}, float32, TF32 off): "
+        f"{nx * n_win} windows; median wall {wall * 1e3:.1f} ms (runs "
+        f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms); stage walls (median, CUDA events) "
+        f"{json.dumps(med)} ms; per run (fused_stft launches, syncs) "
+        f"{[tuple(d.values()) for d in deltas]}; device stages (stft, features, cnn) "
+        f"{dev_ms:.3f} ms = {100 * dev_ms / (wall * 1e3):.1f} % of the median wall; picks {p.shape[1]} "
+        f"({p.shape[1] / (nx * minutes):.3f} per channel-minute), every injected call picked "
+        f"on its nearest channel within 1 s; peak device memory {peak / 2**30:.2f} GiB; "
+        f"fused_stft within {rel:.2e} * max of its plain version at the route's launch; the "
+        f"CNN's convolutions {conv_ops:.3e} operations -> {conv_ops / F32_OPS_PER_S * 1e3:.2f} ms "
+        f"at 67 TFLOP/s f32")
+    dev = kern["device_ms"]
+    dev_txt = ("not measured: the profiler kept no launch" if dev is None
+               else f"{dev:.4f} ms")
+    say(f"learned: fused_stft alone at {nx}x{ns} nfft {nfft} hop {hop}: {kern['ms']:.4f} ms a "
+        f"call (device time {dev_txt}), plain {kern['plain_ms']:.3f} ms, "
+        f"torch.stft + power {kern['library_ms']:.3f} ms; bound {kern['bound_ms']:.4f} ms by "
+        f"{kern['bound_by']} (bytes {kern['bytes']:.3e} -> {kern['bytes_ms']:.4f} ms; FFT-form "
+        f"operations {kern['ops']:.3e} -> {kern['ops_ms']:.4f} ms); kernel at "
+        f"{100 * kern['bound_ms'] / kern['ms']:.1f} % of its bound; {cfg.fmax_bin} of its "
+        f"{nfft // 2 + 1} bins kept, {4 * nx * (nfft // 2 + 1 - cfg.fmax_bin) * (1 + ns // hop):.3e}"
+        f" bytes written and thrown away")
+    say(f"learned: {'; '.join(notes)}; phase {time.perf_counter() - t_phase:.1f} s")
+    return ({"learned": launches["fused_stft"], "learned_batched": batched_launches,
+             "campaign_learned": camp_launches}, max(err, b_err, c_err),
+            {"wall_ms": wall * 1e3, "peak": peak, "kernel": kern, "fams": fams, "card": card})
+
+
+def _learned_fit_scenes():
+    """The JAX package's learned test scenes (32 x 3000 at 8 m, noise
+    0.08): two training scenes and the held-out one."""
+    from das4whales_tpu_torch.io.synth import SyntheticCall, SyntheticScene
+
+    def scene(seed, amps):
+        calls = [SyntheticCall(t0=3.0 + 4.5 * k, x0_m=100.0 + 60 * k, amplitude=a)
+                 for k, a in enumerate(amps)]
+        return SyntheticScene(nx=32, ns=3000, dx=8.0, noise_rms=0.08, calls=calls, seed=seed)
+
+    return [scene(s, [0.6, 0.9]) for s in range(2)], scene(99, [0.8, 0.7])
+
+
+def phase_learned_cpu_vs_card(card=None):
+    """The learned family on the card against ``device="cpu"``: the card's
+    full-width scores on the channels near the calls (``card`` from the
+    ``learned`` phase; recomputed at full width on the card when absent)
+    against the CPU's on the same rows, within ``LEARNED_CARD_ABS``, picks
+    up to knife edges; then ``fit`` on the card and on the CPU (the JAX
+    package's test scenes, 25 epochs): loss histories within
+    ``LEARNED_FIT_REL`` and the card's model finding the held-out scene's
+    calls."""
+    import torch
+
+    from das4whales_tpu_torch.models import learned as lmod
+
+    t_phase = time.perf_counter()
+    if card is None:
+        scene, raw = _canonical_block()
+        x = torch.as_tensor(_condition_on_host(raw, scene.metadata.scale_factor)).to("cuda")
+        r = lmod.LearnedDetector(*lmod.load_pretrained())(x)
+        rows = _learned_rows(scene, raw.shape[0])
+        card = {"scores": r.scores, "centers": r.centers, "picks": r.picks["CALL"],
+                "rows": rows, "x_rows": x[rows].cpu().numpy()}
+        del x, raw
+    rows = np.asarray(card["rows"])
+    cpu = lmod.LearnedDetector(*lmod.load_pretrained(), device="cpu")(card["x_rows"])
+    ref = card["scores"][rows]
+    e = float(np.abs(cpu.scores - ref).max())
+    if not e <= LEARNED_CARD_ABS:
+        fail(f"learned_cpu_vs_card: scores {e:.3e} apart (limit {LEARNED_CARD_ABS})")
+    keep = np.isin(card["picks"][0], rows)
+    a = np.asarray([np.searchsorted(rows, card["picks"][0][keep]), card["picks"][1][keep]])
+    n_diff = _learned_knife("learned_cpu_vs_card", a, cpu.picks["CALL"], cpu.scores,
+                            cpu.centers, 0.5)
+
+    train, held = _learned_fit_scenes()
+    hist, models, fit_s = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        models[dev], hist[dev] = lmod.fit(lmod.LearnedConfig(), train, epochs=25, batch=512,
+                                          seed=0, device=dev)
+        fit_s[dev] = time.perf_counter() - t0
+    h_card, h_cpu = np.asarray(hist["cuda"]), np.asarray(hist["cpu"])
+    e_fit = float(np.max(np.abs(h_card - h_cpu) / np.abs(h_cpu)))
+    if not e_fit <= LEARNED_FIT_REL:
+        fail(f"learned_cpu_vs_card: fit's loss histories {e_fit:.3e} apart (relative; limit "
+             f"{LEARNED_FIT_REL}): card {h_card.tolist()}, cpu {h_cpu.tolist()}")
+    if not (h_card[-1] < 0.1 and h_card[-1] < 0.3 * h_card[0]):
+        fail(f"learned_cpu_vs_card: fit on the card did not converge: {h_card.tolist()}")
+    from das4whales_tpu_torch.io.synth import synthesize_scene
+
+    trained = lmod.LearnedDetector(models["cuda"], lmod.LearnedConfig())
+    picked = trained(torch.as_tensor(synthesize_scene(held), dtype=torch.float32).cuda())
+    misses = _check_calls(held, picked.picks)
+    if misses:
+        fail(f"learned_cpu_vs_card: the model trained on the card missed {misses} of the "
+             "held-out scene's calls")
+    say(f"learned_cpu_vs_card: the card's full-width scores on {len(rows)} channels near the "
+        f"calls against device='cpu' on the same rows: within {e:.3e} (limit "
+        f"{LEARNED_CARD_ABS}), picks {a.shape[1]} on the card, {n_diff} differing (knife "
+        f"edges); fit (JAX's test scenes, 2 x 32 x 3000, 25 epochs, batch 512) card "
+        f"{fit_s['cuda']:.1f} s, cpu {fit_s['cpu']:.1f} s, loss histories within {e_fit:.3e} "
+        f"(relative; limit {LEARNED_FIT_REL}), final loss card {h_card[-1]:.5f} / cpu "
+        f"{h_cpu[-1]:.5f}; the card's model picks both held-out calls "
+        f"({picked.picks['CALL'].shape[1]} picks on 32 x 3000); phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv: list) -> int:
     import torch
 
@@ -3159,11 +3625,13 @@ def main(argv: list) -> int:
         slab_stft_launches, slab_stft_err = phase_slab_cpu_vs_card()
         campaign_launches = phase_campaign()
         gabor_launches, gabor_campaign_launches, gabor_err, _ = phase_gabor(scene, raw, design)
+        learned_launches, learned_err, learned = phase_learned(scene, raw)
     finally:
         remove_slab_files()
     del scene, raw, design
     campaign_stft_launches, campaign_stft_err = phase_campaign_cpu_vs_card()
     phase_gabor_cpu_vs_card()
+    phase_learned_cpu_vs_card(learned["card"])
     pk = kern["pack"]
     print(json.dumps({"kernels": [{
         "name": "fused_picks",
@@ -3190,8 +3658,8 @@ def main(argv: list) -> int:
         "replaces": "das4whales_tpu/ops/pallas_stft.py:71",
         "launches": stft_launches,
         "launches_by_path": {"spectro": stft_launches, "slab_spectro": slab_stft_launches,
-                             "campaign_spectro": campaign_stft_launches},
-        "max_abs_err": max(stft_err, slab_stft_err, campaign_stft_err),
+                             "campaign_spectro": campaign_stft_launches, **learned_launches},
+        "max_abs_err": max(stft_err, slab_stft_err, campaign_stft_err, learned_err),
         "ms": stft["ms"],
         "device_ms": stft["device_ms"],
         "plain_ms": stft["plain_ms"],

@@ -1,12 +1,17 @@
 """das4whales_tpu_torch — the PyTorch/CUDA port of das4whales_tpu.
 
-Two detector families run eagerly on torch tensors: the matched-filter
+Four detector families run eagerly on torch tensors: the matched-filter
 one-program path (raw-wire conditioning -> bandpass folded into the
 banded f-k mask, or staged -> channel-tiled corrected correlograms ->
 in-graph threshold -> Hilbert analytic signal -> fused pick kernel ->
-row-major compaction) and the spectrogram-correlation family (the same
+row-major compaction), the spectrogram-correlation family (the same
 prefilter -> per-chunk |STFT|^2 -> band slice -> hat-kernel correlation
--> adaptive-K picks). Transforms go to ``torch.fft`` (cuFFT on the card);
+-> adaptive-K picks), the Gabor/image family (the same prefilter -> the
+t-x envelope as an image -> an oriented Gabor pair and two thresholds ->
+a smoothed mask -> masked matched filters -> fused pick kernel) and the
+learned family (|STFT| -> log-spectrogram windows -> a small CNN on
+cuDNN -> threshold and NMS on the host; trainable with ``fit``).
+Transforms go to ``torch.fft`` (cuFFT on the card);
 the pick stage and the STFT are hand-written CUDA kernels for Hopper
 (``csrc/fused_picks.cu``, ``csrc/fused_stft.cu``), built with ``nvcc`` at
 first use. The batched ingest path feeds them: ``io.stream`` streams

@@ -1,6 +1,6 @@
 """State carried across from the JAX package.
 
-No detector family here has learned weights. The matched filter's state
+The matched filter's state
 is its design — the f-k mask, the bandpass gain and the template stack
 with its threshold policy. ``design_from_arrays`` builds the port's
 ``MatchedFilterDesign`` from the JAX design's fields given as numpy
@@ -14,9 +14,14 @@ configuration; its hat kernels are rebuilt from it on the host:
 the two thresholds) and its call notes: ``gabor_design_from_arrays`` and
 ``gabor_detector_from_jax`` carry them across, and
 ``gabor_design_to_arrays`` / ``gabor_detector_to_arrays`` give them back
-as the fields JAX's ``GaborDesign`` takes. The batched ingest's configuration — the
-data-health thresholds and the shape buckets — is carried as plain
-fields (``health_config_from_fields``, ``bucket_config_from_fields``).
+as the fields JAX's ``GaborDesign`` takes. The learned family's state is
+its trained weights: ``learned_params_from_arrays`` builds the port's
+``LearnedCNN`` from JAX's parameter pytree given as numpy arrays
+(convolution weights HWIO there, OIHW here), and
+``learned_params_to_arrays`` gives the pytree back. The batched ingest's
+configuration — the data-health thresholds and the shape buckets — is
+carried as plain fields (``health_config_from_fields``,
+``bucket_config_from_fields``).
 Nothing here imports the JAX package: the caller hands over plain arrays
 and values.
 """
@@ -30,6 +35,7 @@ import torch
 
 from .config import BatchBucketConfig, DataHealthConfig
 from .models.gabor import GaborDesign, GaborDetector
+from .models.learned import LearnedCNN
 from .models.matched_filter import MatchedFilterDesign
 from .models.spectro import SpectroCorrDetector
 
@@ -153,6 +159,49 @@ def gabor_detector_to_arrays(det) -> dict:
     out["notes"] = {n: np.array(a.cpu() if isinstance(a, torch.Tensor) else a, np.float32)
                     for n, a in det.notes.items()}
     out["max_peaks"] = int(det.max_peaks)
+    return out
+
+
+def learned_params_from_arrays(params: Mapping, cfg_fields: Mapping) -> LearnedCNN:
+    """JAX's learned parameter pytree ``{"conv0": {"w": [3, 3, I, O], "b":
+    [O]}, ..., "head": {"w": [C], "b": ()}}`` (numpy or any array type)
+    and the configuration's fields (``features`` is read) -> the port's
+    :class:`LearnedCNN` on the CPU, every value float32 and bitwise the
+    source's (weights permuted HWIO -> OIHW)."""
+    _missing(cfg_fields, ("features",), "learned config")
+    features = tuple(int(f) for f in cfg_fields["features"])
+    want = [f"conv{i}" for i in range(len(features))] + ["head"]
+    if sorted(params) != sorted(want):
+        raise KeyError(f"learned parameters {sorted(params)} != {sorted(want)} for features "
+                       f"{features}")
+    model = LearnedCNN(features)
+
+    def f32(v):
+        return torch.from_numpy(np.array(v, np.float32))
+
+    with torch.no_grad():
+        for i, conv in enumerate(model.convs):
+            w = f32(params[f"conv{i}"]["w"]).permute(3, 2, 0, 1)
+            if tuple(w.shape) != tuple(conv.weight.shape):
+                raise ValueError(f"conv{i}.w has shape {tuple(w.shape)} (OIHW), expected "
+                                 f"{tuple(conv.weight.shape)}")
+            conv.weight.copy_(w)
+            conv.bias.copy_(f32(params[f"conv{i}"]["b"]))
+        model.head_w.copy_(f32(params["head"]["w"]))
+        model.head_b.copy_(f32(params["head"]["b"]).reshape(()))
+    return model
+
+
+def learned_params_to_arrays(model: LearnedCNN) -> dict:
+    """A :class:`LearnedCNN` -> JAX's parameter pytree as numpy float32
+    (weights HWIO, ``head.b`` 0-d): ``save_params`` of either package
+    writes it, and JAX's ``cnn_logits`` takes it as is."""
+    out = {}
+    for i, conv in enumerate(model.convs):
+        out[f"conv{i}"] = {"w": conv.weight.detach().cpu().permute(2, 3, 1, 0).contiguous().numpy(),
+                           "b": conv.bias.detach().cpu().numpy().copy()}
+    out["head"] = {"w": model.head_w.detach().cpu().numpy().copy(),
+                   "b": model.head_b.detach().cpu().numpy().copy()}
     return out
 
 

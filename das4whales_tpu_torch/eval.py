@@ -1,5 +1,6 @@
 """The spectro and Gabor families' adapters to the evaluation protocol
-(the port's copy of ``_EvalResult``, ``SpectroEvalAdapter`` and
+and the scenes' ground-truth arrivals (the port's copy of
+``arrival_times``, ``_EvalResult``, ``SpectroEvalAdapter`` and
 ``GaborEvalAdapter`` of ``das4whales_tpu.eval``)."""
 
 from __future__ import annotations
@@ -10,6 +11,16 @@ from typing import Callable, Dict
 import numpy as np
 
 from .utils.views import cached_shallow_view
+
+
+def arrival_times(call, scene) -> np.ndarray:
+    """Per-channel arrival time [s] of ``call`` (an ``io.synth.SyntheticCall``)
+    in ``scene``'s geometry: the straight cable along x, the 3-D slant
+    range at the call's speed (``io.synth.synthesize_scene``'s injection
+    delays)."""
+    x = np.arange(scene.nx) * scene.dx
+    slant = np.sqrt((x - call.x0_m) ** 2 + call.y0_m ** 2 + call.z0_m ** 2)
+    return call.t0 + slant / call.speed
 
 
 @dataclass

@@ -87,12 +87,14 @@ _TRANSIENT_MARKERS = (
 #: status and allocator messages; the ladder itself raises that text);
 #: the second is the card's libraries: cuFFT's plan allocation
 #: (``CUFFT_ALLOC_FAILED``, which PyTorch surfaces as a bare
-#: ``RuntimeError``) and cuBLAS's workspace.
+#: ``RuntimeError``), cuBLAS's workspace and cuDNN's (the learned
+#: family's convolutions).
 _RESOURCE_MARKERS = (
     "resource_exhausted", "resource exhausted", "out of memory",
     "failed to allocate", "allocation failure", "allocating",
     "exceeds the hbm", "hbm space", "exhausts hbm",
     "cufft_alloc_failed", "cublas_status_alloc_failed",
+    "cudnn_status_alloc_failed",
 )
 
 #: Exception type names whose message is scanned for the resource markers
@@ -248,8 +250,9 @@ def classify_failure(exc: BaseException) -> str:
     everything immediately, so unknown==corrupt preserves behavior);
     ``data`` — the CONTENT is bad, quarantine; ``resource`` — the
     DEVICE ran out of memory for this program shape
-    (``torch.cuda.OutOfMemoryError`` by type; a ``RESOURCE_EXHAUSTED``,
-    allocator or ``CUFFT_ALLOC_FAILED`` text): never retried
+    (``torch.cuda.OutOfMemoryError`` by type, from a convolution too; a
+    ``RESOURCE_EXHAUSTED``, allocator, ``CUFFT_ALLOC_FAILED`` or
+    ``CUDNN_STATUS_ALLOC_FAILED`` text): never retried
     identically, but recoverable by the elastic downshift ladder
     (smaller batch, tiled route, host — ``workflows.planner``);
     ``fatal`` — abort the campaign. An exception may self-classify via a

@@ -36,8 +36,12 @@ slab's program before it.
 halves of a bank with decoupled thresholds, each on the parent's sliced
 template tensors (``MatchedFilterDetector.split_views``).
 
+The learned family's facade (:class:`BatchedLearnedDetector`) scores a
+slab's windows in chunks of at most :data:`LEARNED_BATCH_ROWS` rows, so
+its activations stay bounded at any batch size.
+
 Not in this slice: ``program_spec`` (absent) for the memory preflight
-('Campaign preflight'); the learned facade comes with 'Learned'.
+('Campaign preflight').
 """
 
 from __future__ import annotations
@@ -47,8 +51,8 @@ from typing import Callable, Dict, List
 import numpy as np
 import torch
 
-from ..config import not_in_slice as _not_in_slice
 from ..eval import GaborEvalAdapter, SpectroEvalAdapter
+from ..models.learned import LearnedDetector
 from ..models.matched_filter import (
     InFlightResult,
     MatchedFilterDetector,
@@ -245,10 +249,11 @@ class BatchedMatchedFilterDetector:
 
 class _BatchedFamilyDetector:
     """Batched-facade machinery for the detector families without a fused
-    program (spectro and Gabor here): a ``[B, C, T]`` slab in, per-file ``(picks,
-    thresholds[, stats])`` entries out. The heavy stage (prefilter +
-    correlograms) runs file by file (``serial``) or over the file axis
-    at once; the finalize stage is the family's own per-file picking.
+    program (spectro, Gabor and learned): a ``[B, C, T]`` slab in,
+    per-file ``(picks, thresholds[, stats])`` entries out. The heavy
+    stage (the family's device work) runs file by file (``serial``) or
+    over the file axis at once; the finalize stage is the family's own
+    per-file picking.
     Health stats are the host-side ``ops.health.host_health_stats`` of
     each file's block, read back from the slab."""
 
@@ -274,6 +279,11 @@ class _BatchedFamilyDetector:
     def _heavy(self, stack: torch.Tensor) -> Dict[str, torch.Tensor]:
         """The heavy stage over ``stack [n, C, T]``: ``{name: [n, ...]}``."""
         raise NotImplementedError
+
+    def _fetch(self, heavy):
+        """The heavy output as :meth:`_finalize_one` reads it: as it is,
+        on the device, unless the family reads it to the host once."""
+        return heavy
 
     def _finalize_one(self, heavy, b: int):
         raise NotImplementedError
@@ -305,7 +315,7 @@ class _BatchedFamilyDetector:
         state = {"heavy": self._heavy(stack)}
 
         def resolve() -> List[tuple]:
-            heavy = state.pop("heavy")
+            heavy = self._fetch(state.pop("heavy"))
             out = []
             for b in range(nv):
                 picks, thresholds = self._finalize_one(heavy, b)
@@ -394,10 +404,60 @@ class BatchedGaborDetector(_BatchedFamilyDetector):
         return {k: np.asarray(v) for k, v in picks.items()}, dict(thresholds)
 
 
+#: Window rows a CNN pass of the batched learned facade takes at most:
+#: 2^20 rows of [32, 8] windows give conv0 an output of 2^30 float32
+#: elements (4.3 GB) and conv1 a padded input of 1.43e9 (5.7 GB), about
+#: 10 GB live at a time, so a [4, 22050, 12000] slab (8.2M windows) scores
+#: in 8 passes where one pass would hold about 78 GB (PERF.md §5).
+LEARNED_BATCH_ROWS = 1 << 20
+
+
+class BatchedLearnedDetector(_BatchedFamilyDetector):
+    """Batched facade over one ``models.learned.LearnedDetector``: the
+    heavy stage is the windowed features and the CNN's sigmoid scores,
+    ``[n, C, n_win]`` on the device (serial: file by file, each file the
+    per-file call's one-program sweep; batched: the STFT kernel once over
+    the slab's ``n * C`` rows, the CNN in passes of at most
+    :data:`LEARNED_BATCH_ROWS` window rows); finalize is the detector's
+    threshold and per-channel NMS on the host. The bucket shape is not
+    derivable from the detector: pass ``trace_shape``."""
+
+    family = "learned"
+
+    def _device(self) -> torch.device:
+        return self.det.device
+
+    @property
+    def engine(self) -> str:
+        """The resolved STFT engine the features ride."""
+        from ..ops import spectral
+
+        return spectral.resolve_stft_engine()
+
+    def _heavy(self, stack):
+        det = self.det
+        if self.serial:
+            return torch.stack([det.scores(stack[b]) for b in range(stack.shape[0])])
+        n, C, T = stack.shape
+        scores = det.scores(torch.as_tensor(stack).reshape(n * C, T),
+                            row_chunk=LEARNED_BATCH_ROWS)
+        return scores.reshape(n, C, scores.shape[-1])
+
+    def _fetch(self, heavy):
+        # the slab's one device->host read: every file's scores
+        self.det.syncs += 1
+        return heavy.cpu().numpy()
+
+    def _finalize_one(self, heavy, b: int):
+        res = self.det.picks_from_scores(heavy[b])
+        return dict(res.picks), dict(res.thresholds)
+
+
 def batched_detector_for(detector, *, donate: bool = True, serial: bool | None = None,
                          trace_shape=None):
     """Any campaign detector -> its batched facade: the matched filter, the
-    spectro and the Gabor family. Learned comes with its ROADMAP item."""
+    spectro, the Gabor and the learned family (``trace_shape`` pins the
+    bucket ``(C, T)`` where the family cannot derive it)."""
     if isinstance(detector, MatchedFilterDetector):
         return BatchedMatchedFilterDetector(detector, donate=donate, serial=serial)
     if isinstance(detector, SpectroEvalAdapter):
@@ -406,9 +466,10 @@ def batched_detector_for(detector, *, donate: bool = True, serial: bool | None =
     if isinstance(detector, GaborEvalAdapter):
         return BatchedGaborDetector(detector, donate=donate, serial=serial,
                                     trace_shape=trace_shape)
-    if type(detector).__name__ == "LearnedDetector":
-        raise _not_in_slice(f"the batched facade of {type(detector).__name__}", "Learned")
+    if isinstance(detector, LearnedDetector):
+        return BatchedLearnedDetector(detector, donate=donate, serial=serial,
+                                      trace_shape=trace_shape)
     raise TypeError(
         f"no batched facade for detector type {type(detector).__name__}; "
-        "families with one: matched filter, spectro, gabor"
+        "families with one: matched filter, spectro, gabor, learned"
     )

@@ -5,8 +5,9 @@ differently: cuFFT, pocketfft and XLA's FFT disagree in the last bits,
 and so do reductions taken in another order. A pick then flips only
 where a decision sits on a knife edge. :func:`unexplained_differences`
 lists the picks in the symmetric difference of two pick sets that no
-such knife edge explains; the tests and ``chip_smoke.py`` require that
-list to be empty.
+such knife edge explains; :func:`unexplained_learned_differences` does
+the same for the learned family's window picks against its scores. The
+tests and ``chip_smoke.py`` require those lists to be empty.
 """
 
 from __future__ import annotations
@@ -59,6 +60,31 @@ def unexplained_differences(picks_a: np.ndarray, picks_b: np.ndarray,
             warnings.simplefilter("ignore")
             prom = float(sp.peak_prominences(row.astype(np.float64), [t])[0][0])
         if abs(prom - thr) <= tol:
+            continue
+        bad.append((int(c), int(t)))
+    return bad
+
+
+def unexplained_learned_differences(picks_a: np.ndarray, picks_b: np.ndarray,
+                                    scores: np.ndarray, centers: np.ndarray, thr: float,
+                                    tol: float = 1e-5):
+    """The learned family's counterpart of :func:`unexplained_differences`:
+    picks ``(2, n)`` [channel, window-center sample] in exactly one of the
+    two sets that no knife edge of ``scores [C, n_win]`` explains. A pick
+    at window ``w`` is explained when its score lies within ``tol``
+    (absolute) of the threshold ``thr`` or of a neighbouring window's
+    score (the NMS comparison could round either way). Returns the
+    unexplained ``(channel, sample)`` pairs."""
+    a = {tuple(p) for p in np.asarray(picks_a).T.tolist()}
+    b = {tuple(p) for p in np.asarray(picks_b).T.tolist()}
+    centers = np.asarray(centers)
+    bad = []
+    for c, t in sorted(a ^ b):
+        w = int(np.searchsorted(centers, t))
+        row = scores[c]
+        s = float(row[w])
+        near = [float(row[j]) for j in (w - 1, w + 1) if 0 <= j < row.shape[0]]
+        if abs(s - thr) <= tol or any(abs(v - s) <= tol for v in near):
             continue
         bad.append((int(c), int(t)))
     return bad

@@ -40,9 +40,8 @@ raises instead of failing every file.
 Not in this slice: the memory preflight (``preflight=True``; ROADMAP
 item 'Campaign preflight'), the cost cards and the quality observatory
 (``cost_cards=True``, ``quality=True``; 'Service and fleet'), the
-sharded and multi-process campaigns ('Multi-GPU'), the learned family
-('Learned') and the density plot ('Workflow mains and plots'). Each
-raises, naming its item.
+sharded and multi-process campaigns ('Multi-GPU') and the density plot
+('Workflow mains and plots'). Each raises, naming its item.
 """
 
 from __future__ import annotations
@@ -108,7 +107,8 @@ class FileRecord:
     attempts: int = 1
     #: data-health stats (ops.health) when the campaign computed them
     health: Dict[str, float] = field(default_factory=dict)
-    #: detector family that processed the file ("mf" | "spectro" | "gabor")
+    #: detector family that processed the file ("mf" | "spectro" | "gabor" |
+    #: "learned")
     family: str = ""
     #: the route rung that actually executed (faults.rung_label —
     #: "batched:4" / "file" / "tiled" / "host")
@@ -414,7 +414,10 @@ def family_detector(family: str, metadata, selected_channels, trace_shape,
     :func:`run_campaign_batched`. ``detector_kwargs`` are the family
     constructor's: ``MatchedFilterDetector``'s for ``"mf"``, the
     ``campaign_detector``'s of ``workflows.spectrodetect`` and
-    ``workflows.gabordetect`` for ``"spectro"`` and ``"gabor"``.
+    ``workflows.gabordetect`` for ``"spectro"`` and ``"gabor"``; for
+    ``"learned"`` either ``params=`` and ``cfg=`` or ``pretrained=``
+    (default ``"fin_cnn"``, ``models.learned.load_pretrained``) plus
+    ``LearnedDetector``'s keyword arguments.
 
     ``design=`` (a ``MatchedFilterDesign`` or the path of its checkpoint,
     written by either package's ``save_design``) builds the matched
@@ -454,11 +457,20 @@ def family_detector(family: str, metadata, selected_channels, trace_shape,
 
         return campaign_detector(metadata, selected_channels, trace_shape, device=device,
                                  design=design, **detector_kwargs)
-    if family == "learned":
-        raise _not_in_slice(f"family={family!r}", "Learned")
-    raise ValueError(
-        f"unknown detector family {family!r}; expected one of {FAMILIES}"
-    )
+    if family != "learned":
+        raise ValueError(
+            f"unknown detector family {family!r}; expected one of {FAMILIES}"
+        )
+    if design is not None:
+        raise ValueError("family='learned' has no f-k design; design= does not apply")
+    from ..models.learned import LearnedDetector, load_pretrained
+
+    kw = dict(detector_kwargs)
+    if "params" in kw and "cfg" in kw:
+        params, cfg = kw.pop("params"), kw.pop("cfg")
+    else:
+        params, cfg = load_pretrained(kw.pop("pretrained", "fin_cnn"))
+    return LearnedDetector(params, cfg, device=device, **kw)
 
 
 def run_campaign(
@@ -490,8 +502,10 @@ def run_campaign(
 
     ``detector=None`` builds the ``family``'s detector (``"mf"``: a
     ``MatchedFilterDetector``; ``"spectro"``, ``"gabor"``: the family's
-    eval adapter, conditioned wire only) on ``device`` (None: the card;
-    ``"cpu"``: the plain versions on the CPU) from the first readable
+    eval adapter; ``"learned"``: a ``LearnedDetector``, the pretrained
+    ``fin_cnn`` by default; all but ``"mf"`` on the conditioned wire
+    only) on ``device`` (None: the card; ``"cpu"``: the plain versions
+    on the CPU) from the first readable
     file's shape/metadata (extra ``detector_kwargs`` pass through,
     ``design=`` among them: :func:`family_detector`). The JAX package's
     ``run_campaign`` has no ``family``: a family's detector comes there
@@ -527,8 +541,6 @@ def run_campaign(
     if detector is None:
         if family not in FAMILIES:
             raise ValueError(f"unknown detector family {family!r}; expected one of {FAMILIES}")
-        if family == "learned":
-            raise _not_in_slice(f"family={family!r}", "Learned")
         if family != "mf" and wire != "conditioned":
             raise ValueError(f"family={family!r} requires wire='conditioned' (got "
                              f"wire={wire!r})")
@@ -737,10 +749,10 @@ def run_campaign_batched(
     plain versions on the CPU), and the batched facade
     (``parallel.batch.batched_detector_for``) detects the whole slab in
     one program and one packed read. ``family`` is ``"mf"`` (the
-    default), ``"spectro"`` or ``"gabor"``; the latter two require
-    ``wire="conditioned"`` and bucket exactly (their thresholds depend
-    on the record's own maximum, so a padded record would change its
-    picks).
+    default), ``"spectro"``, ``"gabor"`` or ``"learned"``; all but
+    ``"mf"`` require ``wire="conditioned"`` and bucket exactly (their
+    picks depend on the record's own samples and length, so a padded
+    record would change them).
     ``detector_kwargs`` go to :func:`family_detector` (``design=`` loads
     a design checkpoint instead of designing). ``serial`` picks the
     facade's mode (None: serial on the CPU, batched on the card).
@@ -781,8 +793,6 @@ def run_campaign_batched(
             f"unknown detector family {family!r}; batched campaigns serve "
             f"{', '.join(FAMILIES)}"
         )
-    if family == "learned":
-        raise _not_in_slice(f"family={family!r}", "Learned")
     if family != "mf" and wire != "conditioned":
         raise ValueError(
             f"family={family!r} requires wire='conditioned': the family's "

@@ -18,14 +18,16 @@ family of the campaigns inherits.
   chaos harness's ``on_dispatch(path, rung)`` hook INSIDE the deadline,
   and absorbs resource-class failures by descending the ladder.
 * :func:`program_for` — the family registry: a campaign detector (the
-  ``MatchedFilterDetector``, the spectro or Gabor eval adapter, or any
-  callable returning ``.picks``) to its :class:`DetectorProgram`.
+  ``MatchedFilterDetector``, the spectro or Gabor eval adapter, the
+  ``LearnedDetector``, or any callable returning ``.picks``) to its
+  :class:`DetectorProgram`.
 
 The rungs on one card: ``file`` (the per-file program), ``bank`` (the
 per-file program as two sub-bank halves, splittable banks only),
 ``tiled`` (the
 family's memory-lean view — channel-tiled correlation for the matched
-filter, smaller spectrogram chunks for spectro), ``timeshard`` (time-
+filter, smaller spectrogram chunks for spectro, window-row chunks of the
+CNN for the learned family), ``timeshard`` (time-
 sharded over a multi-device mesh — the port shards nothing, ROADMAP
 item 'Multi-GPU': the ladder never lists it, and a pinned ``timeshard``
 rung raises the resource text so the ladder moves on) and ``host`` (the family's detector views with
@@ -264,6 +266,24 @@ class GaborProgram(DetectorProgram):
     supports_batched = True
 
 
+class LearnedProgram(DetectorProgram):
+    """Learned CNN family (``models.learned.LearnedDetector``): per-file,
+    tiled (the classifier in bounded window-row chunks,
+    ``LearnedDetector.tiled_view``) and host (``host_view``) rungs. Scores
+    are per window, so every rung picks the same windows. The batched
+    slab route (``parallel.batch.BatchedLearnedDetector``) scores a
+    slab's files at once; threshold and NMS per file on the host."""
+
+    family = "learned"
+    stages = ("file", "tiled", "host")
+    supports_batched = True
+
+    def _det_at(self, stage):
+        if stage == "tiled":
+            return self.det.tiled_view()
+        return super()._det_at(stage)
+
+
 #: family name -> the family's program class (the batched campaign
 #: resolves ladder stages and per-file-rung programs through this table;
 #: ``program_for`` stays the detector-instance registry)
@@ -271,6 +291,7 @@ FAMILY_PROGRAMS = {
     "mf": MatchedFilterProgram,
     "spectro": SpectroProgram,
     "gabor": GaborProgram,
+    "learned": LearnedProgram,
 }
 
 
@@ -295,10 +316,13 @@ def program_for(detector) -> DetectorProgram:
     if isinstance(detector, DetectorProgram):
         return detector
     from ..eval import GaborEvalAdapter, SpectroEvalAdapter
+    from ..models.learned import LearnedDetector
     from ..models.matched_filter import MatchedFilterDetector
 
     if isinstance(detector, MatchedFilterDetector):
         return MatchedFilterProgram(detector)
+    if isinstance(detector, LearnedDetector):
+        return LearnedProgram(detector)
     if isinstance(detector, SpectroEvalAdapter):
         return SpectroProgram(detector)
     if isinstance(detector, GaborEvalAdapter):

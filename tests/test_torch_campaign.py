@@ -21,6 +21,7 @@ Within the port, picks are bitwise equal at every rung on one device:
 from __future__ import annotations
 
 import os
+import time
 
 import jax
 import numpy as np
@@ -314,12 +315,39 @@ def test_picks_bitwise_across_rungs(data, tmp_path):
 def test_wedged_dispatch_times_out_that_file_only(data, tmp_path):
     """The dispatch watchdog: a wedged dispatch of one file fails the slab
     (the slab's files then run one by one at the per-file rung), and only
-    that file ends ``timeout``; the wedged worker is abandoned."""
+    that file ends ``timeout``; the wedged worker is abandoned.
+
+    Which file times out must not depend on the host's load: the
+    per-file program is warmed first and honest dispatches of it timed,
+    one intra-op thread throughout (on a loaded host a 64 x 1024 block
+    runs no faster on more); the deadline has a tenfold margin over their
+    median (2 s at least, 15 s at most), and the wedge lasts four
+    deadlines, so an abandoned worker wakes only after the per-file runs
+    are done."""
+    from das4whales_tpu_torch.io.hdf5 import load_das_data
+    from das4whales_tpu_torch.utils.checkpoint import load_design
+
     files = _files(data, CLEAN)
-    plan = faults.FaultPlan(0, rate=0.0, hang_s=1.5, pinned={
-        "f1.h5": faults.FaultSpec("hang_dispatch", "dispatch", 10**9)})
-    res = _port_batched(data, files, tmp_path / "hang", batch=4, fault_plan=plan,
-                        dispatch_deadline_s=0.5)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        det = MatchedFilterDetector.from_design(load_design(data["designs"][T_BUCKET][1]),
+                                                data["meta"], device="cpu")
+        block = np.zeros((NX, T_BUCKET), np.float32)
+        block[:, :1000] = load_das_data(files[0], SEL, data["meta"], device="cpu").trace.numpy()
+        det.detect_picks(block)
+        honest = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            det.detect_picks(block)
+            honest.append(time.perf_counter() - t0)
+        deadline = min(15.0, max(2.0, 10.0 * float(np.median(honest))))
+        plan = faults.FaultPlan(0, rate=0.0, hang_s=4.0 * deadline, pinned={
+            "f1.h5": faults.FaultSpec("hang_dispatch", "dispatch", 10**9)})
+        res = _port_batched(data, files, tmp_path / "hang", batch=4, fault_plan=plan,
+                            dispatch_deadline_s=deadline)
+    finally:
+        torch.set_num_threads(threads)
     assert [(r.status, r.rung) for r in res.records] == [
         ("done", "file"), ("timeout", "file"), ("done", "file"), ("done", "file")]
     counters = [e for e in _manifest(tmp_path / "hang") if e.get("event") == "counters"]
@@ -587,6 +615,101 @@ def test_gabor_family_serial_batched_is_bitwise_the_per_file_campaign(gabor_data
             np.testing.assert_array_equal(c[name][t], a[name][t])
 
 
+LEARNED_NX, LEARNED_NS = 32, 3000
+
+
+@pytest.fixture(scope="module")
+def learned_files(tmp_path_factory):
+    """Three 32 x 3000 files in the geometry of JAX's learned tests (8 m
+    channels, noise 0.08) with one call each, and a corrupt one."""
+    d = tmp_path_factory.mktemp("learned_files")
+    files = []
+    for k in range(3):
+        scene = SyntheticScene(nx=LEARNED_NX, ns=LEARNED_NS, dx=8.0, noise_rms=0.08,
+                               seed=80 + k, calls=[SyntheticCall(
+                                   t0=3.0 + 2.0 * k, x0_m=100.0 + 40.0 * k, amplitude=0.8)])
+        files.append(write_synthetic_file(str(d / f"l{k}.h5"), scene))
+    (d / "lbad.h5").write_bytes(b"\x00 not an hdf5 file " * 64)
+    files.insert(2, str(d / "lbad.h5"))
+    return files
+
+
+def _assert_learned_picks(jm, tm):
+    """Saved picks of every done file: equal, or every pick in the
+    symmetric difference on a knife edge (1e-4) of the port's own scores
+    of that file at the saved threshold."""
+    from das4whales_tpu_torch.io.hdf5 import load_das_data
+    from das4whales_tpu_torch.models.learned import LearnedDetector, load_pretrained
+    from das4whales_tpu_torch.utils.parity import unexplained_learned_differences
+
+    det = LearnedDetector(*load_pretrained(), device="cpu")
+    meta = SyntheticScene(nx=LEARNED_NX, ns=LEARNED_NS, dx=8.0).metadata
+    n = 0
+    for a, b in zip(jm, tm):
+        if a.get("status") != "done":
+            continue
+        pa, pb = jcampaign.load_picks(a["picks_file"]), campaign.load_picks(b["picks_file"])
+        thr = _thresholds(b["picks_file"])
+        assert thr == {"CALL": 0.5}
+        res = det(load_das_data(a["path"], [0, LEARNED_NX, 1], meta, device="cpu").trace)
+        bad = unexplained_learned_differences(pa["CALL"], pb["CALL"], res.scores, res.centers,
+                                              thr["CALL"], 1e-4)
+        assert not bad, f"{a['path']}: picks differ beyond rounding at {bad}"
+        n += pb["CALL"].shape[1]
+    assert n > 0
+
+
+@pytest.mark.parametrize("oom", [False, True], ids=["healthy", "oom_to_host"])
+def test_learned_family_batched_matches_jax(learned_files, tmp_path, oom):
+    """``run_campaign_batched(family="learned")`` (the pretrained
+    ``fin_cnn``) at batch 2 on both packages: manifests equal record by
+    record; with a pinned oom at every dispatch the ladder walks
+    ``batched:2 -> file -> tiled -> host`` on both."""
+    files, sel = learned_files, [0, LEARNED_NX, 1]
+    jkw = dict(family="learned", batch=2, persistent_cache=False)
+    tkw = dict(family="learned", batch=2, device="cpu")
+    if oom:
+        jkw["fault_plan"] = _gabor_oom_plan(jfaults, files)
+        tkw["fault_plan"] = _gabor_oom_plan(faults, files)
+    with jax.enable_x64(False):
+        jcampaign.run_campaign_batched(files, sel, str(tmp_path / "jax"), **jkw)
+    tres = campaign.run_campaign_batched(files, sel, str(tmp_path / "port"), **tkw)
+    jm, tm = _assert_manifests_match(tmp_path / "jax", tmp_path / "port")
+    rung = "host" if oom else "batched:2"
+    assert [(r.status, r.rung, r.family) for r in tres.records] == [
+        ("done", rung, "learned"), ("done", rung, "learned"), ("failed", "", "learned"),
+        ("done", rung, "learned")]
+    moves = [(e["from"], e["to"]) for e in tm if e.get("event") == "downshift"]
+    assert moves == ([("batched:2", "file"), ("file", "tiled"), ("tiled", "host")]
+                     if oom else [])
+    _assert_learned_picks(jm, tm)
+
+
+def test_learned_family_per_file_campaign_matches_jax(learned_files, tmp_path):
+    """``run_campaign(family="learned")`` against JAX's ``run_campaign`` on
+    its ``LearnedDetector``: manifests equal record by record, picks up
+    to knife edges; within the port the serial facade's saved picks are
+    the per-file campaign's bit for bit."""
+    from das4whales_tpu.models import learned as jlearned
+
+    files, sel = learned_files, [0, LEARNED_NX, 1]
+    with jax.enable_x64(False):
+        jdet = jlearned.LearnedDetector(*jlearned.load_pretrained())
+        jcampaign.run_campaign(files, sel, str(tmp_path / "jax"), detector=jdet)
+    per_file = campaign.run_campaign(files, sel, str(tmp_path / "port"), family="learned",
+                                     device="cpu")
+    jm, tm = _assert_manifests_match(tmp_path / "jax", tmp_path / "port")
+    assert [(r.status, r.rung, r.family) for r in per_file.records] == [
+        ("done", "file", "learned")] * 2 + [("failed", "", "learned"), ("done", "file", "learned")]
+    _assert_learned_picks(jm, tm)
+    batched = campaign.run_campaign_batched(files, sel, str(tmp_path / "b"), family="learned",
+                                            batch=2, serial=True, device="cpu")
+    a, b = _picks_by_file(batched), _picks_by_file(per_file)
+    assert len(a) == 3
+    for name in a:
+        np.testing.assert_array_equal(a[name]["CALL"], b[name]["CALL"])
+
+
 def test_compact_batch_picks_matches_jax():
     rng = np.random.default_rng(3)
     pos = rng.integers(0, 1200, (2, 3, 5, 4)).astype(np.int32)
@@ -633,14 +756,11 @@ def test_not_in_slice_settings_raise(data, tmp_path):
     files = _files(data, ("f0",))
     for kw, item in ((dict(preflight=True), "Campaign preflight"),
                      (dict(cost_cards=True), "Service and fleet"),
-                     (dict(quality=True), "Service and fleet"),
-                     (dict(family="learned"), "Learned")):
+                     (dict(quality=True), "Service and fleet")):
         with pytest.raises(NotImplementedError, match=item):
             campaign.run_campaign_batched(files, SEL, str(tmp_path / "x"), device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="Service and fleet"):
         campaign.run_campaign(files, SEL, str(tmp_path / "x"), device="cpu", quality=True)
-    with pytest.raises(NotImplementedError, match="Learned"):
-        campaign.run_campaign(files, SEL, str(tmp_path / "x"), device="cpu", family="learned")
     for fn, item in ((campaign.run_campaign_sharded, "Multi-GPU"),
                      (campaign.run_campaign_multiprocess, "Multi-GPU"),
                      (lambda: campaign.plot_campaign_density({}), "Workflow mains and plots")):

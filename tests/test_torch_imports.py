@@ -51,7 +51,8 @@ def test_the_scan_covers_every_module_of_the_port():
                 "fsck.py", "utils/checkpoint.py", "parallel/dispatch.py",
                 "workflows/planner.py", "workflows/campaign.py", "workflows/mfdetect.py",
                 "utils/profiling.py", "models/templates.py", "ops/peaks.py", "ops/fk.py",
-                "ops/image.py", "models/gabor.py", "workflows/gabordetect.py"):
+                "ops/image.py", "models/gabor.py", "workflows/gabordetect.py",
+                "models/learned.py", "utils/parity.py"):
         assert f"das4whales_tpu_torch/{mod}" in scanned
     assert "chip_smoke.py" in scanned
 
