@@ -205,7 +205,44 @@ failure is caught:
                 (within 1e-5, picks up to knife edges); ``fit`` on JAX's test
                 scenes (2 x 32 x 3000, 25 epochs) on the card and on the CPU:
                 loss histories within 1e-3 (relative), the card's model
-                picking the held-out scene's calls.
+                picking the held-out scene's calls;
+21. ``dsp``      the reference DSP API on the canonical block, conditioned:
+                ``bp_filt`` (fft), ``taper_data``, ``instant_freq``,
+                ``fk_filter_apply`` against ``fk_filter_apply_rfft`` (within
+                1e-5 * max), a call's wall each by CUDA events; the exact
+                IIR (``sosfiltfilt_chunked``, ``bp_filt(mode="exact")``) in
+                float64 at full width (fewer channels, printed, where a
+                probe predicts more than 60 s), against scipy on 64
+                channels; the five f-k designers' and fk_filt's speed fan's
+                host seconds at 22050 x 12000, in spawned processes beside
+                phases 21-23 and printed after 23;
+22. ``localize`` detect -> localize -> evaluate: a 22050 x 12000 scene with
+                three off-cable calls (|y0| 300 m to 3 km, z0 -20 m), the
+                matched filter's ``__call__`` (44 ``fused_picks`` launches,
+                the kernel bitwise its plain version at the first and last
+                launch), ``localize_scene_call`` for each call within JAX's
+                ``test_detect_localize`` bounds (x 20 m, |y| 100 m, t0
+                0.05 s, residual rms 0.02 s), ``evaluate_detector`` with
+                recall 1.0 on the cells clear of the f-k fan's taper and
+                the channel wrap (the whole-footprint recall printed
+                beside it), and ``localize_batch`` of 4096 events in
+                float64, 256 of them against the CPU within rtol 1e-9;
+23. ``longrecord`` ``detect_long_record`` over two consecutive 22050 x 12000
+                int32 TDMS files with a call straddling the boundary: the
+                matched filter on both wires (the record's design made in a
+                spawned process beside phases 21-22), the straddling call
+                picked on both and their picks equal, no pick kernel launch
+                (the plain tiled picker, as JAX's route); ``detect_picks``
+                file by file beside it and the correlogram peaks that show
+                the straddle weakened; the learned family over the record:
+                one ``fused_stft`` launch within 5e-6 * max of its plain
+                version, its peak;
+24. ``dsp_cpu_vs_card``, 25. ``localize_cpu_vs_card``, 26.
+                ``longrecord_cpu_vs_card`` the three at 512 channels on the
+                card against ``device="cpu"``: FFT ops within 1e-5 * max,
+                the exact IIR in float64 within 1e-10, thresholds rtol
+                1e-5, picks up to knife edges, ``loc`` in float64 within
+                rtol 1e-9.
 
 Then it prints the kernel table as one JSON line, the run's total
 seconds, the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. It imports no JAX and nothing
@@ -3591,6 +3628,991 @@ def phase_learned_cpu_vs_card(card=None):
         f"{time.perf_counter() - t_phase:.1f} s")
 
 
+
+# ---------------------------------------------------------------------------
+# Phases 21-26: the reference DSP API, detect -> localize -> evaluate, and
+# the long record (ROADMAP items 16 and 11)
+# ---------------------------------------------------------------------------
+
+#: the host jobs of the DSP and long-record phases (the f-k designs, the
+#: long record's files) run in a pool of this many spawned processes,
+#: beside the card's work (each job peaks at 8-25 GB of host memory at
+#: full width)
+HOST_WORKERS = 4
+#: the five f-k designers of the reference's dsp.py
+FK_DESIGNERS = ("fk_filter_design", "hybrid_filter_design", "hybrid_ninf_filter_design",
+                "hybrid_gs_filter_design", "hybrid_ninf_gs_filter_design")
+#: the FFT ops card against CPU: within this times max|cpu| (float32)
+DSP_REL = 1e-5
+#: ``instant_freq`` card against CPU: a wrapped phase step this close to
+#: pi (rad) may unwrap either way on the two devices
+IF_KNIFE_RAD = 1e-3
+#: the exact IIR at full width is cut to fewer channels past this wall
+IIR_EXACT_MAX_S = 60.0
+#: the exact IIR against scipy on unit-rms float64 data: the tolerances of
+#: tests/test_chunked.py (sosfiltfilt_chunked vs unchunked scipy) and
+#: tests/test_filters.py (the order-16 (b, a) of bp_filt(mode="exact"))
+IIR_SCIPY_ATOL = {"sosfiltfilt_chunked": 1e-7, "bp_filt_exact": 5e-6}
+IIR_SCIPY_ROWS = 64
+IIR_CHUNK = 3000
+#: JAX's tests/test_detect_localize.py bounds: |x| error, ||y| error|,
+#: t0 error, residual RMS
+LOC_BOUNDS = {"x_m": 20.0, "y_m": 100.0, "t0_s": 0.05, "rms_s": 0.02}
+#: the localize scene's calls: (t0 s, x0 as a fraction of the cable, y0 m,
+#: note); z0 = -20 m
+LOC_CALLS = ((10.0, 0.35, 300.0, "HF"), (25.0, 0.5, -1000.0, "LF"), (40.0, 0.65, 3000.0, "HF"))
+LOC_Z0 = -20.0
+#: the recall the localize phase holds the detector to is over the
+#: (call, channel) cells clear of the f-k fan's taper (apparent speed along
+#: the cable at most this times the fan's cp_max: a broadside arrival is
+#: faster than the fan passes, by design) and of the channel FFT's wrap
+#: (at least LOC_EDGE channels from either end)
+LOC_FAN_MARGIN = 0.9
+LOC_EDGE = 32
+LOC_EVENTS = 4096
+LOC_CPU_EVENTS = 64
+LOC_RTOL = 1e-9
+#: the long record: two files of the canonical shape, one call straddling
+#: the boundary (its onset on its nearest channel this many samples
+#: before the break: the HF note's 137 samples split 68 / 69)
+LONG_FILES = 2
+LONG_STRADDLE = 68
+
+
+def _host_pool():
+    """A pool of ``HOST_WORKERS`` spawned processes for the host jobs (no
+    CUDA in them); the caller shuts it down."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    return ProcessPoolExecutor(HOST_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+
+
+def _designer_job(name: str, shape: tuple, dx: float, fs: float):
+    """One f-k designer at ``shape`` in a worker: ``(name, host seconds,
+    shape, max, all finite)``."""
+    from das4whales_tpu_torch.ops import fk
+
+    t0 = time.perf_counter()
+    m = getattr(fk, name)(shape, [0, shape[0], 1], dx, fs)
+    s = time.perf_counter() - t0
+    return name, s, m.shape, float(np.max(m)), bool(np.isfinite(m).all())
+
+
+def _speed_fan_job(shape: tuple, fs: float, dx: float):
+    """``speed_fan_mask`` (fk_filt's design, sigma 20) in a worker, as a
+    designer job."""
+    from das4whales_tpu_torch.ops import fk
+
+    t0 = time.perf_counter()
+    m = fk.speed_fan_mask(shape, fs, dx, 1400.0, 3500.0)
+    s = time.perf_counter() - t0
+    return "speed_fan_mask", s, m.shape, float(np.max(m)), bool(np.isfinite(m).all())
+
+
+def dsp_host_designs(scene, pool) -> list:
+    """Start the DSP phase's host jobs in ``pool``: the five f-k designers
+    and the speed fan at the block's shape. Returns their futures for
+    :func:`report_host_designs`."""
+    nx, ns = CANONICAL
+    meta = scene.metadata
+    return ([pool.submit(_speed_fan_job, (nx, ns), meta.fs, meta.dx)]
+            + [pool.submit(_designer_job, n, (nx, ns), meta.dx, meta.fs) for n in FK_DESIGNERS])
+
+
+def report_host_designs(futures: list) -> dict:
+    """Wait for :func:`dsp_host_designs`' jobs, check each design (the
+    block's shape, finite, a positive maximum) and print their host
+    seconds. Returns ``{name: seconds}``."""
+    nx, ns = CANONICAL
+    secs = {}
+    for f in futures:
+        name, s, shape, mx, finite = f.result()
+        if tuple(shape) != (nx, ns) or not finite or not mx > 0:
+            fail(f"dsp: {name} gave shape {shape}, max {mx}, finite {finite}")
+        secs[name] = s
+    say(f"dsp: host designs at {nx}x{ns} ({HOST_WORKERS} at a time in spawned processes, "
+        f"beside the card's phases), seconds each "
+        f"{json.dumps({k: round(v, 1) for k, v in secs.items()})}; fk_filt = the speed "
+        f"fan's design + fk_filter_apply (above)")
+    return secs
+
+
+def _long_design_job(shape: tuple, metadata):
+    """The long record's fin design in a worker: ``(host seconds, design)``."""
+    from das4whales_tpu_torch.models.matched_filter import design_matched_filter
+
+    t0 = time.perf_counter()
+    d = design_matched_filter(shape, [0, shape[0], 1], metadata, templates="fin")
+    return time.perf_counter() - t0, d
+
+
+def _long_files_job(d: str, nx: int, nfile: int, seed: int):
+    """:func:`_long_files` in a worker: ``(paths, scene, straddle channel,
+    straddle onset, seconds)``."""
+    from pathlib import Path
+
+    t0 = time.perf_counter()
+    out = _long_files(Path(d), nx, nfile, seed)
+    return (*out, time.perf_counter() - t0)
+
+
+def long_record_prep(pool) -> dict:
+    """Start the long record's host work in ``pool``: its two TDMS files,
+    written under ``build/``, and the record's fin design. Returns
+    ``{"dir", "files", "design"}`` (futures) for :func:`phase_longrecord`,
+    which removes the directory."""
+    import tempfile
+    from pathlib import Path
+
+    from das4whales_tpu_torch.io.synth import SyntheticScene
+
+    nx, nfile = CANONICAL
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    d = Path(tempfile.mkdtemp(prefix="long_files_", dir=root))
+    return {"dir": d,
+            "files": pool.submit(_long_files_job, str(d), nx, nfile, SEED + 7),
+            "design": pool.submit(_long_design_job, (nx, LONG_FILES * nfile),
+                                  SyntheticScene(nx=nx, ns=LONG_FILES * nfile).metadata)}
+
+
+def _unit_rms64(raw: np.ndarray) -> np.ndarray:
+    """float64 demeaned counts scaled to unit rms: the exact IIR's input
+    (scipy's tolerances are stated for unit-variance data)."""
+    x = raw.astype(np.float64)
+    x -= x.mean(axis=1, keepdims=True)
+    x /= float(np.sqrt(np.mean(x * x)))
+    return x
+
+
+def _iir_exact(fn, x, label: str, notes: list):
+    """``fn`` on the card at the full channel count when a short probe
+    predicts it within ``IIR_EXACT_MAX_S``, else on the most channels that
+    fit (a power of two), with the cut printed. Returns ``(y, seconds,
+    rows)``."""
+    import torch
+
+    C, T = x.shape
+    probe_T = 1200
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(x[:, :probe_T])
+    torch.cuda.synchronize()
+    per_sample = (time.perf_counter() - t0) / probe_T
+    predict = per_sample * T
+    rows = C
+    if predict > IIR_EXACT_MAX_S:
+        rows = 1 << int(np.floor(np.log2(max(1.0, C * IIR_EXACT_MAX_S / predict))))
+        notes.append(f"{label} predicted {predict:.1f} s at {C} channels (probe {probe_T} "
+                     f"samples); cut to {rows} channels")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = fn(x[:rows])
+    torch.cuda.synchronize()
+    return y, time.perf_counter() - t0, rows
+
+
+def phase_dsp(scene=None, raw=None, design=None, host_jobs=None):
+    """The reference DSP API on the canonical block: ``bp_filt`` (fft),
+    ``taper_data``, ``instant_freq``, ``fk_filter_apply`` against
+    ``fk_filter_apply_rfft`` (on the canonical design's mask: the apply's
+    time does not depend on the mask's values), each a call's wall by
+    CUDA events; the exact IIR (``sosfiltfilt_chunked``,
+    ``bp_filt(mode="exact")``) in float64 at full width, against scipy on
+    ``IIR_SCIPY_ROWS`` channels. The five f-k designers' and the speed
+    fan's host seconds at 22050 x 12000 come from ``host_jobs``
+    (:func:`dsp_host_designs`, reported by the caller later), or from a
+    pool of its own here. Returns the walls."""
+    import scipy.signal as sps
+    import torch
+
+    from das4whales_tpu_torch.ops import chunked, filters, fk, spectral
+
+    if design is None:
+        scene, raw, design = _canonical_inputs()
+    t_phase = time.perf_counter()
+    pool = _host_pool() if host_jobs is None else None
+    if pool is not None:
+        host_jobs = dsp_host_designs(scene, pool)
+    try:
+        nx, ns = raw.shape
+        meta = scene.metadata
+        x = torch.as_tensor(_condition_on_host(raw, meta.scale_factor)).to("cuda")
+        ms, notes = {}, []
+        ms["bp_filt"] = _cuda_ms(lambda: filters.bp_filt(x, meta.fs, 14.0, 30.0), 3)
+        ms["taper_data"] = _cuda_ms(lambda: spectral.taper_data(x), 3)
+        ms["instant_freq"] = _cuda_ms(lambda: spectral.instant_freq(x, meta.fs), 3)
+        for name, fn in (("bp_filt", lambda: filters.bp_filt(x, meta.fs, 14.0, 30.0)),
+                         ("taper_data", lambda: spectral.taper_data(x)),
+                         ("instant_freq", lambda: spectral.instant_freq(x, meta.fs))):
+            y = fn()
+            if tuple(y.shape) != (nx, ns - (name == "instant_freq")) or not bool(
+                    torch.isfinite(y).all()):
+                fail(f"dsp: {name} gave {tuple(y.shape)} or non-finite values")
+            del y
+
+        # the exact IIR in float64: its serial length is T (bp_filt) or the
+        # halo window chunk + 2*halo (sosfiltfilt_chunked), not the channels
+        sos = sps.butter(8, [14 / (meta.fs / 2), 30 / (meta.fs / 2)], "bp", output="sos")
+        b, a = filters.butter_bandpass_ba(8, 14.0, 30.0, meta.fs)
+        x64_host = _unit_rms64(raw[:, :ns])
+        x64 = torch.as_tensor(x64_host).to("cuda")
+        iir = {}
+        for label, fn, want in (
+                ("sosfiltfilt_chunked", lambda v: chunked.sosfiltfilt_chunked(sos, v, IIR_CHUNK),
+                 lambda v: sps.sosfiltfilt(sos, v, axis=-1)),
+                ("bp_filt_exact", lambda v: filters.bp_filt(v, meta.fs, 14.0, 30.0,
+                                                            mode="exact"),
+                 lambda v: sps.filtfilt(b, a, v, axis=-1))):
+            y, s, rows = _iir_exact(fn, x64, label, notes)
+            ref = want(x64_host[:IIR_SCIPY_ROWS])
+            e = float(np.abs(y[:IIR_SCIPY_ROWS].cpu().numpy() - ref).max())
+            if not e <= IIR_SCIPY_ATOL[label]:
+                fail(f"dsp: {label} on the card is {e:.3e} from scipy on {IIR_SCIPY_ROWS} "
+                     f"channels (limit {IIR_SCIPY_ATOL[label]})")
+            iir[label] = (s, rows, e)
+            del y
+        del x64
+        torch.cuda.empty_cache()
+
+        mask = torch.as_tensor(design.fk_mask).to("cuda")
+        ms["fk_filter_apply"] = _cuda_ms(lambda: fk.fk_filter_apply(x, mask), 3)
+        ms["fk_filter_apply_rfft"] = _cuda_ms(lambda: fk.fk_filter_apply_rfft(x, mask), 3)
+        full, half = fk.fk_filter_apply(x, mask), fk.fk_filter_apply_rfft(x, mask)
+        scale = float(full.abs().max())
+        e_fk = float((full - half).abs().max())
+        if not (scale > 0 and e_fk <= DSP_REL * scale):
+            fail(f"dsp: fk_filter_apply and fk_filter_apply_rfft {e_fk:.3e} apart (limit "
+                 f"{DSP_REL * scale:.3e})")
+        del full, half, mask, x
+        torch.cuda.empty_cache()
+        say(f"dsp: {nx}x{ns} conditioned float32 on the card, a call by CUDA events (ms) "
+            f"{json.dumps({k: round(v, 3) for k, v in ms.items()})}; fk_filter_apply_rfft "
+            f"within {e_fk / scale:.2e} * max of fk_filter_apply; the exact IIR in float64 "
+            f"(unit-rms data; serial length: bp_filt {ns + 2 * 3 * len(b)} samples a pass, "
+            f"sosfiltfilt_chunked chunk {IIR_CHUNK} + 2 halos + 2 pads = "
+            f"{IIR_CHUNK + 2 * 48 * (2 * len(sos) + 1) + 2 * 3 * (2 * len(sos) + 1)} a pass): "
+            + "; ".join(f"{k} {s:.2f} s at {r} channels, {e:.2e} from scipy on "
+                        f"{IIR_SCIPY_ROWS}" for k, (s, r, e) in iir.items())
+            + (f"; {'; '.join(notes)}" if notes else "")
+            + f"; phase {time.perf_counter() - t_phase:.1f} s")
+        if pool is not None:
+            report_host_designs(host_jobs)
+    finally:
+        if pool is not None:
+            pool.shutdown(cancel_futures=True)
+    return {"ms": ms, "iir": iir}
+
+
+def phase_dsp_cpu_vs_card():
+    """The DSP ops on the card against ``device="cpu"`` at 512 x 12000:
+    float32 FFT ops within ``DSP_REL * max|cpu|`` (``instant_freq``: 8
+    float32 ulps of its largest unwrapped phase, in Hz), the exact IIR in
+    float64 within 1e-10 on unit-rms data."""
+    import scipy.signal as sps
+    import torch
+
+    from das4whales_tpu_torch.io.synth import synthesize_scene, to_raw_counts
+    from das4whales_tpu_torch.ops import chunked, filters, fk, spectral, xcorr
+
+    nx, ns = 512, CANONICAL[1]
+    scene = _scene(nx, ns, n_calls=1, seed=SEED + 1)
+    meta = scene.metadata
+    raw = to_raw_counts(synthesize_scene(scene), meta)
+    xc = torch.as_tensor(_condition_on_host(raw, meta.scale_factor))
+    xg = xc.to("cuda")
+    tmpl = torch.as_tensor(np.hanning(137) * np.cos(np.linspace(0, 120, 137)), dtype=torch.float32)
+    ops = {
+        "bp_filt": lambda v: filters.bp_filt(v, meta.fs, 14.0, 30.0),
+        "fk_filt": lambda v: fk.fk_filt(v, 1.0, meta.fs, 1.0, meta.dx, 1400.0, 3500.0),
+        "fk_filter_apply_rfft": lambda v: fk.fk_filter_apply_rfft(
+            v, fk.hybrid_ninf_filter_design((nx, ns), [0, nx, 1], meta.dx, meta.fs)),
+        "taper_data": lambda v: spectral.taper_data(v),
+        "fx_transform": lambda v: spectral.fx_transform(v, 16384),
+        "compute_cross_correlogram": lambda v: xcorr.compute_cross_correlogram(
+            v, tmpl.to(v.device)),
+        "fk_filt_chunked": lambda v: chunked.fk_filt_chunked(v, 3000, 1.0, meta.fs, 1.0,
+                                                             meta.dx, 1400.0, 3500.0),
+    }
+    errs = {}
+    for name, fn in ops.items():
+        c = fn(xc).numpy()
+        g = fn(xg).cpu().numpy()
+        e = float(np.abs(g - c).max()) / float(np.abs(c).max())
+        if not e <= DSP_REL:
+            fail(f"dsp_cpu_vs_card: {name} card {e:.3e} * max from the CPU (limit {DSP_REL})")
+        errs[name] = e
+    c = spectral.instant_freq(xc, meta.fs).numpy()
+    g = spectral.instant_freq(xg, meta.fs).cpu().numpy()
+    phase = float(spectral.unwrap(torch.angle(spectral.analytic_signal(xc.double())))
+                  .abs().max())
+    bound = 8 * np.finfo(np.float32).eps * phase * meta.fs / (2 * np.pi)
+    # a wrapped phase step within IF_KNIFE_RAD of pi is a knife edge of the
+    # unwrap: the two devices may correct it either way, which moves that one
+    # sample's frequency by fs
+    dd = np.diff(torch.angle(spectral.analytic_signal(xc)).numpy(), axis=-1)
+    knife = np.abs(np.abs(dd) - np.pi) <= IF_KNIFE_RAD
+    diff = np.abs(g - c)
+    flips = diff > bound
+    if not np.all(knife[flips] & (np.abs(diff[flips] - meta.fs) <= bound)):
+        bad = np.argwhere(flips & ~knife)[:5].tolist()
+        fail(f"dsp_cpu_vs_card: instant_freq card {float(diff.max()):.3e} Hz from the CPU "
+             f"(limit {bound:.3e}) at samples no unwrap knife edge explains {bad}")
+    e_if = float(diff[~flips].max())
+    n_flips = int(flips.sum())
+    sos = sps.butter(8, [14 / (meta.fs / 2), 30 / (meta.fs / 2)], "bp", output="sos")
+    x64 = torch.as_tensor(_unit_rms64(raw[:64]))
+    iir = {}
+    for name, fn in (("sosfiltfilt_chunked", lambda v: chunked.sosfiltfilt_chunked(sos, v,
+                                                                                   IIR_CHUNK)),
+                     ("bp_filt_exact", lambda v: filters.bp_filt(v, meta.fs, 14.0, 30.0,
+                                                                 mode="exact"))):
+        e = float((fn(x64.to("cuda")).cpu() - fn(x64)).abs().max())
+        if not e <= 1e-10:
+            fail(f"dsp_cpu_vs_card: {name} float64 card {e:.3e} from the CPU (limit 1e-10)")
+        iir[name] = e
+    say(f"dsp_cpu_vs_card: {nx}x{ns} float32, card against device='cpu', max|card - cpu| / "
+        f"max|cpu| {json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})} (limit "
+        f"{DSP_REL}); instant_freq {e_if:.3e} Hz (limit {bound:.3e} Hz: 8 float32 ulps of the "
+        f"largest unwrapped phase) but for {n_flips} samples moved by fs at unwrap knife "
+        f"edges (a wrapped step within {IF_KNIFE_RAD} rad of pi); the exact IIR in float64 on 64 channels "
+        f"{json.dumps({k: float(f'{v:.3e}') for k, v in iir.items()})} (limit 1e-10)")
+
+
+def _loc_scene(nx: int, ns: int, seed: int):
+    """Three off-cable calls (``LOC_CALLS``) on a straight cable."""
+    from das4whales_tpu_torch.io.synth import SyntheticCall, SyntheticScene
+
+    notes = {"HF": {"fmin": 17.8, "fmax": 28.8, "duration": 0.68},
+             "LF": {"fmin": 14.7, "fmax": 21.8, "duration": 0.78}}
+    span = nx * 2.042
+    calls = [SyntheticCall(t0=t0, x0_m=frac * span, y0_m=y0, z0_m=LOC_Z0, amplitude=1.0,
+                           **notes[note]) for t0, frac, y0, note in LOC_CALLS]
+    return SyntheticScene(nx=nx, ns=ns, noise_rms=0.05, calls=calls, seed=seed)
+
+
+def _call_template(i: int) -> str:
+    return LOC_CALLS[i][3]
+
+
+def _localize_errors(lr, call) -> dict:
+    x, y, z, t0 = (float(v) for v in lr.position.cpu().numpy())
+    rms = float(np.sqrt(np.nanmean(lr.residuals.cpu().numpy() ** 2)))
+    return {"x_m": abs(x - call.x0_m), "y_m": abs(abs(y) - abs(call.y0_m)),
+            "t0_s": abs(t0 - call.t0), "rms_s": rms, "z_m": abs(z - call.z0_m)}
+
+
+def _fan_recall(scene, picks: dict, fk_cfg) -> dict:
+    """Per template: the recall ``evaluate_detector`` scores and the recall
+    over the cells clear of the fan's taper and the channel wrap (see
+    ``LOC_FAN_MARGIN``)."""
+    from das4whales_tpu_torch import eval as teval
+
+    x = np.arange(scene.nx) * scene.dx
+    edge = (np.arange(scene.nx) >= LOC_EDGE) & (np.arange(scene.nx) < scene.nx - LOC_EDGE)
+    out = {}
+    for name in picks:
+        idx = [i for i in range(len(scene.calls)) if _call_template(i) == name]
+        pm = teval.match_picks(picks[name], scene, call_indices=idx)
+        clear = np.zeros_like(pm.covered)
+        for r, ci in enumerate(idx):
+            c = scene.calls[ci]
+            rr = np.sqrt((x - c.x0_m) ** 2 + c.y0_m ** 2 + c.z0_m ** 2)
+            v = c.speed * rr / np.maximum(np.abs(x - c.x0_m), 1e-9)
+            clear[r] = pm.covered[r] & edge & (v <= LOC_FAN_MARGIN * fk_cfg.cp_max)
+        out[name] = {"recall": pm.recall,
+                     "clear_recall": (float(pm.hits[clear].sum() / clear.sum())
+                                      if clear.any() else float("nan")),
+                     "clear_cells": int(clear.sum()), "covered_cells": int(pm.covered.sum())}
+    return out
+
+
+def _loc_events(cable: np.ndarray, n: int, seed: int, c0: float = 1500.0) -> np.ndarray:
+    """``[n, nch]`` float64 arrival times of random off-cable sources
+    (x over the middle 80 % of the cable, |y| 300 m - 3 km, z -20 m), the
+    forward model plus 1 ms Gaussian noise."""
+    rng = np.random.default_rng(seed)
+    span = float(cable[-1, 0])
+    src = np.stack([rng.uniform(0.1, 0.9, n) * span,
+                    rng.choice([-1.0, 1.0], n) * rng.uniform(300.0, 3000.0, n),
+                    np.full(n, LOC_Z0), rng.uniform(0.0, 10.0, n)], axis=1)
+    d = np.sqrt(((cable[None, :, :] - src[:, None, :3]) ** 2).sum(-1))
+    return src[:, 3:] + d / c0 + 1e-3 * rng.standard_normal(d.shape)
+
+
+def _unc_rtol(cable, cpu, Ti, c0: float, fix_z: bool):
+    """Per event, the relative tolerance of the uncertainty card against
+    CPU: ``max(LOC_RTOL, 8 * eps * cond(G^T G))`` of the normal matrix the
+    covariance inverts (LU inverses of two libraries differ by up to
+    cond * eps, and at 1/c0 against 1 columns cond reaches 1e7-1e8)."""
+    import torch
+
+    from das4whales_tpu_torch import loc
+
+    cable_t = torch.as_tensor(np.asarray(cable, np.float64))
+    G = loc._design_matrix(cable_t, cpu.position, c0, fix_z=False)
+    if fix_z:
+        G = torch.cat([G[..., :2], G[..., 3:]], dim=-1)
+    G = G * torch.isfinite(torch.as_tensor(np.asarray(Ti))).to(G.dtype)[..., None]
+    cond = torch.linalg.cond(G.transpose(-1, -2) @ G).numpy()
+    return np.maximum(LOC_RTOL, 8 * np.finfo(np.float64).eps * cond), float(cond.max())
+
+
+def _loc_close(label: str, card, cpu, unc_rtol, t_scale) -> float:
+    """Every field of two ``LocalizationResult``s within ``LOC_RTOL``
+    relative, with an absolute floor of 1e-12 of each field's scale; the
+    uncertainty within ``unc_rtol`` an event (:func:`_unc_rtol`); the
+    residuals ``Ti - pred`` within ``LOC_RTOL * t_scale`` absolute (an
+    event's largest arrival time: the difference of two 10-60 s times
+    keeps their rounding, and positions within ``LOC_RTOL`` move
+    ``pred`` by up to that), and so the variance, their mean square,
+    within ``2 * sqrt(var) * LOC_RTOL * t_scale`` more. Returns each
+    field's largest error over its tolerance (at most 1) as one printable
+    string."""
+    worst = {}
+    t_scale = np.asarray(t_scale, np.float64)
+    for name, g, c in zip(card._fields, card, cpu):
+        g, c = g.cpu().numpy(), c.numpy()
+        if g.shape != c.shape or not np.array_equal(np.isnan(g), np.isnan(c)):
+            fail(f"{label}: {name} {g.shape} / NaNs differ from the CPU's {c.shape}")
+        fin = np.isfinite(c)
+        err = np.abs(g - c)
+        if name == "residuals":
+            ref = np.broadcast_to(t_scale[..., None], c.shape)
+            tol = LOC_RTOL * ref
+        else:
+            ref = np.abs(c)
+            rtol = (np.broadcast_to(np.asarray(unc_rtol)[..., None], c.shape)
+                    if name == "uncertainty" else LOC_RTOL)
+            scale = float(np.abs(c[fin]).max()) if fin.any() else 0.0
+            tol = rtol * ref + 1e-12 * scale
+            if name == "variance":
+                tol = tol + 2 * np.sqrt(np.abs(c)) * LOC_RTOL * t_scale
+        if not np.all(err[fin] <= tol[fin]):
+            fail(f"{label}: {name} card vs CPU beyond its tolerance: max relative "
+                 f"{float((err[fin] / np.maximum(ref[fin], 1e-300)).max()):.3e}")
+        worst[name] = float((err[fin] / np.maximum(tol[fin], 1e-300)).max()) if fin.any() \
+            else 0.0
+    return ("max error / tolerance: " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+            + f" (rtol {LOC_RTOL}; residuals of the arrival times; uncertainty 8 eps "
+            "cond(G^T G) an event)")
+
+
+def phase_localize(design=None):
+    """detect -> localize -> evaluate on the card at full width: a 22050 x
+    12000 scene with three off-cable calls (``LOC_CALLS``), the matched
+    filter's ``__call__`` on the canonical design (44 ``fused_picks``
+    launches an attempt, the kernel bitwise its plain version at the
+    first and last launch), ``localize_scene_call`` a call within JAX's
+    ``test_detect_localize`` bounds, ``evaluate_detector`` (its own 44
+    launches) with recall 1.0 on the cells clear of the fan's taper;
+    ``localize_batch`` of ``LOC_EVENTS`` events in float64 on the card,
+    ``LOC_CPU_EVENTS`` of them against the CPU within ``LOC_RTOL``.
+    Returns ``({"localize": launches, "eval": launches}, err)``."""
+    import torch
+
+    from das4whales_tpu_torch import eval as teval
+    from das4whales_tpu_torch import loc
+    from das4whales_tpu_torch.config import SCRIPT_FK
+    from das4whales_tpu_torch.io.synth import synthesize_scene
+    from das4whales_tpu_torch.models.matched_filter import MatchedFilterDetector
+    from das4whales_tpu_torch.ops import fused_picks
+
+    t_phase = time.perf_counter()
+    nx, ns = CANONICAL
+    if design is None:
+        design = _canonical_inputs()[2]
+    scene = _loc_scene(nx, ns, SEED + 3)
+    det = MatchedFilterDetector.from_design(design, scene.metadata, templates="fin")
+    if (det.pick_mode, det._route()) != ("sparse", "tiled"):
+        fail(f"localize: the detector resolved {det.pick_mode!r}, {det._route()!r}")
+    tile = det.effective_channel_tile
+    n_tiles = -(-nx // tile)
+    nT = len(design.template_names)
+    block = torch.as_tensor(synthesize_scene(scene), dtype=torch.float32).to("cuda")
+    det(block)                                # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()                           # the localize path's detect starts here
+    det.escalations = 0
+    with _capture(fused_picks, "picks_cuda") as calls:
+        timer = StageTimer()
+        t0 = time.perf_counter()
+        res = det(block, stage_hook=timer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches_loc = read_launches()["fused_picks"]
+    if launches_loc != n_tiles * (1 + det.escalations):
+        fail(f"localize: __call__ launched the pick kernel {launches_loc} times with "
+             f"{det.escalations} escalations, expected {n_tiles} an attempt")
+    err, knotes = _picks_at_main_path("localize", calls, {
+        "first": nT * tile, "last": nT * (nx - (n_tiles - 1) * tile)})
+    del calls
+    peak = torch.cuda.max_memory_allocated()
+    del block
+    torch.cuda.empty_cache()
+
+    loc_notes, t_loc = [], 0.0
+    for i, call in enumerate(scene.calls):
+        t0 = time.perf_counter()
+        lr = teval.localize_scene_call(res.picks[_call_template(i)], scene, call_index=i,
+                                       device="cuda")
+        torch.cuda.synchronize()
+        t_loc += time.perf_counter() - t0
+        e = _localize_errors(lr, call)
+        if e["z_m"] != 0.0 or any(not e[k] <= LOC_BOUNDS[k] for k in LOC_BOUNDS):
+            fail(f"localize: call {i} (x0 {call.x0_m:.1f}, y0 {call.y0_m}, t0 {call.t0}): "
+                 f"errors {e} beyond {LOC_BOUNDS}")
+        loc_notes.append(f"call {i} ({_call_template(i)}, y0 {call.y0_m:+.0f} m): |dx| "
+                         f"{e['x_m']:.3f} m, ||y|-|y0|| {e['y_m']:.3f} m, |dt0| "
+                         f"{e['t0_s'] * 1e3:.3f} ms, rms {e['rms_s'] * 1e3:.3f} ms")
+
+    zero_launches()                           # the eval path starts here
+    t0 = time.perf_counter()
+    metrics = teval.evaluate_detector(det, scene)
+    torch.cuda.synchronize()
+    t_eval = time.perf_counter() - t0
+    launches_eval = read_launches()["fused_picks"]
+    if launches_eval < n_tiles:
+        fail(f"localize: evaluate_detector launched the pick kernel {launches_eval} times")
+    recall = _fan_recall(scene, res.picks, SCRIPT_FK)
+    for name, r in recall.items():
+        if metrics[name]["recall"] != r["recall"]:
+            fail(f"localize: evaluate_detector's {name} recall {metrics[name]['recall']} != "
+                 f"the __call__ picks' {r['recall']}")
+        if r["clear_recall"] != 1.0:
+            fail(f"localize: template {name}: recall {r['clear_recall']} over the "
+                 f"{r['clear_cells']} cells clear of the fan's taper and the wrap (limit 1.0)")
+    del det
+
+    cable = teval.scene_cable_positions(scene)
+    Ti = _loc_events(cable, LOC_EVENTS, SEED + 4)
+    Ti_d = torch.as_tensor(Ti).to("cuda")
+    cable_d = torch.as_tensor(cable).to("cuda")
+    loc.localize_batch(Ti_d[:8], cable_d, 1500.0, n_iter=10, fix_z=True)   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lb = loc.localize_batch(Ti_d, cable_d, 1500.0, n_iter=10, fix_z=True)
+    torch.cuda.synchronize()
+    t_batch = time.perf_counter() - t0
+    peak_batch = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    lb_cpu = loc.localize_batch(Ti[:LOC_CPU_EVENTS], cable, 1500.0, n_iter=10, fix_z=True,
+                                device="cpu")
+    t_cpu = time.perf_counter() - t0
+    unc_rtol, cond = _unc_rtol(cable, lb_cpu, Ti[:LOC_CPU_EVENTS], 1500.0, True)
+    worst = _loc_close("localize: localize_batch",
+                       type(lb)(*(f[:LOC_CPU_EVENTS] for f in lb)), lb_cpu, unc_rtol,
+                       np.nanmax(Ti[:LOC_CPU_EVENTS], axis=-1))
+    del Ti_d, lb
+    torch.cuda.empty_cache()
+    say(f"localize: {nx}x{ns} float32 scene, three off-cable calls (z0 {LOC_Z0} m, y0 "
+        f"{[c[2] for c in LOC_CALLS]} m); MatchedFilterDetector.from_design(canonical)"
+        f"(block) on the card {wall * 1e3:.1f} ms (stage walls "
+        f"{json.dumps({k: round(v, 3) for k, v in timer.walls().items()})} ms), "
+        f"{launches_loc} fused_picks launches ({n_tiles} tiles), peak "
+        f"{peak / 2**30:.2f} GiB, bitwise its plain version: {'; '.join(knotes)}; "
+        f"localize_scene_call (float64 on the card, {t_loc:.2f} s for 3): "
+        f"{'; '.join(loc_notes)} (bounds {json.dumps(LOC_BOUNDS)}); evaluate_detector "
+        f"{t_eval:.1f} s, {launches_eval} fused_picks launches: "
+        + "; ".join(f"{n} recall {r['recall']:.4f} over {r['covered_cells']} covered cells, "
+                    f"{r['clear_recall']} over the {r['clear_cells']} clear of the fan's taper "
+                    f"(apparent speed <= {LOC_FAN_MARGIN} x cp_max {SCRIPT_FK.cp_max:.0f} m/s) "
+                    f"and {LOC_EDGE} channels from the ends, precision "
+                    f"{metrics[n]['precision']:.4f}, "
+                    f"{metrics[n]['false_per_channel_minute']:.4f} false a channel-minute"
+                    for n, r in recall.items())
+        + f"; localize_batch of {LOC_EVENTS} events x {nx} channels (1 ms noise, fix_z, 10 "
+        f"iterations) float64 on the card {t_batch * 1e3:.1f} ms, peak "
+        f"{peak_batch / 2**30:.2f} GiB; the CPU {t_cpu:.2f} s for {LOC_CPU_EVENTS} of them, "
+        f"card against it: {worst}, cond(G^T G) up to {cond:.2e}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"localize": launches_loc, "eval": launches_eval}, err
+
+
+def phase_localize_cpu_vs_card():
+    """detect -> localize -> evaluate at 512 x 12000 on the card against
+    ``device="cpu"``: thresholds rtol 1e-5, picks up to knife edges, the
+    localized calls (on equal picks) and ``localize_batch`` of
+    ``LOC_EVENTS`` events in float64 within ``LOC_RTOL``."""
+    import torch
+
+    from das4whales_tpu_torch import eval as teval
+    from das4whales_tpu_torch import loc
+    from das4whales_tpu_torch.io.synth import SyntheticCall, SyntheticScene, synthesize_scene
+    from das4whales_tpu_torch.models.matched_filter import MatchedFilterDetector
+    from das4whales_tpu_torch.utils.parity import envelopes, unexplained_differences
+
+    nx, ns = 512, CANONICAL[1]
+    call = SyntheticCall(t0=20.0, x0_m=0.5 * nx * 2.042, y0_m=300.0, z0_m=LOC_Z0,
+                         amplitude=2.0)
+    scene = SyntheticScene(nx=nx, ns=ns, noise_rms=0.05, calls=[call], seed=SEED + 5)
+    block = synthesize_scene(scene).astype(np.float32)
+    res, dets = {}, {}
+    for dev in ("cuda", "cpu"):
+        dets[dev] = MatchedFilterDetector(scene.metadata, [0, nx, 1], (nx, ns), device=dev,
+                                          pick_mode="sparse")
+        res[dev] = dets[dev](torch.as_tensor(block).to(dev))
+    env = envelopes(dets["cpu"], torch.as_tensor(block))
+    n_diff, equal = 0, True
+    for i, name in enumerate(res["cpu"].picks):
+        tg, tc = res["cuda"].thresholds[name], res["cpu"].thresholds[name]
+        if not np.isclose(tg, tc, rtol=1e-5, atol=0):
+            fail(f"localize_cpu_vs_card: {name} threshold card {tg} vs cpu {tc}")
+        a, b = res["cuda"].picks[name], res["cpu"].picks[name]
+        bad = unexplained_differences(a, b, env[i], tc)
+        if bad:
+            fail(f"localize_cpu_vs_card: {name} picks differ beyond rounding at {bad[:10]}")
+        d = len({tuple(p) for p in a.T.tolist()} ^ {tuple(p) for p in b.T.tolist()})
+        n_diff += d
+        equal &= d == 0
+    lr = {dev: teval.localize_scene_call(res[dev].picks["HF"], scene, device=dev)
+          for dev in ("cuda", "cpu")}
+    for dev in lr:
+        e = _localize_errors(lr[dev], call)
+        if any(not e[k] <= LOC_BOUNDS[k] for k in LOC_BOUNDS):
+            fail(f"localize_cpu_vs_card: {dev}: errors {e} beyond {LOC_BOUNDS}")
+    w_call = None
+    if equal:
+        # the residuals are finite on the channels the call kept
+        unc_c, _ = _unc_rtol(teval.scene_cable_positions(scene), lr["cpu"],
+                             lr["cpu"].residuals.numpy(), 1500.0, True)
+        w_call = _loc_close("localize_cpu_vs_card: localize_scene_call", lr["cuda"],
+                            lr["cpu"], unc_c, scene.ns / scene.fs)
+    m = {dev: teval.evaluate_detector(dets[dev], scene) for dev in ("cuda", "cpu")}
+    if equal and json.dumps(m["cuda"], sort_keys=True) != json.dumps(m["cpu"], sort_keys=True):
+        fail(f"localize_cpu_vs_card: evaluate_detector card {m['cuda']} vs cpu {m['cpu']}")
+    # the events on 512 channels spread over the canonical cable's 45 km
+    cable = np.zeros((nx, 3))
+    cable[:, 0] = np.linspace(0.0, CANONICAL[0] * 2.042, nx)
+    Ti = _loc_events(cable, LOC_EVENTS, SEED + 6)
+    lb_cpu = loc.localize_batch(Ti, cable, 1500.0, n_iter=10, fix_z=True, device="cpu")
+    unc_rtol, cond = _unc_rtol(cable, lb_cpu, Ti, 1500.0, True)
+    worst = _loc_close("localize_cpu_vs_card: localize_batch",
+                       loc.localize_batch(Ti, cable, 1500.0, n_iter=10, fix_z=True,
+                                          device="cuda"), lb_cpu, unc_rtol,
+                       np.nanmax(Ti, axis=-1))
+    say(f"localize_cpu_vs_card: {nx}x{ns}, one call at y0 300 m: thresholds within rtol "
+        f"1e-5, picks {json.dumps({k: int(v.shape[1]) for k, v in res['cuda'].picks.items()})}"
+        f" on the card, {n_diff} differing (knife edges); localize_scene_call "
+        + (f"card against the CPU: {w_call}" if equal
+           else "within the bounds on both devices (picks differ on knife edges)")
+        + f"; evaluate_detector {'equal' if equal else 'not compared'} on both devices; "
+        f"localize_batch of {LOC_EVENTS} events x {nx} channels over "
+        f"{CANONICAL[0] * 2.042 / 1e3:.1f} km float64, card against the CPU: {worst}, "
+        f"cond(G^T G) up to {cond:.2e}")
+
+
+def _long_files(d, nx: int, nfile: int, seed: int):
+    """``LONG_FILES`` consecutive Silixa TDMS files of ``nfile`` samples
+    cut from one ``[nx, LONG_FILES * nfile]`` scene: an HF call mid-file
+    0, one straddling the first boundary (onset ``LONG_STRADDLE`` samples
+    before it on its nearest channel), an LF call mid-file 1. Returns
+    ``(paths, scene, straddle channel, straddle onset)``."""
+    from datetime import datetime, timedelta
+
+    from das4whales_tpu_torch.io.synth import (
+        SyntheticCall,
+        SyntheticScene,
+        synthesize_scene,
+        to_raw_counts,
+    )
+    from das4whales_tpu_torch.io.tdms import write_tdms
+
+    ns = LONG_FILES * nfile
+    fs, dx = 200.0, 2.042
+    ch_s = int(0.55 * nx)
+    onset = nfile - LONG_STRADDLE
+    calls = [SyntheticCall(t0=0.4 * nfile / fs, x0_m=0.3 * nx * dx, amplitude=1.0),
+             SyntheticCall(t0=onset / fs, x0_m=ch_s * dx, amplitude=1.0),
+             SyntheticCall(t0=1.5 * nfile / fs, x0_m=0.75 * nx * dx, amplitude=1.0,
+                           fmin=14.7, fmax=21.8, duration=0.78)]
+    scene = SyntheticScene(nx=nx, ns=ns, noise_rms=0.05, calls=calls, seed=seed)
+    raw = to_raw_counts(synthesize_scene(scene), scene.metadata)
+    paths = []
+    start = datetime(2021, 11, 4, 2, 0, 0)
+    for k in range(LONG_FILES):
+        props = {"SamplingFrequency[Hz]": fs, "SpatialResolution[m]": dx,
+                 "FibreIndex": float(scene.n), "GaugeLength": float(scene.gauge_length),
+                 "GPSTimeStamp": start + timedelta(seconds=k * nfile / fs)}
+        seg = raw[:, k * nfile:(k + 1) * nfile]
+        paths.append(write_tdms(str(d / f"long{k}.tdms"), props, "Measurement",
+                                {f"ch{i:05d}": seg[i] for i in range(nx)}))
+    return paths, scene, ch_s, onset
+
+
+def _picked_near(pk: np.ndarray, ch: int, onset: int, tol: float) -> bool:
+    sel = pk[1][pk[0] == ch]
+    return bool(np.any(np.abs(sel - onset) <= tol))
+
+
+def _record_env(x, blocks, design, meta):
+    """The long record's envelopes ``[nT, C, T]`` on ``x``'s device, for
+    the knife-edge margin."""
+    from das4whales_tpu_torch.ops import spectral
+    from das4whales_tpu_torch.workflows import longrecord as lr
+
+    corr = lr._mf_record_correlograms(x, blocks, design, meta, "conditioned", lambda n: None)
+    return spectral.envelope_sqrt(corr)
+
+
+def _same_picks(label, a: dict, b: dict, env_fn, thr: dict) -> int:
+    """Picks of ``a`` and ``b`` equal, or differing only on knife edges of
+    ``env_fn()`` (computed only when they differ); returns the count of
+    differing picks."""
+    from das4whales_tpu_torch.utils.parity import unexplained_differences
+
+    n = 0
+    for i, name in enumerate(a):
+        sa = {tuple(p) for p in np.asarray(a[name]).T.tolist()}
+        sb = {tuple(p) for p in np.asarray(b[name]).T.tolist()}
+        if sa == sb:
+            continue
+        env = env_fn()
+        bad = unexplained_differences(a[name], b[name], env[i], thr[name])
+        if bad:
+            fail(f"{label}: {name} picks differ beyond rounding at {bad[:10]}")
+        n += len(sa ^ sb)
+    return n
+
+
+def phase_longrecord(prep=None, design12=None):
+    """``detect_long_record`` on the card over two consecutive 22050 x
+    12000 int32 TDMS files (written, with the record's design, by
+    ``prep`` = :func:`long_record_prep`'s host jobs, or here when None;
+    the design's host seconds printed): the matched filter on both wires,
+    the straddling call picked on both and the two wires' picks
+    equal, no ``fused_picks`` launch (the plain tiled picker, as JAX's
+    route); ``detect_picks`` file by file beside it, with the correlogram
+    peaks that show the straddle weakened (on ``design12``, the canonical
+    design, made here when None); then the learned family over
+    the same record: one ``fused_stft`` launch of 22050 x 24000 within
+    ``STFT_REL_TOL`` * max of the plain version, the straddling call
+    picked. Returns ``({"longrecord_learned": launches}, err)``."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from das4whales_tpu_torch.io.stream import stream_strain_blocks
+    from das4whales_tpu_torch.models import learned as lmod
+    from das4whales_tpu_torch.models.matched_filter import (
+        MatchedFilterDetector,
+        design_matched_filter,
+    )
+    from das4whales_tpu_torch.ops import fused_stft, xcorr
+    from das4whales_tpu_torch.workflows import longrecord as lr
+    from das4whales_tpu_torch.workflows.longrecord import detect_long_record
+
+    t_phase = time.perf_counter()
+    nx, nfile = CANONICAL
+    ns = LONG_FILES * nfile
+    if prep is None:
+        root = Path(__file__).resolve().parent / "build"
+        root.mkdir(exist_ok=True)
+        d = Path(tempfile.mkdtemp(prefix="long_files_", dir=root))
+    else:
+        d = prep["dir"]
+    try:
+        if prep is None:
+            paths, scene, ch_s, onset, t_write = _long_files_job(str(d), nx, nfile, SEED + 7)
+            t_design, design = _long_design_job((nx, ns), scene.metadata)
+        else:
+            paths, scene, ch_s, onset, t_write = prep["files"].result()
+            t_design, design = prep["design"].result()
+        sel = [0, nx, 1]
+        runs = {}
+        for wire in ("conditioned", "raw"):
+            zero_launches()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            timer = StageTimer()
+            t0 = time.perf_counter()
+            # the format reader on both wires: the native reader conditions in
+            # float64, the raw wire's host means are the float32 readers'
+            r = detect_long_record(paths, sel, interrogator="silixa", wire=wire, design=design,
+                                   engine="h5py", stage_hook=timer)
+            torch.cuda.synchronize()
+            runs[wire] = dict(res=r, wall=time.perf_counter() - t0, stages=timer.walls(),
+                              peak=torch.cuda.max_memory_allocated(),
+                              launches=read_launches())
+            if r.n_samples != ns or r.n_files != LONG_FILES:
+                fail(f"longrecord: {wire}: {r.n_files} files, {r.n_samples} samples")
+            if any(runs[wire]["launches"].values()):
+                fail(f"longrecord: {wire}: the mf long record launched "
+                     f"{runs[wire]['launches']}; its picker is the plain tiled one")
+            pk = r.picks["HF"]
+            if not _picked_near(pk, ch_s, onset, scene.fs):
+                fail(f"longrecord: {wire}: the straddling call (channel {ch_s}, onset "
+                     f"{onset}) was not picked")
+            misses = _check_calls(scene, r.picks)
+            if misses:
+                fail(f"longrecord: {wire}: injected calls missed {misses}")
+            for name, p in r.picks.items():
+                if p.shape[1] and not (p[1].max() < ns and p[0].max() < nx):
+                    fail(f"longrecord: {wire}: {name} picks outside the record")
+        blocks = list(stream_strain_blocks(paths, sel, interrogator="silixa", as_numpy=True,
+                                           engine="h5py"))
+        meta = blocks[0].metadata
+        rec = runs["conditioned"]["res"]
+
+        def env_fn():
+            x = torch.as_tensor(np.concatenate([b.trace for b in blocks], axis=-1)).to("cuda")
+            return _record_env(x, blocks, design, meta).cpu().numpy()
+
+        n_wire = _same_picks("longrecord: raw against conditioned wire", rec.picks,
+                             runs["raw"]["res"].picks, env_fn, rec.thresholds)
+
+        # file by file: detect_picks on the canonical design, and the
+        # straddling call's correlogram peak against the mid-file call's
+        t0 = time.perf_counter()
+        d12 = design12 or design_matched_filter((nx, nfile), sel, scene.metadata,
+                                                templates="fin")
+        t_d12 = time.perf_counter() - t0
+        det = MatchedFilterDetector.from_design(d12, meta, wire="conditioned")
+        ch_m = int(round(scene.calls[0].x0_m / scene.dx))
+        on_m = int(round(scene.calls[0].t0 * scene.fs))
+        t_true, mu, sc = (torch.as_tensor(a).to("cuda")
+                          for a in xcorr.padded_template_stats(d12.templates))
+        per_file, peaks_pf = [], {}
+        for k, b in enumerate(blocks):
+            xb = torch.as_tensor(b.trace).to("cuda")
+            pf = det.detect_picks(xb)
+            per_file.append(_picked_near(pf.picks["HF"], ch_s, onset - k * nfile, scene.fs))
+            trf = det.filter_block(xb)
+            rows = trf[[ch_m, ch_s]]
+            corr = xcorr.compute_cross_correlograms_corrected(rows, t_true, mu, sc)[0].abs()
+            if k == 0:
+                peaks_pf["mid"] = float(corr[0, on_m - 100:on_m + 300].max())
+                peaks_pf["straddle"] = float(corr[1, onset - 50:].max())
+            else:
+                peaks_pf["straddle_next"] = float(corr[1, :300].max())
+            del xb, trf, corr
+        x = torch.as_tensor(np.concatenate([b.trace for b in blocks], axis=-1)).to("cuda")
+        cc = lr._mf_record_correlograms(x, blocks, design, meta, "conditioned",
+                                        lambda n: None)[0].abs()
+        peak_c = {"mid": float(cc[ch_m, on_m - 100:on_m + 300].max()),
+                  "straddle": float(cc[ch_s, onset - 50:onset + 300].max())}
+        del cc, x
+        torch.cuda.empty_cache()
+
+        # the learned family over the same record
+        model, cfg = lmod.load_pretrained()
+        zero_launches()
+        torch.cuda.reset_peak_memory_stats()
+        with _capture(fused_stft, "stft_power_cuda") as calls:
+            t0 = time.perf_counter()
+            rl = detect_long_record(paths, sel, interrogator="silixa", family="learned",
+                                    family_kwargs={"params": model, "cfg": cfg})
+            torch.cuda.synchronize()
+            t_learned = time.perf_counter() - t0
+        launches_l = read_launches()
+        peak_l = torch.cuda.max_memory_allocated()
+        if launches_l != {"fused_picks": 0, "fused_stft": 1}:
+            fail(f"longrecord: learned: launches {launches_l}, expected one fused_stft")
+        err, rel, _ = _stft_at_main_path("longrecord_learned", calls, (nx, ns))
+        del calls
+        torch.cuda.empty_cache()
+        pl = rl.picks["CALL"]
+        # a window pick lies at its window's centre: the call's middle
+        if not _picked_near(pl, ch_s, onset + 68, 1.5 * scene.fs):
+            fail(f"longrecord: learned: the straddling call (channel {ch_s}) was not picked")
+        if pl.shape[1] and pl[1].max() >= ns:
+            fail("longrecord: learned: a pick lies past the record")
+    finally:
+        import shutil
+
+        shutil.rmtree(d, ignore_errors=True)
+    say(f"longrecord: {LONG_FILES} consecutive {nx}x{nfile} int32 TDMS files -> one {nx}x{ns} "
+        f"record (written in {t_write:.1f} s) and the record's fin design {t_design:.1f} s on the "
+        f"host (in spawned processes beside the earlier phases); detect_long_record mf: "
+        + "; ".join(f"{w} wire {v['wall']:.2f} s (stage walls "
+                    f"{json.dumps({k: round(s, 1) for k, s in v['stages'].items()})} ms), peak "
+                    f"{v['peak'] / 2**30:.2f} GiB, picks "
+                    f"{json.dumps({k: int(p.shape[1]) for k, p in v['res'].picks.items()})}, "
+                    f"thresholds {json.dumps({k: float(f'{t:.6e}') for k, t in v['res'].thresholds.items()})}"
+                    for w, v in runs.items())
+        + f"; no fused_picks launch (the plain 512-row tiled picker); the straddling call "
+        f"(channel {ch_s}, onset {onset}) picked on both wires, the wires' picks (the "
+        f"format reader on both) {'equal' if n_wire == 0 else f'{n_wire} apart on knife edges'}"
+        f", every injected call "
+        f"picked; file by file (canonical design {t_d12:.1f} s here, detect_picks): the straddle "
+        f"picked in file 0 {per_file[0]}, in file 1 {per_file[1]}; |correlogram| peak "
+        f"straddle / mid-file call: per file {peaks_pf['straddle'] / peaks_pf['mid']:.3f} "
+        f"(file 1's head {peaks_pf['straddle_next'] / peaks_pf['mid']:.3f}), continuous "
+        f"{peak_c['straddle'] / peak_c['mid']:.3f}; learned family (pretrained fin_cnn): "
+        f"{t_learned:.2f} s with the read, 1 fused_stft launch of {nx}x{ns} within "
+        f"{rel:.2e} * max of its plain version, peak {peak_l / 2**30:.2f} GiB, "
+        f"{pl.shape[1]} picks, the straddling call picked; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"longrecord_learned": launches_l["fused_stft"]}, err
+
+
+def phase_longrecord_cpu_vs_card():
+    """``detect_long_record`` at 512 channels over two 12000-sample TDMS
+    files on the card against ``device="cpu"``: both wires and the learned
+    family, thresholds rtol 1e-5, picks up to knife edges (the learned
+    family's of its scores, within ``LEARNED_CARD_ABS``)."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from das4whales_tpu_torch.io.stream import stream_strain_blocks
+    from das4whales_tpu_torch.models import learned as lmod
+    from das4whales_tpu_torch.models.matched_filter import design_matched_filter
+    from das4whales_tpu_torch.workflows.longrecord import detect_long_record
+
+    nx, nfile = 512, CANONICAL[1]
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    d = Path(tempfile.mkdtemp(prefix="long_cpu_", dir=root))
+    try:
+        paths, scene, ch_s, onset = _long_files(d, nx, nfile, SEED + 8)
+        sel = [0, nx, 1]
+        blocks = list(stream_strain_blocks(paths, sel, interrogator="silixa", as_numpy=True))
+        record = np.concatenate([b.trace for b in blocks], axis=-1)
+        design = design_matched_filter(record.shape, sel, blocks[0].metadata, templates="fin")
+        notes = []
+        for wire in ("conditioned", "raw"):
+            r = {dev: detect_long_record(paths, sel, interrogator="silixa", wire=wire,
+                                         device=dev, design=design) for dev in ("cuda", "cpu")}
+            for name in r["cpu"].thresholds:
+                tg, tc = r["cuda"].thresholds[name], r["cpu"].thresholds[name]
+                if not np.isclose(tg, tc, rtol=1e-5, atol=0):
+                    fail(f"longrecord_cpu_vs_card: {wire}: {name} threshold card {tg} vs "
+                         f"cpu {tc}")
+            n = _same_picks(
+                f"longrecord_cpu_vs_card: {wire}", r["cuda"].picks, r["cpu"].picks,
+                lambda: _record_env(torch.as_tensor(record), blocks, design,
+                                    blocks[0].metadata).numpy(), r["cpu"].thresholds)
+            if not _picked_near(r["cuda"].picks["HF"], ch_s, onset, scene.fs):
+                fail(f"longrecord_cpu_vs_card: {wire}: the straddling call was not picked")
+            notes.append(f"{wire} wire: picks "
+                         f"{json.dumps({k: int(v.shape[1]) for k, v in r['cuda'].picks.items()})}"
+                         f" on the card, {n} differing")
+        model, cfg = lmod.load_pretrained()
+        rl = {dev: detect_long_record(paths, sel, interrogator="silixa", family="learned",
+                                      device=dev, family_kwargs={"params": model, "cfg": cfg})
+              for dev in ("cuda", "cpu")}
+        scores = lmod.LearnedDetector(model, cfg, device="cpu").scores(
+            torch.as_tensor(record)).numpy()
+        n_l = _learned_knife("longrecord_cpu_vs_card: learned", rl["cuda"].picks["CALL"],
+                             rl["cpu"].picks["CALL"], scores,
+                             lmod.window_centers(scores.shape[1], cfg), 0.5)
+        notes.append(f"learned: {rl['cuda'].picks['CALL'].shape[1]} picks on the card, {n_l} "
+                     f"differing (knife edges of the scores within {LEARNED_CARD_ABS})")
+    finally:
+        import shutil
+
+        shutil.rmtree(d, ignore_errors=True)
+    say(f"longrecord_cpu_vs_card: {LONG_FILES} x {nx}x{nfile} TDMS files, card against "
+        f"device='cpu': thresholds within rtol 1e-5, the straddling call picked; "
+        f"{'; '.join(notes)}")
+
+
 def main(argv: list) -> int:
     import torch
 
@@ -3628,10 +4650,31 @@ def main(argv: list) -> int:
         learned_launches, learned_err, learned = phase_learned(scene, raw)
     finally:
         remove_slab_files()
-    del scene, raw, design
+    pool = _host_pool()
+    prep = None
+    try:
+        # the long record's files and design are made on the host beside
+        # the next two phases
+        prep = long_record_prep(pool)
+        host_designs = dsp_host_designs(scene, pool)
+        phase_dsp(scene, raw, design, host_designs)
+        loc_launches, loc_err = phase_localize(design)
+        del scene, raw
+        long_launches, long_err = phase_longrecord(prep, design)
+        del design
+        report_host_designs(host_designs)
+    finally:
+        pool.shutdown(cancel_futures=True)
+        if prep is not None:
+            import shutil
+
+            shutil.rmtree(prep["dir"], ignore_errors=True)
     campaign_stft_launches, campaign_stft_err = phase_campaign_cpu_vs_card()
     phase_gabor_cpu_vs_card()
     phase_learned_cpu_vs_card(learned["card"])
+    phase_dsp_cpu_vs_card()
+    phase_localize_cpu_vs_card()
+    phase_longrecord_cpu_vs_card()
     pk = kern["pack"]
     print(json.dumps({"kernels": [{
         "name": "fused_picks",
@@ -3643,8 +4686,8 @@ def main(argv: list) -> int:
                              "slab_batched": slab_launches["batched"],
                              "slab_serial": slab_launches["serial"],
                              "campaign": campaign_launches, "gabor": gabor_launches,
-                             "campaign_gabor": gabor_campaign_launches},
-        "max_abs_err": max(err, slab_picks_err, full_err, bank_err, gabor_err),
+                             "campaign_gabor": gabor_campaign_launches, **loc_launches},
+        "max_abs_err": max(err, slab_picks_err, full_err, bank_err, gabor_err, loc_err),
         "ms": pk["ms"],
         "device_ms": pk["device_ms"],
         "plain_ms": pk["plain_ms"],
@@ -3658,8 +4701,9 @@ def main(argv: list) -> int:
         "replaces": "das4whales_tpu/ops/pallas_stft.py:71",
         "launches": stft_launches,
         "launches_by_path": {"spectro": stft_launches, "slab_spectro": slab_stft_launches,
-                             "campaign_spectro": campaign_stft_launches, **learned_launches},
-        "max_abs_err": max(stft_err, slab_stft_err, campaign_stft_err, learned_err),
+                             "campaign_spectro": campaign_stft_launches, **learned_launches,
+                             **long_launches},
+        "max_abs_err": max(stft_err, slab_stft_err, campaign_stft_err, learned_err, long_err),
         "ms": stft["ms"],
         "device_ms": stft["device_ms"],
         "plain_ms": stft["plain_ms"],

@@ -19,7 +19,12 @@ OptaSense HDF5 or Silixa TDMS files into ``[B, C, T_bucket]`` slabs on
 the card through pinned memory (``io.staging``), and
 ``parallel.batch.BatchedMatchedFilterDetector`` detects a slab with the
 data-health stats (``ops.health``) in one packed read per attempt.
-Module paths and names mirror ``das4whales_tpu`` so each counterpart is
+Around the detectors: the reference's DSP API (``ops.filters``,
+``ops.fk``, ``ops.spectral``, ``ops.chunked``), TDOA localization in
+float64 (``loc``), detection-quality evaluation and the detect ->
+localize loop (``eval``), Raven tables and cable geometry
+(``io.annotations``, ``io.coords``), and detection over a record joined
+from consecutive files (``workflows.longrecord``). Module paths and names mirror ``das4whales_tpu`` so each counterpart is
 easy to find. Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; on the CPU every kernel wrapper runs its plain PyTorch
 version.

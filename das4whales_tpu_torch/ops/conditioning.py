@@ -45,6 +45,22 @@ def condition_padded(trace: torch.Tensor, scale, n_real, *,
     return x * _scalar(scale, dtype)
 
 
+def condition_segmented(trace: torch.Tensor, scale, seg_ids, seg_means, *,
+                        dtype=torch.float32) -> torch.Tensor:
+    """:func:`condition` for a record joined from several files (the long
+    record): each file is demeaned by its own mean, as the conditioned
+    wire demeans each file before the join. ``seg_ids [T]`` maps each time
+    sample to its file's column of ``seg_means [C, n_segments]`` (float32
+    means computed on the host with the conditioned readers' numpy
+    reduction, so the result is bitwise the host route's). Divisibility
+    padding maps to a trailing all-zero column and conditions to exactly
+    0. Numpy operands cross to ``trace``'s device."""
+    x = trace.to(dtype)
+    ids = torch.as_tensor(seg_ids, device=x.device).long()
+    means = torch.as_tensor(seg_means, device=x.device).to(dtype)
+    return (x - means[:, ids]) * _scalar(scale, dtype)
+
+
 def _scalar(v, dtype) -> float:
     """``v`` rounded to ``dtype`` and handed to torch as a Python scalar
     (torch computes a float32 op with a Python scalar in float32)."""

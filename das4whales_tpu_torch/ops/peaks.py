@@ -340,6 +340,37 @@ def find_peaks_sparse_batched(x: torch.Tensor, threshold, max_peaks: int = 256,
     return SparsePicks(*(a.reshape(lead + tuple(a.shape[1:])) for a in res))
 
 
+def find_peaks_sparse_tiled(x: torch.Tensor, threshold, max_peaks: int = 256,
+                            tile: int = 512, nb: int = 128,
+                            method: str = "topk") -> SparsePicks:
+    """:func:`find_peaks_sparse_batched` with the row (second-to-last)
+    axis walked in ``tile``-row chunks (JAX's ``lax.map``, here a Python
+    loop): the candidates' block tables stay at tile size. Rows are
+    zero-padded to a tile multiple with a ``+inf`` threshold (no
+    candidates) and cropped on output; results equal the untiled call's.
+    ``x [..., C, T]``; ``threshold`` broadcasts to ``x.shape[:-1]``."""
+    lead = tuple(x.shape[:-2])
+    C = x.shape[-2]
+    thr_rows = torch.as_tensor(threshold, dtype=x.dtype, device=x.device).expand(
+        tuple(x.shape[:-1]))
+    tile = min(tile, C)
+    n_t = -(-C // tile)
+    pad = n_t * tile - C
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        thr_rows = torch.nn.functional.pad(thr_rows, (0, pad), value=float("inf"))
+    parts = [find_peaks_sparse_batched(x[..., i * tile:(i + 1) * tile, :],
+                                       thr_rows[..., i * tile:(i + 1) * tile],
+                                       max_peaks=max_peaks, nb=nb, method=method)
+             for i in range(n_t)]
+    nl = len(lead)
+
+    def untile(field: str) -> torch.Tensor:
+        return torch.cat([getattr(p, field) for p in parts], dim=nl).narrow(nl, 0, C)
+
+    return SparsePicks(*(untile(f) for f in SparsePicks._fields))
+
+
 def compact_picks_rowmajor(positions: torch.Tensor, selected: torch.Tensor,
                            capacity: int):
     """Stable on-device compaction of ``[B, R, K]`` picks into

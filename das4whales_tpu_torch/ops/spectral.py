@@ -1,12 +1,16 @@
-"""Spectral transforms on ``torch.fft``: the Hann window, the analytic
-signal, the Hilbert envelope, the envelope SNR and the STFT magnitude
-with its engine switch (the port's copy of what the detectors use of
-``das4whales_tpu.ops.spectral``)."""
+"""Spectral transforms on ``torch.fft``: the Hann and Tukey windows, the
+analytic signal, the Hilbert envelope, the envelope SNR, the STFT
+magnitude with its engine switch, and the reference's ``dsp.py`` helpers
+(``fx_transform``, ``spectrogram``, ``instant_freq``, ``taper_data``) —
+the port's copy of ``das4whales_tpu.ops.spectral``. ``unwrap`` is
+``jnp.unwrap``/``np.unwrap``, which torch lacks."""
 
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -20,6 +24,22 @@ def hann_window(n: int, *, periodic: bool = False, dtype=torch.float32,
     denom = n if periodic else n - 1
     k = torch.arange(n, dtype=dtype, device=device)
     return 0.5 - 0.5 * torch.cos(2.0 * math.pi * k / denom)
+
+
+def tukey_window(n: int, alpha: float = 0.03, dtype=torch.float32,
+                 device=None) -> torch.Tensor:
+    """Tukey (tapered cosine) window, ``scipy.signal.windows.tukey``
+    (the reference's data taper), evaluated in ``dtype``."""
+    if alpha <= 0:
+        return torch.ones(n, dtype=dtype, device=device)
+    if alpha >= 1:
+        return hann_window(n, dtype=dtype, device=device)
+    k = torch.arange(n, dtype=dtype, device=device)
+    width = alpha * (n - 1) / 2.0
+    rising = 0.5 * (1 + torch.cos(math.pi * (k / width - 1.0)))
+    falling = 0.5 * (1 + torch.cos(math.pi * ((k - (n - 1)) / width + 1.0)))
+    one = torch.ones((), dtype=dtype, device=device)
+    return torch.where(k < width, rising, torch.where(k > (n - 1) - width, falling, one))
 
 
 def analytic_signal(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -135,3 +155,52 @@ def stft_magnitude(x: torch.Tensor, nfft: int, hop: int, *,
     lead = tuple(x.shape[:-1])
     power = stft_power(x.reshape(-1, x.shape[-1]), nfft, hop)
     return torch.sqrt(power).reshape(lead + tuple(power.shape[1:]))
+
+
+def fx_transform(trace: torch.Tensor, nfft: int) -> torch.Tensor:
+    """Per-channel two-sided fftshifted FFT magnitude at ``nfft`` points,
+    scaled by ``2/nfft`` and expressed in nanostrain (the reference's
+    ``dsp.get_fx``)."""
+    fx = 2.0 * torch.abs(torch.fft.fftshift(torch.fft.fft(trace, n=nfft, dim=-1), dim=-1))
+    return fx / nfft * 1e9
+
+
+def spectrogram(waveform: torch.Tensor, fs: float, nfft: int = 128,
+                overlap_pct: float = 0.8) -> Tuple[torch.Tensor, np.ndarray, np.ndarray]:
+    """Spectrogram in dB re its maximum, with its time and frequency axes
+    (the reference's ``dsp.get_spectrogram``): hop ``floor(nfft * (1 -
+    overlap_pct))``, ``|STFT|`` of :func:`stft`, axes as linspace ramps
+    over the duration and the Nyquist band."""
+    hop = int(np.floor(nfft * (1 - overlap_pct)))
+    mag = torch.abs(stft(waveform, nfft, hop))
+    p = 20.0 * torch.log10(mag / torch.max(mag))
+    height, width = p.shape[-2], p.shape[-1]
+    tt = np.linspace(0, waveform.shape[-1] / fs, num=width)
+    ff = np.linspace(0, fs / 2, num=height)
+    return p, tt, ff
+
+
+def unwrap(p: torch.Tensor, dim: int = -1, period: float = 2 * math.pi) -> torch.Tensor:
+    """Phase unwrap along ``dim`` (``np.unwrap`` / ``jnp.unwrap`` with
+    ``discont = period / 2``): jumps larger than half a period are
+    replaced by their complement, and the corrections accumulate."""
+    interval = period / 2
+    dd = torch.diff(p, dim=dim)
+    ddmod = torch.remainder(dd + interval, period) - interval
+    ddmod = torch.where((ddmod == -interval) & (dd > 0), torch.full_like(ddmod, interval), ddmod)
+    ph_correct = torch.where(torch.abs(dd) < interval, torch.zeros_like(dd), ddmod - dd)
+    head = p.narrow(dim, 0, 1)
+    tail = p.narrow(dim, 1, p.shape[dim] - 1) + torch.cumsum(ph_correct, dim=dim)
+    return torch.cat([head, tail], dim=dim)
+
+
+def instant_freq(channel: torch.Tensor, fs: float) -> torch.Tensor:
+    """Instantaneous frequency [Hz] from the unwrapped analytic phase
+    (the reference's ``dsp.instant_freq``), over any leading axes."""
+    phase = unwrap(torch.angle(analytic_signal(channel, dim=-1)), dim=-1)
+    return torch.diff(phase, dim=-1) / (2.0 * math.pi) * fs
+
+
+def taper_data(trace: torch.Tensor, alpha: float = 0.03) -> torch.Tensor:
+    """A Tukey taper along time (the reference's ``dsp.taper_data``)."""
+    return trace * tukey_window(trace.shape[-1], alpha, dtype=trace.dtype, device=trace.device)

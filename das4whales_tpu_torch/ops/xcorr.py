@@ -1,8 +1,10 @@
 """Cross-correlation and FFT convolution (``torch.fft``).
 
-The port's copy of ``das4whales_tpu.ops.xcorr``: the same-mode FFT
-convolutions of the spectrogram-correlation family, and the
-true-length-template corrected correlation of the matched filter. The
+The port's copy of ``das4whales_tpu.ops.xcorr``: the reference's
+positive-lag correlations (``shift_xcorr``, ``shift_nxcorr``,
+``compute_cross_correlogram``), the same-mode FFT convolutions of the
+spectrogram-correlation family, and the true-length-template corrected
+correlation of the matched filter. The
 reference pads each template to the record length and correlates at
 ``nfft = next_fast_len(2n - 1)``; the same correlogram is recovered
 exactly from the true-length template,
@@ -45,6 +47,25 @@ def _xcorr_full_len(n: int, m: int) -> int:
     return next_fast_len(n + m - 1)
 
 
+def shift_xcorr(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Positive-lag full cross-correlation of equal-length signals along
+    the last axis: ``correlate(x, y, 'full')[len(x)-1:]`` (the
+    reference's ``detect.shift_xcorr``)."""
+    n, m = x.shape[-1], y.shape[-1]
+    nfft = _xcorr_full_len(n, m)
+    X = torch.fft.rfft(x, nfft)
+    Y = torch.fft.rfft(y, nfft)
+    return torch.fft.irfft(X * torch.conj(Y), nfft)[..., :n]
+
+
+def shift_nxcorr(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """:func:`shift_xcorr` normalised by ``std(x) * std(y) * len(x)``
+    (population standard deviations over every element, as ``jnp.std``;
+    the reference's ``detect.shift_nxcorr``)."""
+    corr = shift_xcorr(x, y)
+    return corr / (torch.std(x, correction=0) * torch.std(y, correction=0) * x.shape[-1])
+
+
 def _demean_peak_normalize(x: torch.Tensor, guard_zero: bool = False) -> torch.Tensor:
     """Demean each row, then divide by the peak magnitude of the RAW row;
     ``guard_zero`` makes an all-zero row correlate to 0 instead of NaN."""
@@ -69,6 +90,20 @@ def corrected_from_raw(raw, suffix, mu, scale, dtype):
     mu_b = mu.reshape((mu.shape[0],) + (1,) * nd)
     scale_b = scale.reshape((scale.shape[0],) + (1,) * nd)
     return ((raw - mu_b * suffix[None, ...]) / scale_b).to(dtype)
+
+
+def compute_cross_correlogram(data: torch.Tensor, template: torch.Tensor) -> torch.Tensor:
+    """Reference-normalised correlogram of every channel of ``data [...,
+    n]`` against one ``template`` (both demeaned and peak-normalised),
+    positive lags, one batched rfft product (the reference's
+    ``detect.compute_cross_correlogram``)."""
+    norm_data = _demean_peak_normalize(data)
+    t = _demean_peak_normalize(template)
+    n, m = data.shape[-1], t.shape[-1]
+    nfft = _xcorr_full_len(n, m)
+    X = torch.fft.rfft(norm_data, nfft, dim=-1)
+    Y = torch.fft.rfft(t, nfft)
+    return torch.fft.irfft(X * torch.conj(Y), nfft, dim=-1)[..., :n].to(data.dtype)
 
 
 def compute_cross_correlograms_multi(data: torch.Tensor, templates: torch.Tensor) -> torch.Tensor:

@@ -52,7 +52,9 @@ def test_the_scan_covers_every_module_of_the_port():
                 "workflows/planner.py", "workflows/campaign.py", "workflows/mfdetect.py",
                 "utils/profiling.py", "models/templates.py", "ops/peaks.py", "ops/fk.py",
                 "ops/image.py", "models/gabor.py", "workflows/gabordetect.py",
-                "models/learned.py", "utils/parity.py"):
+                "models/learned.py", "utils/parity.py", "loc.py", "ops/chunked.py",
+                "ops/filters.py", "ops/xcorr.py", "ops/conditioning.py", "io/annotations.py",
+                "io/coords.py", "workflows/longrecord.py"):
         assert f"das4whales_tpu_torch/{mod}" in scanned
     assert "chip_smoke.py" in scanned
 
@@ -93,6 +95,37 @@ def test_default_device_is_the_card_and_never_the_cpu():
     assert resolve_device("cpu") == torch.device("cpu")
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_loc_eval_and_long_record_default_to_the_card(tmp_path):
+    """``loc.localize``, ``loc.localize_batch``, ``eval.localize_scene_call``
+    and ``detect_long_record`` given numpy inputs and no ``device=`` ask
+    for the card and refuse without one, before any work."""
+    import numpy as np
+
+    from das4whales_tpu_torch import eval as teval
+    from das4whales_tpu_torch import loc
+    from das4whales_tpu_torch.io.hdf5 import write_optasense
+    from das4whales_tpu_torch.io.synth import SyntheticCall, SyntheticScene
+    from das4whales_tpu_torch.workflows.longrecord import detect_long_record
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the refusal without one")
+    cable = np.stack([np.arange(16) * 10.0, np.zeros(16), np.zeros(16)], axis=1)
+    ti = np.linspace(1.0, 1.1, 16)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        loc.localize(ti, cable, 1500.0)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        loc.localize_batch(np.stack([ti, ti]), cable, 1500.0)
+    scene = SyntheticScene(nx=16, ns=400, calls=[SyntheticCall(t0=0.5, x0_m=10.0)])
+    picks = np.asarray([np.arange(16), np.full(16, 110)])
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        teval.localize_scene_call(picks, scene)
+    path = write_optasense(str(tmp_path / "f.h5"), np.zeros((8, 64), np.int32), fs=200.0,
+                           dx=2.0)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        detect_long_record([path], [0, 8, 1])
+    assert loc.localize(ti, cable, 1500.0, device="cpu").position.device.type == "cpu"
 
 
 def test_ingest_and_batched_route_default_to_the_card(tmp_path):
