@@ -5,8 +5,8 @@
 
 Builds the port's two CUDA kernels from ``das4whales_tpu_torch/csrc`` with
 ``nvcc`` (sm_90a) and the native ingest reader from
-``das4whales_tpu_torch/native/ingest.cpp`` with ``g++``, then runs twenty
-phases, one summary line each (more for the detector runs, with their
+``das4whales_tpu_torch/native/ingest.cpp`` with ``g++``, then runs
+twenty-nine phases, one summary line each (more for the detector runs, with their
 profiles), and exits non-zero at the first failed check; no phase's
 failure is caught:
 
@@ -242,7 +242,38 @@ failure is caught:
                 card against ``device="cpu"``: FFT ops within 1e-5 * max,
                 the exact IIR in float64 within 1e-10, thresholds rtol
                 1e-5, picks up to knife edges, ``loc`` in float64 within
-                rtol 1e-9.
+                rtol 1e-9;
+27. ``preflight`` the memory preflight's probe (``utils.memory``: a zero
+                slab, the peak above it, memoized) of the mf facade at
+                [B, 22050, 16384] (conditioned, health, the campaign
+                phase's design, its escalation attempt) and the learned
+                facade at [B, 22050, 12000], B = 1, 2, 4: each peak and
+                probe's seconds, peaks growing with B; then
+                ``run_campaign_batched(preflight=True)`` over the slab
+                files with ``DAS_HBM_BUDGET_GB`` between the mf B=2 and
+                B=4 peaks: one preflight downshift to ``batched:2``,
+                every file done there, no out-of-memory error, picks
+                bitwise a run at batch 2 without the preflight;
+28. ``service``  a ``DetectionService`` on the card with tenants ``mf``
+                (batch 4, pow2, health, a share between its B=2 and B=4
+                peaks: admission pins ``batched:2`` before its first
+                dispatch) and ``learned`` (``fin_cnn``, exact, batch 4)
+                over the four 22050 x 12000 slab files, SLO, quality and
+                cost cards on, a client polling /livez, /readyz,
+                /metrics, /tenants, /slo, /quality and /picks (cursor
+                resume), all 200: every file done at its rung, each
+                tenant's picks bitwise its standalone
+                ``run_campaign_batched``, every injected call picked, no
+                lock-order inversion, peak memory under 80 GB, both
+                kernels launched on the route and held against their plain
+                versions at its first and last launch; the pass walls,
+                pick latency p95, admission seconds and cost cards; then
+                ``python -m das4whales_tpu_torch serve --until-idle`` as a
+                subprocess over two files: exit 0, both manifests settled;
+29. ``service_cpu_vs_card`` the same two-tenant service at 512 x 12000 on
+                the card and with ``device="cpu"``: records equal (status,
+                rung, attempts), mf picks up to knife edges, learned
+                scores within 1e-5 and picks up to knife edges.
 
 Then it prints the kernel table as one JSON line, the run's total
 seconds, the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. It imports no JAX and nothing
@@ -294,9 +325,14 @@ def phase_device():
     if smi.returncode != 0 or not smi.stdout.strip():
         fail(f"device: nvidia-smi failed: {smi.stderr.strip()}")
     smi_line = smi.stdout.strip().splitlines()[0]
+    _SMI["line"] = smi_line
     say(f"device: {smi_line} | torch {torch.__version__} | CUDA {torch.version.cuda} "
         f"| {torch.cuda.device_count()} device(s)")
     return smi_line
+
+
+#: the card's ``nvidia-smi`` name and power limit, kept by ``phase_device``
+_SMI: dict = {}
 
 
 KERNELS = ("fused_picks", "fused_stft")
@@ -553,12 +589,13 @@ def _compare(a, b, where: str = "kernels") -> float:
 
 
 @contextlib.contextmanager
-def _capture(mod, name: str):
+def _capture(mod, name: str, skip=None):
     """Replace ``mod.name`` for the block by a function that forwards every
     call and keeps clones of the arguments of the first call and of the
     latest: yields ``{"n": calls, "first": (args, kw), "last": (args,
     kw)}`` (``"last"`` is the first where there was one call). The inputs
-    a main path gives a kernel, held against the plain version after."""
+    a main path gives a kernel, held against the plain version after.
+    Calls made while ``skip()`` is true are forwarded and not kept."""
     import torch
 
     orig = getattr(mod, name)
@@ -568,6 +605,8 @@ def _capture(mod, name: str):
         return v.clone() if isinstance(v, torch.Tensor) else v
 
     def spy(*args, **kw):
+        if skip is not None and skip():
+            return orig(*args, **kw)
         rec = (tuple(clone(a) for a in args), {k: clone(v) for k, v in kw.items()})
         got["first" if got["n"] == 0 else "last"] = rec
         got["n"] += 1
@@ -2410,6 +2449,7 @@ def phase_campaign():
     if design_t["n"] != 1:
         fail(f"campaign: {design_t['n']} detectors built for one bucket")
     det = design_t["out"][0]
+    _SLAB_DESIGN["campaign"] = det.design    # the preflight and service phases reuse it
     attempts, reads, escalations = det.dispatches, det.syncs, det.escalations
     n_tiles = -(-nx // det.effective_channel_tile)
     recs = [(r.status, r.rung) for r in res.records]
@@ -3371,6 +3411,10 @@ def _learned_campaigns(meta, nx, notes):
         launches += got["fused_stft"]
         e, r, _ = _stft_at_main_path(f"learned: {entry.__name__}", calls,
                                      ((LEARNED_BATCH if want == 1 else 1) * nx, CANONICAL[1]))
+        if want == 1 and {x.rung for x in res[(entry.__name__, "cuda")].records} == {
+                f"batched:{LEARNED_BATCH}"}:
+            # the service phase holds its learned tenant to these picks
+            shared["learned_picks"] = _saved_picks(res[(entry.__name__, "cuda")])
         err, rel = max(err, e), max(rel, r)
         del calls
         res[(entry.__name__, "cpu")] = entry(files, sub, str(shared["dir"] / f"learned_"
@@ -4613,6 +4657,549 @@ def phase_longrecord_cpu_vs_card():
         f"{'; '.join(notes)}")
 
 
+# ---------------------------------------------------------------------------
+# Phases 27-29: the memory preflight and the streaming detection service
+# (ROADMAP items 7a and 13)
+# ---------------------------------------------------------------------------
+
+#: batch sizes the preflight phase prices each facade at
+PREFLIGHT_BATCHES = (1, 2, 4)
+#: the service's tenants' batch, freshness target [s] and the learned
+#: tenant's memory share as a multiple of its measured B=4 peak
+SERVICE_BATCH = 4
+SERVICE_SLO_S = 120.0
+SERVICE_LEARNED_SHARE = 1.5
+#: the endpoints a client polls while the service runs
+SERVICE_ENDPOINTS = ("/livez", "/readyz", "/metrics", "/tenants", "/slo", "/quality")
+#: the card-vs-CPU service files: 512 channels x 12000 samples, int32
+SERVICE_CPU_FILES = ((2060, 12000), (2061, 12000), (2062, 12000), (2063, 12000))
+
+#: the preflight phase's measured peaks, shared with the service phase
+_PREFLIGHT: dict = {}
+
+
+@contextlib.contextmanager
+def _probes_marked():
+    """Mark the memory preflight's probes for the block: yields ``{"n",
+    "s", "active"}`` (probes run, their seconds, and true while one runs:
+    its launches run on a zero slab, and :func:`_capture` skips them)."""
+    from das4whales_tpu_torch.utils import memory
+
+    orig = memory._measure
+    got = {"n": 0, "s": 0.0, "active": False}
+
+    def marked(spec):
+        got["active"] = True
+        t0 = time.perf_counter()
+        try:
+            return orig(spec)
+        finally:
+            got["s"] += time.perf_counter() - t0
+            got["n"] += 1
+            got["active"] = False
+
+    memory._measure = marked
+    try:
+        yield got
+    finally:
+        memory._measure = orig
+
+
+def _service_design(meta, nx: int):
+    """The campaign phase's fin design at the 16384 bucket (designed here,
+    on the host, when that phase did not run)."""
+    design = _SLAB_DESIGN.get("campaign") or _SLAB_DESIGN.get("design")
+    if design is None:
+        from das4whales_tpu_torch.models.matched_filter import MatchedFilterDetector
+
+        design = MatchedFilterDetector(meta, [0, nx, 1], (nx, SLAB_BUCKET),
+                                       device="cpu").design
+        _SLAB_DESIGN["campaign"] = design
+    return design
+
+
+def _saved_picks(res) -> dict:
+    """``{path: picks}`` of a campaign result's done files."""
+    from das4whales_tpu_torch.workflows.campaign import load_picks
+
+    return {r.path: load_picks(r.picks_file) for r in res.records if r.status == "done"}
+
+
+def _same_saved_picks(where: str, got, ref: dict) -> int:
+    """Each file's saved picks of a campaign result bitwise ``ref``'s
+    (:func:`_saved_picks` of the reference run); returns the files
+    compared."""
+    from das4whales_tpu_torch.workflows.campaign import load_picks
+
+    n = 0
+    for r in got.records:
+        a, b = load_picks(r.picks_file), ref[r.path]
+        if set(a) != set(b) or any(not np.array_equal(a[k], b[k]) for k in a):
+            fail(f"{where}: {os.path.basename(r.path)}: saved picks differ from the "
+                 "reference run's")
+        n += 1
+    return n
+
+
+def phase_preflight():
+    """The memory preflight on the card: the mf facade at [B, 22050, 16384]
+    (conditioned wire, health, the campaign phase's design) and the learned
+    facade at [B, 22050, 12000] measured for B in 1, 2, 4; then
+    ``run_campaign_batched(preflight=True)`` over the slab phase's files
+    with ``DAS_HBM_BUDGET_GB`` between the mf B=2 and B=4 peaks: it must
+    start at ``batched:2`` with exactly one preflight downshift and no
+    out-of-memory error, its picks bitwise a run at batch 2 without it."""
+    import shutil
+
+    import torch
+
+    from das4whales_tpu_torch.parallel.batch import batched_detector_for
+    from das4whales_tpu_torch.utils import memory
+    from das4whales_tpu_torch.utils.artifacts import read_records
+    from das4whales_tpu_torch.workflows import campaign as cmod
+
+    t_phase = time.perf_counter()
+    nx = CANONICAL[0]
+    sel = [0, nx, 1]
+    shared = slab_files()
+    paths, meta = shared["paths"], shared["scenes"][0].metadata
+    design = _service_design(meta, nx)
+    memory.clear_probe_cache()
+    mf = cmod.family_detector("mf", meta, sel, (nx, SLAB_BUCKET), design=design)
+    if mf._route() != "tiled":
+        fail(f"preflight: the mf facade's route at the default budget is {mf._route()}")
+    bds = {"mf": batched_detector_for(mf),
+           "learned": batched_detector_for(cmod.family_detector("learned", meta, sel, CANONICAL),
+                                           trace_shape=CANONICAL)}
+    peaks, secs = {}, {}
+    torch.cuda.synchronize()
+    with _probes_marked() as probes:
+        for fam, bd in bds.items():
+            for b in PREFLIGHT_BATCHES:
+                t0 = time.perf_counter()
+                st = memory.batched_program_memory(bd, b, np.float32, with_health=True)
+                secs[(fam, b)] = time.perf_counter() - t0
+                if st is None or st.exhausted:
+                    fail(f"preflight: {fam} at B={b}: no measured peak ({st})")
+                peaks[(fam, b)] = st
+    if probes["n"] != len(bds) * len(PREFLIGHT_BATCHES):
+        fail(f"preflight: {probes['n']} probes for {len(bds) * len(PREFLIGHT_BATCHES)} programs")
+    for fam in bds:
+        p = [peaks[(fam, b)].peak for b in PREFLIGHT_BATCHES]
+        if not p[0] < p[1] < p[2] < CARD_BYTES:
+            fail(f"preflight: {fam} peaks {p} do not grow with B under the card's memory")
+    budget = (peaks[("mf", 2)].peak + peaks[("mf", 4)].peak) / 2
+    # the campaigns' program stays on the tiled route the facades were
+    # priced on (the route at the default budget): the budget moves the
+    # batch and nothing else
+    kw = dict(metadata=meta, interrogator="silixa", design=design,
+              channel_tile=mf.effective_channel_tile)
+    out, ref_out = shared["dir"] / "preflight_out", shared["dir"] / "preflight_ref"
+    old = os.environ.get("DAS_HBM_BUDGET_GB")
+    os.environ["DAS_HBM_BUDGET_GB"] = repr(budget / 2**30)
+    try:
+        with _probes_marked() as camp_probes:
+            t0 = time.perf_counter()
+            res = cmod.run_campaign_batched(paths, sel, str(out), preflight=True, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        if old is None:
+            os.environ.pop("DAS_HBM_BUDGET_GB", None)
+        else:
+            os.environ["DAS_HBM_BUDGET_GB"] = old
+    moves = [(e["from"], e["to"], e.get("preflight")) for e in
+             read_records(str(out / "manifest.jsonl")) if e.get("event") == "downshift"]
+    if moves != [("batched:4", "batched:2", True)]:
+        fail(f"preflight: downshift events {moves}; expected one preflight move to batched:2")
+    recs = [(r.status, r.rung) for r in res.records]
+    if recs != [("done", "batched:2")] * len(paths):
+        fail(f"preflight: records {recs}; every file must be done at batched:2")
+    summary = cmod.summarize_campaign(str(out))
+    if summary["oom_recoveries"] or summary["n_failed"]:
+        fail(f"preflight: {summary['oom_recoveries']} out-of-memory recoveries, "
+             f"{summary['n_failed']} failed")
+    t0 = time.perf_counter()
+    ref = cmod.run_campaign_batched(paths, sel, str(ref_out), batch=2, **kw)
+    ref_wall = time.perf_counter() - t0
+    if [(r.status, r.rung) for r in ref.records] != recs:
+        fail(f"preflight: the batch-2 run's records {[(r.status, r.rung) for r in ref.records]}")
+    ref_picks = _saved_picks(ref)
+    n_same = _same_saved_picks("preflight", res, ref_picks)
+    # the service phase holds its mf tenant (batched:2) to this run's picks
+    _PREFLIGHT.update(peaks=peaks, secs=secs, budget=budget, mf_picks=ref_picks)
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.rmtree(ref_out, ignore_errors=True)
+    gib = 2**30
+    say("preflight: measured peaks (slab counted as an argument; the mf program at its "
+        "escalation attempt, K=256 topk) and each probe's seconds (its cold first run): "
+        + "; ".join(f"{fam} [{b}, {nx}, {SLAB_BUCKET if fam == 'mf' else CANONICAL[1]}] "
+                    f"{peaks[(fam, b)].peak / gib:.2f} GiB (of which outputs "
+                    f"{peaks[(fam, b)].output_bytes / gib:.3f}) in {secs[(fam, b)]:.3f} s"
+                    for fam in bds for b in PREFLIGHT_BATCHES)
+        + f"; run_campaign_batched(preflight=True) over {len(paths)} files with "
+        f"DAS_HBM_BUDGET_GB={budget / gib:.2f} (between the mf B=2 and B=4 peaks): "
+        f"{wall:.1f} s, {camp_probes['n']} new probes ({camp_probes['s']:.2f} s; the rest "
+        f"memoized), one preflight downshift batched:4 -> batched:2, every file done at "
+        f"batched:2, 0 out-of-memory errors; {n_same} files' picks bitwise the batch-2 run's "
+        f"without the preflight ({ref_wall:.1f} s); phase {time.perf_counter() - t_phase:.1f} s")
+    return _PREFLIGHT
+
+
+class _ServicePoller:
+    """A client thread polling every endpoint and both tenants' NDJSON
+    streams (cursor resume, long poll) while a service runs; it keeps
+    every answer's code and every stream line."""
+
+    def __init__(self, url: str, tenants):
+        import threading
+
+        self.url, self.tenants = url, tuple(tenants)
+        self.codes, self.errors = [], []
+        self.cursor = {t: 0 for t in self.tenants}
+        self.lines = {t: [] for t in self.tenants}
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._run, name="smoke-poller", daemon=True)
+
+    def _get(self, path: str):
+        import urllib.request
+
+        with urllib.request.urlopen(self.url + path, timeout=60) as r:
+            return r.status, r.read().decode()
+
+    def _run(self):
+        while not self._stop.is_set():
+            try:
+                for ep in SERVICE_ENDPOINTS:
+                    self.codes.append((ep, self._get(ep)[0]))
+                for t in self.tenants:
+                    code, body = self._get(f"/picks/{t}?cursor={self.cursor[t]}&wait_s=0.2")
+                    self.codes.append(("/picks", code))
+                    for line in body.splitlines():
+                        rec = json.loads(line)
+                        self.lines[t].append(rec)
+                        self.cursor[t] = rec["cursor"]
+            except Exception as exc:  # noqa: BLE001 — reported by the phase
+                self.errors.append(f"{type(exc).__name__}: {exc}")
+                self._stop.wait(0.2)
+
+    def __enter__(self):
+        self._t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._t.join(120)
+
+
+@contextlib.contextmanager
+def _latencies(slo_mod):
+    """Keep every (tenant, seconds) the service observes into its
+    ingest->pick-settled freshness histogram for the block."""
+    orig = slo_mod.observe_pick_latency
+    got = []
+
+    def spy(tenant, latency_s):
+        got.append((tenant, float(latency_s)))
+        return orig(tenant, latency_s)
+
+    slo_mod.observe_pick_latency = spy
+    try:
+        yield got
+    finally:
+        slo_mod.observe_pick_latency = orig
+
+
+def _service_specs(service, files, sel, meta, mf_share, learned_share, design, **kw):
+    common = dict(channels=sel, interrogator="silixa", metadata=meta.to_dict(),
+                  batch=SERVICE_BATCH, slo_p95_s=SERVICE_SLO_S, **kw)
+    return [service.TenantSpec(name="mf", files=list(files), bucket="pow2",
+                               hbm_share_gb=mf_share, detector_kwargs={"design": design},
+                               **common),
+            service.TenantSpec(name="learned", files=list(files), family="learned",
+                               hbm_share_gb=learned_share, **common)]
+
+
+def phase_service():
+    """A ``DetectionService`` on the card with two tenants over the slab
+    phase's four 22050 x 12000 TDMS files: ``mf`` (batch 4, pow2 buckets,
+    health, a memory share between its measured B=2 and B=4 peaks, so
+    admission pins it at ``batched:2`` before its first dispatch) and
+    ``learned`` (the pretrained ``fin_cnn``, exact buckets, batch 4), both
+    with an SLO target, quality and cost cards, a client polling every
+    endpoint; then ``python -m das4whales_tpu_torch serve --until-idle``
+    as a subprocess over two files. Returns ``(launches, (picks_err,
+    stft_err))``."""
+    import dataclasses
+    import shutil
+    from pathlib import Path
+
+    import torch
+
+    from das4whales_tpu_torch import service
+    from das4whales_tpu_torch.ops import fused_picks, fused_stft
+    from das4whales_tpu_torch.ops import health as health_ops
+    from das4whales_tpu_torch.service import scheduler
+    from das4whales_tpu_torch.telemetry import costs
+    from das4whales_tpu_torch.telemetry import slo as slo_mod
+    from das4whales_tpu_torch.utils import locks
+    from das4whales_tpu_torch.utils.artifacts import read_records
+    from das4whales_tpu_torch.utils.checkpoint import save_design
+    from das4whales_tpu_torch.workflows import campaign as cmod
+
+    t_phase = time.perf_counter()
+    pre = _PREFLIGHT or phase_preflight()
+    nx = CANONICAL[0]
+    sel = [0, nx, 1]
+    shared = slab_files()
+    files = [p for p, (_, ns) in zip(shared["paths"], SLAB_FILES) if ns == CANONICAL[1]]
+    scenes = dict(zip(shared["paths"], shared["scenes"]))
+    meta = shared["scenes"][0].metadata
+    design = _service_design(meta, nx)
+    gib = 2**30
+    mf_share = pre["budget"] / gib
+    learned_share = SERVICE_LEARNED_SHARE * pre["peaks"][("learned", SERVICE_BATCH)].peak / gib
+    d = shared["dir"] / "service"
+    shutil.rmtree(d, ignore_errors=True)
+    cfg = service.ServiceConfig(
+        tenants=_service_specs(service, files, sel, meta, mf_share, learned_share, design),
+        outdir=str(d), cost_cards=True, quality=True)
+    costs.reset()
+    locks.reset_order_graph()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    svc = service.DetectionService(cfg)
+    zero_launches()                      # the service's main path starts here
+    with _probes_marked() as probes, \
+            _capture(fused_picks, "picks_cuda", skip=lambda: probes["active"]) as pcalls, \
+            _capture(fused_stft, "stft_power_cuda", skip=lambda: probes["active"]) as scalls, \
+            _timing(scheduler.TenantRuntime, "_admit_bucket") as admit_t, \
+            _timing(health_ops, "host_health_stats") as health_t, \
+            _latencies(slo_mod) as lats:
+        t0 = time.perf_counter()
+        svc.start()
+        try:
+            with _ServicePoller(svc.api.url, ("mf", "learned")) as poll:
+                res = svc.run(until_idle=True)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                time.sleep(0.5)
+        finally:
+            svc.stop()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    inversions = locks.inversions()
+    cards = costs.cards_payload()["cards"]
+    bad = [c for c in poll.codes if c[1] != 200]
+    if poll.errors or bad or not poll.codes:
+        fail(f"service: endpoints answered {bad[:5]}, errors {poll.errors[:3]} over "
+             f"{len(poll.codes)} requests")
+    if {ep for ep, _ in poll.codes} != set(SERVICE_ENDPOINTS) | {"/picks"}:
+        fail(f"service: the client reached only {sorted({ep for ep, _ in poll.codes})}")
+    for t in ("mf", "learned"):
+        cur = [r["cursor"] for r in poll.lines[t]]
+        if cur != list(range(1, len(cur) + 1)):
+            fail(f"service: {t}'s NDJSON stream resumed out of order: cursors {cur}")
+    if inversions:
+        fail(f"service: lock-order inversions {inversions}")
+    want_rung = {"mf": "batched:2", "learned": f"batched:{SERVICE_BATCH}"}
+    for t, r in res.items():
+        recs = [(x.status, x.rung) for x in r.records]
+        if recs != [("done", want_rung[t])] * len(files):
+            fail(f"service: tenant {t}: records {recs}")
+    moves = [(e["from"], e["to"], e.get("preflight"), "admission" in e.get("error", ""))
+             for e in read_records(str(d / "mf" / "manifest.jsonl"))
+             if e.get("event") == "downshift"]
+    if moves != [(f"batched:{SERVICE_BATCH}", "batched:2", True, True)]:
+        fail(f"service: mf's downshift events {moves}; expected the admission's one pin")
+    if any(e.get("event") == "downshift" for e in
+           read_records(str(d / "learned" / "manifest.jsonl"))):
+        fail("service: the learned tenant downshifted")
+    if not peak < CARD_BYTES:
+        fail(f"service: peak device memory {peak / gib:.2f} GiB")
+    if launches["fused_picks"] == 0 or launches["fused_stft"] == 0:
+        fail(f"service: launches {launches}; both kernels must run on the service route")
+    tile = res_tile = min(512, nx)
+    rows = {"first": 2 * 2 * res_tile, "last": 2 * 2 * (nx - (-(-nx // tile) - 1) * tile)}
+    picks_err, picks_notes = _picks_at_main_path("service", pcalls, rows)
+    stft_err, stft_rel, _ = _stft_at_main_path("service", scalls,
+                                                (SERVICE_BATCH * nx, CANONICAL[1]))
+    del pcalls, scalls
+    # each tenant bitwise its standalone campaign at the same rung: the
+    # preflight phase's batch-2 mf run and the learned phase's batched
+    # campaign (run here when those phases did not run)
+    std = {"mf": pre.get("mf_picks"), "learned": shared.get("learned_picks")}
+    kw = dict(metadata=meta, interrogator="silixa")
+    t0 = time.perf_counter()
+    for t, extra in (("mf", dict(batch=2, design=design)),
+                     ("learned", dict(batch=SERVICE_BATCH, family="learned"))):
+        if std[t] is not None and set(files) <= set(std[t]):
+            continue
+        r = cmod.run_campaign_batched(files, sel, str(d / f"std_{t}"), **kw, **extra)
+        if [(x.status, x.rung) for x in r.records] != [("done", want_rung[t])] * len(files):
+            fail(f"service: {t}'s standalone campaign records "
+                 f"{[(x.status, x.rung) for x in r.records]}")
+        std[t] = _saved_picks(r)
+    std_wall = time.perf_counter() - t0
+    for t in ("mf", "learned"):
+        _same_saved_picks(f"service: tenant {t}", res[t], std[t])
+        for x in res[t].records:
+            if _check_calls(scenes[x.path], cmod.load_picks(x.picks_file)):
+                fail(f"service: tenant {t}: {os.path.basename(x.path)}: an injected call "
+                     "was missed")
+    lat = {t: [s for name, s in lats if name == t] for t in ("mf", "learned")}
+    if any(len(v) != len(files) for v in lat.values()):
+        fail(f"service: freshness samples {[(t, len(v)) for t, v in lat.items()]}")
+    slo = svc.slo_report()
+    del svc                              # free the tenants' device tensors for the child
+    # the serve verb as a subprocess on the card over two files
+    sub_dir = shared["dir"] / "serve"
+    shutil.rmtree(sub_dir, ignore_errors=True)
+    sub_dir.mkdir()
+    dpath = save_design(str(sub_dir / "design"), design)
+    reg = {"outdir": str(sub_dir / "out"), "port": 0, "cost_cards": True, "quality": True,
+           "tenants": [dataclasses.asdict(s) for s in _service_specs(
+               service, files[:2], sel, meta, mf_share, learned_share, dpath)]}
+    reg_path = sub_dir / "registry.json"
+    reg_path.write_text(json.dumps(reg))
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "das4whales_tpu_torch", "serve",
+                           str(reg_path), "--until-idle"], cwd=str(Path(__file__).parent),
+                          capture_output=True, text=True, timeout=600)
+    serve_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"service: the serve subprocess exited {proc.returncode}: "
+             f"{proc.stderr[-3000:]}")
+    for t in ("mf", "learned"):
+        settled = cmod.load_settled(str(sub_dir / "out" / t))
+        if sorted(settled) != sorted(files[:2]) or f"tenant {t}: 2 done, 0 failed" not in \
+                proc.stdout:
+            fail(f"service: the serve subprocess settled {sorted(settled)} for {t}: "
+                 f"{proc.stdout[-1000:]}")
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.rmtree(sub_dir, ignore_errors=True)
+    card_text = "; ".join(
+        f"{c['program']} {c['bucket']} {c['engine']}: {c['flops'] / 1e12:.3f} Tops, "
+        f"{c['bytes_accessed'] / 1e9:.2f} GB counted ({', '.join(c['stages'])}), peak "
+        f"{c['peak_bytes'] / gib:.2f} GiB, first run {c['compile_seconds']:.3f} s, roofline "
+        + (f"{c['predicted_wall_s'] * 1e3:.2f} ms" if c["predicted_wall_s"] is not None
+           else "none")
+        for c in cards)
+    per = {t: wall / len(files) for t in ("mf", "learned")}
+    say(f"service: DetectionService on the card ({_SMI.get('line', 'nvidia-smi not read')}), tenants mf (batch "
+        f"{SERVICE_BATCH}, pow2, health, share {mf_share:.2f} GiB) and learned (fin_cnn, exact, "
+        f"batch {SERVICE_BATCH}, share {learned_share:.2f} GiB) over {len(files)} files of "
+        f"{nx} x {CANONICAL[1]}: wall {wall:.2f} s ({per['mf']:.2f} s a file a tenant, both "
+        f"tenants' passes sharing the card), record walls mf "
+        f"{np.mean([x.wall_s for x in res['mf'].records]):.3f} / learned "
+        f"{np.mean([x.wall_s for x in res['learned'].records]):.3f} s a file; admission "
+        f"{admit_t['s']:.3f} s over {admit_t['n']} buckets ({probes['n']} probes run here, "
+        f"{probes['s']:.2f} s; the rest memoized from the preflight phase), mf pinned at "
+        f"batched:2 before its first dispatch, learned at batched:{SERVICE_BATCH}; pick latency "
+        f"p95 mf {np.percentile(lat['mf'], 95):.2f} s, learned "
+        f"{np.percentile(lat['learned'], 95):.2f} s (SLO {SERVICE_SLO_S:.0f} s: "
+        f"{[(r['tenant'], r['state']) for r in slo['tenants']]}); launches {launches}; "
+        f"fused_picks bitwise its plain version at the route's first and last launch "
+        f"({'; '.join(picks_notes)}), fused_stft within {stft_rel:.2e} * max; peak device "
+        f"memory {peak / gib:.2f} GiB; {len(poll.codes)} requests over "
+        f"{', '.join(SERVICE_ENDPOINTS)} and /picks (cursor resume: mf "
+        f"{len(poll.lines['mf'])}, learned {len(poll.lines['learned'])} lines) all 200; 0 lock "
+        f"inversions; each tenant's picks bitwise its standalone run_campaign_batched (the "
+        f"preflight phase's batch-2 run, the learned phase's campaign; {std_wall:.1f} s here), "
+        f"every injected call picked; host health stats of the learned tenant's slab "
+        f"{health_t['s']:.2f} s over {health_t['n']} files; cost cards: {card_text}; "
+        f"serve --until-idle subprocess over 2 files exit 0 in {serve_s:.1f} s, both "
+        f"manifests settled; phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, (picks_err, stft_err)
+
+
+def phase_service_cpu_vs_card():
+    """The same two-tenant service at 512 x 12000 on the card and with
+    ``device="cpu"``: manifests equal record for record (status, rung,
+    attempts), the mf picks equal up to knife edges, the learned family's
+    scores within ``LEARNED_CARD_ABS`` and its picks up to knife edges."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from das4whales_tpu_torch import service
+    from das4whales_tpu_torch.io.stream import stream_batched_slabs
+    from das4whales_tpu_torch.models.learned import LearnedDetector, load_pretrained
+    from das4whales_tpu_torch.models.matched_filter import MatchedFilterDetector
+    from das4whales_tpu_torch.utils.checkpoint import save_design
+    from das4whales_tpu_torch.workflows import campaign as cmod
+
+    t_phase = time.perf_counter()
+    nx = 512
+    sel = [0, nx, 1]
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    d = Path(tempfile.mkdtemp(prefix="service_cpu_files_", dir=root))
+    try:
+        files, scenes_l, _ = _write_files(d, SERVICE_CPU_FILES, nx, n_calls=1)
+        scenes = dict(zip(files, scenes_l))
+        meta = scenes_l[0].metadata
+        design = MatchedFilterDetector(meta, sel, (nx, SLAB_BUCKET), device="cpu").design
+        dpath = save_design(str(d / "design_16384"), design)
+        res, walls = {}, {}
+        for dev in ("cuda", "cpu"):
+            svc = service.DetectionService(service.ServiceConfig(
+                tenants=_service_specs(service, files, sel, meta, None, None, dpath),
+                outdir=str(d / f"svc_{dev}"), device=dev, cost_cards=True, quality=True))
+            svc.start()
+            t0 = time.perf_counter()
+            try:
+                res[dev] = svc.run(until_idle=True)
+            finally:
+                svc.stop()
+            walls[dev] = time.perf_counter() - t0
+        for t in ("mf", "learned"):
+            a = [(os.path.basename(r.path), r.status, r.rung, r.attempts)
+                 for r in res["cuda"][t].records]
+            b = [(os.path.basename(r.path), r.status, r.rung, r.attempts)
+                 for r in res["cpu"][t].records]
+            if a != b or {r[1] for r in a} != {"done"}:
+                fail(f"service_cpu_vs_card: tenant {t}: records card {a} vs cpu {b}")
+        blocks = {}
+        for slab in stream_batched_slabs(files, sel, meta, batch=1, bucket="pow2",
+                                         as_numpy=True, interrogator="silixa"):
+            blocks[slab.paths[0]] = slab.stack[0]
+        cpu_det = MatchedFilterDetector.from_design(design, meta, device="cpu")
+        n_mf = _compare_campaigns("service_cpu_vs_card: mf", res["cuda"]["mf"],
+                                  res["cpu"]["mf"], cpu_det, blocks, scenes)
+        dets = {dev: LearnedDetector(*load_pretrained(), device=dev) for dev in ("cuda", "cpu")}
+        e_scores, n_learned = 0.0, 0
+        for ra, rb in zip(res["cuda"]["learned"].records, res["cpu"]["learned"].records):
+            x = blocks[ra.path][:, : CANONICAL[1]]
+            card = dets["cuda"](torch.as_tensor(x).cuda())
+            cpu = dets["cpu"](x)
+            e = float(np.abs(card.scores - cpu.scores).max())
+            if not e <= LEARNED_CARD_ABS:
+                fail(f"service_cpu_vs_card: learned scores {e:.3e} apart (limit "
+                     f"{LEARNED_CARD_ABS})")
+            e_scores = max(e_scores, e)
+            pa, pb = cmod.load_picks(ra.picks_file), cmod.load_picks(rb.picks_file)
+            n_learned += _learned_knife("service_cpu_vs_card: learned", pa["CALL"], pb["CALL"],
+                                        cpu.scores, cpu.centers, 0.5)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    say(f"service_cpu_vs_card: the two-tenant service (mf batch {SERVICE_BATCH} pow2 on one "
+        f"design, learned batch {SERVICE_BATCH}) over {len(files)} files of {nx} x "
+        f"{CANONICAL[1]} on the card ({walls['cuda']:.1f} s) and on the CPU "
+        f"({walls['cpu']:.1f} s): records equal (status, rung, attempts), every file done; "
+        f"mf picks {n_mf} differing (knife edges), every injected call picked; learned scores "
+        f"within {e_scores:.2e} (limit {LEARNED_CARD_ABS}), picks {n_learned} differing (knife "
+        f"edges); phase {time.perf_counter() - t_phase:.1f} s")
+
+
+
 def main(argv: list) -> int:
     import torch
 
@@ -4648,6 +5235,8 @@ def main(argv: list) -> int:
         campaign_launches = phase_campaign()
         gabor_launches, gabor_campaign_launches, gabor_err, _ = phase_gabor(scene, raw, design)
         learned_launches, learned_err, learned = phase_learned(scene, raw)
+        phase_preflight()
+        svc_launches, (svc_picks_err, svc_stft_err) = phase_service()
     finally:
         remove_slab_files()
     pool = _host_pool()
@@ -4675,6 +5264,7 @@ def main(argv: list) -> int:
     phase_dsp_cpu_vs_card()
     phase_localize_cpu_vs_card()
     phase_longrecord_cpu_vs_card()
+    phase_service_cpu_vs_card()
     pk = kern["pack"]
     print(json.dumps({"kernels": [{
         "name": "fused_picks",
@@ -4686,8 +5276,10 @@ def main(argv: list) -> int:
                              "slab_batched": slab_launches["batched"],
                              "slab_serial": slab_launches["serial"],
                              "campaign": campaign_launches, "gabor": gabor_launches,
-                             "campaign_gabor": gabor_campaign_launches, **loc_launches},
-        "max_abs_err": max(err, slab_picks_err, full_err, bank_err, gabor_err, loc_err),
+                             "campaign_gabor": gabor_campaign_launches, **loc_launches,
+                             "service": svc_launches["fused_picks"]},
+        "max_abs_err": max(err, slab_picks_err, full_err, bank_err, gabor_err, loc_err,
+                           svc_picks_err),
         "ms": pk["ms"],
         "device_ms": pk["device_ms"],
         "plain_ms": pk["plain_ms"],
@@ -4702,8 +5294,9 @@ def main(argv: list) -> int:
         "launches": stft_launches,
         "launches_by_path": {"spectro": stft_launches, "slab_spectro": slab_stft_launches,
                              "campaign_spectro": campaign_stft_launches, **learned_launches,
-                             **long_launches},
-        "max_abs_err": max(stft_err, slab_stft_err, campaign_stft_err, learned_err, long_err),
+                             **long_launches, "service": svc_launches["fused_stft"]},
+        "max_abs_err": max(stft_err, slab_stft_err, campaign_stft_err, learned_err, long_err,
+                           svc_stft_err),
         "ms": stft["ms"],
         "device_ms": stft["device_ms"],
         "plain_ms": stft["plain_ms"],

@@ -40,12 +40,17 @@ The learned family's facade (:class:`BatchedLearnedDetector`) scores a
 slab's windows in chunks of at most :data:`LEARNED_BATCH_ROWS` rows, so
 its activations stay bounded at any batch size.
 
-Not in this slice: ``program_spec`` (absent) for the memory preflight
-('Campaign preflight').
+Every facade carries ``program_spec(batch, stack_dtype, ...)``: the
+program the memory preflight, the cost cards and the service's
+admission price (``utils.memory.ProgramSpec``) — a callable that runs
+the facade's batched program once on a ``[B, C, T]`` stack (the matched
+filter's full-capacity escalation attempt), its probe key, and its
+operations and bytes counted stage by stage.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, List
 
 import numpy as np
@@ -64,6 +69,44 @@ from ..models.matched_filter import (
 )
 from ..ops import health as health_ops
 from ..ops import peaks as peak_ops
+from ..ops.xcorr import next_fast_len
+from ..utils.memory import ProgramSpec
+
+
+def _rfft_ops(n: int) -> float:
+    """Operations of one real FFT of length ``n``: 2.5 n log2 n (half a
+    complex one's 5 n log2 n)."""
+    return 2.5 * n * math.log2(max(n, 2))
+
+
+def _counted(stages: list) -> dict:
+    """Sum ``(name, ops, bytes, transcendentals)`` stage rows into the
+    ``ProgramSpec`` count fields."""
+    return dict(flops=float(sum(r[1] for r in stages)),
+                bytes_accessed=float(sum(r[2] for r in stages)),
+                transcendentals=float(sum(r[3] for r in stages)),
+                stages=tuple(r[0] for r in stages))
+
+
+def _fk_stage(mf: MatchedFilterDetector, B: int) -> tuple:
+    """The f-k filter's counted row for ``B`` files on ``mf``'s design:
+    the rfft in time, the banded FFT in channel and back, the mask, the
+    inverse rfft."""
+    C, T = mf.design.trace_shape
+    Fb = int(mf._band_hi - mf._band_lo)
+    Cf = int(mf.design.fk_channels)
+    return ("fk", 2 * B * _rfft_ops(T) * C + 2 * B * Fb * 2 * _rfft_ops(Cf) + 6.0 * B * Cf * Fb,
+            B * (2 * C * T * 4 + 2 * Cf * Fb * 8) + Cf * Fb * 4, 0.0)
+
+
+def _stft_stage(name: str, rows: int, T: int, nfft: int, hop: int) -> tuple:
+    """The STFT-power kernel's counted row (``chip_smoke.py``'s bound:
+    per frame the window, a real FFT and the power; the input read once,
+    the power written once)."""
+    F = nfft // 2 + 1
+    nf = 1 + T // hop
+    return (name, rows * nf * (nfft + _rfft_ops(nfft) + 3 * F),
+            4 * rows * T + 4 * nfft * 2 * F + 4 * rows * F * nf, 0.0)
 
 
 def _batched_body(stack: torch.Tensor, arrays: tuple, n_real, *, serial: bool,
@@ -135,6 +178,81 @@ class BatchedMatchedFilterDetector:
             )
         return cached
 
+    def _program_args(self, with_health: bool, health_clip, stage_hook=None) -> tuple:
+        """The detection program's positional device arrays, keyword
+        arguments (less ``max_peaks``/``pick_method``) and packed
+        capacity: one definition for ``dispatch_batch`` and
+        ``program_spec``."""
+        det = self.det
+        C, _T = det.design.trace_shape
+        nT = len(det.design.template_names)
+        cap = int(min(C * det.max_peaks, det.pick_pack_cap))
+        thr_in = torch.zeros((nT,), dtype=torch.float32, device=det.device)
+        tile = det.effective_channel_tile if det._route() == "tiled" else None
+        kw = dict(
+            band_lo=det._band_lo, band_hi=det._band_hi, bp_padlen=det.design.bp_padlen,
+            staged_bp=not det.fused_bandpass, tile=tile, pad_rows=det.fk_pad_rows,
+            capacity=cap, use_threshold=False,
+            condition=det.wire == "raw", cond_scale=det._cond_scale,
+            thr_scope=det.threshold_scope, with_health=with_health, health_clip=health_clip,
+            stage_hook=stage_hook,
+        )
+        arrays = (det._mask_band, det._bp_gain, det._templates_true, det._template_mu,
+                  det._template_scale, thr_in, det._thr_factors)
+        return arrays, kw, cap
+
+    def program_spec(self, batch: int, stack_dtype, *, with_health: bool = False,
+                     health_clip: float | None = None, donate: bool = False) -> ProgramSpec:
+        """The priced program (``utils.memory``): one full-capacity
+        attempt (K = ``max_peaks``, ``topk`` — the escalation the K0
+        attempt may take; a zero slab saturates no row, so it is run
+        explicitly) over a ``[batch, C, T]`` stack, with its packed read
+        (the attempt's device-side concatenation) and health rows.
+        ``donate`` is accepted for the JAX signature and inert."""
+        det = self.det
+        C, T = det.design.trace_shape
+        nT = int(det.design.templates.shape[0])
+        arrays, kw, cap = self._program_args(with_health, health_clip)
+        K = int(det.max_peaks)
+
+        def run(stack):
+            outs = _batched_body(det._as_input(stack), arrays, None, serial=self.serial,
+                                 max_peaks=K, pick_method=peak_ops.escalation_method(K, K),
+                                 **kw)
+            parts = [outs.chan, outs.times, outs.count, outs.sat_count,
+                     outs.thr.view(torch.int32)]
+            if with_health:
+                parts += health_parts(outs.health)
+            return PackedFetch(parts).wait()
+
+        B = int(batch)
+        itemsize = np.dtype(stack_dtype).itemsize
+        rows_in, rows_c = B * C, nT * B * C
+        n_corr = next_fast_len(T + int(det.design.templates.shape[-1]) - 1)
+        stages = [
+            # the raw wire's demean and scale, or the conditioned wire's cast
+            ("condition", 3.0 * rows_in * T, rows_in * T * (itemsize + 4), 0.0),
+            _fk_stage(det, B),
+            # one forward FFT a channel, nT products and inverse FFTs
+            ("correlate", rows_in * _rfft_ops(n_corr)
+             + rows_c * (6.0 * (n_corr // 2 + 1) + _rfft_ops(n_corr)),
+             rows_in * T * 4 + nT * (n_corr // 2 + 1) * 8 + rows_c * T * 4, 0.0),
+            # the threshold's max over each file's correlograms
+            ("threshold", 1.0 * rows_c * T, rows_c * T * 4, 0.0),
+            # the analytic signal: rfft, the one-sided mask, complex ifft
+            ("hilbert", rows_c * (_rfft_ops(T) + 2 * _rfft_ops(T) + 2.0 * T),
+             rows_c * T * (4 + 8), 0.0),
+            # the pick kernel: re and im read once, slots written once
+            ("picks", 4.0 * rows_c * T, rows_c * (8 * T + 16 * K + 4), 1.0 * rows_c * T),
+            ("compact", 2.0 * rows_c * K, rows_c * K * 8 + nT * B * cap * 8, 0.0),
+        ]
+        if with_health:
+            stages.append(("health", 4.0 * rows_in * T, rows_in * T * itemsize, 0.0))
+        key = ("mf", C, T, B, np.dtype(stack_dtype).name, bool(with_health), nT,
+               det._route(), bool(self.serial), det.wire, str(det.device))
+        return ProgramSpec(family="mf", run=run, shape=(B, C, T), dtype=np.dtype(stack_dtype),
+                           device=det.device, key=key, **_counted(stages))
+
     def detect_batch(self, stack, n_real=None, n_valid: int | None = None,
                      with_health: bool = False, health_clip: float | None = None,
                      stage_hook: Callable[[str], None] | None = None) -> List[tuple | None]:
@@ -172,10 +290,6 @@ class BatchedMatchedFilterDetector:
             raise ValueError(f"n_valid={n_valid} for a slab of {B} files")
         stack = det._as_input(stack)[:nv]
         names = det.design.template_names
-        nT = len(names)
-        cap = int(min(C * det.max_peaks, det.pick_pack_cap))
-        thr_in = torch.zeros((nT,), dtype=torch.float32, device=det.device)
-        tile = det.effective_channel_tile if det._route() == "tiled" else None
         n_reals = None if n_real is None else [int(v) for v in np.asarray(n_real).tolist()]
         if n_reals is not None and not 1 <= len(n_reals) <= B:
             raise ValueError(f"n_real must be a <= {B}-vector, got {len(n_reals)} entries")
@@ -185,16 +299,7 @@ class BatchedMatchedFilterDetector:
             full = (n_reals + [T] * nv)[:nv]
             if min(full) < T:
                 nr = full
-        kw = dict(
-            band_lo=det._band_lo, band_hi=det._band_hi, bp_padlen=det.design.bp_padlen,
-            staged_bp=not det.fused_bandpass, tile=tile, pad_rows=det.fk_pad_rows,
-            capacity=cap, use_threshold=False,
-            condition=det.wire == "raw", cond_scale=det._cond_scale,
-            thr_scope=det.threshold_scope, with_health=with_health, health_clip=health_clip,
-            stage_hook=stage_hook,
-        )
-        arrays = (det._mask_band, det._bp_gain, det._templates_true, det._template_mu,
-                  det._template_scale, thr_in, det._thr_factors)
+        arrays, kw, cap = self._program_args(with_health, health_clip, stage_hook)
 
         def run(k) -> ProgramOutputs:
             det.dispatches += 1
@@ -288,6 +393,37 @@ class _BatchedFamilyDetector:
     def _finalize_one(self, heavy, b: int):
         raise NotImplementedError
 
+    def _stages(self, B: int, C: int, T: int) -> list:
+        """The heavy stage's counted rows (``_counted``) for ``B`` files."""
+        raise NotImplementedError
+
+    def _n_templates(self) -> int:
+        cfgs = getattr(self.det, "template_configs", None)
+        return int(len(cfgs)) if cfgs else 1
+
+    def program_spec(self, batch: int, stack_dtype, *, with_health: bool = False,
+                     health_clip: float | None = None, donate: bool = False) -> ProgramSpec:
+        """The priced program (``utils.memory``): the heavy stage over a
+        ``[batch, C, T]`` stack and its read. Health stats are host-side
+        for these families, so the priced program is the same with or
+        without them; ``donate`` is inert."""
+        if self._trace_shape is None:
+            raise ValueError(
+                f"cannot price a {self.family} batched program without a bucket shape; "
+                "construct the facade with trace_shape=(C, T)"
+            )
+        C, T = self._trace_shape
+        B = int(batch)
+
+        def run(stack):
+            return self._fetch(self._heavy(stack))
+
+        key = (self.family, C, T, B, np.dtype(stack_dtype).name, bool(with_health),
+               self._n_templates(), bool(self.serial), str(self._device()))
+        return ProgramSpec(family=self.family, run=run, shape=(B, C, T),
+                           dtype=np.dtype(stack_dtype), device=self._device(), key=key,
+                           **_counted(self._stages(B, C, T)))
+
     def detect_batch(self, stack, n_real=None, n_valid: int | None = None,
                      with_health: bool = False, health_clip: float | None = None
                      ) -> List[tuple]:
@@ -357,6 +493,15 @@ class BatchedSpectroDetector(_BatchedFamilyDetector):
         corr = adapter.det.correlograms(trf.reshape(n * C, T))
         return {name: v.reshape(n, C, v.shape[-1]) for name, v in corr.items()}
 
+    def _stages(self, B, C, T):
+        sdet = self.det.det
+        nperseg = int(sdet.win_size * sdet.metadata.fs)
+        nhop = max(1, int(np.floor(nperseg * (1 - sdet.overlap_pct))))
+        # the prefilter and one STFT-power launch a hat kernel; the
+        # correlation over the band is not counted
+        return [_fk_stage(self.det.prefilter, B)] + [
+            _stft_stage(f"{name}.stft", B * C, T, nperseg, nhop) for name in sdet.kernels]
+
     def _finalize_one(self, heavy, b: int):
         sdet = self.det.det
         picks, spectro_fs = sdet.picks_from_correlograms({name: v[b] for name, v in heavy.items()})
@@ -397,6 +542,10 @@ class BatchedGaborDetector(_BatchedFamilyDetector):
             per = [adapter.det.correlograms(filt(stack[b]))[3] for b in range(stack.shape[0])]
             return {name: torch.stack([p[name] for p in per]) for name in per[0]}
         return adapter.det.correlograms(filt(stack))[3]
+
+    def _stages(self, B, C, T):
+        # the prefilter; the image stages are not counted
+        return [_fk_stage(self.det.prefilter, B)]
 
     def _finalize_one(self, heavy, b: int):
         picks, _, thresholds = self.det.det.picks_from_correlograms(
@@ -442,6 +591,23 @@ class BatchedLearnedDetector(_BatchedFamilyDetector):
         scores = det.scores(torch.as_tensor(stack).reshape(n * C, T),
                             row_chunk=LEARNED_BATCH_ROWS)
         return scores.reshape(n, C, scores.shape[-1])
+
+    def _stages(self, B, C, T):
+        cfg = self.det.cfg
+        nf = 1 + T // cfg.hop
+        n_win = max(0, (nf - cfg.win_frames) // cfg.win_stride + 1)
+        win = cfg.fmax_bin * cfg.win_frames
+        conv_ops = 2 * (cfg.features[0] * (cfg.fmax_bin // 2) * (cfg.win_frames // 2) * 9
+                        + cfg.features[1] * (cfg.fmax_bin // 4) * (cfg.win_frames // 4) * 9
+                        * cfg.features[0])
+        rows = B * C
+        return [_stft_stage("stft", rows, T, cfg.nfft, cfg.hop),
+                # the sqrt and log of the kept bins, each window standardised
+                ("features", rows * (3.0 * cfg.fmax_bin * nf + 4.0 * n_win * win),
+                 rows * 4 * (cfg.fmax_bin * nf + n_win * win), 2.0 * rows * cfg.fmax_bin * nf),
+                # the CNN's convolutions (multiply-adds as 2) and its sigmoid
+                ("cnn", rows * n_win * conv_ops, rows * n_win * (win + 1) * 4,
+                 1.0 * rows * n_win)]
 
     def _fetch(self, heavy):
         # the slab's one device->host read: every file's scores

@@ -14,16 +14,25 @@
   ``readiness()`` driven by the dispatch-watchdog, health-quarantine and
   dispatch-progress signals.
 
-Not in this slice: the cost cards (``telemetry/costs.py``), the quality
-observatory (``telemetry/quality.py``) and the serving SLOs
-(``telemetry/slo.py``) come with the ROADMAP item 'Service and fleet'.
+Three observatories ride on top:
+
+* :mod:`~das4whales_tpu_torch.telemetry.costs` — per-program cost cards
+  priced at the memory preflight's boundary (counted operations and
+  bytes, the measured peak and cold first-run wall) and the live
+  roofline / memory-occupancy / pricing-honesty gauges every resolved
+  slab feeds;
+* :mod:`~das4whales_tpu_torch.telemetry.slo` — per-tenant serving SLOs:
+  ingest→pick-settled freshness, error budgets, multi-window burn rates;
+* :mod:`~das4whales_tpu_torch.telemetry.quality` — the science-quality
+  observatory: pick-stream counters, SNR histograms, health gauges and
+  per-tenant drift baselines.
 
 Import discipline: this package (and everything it imports at module
 level) is pure stdlib — ``faults`` imports it at package init, and the
 disabled-mode fast path must never pay a torch import.
 """
 
-from . import metrics, probes, progress, trace  # noqa: F401
+from . import costs, metrics, probes, progress, quality, slo, trace  # noqa: F401
 from .metrics import (  # noqa: F401
     REGISTRY,
     counter,

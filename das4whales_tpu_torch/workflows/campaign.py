@@ -37,11 +37,16 @@ Entries run on the card unless the caller passes ``device="cpu"``; they
 resolve the device before reading a file, so a run without a card
 raises instead of failing every file.
 
-Not in this slice: the memory preflight (``preflight=True``; ROADMAP
-item 'Campaign preflight'), the cost cards and the quality observatory
-(``cost_cards=True``, ``quality=True``; 'Service and fleet'), the
-sharded and multi-process campaigns ('Multi-GPU') and the density plot
-('Workflow mains and plots'). Each raises, naming its item.
+Three switches observe or place a run without changing its picks:
+``preflight`` (the memory preflight, ``utils.memory``: each bucket
+starts at the largest rung whose program fits ``DAS_HBM_BUDGET_GB``),
+``cost_cards`` (``telemetry.costs``: a card a priced program,
+``<outdir>/cost_cards.json``) and ``quality`` (``telemetry.quality``: a
+manifest ``quality`` event and ``<outdir>/quality.json``).
+
+Not in this slice: the sharded and multi-process campaigns ('Multi-GPU')
+and the density plot ('Workflow mains and plots'). Each raises, naming
+its item.
 """
 
 from __future__ import annotations
@@ -59,8 +64,10 @@ from ..config import as_health_config
 from ..config import not_in_slice as _not_in_slice
 from ..io.stream import stream_strain_blocks
 from ..models.matched_filter import MatchedFilterDetector
+from ..telemetry import costs as tcosts
 from ..telemetry import metrics as tmetrics
 from ..telemetry import probes as tprobes
+from ..telemetry import quality as tquality
 from ..telemetry import trace as telemetry
 from ..utils import artifacts
 from ..utils.device import resolve_device
@@ -79,8 +86,16 @@ _h_slab_wall = tmetrics.histogram(
     "das_slab_wall_seconds",
     "wall seconds per batched slab (dispatch through bookkeeping)",
 )
+_g_preflight_hwm = tmetrics.gauge(
+    "das_preflight_hbm_peak_bytes",
+    "largest measured program memory peak seen by the memory preflight",
+)
 
 MANIFEST = "manifest.jsonl"
+
+#: the quality observatory's tenant label for (single-stream) campaign
+#: runs — the service uses real tenant names (service/scheduler.py)
+QUALITY_TENANT = "campaign"
 
 #: statuses that disposition a file for good — resume skips them (a
 #: quarantined file is deterministically unhealthy). "failed" and
@@ -377,23 +392,158 @@ class _Resilience:
 FAMILIES = ("mf", "spectro", "gabor", "learned")
 
 
-def _env_flag(flag, name: str) -> bool:
-    if flag is not None:
-        return bool(flag)
-    return os.environ.get(name, "") not in ("", "0", "false")
+def _price_rung(bdet, batch: int, dtype, key, program: str, *, with_health: bool,
+                clip, use_costs: bool):
+    """Price one rung's program (``utils.memory``): with cost cards on, the
+    same probe registers the program's card. Feeds the preflight's
+    high-water gauge. None off the card."""
+    from ..utils import memory as memutils
+
+    if use_costs:
+        st = tcosts.capture_batched(bdet, batch, dtype, bucket=tcosts.bucket_label(key),
+                                    program=program, with_health=with_health,
+                                    health_clip=clip)
+    else:
+        st = memutils.batched_program_memory(bdet, batch, dtype, with_health=with_health,
+                                             health_clip=clip)
+    if st is not None:
+        _g_preflight_hwm.max(float(st.peak))
+    return st
 
 
-def _check_not_in_slice(*, quality=None, cost_cards=None, preflight=None) -> None:
-    from ..config import memory_preflight_default
+def _preflight_bucket(ladder, key, bdet, dtype, *, batch: int, budget: int, family: str,
+                      with_health: bool, clip, use_costs: bool, tenant: str | None = None):
+    """The memory preflight of one bucket before its first dispatch: the
+    first rung in ladder order whose program fits ``budget`` — the full
+    bank at each B, then a splittable bank's T/2 sub-banks at the same B
+    (``bank:B``) — pins the bucket's ladder (``DownshiftLadder.pin``,
+    ledgered as a preflight downshift); where none fits, the matched
+    filter's tiled per-file program is priced, and a family's per-file
+    ladder takes over. Returns the reason a bucket fits at no rung (the
+    caller skips it), else None. ``tenant`` names the service tenant
+    whose share ``budget`` is; the ledgered reasons are the JAX
+    package's words for the campaign and for the service."""
+    from ..parallel.batch import BatchedMatchedFilterDetector
+    from ..utils import memory as memutils
 
-    if _env_flag(quality, "DAS_QUALITY"):
-        raise _not_in_slice("quality (the quality observatory)", "Service and fleet")
-    if _env_flag(cost_cards, "DAS_COST_CARDS"):
-        raise _not_in_slice("cost_cards (the cost observatory)", "Service and fleet")
-    if preflight is None:
-        preflight = memory_preflight_default()
-    if preflight:
-        raise _not_in_slice("preflight", "Campaign preflight")
+    def price(bd, b_, program):
+        return _price_rung(bd, b_, dtype, key, program, with_health=with_health, clip=clip,
+                           use_costs=use_costs)
+
+    cands, b = [], batch
+    while b >= 1:
+        cands.append(b)
+        b //= 2
+    split = getattr(bdet.det, "supports_bank_split", False)
+    rung_cands = []
+    for b_ in cands:
+        rung_cands.append(("batched", b_))
+        if split:
+            rung_cands.append(("bank", b_))
+
+    def price_rung(rung_):
+        stage_, b_ = rung_
+        # the LARGER (ceil) T/2 sub-bank certifies the split pair
+        bd = bdet.split_views()[0] if stage_ == "bank" else bdet
+        return price(bd, b_, faults.rung_label(rung_))
+
+    gib = f"{budget / 2**30:.2f}"
+    svc = tenant is not None
+    best = memutils.first_fitting(price_rung, rung_cands, budget)
+    if best is not None:
+        stage_, b_ = best
+        if stage_ == "bank":
+            n_t = int(bdet.det.design.templates.shape[0])
+            ladder.pin(key, ("bank", b_), (
+                f"admission: tenant {tenant} full T={n_t} bank over its {gib} GiB share at "
+                f"B={b_}; T/2 sub-banks fit" if svc else
+                f"preflight: full T={n_t} bank over budget at B={b_}; T/2 sub-banks fit "
+                f"{gib} GiB"))
+        elif b_ < batch:
+            ladder.pin(key, ("batched", b_) if b_ > 1 else ("file", 1), (
+                f"admission: tenant {tenant} largest fitting batch B={b_} under its {gib} GiB "
+                "share" if svc else f"preflight: largest fitting batch B={b_} under {gib} GiB"))
+        return None
+    if family != "mf":
+        # family facades have no batched-tiled program to price: the
+        # per-file rung starts the family's own ladder
+        ladder.pin(key, ("file", 1), (
+            f"admission: no (bucket, B) {family} program fits tenant {tenant}'s {gib} GiB "
+            "share; per-file ladder takes over" if svc else
+            f"preflight: no (bucket, B) {family} program fits {gib} GiB; per-file ladder takes "
+            "over"))
+        return None
+    tiled = BatchedMatchedFilterDetector(bdet.det.tiled_view(), serial=bdet.serial)
+    tstats = price(tiled, 1, "tiled")
+    if tstats is None or tstats.fits(budget):
+        ladder.pin(key, ("tiled", 1), (
+            f"admission: tenant {tenant} only the tiled per-file program fits its {gib} GiB "
+            "share" if svc else f"preflight: only the tiled per-file program fits {gib} GiB"))
+        return None
+    need = ("more than the card holds" if tstats.exhausted
+            else f"{tstats.peak / 2**30:.2f} GiB")
+    if svc:
+        return (f"admission: no (bucket, B) program shape fits tenant {tenant}'s HBM share "
+                f"({gib} GiB); smallest candidate needs {need} — stream refused before "
+                "dispatch")
+    return (f"preflight: no (bucket, B) program shape fits DAS_HBM_BUDGET_GB ({gib} GiB); "
+            f"smallest candidate needs {need} — skipped before dispatch")
+
+
+def _ensure_start_card(ladder, key, bdet, dtype, *, with_health: bool, clip) -> None:
+    """The bucket's STARTING rung always has a cost card, preflight or not
+    (the preflight walk already captured the rungs it priced)."""
+    rung0 = ladder.current(key)
+    stage0, b0 = rung0
+    if stage0 in ("batched", "bank", "file"):
+        bd0 = bdet.split_views()[0] if stage0 == "bank" else bdet
+        tcosts.ensure_batched_card(bd0, max(1, int(b0)), dtype, bucket=tcosts.bucket_label(key),
+                                   program=faults.rung_label(rung0), with_health=with_health,
+                                   health_clip=clip)
+
+
+def _observe_quality(tenant, det, path, picks, thresholds, stats, n_time_samples) -> None:
+    """Feed the science-quality observatory one done file: the record is
+    derived from the artifacts already in hand — pick counts, the
+    fetched thresholds (whose base recovers the envelope peak) and the
+    fused health stats. Shared by both campaign entries and the service
+    scheduler. A telemetry failure never costs the file record."""
+    try:
+        design = getattr(det, "design", None)
+        fs = float(getattr(design, "fs", 0.0) or 0.0) or float(
+            getattr(getattr(det, "metadata", None), "fs", 0.0) or 0.0)
+        tquality.OBSERVATORY.observe(tenant, tquality.file_quality(
+            path=path, picks=picks, thresholds=thresholds, stats=stats,
+            duration_s=(float(n_time_samples) / fs if fs else None),
+            thr_factors=tquality.threshold_factor_map(design),
+            thr_scope=str(getattr(det, "threshold_scope", "global")),
+        ))
+    except Exception:  # noqa: BLE001 — observability never costs a record
+        log.debug("quality observe failed for %s", path, exc_info=True)
+
+
+def _flush_quality(outdir: str, tenants) -> None:
+    """End-of-run quality surfaces: one manifest ``quality`` event and the
+    durable ``quality.json`` next to the manifest."""
+    try:
+        snap = tquality.OBSERVATORY.snapshot(tenants=tenants)
+        if not snap["tenants"]:
+            return
+        _append_event(outdir, {"event": "quality", "tenants": snap["tenants"],
+                               "drifting": snap["drifting"]})
+        tquality.export_json(os.path.join(outdir, "quality.json"), tenants=tenants)
+    except OSError:
+        pass   # the campaign outcome wins
+    except Exception:  # noqa: BLE001 — decorative surfaces only
+        log.debug("quality flush failed for %s", outdir, exc_info=True)
+
+
+def _export_cards(outdir: str) -> None:
+    if tcosts.REGISTRY.cards():
+        try:
+            tcosts.export_json(os.path.join(outdir, "cost_cards.json"))
+        except OSError:
+            pass   # the campaign outcome wins
 
 
 def _load_design(design):
@@ -495,6 +645,8 @@ def run_campaign(
     fault_plan=None,
     device=None,
     family: str = "mf",
+    preflight: bool | None = None,
+    cost_cards: bool | None = None,
     **detector_kwargs,
 ) -> CampaignResult:
     """Detect over ``files`` one file a program, tolerating per-file
@@ -531,13 +683,29 @@ def run_campaign(
     arms depth-D pipelined dispatch on the healthy per-file rung: file
     k+1's program is queued on the card before file k's packed fetch.
     ``trace`` arms the flight recorder (``telemetry.trace``;
-    ``<outdir>/trace.json``). ``quality`` is not in this slice: on
-    (or ``DAS_QUALITY=1``) it raises.
+    ``<outdir>/trace.json``). ``quality`` (None: the ``DAS_QUALITY`` env
+    default) arms the science-quality observatory exactly like
+    :func:`run_campaign_batched`. ``preflight`` (None:
+    ``DAS_MEMORY_PREFLIGHT``) prices the per-file program at the first
+    file's shape and starts the run at the first rung of the family's
+    ladder (per-file, bank split, tiled, host) whose program fits
+    ``DAS_HBM_BUDGET_GB``; ``cost_cards`` (None: ``DAS_COST_CARDS``)
+    registers the starting rung's cost card and writes
+    ``<outdir>/cost_cards.json``. The JAX package's ``run_campaign``
+    takes ``quality`` only. None of the three changes a pick.
     """
-    from ..config import dispatch_deadline_default
+    from ..config import dispatch_deadline_default, hbm_budget_bytes, memory_preflight_default
+    from ..parallel.batch import batched_detector_for
     from ..parallel.dispatch import PipelinedDispatch
+    from ..utils import memory as memutils
 
-    _check_not_in_slice(quality=quality, cost_cards=False, preflight=False)
+    if preflight is None:
+        preflight = memory_preflight_default()
+    use_costs = tcosts.resolve_enabled(cost_cards)
+    use_quality = tquality.resolve_enabled(quality)
+    if use_quality:
+        # one campaign run = one drift baseline
+        tquality.OBSERVATORY.fresh(QUALITY_TENANT)
     if detector is None:
         if family not in FAMILIES:
             raise ValueError(f"unknown detector family {family!r}; expected one of {FAMILIES}")
@@ -572,6 +740,51 @@ def run_campaign(
     else:
         rz.family = family   # detector=None builds the family's detector
     _BUCKET = "campaign"   # one unbatched campaign = one sticky ladder key
+
+    placed = False
+
+    def place_route(block) -> None:
+        """The preflight and the starting rung's cost card, once, at the
+        first file's shape (the route's one ladder key)."""
+        nonlocal placed
+        placed = True
+        if not (preflight or use_costs):
+            return
+        shape = tuple(int(v) for v in np.shape(block.trace))
+        dt = np.asarray(block.trace).dtype
+        key = (shape[0], shape[1], np.dtype(dt).name)
+        with_health = rz.health_cfg is not None
+        clip = rz.health_cfg.clip_abs if with_health else None
+
+        def facade(rung):
+            stage = rung[0]
+            if stage == "bank":
+                # the LARGER (ceil) T/2 sub-bank certifies the split pair
+                return facade(("file", 1)).split_views()[0]
+            det_r = route.program._det_at(stage)
+            if stage == "tiled" and route.program.family == "mf":
+                det_r = det_r.tiled_view()
+            return batched_detector_for(det_r, serial=True, trace_shape=shape)
+
+        def price_rung(rung):
+            if rung[0] == "host":
+                return None   # the CPU: no device memory to price
+            return _price_rung(facade(rung), 1, dt, key, faults.rung_label(rung),
+                               with_health=with_health, clip=clip, use_costs=use_costs)
+
+        if preflight:
+            budget = hbm_budget_bytes()
+            with telemetry.span("preflight", bucket=str(key)):
+                best = memutils.first_fitting(price_rung, route.ladder.rungs(_BUCKET), budget)
+            if best is not None and best != route.current(_BUCKET):
+                route.ladder.pin(_BUCKET, best, (
+                    f"preflight: the per-file program over {budget / 2**30:.2f} GiB; "
+                    f"{faults.rung_label(best)} is the first rung that fits"))
+        rung0 = route.current(_BUCKET)
+        if use_costs and rung0[0] != "host":
+            tcosts.ensure_batched_card(facade(rung0), 1, dt, bucket=tcosts.bucket_label(key),
+                                       program=faults.rung_label(rung0),
+                                       with_health=with_health, health_clip=clip)
 
     def scale_mismatch(block) -> bool:
         det_meta = getattr(detector, "metadata", None)
@@ -608,6 +821,8 @@ def run_campaign(
             )
         if fault_plan is not None:
             fault_plan.on_detect(path)
+        if not placed:
+            place_route(block)
         clip = rz.health_cfg.clip_abs if rz.health_cfg is not None else None
         with_health = rz.health_cfg is not None
         picks, thresholds, stats, rung = route.run_file(
@@ -630,6 +845,9 @@ def run_campaign(
         _append_manifest(outdir, rec)
         records.append(rec)
         tprobes.note_file_ok()
+        if use_quality:
+            _observe_quality(QUALITY_TENANT, detector, path, picks, thresholds, stats,
+                             np.asarray(block.trace).shape[-1])
 
     pipe = PipelinedDispatch(dispatch_depth)
 
@@ -708,6 +926,10 @@ def run_campaign(
             stream.close()
         drain_pipe()   # end of segment: the one remaining sync
         rz.flush_tallies()
+        if use_costs:
+            _export_cards(outdir)
+        if use_quality:
+            _flush_quality(outdir, [QUALITY_TENANT])
     return CampaignResult(outdir=outdir, records=records)
 
 
@@ -780,10 +1002,24 @@ def run_campaign_batched(
     ``persistent_cache`` is accepted so callers' code runs and does
     nothing: eager PyTorch compiles no program per shape, and the
     kernels' build directory persists on its own; nothing is written.
-    ``preflight``, ``cost_cards`` and ``quality`` are not in this slice:
-    on (or on by their env defaults) they raise, naming their item.
+
+    ``preflight`` (None: the ``DAS_MEMORY_PREFLIGHT`` env default) runs
+    the memory preflight per bucket before its first dispatch
+    (``utils.memory``: each candidate program measured once on the card,
+    after the dispatch pipe drained): the bucket starts at the first
+    rung in ladder order whose program fits ``DAS_HBM_BUDGET_GB`` (the
+    move ledgered as a ``downshift`` event with ``"preflight": true``),
+    and a bucket no rung fits is skipped before dispatch
+    (``preflight_skip`` event; its files ``failed``). On the CPU nothing
+    is priced and every bucket starts at the top rung. ``cost_cards``
+    (None: ``DAS_COST_CARDS``) registers a cost card a priced program
+    (``telemetry.costs``), the live roofline gauges a resolved slab, and
+    ``<outdir>/cost_cards.json``. ``quality`` (None: ``DAS_QUALITY``)
+    feeds the science-quality observatory a done file
+    (``telemetry.quality``), then a manifest ``quality`` event and
+    ``<outdir>/quality.json``. None of the three changes a pick.
     """
-    from ..config import dispatch_deadline_default
+    from ..config import dispatch_deadline_default, hbm_budget_bytes, memory_preflight_default
     from ..io.stream import SlabReadError, stream_batched_slabs, subdivide_slab
     from ..parallel.batch import batched_detector_for, trim_picks
     from ..parallel.dispatch import PipelinedDispatch, resolve_watchdogged
@@ -804,8 +1040,14 @@ def run_campaign_batched(
                  "bucket=%r): padded records would change data-dependent "
                  "thresholds", family, bucket)
         bucket = "exact"
-    _check_not_in_slice(quality=quality, cost_cards=cost_cards, preflight=preflight)
+    if preflight is None:
+        preflight = memory_preflight_default()
+    use_costs = tcosts.resolve_enabled(cost_cards)
+    use_quality = tquality.resolve_enabled(quality)
     device = resolve_device(device)   # before any file is read
+    if use_quality:
+        # one campaign run = one drift baseline
+        tquality.OBSERVATORY.fresh(QUALITY_TENANT)
     if dispatch_deadline_s is None:
         dispatch_deadline_s = dispatch_deadline_default()
     os.makedirs(outdir, exist_ok=True)
@@ -824,10 +1066,28 @@ def run_campaign_batched(
 
     dets: Dict[tuple, object] = {}       # bucket -> batched facade
     progs: Dict[tuple, DetectorProgram] = {}   # per-file-rung programs
+    skip_buckets: Dict[tuple, str] = {}   # preflight: nothing fits
 
     def _bucket_key(slab) -> tuple:
         return (int(slab.stack.shape[1]), slab.bucket_ns,
                 np.dtype(np.asarray(slab.blocks[0].trace).dtype).name)
+
+    def preflight_bucket(key, bdet, slab) -> None:
+        # the probe must see no other slab's buffers: finish the queue
+        drain_pipe()
+        reason = _preflight_bucket(
+            ladder, key, bdet, np.asarray(slab.blocks[0].trace).dtype, batch=batch,
+            budget=hbm_budget_bytes(), family=family, with_health=with_health, clip=clip,
+            use_costs=use_costs)
+        if reason is None:
+            return
+        skip_buckets[key] = reason
+        event = {"event": "preflight_skip", "bucket": list(key), "reason": reason}
+        sid = telemetry.current_span_id()   # the enclosing preflight span
+        if sid is not None:
+            event["span_id"] = sid
+        _append_event(outdir, event)
+        log.warning("bucket %s: %s", key, reason)
 
     def detector_for(slab):
         key = _bucket_key(slab)
@@ -847,6 +1107,12 @@ def run_campaign_batched(
                 # a splittable template bank: this bucket's ladder gains the
                 # bank-split rungs (T/2 sub-banks before B shrinks)
                 ladder.enable_bank_split(key)
+            if preflight:
+                with telemetry.span("preflight", bucket=str(key)):
+                    preflight_bucket(key, bdet, slab)
+            if use_costs and key not in skip_buckets:
+                _ensure_start_card(ladder, key, bdet, np.asarray(slab.blocks[0].trace).dtype,
+                                   with_health=with_health, clip=clip)
         return bdet
 
     def dispatched(paths, rung, fn):
@@ -939,6 +1205,10 @@ def run_campaign_batched(
         bdet = detector_for(slab)
         det = bdet.det
         key = _bucket_key(slab)
+        if key in skip_buckets:
+            for k in range(slab.n_valid):
+                fail(slab.paths[k], RuntimeError(skip_buckets[key]))
+            return
         ok = []
         for k in range(slab.n_valid):
             meta_k = slab.blocks[k].metadata
@@ -1005,6 +1275,10 @@ def run_campaign_batched(
             degraded = True
         wall = time.perf_counter() - t0
         _h_slab_wall.observe(wall)
+        if use_costs and not degraded and results is not None:
+            # live utilization: this slab's wall against its rung's card
+            tcosts.note_slab_resolved(tcosts.bucket_label(key), faults.rung_label(rung),
+                                      tcosts._program_engine(bdet), wall, device=device)
         for k in range(slab.n_valid):
             if not ok[k]:
                 continue  # its slot computed with the wrong scale: discard
@@ -1040,6 +1314,9 @@ def run_campaign_batched(
                         health=dict(stats or {}), family=bdet.family,
                         rung=faults.rung_label(exec_rung),
                     )
+                    if use_quality:
+                        _observe_quality(QUALITY_TENANT, det, path, picks, thresholds, stats,
+                                         slab.n_real[k])
                     if file_recovered:
                         rz.tally("oom_recoveries")
                 except Exception as exc:  # noqa: BLE001 — per-file isolation
@@ -1072,7 +1349,8 @@ def run_campaign_batched(
             return None
         try:
             bdet = detector_for(slab)
-            if ladder.current(_bucket_key(slab)) != ("batched", batch):
+            key = _bucket_key(slab)
+            if key in skip_buckets or ladder.current(key) != ("batched", batch):
                 return None
             return bdet.dispatch_batch(
                 slab.stack, n_real=slab.n_real, n_valid=slab.n_valid,
@@ -1151,6 +1429,10 @@ def run_campaign_batched(
                 slabs.close()
             i = len(pending)
         rz.flush_tallies()
+        if use_costs:
+            _export_cards(outdir)
+        if use_quality:
+            _flush_quality(outdir, [QUALITY_TENANT])
     return CampaignResult(outdir=outdir, records=records)
 
 

@@ -409,7 +409,15 @@ class DownshiftLadder:
             key, ("batched", self.batch) if self.batch > 1 else ("file", 1)
         )
 
-    def _ledger(self, key, from_rung, to_rung, error: str) -> None:
+    def rung_snapshot(self) -> Dict[tuple, tuple]:
+        """A copy of the sticky map for cross-thread readers (the
+        service's ``/tenants`` snapshot): ``dict(...)`` of a dict is a
+        C-atomic copy, so an HTTP thread never iterates the live map
+        while the scheduler thread downshifts it."""
+        return dict(self.sticky)
+
+    def _ledger(self, key, from_rung, to_rung, error: str,
+                preflight: bool = False) -> None:
         """One downshift ledger move: a ``downshift`` SPAN paired with
         the manifest event, the span's id stamped into the event."""
         if not self.write:
@@ -417,7 +425,7 @@ class DownshiftLadder:
         with telemetry.span(
             "downshift", bucket=str(key), family=self.family,
             from_rung=faults.rung_label(from_rung),
-            to_rung=faults.rung_label(to_rung), preflight=False,
+            to_rung=faults.rung_label(to_rung), preflight=preflight,
         ) as sp:
             event = {
                 "event": "downshift",
@@ -429,9 +437,23 @@ class DownshiftLadder:
                    else {}),
                 "error": error, "sticky": True,
             }
+            if preflight:
+                event["preflight"] = True
             if sp.span_id is not None:
                 event["span_id"] = sp.span_id
             _append_event(self.outdir, event)
+
+    def pin(self, key, rung, reason: str) -> None:
+        """Preflight placement: start ``key`` at ``rung`` (no failure
+        occurred — ledgered as a preflight downshift when it moves the
+        bucket off the top rung)."""
+        top = ("batched", self.batch) if self.batch > 1 else ("file", 1)
+        self.sticky[key] = rung
+        if faults.rung_rank(rung) > faults.rung_rank(top):
+            self.rz.tally("downshifts")
+            self._ledger(key, top, rung, reason, preflight=True)
+            log.info("preflight: bucket %s starts at rung %s (%s)",
+                     key, faults.rung_label(rung), reason)
 
     def downshift(self, key, rung, exc):
         """Advance ``key``'s sticky rung past ``rung`` after a

@@ -753,14 +753,14 @@ def test_design_checkpoint_gives_the_same_picks(data, tmp_path):
 
 
 def test_not_in_slice_settings_raise(data, tmp_path):
-    files = _files(data, ("f0",))
-    for kw, item in ((dict(preflight=True), "Campaign preflight"),
-                     (dict(cost_cards=True), "Service and fleet"),
-                     (dict(quality=True), "Service and fleet")):
-        with pytest.raises(NotImplementedError, match=item):
-            campaign.run_campaign_batched(files, SEL, str(tmp_path / "x"), device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="Service and fleet"):
-        campaign.run_campaign(files, SEL, str(tmp_path / "x"), device="cpu", quality=True)
+    """What the campaign module still leaves to later items raises, naming
+    it; ``preflight``, ``cost_cards`` and ``quality`` are taken by both
+    entries (``tests/test_torch_preflight.py`` runs them)."""
+    import inspect
+
+    for entry in (campaign.run_campaign_batched, campaign.run_campaign):
+        params = inspect.signature(entry).parameters
+        assert {"preflight", "cost_cards", "quality"} <= set(params)
     for fn, item in ((campaign.run_campaign_sharded, "Multi-GPU"),
                      (campaign.run_campaign_multiprocess, "Multi-GPU"),
                      (lambda: campaign.plot_campaign_density({}), "Workflow mains and plots")):

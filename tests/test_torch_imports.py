@@ -54,7 +54,11 @@ def test_the_scan_covers_every_module_of_the_port():
                 "ops/image.py", "models/gabor.py", "workflows/gabordetect.py",
                 "models/learned.py", "utils/parity.py", "loc.py", "ops/chunked.py",
                 "ops/filters.py", "ops/xcorr.py", "ops/conditioning.py", "io/annotations.py",
-                "io/coords.py", "workflows/longrecord.py"):
+                "io/coords.py", "workflows/longrecord.py", "utils/locks.py",
+                "utils/memory.py", "telemetry/slo.py", "telemetry/quality.py",
+                "telemetry/costs.py", "service/__init__.py", "service/ingest.py",
+                "service/scheduler.py", "service/api.py", "service/runner.py",
+                "__main__.py"):
         assert f"das4whales_tpu_torch/{mod}" in scanned
     assert "chip_smoke.py" in scanned
 
@@ -168,6 +172,30 @@ def test_campaigns_default_to_the_card(tmp_path):
         with pytest.raises(RuntimeError, match="CUDA device"):
             entry([path], [0, 8, 1], str(out))
         assert not (out / "manifest.jsonl").exists()
+
+
+def test_service_and_serve_default_to_the_card(tmp_path):
+    """``DetectionService`` without ``device`` (and ``serve`` on a registry
+    without a ``device`` key) asks for the card and refuses without one,
+    before any file is read or any output written."""
+    import json
+
+    from das4whales_tpu_torch.__main__ import main
+    from das4whales_tpu_torch.service import DetectionService, ServiceConfig, TenantSpec
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the refusal without one")
+    out = tmp_path / "svc"
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        DetectionService(ServiceConfig(tenants=[TenantSpec(name="a", files=["x.h5"],
+                                                           channels=[0, 8, 1])],
+                                       outdir=str(out)))
+    reg = tmp_path / "reg.json"
+    reg.write_text(json.dumps({"outdir": str(out), "tenants": [
+        {"name": "a", "files": ["x.h5"], "channels": [0, 8, 1]}]}))
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        main(["serve", str(reg), "--until-idle"])
+    assert not out.exists()
 
 
 def test_telemetry_is_free_when_off_and_annotates_the_profiler_when_on():
