@@ -4669,6 +4669,11 @@ PREFLIGHT_BATCHES = (1, 2, 4)
 SERVICE_BATCH = 4
 SERVICE_SLO_S = 120.0
 SERVICE_LEARNED_SHARE = 1.5
+#: the tenants' slicer linger: a partial slab waits for its batch-mates
+#: until the source ends, so each tenant's slabs are its standalone
+#: campaign's (the card's batched mode rounds by the slab it is given;
+#: the default 0.25 s flushes whatever a slow read left in the ring)
+SERVICE_LINGER_S = 600.0
 #: the endpoints a client polls while the service runs
 SERVICE_ENDPOINTS = ("/livez", "/readyz", "/metrics", "/tenants", "/slo", "/quality")
 #: the card-vs-CPU service files: 512 channels x 12000 samples, int32
@@ -4912,7 +4917,8 @@ def _latencies(slo_mod):
 
 def _service_specs(service, files, sel, meta, mf_share, learned_share, design, **kw):
     common = dict(channels=sel, interrogator="silixa", metadata=meta.to_dict(),
-                  batch=SERVICE_BATCH, slo_p95_s=SERVICE_SLO_S, **kw)
+                  batch=SERVICE_BATCH, slo_p95_s=SERVICE_SLO_S, linger_s=SERVICE_LINGER_S,
+                  **kw)
     return [service.TenantSpec(name="mf", files=list(files), bucket="pow2",
                                hbm_share_gb=mf_share, detector_kwargs={"design": design},
                                **common),
@@ -4939,7 +4945,6 @@ def phase_service():
     from das4whales_tpu_torch import service
     from das4whales_tpu_torch.ops import fused_picks, fused_stft
     from das4whales_tpu_torch.ops import health as health_ops
-    from das4whales_tpu_torch.service import scheduler
     from das4whales_tpu_torch.telemetry import costs
     from das4whales_tpu_torch.telemetry import slo as slo_mod
     from das4whales_tpu_torch.utils import locks
@@ -4974,7 +4979,7 @@ def phase_service():
     with _probes_marked() as probes, \
             _capture(fused_picks, "picks_cuda", skip=lambda: probes["active"]) as pcalls, \
             _capture(fused_stft, "stft_power_cuda", skip=lambda: probes["active"]) as scalls, \
-            _timing(scheduler.TenantRuntime, "_admit_bucket") as admit_t, \
+            _timing(cmod, "_preflight_bucket") as admit_t, \
             _timing(health_ops, "host_health_stats") as health_t, \
             _latencies(slo_mod) as lats:
         t0 = time.perf_counter()
@@ -4988,6 +4993,11 @@ def phase_service():
         finally:
             svc.stop()
     launches = read_launches()
+    if probes["n"]:
+        # a probe resets the card's peak statistics: the peak below would
+        # then cover only what ran after it
+        fail(f"service: {probes['n']} memory probes ran in the service's window; its admission "
+             "must price from the preflight phase's memoized probes")
     peak = torch.cuda.max_memory_allocated()
     inversions = locks.inversions()
     cards = costs.cards_payload()["cards"]
@@ -5097,8 +5107,8 @@ def phase_service():
         f"{nx} x {CANONICAL[1]}: wall {wall:.2f} s ({per['mf']:.2f} s a file a tenant, both "
         f"tenants' passes sharing the card), record walls mf "
         f"{np.mean([x.wall_s for x in res['mf'].records]):.3f} / learned "
-        f"{np.mean([x.wall_s for x in res['learned'].records]):.3f} s a file; admission "
-        f"{admit_t['s']:.3f} s over {admit_t['n']} buckets ({probes['n']} probes run here, "
+        f"{np.mean([x.wall_s for x in res['learned'].records]):.3f} s a file; admission's "
+        f"pricing (after the pipe drained) {admit_t['s']:.3f} s over {admit_t['n']} buckets ({probes['n']} probes run here, "
         f"{probes['s']:.2f} s; the rest memoized from the preflight phase), mf pinned at "
         f"batched:2 before its first dispatch, learned at batched:{SERVICE_BATCH}; pick latency "
         f"p95 mf {np.percentile(lat['mf'], 95):.2f} s, learned "
@@ -5118,20 +5128,43 @@ def phase_service():
     return launches, (picks_err, stft_err)
 
 
+@contextlib.contextmanager
+def _learned_slab_scores(probes):
+    """Keep the scores every ``BatchedLearnedDetector`` slab reads back
+    (``_fetch``: ``[n, C, n_win]`` on the host) for the block, by device
+    type, in slab order; a memory probe's (``probes["active"]``) are not
+    kept."""
+    from das4whales_tpu_torch.parallel.batch import BatchedLearnedDetector
+
+    orig = BatchedLearnedDetector._fetch
+    got: dict = {}
+
+    def spy(self, heavy):
+        out = orig(self, heavy)
+        if not probes["active"]:
+            got.setdefault(self.det.device.type, []).append(np.array(out))
+        return out
+
+    BatchedLearnedDetector._fetch = spy
+    try:
+        yield got
+    finally:
+        BatchedLearnedDetector._fetch = orig
+
+
 def phase_service_cpu_vs_card():
     """The same two-tenant service at 512 x 12000 on the card and with
     ``device="cpu"``: manifests equal record for record (status, rung,
-    attempts), the mf picks equal up to knife edges, the learned family's
-    scores within ``LEARNED_CARD_ABS`` and its picks up to knife edges."""
+    attempts), the mf picks equal up to knife edges, the scores the
+    learned tenant's own slabs read back within ``LEARNED_CARD_ABS`` and
+    its picks up to knife edges of the CPU service's scores."""
     import shutil
     import tempfile
     from pathlib import Path
 
-    import torch
-
     from das4whales_tpu_torch import service
     from das4whales_tpu_torch.io.stream import stream_batched_slabs
-    from das4whales_tpu_torch.models.learned import LearnedDetector, load_pretrained
+    from das4whales_tpu_torch.models.learned import load_pretrained, window_centers
     from das4whales_tpu_torch.models.matched_filter import MatchedFilterDetector
     from das4whales_tpu_torch.utils.checkpoint import save_design
     from das4whales_tpu_torch.workflows import campaign as cmod
@@ -5149,17 +5182,18 @@ def phase_service_cpu_vs_card():
         design = MatchedFilterDetector(meta, sel, (nx, SLAB_BUCKET), device="cpu").design
         dpath = save_design(str(d / "design_16384"), design)
         res, walls = {}, {}
-        for dev in ("cuda", "cpu"):
-            svc = service.DetectionService(service.ServiceConfig(
-                tenants=_service_specs(service, files, sel, meta, None, None, dpath),
-                outdir=str(d / f"svc_{dev}"), device=dev, cost_cards=True, quality=True))
-            svc.start()
-            t0 = time.perf_counter()
-            try:
-                res[dev] = svc.run(until_idle=True)
-            finally:
-                svc.stop()
-            walls[dev] = time.perf_counter() - t0
+        with _probes_marked() as probes, _learned_slab_scores(probes) as slab_scores:
+            for dev in ("cuda", "cpu"):
+                svc = service.DetectionService(service.ServiceConfig(
+                    tenants=_service_specs(service, files, sel, meta, None, None, dpath),
+                    outdir=str(d / f"svc_{dev}"), device=dev, cost_cards=True, quality=True))
+                svc.start()
+                t0 = time.perf_counter()
+                try:
+                    res[dev] = svc.run(until_idle=True)
+                finally:
+                    svc.stop()
+                walls[dev] = time.perf_counter() - t0
         for t in ("mf", "learned"):
             a = [(os.path.basename(r.path), r.status, r.rung, r.attempts)
                  for r in res["cuda"][t].records]
@@ -5174,29 +5208,35 @@ def phase_service_cpu_vs_card():
         cpu_det = MatchedFilterDetector.from_design(design, meta, device="cpu")
         n_mf = _compare_campaigns("service_cpu_vs_card: mf", res["cuda"]["mf"],
                                   res["cpu"]["mf"], cpu_det, blocks, scenes)
-        dets = {dev: LearnedDetector(*load_pretrained(), device=dev) for dev in ("cuda", "cpu")}
-        e_scores, n_learned = 0.0, 0
-        for ra, rb in zip(res["cuda"]["learned"].records, res["cpu"]["learned"].records):
-            x = blocks[ra.path][:, : CANONICAL[1]]
-            card = dets["cuda"](torch.as_tensor(x).cuda())
-            cpu = dets["cpu"](x)
-            e = float(np.abs(card.scores - cpu.scores).max())
-            if not e <= LEARNED_CARD_ABS:
-                fail(f"service_cpu_vs_card: learned scores {e:.3e} apart (limit "
-                     f"{LEARNED_CARD_ABS})")
-            e_scores = max(e_scores, e)
+        # the learned tenant's own scores, its slabs in file order on each device
+        scores = {dev: np.concatenate(slab_scores.get(dev, [np.zeros((0,))]), axis=0)
+                  for dev in ("cuda", "cpu")}
+        n_files = len(res["cpu"]["learned"].records)
+        if scores["cuda"].shape != scores["cpu"].shape or len(scores["cpu"]) != n_files:
+            fail(f"service_cpu_vs_card: the learned tenant's slab scores card "
+                 f"{scores['cuda'].shape} vs cpu {scores['cpu'].shape} for {n_files} files")
+        e_scores = float(np.abs(scores["cuda"] - scores["cpu"]).max())
+        if not e_scores <= LEARNED_CARD_ABS:
+            fail(f"service_cpu_vs_card: the learned tenant's scores {e_scores:.3e} apart (limit "
+                 f"{LEARNED_CARD_ABS})")
+        centers = window_centers(scores["cpu"].shape[-1], load_pretrained()[1])
+        n_learned = 0
+        for i, (ra, rb) in enumerate(zip(res["cuda"]["learned"].records,
+                                         res["cpu"]["learned"].records)):
             pa, pb = cmod.load_picks(ra.picks_file), cmod.load_picks(rb.picks_file)
             n_learned += _learned_knife("service_cpu_vs_card: learned", pa["CALL"], pb["CALL"],
-                                        cpu.scores, cpu.centers, 0.5)
+                                        scores["cpu"][i], centers, 0.5)
     finally:
         shutil.rmtree(d, ignore_errors=True)
     say(f"service_cpu_vs_card: the two-tenant service (mf batch {SERVICE_BATCH} pow2 on one "
         f"design, learned batch {SERVICE_BATCH}) over {len(files)} files of {nx} x "
         f"{CANONICAL[1]} on the card ({walls['cuda']:.1f} s) and on the CPU "
         f"({walls['cpu']:.1f} s): records equal (status, rung, attempts), every file done; "
-        f"mf picks {n_mf} differing (knife edges), every injected call picked; learned scores "
-        f"within {e_scores:.2e} (limit {LEARNED_CARD_ABS}), picks {n_learned} differing (knife "
-        f"edges); phase {time.perf_counter() - t_phase:.1f} s")
+        f"mf picks {n_mf} differing (knife edges), every injected call picked; the learned "
+        f"tenant's own slab scores ({len(slab_scores['cuda'])} card and "
+        f"{len(slab_scores['cpu'])} CPU slabs) within {e_scores:.2e} (limit "
+        f"{LEARNED_CARD_ABS}), picks {n_learned} differing (knife edges of the CPU service's "
+        f"scores); phase {time.perf_counter() - t_phase:.1f} s")
 
 
 

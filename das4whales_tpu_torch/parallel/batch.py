@@ -99,6 +99,14 @@ def _fk_stage(mf: MatchedFilterDetector, B: int) -> tuple:
             B * (2 * C * T * 4 + 2 * Cf * Fb * 8) + Cf * Fb * 4, 0.0)
 
 
+def _fk_sizing(mf: MatchedFilterDetector) -> tuple:
+    """What sizes the buffers of ``mf``'s bandpass and f-k stages (a
+    probe key's part, ``utils.memory``): the band, the f-k channel
+    count, the bandpass padding and form, the route."""
+    return (int(mf._band_lo), int(mf._band_hi), int(mf.design.fk_channels),
+            int(mf.design.bp_padlen), bool(mf.fused_bandpass), mf._route())
+
+
 def _stft_stage(name: str, rows: int, T: int, nfft: int, hop: int) -> tuple:
     """The STFT-power kernel's counted row (``chip_smoke.py``'s bound:
     per frame the window, a real FFT and the power; the input read once,
@@ -202,13 +210,12 @@ class BatchedMatchedFilterDetector:
         return arrays, kw, cap
 
     def program_spec(self, batch: int, stack_dtype, *, with_health: bool = False,
-                     health_clip: float | None = None, donate: bool = False) -> ProgramSpec:
+                     health_clip: float | None = None) -> ProgramSpec:
         """The priced program (``utils.memory``): one full-capacity
         attempt (K = ``max_peaks``, ``topk`` — the escalation the K0
         attempt may take; a zero slab saturates no row, so it is run
         explicitly) over a ``[batch, C, T]`` stack, with its packed read
-        (the attempt's device-side concatenation) and health rows.
-        ``donate`` is accepted for the JAX signature and inert."""
+        (the attempt's device-side concatenation) and health rows."""
         det = self.det
         C, T = det.design.trace_shape
         nT = int(det.design.templates.shape[0])
@@ -249,7 +256,9 @@ class BatchedMatchedFilterDetector:
         if with_health:
             stages.append(("health", 4.0 * rows_in * T, rows_in * T * itemsize, 0.0))
         key = ("mf", C, T, B, np.dtype(stack_dtype).name, bool(with_health), nT,
-               det._route(), bool(self.serial), det.wire, str(det.device))
+               int(det.design.templates.shape[-1]), K, cap, kw["tile"], kw["pad_rows"],
+               _fk_sizing(det), det.threshold_scope, bool(self.serial), det.wire,
+               str(det.device))
         return ProgramSpec(family="mf", run=run, shape=(B, C, T), dtype=np.dtype(stack_dtype),
                            device=det.device, key=key, **_counted(stages))
 
@@ -401,12 +410,17 @@ class _BatchedFamilyDetector:
         cfgs = getattr(self.det, "template_configs", None)
         return int(len(cfgs)) if cfgs else 1
 
+    def _sizing(self) -> tuple:
+        """What sizes the heavy stage's buffers besides the slab's shape
+        (the family's part of the probe key, ``utils.memory``)."""
+        raise NotImplementedError
+
     def program_spec(self, batch: int, stack_dtype, *, with_health: bool = False,
-                     health_clip: float | None = None, donate: bool = False) -> ProgramSpec:
+                     health_clip: float | None = None) -> ProgramSpec:
         """The priced program (``utils.memory``): the heavy stage over a
         ``[batch, C, T]`` stack and its read. Health stats are host-side
         for these families, so the priced program is the same with or
-        without them; ``donate`` is inert."""
+        without them."""
         if self._trace_shape is None:
             raise ValueError(
                 f"cannot price a {self.family} batched program without a bucket shape; "
@@ -419,7 +433,7 @@ class _BatchedFamilyDetector:
             return self._fetch(self._heavy(stack))
 
         key = (self.family, C, T, B, np.dtype(stack_dtype).name, bool(with_health),
-               self._n_templates(), bool(self.serial), str(self._device()))
+               self._n_templates(), self._sizing(), bool(self.serial), str(self._device()))
         return ProgramSpec(family=self.family, run=run, shape=(B, C, T),
                            dtype=np.dtype(stack_dtype), device=self._device(), key=key,
                            **_counted(self._stages(B, C, T)))
@@ -493,6 +507,12 @@ class BatchedSpectroDetector(_BatchedFamilyDetector):
         corr = adapter.det.correlograms(trf.reshape(n * C, T))
         return {name: v.reshape(n, C, v.shape[-1]) for name, v in corr.items()}
 
+    def _sizing(self):
+        sdet = self.det.det
+        return (_fk_sizing(self.det.prefilter), float(sdet.win_size), float(sdet.overlap_pct),
+                float(sdet.metadata.fs), repr(sorted(sdet.kernels.items())),
+                repr(sdet.flims), sdet.batch_channels, sdet.stft_engine)
+
     def _stages(self, B, C, T):
         sdet = self.det.det
         nperseg = int(sdet.win_size * sdet.metadata.fs)
@@ -543,6 +563,12 @@ class BatchedGaborDetector(_BatchedFamilyDetector):
             return {name: torch.stack([p[name] for p in per]) for name in per[0]}
         return adapter.det.correlograms(filt(stack))[3]
 
+    def _sizing(self):
+        gdet = self.det.det
+        return (_fk_sizing(self.det.prefilter), tuple(tuple(k.shape) for k in gdet._kernels),
+                tuple(sorted((n, tuple(a.shape)) for n, a in gdet._note_arrays.items())),
+                gdet.max_peaks, gdet.gabor_engine)
+
     def _stages(self, B, C, T):
         # the prefilter; the image stages are not counted
         return [_fk_stage(self.det.prefilter, B)]
@@ -591,6 +617,9 @@ class BatchedLearnedDetector(_BatchedFamilyDetector):
         scores = det.scores(torch.as_tensor(stack).reshape(n * C, T),
                             row_chunk=LEARNED_BATCH_ROWS)
         return scores.reshape(n, C, scores.shape[-1])
+
+    def _sizing(self):
+        return (repr(self.det.cfg), self.det.row_chunk, self.engine, LEARNED_BATCH_ROWS)
 
     def _stages(self, B, C, T):
         cfg = self.det.cfg

@@ -9,7 +9,9 @@ and read of *different* tenants' slabs overlap exactly like one
 campaign's consecutive slabs do.
 
 Per tenant (:class:`TenantRuntime`), the batch campaign's whole
-resilience stack applies independently:
+resilience stack applies independently, through the batch campaign's
+own per-slab executor (``workflows.campaign.SlabExecutor``), one a
+tenant:
 
 * **admission** — the memory preflight (``utils.memory``) prices every
   candidate ``(bucket, B)`` program against the TENANT's own memory
@@ -46,20 +48,15 @@ import numpy as np
 
 from .. import faults
 from .. import fsck
-from ..parallel.dispatch import PipelinedDispatch, resolve_watchdogged
+from ..parallel.dispatch import PipelinedDispatch
 from ..telemetry import costs as tcosts
-from ..telemetry import metrics, trace as telemetry
+from ..telemetry import metrics
 from ..telemetry import quality as tquality
 from ..telemetry import slo as tslo
 from ..utils import artifacts, locks
 from ..utils.log import get_logger
 from ..workflows import campaign as camp
-from ..workflows.planner import (
-    DetectorProgram,
-    DownshiftLadder,
-    family_ladder_stages,
-    program_for,
-)
+from ..workflows.planner import DownshiftLadder, family_ladder_stages
 from .ingest import IngestItem, RingBuffer, SlabSlicer
 
 log = get_logger("das4whales_tpu_torch.service.scheduler")
@@ -96,8 +93,8 @@ class TenantRuntime:
     and bit-identical to — a ``run_campaign_batched`` run over the
     same files). ``fault_plan`` injects the chaos harness per tenant.
     ``device`` is where the tenant detects (None: the card; ``"cpu"``:
-    the plain versions on the CPU). ``before_probe`` is called before
-    the admission probe (the scheduler drains its pipe there).
+    the plain versions on the CPU). ``executor`` is the tenant's
+    ``workflows.campaign.SlabExecutor``.
     """
 
     def __init__(self, spec, outdir: str, *, resume: bool = True,
@@ -108,8 +105,6 @@ class TenantRuntime:
         self.name = spec.name
         self.outdir = outdir
         self.device = resolve_device(device)
-        self.before_probe = None
-        self._stager = None
         os.makedirs(outdir, exist_ok=True)
         # crash-only startup: sweep orphan tmps, heal a torn manifest
         # tail, refuse to resume over deeper corruption (fsck module)
@@ -143,9 +138,6 @@ class TenantRuntime:
             rec = camp.FileRecord(path=path, status="skipped")
             self.records.append(rec)
             _c_files.inc(tenant=self.name, status="skipped")
-        self._dets: Dict[tuple, object] = {}
-        self._progs: Dict[tuple, DetectorProgram] = {}
-        self._skip_buckets: Dict[tuple, str] = {}
         self._finished = False
         # freshness SLO (telemetry.slo): ring-admission stamps
         # per path (scheduler-thread-confined — pump() writes, the
@@ -167,6 +159,25 @@ class TenantRuntime:
         # attribute check per settled file
         self.quality = (tquality.OBSERVATORY.fresh(spec.name)
                         if tquality.enabled() else None)
+        kwargs = dict(spec.detector_kwargs)
+        if spec.bank is not None:
+            kwargs.setdefault("templates", spec.bank)
+        # the batch campaign's per-slab executor, against THIS tenant's
+        # memory share (TenantSpec.hbm_share_gb; default the process
+        # budget) with every pin or skip in the tenant's own manifest; the
+        # scheduler sets its before_probe (drain the shared pipe)
+        self.executor = camp.SlabExecutor(
+            rz=self.rz, ladder=self.ladder, outdir=outdir, records=self.records,
+            family=self.family, batch=spec.batch, wire=spec.wire, channels=spec.channels,
+            device=self.device, serial=spec.serial, detector_kwargs=kwargs,
+            dispatch_deadline_s=spec.dispatch_deadline_s, fault_plan=fault_plan,
+            preflight=spec.admission, use_costs=tcosts.enabled(),
+            quality_tenant=spec.name if self.quality is not None else None,
+            tenant=spec.name,
+            budget_bytes=(int(spec.hbm_share_gb * 2**30)
+                          if spec.hbm_share_gb is not None else None),
+            on_settled=self._settled,
+        )
 
     def next_live_name(self) -> str:
         return f"{self.name}-live-{next(self._live_seq)}"
@@ -268,206 +279,24 @@ class TenantRuntime:
             return None
         return self.quality.snapshot()
 
-    # -- detection side (the batch campaign's per-slab contract) -----------
+    # -- detection side (the batch campaign's per-slab executor) ----------
 
-    def _bucket_key(self, slab) -> tuple:
-        return (slab.stack.shape[1], slab.bucket_ns,
-                np.dtype(np.asarray(slab.blocks[0].trace).dtype).name)
-
-    def _hbm_budget(self) -> int:
-        from ..config import hbm_budget_bytes
-
-        if self.spec.hbm_share_gb is not None:
-            return int(self.spec.hbm_share_gb * 2**30)
-        return hbm_budget_bytes()
-
-    def _admit_bucket(self, key, bdet, slab) -> None:
-        """Per-tenant memory admission: the batch campaign's preflight
-        walk (``workflows.campaign._preflight_bucket`` — full bank at each
-        B, bank-split where splittable, tiled last) against THIS tenant's
-        share (``TenantSpec.hbm_share_gb``; default the process budget),
-        every pin or skip ledgered in the tenant's own manifest."""
-        if self.before_probe is not None:
-            self.before_probe()
-        health = self.rz.health_cfg
-        budget = self._hbm_budget()
-        reason = camp._preflight_bucket(
-            self.ladder, key, bdet, np.asarray(slab.blocks[0].trace).dtype,
-            batch=self.spec.batch, budget=budget, family=self.family,
-            with_health=health is not None,
-            clip=health.clip_abs if health is not None else None,
-            use_costs=tcosts.enabled(), tenant=self.name)
-        if reason is None:
-            return
-        self._skip_buckets[key] = reason
-        camp._append_event(self.outdir, {
-            "event": "admission_skip", "tenant": self.name,
-            "bucket": key if isinstance(key, str) else list(key),
-            "reason": reason,
-        })
-        log.warning("tenant %s bucket %s: %s", self.name, key, reason)
-
-    def _detector_for(self, slab):
-        from ..parallel.batch import batched_detector_for
-
-        key = self._bucket_key(slab)
-        bdet = self._dets.get(key)
-        if bdet is None:
-            kwargs = dict(self.spec.detector_kwargs)
-            if self.spec.bank is not None:
-                kwargs.setdefault("templates", self.spec.bank)
-            per_file_det = camp.family_detector(
-                self.family, slab.blocks[0].metadata, self.spec.channels,
-                (key[0], slab.bucket_ns), wire=self.spec.wire,
-                device=self.device, **kwargs,
-            )
-            bdet = batched_detector_for(
-                per_file_det, serial=self.spec.serial,
-                trace_shape=(key[0], slab.bucket_ns),
-            )
-            self._dets[key] = bdet
-            self._progs[key] = program_for(per_file_det)
-            self.ladder.set_engines(key, self._progs[key].engines)
-            if getattr(bdet.det, "supports_bank_split", False):
-                self.ladder.enable_bank_split(key)
-            if self.spec.admission:
-                with telemetry.span("preflight", bucket=str(key),
-                                    tenant=self.name):
-                    self._admit_bucket(key, bdet, slab)
-            if tcosts.enabled() and key not in self._skip_buckets:
-                # the starting rung always has a card, admission or not
-                health = self.rz.health_cfg
-                camp._ensure_start_card(
-                    self.ladder, key, bdet, np.asarray(slab.blocks[0].trace).dtype,
-                    with_health=health is not None,
-                    clip=health.clip_abs if health is not None else None)
-        return bdet
+    def _settled(self, path: str, status: str) -> None:
+        """A file's terminal disposition by the executor: its counter, and
+        its freshness sample (done) or the release of its stamp."""
+        _c_files.inc(tenant=self.name, status=status)
+        if status == "done":
+            self._note_pick_settled(path)
+        else:
+            self._drop_ingest_stamp(path)
 
     def try_dispatch(self, slab):
         """Async K0 launch at the tenant's healthy top rung (the
         multi-stream pipeline's dispatch phase); None routes the slab
         to the synchronous path with identical attribution."""
-        if self.aborted or self.spec.batch < 2:
+        if self.aborted:
             return None
-        try:
-            bdet = self._detector_for(slab)
-            key = self._bucket_key(slab)
-            if (key in self._skip_buckets
-                    or self.ladder.current(key)
-                    != ("batched", self.spec.batch)):
-                return None
-            stack = slab.stack
-            if self.device.type == "cuda":
-                # the host slab crosses through the tenant's pinned buffers
-                # on a side stream: a pageable copy would wait for every
-                # program already queued
-                from ..io.staging import PinnedStager
-
-                if self._stager is None:
-                    self._stager = PinnedStager(self.device, n_buffers=2)
-                stack = PinnedStager.hand_over(*self._stager.place(stack))
-            return bdet.dispatch_batch(
-                stack, n_real=slab.n_real, n_valid=slab.n_valid,
-                with_health=self.rz.health_cfg is not None,
-                health_clip=(self.rz.health_cfg.clip_abs
-                             if self.rz.health_cfg is not None else None),
-            )
-        except camp.CampaignAborted:
-            raise
-        except Exception:  # noqa: BLE001 — surfaces on the sync path
-            return None
-
-    def _dispatched(self, paths, rung, fn):
-        return resolve_watchdogged(fn, paths, rung,
-                                   self.spec.dispatch_deadline_s,
-                                   self.fault_plan, family=self.family)
-
-    def _per_file_fallback(self, slab, k, prog, rung=("file", 1)):
-        with_health = self.rz.health_cfg is not None
-        clip = self.rz.health_cfg.clip_abs if with_health else None
-        tr = np.asarray(slab.blocks[k].trace)
-        padded = np.zeros((tr.shape[0], slab.bucket_ns), tr.dtype)
-        padded[:, : tr.shape[1]] = tr
-
-        def fn():
-            return prog.detect(rung, padded, n_real=slab.n_real[k],
-                               with_health=with_health, clip=clip)
-
-        return self._dispatched([slab.paths[k]], rung, fn)
-
-    def _run_rung(self, slab, rung, bdet, ok, inflight=None):
-        """The slab's entries at one ladder rung — the batch campaign's
-        ``run_rung`` contract (campaign.py documents the cases); raises
-        on the rung's failure for the caller's ladder."""
-        from ..io.stream import subdivide_slab
-
-        prog = self._progs[self._bucket_key(slab)]
-        with_health = self.rz.health_cfg is not None
-        clip = self.rz.health_cfg.clip_abs if with_health else None
-        stage, b = rung
-        if stage == "batched":
-            if b >= self.spec.batch:
-                if inflight is not None:
-                    return self._dispatched(list(slab.paths), rung,
-                                            inflight.resolve)
-                subs = [slab]
-            else:
-                subs = subdivide_slab(slab, b)
-            entries = []
-            for sub in subs:
-                def fn(sub=sub):
-                    return bdet.detect_batch(
-                        sub.stack, n_real=sub.n_real, n_valid=sub.n_valid,
-                        with_health=with_health, health_clip=clip,
-                    )
-                entries.extend(
-                    self._dispatched(list(sub.paths), rung, fn)[: sub.n_valid]
-                )
-            return entries
-        if stage == "bank":
-            subs = ([slab] if b >= self.spec.batch
-                    else subdivide_slab(slab, b))
-            half_a, half_b = bdet.split_views()
-            entries = []
-            for sub in subs:
-                halves = []
-                for j, hdet in enumerate((half_a, half_b)):
-                    # health stats describe the input block: first half
-                    # only (the batch campaign's rule)
-                    def fn(sub=sub, hdet=hdet, j=j):
-                        return hdet.detect_batch(
-                            sub.stack, n_real=sub.n_real,
-                            n_valid=sub.n_valid,
-                            with_health=with_health and j == 0,
-                            health_clip=clip,
-                        )
-                    halves.append(
-                        self._dispatched(list(sub.paths), rung,
-                                         fn)[: sub.n_valid]
-                    )
-                for ea, eb in zip(*halves):
-                    if ea is None or eb is None:
-                        entries.append(None)
-                        continue
-                    merged = ({**ea[0], **eb[0]}, {**ea[1], **eb[1]})
-                    entries.append(
-                        merged + (ea[2],) if with_health else merged
-                    )
-            return entries
-        entries = []
-        for k in range(slab.n_valid):
-            if not ok[k]:
-                entries.append(None)
-                continue
-            tr = np.asarray(slab.blocks[k].trace)
-            padded = np.zeros((tr.shape[0], slab.bucket_ns), tr.dtype)
-            padded[:, : tr.shape[1]] = tr
-
-            def fn(padded=padded, k=k):
-                return prog.detect(rung, padded, n_real=slab.n_real[k],
-                                   with_health=with_health, clip=clip)
-            entries.append(self._dispatched([slab.paths[k]], rung, fn))
-        return entries
+        return self.executor.try_dispatch(slab)
 
     def handle_error_item(self, item: IngestItem) -> None:
         """Disposition a source-side read failure at its own position
@@ -498,167 +327,6 @@ class TenantRuntime:
         except camp.CampaignAborted as aexc:
             self.mark_aborted(str(aexc))
 
-    def handle_slab(self, slab, inflight=None) -> None:
-        """One slab through the elastic ladder + per-file degrade +
-        health gate + artifact/manifest bookkeeping — the batch
-        campaign's ``handle_slab`` contract, per tenant."""
-        fail = self.rz.fail
-        with_health = self.rz.health_cfg is not None
-        clip = self.rz.health_cfg.clip_abs if with_health else None
-        try:
-            bdet = self._detector_for(slab)
-        except Exception as exc:  # noqa: BLE001 — whole-slab guard
-            if faults.classify_failure(exc) == "fatal":
-                raise
-            for path in slab.paths:
-                fail(path, exc)
-                _c_files.inc(tenant=self.name, status="failed")
-                self._drop_ingest_stamp(path)
-            return
-        det = bdet.det
-        key = self._bucket_key(slab)
-        if key in self._skip_buckets:
-            for k in range(slab.n_valid):
-                fail(slab.paths[k], RuntimeError(self._skip_buckets[key]))
-                _c_files.inc(tenant=self.name, status="failed")
-                self._drop_ingest_stamp(slab.paths[k])
-            return
-        ok = []
-        for k in range(slab.n_valid):
-            meta_k = slab.blocks[k].metadata
-            if (self.spec.wire == "raw" and meta_k is not None
-                    and meta_k.scale_factor != det.metadata.scale_factor):
-                fail(slab.paths[k], ValueError(
-                    f"scale_factor {meta_k.scale_factor!r} != detector "
-                    f"scale {det.metadata.scale_factor!r}; wire='raw' "
-                    "conditions with one scale"
-                ))
-                _c_files.inc(tenant=self.name, status="failed")
-                self._drop_ingest_stamp(slab.paths[k])
-                ok.append(False)
-            else:
-                ok.append(True)
-        t0 = time.perf_counter()
-        degraded = recovered = False
-        results = None
-        try:
-            if self.fault_plan is not None:
-                for k in range(slab.n_valid):
-                    if ok[k]:
-                        try:
-                            self.fault_plan.on_transfer(slab.paths[k])
-                            self.fault_plan.on_detect(slab.paths[k])
-                        except Exception:
-                            self.rz.attempt(slab.paths[k])
-                            raise
-            rung = self.ladder.current(key)
-            if inflight is not None and rung != ("batched", self.spec.batch):
-                inflight = None   # downshifted between dispatch and resolve
-            while True:   # the elastic ladder, per tenant
-                try:
-                    results = self._run_rung(slab, rung, bdet, ok,
-                                             inflight=inflight)
-                    break
-                except Exception as exc:  # noqa: BLE001
-                    inflight = None
-                    fclass = faults.classify_failure(exc)
-                    if fclass == "fatal":
-                        raise
-                    if fclass == "resource":
-                        nxt = self.ladder.downshift(key, rung, exc)
-                        if nxt is not None:
-                            rung = nxt
-                            recovered = True
-                            continue
-                    raise
-        except camp.CampaignAborted:
-            raise
-        except Exception as exc:  # noqa: BLE001 — degrade per file
-            if faults.classify_failure(exc) == "fatal":
-                raise
-            faults.count("degradations")
-            log.warning("tenant %s: slab of %d files failed (%s: %s); "
-                        "degrading to the per-file route", self.name,
-                        slab.n_valid, type(exc).__name__, exc)
-            degraded = True
-        wall = time.perf_counter() - t0
-        camp._h_slab_wall.observe(wall)
-        if tcosts.enabled() and not degraded and results is not None:
-            # live utilization per tenant slab (the batch campaign's
-            # exact hook): predicted-at-peaks over measured
-            tcosts.note_slab_resolved(
-                tcosts.bucket_label(key), faults.rung_label(rung),
-                tcosts._program_engine(bdet), wall, device=self.device,
-            )
-        from ..parallel.batch import trim_picks
-
-        for k in range(slab.n_valid):
-            if not ok[k]:
-                continue
-            path = slab.paths[k]
-            use_fallback = degraded or results[k] is None
-            pf_rung = max(("file", 1), self.ladder.current(key),
-                          key=faults.rung_rank)
-            file_recovered = recovered
-            while True:
-                self.rz.attempt(path)
-                try:
-                    if use_fallback:
-                        if self.fault_plan is not None and degraded:
-                            self.fault_plan.on_transfer(path)
-                            self.fault_plan.on_detect(path)
-                        picks, thresholds, stats = self._per_file_fallback(
-                            slab, k, self._progs[key], rung=pf_rung
-                        )
-                        exec_rung = pf_rung
-                    else:
-                        entry = results[k]
-                        picks, thresholds = entry[0], entry[1]
-                        stats = (entry[2] if with_health
-                                 and len(entry) > 2 else {})
-                        exec_rung = rung
-                    self.rz.check_health(path, stats,
-                                         rung=faults.rung_label(exec_rung))
-                    picks = trim_picks(picks, slab.n_real[k])
-                    if self.fault_plan is not None:
-                        self.fault_plan.detect_succeeded()
-                    camp._file_record(
-                        self.outdir, path, picks, thresholds,
-                        round(wall / max(slab.n_valid, 1), 3), self.records,
-                        attempts=self.rz.state.n_attempts(path),
-                        health=dict(stats or {}), family=bdet.family,
-                        rung=faults.rung_label(exec_rung),
-                    )
-                    _c_files.inc(tenant=self.name, status="done")
-                    self._note_pick_settled(path)
-                    if self.quality is not None:
-                        # the campaign's exact derivation, under this
-                        # tenant's own label/baseline
-                        camp._observe_quality(
-                            self.name, bdet.det, path, picks, thresholds,
-                            stats, slab.n_real[k],
-                        )
-                    if file_recovered:
-                        self.rz.tally("oom_recoveries")
-                except camp.CampaignAborted:
-                    raise
-                except Exception as exc:  # noqa: BLE001 — per-file isolation
-                    if (use_fallback
-                            and faults.classify_failure(exc) == "resource"):
-                        nxt = self.ladder.downshift(key, pf_rung, exc)
-                        if nxt is not None:
-                            self.rz.state.unattempt(path)
-                            pf_rung = nxt
-                            file_recovered = True
-                            continue
-                    if self.rz.dispose(path, exc) == "retry":
-                        use_fallback = True
-                        continue
-                    _c_files.inc(tenant=self.name,
-                                 status=self.records[-1].status)
-                    self._drop_ingest_stamp(path)   # terminal, not done
-                break
-
     def cost_summary(self) -> Dict:
         """This tenant's placement footprint (the fleet's bin-packing
         input when this outdir is adopted elsewhere): max priced peak
@@ -666,7 +334,7 @@ class TenantRuntime:
         tenant dispatched. ``priced=False`` means the cost observatory
         was off or nothing dispatched yet — a placer then falls back to
         the declared ``hbm_share_gb``, never a guess."""
-        labels = {tcosts.bucket_label(k) for k in list(self._dets)}
+        labels = {tcosts.bucket_label(k) for k in list(self.executor.dets)}
         peak, wall, n = 0, 0.0, 0
         if tcosts.enabled() and labels:
             for card in tcosts.REGISTRY.cards():
@@ -756,7 +424,7 @@ class StreamScheduler:
             raise ValueError("tenant names must be unique")
         self.pipe = PipelinedDispatch(dispatch_depth)
         for t in tenants:
-            t.before_probe = self._drain_pipe
+            t.executor.before_probe = self._drain_pipe
         self._rotation = deque(self.tenants)
         self._base_quantum = 1.0   # megasamples; adapts to the largest slab
         # admin verbs: HTTP threads enqueue add/retire ops; the
@@ -778,27 +446,11 @@ class StreamScheduler:
         if overlapped:
             _c_overlapped.inc(tenant=name)
         try:
-            with telemetry.span("slab", tenant=name, index0=slab.index0,
-                                n_files=slab.n_valid,
-                                bucket_ns=slab.bucket_ns,
-                                pipelined=inflight is not None):
-                t.handle_slab(slab, inflight)
+            t.executor.finalize(slab, inflight, tenant=name)
         except camp.CampaignAborted as exc:
             # one tenant's max_failures abort stops THAT stream only
             t.mark_aborted(str(exc))
             log.error("tenant %s aborted: %s", name, exc)
-        except Exception as exc:  # noqa: BLE001 — whole-slab guard
-            if faults.classify_failure(exc) == "fatal":
-                raise
-            dispositioned = {r.path for r in t.records}
-            for path in slab.paths:
-                if path not in dispositioned:
-                    try:
-                        t.rz.fail(path, exc)
-                        _c_files.inc(tenant=name, status="failed")
-                    except camp.CampaignAborted as aexc:
-                        t.mark_aborted(str(aexc))
-                        break
 
     def _drain_pipe(self) -> None:
         for token, inflight in self.pipe.drain():
@@ -836,7 +488,7 @@ class StreamScheduler:
             op, payload = self._admin.popleft()
             if op == "add":
                 t = payload
-                t.before_probe = self._drain_pipe
+                t.executor.before_probe = self._drain_pipe
                 self.tenants[t.name] = t
                 if t.name not in self._rotation:
                     self._rotation.append(t.name)

@@ -22,11 +22,18 @@ MEASURES the program once per shape (:func:`probe_program`):
   attempt, K = ``max_peaks`` with ``topk`` — a zero slab saturates no
   row, so the K0 attempt alone would never price it), and the peak is
   ``max_memory_allocated() - baseline``;
-* the measurement is memoized per program key (family, C, T, B, dtype,
-  health, templates, route);
+* the measurement is memoized per program key: the facade's
+  ``program_spec`` keys it on every quantity that sizes one of the
+  program's buffers (shape, batch, dtype, health, route and mode, and
+  the design's own sizes: templates and their length, the f-k band,
+  tile, pick capacity, a family's windows and kernels). An eager
+  program allocates by shape alone, so two designs that agree on all of
+  these share one measured peak;
 * an out-of-memory error inside the probe is the answer "over budget"
   (:attr:`MemoryStats.exhausted`), not a campaign error; the allocator's
-  cache is emptied afterwards.
+  cache is emptied afterwards. That answer depends on what else held
+  the card at the time, so it is never memoized: the next pricing of
+  the same program probes again.
 
 On the CPU there is no device memory to admit against: the probe
 returns None, JAX's rule for a backend without ``memory_analysis()``,
@@ -69,7 +76,6 @@ class MemoryStats:
     temp_bytes: int
     output_bytes: int
     argument_bytes: int
-    generated_code_bytes: int = 0
     exhausted: bool = False
 
     @property
@@ -78,7 +84,7 @@ class MemoryStats:
 
     @property
     def total(self) -> int:
-        return self.peak + self.argument_bytes + self.generated_code_bytes
+        return self.peak + self.argument_bytes
 
     def fits(self, budget_bytes: int) -> bool:
         return not self.exhausted and self.peak < int(budget_bytes)
@@ -176,18 +182,19 @@ def _measure(spec: ProgramSpec) -> Tuple[MemoryStats, float]:
 
 
 def probe_program(spec: ProgramSpec) -> ProgramAnalysis | None:
-    """Measure ``spec`` once (memoized by ``spec.key``) and return its
-    :class:`ProgramAnalysis`; None off the card. The caller drains any
-    work of its own in flight on the card first, so that no other
-    program's buffers count."""
+    """Measure ``spec`` once (memoized by ``spec.key``; an out-of-memory
+    answer is not kept) and return its :class:`ProgramAnalysis`; None off
+    the card. The caller drains any work of its own in flight on the card
+    first, so that no other program's buffers count."""
     if getattr(spec.device, "type", "cpu") != "cuda":
         return None
     with _memo_lock:
         hit = _memo.get(spec.key)
     if hit is None:
         hit = _measure(spec)
-        with _memo_lock:
-            _memo[spec.key] = hit
+        if not hit[0].exhausted:
+            with _memo_lock:
+                _memo[spec.key] = hit
     stats, wall = hit
     return ProgramAnalysis(memory=stats, flops=spec.flops,
                            bytes_accessed=spec.bytes_accessed,

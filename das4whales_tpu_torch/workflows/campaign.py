@@ -742,11 +742,16 @@ def run_campaign(
     _BUCKET = "campaign"   # one unbatched campaign = one sticky ladder key
 
     placed = False
+    skip_reason: str | None = None   # the preflight: no card rung fits
 
     def place_route(block) -> None:
         """The preflight and the starting rung's cost card, once, at the
-        first file's shape (the route's one ladder key)."""
-        nonlocal placed
+        first file's shape (the route's one ladder key). The preflight
+        prices the card's rungs only: the host rung is the ladder's
+        out-of-memory recovery, never a placement. Where no card rung fits,
+        the run is skipped before dispatch (a ``preflight_skip`` event;
+        every file ``failed``), as a batched bucket is."""
+        nonlocal placed, skip_reason
         placed = True
         if not (preflight or use_costs):
             return
@@ -766,17 +771,35 @@ def run_campaign(
                 det_r = det_r.tiled_view()
             return batched_detector_for(det_r, serial=True, trace_shape=shape)
 
+        priced = {}
+
         def price_rung(rung):
-            if rung[0] == "host":
-                return None   # the CPU: no device memory to price
-            return _price_rung(facade(rung), 1, dt, key, faults.rung_label(rung),
-                               with_health=with_health, clip=clip, use_costs=use_costs)
+            priced[rung] = _price_rung(facade(rung), 1, dt, key, faults.rung_label(rung),
+                                       with_health=with_health, clip=clip, use_costs=use_costs)
+            return priced[rung]
 
         if preflight:
             budget = hbm_budget_bytes()
+            cands = [r for r in route.ladder.rungs(_BUCKET) if r[0] != "host"]
             with telemetry.span("preflight", bucket=str(key)):
-                best = memutils.first_fitting(price_rung, route.ladder.rungs(_BUCKET), budget)
-            if best is not None and best != route.current(_BUCKET):
+                best = memutils.first_fitting(price_rung, cands, budget)
+                if best is None:
+                    last = priced[cands[-1]]
+                    need = ("more than the card holds" if last.exhausted
+                            else f"{last.peak / 2**30:.2f} GiB")
+                    skip_reason = (
+                        f"preflight: no program shape fits DAS_HBM_BUDGET_GB "
+                        f"({budget / 2**30:.2f} GiB); smallest candidate needs {need} — "
+                        "skipped before dispatch")
+                    event = {"event": "preflight_skip", "bucket": list(key),
+                             "reason": skip_reason}
+                    sid = telemetry.current_span_id()
+                    if sid is not None:
+                        event["span_id"] = sid
+                    _append_event(outdir, event)
+                    log.warning("campaign: %s", skip_reason)
+                    return
+            if best != route.current(_BUCKET):
                 route.ladder.pin(_BUCKET, best, (
                     f"preflight: the per-file program over {budget / 2**30:.2f} GiB; "
                     f"{faults.rung_label(best)} is the first rung that fits"))
@@ -823,6 +846,9 @@ def run_campaign(
             fault_plan.on_detect(path)
         if not placed:
             place_route(block)
+        if skip_reason is not None:
+            rz.fail(path, RuntimeError(skip_reason))
+            return
         clip = rz.health_cfg.clip_abs if rz.health_cfg is not None else None
         with_health = rz.health_cfg is not None
         picks, thresholds, stats, rung = route.run_file(
@@ -857,7 +883,7 @@ def run_campaign(
         rides the healthy per-file rung. None -> the synchronous path
         (also taken for the first file, which builds the detector, and
         for a family whose ``dispatch`` returns None)."""
-        if not pipe.enabled or route is None or rz.health_cfg is None:
+        if not pipe.enabled or not placed or skip_reason is not None or rz.health_cfg is None:
             return None
         if route.current(_BUCKET) != ("file", 1):
             return None
@@ -931,6 +957,387 @@ def run_campaign(
         if use_quality:
             _flush_quality(outdir, [QUALITY_TENANT])
     return CampaignResult(outdir=outdir, records=records)
+
+
+class SlabExecutor:
+    """The batched per-slab executor: a bucket's batched facade and
+    per-file program, built at its first slab; the memory preflight before
+    that slab's first dispatch; the elastic downshift ladder; the per-file
+    degradation; the health gate; the manifest and picks bookkeeping.
+    :func:`run_campaign_batched` drives one over its slab stream, and the
+    service (``service.scheduler.TenantRuntime``) one a tenant, so a
+    tenant's picks are bitwise its standalone campaign's.
+
+    ``rz``, ``ladder``, ``outdir`` and ``records`` are the run's (or the
+    tenant's) resilience, ladder and durable state; ``family``, ``wire``,
+    ``channels``, ``device`` and ``detector_kwargs`` build each bucket's
+    detector (:func:`family_detector`), ``serial`` its facade's mode.
+    ``preflight`` prices each bucket against
+    ``budget_bytes`` (None: ``DAS_HBM_BUDGET_GB`` when it runs), after
+    ``before_probe()`` (the caller drains its dispatch pipe there).
+    ``quality_tenant`` is the observatory label a done file feeds (None:
+    off). ``tenant`` names a service tenant (None: a campaign): its pins
+    and skips take the service's words. ``on_settled(path,
+    status)`` hears each terminal disposition the executor writes.
+    """
+
+    def __init__(self, *, rz, ladder, outdir: str, records: List[FileRecord], family: str,
+                 batch: int, wire: str, channels, device, serial, detector_kwargs,
+                 dispatch_deadline_s, fault_plan, preflight: bool, use_costs: bool,
+                 quality_tenant: str | None = None, tenant: str | None = None,
+                 budget_bytes: int | None = None, before_probe=None, on_settled=None):
+        self.rz, self.ladder, self.outdir, self.records = rz, ladder, outdir, records
+        self.family, self.batch, self.wire, self.channels = family, int(batch), wire, channels
+        self.device, self.serial = device, serial
+        self.detector_kwargs = dict(detector_kwargs)
+        self.dispatch_deadline_s, self.fault_plan = dispatch_deadline_s, fault_plan
+        self.preflight, self.use_costs = bool(preflight), bool(use_costs)
+        self.quality_tenant, self.tenant = quality_tenant, tenant
+        self.budget_bytes, self.before_probe, self.on_settled = budget_bytes, before_probe, on_settled
+        self.with_health = rz.health_cfg is not None
+        self.clip = rz.health_cfg.clip_abs if self.with_health else None
+        self.dets: Dict[tuple, object] = {}            # bucket -> batched facade
+        self.progs: Dict[tuple, DetectorProgram] = {}  # per-file-rung programs
+        self.skip_buckets: Dict[tuple, str] = {}       # preflight: nothing fits
+        self._stager = None
+
+    def _fail(self, path: str, exc: Exception, **kw) -> None:
+        self.rz.fail(path, exc, **kw)
+        self._settled(path, self.records[-1].status)
+
+    def _settled(self, path: str, status: str) -> None:
+        if self.on_settled is not None:
+            self.on_settled(path, status)
+
+    @staticmethod
+    def bucket_key(slab) -> tuple:
+        return (int(slab.stack.shape[1]), slab.bucket_ns,
+                np.dtype(np.asarray(slab.blocks[0].trace).dtype).name)
+
+    def _preflight(self, key, bdet, slab) -> None:
+        """The bucket's memory preflight (:func:`_preflight_bucket`): a
+        pin, or a skip ledgered as ``preflight_skip`` (a campaign) or
+        ``admission_skip`` (a tenant)."""
+        from ..config import hbm_budget_bytes
+
+        if self.before_probe is not None:
+            self.before_probe()
+        budget = self.budget_bytes if self.budget_bytes is not None else hbm_budget_bytes()
+        reason = _preflight_bucket(
+            self.ladder, key, bdet, np.asarray(slab.blocks[0].trace).dtype, batch=self.batch,
+            budget=budget, family=self.family, with_health=self.with_health, clip=self.clip,
+            use_costs=self.use_costs, tenant=self.tenant)
+        if reason is None:
+            return
+        self.skip_buckets[key] = reason
+        if self.tenant is None:
+            event = {"event": "preflight_skip", "bucket": list(key), "reason": reason}
+            sid = telemetry.current_span_id()   # the enclosing preflight span
+            if sid is not None:
+                event["span_id"] = sid
+        else:
+            event = {"event": "admission_skip", "tenant": self.tenant, "bucket": list(key),
+                     "reason": reason}
+        _append_event(self.outdir, event)
+        log.warning("%sbucket %s: %s", f"tenant {self.tenant} " if self.tenant else "", key,
+                    reason)
+
+    def detector_for(self, slab):
+        """The slab's bucket facade, built (and preflighted) at its first
+        slab."""
+        from ..parallel.batch import batched_detector_for
+
+        key = self.bucket_key(slab)
+        bdet = self.dets.get(key)
+        if bdet is not None:
+            return bdet
+        per_file_det = family_detector(
+            self.family, slab.blocks[0].metadata, self.channels, (key[0], slab.bucket_ns),
+            wire=self.wire, device=self.device, **self.detector_kwargs)
+        bdet = batched_detector_for(per_file_det, serial=self.serial,
+                                    trace_shape=(key[0], slab.bucket_ns))
+        self.dets[key] = bdet
+        self.progs[key] = program_for(per_file_det)
+        self.ladder.set_engines(key, self.progs[key].engines)
+        if getattr(bdet.det, "supports_bank_split", False):
+            # a splittable template bank: this bucket's ladder gains the
+            # bank-split rungs (T/2 sub-banks before B shrinks)
+            self.ladder.enable_bank_split(key)
+        if self.preflight:
+            span_kw = {} if self.tenant is None else {"tenant": self.tenant}
+            with telemetry.span("preflight", bucket=str(key), **span_kw):
+                self._preflight(key, bdet, slab)
+        if self.use_costs and key not in self.skip_buckets:
+            _ensure_start_card(self.ladder, key, bdet, np.asarray(slab.blocks[0].trace).dtype,
+                               with_health=self.with_health, clip=self.clip)
+        return bdet
+
+    def try_dispatch(self, slab):
+        """The pipeline's dispatch phase: queue the slab's program on the
+        card when its bucket rides the healthy top rung. None (-> the
+        synchronous path) for downshifted or skipped buckets, batch-1 runs
+        and dispatch-time failures, which the sync path re-raises at this
+        slab's own turn."""
+        if self.batch < 2:
+            return None
+        try:
+            bdet = self.detector_for(slab)
+            key = self.bucket_key(slab)
+            if key in self.skip_buckets or self.ladder.current(key) != ("batched", self.batch):
+                return None
+            stack = slab.stack
+            if isinstance(stack, np.ndarray) and self.device.type == "cuda":
+                # a host slab (the service's slicer) crosses through pinned
+                # buffers on a side stream: a pageable copy would wait for
+                # every program already queued
+                from ..io.staging import PinnedStager
+
+                if self._stager is None:
+                    self._stager = PinnedStager(self.device, n_buffers=2)
+                stack = PinnedStager.hand_over(*self._stager.place(stack))
+            return bdet.dispatch_batch(stack, n_real=slab.n_real, n_valid=slab.n_valid,
+                                       with_health=self.with_health, health_clip=self.clip)
+        except CampaignAborted:
+            raise
+        except Exception:  # noqa: BLE001 — surfaces on the sync path
+            return None
+
+    def _dispatched(self, paths, rung, fn):
+        """One watchdogged device dispatch (the chaos dispatch hook fires
+        inside the deadline, ``parallel.dispatch.resolve_watchdogged``)."""
+        from ..parallel.dispatch import resolve_watchdogged
+
+        return resolve_watchdogged(fn, paths, rung, self.dispatch_deadline_s, self.fault_plan,
+                                   family=self.family)
+
+    def _per_file(self, slab, k, prog, rung):
+        """File ``k`` through the unbatched per-file route on the
+        assembler's host block (never the device slab), at ``rung``."""
+        tr = np.asarray(slab.blocks[k].trace)
+        padded = np.zeros((tr.shape[0], slab.bucket_ns), tr.dtype)
+        padded[:, : tr.shape[1]] = tr
+
+        def fn():
+            return prog.detect(rung, padded, n_real=slab.n_real[k],
+                               with_health=self.with_health, clip=self.clip)
+
+        return self._dispatched([slab.paths[k]], rung, fn)
+
+    def _run_rung(self, slab, rung, bdet, ok, inflight=None):
+        """The whole slab's entries at one ladder rung — aligned with
+        ``range(slab.n_valid)``; raises on the rung's failure (resource
+        -> the caller downshifts). ``inflight`` (the depth-D pipeline's
+        dispatched handle) short-circuits the top batched rung: the
+        watchdogged call is its packed fetch."""
+        from ..io.stream import subdivide_slab
+
+        with_health, clip = self.with_health, self.clip
+        stage, b = rung
+        if stage == "batched":
+            if b >= self.batch:
+                if inflight is not None:
+                    return self._dispatched(list(slab.paths), rung, inflight.resolve)
+                subs = [slab]
+            else:
+                # re-bucket from the assembler's HOST blocks
+                subs = subdivide_slab(slab, b)
+            entries = []
+            for sub in subs:
+                def fn(sub=sub):
+                    return bdet.detect_batch(sub.stack, n_real=sub.n_real, n_valid=sub.n_valid,
+                                             with_health=with_health, health_clip=clip)
+                entries.extend(self._dispatched(list(sub.paths), rung, fn)[: sub.n_valid])
+            return entries
+        if stage == "bank":
+            # the bank-split rung: the same batch as two T/2 sub-bank
+            # dispatches (``split_views``), their picks merged — bitwise the
+            # full bank's under the per_template scope. Only the first half
+            # computes the health stats: they describe the input block.
+            subs = [slab] if b >= self.batch else subdivide_slab(slab, b)
+            half_a, half_b = bdet.split_views()
+            entries = []
+            for sub in subs:
+                halves = []
+                for j, hdet in enumerate((half_a, half_b)):
+                    def fn(sub=sub, hdet=hdet, j=j):
+                        return hdet.detect_batch(
+                            sub.stack, n_real=sub.n_real, n_valid=sub.n_valid,
+                            with_health=with_health and j == 0, health_clip=clip)
+                    halves.append(self._dispatched(list(sub.paths), rung, fn)[: sub.n_valid])
+                for ea, eb in zip(*halves):
+                    if ea is None or eb is None:
+                        entries.append(None)   # overflow: the exact per-file route
+                        continue
+                    merged = ({**ea[0], **eb[0]}, {**ea[1], **eb[1]})
+                    entries.append(merged + (ea[2],) if with_health else merged)
+            return entries
+        prog = self.progs[self.bucket_key(slab)]
+        return [self._per_file(slab, k, prog, rung) if ok[k] else None   # None: scale guard
+                for k in range(slab.n_valid)]
+
+    def handle_slab(self, slab, inflight=None) -> None:
+        """One slab through the elastic ladder, the per-file degradation,
+        the health gate and the bookkeeping of each of its files."""
+        from ..parallel.batch import trim_picks
+
+        bdet = self.detector_for(slab)
+        det = bdet.det
+        key = self.bucket_key(slab)
+        fault_plan = self.fault_plan
+        rz, ladder = self.rz, self.ladder
+        if key in self.skip_buckets:
+            for k in range(slab.n_valid):
+                self._fail(slab.paths[k], RuntimeError(self.skip_buckets[key]))
+            return
+        ok = []
+        for k in range(slab.n_valid):
+            meta_k = slab.blocks[k].metadata
+            if (self.wire == "raw" and meta_k is not None
+                    and meta_k.scale_factor != det.metadata.scale_factor):
+                self._fail(slab.paths[k], ValueError(
+                    f"scale_factor {meta_k.scale_factor!r} != detector "
+                    f"scale {det.metadata.scale_factor!r}; wire='raw' "
+                    "conditions with one scale — use wire='conditioned' "
+                    "for heterogeneous file sets"))
+                ok.append(False)
+            else:
+                ok.append(True)
+        t0 = time.perf_counter()
+        degraded = recovered = False
+        results = None
+        rung = ladder.current(key)
+        try:
+            if fault_plan is not None:
+                # the slab is one transfer and one program: a planned
+                # transfer/detect fault against ANY of its files fails
+                # the slab (the ladder then isolates the culprit), and
+                # the culprit's slab-level firing IS one of its attempts
+                for k in range(slab.n_valid):
+                    if ok[k]:
+                        try:
+                            fault_plan.on_transfer(slab.paths[k])
+                            fault_plan.on_detect(slab.paths[k])
+                        except Exception:
+                            rz.attempt(slab.paths[k])
+                            raise
+            if inflight is not None and rung != ("batched", self.batch):
+                # the bucket downshifted between this slab's dispatch and
+                # its resolve: abandon the handle, run at the sticky rung
+                inflight = None
+            while True:   # the elastic ladder: downshift on resource
+                try:
+                    results = self._run_rung(slab, rung, bdet, ok, inflight=inflight)
+                    break
+                except Exception as exc:  # noqa: BLE001
+                    # never reuse a handle past a failure
+                    inflight = None
+                    fclass = faults.classify_failure(exc)
+                    if fclass == "fatal":
+                        raise
+                    if fclass == "resource":
+                        nxt = ladder.downshift(key, rung, exc)
+                        if nxt is not None:
+                            rung = nxt
+                            recovered = True
+                            continue
+                    raise   # non-resource / exhausted: degrade per-file
+        except Exception as exc:  # noqa: BLE001 — degradation ladder
+            if faults.classify_failure(exc) == "fatal":
+                raise
+            faults.count("degradations")
+            log.warning(
+                "%sbatched slab of %d files failed (%s: %s); degrading to "
+                "the unbatched per-file route", f"tenant {self.tenant}: " if self.tenant else "",
+                slab.n_valid, type(exc).__name__, exc,
+            )
+            degraded = True
+        wall = time.perf_counter() - t0
+        _h_slab_wall.observe(wall)
+        if self.use_costs and not degraded and results is not None:
+            # live utilization: this slab's wall against its rung's card
+            tcosts.note_slab_resolved(tcosts.bucket_label(key), faults.rung_label(rung),
+                                      tcosts._program_engine(bdet), wall, device=self.device)
+        for k in range(slab.n_valid):
+            if not ok[k]:
+                continue  # its slot computed with the wrong scale: discard
+            path = slab.paths[k]
+            use_fallback = degraded or results[k] is None
+            # the fallback honors the bucket's sticky placement: never
+            # below the per-file rung, never above a rung that ran out
+            pf_rung = max(("file", 1), ladder.current(key), key=faults.rung_rank)
+            file_recovered = recovered
+            while True:
+                rz.attempt(path)
+                try:
+                    if use_fallback:
+                        if fault_plan is not None and degraded:
+                            fault_plan.on_transfer(path)
+                            fault_plan.on_detect(path)
+                        picks, thresholds, stats = self._per_file(slab, k, self.progs[key],
+                                                                  pf_rung)
+                        exec_rung = pf_rung
+                    else:
+                        entry = results[k]
+                        picks, thresholds = entry[0], entry[1]
+                        stats = entry[2] if self.with_health and len(entry) > 2 else {}
+                        exec_rung = rung
+                    rz.check_health(path, stats, rung=faults.rung_label(exec_rung))
+                    picks = trim_picks(picks, slab.n_real[k])
+                    if fault_plan is not None:
+                        fault_plan.detect_succeeded()
+                    _file_record(
+                        self.outdir, path, picks, thresholds,
+                        round(wall / max(slab.n_valid, 1), 3), self.records,
+                        attempts=rz.state.n_attempts(path),
+                        health=dict(stats or {}), family=bdet.family,
+                        rung=faults.rung_label(exec_rung),
+                    )
+                    self._settled(path, "done")
+                    if self.quality_tenant is not None:
+                        _observe_quality(self.quality_tenant, det, path, picks, thresholds,
+                                         stats, slab.n_real[k])
+                    if file_recovered:
+                        rz.tally("oom_recoveries")
+                except CampaignAborted:
+                    raise
+                except Exception as exc:  # noqa: BLE001 — per-file isolation
+                    if use_fallback and faults.classify_failure(exc) == "resource":
+                        # resource exhaustion in the fallback too: keep
+                        # descending (a route change, not a retry — refund
+                        # the attempt)
+                        nxt = ladder.downshift(key, pf_rung, exc)
+                        if nxt is not None:
+                            rz.state.unattempt(path)
+                            pf_rung = nxt
+                            file_recovered = True
+                            continue
+                    if rz.dispose(path, exc) == "retry":
+                        # the already-fetched batch entry would fail
+                        # identically: retries take the per-file route
+                        use_fallback = True
+                        continue
+                    self._settled(path, self.records[-1].status)
+                break
+
+    def finalize(self, slab, inflight=None, **span) -> None:
+        """:meth:`handle_slab` under a ``slab`` span (``span`` adds its
+        attributes), with the slab-level guard: a whole-slab failure the
+        ladder could not absorb (detector build, fatal-class program
+        error) fails each of its files not already dispositioned this
+        run. A ``CampaignAborted`` passes through."""
+        try:
+            with telemetry.span("slab", **span, index0=slab.index0, n_files=slab.n_valid,
+                                bucket_ns=slab.bucket_ns, pipelined=inflight is not None):
+                self.handle_slab(slab, inflight)
+        except CampaignAborted:
+            raise
+        except Exception as exc:  # noqa: BLE001 — slab-level guard
+            if faults.classify_failure(exc) == "fatal":
+                raise
+            dispositioned = {r.path for r in self.records}
+            for path in slab.paths:
+                if path not in dispositioned:
+                    self._fail(path, exc)
 
 
 def run_campaign_batched(
@@ -1019,10 +1426,9 @@ def run_campaign_batched(
     (``telemetry.quality``), then a manifest ``quality`` event and
     ``<outdir>/quality.json``. None of the three changes a pick.
     """
-    from ..config import dispatch_deadline_default, hbm_budget_bytes, memory_preflight_default
-    from ..io.stream import SlabReadError, stream_batched_slabs, subdivide_slab
-    from ..parallel.batch import batched_detector_for, trim_picks
-    from ..parallel.dispatch import PipelinedDispatch, resolve_watchdogged
+    from ..config import dispatch_deadline_default, memory_preflight_default
+    from ..io.stream import SlabReadError, stream_batched_slabs
+    from ..parallel.dispatch import PipelinedDispatch
 
     if family not in FAMILIES:
         raise ValueError(
@@ -1058,331 +1464,27 @@ def run_campaign_batched(
     pend_metas = [metas[j] for j in pend_idx]
     rz = _Resilience(outdir, records, max_failures, retry, health)
     rz.family = family
-    fail = rz.fail
-    with_health = rz.health_cfg is not None
-    clip = rz.health_cfg.clip_abs if with_health else None
     ladder = DownshiftLadder(rz, outdir, batch=batch, family=family,
                              stages=family_ladder_stages(family))
 
-    dets: Dict[tuple, object] = {}       # bucket -> batched facade
-    progs: Dict[tuple, DetectorProgram] = {}   # per-file-rung programs
-    skip_buckets: Dict[tuple, str] = {}   # preflight: nothing fits
-
-    def _bucket_key(slab) -> tuple:
-        return (int(slab.stack.shape[1]), slab.bucket_ns,
-                np.dtype(np.asarray(slab.blocks[0].trace).dtype).name)
-
-    def preflight_bucket(key, bdet, slab) -> None:
-        # the probe must see no other slab's buffers: finish the queue
-        drain_pipe()
-        reason = _preflight_bucket(
-            ladder, key, bdet, np.asarray(slab.blocks[0].trace).dtype, batch=batch,
-            budget=hbm_budget_bytes(), family=family, with_health=with_health, clip=clip,
-            use_costs=use_costs)
-        if reason is None:
-            return
-        skip_buckets[key] = reason
-        event = {"event": "preflight_skip", "bucket": list(key), "reason": reason}
-        sid = telemetry.current_span_id()   # the enclosing preflight span
-        if sid is not None:
-            event["span_id"] = sid
-        _append_event(outdir, event)
-        log.warning("bucket %s: %s", key, reason)
-
-    def detector_for(slab):
-        key = _bucket_key(slab)
-        bdet = dets.get(key)
-        if bdet is None:
-            per_file_det = family_detector(
-                family, slab.blocks[0].metadata, selected_channels,
-                (key[0], slab.bucket_ns), wire=wire, device=device,
-                **detector_kwargs,
-            )
-            bdet = batched_detector_for(per_file_det, serial=serial,
-                                        trace_shape=(key[0], slab.bucket_ns))
-            dets[key] = bdet
-            progs[key] = program_for(per_file_det)
-            ladder.set_engines(key, progs[key].engines)
-            if getattr(bdet.det, "supports_bank_split", False):
-                # a splittable template bank: this bucket's ladder gains the
-                # bank-split rungs (T/2 sub-banks before B shrinks)
-                ladder.enable_bank_split(key)
-            if preflight:
-                with telemetry.span("preflight", bucket=str(key)):
-                    preflight_bucket(key, bdet, slab)
-            if use_costs and key not in skip_buckets:
-                _ensure_start_card(ladder, key, bdet, np.asarray(slab.blocks[0].trace).dtype,
-                                   with_health=with_health, clip=clip)
-        return bdet
-
-    def dispatched(paths, rung, fn):
-        """One watchdogged device dispatch (the chaos dispatch hook fires
-        inside the deadline, ``parallel.dispatch.resolve_watchdogged``)."""
-        return resolve_watchdogged(fn, paths, rung, dispatch_deadline_s,
-                                   fault_plan, family=family)
-
-    def padded_block(slab, k):
-        tr = np.asarray(slab.blocks[k].trace)
-        padded = np.zeros((tr.shape[0], slab.bucket_ns), tr.dtype)
-        padded[:, : tr.shape[1]] = tr
-        return padded
-
-    def per_file_fallback(slab, k, prog, rung=("file", 1)):
-        """The unbatched per-file route on the assembler's host block
-        (never the device slab): the packed-overflow exact path AND the
-        degradation ladder's second rung, at the bucket's sticky rung."""
-        padded = padded_block(slab, k)
-
-        def fn():
-            return prog.detect(rung, padded, n_real=slab.n_real[k],
-                               with_health=with_health, clip=clip)
-
-        return dispatched([slab.paths[k]], rung, fn)
-
-    def run_rung(slab, rung, bdet, ok, inflight=None):
-        """The whole slab's entries at one ladder rung — aligned with
-        ``range(slab.n_valid)``; raises on the rung's failure (resource
-        -> the caller downshifts). ``inflight`` (the depth-D pipeline's
-        dispatched handle) short-circuits the top batched rung: the
-        watchdogged call is its packed fetch."""
-        prog = progs[_bucket_key(slab)]
-        stage, b = rung
-        if stage == "batched":
-            if b >= batch:
-                if inflight is not None:
-                    return dispatched(list(slab.paths), rung, inflight.resolve)
-                subs = [slab]
-            else:
-                # re-bucket from the assembler's HOST blocks
-                subs = subdivide_slab(slab, b)
-            entries = []
-            for sub in subs:
-                def fn(sub=sub):
-                    return bdet.detect_batch(
-                        sub.stack, n_real=sub.n_real, n_valid=sub.n_valid,
-                        with_health=with_health, health_clip=clip,
-                    )
-                entries.extend(dispatched(list(sub.paths), rung, fn)[: sub.n_valid])
-            return entries
-        if stage == "bank":
-            # the bank-split rung: the same batch as two T/2 sub-bank
-            # dispatches (``split_views``), their picks merged — bitwise the
-            # full bank's under the per_template scope. Only the first half
-            # computes the health stats: they describe the input block.
-            subs = [slab] if b >= batch else subdivide_slab(slab, b)
-            half_a, half_b = bdet.split_views()
-            entries = []
-            for sub in subs:
-                halves = []
-                for j, hdet in enumerate((half_a, half_b)):
-                    def fn(sub=sub, hdet=hdet, j=j):
-                        return hdet.detect_batch(
-                            sub.stack, n_real=sub.n_real, n_valid=sub.n_valid,
-                            with_health=with_health and j == 0, health_clip=clip,
-                        )
-                    halves.append(dispatched(list(sub.paths), rung, fn)[: sub.n_valid])
-                for ea, eb in zip(*halves):
-                    if ea is None or eb is None:
-                        entries.append(None)   # overflow: the exact per-file route
-                        continue
-                    merged = ({**ea[0], **eb[0]}, {**ea[1], **eb[1]})
-                    entries.append(merged + (ea[2],) if with_health else merged)
-            return entries
-        entries = []
-        for k in range(slab.n_valid):
-            if not ok[k]:
-                entries.append(None)   # dispositioned by the scale guard
-                continue
-            padded = padded_block(slab, k)
-
-            def fn(padded=padded, k=k):
-                return prog.detect(rung, padded, n_real=slab.n_real[k],
-                                   with_health=with_health, clip=clip)
-            entries.append(dispatched([slab.paths[k]], rung, fn))
-        return entries
-
-    def handle_slab(slab, inflight=None) -> None:
-        bdet = detector_for(slab)
-        det = bdet.det
-        key = _bucket_key(slab)
-        if key in skip_buckets:
-            for k in range(slab.n_valid):
-                fail(slab.paths[k], RuntimeError(skip_buckets[key]))
-            return
-        ok = []
-        for k in range(slab.n_valid):
-            meta_k = slab.blocks[k].metadata
-            if (wire == "raw" and meta_k is not None
-                    and meta_k.scale_factor != det.metadata.scale_factor):
-                fail(slab.paths[k], ValueError(
-                    f"scale_factor {meta_k.scale_factor!r} != detector "
-                    f"scale {det.metadata.scale_factor!r}; wire='raw' "
-                    "conditions with one scale — use wire='conditioned' "
-                    "for heterogeneous file sets"
-                ))
-                ok.append(False)
-            else:
-                ok.append(True)
-        t0 = time.perf_counter()
-        degraded = False
-        recovered = False
-        results = None
-        rung = ladder.current(key)
-        try:
-            if fault_plan is not None:
-                # the slab is one transfer and one program: a planned
-                # transfer/detect fault against ANY of its files fails
-                # the slab (the ladder then isolates the culprit), and
-                # the culprit's slab-level firing IS one of its attempts
-                for k in range(slab.n_valid):
-                    if ok[k]:
-                        try:
-                            fault_plan.on_transfer(slab.paths[k])
-                            fault_plan.on_detect(slab.paths[k])
-                        except Exception:
-                            rz.attempt(slab.paths[k])
-                            raise
-            if inflight is not None and rung != ("batched", batch):
-                # the bucket downshifted between this slab's dispatch and
-                # its resolve: abandon the handle, run at the sticky rung
-                inflight = None
-            while True:   # the elastic ladder: downshift on resource
-                try:
-                    results = run_rung(slab, rung, bdet, ok, inflight=inflight)
-                    break
-                except Exception as exc:  # noqa: BLE001
-                    # never reuse a handle past a failure
-                    inflight = None
-                    fclass = faults.classify_failure(exc)
-                    if fclass == "fatal":
-                        raise
-                    if fclass == "resource":
-                        nxt = ladder.downshift(key, rung, exc)
-                        if nxt is not None:
-                            rung = nxt
-                            recovered = True
-                            continue
-                    raise   # non-resource / exhausted: degrade per-file
-        except Exception as exc:  # noqa: BLE001 — degradation ladder
-            if faults.classify_failure(exc) == "fatal":
-                raise
-            faults.count("degradations")
-            log.warning(
-                "batched slab of %d files failed (%s: %s); degrading to "
-                "the unbatched per-file route", slab.n_valid,
-                type(exc).__name__, exc,
-            )
-            degraded = True
-        wall = time.perf_counter() - t0
-        _h_slab_wall.observe(wall)
-        if use_costs and not degraded and results is not None:
-            # live utilization: this slab's wall against its rung's card
-            tcosts.note_slab_resolved(tcosts.bucket_label(key), faults.rung_label(rung),
-                                      tcosts._program_engine(bdet), wall, device=device)
-        for k in range(slab.n_valid):
-            if not ok[k]:
-                continue  # its slot computed with the wrong scale: discard
-            path = slab.paths[k]
-            use_fallback = degraded or results[k] is None
-            # the fallback honors the bucket's sticky placement: never
-            # below the per-file rung, never above a rung that ran out
-            pf_rung = max(("file", 1), ladder.current(key), key=faults.rung_rank)
-            file_recovered = recovered
-            while True:
-                rz.attempt(path)
-                try:
-                    if use_fallback:
-                        if fault_plan is not None and degraded:
-                            fault_plan.on_transfer(path)
-                            fault_plan.on_detect(path)
-                        picks, thresholds, stats = per_file_fallback(
-                            slab, k, progs[key], rung=pf_rung)
-                        exec_rung = pf_rung
-                    else:
-                        entry = results[k]
-                        picks, thresholds = entry[0], entry[1]
-                        stats = entry[2] if with_health and len(entry) > 2 else {}
-                        exec_rung = rung
-                    rz.check_health(path, stats, rung=faults.rung_label(exec_rung))
-                    picks = trim_picks(picks, slab.n_real[k])
-                    if fault_plan is not None:
-                        fault_plan.detect_succeeded()
-                    _file_record(
-                        outdir, path, picks, thresholds,
-                        round(wall / max(slab.n_valid, 1), 3), records,
-                        attempts=rz.state.n_attempts(path),
-                        health=dict(stats or {}), family=bdet.family,
-                        rung=faults.rung_label(exec_rung),
-                    )
-                    if use_quality:
-                        _observe_quality(QUALITY_TENANT, det, path, picks, thresholds, stats,
-                                         slab.n_real[k])
-                    if file_recovered:
-                        rz.tally("oom_recoveries")
-                except Exception as exc:  # noqa: BLE001 — per-file isolation
-                    if use_fallback and faults.classify_failure(exc) == "resource":
-                        # resource exhaustion in the fallback too: keep
-                        # descending (a route change, not a retry — refund
-                        # the attempt)
-                        nxt = ladder.downshift(key, pf_rung, exc)
-                        if nxt is not None:
-                            rz.state.unattempt(path)
-                            pf_rung = nxt
-                            file_recovered = True
-                            continue
-                    if rz.dispose(path, exc) == "retry":
-                        # the already-fetched batch entry would fail
-                        # identically: retries take the per-file route
-                        use_fallback = True
-                        continue
-                break
-
+    ex = SlabExecutor(
+        rz=rz, ladder=ladder, outdir=outdir, records=records, family=family, batch=batch,
+        wire=wire, channels=selected_channels, device=device, serial=serial,
+        detector_kwargs=detector_kwargs, dispatch_deadline_s=dispatch_deadline_s,
+        fault_plan=fault_plan, preflight=preflight, use_costs=use_costs,
+        quality_tenant=QUALITY_TENANT if use_quality else None,
+    )
     pipe = PipelinedDispatch(dispatch_depth)
 
     def try_dispatch(slab):
-        """The pipeline's dispatch phase: queue the slab's program on the
-        card when its bucket rides the healthy top rung. None (-> the
-        synchronous path) for downshifted buckets, batch=1 campaigns and
-        dispatch-time failures, which the sync path re-raises at this
-        slab's own turn."""
-        if not pipe.enabled or batch < 2:
-            return None
-        try:
-            bdet = detector_for(slab)
-            key = _bucket_key(slab)
-            if key in skip_buckets or ladder.current(key) != ("batched", batch):
-                return None
-            return bdet.dispatch_batch(
-                slab.stack, n_real=slab.n_real, n_valid=slab.n_valid,
-                with_health=with_health, health_clip=clip,
-            )
-        except CampaignAborted:
-            raise
-        except Exception:  # noqa: BLE001 — surfaces on the sync path
-            return None
-
-    def finalize(slab, inflight) -> None:
-        try:
-            with telemetry.span("slab", index0=slab.index0, n_files=slab.n_valid,
-                                bucket_ns=slab.bucket_ns,
-                                pipelined=inflight is not None):
-                handle_slab(slab, inflight)
-        except CampaignAborted:
-            raise
-        except Exception as exc:  # noqa: BLE001 — slab-level guard
-            # a whole-slab failure the ladder could not absorb (detector
-            # build, fatal-class program error) fails each of its files
-            # not already dispositioned this run
-            if faults.classify_failure(exc) == "fatal":
-                raise
-            dispositioned = {r.path for r in records}
-            for path in slab.paths:
-                if path not in dispositioned:
-                    fail(path, exc)
+        return ex.try_dispatch(slab) if pipe.enabled else None
 
     def drain_pipe() -> None:
         for queued_slab, queued_infl in pipe.drain():
-            finalize(queued_slab, queued_infl)
+            ex.finalize(queued_slab, queued_infl)
+
+    # a preflight's probe must see no other slab's buffers: finish the queue
+    ex.before_probe = drain_pipe
 
     # the transfer pipeline must keep at least `depth` slabs moving or the
     # dispatch pipeline starves waiting on the copy
@@ -1406,10 +1508,10 @@ def run_campaign_batched(
                         # ineligible slab: flush the queue (FIFO — manifest
                         # order is file order) and run it synchronously
                         drain_pipe()
-                        finalize(slab, None)
+                        ex.finalize(slab, None)
                     else:
                         for tok in pipe.submit(slab, infl):
-                            finalize(*tok)
+                            ex.finalize(*tok)
                     del slab
                 drain_pipe()
             except SlabReadError as exc:

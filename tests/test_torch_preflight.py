@@ -243,3 +243,91 @@ def test_per_file_preflight_starts_at_the_first_fitting_rung(chaos_file_set, tmp
     plain = campaign.run_campaign(chaos_file_set, SEL, str(tmp_path / "plain"), device="cpu",
                                   preflight=False)
     _same_picks(_picks(plain), _picks(pinned))
+
+
+def test_per_file_preflight_skips_when_no_card_rung_fits(chaos_file_set, tmp_path,
+                                                         monkeypatch):
+    """``run_campaign(preflight=True)`` with every card rung (per-file,
+    tiled) over the budget: the run is skipped before dispatch — one
+    ``preflight_skip`` event, each file ``failed``, no downshift — and is
+    never pinned to the host rung, which the preflight does not price."""
+    monkeypatch.setenv("DAS_HBM_BUDGET_GB", "1")
+    monkeypatch.setattr(memory, "batched_program_memory", _pricer(memory, lambda b, _: 100.0))
+    res = campaign.run_campaign(chaos_file_set, SEL, str(tmp_path / "skip"), device="cpu",
+                                preflight=True)
+    assert [r.status for r in res.records] == ["failed"] * len(chaos_file_set)
+    assert all("skipped before dispatch" in r.error for r in res.records)
+    events = [e for e in _manifest(tmp_path / "skip") if "event" in e]
+    skips = [e for e in events if e["event"] == "preflight_skip"]
+    assert len(skips) == 1 and "100.00 GiB" in skips[0]["reason"]
+    assert not [e for e in events if e["event"] == "downshift"]
+
+
+def _mf_facade(chaos_file_set, design=None, **kw):
+    from das4whales_tpu_torch.io.stream import stream_strain_blocks
+    from das4whales_tpu_torch.models.matched_filter import MatchedFilterDetector
+    from das4whales_tpu_torch.parallel.batch import batched_detector_for
+
+    blk = next(stream_strain_blocks(chaos_file_set[:1], SEL, as_numpy=True))
+    if design is None:
+        design = MatchedFilterDetector(blk.metadata, SEL, np.asarray(blk.trace).shape,
+                                       device="cpu").design
+    det = MatchedFilterDetector.from_design(design, blk.metadata, pick_mode="sparse",
+                                            keep_correlograms=False, device="cpu", **kw)
+    return design, batched_detector_for(det)
+
+
+def test_probe_key_carries_what_sizes_the_program(chaos_file_set):
+    """Two facades that agree on every buffer size share one probe key
+    (the memo); the pick capacity, the template length or a learned
+    configuration that differs gives another."""
+    import dataclasses
+
+    from das4whales_tpu_torch.models.learned import LearnedDetector, load_pretrained
+    from das4whales_tpu_torch.parallel.batch import batched_detector_for
+
+    design, base = _mf_facade(chaos_file_set)
+    key = base.program_spec(2, np.float32).key
+    assert _mf_facade(chaos_file_set, design)[1].program_spec(2, np.float32).key == key
+    assert _mf_facade(chaos_file_set, design, max_peaks=64)[1].program_spec(
+        2, np.float32).key != key
+    assert _mf_facade(chaos_file_set, design, pick_pack_cap=64)[1].program_spec(
+        2, np.float32).key != key
+    longer = dataclasses.replace(design, templates=np.pad(design.templates, ((0, 0), (0, 8))))
+    assert _mf_facade(chaos_file_set, longer)[1].program_spec(2, np.float32).key != key
+    params, cfg = load_pretrained()
+    shape = (len(range(*SEL)), 3000)
+
+    def lkey(cfg_, **kw):
+        det = LearnedDetector(params, cfg_, device="cpu", **kw)
+        return batched_detector_for(det, trace_shape=shape).program_spec(2, np.float32).key
+
+    assert lkey(cfg) == lkey(cfg)
+    assert lkey(dataclasses.replace(cfg, hop=cfg.hop * 2)) != lkey(cfg)
+    assert lkey(cfg, row_chunk=1024) != lkey(cfg)
+
+
+@pytest.mark.parametrize("exhausted", [False, True])
+def test_an_out_of_memory_probe_is_not_memoized(monkeypatch, exhausted):
+    """A measured peak is kept for the program's key; an out-of-memory
+    answer (which depends on what else held the card) is not: the next
+    pricing probes again."""
+    from types import SimpleNamespace
+
+    runs = []
+
+    def fake_measure(spec):
+        runs.append(spec.key)
+        return memory.MemoryStats(GIB, 0, 0, exhausted=exhausted), 0.5
+
+    monkeypatch.setattr(memory, "_measure", fake_measure)
+    memory.clear_probe_cache()
+    spec = memory.ProgramSpec(family="mf", run=None, shape=(1, 2, 3), dtype=np.dtype("float32"),
+                              device=SimpleNamespace(type="cuda"), key=("oom-test", exhausted))
+    try:
+        for _ in range(2):
+            an = memory.probe_program(spec)
+            assert an.memory.exhausted is exhausted and an.compile_seconds == 0.5
+    finally:
+        memory.clear_probe_cache()
+    assert len(runs) == (2 if exhausted else 1)
