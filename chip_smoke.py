@@ -6,7 +6,7 @@
 Builds the port's two CUDA kernels from ``das4whales_tpu_torch/csrc`` with
 ``nvcc`` (sm_90a) and the native ingest reader from
 ``das4whales_tpu_torch/native/ingest.cpp`` with ``g++``, then runs
-twenty-nine phases, one summary line each (more for the detector runs, with their
+thirty-one phases, one summary line each (more for the detector runs, with their
 profiles), and exits non-zero at the first failed check; no phase's
 failure is caught:
 
@@ -269,13 +269,47 @@ failure is caught:
                 versions at its first and last launch; the pass walls,
                 pick latency p95, admission seconds and cost cards; then
                 ``python -m das4whales_tpu_torch serve --until-idle`` as a
-                subprocess over two files: exit 0, both manifests settled;
+                subprocess over one file a tenant: exit 0, both manifests
+                settled;
 29. ``service_cpu_vs_card`` the same two-tenant service at 512 x 12000 on
                 the card and with ``device="cpu"``: records equal (status,
                 rung, attempts), mf picks up to knife edges, learned
-                scores within 1e-5 and picks up to knife edges.
+                scores within 1e-5 and picks up to knife edges;
+30. ``mxu``      the matmul engines (``ops.mxu``) on the canonical block, on
+                a calibration table of the run's own: each A/B calibration's
+                seconds and verdict (correlate, correlate-fused, f-k at 4096
+                channels, STFT at 4096 x 12000 nfft 160 hop 8 with
+                ``fused_stft`` launched as its "fused" candidate and held
+                against its plain version; f-k ``auto`` at 22050 channels
+                must say FFT, above the cap), both precision gates' verdicts
+                and reasons, the matmul STFT's time; ``detect_picks`` on the
+                FFT route and on ``matmul``, ``matmul`` + f-k ``matmul``,
+                the forced ``matmul-bf16`` and ``matmul-fused`` (whatever
+                their gates resolve) and ``auto``: median wall of 3 after a
+                warm-up, stage walls, 44 pick launches and one read an
+                attempt, the pick kernel bitwise its plain version at the
+                route's first and last launch, peak memory, every call
+                picked, envelopes, thresholds and picks against the FFT
+                route's at fixed bounds (float32 engines: envelopes
+                within 1e-4 * max, thresholds rtol 1e-5, picks up to
+                1e-5 knife edges; bf16: 2**-7 * max and rtol 2**-7, its
+                knife margin implied by that bound; the tap-fold judged
+                at least its FIR half-length from the ends), the bf16
+                route's correlograms float32 and TF32 off after every run; the full route on
+                ``matmul`` once (picks bitwise ``detect_picks``'); a second
+                ``auto`` detector on the same table making no measurement;
+                the batched facade on ``matmul`` at [4, 22050, 16384] (a
+                smaller B where the card runs out);
+31. ``mxu_cpu_vs_card`` each forced engine on the card against
+                ``device="cpu"`` at 512 x 12000: the contraction on one
+                filtered block within 1e-4 * max; end to end correlograms
+                and envelopes within 1e-4 * max (bf16: 1e-3 * max),
+                thresholds rtol 1e-5 (bf16: 1e-3), picks up to 1e-5 knife
+                edges (bf16: the margin its bound implies) where both
+                resolved the same engine, the gate verdicts side by side
+                (a difference is reported, not failed).
 
-Then it prints the kernel table as one JSON line, the run's total
+Then it prints each phase's seconds, the kernel table as one JSON line, the run's total
 seconds, the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. It imports no JAX and nothing
 of the JAX package. ``--only PHASE[,PHASE]`` runs the named phases after
 ``device`` and ``build``, for development; it prints no result line.
@@ -910,6 +944,7 @@ def phase_detect():
     x = torch.as_tensor(raw).to("cuda")
     torch.cuda.synchronize()
     t_h2d = time.perf_counter() - t0
+    t_wait = _await_early()
 
     det.detect_picks(x)                      # warm-up: cuFFT plans, kernel load
     torch.cuda.synchronize()
@@ -956,7 +991,8 @@ def phase_detect():
         f"thresholds {json.dumps({k: round(v, 6) for k, v in res.thresholds.items()})}; "
         f"escalations {det.escalations} in 3 runs; per run (kernel launches, syncs, "
         f"attempts) {[r for r in per_run]}; all {len(scene.calls)} injected calls picked; "
-        f"set-up: scene {t_scene:.1f} s, design {t_design:.1f} s, H2D {t_h2d * 1e3:.1f} ms; "
+        f"set-up: scene {t_scene:.1f} s, design {t_design:.1f} s, H2D {t_h2d * 1e3:.1f} ms, "
+        f"the early host jobs awaited {t_wait:.1f} s; "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     _profile("detect_picks", lambda: det.detect_picks(x), statistics.median(walls),
              "fused_picks")
@@ -1282,10 +1318,8 @@ def phase_channel_pad(scene=None, raw=None, design=None):
     if design is None:
         scene, raw, design = _canonical_inputs()
     nx, ns = raw.shape
-    t0 = time.perf_counter()
-    pdesign = design_matched_filter((nx, ns), [0, nx, 1], scene.metadata, templates="fin",
-                                    channel_pad="auto")
-    t_design = time.perf_counter() - t0
+    t_design, pdesign = _early("channel_pad", lambda: design_matched_filter(
+        (nx, ns), [0, nx, 1], scene.metadata, templates="fin", channel_pad="auto"))
     want = next_fast_len(nx)                 # 22050 -> 22500
     if pdesign.fk_channels != want or pdesign.fk_mask.shape != (want, ns):
         fail(f"channel_pad: 'auto' gave {pdesign.fk_channels} channels, expected {want}")
@@ -1783,12 +1817,14 @@ def slab_files() -> dict:
     import tempfile
     from pathlib import Path
 
-    if not _SHARED:
-        root = Path(__file__).resolve().parent / "build"
-        root.mkdir(exist_ok=True)
-        d = Path(tempfile.mkdtemp(prefix="slab_files_", dir=root))
-        _SHARED["dir"] = d
-        paths, scenes, t_write = _write_files(d, SLAB_FILES, CANONICAL[0], n_calls=6)
+    if "paths" not in _SHARED:
+        if "dir" not in _SHARED:
+            root = Path(__file__).resolve().parent / "build"
+            root.mkdir(exist_ok=True)
+            _SHARED["dir"] = Path(tempfile.mkdtemp(prefix="slab_files_", dir=root))
+        d = _SHARED["dir"]
+        t_write, (paths, scenes) = _early("slab_files", lambda: _write_files(
+            d, SLAB_FILES, CANONICAL[0], n_calls=6)[:2])
         _SHARED.update(paths=paths, scenes=scenes, t_write=t_write, picks={})
     return _SHARED
 
@@ -1820,10 +1856,9 @@ def phase_slab():
     shared = slab_files()
     paths, scenes, t_write = shared["paths"], shared["scenes"], shared["t_write"]
     meta = scenes[0].metadata
-    t0 = time.perf_counter()
-    ref = MatchedFilterDetector(meta, sel, (nx, SLAB_BUCKET), templates="fin",
-                                wire="conditioned")
-    t_design = time.perf_counter() - t0
+    t_design, design = _early("slab_design", lambda: MatchedFilterDetector(
+        meta, sel, (nx, SLAB_BUCKET), templates="fin", device="cpu").design)
+    ref = MatchedFilterDetector.from_design(design, meta, wire="conditioned")
     _SLAB_DESIGN["design"] = ref.design      # the gabor phase's batched bucket reuses it
     tile = ref.effective_channel_tile
     n_tiles = -(-nx // tile)
@@ -3782,13 +3817,74 @@ def report_host_designs(futures: list) -> dict:
     return secs
 
 
-def _long_design_job(shape: tuple, metadata):
-    """The long record's fin design in a worker: ``(host seconds, design)``."""
+def _design_job(shape: tuple, metadata, **kw):
+    """A fin design over every channel in a worker: ``(host seconds,
+    design)``; ``kw`` goes to ``design_matched_filter``."""
     from das4whales_tpu_torch.models.matched_filter import design_matched_filter
 
     t0 = time.perf_counter()
-    d = design_matched_filter(shape, [0, shape[0], 1], metadata, templates="fin")
+    d = design_matched_filter(shape, [0, shape[0], 1], metadata, templates="fin", **kw)
     return time.perf_counter() - t0, d
+
+
+def _slab_files_job(d: str):
+    """:func:`_write_files` of the slab files in a worker: ``(seconds,
+    (paths, scenes))``."""
+    from pathlib import Path
+
+    paths, scenes, t_write = _write_files(Path(d), SLAB_FILES, CANONICAL[0], n_calls=6)
+    return t_write, (paths, scenes)
+
+
+#: host work of later phases started in the run's pool right after the
+#: ``kernels`` phase (:func:`early_host_jobs`): futures by name
+_EARLY: dict = {}
+
+
+def early_host_jobs(pool) -> None:
+    """Start in ``pool`` the host work the card would otherwise wait for
+    later, beside the ``detect`` phase's own set-up (which waits for it
+    before its first timed run): the channel-padded canonical design
+    (``channel_pad``), the slab files and the fin design at their 16384
+    bucket (``slab``). The directory for the files is made here
+    (``slab_files`` removes it)."""
+    import tempfile
+    from pathlib import Path
+
+    nx, ns = CANONICAL
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    d = Path(tempfile.mkdtemp(prefix="slab_files_", dir=root))
+    _SHARED["dir"] = d
+    slab_meta = _scene(nx, SLAB_FILES[0][1], n_calls=6, seed=SLAB_FILES[0][0]).metadata
+    _EARLY.update(
+        channel_pad=pool.submit(_design_job, (nx, ns), _scene(nx, ns, 6, SEED).metadata,
+                                channel_pad="auto"),
+        slab_files=pool.submit(_slab_files_job, str(d)),
+        slab_design=pool.submit(_design_job, (nx, SLAB_BUCKET), slab_meta))
+
+
+def _await_early() -> float:
+    """Wait for every early host job; returns the seconds waited. The
+    ``detect`` phase calls it before its first timed run: a busy host
+    starves the card's launches (its idle share rose to 88 % beside
+    them)."""
+    from concurrent.futures import wait
+
+    t0 = time.perf_counter()
+    wait(list(_EARLY.values()))
+    return time.perf_counter() - t0
+
+
+def _early(name: str, make):
+    """``(host seconds, value)`` of the early host job ``name``, or of
+    ``make()`` here when none was started (``--only``)."""
+    fut = _EARLY.pop(name, None)
+    if fut is not None:
+        return fut.result()
+    t0 = time.perf_counter()
+    value = make()
+    return time.perf_counter() - t0, value
 
 
 def _long_files_job(d: str, nx: int, nfile: int, seed: int):
@@ -3817,7 +3913,7 @@ def long_record_prep(pool) -> dict:
     d = Path(tempfile.mkdtemp(prefix="long_files_", dir=root))
     return {"dir": d,
             "files": pool.submit(_long_files_job, str(d), nx, nfile, SEED + 7),
-            "design": pool.submit(_long_design_job, (nx, LONG_FILES * nfile),
+            "design": pool.submit(_design_job, (nx, LONG_FILES * nfile),
                                   SyntheticScene(nx=nx, ns=LONG_FILES * nfile).metadata)}
 
 
@@ -4462,7 +4558,7 @@ def phase_longrecord(prep=None, design12=None):
     try:
         if prep is None:
             paths, scene, ch_s, onset, t_write = _long_files_job(str(d), nx, nfile, SEED + 7)
-            t_design, design = _long_design_job((nx, ns), scene.metadata)
+            t_design, design = _design_job((nx, ns), scene.metadata)
         else:
             paths, scene, ch_s, onset, t_write = prep["files"].result()
             t_design, design = prep["design"].result()
@@ -4674,6 +4770,10 @@ SERVICE_LEARNED_SHARE = 1.5
 #: campaign's (the card's batched mode rounds by the slab it is given;
 #: the default 0.25 s flushes whatever a slow read left in the ring)
 SERVICE_LINGER_S = 600.0
+#: files a tenant of the ``serve`` subprocess detects (two until PR 14, cut
+#: to one for the smoke's time budget: the subprocess checks the verb, its
+#: exit code and both manifests, not throughput)
+SERVE_FILES = 1
 #: the endpoints a client polls while the service runs
 SERVICE_ENDPOINTS = ("/livez", "/readyz", "/metrics", "/tenants", "/slo", "/quality")
 #: the card-vs-CPU service files: 512 channels x 12000 samples, int32
@@ -4934,8 +5034,8 @@ def phase_service():
     ``learned`` (the pretrained ``fin_cnn``, exact buckets, batch 4), both
     with an SLO target, quality and cost cards, a client polling every
     endpoint; then ``python -m das4whales_tpu_torch serve --until-idle``
-    as a subprocess over two files. Returns ``(launches, (picks_err,
-    stft_err))``."""
+    as a subprocess over ``SERVE_FILES`` file(s) a tenant. Returns
+    ``(launches, (picks_err, stft_err))``."""
     import dataclasses
     import shutil
     from pathlib import Path
@@ -5063,14 +5163,14 @@ def phase_service():
         fail(f"service: freshness samples {[(t, len(v)) for t, v in lat.items()]}")
     slo = svc.slo_report()
     del svc                              # free the tenants' device tensors for the child
-    # the serve verb as a subprocess on the card over two files
+    # the serve verb as a subprocess on the card
     sub_dir = shared["dir"] / "serve"
     shutil.rmtree(sub_dir, ignore_errors=True)
     sub_dir.mkdir()
     dpath = save_design(str(sub_dir / "design"), design)
     reg = {"outdir": str(sub_dir / "out"), "port": 0, "cost_cards": True, "quality": True,
            "tenants": [dataclasses.asdict(s) for s in _service_specs(
-               service, files[:2], sel, meta, mf_share, learned_share, dpath)]}
+               service, files[:SERVE_FILES], sel, meta, mf_share, learned_share, dpath)]}
     reg_path = sub_dir / "registry.json"
     reg_path.write_text(json.dumps(reg))
     import gc
@@ -5087,8 +5187,8 @@ def phase_service():
              f"{proc.stderr[-3000:]}")
     for t in ("mf", "learned"):
         settled = cmod.load_settled(str(sub_dir / "out" / t))
-        if sorted(settled) != sorted(files[:2]) or f"tenant {t}: 2 done, 0 failed" not in \
-                proc.stdout:
+        if sorted(settled) != sorted(files[:SERVE_FILES]) \
+                or f"tenant {t}: {SERVE_FILES} done, 0 failed" not in proc.stdout:
             fail(f"service: the serve subprocess settled {sorted(settled)} for {t}: "
                  f"{proc.stdout[-1000:]}")
     shutil.rmtree(d, ignore_errors=True)
@@ -5123,7 +5223,8 @@ def phase_service():
         f"preflight phase's batch-2 run, the learned phase's campaign; {std_wall:.1f} s here), "
         f"every injected call picked; host health stats of the learned tenant's slab "
         f"{health_t['s']:.2f} s over {health_t['n']} files; cost cards: {card_text}; "
-        f"serve --until-idle subprocess over 2 files exit 0 in {serve_s:.1f} s, both "
+        f"serve --until-idle subprocess over {SERVE_FILES} file(s) a tenant exit 0 in "
+        f"{serve_s:.1f} s, both "
         f"manifests settled; phase {time.perf_counter() - t_phase:.1f} s")
     return launches, (picks_err, stft_err)
 
@@ -5240,8 +5341,511 @@ def phase_service_cpu_vs_card():
 
 
 
+#: the matmul engines the ``mxu`` phase drives through ``detect_picks``,
+#: by label: forced engines, and "auto" for both stages (the calibrated
+#: routers on the phase's own table)
+MXU_ENGINES = (("matmul", {"mf_engine": "matmul"}),
+               ("matmul+fk", {"mf_engine": "matmul", "fk_engine": "matmul"}),
+               ("matmul-bf16", {"mf_engine": "matmul-bf16"}),
+               ("matmul-fused", {"mf_engine": "matmul-fused"}),
+               ("auto", {"mf_engine": "auto", "fk_engine": "auto"}))
+#: the f-k calibration's channel count below the auto router's cap
+MXU_FK_CHANNELS = 4096
+#: the STFT calibration's shape: the spectro family's chunk
+MXU_STFT = (4096, 12000, 160, 8)
+#: a float32 engine's envelopes against the FFT route's (``mxu``) and its
+#: correlograms card against CPU (``mxu_cpu_vs_card``), of their max
+MXU_CARD_REL = 1e-4
+#: a float32 engine's thresholds against the reference route's (rtol); the
+#: tap-folded engine's linear bandpass is not the FFT route's circular one,
+#: so its thresholds get the CPU tests' 1e-4
+MXU_THR_RTOL = 1e-5
+MXU_FUSED_THR_RTOL = 1e-4
+#: the knife-edge margin of a float32 engine's picks (of the threshold)
+MXU_KNIFE_REL = 1e-5
+#: the bf16 route against the FFT route, of max: every product of two
+#: bf16-rounded inputs carries at most 2u = 2**-7 of relative rounding
+#: (u = 2**-8, bf16's unit roundoff); also its thresholds' rtol
+MXU_BF16_REL = 2.0 ** -7
+#: the bf16 route card against CPU, of max: the two filtered blocks part in
+#: the last float32 bits, which moves a few inputs to the neighbouring bf16
+#: value; 1e-3 is an eighth of a bf16 ulp at the max (2**-7), and holds the
+#: thresholds (rtol) as well
+MXU_CARD_BF16_REL = 1e-3
+
+
+@contextlib.contextmanager
+def _mxu_table():
+    """A calibration table of the run's own (``DAS_CALIBRATION_CACHE`` in
+    a temporary directory), and a count of the A/B measurements made."""
+    import shutil
+    import tempfile
+
+    from das4whales_tpu_torch.ops import mxu
+
+    d = tempfile.mkdtemp(prefix="mxu_table_")
+    prev = os.environ.get("DAS_CALIBRATION_CACHE")
+    os.environ["DAS_CALIBRATION_CACHE"] = os.path.join(d, "calibration.json")
+    best, counted = mxu._best_wall, {"n": 0}
+
+    def counting(*a, **kw):
+        counted["n"] += 1
+        return best(*a, **kw)
+
+    mxu._best_wall = counting
+    try:
+        yield counted
+    finally:
+        mxu._best_wall = best
+        if prev is None:
+            os.environ.pop("DAS_CALIBRATION_CACHE", None)
+        else:
+            os.environ["DAS_CALIBRATION_CACHE"] = prev
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def _engine_filter(det, x, engine: str):
+    """``(trf, fused pair, FIR half-length)``: the block filtered as
+    ``det``'s one-program route filters it for the correlate ``engine``."""
+    from das4whales_tpu_torch.models.matched_filter import mf_filter_fused, mf_filter_only
+
+    mask, staged, kw = det._program_inputs()
+    fused, fir_half = kw["mf_fused"], kw["fir_half"]
+    if engine == "matmul-fused" and det.mf_engine != "matmul-fused":
+        # the fold forced through where the detector's gate refused it: the
+        # gainless mask, no staged bandpass, the detector's own FIR folded
+        import torch
+
+        from das4whales_tpu_torch.ops import fk as fk_ops
+
+        mask = torch.as_tensor(fk_ops.banded_mask_half(det.design.fk_mask)[0],
+                               device=det.device)
+        staged = False
+        fused, fir_half = det._fused_tap_arrays(det._templates_true)
+    xin = det.condition_input(x)
+    if staged:
+        trf = mf_filter_only(xin, mask, det._bp_gain, det._band_lo, det._band_hi,
+                             det.design.bp_padlen, det.fk_pad_rows, det.fk_engine, kw["fk_dft"])
+    else:
+        trf = mf_filter_fused(xin, mask, det._band_lo, det._band_hi, det.fk_pad_rows,
+                              det.fk_engine, kw["fk_dft"])
+    return trf, fused, fir_half
+
+
+def _engine_corr(det, x, engine: str | None = None, trf=None):
+    """The correlograms ``[nT, C, T]`` the detector's one-program route
+    picks on, untiled, on its engines (or on the correlate ``engine``);
+    ``trf`` takes an already filtered block instead of filtering ``x``."""
+    from das4whales_tpu_torch.ops import mxu
+
+    engine = engine or det.mf_engine
+    got, fused, fir_half = _engine_filter(det, x, engine)
+    if trf is not None:
+        got = trf.to(det.device)
+    return mxu.correlograms_body(got, det._templates_true, det._template_mu,
+                                 det._template_scale, engine, fused=fused, fir_half=fir_half)
+
+
+def _bf16_knife_rel(bound: float, scale: float, thr: float, thr_rtol: float) -> float:
+    """The bf16 route's knife-edge margin, of the threshold, from its fixed
+    bounds: an envelope held within ``bound * scale`` moves a height, a
+    neighbour's tie or a prominence by at most twice that, and the
+    threshold moves by ``thr_rtol``."""
+    return 2.0 * bound * scale / abs(thr) + thr_rtol
+
+
+def phase_mxu(scene=None, raw=None, design=None):
+    """The matmul engines on the canonical block: each calibration's
+    seconds and verdict, the two precision gates, ``detect_picks`` on
+    every engine beside the FFT route (median of 3 after a warm-up, stage
+    walls, launches, reads, peak, the pick kernel bitwise its plain
+    version at the route's first and last launch, every call picked,
+    picks up to knife edges of the FFT route's), the full route on
+    ``matmul``, the batched facade at [4, 22050, 16384] on ``matmul``, and
+    a second ``auto`` detector on the same table measuring nothing."""
+    import torch
+
+    from das4whales_tpu_torch.models.matched_filter import MatchedFilterDetector
+    from das4whales_tpu_torch.ops import fk as fk_ops
+    from das4whales_tpu_torch.ops import fused_picks, fused_stft, mxu, spectral, xcorr
+    from das4whales_tpu_torch.ops.filters import butter_zero_phase_fir, butter_zero_phase_gain
+    from das4whales_tpu_torch.parallel.batch import BatchedMatchedFilterDetector, trim_picks
+    from das4whales_tpu_torch.utils.parity import envelopes, unexplained_differences
+
+    t_phase = time.perf_counter()
+    if design is None:
+        scene, raw, design = _canonical_inputs()
+    nx, ns = raw.shape
+    meta = scene.metadata
+    tt, mu, sc = xcorr.padded_template_stats(design.templates)
+    nT, m = tt.shape
+    fir, L = butter_zero_phase_fir(design.fs, design.bp_band, order=design.bp_order)
+    gain_n = butter_zero_phase_gain(ns, design.fs, design.bp_band, order=design.bp_order)
+    _, lo, hi = fk_ops.banded_mask_half(design.fk_mask)
+    x = torch.as_tensor(raw).to("cuda")
+    n_tiles = -(-nx // 512)
+    last_rows = nT * (nx - (n_tiles - 1) * 512)
+    notes, out = [], {"launches": 0, "err": 0.0, "stft_err": 0.0, "stft_launches": 0}
+    with _mxu_table() as measured:
+        # -- the calibrations and gates at the canonical shape
+        cal = {}
+
+        def calib(name, fn):
+            t0 = time.perf_counter()
+            entry = fn()
+            cal[name] = {**entry, "seconds": round(time.perf_counter() - t0, 3)}
+
+        calib("correlate", lambda: mxu.calibrate_correlate(nx, ns, m, nT, device="cuda"))
+        calib("correlate-fused",
+              lambda: mxu.calibrate_correlate_fused(nx, ns, m, nT, L, device="cuda"))
+        calib(f"fk@{MXU_FK_CHANNELS}",
+              lambda: mxu.calibrate_fk(MXU_FK_CHANNELS, ns, 0, hi - lo, device="cuda"))
+        C_s, T_s, nfft, hop = MXU_STFT
+        with _capture(fused_stft, "stft_power_cuda") as stft_calls:
+            calib("stft", lambda: mxu.calibrate_stft(C_s, T_s, nfft, hop, device="cuda"))
+        if stft_calls["n"] == 0:
+            fail("mxu: calibrate_stft did not launch fused_stft as its 'fused' candidate")
+        out["stft_launches"] = stft_calls["n"]
+        out["stft_err"], stft_rel, _ = _stft_at_main_path(
+            "mxu calibrate_stft", stft_calls, (min(C_s, 2048), T_s))
+        fk_wide = mxu.resolve_fk_engine("auto", nx, ns, hi - lo, device="cuda")
+        if fk_wide[0] != "fft" or "above DAS_FK_MATMUL_MAX_CHANNELS" not in fk_wide[1]:
+            fail(f"mxu: fk_engine='auto' at {nx} channels resolved {fk_wide}")
+        t0 = time.perf_counter()
+        gates = {"bf16": mxu.bf16_correlate_gate((nx, ns), tt, mu, sc, device="cuda"),
+                 "fused": mxu.fused_correlate_gate((nx, ns), tt, mu, sc, fir, gain_n,
+                                                   device="cuda")}
+        t_gates = time.perf_counter() - t0
+        xs = torch.randn((C_s, T_s), device="cuda")
+        stft_mm_ms = _cuda_ms(lambda: spectral.stft_magnitude(xs, nfft, hop, engine="matmul"),
+                              5)
+        del xs
+        say(f"mxu: calibrations at {nx}x{ns} (A/B at {min(nx, 2048)} rows; seconds include "
+            f"the warm-ups; f-k band {hi - lo} rfft bins, templates m={m} T={nT}, FIR "
+            f"half-length L={L}) {json.dumps(cal)}; fk auto at {nx}: {fk_wide}; gates "
+            f"({t_gates:.2f} s): {json.dumps(gates)}; fused_stft launched "
+            f"{stft_calls['n']} times as the stft 'fused' candidate, within "
+            f"{stft_rel:.2e}*max of plain; the matmul STFT at {C_s}x{T_s} nfft {nfft} hop "
+            f"{hop}: {stft_mm_ms:.4f} ms a call (CUDA events)")
+
+        # -- detect_picks on the FFT route and on every engine
+        def build(engines):
+            t0 = time.perf_counter()
+            det = MatchedFilterDetector.from_design(design, meta, templates="fin", wire="raw",
+                                                    pick_mode="sparse", **engines)
+            return det, time.perf_counter() - t0
+
+        fft_det, _ = build({"mf_engine": "fft", "fk_engine": "fft"})
+        fft_env = envelopes(fft_det, x)
+        fft_env_dev = torch.as_tensor(fft_env, device="cuda")   # the bounds, on the card
+        scale = float(fft_env.max())
+        rows = {}
+        for label, engines in (("fft", {"mf_engine": "fft", "fk_engine": "fft"}),) + MXU_ENGINES:
+            det, t_build = (fft_det, 0.0) if label == "fft" else build(engines)
+            with _capture(fused_picks, "picks_cuda") as calls:
+                det.detect_picks(x)              # warm-up: cuDNN's choice, cuFFT plans
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_launches()                      # the main path's runs start here
+            det.syncs = det.dispatches = det.escalations = 0
+            walls, stages, deltas, res = _timed_runs(
+                lambda hook: det.detect_picks(x, stage_hook=hook),
+                {"launches": lambda: fused_picks.launches, "syncs": lambda: det.syncs,
+                 "attempts": lambda: det.dispatches})
+            launches = read_launches()["fused_picks"]
+            peak = torch.cuda.max_memory_allocated()
+            for k, d in enumerate(deltas):
+                if d["launches"] != n_tiles * d["attempts"]:
+                    fail(f"mxu: {label} run {k} launched fused_picks {d['launches']} times in "
+                         f"{d['attempts']} attempts, expected {n_tiles} each")
+                if d["syncs"] not in (d["attempts"], d["attempts"] + 1):
+                    fail(f"mxu: {label} run {k} made {d['syncs']} reads for {d['attempts']} "
+                         "attempts")
+            misses = _check_calls(scene, res.picks)
+            if misses:
+                fail(f"mxu: {label}: injected calls not picked: {misses}")
+            err, pk_notes = _picks_at_main_path(f"mxu {label}", calls,
+                                                {"first": 2 * 512, "last": last_rows})
+            out["err"] = max(out["err"], err)
+            if label != "fft":
+                out["launches"] += launches
+            row = {"engines": f"{det.mf_engine}/{det.fk_engine}",
+                   "reason": det.mf_engine_reason if label != "auto"
+                   else f"{det.mf_engine_reason} | fk: {det.fk_engine_reason}",
+                   "wall_ms": round(statistics.median(walls) * 1e3, 3),
+                   "stages_ms": _median_stages(stages), "launches": launches,
+                   "reads": [d["syncs"] for d in deltas], "peak_gib": round(peak / 2**30, 2),
+                   "build_s": round(t_build, 2)}
+            if label == "fft":
+                ref = res
+            else:
+                corr = _engine_corr(det, x)
+                if corr.dtype != torch.float32:
+                    fail(f"mxu: {label}: the {det.mf_engine} route returned {corr.dtype}")
+                if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+                    fail(f"mxu: {label}: TF32 left on after the run")
+                env_dev = spectral.envelope_sqrt(corr)
+                del corr
+                edge = det._mf_fir_half if det.mf_engine == "matmul-fused" else 0
+                bf16 = det.mf_engine == "matmul-bf16"
+                env_lim = MXU_BF16_REL if bf16 else MXU_CARD_REL
+                thr_rtol = (MXU_BF16_REL if bf16 else
+                            MXU_FUSED_THR_RTOL if edge else MXU_THR_RTOL)
+                env_err = float((env_dev[..., edge:ns - edge]
+                                 - fft_env_dev[..., edge:ns - edge]).abs().max())
+                if not env_err <= env_lim * scale:
+                    fail(f"mxu: {label}: envelopes differ from the FFT route's by "
+                         f"{env_err / scale:.3e} of max (limit {env_lim:.3e})")
+                n_edge, n_diff, rels, thr_rel = 0, 0, {}, {}
+                for i, name in enumerate(ref.picks):
+                    thr = ref.thresholds[name]
+                    thr_rel[name] = float(f"{abs(res.thresholds[name] / thr - 1):.3g}")
+                    if not np.isclose(res.thresholds[name], thr, rtol=thr_rtol, atol=0):
+                        fail(f"mxu: {label}: {name} threshold {res.thresholds[name]} against "
+                             f"the FFT route's {thr} (rtol {thr_rtol:.3g})")
+                    rel = (_bf16_knife_rel(env_lim, scale, thr, thr_rtol) if bf16
+                           else MXU_KNIFE_REL)
+                    rels[name] = float(f"{rel:.3g}")
+                    a, b = ref.picks[name], res.picks[name]
+                    keep = [(p[1] >= edge) & (p[1] < ns - edge) for p in (a, b)]
+                    n_edge += int((~keep[0]).sum() + (~keep[1]).sum())
+                    a, b = a[:, keep[0]], b[:, keep[1]]
+                    bad = unexplained_differences(a, b, fft_env[i], thr, rel)
+                    if bad:                      # this route's own envelopes may explain them
+                        bad = [p for p in bad if p in unexplained_differences(
+                            a, b, env_dev[i].cpu().numpy(), thr, rel)]
+                    if bad:
+                        fail(f"mxu: {label}: {name} picks differ from the FFT route beyond "
+                             f"knife edges (rel {rel:.3g}) at {bad[:10]}")
+                    n_diff += len({tuple(p) for p in a.T.tolist()}
+                                  ^ {tuple(p) for p in b.T.tolist()})
+                del env_dev
+                row.update({"env_rel": float(f"{env_err / scale:.3g}"), "env_limit": env_lim,
+                            "differing_picks": n_diff, "knife_rel": rels,
+                            "thresholds_rel": thr_rel, "thresholds_rtol": thr_rtol})
+                if edge:
+                    row["picks_within_L_of_the_ends"] = n_edge
+            rows[label] = row
+            notes.append(f"{label}: {'; '.join(pk_notes[:2])}")
+            if label == "matmul":
+                mm_det = det
+            elif label == "auto":
+                auto_det = det
+            else:
+                del det
+        del fft_env, fft_env_dev
+        say(f"mxu: detect_picks {nx}x{ns} raw int32, fin (T={nT}, m={m}), {n_tiles} tiles; "
+            f"per engine {json.dumps(rows)}; pick kernel bitwise plain at each route's first "
+            f"and last launch ({' | '.join(notes)})")
+
+        # -- the full route on matmul once (tiled: the route of the canonical
+        # block, where the correlate runs on the detector's engine)
+        mm_det = mm_det.tiled_view()
+        zero_launches()
+        mm_det.syncs = mm_det.escalations = 0
+        timer = StageTimer()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        full = mm_det(x, stage_hook=timer)
+        torch.cuda.synchronize()
+        t_full = time.perf_counter() - t0
+        full_launches = read_launches()["fused_picks"]
+        out["launches"] += full_launches
+        if full_launches != n_tiles * (1 + mm_det.escalations):
+            fail(f"mxu: the full route launched fused_picks {full_launches} times")
+        again = mm_det.detect_picks(x)
+        for name in again.picks:
+            if not np.array_equal(full.picks[name], again.picks[name]) \
+                    or full.thresholds[name] != again.thresholds[name]:
+                fail(f"mxu: the full route's {name} picks or threshold differ from "
+                     "detect_picks' on the same matmul detector")
+        if not all(bool(torch.isfinite(c).all()) for c in full.correlograms.values()):
+            fail("mxu: the full route's correlograms are not finite")
+        del full, again
+
+        # -- a second auto detector on the same table measures nothing
+        before = measured["n"]
+        second, _ = build({"mf_engine": "auto", "fk_engine": "auto"})
+        if measured["n"] != before or (second.mf_engine, second.fk_engine) != (
+                auto_det.mf_engine, auto_det.fk_engine):
+            fail(f"mxu: a second auto detector made {measured['n'] - before} measurements "
+                 f"and resolved {second.mf_engine}/{second.fk_engine}")
+        del second, auto_det
+
+        # -- the batched facade at [4, 22050, 16384] on matmul
+        design16 = _service_design(meta, nx)
+        det16 = MatchedFilterDetector.from_design(design16, meta, templates="fin",
+                                                  mf_engine="matmul")
+        cond = torch.as_tensor(_condition_on_host(raw, float(np.float32(meta.scale_factor))))
+        facade = None
+        for B in (4, 2, 1):
+            stack = None
+            try:
+                stack = torch.zeros((B, nx, SLAB_BUCKET), device="cuda")
+                stack[:, :, :ns] = cond.to("cuda")
+                bd = BatchedMatchedFilterDetector(det16, serial=False)
+                bd.detect_batch(stack, n_real=[ns] * B)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                zero_launches()
+                det16.dispatches = 0
+                t0 = time.perf_counter()
+                got = bd.detect_batch(stack, n_real=[ns] * B)
+                torch.cuda.synchronize()
+                facade = (B, time.perf_counter() - t0, read_launches()["fused_picks"],
+                          det16.dispatches, torch.cuda.max_memory_allocated(), got)
+                break
+            except torch.cuda.OutOfMemoryError as exc:
+                notes.append(f"facade at B={B} ran out of memory ({type(exc).__name__})")
+                del stack
+                torch.cuda.empty_cache()
+        if facade is None:
+            fail("mxu: the batched facade ran out of memory at every batch size")
+        B, t_slab, slab_launches, attempts, slab_peak, got = facade
+        out["launches"] += slab_launches
+        tiles16 = -(-nx // det16.effective_channel_tile) if det16._route() == "tiled" else 1
+        if slab_launches != tiles16 * attempts:
+            fail(f"mxu: the facade launched fused_picks {slab_launches} times in {attempts} "
+                 "attempts")
+        for b, entry in enumerate(got):
+            if entry is None or _check_calls(scene, trim_picks(entry[0], ns)):
+                fail(f"mxu: the batched facade's file {b} missed an injected call")
+        del got, stack, cond
+    say(f"mxu: full route (__call__) on matmul {t_full * 1e3:.1f} ms once, stage walls "
+        f"{json.dumps({k: round(v, 3) for k, v in timer.walls().items()})} ms, "
+        f"{full_launches} pick launches, picks bitwise detect_picks'; a second auto detector "
+        f"on the same table: 0 measurements ({measured['n']} in the phase); batched facade "
+        f"(batched mode) on matmul at [{B}, {nx}, {SLAB_BUCKET}]: {t_slab * 1e3:.1f} ms a "
+        f"slab, {slab_launches} pick launches in {attempts} attempt(s), peak "
+        f"{slab_peak / 2**30:.2f} GiB, every call picked in every file; TF32 off after the "
+        f"phase; phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def phase_mxu_cpu_vs_card():
+    """Every forced engine on the card against ``device="cpu"`` at 512 x
+    12000: the contraction on one filtered block within 1e-4 * max|cpu|;
+    end to end the float32 engines' correlograms and envelopes within
+    1e-4 * max, thresholds rtol 1e-5 and picks up to 1e-5 knife edges
+    where both resolved the same engine; the bf16 route end to end within
+    ``MXU_CARD_BF16_REL`` * max (the filter's rounding moves a few inputs
+    to the neighbouring bf16 value), thresholds at that rtol and picks at
+    the knife margin that bound implies; the two gates' verdicts side by
+    side (a difference is reported, not failed)."""
+    import torch
+
+    from das4whales_tpu_torch.io.synth import synthesize_scene, to_raw_counts
+    from das4whales_tpu_torch.models.matched_filter import MatchedFilterDetector
+    from das4whales_tpu_torch.ops import spectral
+    from das4whales_tpu_torch.utils.parity import unexplained_differences
+
+    t_phase = time.perf_counter()
+    nx, ns = 512, CANONICAL[1]
+    scene = _scene(nx, ns, n_calls=1, seed=SEED + 1)
+    raw = to_raw_counts(synthesize_scene(scene), scene.metadata)
+    design = MatchedFilterDetector(scene.metadata, [0, nx, 1], (nx, ns), wire="raw",
+                                   device="cpu").design
+    rows = {}
+    with _mxu_table():
+        for label, engines in MXU_ENGINES[:4]:
+            eng = engines["mf_engine"]
+            dets, res, corr = {}, {}, {}
+            for dev in ("cuda", "cpu"):
+                det = MatchedFilterDetector.from_design(design, scene.metadata, wire="raw",
+                                                        device=dev, **engines)
+                dets[dev], res[dev] = det, det.detect_picks(raw)
+                corr[dev] = _engine_corr(det, raw, eng).cpu().numpy()
+            scale = float(np.abs(corr["cpu"]).max())
+            # the contraction alone, on the CPU's filtered block on both devices
+            trf = _engine_filter(dets["cpu"], raw, eng)[0]
+            same_in = float(np.abs(_engine_corr(dets["cuda"], raw, eng, trf=trf).cpu().numpy()
+                                   - _engine_corr(dets["cpu"], raw, eng, trf=trf).numpy()).max())
+            if not same_in <= MXU_CARD_REL * scale:
+                fail(f"mxu_cpu_vs_card: {label}: on one filtered block the correlograms differ "
+                     f"by {same_in:.3e} (limit {MXU_CARD_REL * scale:.3e})")
+            # end to end: the filter's cuFFT/pocketfft rounding moves a few
+            # inputs to the neighbouring bf16 value, so the bf16 route has its
+            # own fixed bound; the float32 engines are held at 1e-4 * max
+            corr_lim = MXU_CARD_BF16_REL if eng == "matmul-bf16" else MXU_CARD_REL
+            err = float(np.abs(corr["cuda"] - corr["cpu"]).max())
+            if not err <= corr_lim * scale:
+                fail(f"mxu_cpu_vs_card: {label}: correlograms differ by {err:.3e} "
+                     f"(limit {corr_lim * scale:.3e})")
+            # the picks ride the engine both devices resolved (a refusing gate
+            # falls back to the float32 matmul)
+            resolved = dets["cpu"].mf_engine
+            same = dets["cuda"].mf_engine == resolved
+            bf16 = resolved == "matmul-bf16"
+            lim = MXU_CARD_BF16_REL if bf16 else MXU_CARD_REL
+            thr_rtol = MXU_CARD_BF16_REL if bf16 else MXU_THR_RTOL
+            n_diff, rels, env_rel = 0, {}, None
+            if same:
+                env = {d: spectral.envelope_sqrt(
+                    torch.as_tensor(c) if resolved == eng
+                    else _engine_corr(dets[d], raw).cpu()).numpy() for d, c in corr.items()}
+                env_scale = float(env["cpu"].max())
+                env_rel = float(np.abs(env["cuda"] - env["cpu"]).max()) / env_scale
+                if not env_rel <= lim:
+                    fail(f"mxu_cpu_vs_card: {label}: envelopes differ by {env_rel:.3e} of max "
+                         f"(limit {lim:.3e})")
+                for i, name in enumerate(res["cpu"].picks):
+                    tg, tc = res["cuda"].thresholds[name], res["cpu"].thresholds[name]
+                    rel = (_bf16_knife_rel(lim, env_scale, tc, thr_rtol) if bf16
+                           else MXU_KNIFE_REL)
+                    rels[name] = float(f"{rel:.3g}")
+                    if not np.isclose(tg, tc, rtol=thr_rtol, atol=0):
+                        fail(f"mxu_cpu_vs_card: {label}: {name} threshold card {tg} vs cpu {tc} "
+                             f"(rtol {thr_rtol:.3g})")
+                    a, b = res["cuda"].picks[name], res["cpu"].picks[name]
+                    bad = unexplained_differences(a, b, env["cpu"][i], tc, rel)
+                    if bad:
+                        fail(f"mxu_cpu_vs_card: {label}: {name} picks differ beyond rounding "
+                             f"(rel {rel:.3g}) at {bad[:10]}")
+                    n_diff += len({tuple(p) for p in a.T.tolist()}
+                                  ^ {tuple(p) for p in b.T.tolist()})
+            if _check_calls(scene, res["cuda"].picks):
+                fail(f"mxu_cpu_vs_card: {label}: the injected call was not picked on the card")
+            rows[label] = {"card": f"{dets['cuda'].mf_engine}/{dets['cuda'].fk_engine}",
+                           "cpu": f"{dets['cpu'].mf_engine}/{dets['cpu'].fk_engine}",
+                           "corr_rel_one_input": float(f"{same_in / scale:.3g}"),
+                           "corr_rel": float(f"{err / scale:.3g}"), "limit": corr_lim,
+                           "env_rel": None if env_rel is None else float(f"{env_rel:.3g}"),
+                           "knife_rel": rels,
+                           "differing_picks": n_diff if same else "engines differ"}
+            if label in ("matmul-bf16", "matmul-fused"):
+                rows[label]["gate_card"] = dets["cuda"].mf_engine_reason
+                rows[label]["gate_cpu"] = dets["cpu"].mf_engine_reason
+    say(f"mxu_cpu_vs_card: {nx}x{ns} raw int32, card vs CPU, on one filtered block every "
+        f"engine within {MXU_CARD_REL}*max; end to end correlograms and envelopes within "
+        f"{MXU_CARD_REL}*max, thresholds rtol {MXU_THR_RTOL}, picks up to {MXU_KNIFE_REL} "
+        f"knife edges (bf16: {MXU_CARD_BF16_REL}*max, rtol {MXU_CARD_BF16_REL}, the knife "
+        f"margin that bound implies): "
+        f"{json.dumps(rows)}; phase {time.perf_counter() - t_phase:.1f} s")
+
+
+#: each phase's seconds in this run (``_time_phases``)
+_PHASE_SECONDS: dict = {}
+
+
+def _time_phases() -> None:
+    """Wrap every ``phase_*`` function so that its seconds are kept."""
+    for name, fn in list(globals().items()):
+        if name.startswith("phase_") and callable(fn):
+            def timed(*a, _fn=fn, _name=name[len("phase_"):], **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    _PHASE_SECONDS[_name] = round(
+                        _PHASE_SECONDS.get(_name, 0.0) + time.perf_counter() - t0, 1)
+
+            globals()[name] = functools.wraps(fn)(timed)
+
+
 def main(argv: list) -> int:
     import torch
+
+    _time_phases()
 
     if argv[:1] == ["--only"]:
         # a development run of the named phases after device and build, e.g.
@@ -5253,6 +5857,7 @@ def main(argv: list) -> int:
                 globals()[f"phase_{name}"]()
         finally:
             remove_slab_files()
+        say(f"phase seconds: {json.dumps(_PHASE_SECONDS)}")
         return 0
     if argv:
         fail(f"unknown arguments {argv}; run with none, or --only PHASE[,PHASE]")
@@ -5260,40 +5865,44 @@ def main(argv: list) -> int:
     smi_line = phase_device()
     phase_build()
     kern, err = phase_kernels()
-    launches, scene, raw, design = phase_detect()
-    full_launches, full_err, _ = phase_full(scene, raw, design)
-    phase_full_cpu_vs_card()
-    phase_channel_pad(scene, raw, design)
-    bank_launches, bank_err, _ = phase_bank(scene, raw, design)
-    phase_cpu_vs_card()
-    stft, stft_err = phase_stft_kernel()
-    stft_launches = phase_spectro(scene, raw, design)
-    phase_spectro_cpu_vs_card()
-    try:
-        slab_launches, slab_picks_err = phase_slab()
-        slab_stft_launches, slab_stft_err = phase_slab_cpu_vs_card()
-        campaign_launches = phase_campaign()
-        gabor_launches, gabor_campaign_launches, gabor_err, _ = phase_gabor(scene, raw, design)
-        learned_launches, learned_err, learned = phase_learned(scene, raw)
-        phase_preflight()
-        svc_launches, (svc_picks_err, svc_stft_err) = phase_service()
-    finally:
-        remove_slab_files()
     pool = _host_pool()
     prep = None
     try:
-        # the long record's files and design are made on the host beside
-        # the next two phases
+        # the slab files and two designs are made on the host beside the
+        # detect phase's set-up, the long record's files and design beside
+        # the later phases
+        early_host_jobs(pool)
+        launches, scene, raw, design = phase_detect()
+        full_launches, full_err, _ = phase_full(scene, raw, design)
+        phase_full_cpu_vs_card()
+        phase_channel_pad(scene, raw, design)
+        bank_launches, bank_err, _ = phase_bank(scene, raw, design)
+        phase_cpu_vs_card()
+        stft, stft_err = phase_stft_kernel()
+        stft_launches = phase_spectro(scene, raw, design)
+        phase_spectro_cpu_vs_card()
+        try:
+            slab_launches, slab_picks_err = phase_slab()
+            slab_stft_launches, slab_stft_err = phase_slab_cpu_vs_card()
+            campaign_launches = phase_campaign()
+            gabor_launches, gabor_campaign_launches, gabor_err, _ = phase_gabor(scene, raw,
+                                                                                design)
+            learned_launches, learned_err, learned = phase_learned(scene, raw)
+            phase_preflight()
+            svc_launches, (svc_picks_err, svc_stft_err) = phase_service()
+        finally:
+            remove_slab_files()
         prep = long_record_prep(pool)
         host_designs = dsp_host_designs(scene, pool)
         phase_dsp(scene, raw, design, host_designs)
         loc_launches, loc_err = phase_localize(design)
-        del scene, raw
         long_launches, long_err = phase_longrecord(prep, design)
-        del design
+        mxu_out = phase_mxu(scene, raw, design)
+        del scene, raw, design
         report_host_designs(host_designs)
     finally:
         pool.shutdown(cancel_futures=True)
+        remove_slab_files()
         if prep is not None:
             import shutil
 
@@ -5305,6 +5914,8 @@ def main(argv: list) -> int:
     phase_localize_cpu_vs_card()
     phase_longrecord_cpu_vs_card()
     phase_service_cpu_vs_card()
+    phase_mxu_cpu_vs_card()
+    say(f"phase seconds: {json.dumps(_PHASE_SECONDS)}")
     pk = kern["pack"]
     print(json.dumps({"kernels": [{
         "name": "fused_picks",
@@ -5317,9 +5928,10 @@ def main(argv: list) -> int:
                              "slab_serial": slab_launches["serial"],
                              "campaign": campaign_launches, "gabor": gabor_launches,
                              "campaign_gabor": gabor_campaign_launches, **loc_launches,
-                             "service": svc_launches["fused_picks"]},
+                             "service": svc_launches["fused_picks"],
+                             "mxu": mxu_out["launches"]},
         "max_abs_err": max(err, slab_picks_err, full_err, bank_err, gabor_err, loc_err,
-                           svc_picks_err),
+                           svc_picks_err, mxu_out["err"]),
         "ms": pk["ms"],
         "device_ms": pk["device_ms"],
         "plain_ms": pk["plain_ms"],
@@ -5334,9 +5946,10 @@ def main(argv: list) -> int:
         "launches": stft_launches,
         "launches_by_path": {"spectro": stft_launches, "slab_spectro": slab_stft_launches,
                              "campaign_spectro": campaign_stft_launches, **learned_launches,
-                             **long_launches, "service": svc_launches["fused_stft"]},
+                             **long_launches, "service": svc_launches["fused_stft"],
+                             "mxu_calibrate_stft": mxu_out["stft_launches"]},
         "max_abs_err": max(stft_err, slab_stft_err, campaign_stft_err, learned_err, long_err,
-                           svc_stft_err),
+                           svc_stft_err, mxu_out["stft_err"]),
         "ms": stft["ms"],
         "device_ms": stft["device_ms"],
         "plain_ms": stft["plain_ms"],

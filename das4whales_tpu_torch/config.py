@@ -353,6 +353,50 @@ def dispatch_deadline_default() -> float | None:
     return float(raw) if raw else None
 
 
+def mf_engine_default() -> str:
+    """The matched-filter correlate engine a detector takes when the
+    caller passes ``mf_engine=None``: ``DAS_MF_ENGINE`` (``"fft"``,
+    ``"matmul"``, ``"matmul-bf16"``, ``"matmul-fused"`` or ``"auto"``),
+    ``"fft"`` when unset or empty. The JAX package reads an unset
+    variable as ``"auto"``, which off a TPU is its FFT route; here
+    ``"auto"`` runs the calibrated router (``ops.mxu``) only when asked
+    for."""
+    return os.environ.get("DAS_MF_ENGINE", "") or "fft"
+
+
+def fk_engine_default() -> str:
+    """The f-k apply engine a detector takes when the caller passes
+    ``fk_engine=None``: ``DAS_FK_ENGINE`` (``"fft"``, ``"matmul"`` or
+    ``"auto"``), ``"fft"`` when unset or empty."""
+    return os.environ.get("DAS_FK_ENGINE", "") or "fft"
+
+
+#: Channel-count ceiling of the ``auto``-routed DFT-matmul f-k apply: the
+#: ``[C, C]`` matrix pair takes 2 C^2 float32 bytes (128 MiB at 4096).
+DEFAULT_FK_MATMUL_MAX_CHANNELS = 4096
+
+
+def fk_matmul_max_channels() -> int:
+    """Above this channel count ``fk_engine="auto"`` keeps the FFT route
+    (``DAS_FK_MATMUL_MAX_CHANNELS`` env; default
+    :data:`DEFAULT_FK_MATMUL_MAX_CHANNELS`); a forced ``"matmul"``
+    overrides it."""
+    raw = os.environ.get("DAS_FK_MATMUL_MAX_CHANNELS", "")
+    try:
+        return int(raw) if raw else DEFAULT_FK_MATMUL_MAX_CHANNELS
+    except ValueError:
+        return DEFAULT_FK_MATMUL_MAX_CHANNELS
+
+
+def calibration_cache_path() -> str:
+    """Where the engine routers' calibration table lives
+    (``ops.mxu.CalibrationTable``): ``DAS_CALIBRATION_CACHE``, else
+    ``~/.cache/das4whales_tpu_torch/mxu_calibration.json``."""
+    return os.environ.get("DAS_CALIBRATION_CACHE") or os.path.expanduser(
+        os.path.join("~", ".cache", "das4whales_tpu_torch", "mxu_calibration.json")
+    )
+
+
 #: Default depth of the campaign's software-pipelined dispatch queue.
 DEFAULT_DISPATCH_DEPTH = 2
 

@@ -25,15 +25,14 @@ Differences of procedure from the JAX package, none of result:
   circular correlation directly instead of rolling the whole FFT length
   first — the same samples.
 
-``gabor_engine=None``/``"auto"`` resolves through ``DAS_GABOR_ENGINE``
-and then to ``"fft"``: the per-shape A/B calibration of the JAX package
-waits for the ROADMAP item 'Matmul engines'. ``"fft"`` and ``"conv"``
-stay forceable.
+``gabor_engine``: ``"fft"`` or ``"conv"`` forced; None takes
+``DAS_GABOR_ENGINE``, else ``"fft"``; ``"auto"`` runs the per-shape A/B
+of ``ops.mxu.resolve_gabor_engine`` at the first block's binned shape
+(``"fft"`` off a CUDA device, where it resolves at construction).
 """
 
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 from typing import Callable, Dict, Tuple
 
@@ -43,6 +42,7 @@ import torch
 from ..config import C0_WATER, as_metadata
 from ..ops import fused_picks
 from ..ops import image as img_ops
+from ..ops import mxu
 from ..ops import peaks as peak_ops
 from ..utils.device import resolve_device
 from ..utils.views import cached_shallow_view
@@ -141,23 +141,6 @@ def masked_matched_filter(masked_tr: torch.Tensor, note: torch.Tensor) -> torch.
     return torch.cat([full[..., nfft - s :], full[..., : n - s]], dim=-1)
 
 
-def resolve_gabor_engine(requested, device: torch.device) -> Tuple[str, str]:
-    """``(engine, reason)`` of the 2-D same-correlation the oriented pair
-    runs: ``"fft"``/``"conv"`` forced; None/``"auto"`` defer to
-    ``DAS_GABOR_ENGINE`` and then to ``"fft"`` (the per-shape A/B
-    calibration waits for the ROADMAP item 'Matmul engines')."""
-    req = requested or os.environ.get("DAS_GABOR_ENGINE", "auto")
-    if req in img_ops.FILTER2D_ENGINES:
-        return req, "forced"
-    if req != "auto":
-        raise ValueError(
-            f"unknown gabor engine {req!r}; expected one of "
-            f"{img_ops.FILTER2D_ENGINES + ('auto',)}"
-        )
-    return "fft", (f"auto: device {device.type!r} has no per-shape A/B calibration "
-                   "(ROADMAP 'Matmul engines'); FFT route")
-
-
 def synthesize_notes(note_params: Dict[str, Tuple[float, float, float]], fs: float
                      ) -> Dict[str, np.ndarray]:
     """Hann-windowed hyperbolic chirp per ``(fmin, fmax, duration)`` note,
@@ -214,8 +197,8 @@ class GaborDetector:
                              for name in self.note_params}
         self.max_peaks = max_peaks
         # the resolved engine and its reason (gabor_engine /
-        # gabor_engine_reason); no shape enters it here, so it resolves now
-        # and every ladder event names it
+        # gabor_engine_reason): a forced engine resolves now, "auto" on the
+        # card at the first block's binned shape
         self._gabor_engine_req = gabor_engine
         self.gabor_engine: str | None = None
         self.gabor_engine_reason: str | None = None
@@ -242,13 +225,21 @@ class GaborDetector:
 
         return cached_shallow_view(self, "_host_view_cache", mutate)
 
-    def resolve_engine(self, trace_shape=None) -> str:
-        """The oriented pair's correlation engine, resolved once (at
-        construction) and cached on self; ``trace_shape`` is accepted for
-        the JAX signature (the per-shape A/B is not in this slice)."""
+    def resolve_engine(self, trace_shape=None) -> str | None:
+        """The oriented pair's correlation engine, resolved once and cached
+        on self (``ops.mxu.resolve_gabor_engine``): a forced engine, or
+        ``"auto"`` off a CUDA device, at construction; ``"auto"`` on the
+        card at the BINNED image shape of ``trace_shape``, the first
+        block's."""
         if self.gabor_engine is None:
-            self.gabor_engine, self.gabor_engine_reason = resolve_gabor_engine(
-                self._gabor_engine_req, self.device)
+            req = mxu.requested_gabor_engine(self._gabor_engine_req)
+            if req == "auto" and self.device.type == "cuda" and trace_shape is None:
+                return None
+            binned = (0, 0) if trace_shape is None else (
+                max(1, int(trace_shape[-2] * self.design.bin_factor)),
+                max(1, int(trace_shape[-1] * self.design.bin_factor)))
+            self.gabor_engine, self.gabor_engine_reason = mxu.resolve_gabor_engine(
+                req, binned, self.design.gabor_up.shape, device=self.device)
         return self.gabor_engine
 
     def correlograms(self, trf_fk, stage_hook: Callable[[str], None] | None = None):
@@ -257,6 +248,7 @@ class GaborDetector:
         mask_binned, masked_trace, correlograms)``; ``stage_hook`` gets
         :func:`gabor_mask`'s stages and then ``masked_mf``."""
         x = torch.as_tensor(trf_fk).to(self.device, torch.float32)
+        self.resolve_engine(x.shape)
         score, mask_binned, masked_tr = gabor_mask(x, self.design, engine=self.gabor_engine,
                                                    kernels=self._kernels,
                                                    stage_hook=stage_hook)

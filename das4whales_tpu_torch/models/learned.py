@@ -3,8 +3,8 @@ windows (the fourth detector family; the port's copy of
 ``das4whales_tpu.models.learned``).
 
 * Features: the port's STFT magnitude (``ops.spectral.stft_magnitude``,
-  engine ``"auto"`` -> ``"fused"``: the ``fused_stft`` CUDA kernel on a
-  card tensor, its plain version on a CPU tensor), the bins below
+  engine :data:`FEATURE_STFT_ENGINE`, ``"fused"``: the ``fused_stft``
+  CUDA kernel on a card tensor, its plain version on a CPU tensor), the bins below
   ``fmax_bin``, ``log1p(mag * 1e6)``, overlapping windows of
   ``win_frames`` frames every ``win_stride``, each standardised over its
   own window.
@@ -51,6 +51,11 @@ from ..utils import artifacts
 from ..utils.device import resolve_device
 from ..utils.views import cached_shallow_view
 
+#: the STFT engine the learned features ride: the ``fused_stft`` kernel.
+#: The family takes no engine request (``DAS4WHALES_STFT_ENGINE`` and
+#: ``"auto"`` are the spectro detector's, ``ops.mxu.resolve_stft_engine_ab``).
+FEATURE_STFT_ENGINE = "fused"
+
 
 @dataclass(frozen=True)
 class LearnedConfig:
@@ -90,8 +95,8 @@ def window_centers(n_win: int, cfg: LearnedConfig) -> np.ndarray:
     return (idx.mean(axis=1) * cfg.hop).astype(np.int64)
 
 
-def window_features(block, cfg: LearnedConfig, engine: str = "auto", *, device=None,
-                    stage_hook: Callable[[str], None] | None = None):
+def window_features(block, cfg: LearnedConfig, engine: str = FEATURE_STFT_ENGINE, *,
+                    device=None, stage_hook: Callable[[str], None] | None = None):
     """``[C, T]`` strain block -> per-channel log-spectrogram windows.
 
     Returns ``(windows [C, n_win, F, W], centers [n_win])`` where

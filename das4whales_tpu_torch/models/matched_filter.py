@@ -55,10 +55,18 @@ copy on the sub-bank ``[lo:hi)`` that slices the parent's template
 tensors (``split_views`` halves a bank with decoupled thresholds, the
 ladder's bank-split rung).
 
-This slice carries ``mf_engine="fft"`` and ``fk_engine="fft"`` only;
-every other value raises ``NotImplementedError`` naming the ROADMAP item
-that brings it. ``condition_input`` and ``filter_block`` are the
-prefilter the other detector families share (``workflows.common``).
+The correlate and f-k stages run on the engines of ``ops.mxu``:
+``mf_engine`` ``"fft"`` (the default), ``"matmul"`` (the correlate as a
+``F.conv1d`` contraction), ``"matmul-bf16"`` and ``"matmul-fused"``
+(gated: an ineligible shape falls back to ``"matmul"``), and
+``fk_engine`` ``"fft"`` or ``"matmul"`` (the channel transforms as
+``[C, C]`` DFT products); ``"auto"`` runs the calibrated router. The
+tap-folded engine carries the bandpass in its taps, so its program
+applies the GAINLESS f-k mask and skips the staged bandpass; the staged
+routes (``__call__``'s tiled correlate) correlate an already bandpassed
+block and run it as ``"matmul"``. ``condition_input`` and
+``filter_block`` are the prefilter the other detector families share
+(``workflows.common``).
 """
 
 from __future__ import annotations
@@ -79,13 +87,12 @@ from ..config import (
     FkFilterConfig,
     as_metadata,
 )
-from ..config import not_in_slice as _not_in_slice
 from ..config import hbm_budget_bytes as _default_hbm_budget_bytes
-from ..ops import conditioning, fused_picks, spectral, xcorr
+from ..ops import conditioning, fused_picks, mxu, spectral, xcorr
 from ..ops import health as health_ops
 from ..ops import fk as fk_ops
 from ..ops import peaks as peak_ops
-from ..ops.filters import butter_zero_phase_gain, fft_zero_phase_apply
+from ..ops.filters import butter_zero_phase_fir, butter_zero_phase_gain, fft_zero_phase_apply
 from ..utils.checkpoint import register_design
 from ..utils.device import resolve_device
 from ..utils.views import _VIEW_CACHE_ATTRS, cached_shallow_view
@@ -95,14 +102,6 @@ from .templates import resolve_bank
 #: per template by its factor; HF_FACTOR is the HF fin note's factor.
 REL_THRESHOLD = 0.5
 HF_FACTOR = FIN_HF_NOTE.threshold_factor
-
-
-def check_engines(mf_engine: str, fk_engine: str) -> None:
-    """Raise for every engine setting this slice does not carry."""
-    if mf_engine != "fft":
-        raise _not_in_slice(f"mf_engine={mf_engine!r}", "Matmul engines")
-    if fk_engine != "fft":
-        raise _not_in_slice(f"fk_engine={fk_engine!r}", "Matmul engines")
 
 
 def reference_threshold_factors(n_templates: int) -> np.ndarray:
@@ -218,49 +217,59 @@ def design_matched_filter(trace_shape, selected_channels, metadata,
 
 
 def _fk_apply_padded(x: torch.Tensor, mask_band: torch.Tensor, band_lo: int,
-                     band_hi: int, pad_rows: int) -> torch.Tensor:
-    """The banded f-k apply of every filter variant: ``pad_rows`` silent
-    channels appended on ``dim=-2`` (the mask's ``fk_channels`` rows),
-    the banded apply, and the crop back to the real channels."""
+                     band_hi: int, pad_rows: int, fk_engine: str = "fft",
+                     fk_dft=None) -> torch.Tensor:
+    """The banded f-k apply of every filter variant on ``fk_engine``
+    (``ops.mxu.fk_apply_body``; ``fk_dft`` the matmul engine's ``(wr,
+    wi)`` pair): ``pad_rows`` silent channels appended on ``dim=-2`` (the
+    mask's ``fk_channels`` rows), the banded apply, and the crop back to
+    the real channels."""
     if not pad_rows:
-        return fk_ops.fk_filter_apply_rfft_banded(x, mask_band, band_lo, band_hi)
+        return mxu.fk_apply_body(x, mask_band, band_lo, band_hi, fk_engine, fk_dft)
     C = x.shape[-2]
     x = torch.nn.functional.pad(x, (0, 0, 0, pad_rows))
-    return fk_ops.fk_filter_apply_rfft_banded(x, mask_band, band_lo, band_hi)[..., :C, :]
+    return mxu.fk_apply_body(x, mask_band, band_lo, band_hi, fk_engine, fk_dft)[..., :C, :]
 
 
 def mf_filter_fused(trace: torch.Tensor, fused_mask_band: torch.Tensor,
-                    band_lo: int, band_hi: int, pad_rows: int = 0) -> torch.Tensor:
+                    band_lo: int, band_hi: int, pad_rows: int = 0, fk_engine: str = "fft",
+                    fk_dft=None) -> torch.Tensor:
     """Bandpass ∘ f-k filter as ONE banded spectral multiply: the mask
     carries ``|H(f)|^2`` folded in (circular edges, as in the JAX
     package's fused route). ``pad_rows``: the padded design's silent
     channels (:func:`_fk_apply_padded`)."""
-    return _fk_apply_padded(trace, fused_mask_band, band_lo, band_hi, pad_rows)
+    return _fk_apply_padded(trace, fused_mask_band, band_lo, band_hi, pad_rows, fk_engine,
+                            fk_dft)
 
 
 def mf_filter_only(trace: torch.Tensor, fk_mask_band: torch.Tensor, bp_gain: torch.Tensor,
                    band_lo: int, band_hi: int, bp_padlen: int,
-                   pad_rows: int = 0) -> torch.Tensor:
+                   pad_rows: int = 0, fk_engine: str = "fft", fk_dft=None) -> torch.Tensor:
     """The staged bandpass, then the banded f-k filter: odd extension by
     ``bp_padlen``, one rfft round trip times ``bp_gain`` (the rFFT bins of
     the extended length), crop, then the f-k pass on the gainless mask
     (padded by ``pad_rows`` channels, :func:`_fk_apply_padded`)."""
     tr_bp = fft_zero_phase_apply(trace, bp_gain, bp_padlen)
-    return _fk_apply_padded(tr_bp, fk_mask_band, band_lo, band_hi, pad_rows)
+    return _fk_apply_padded(tr_bp, fk_mask_band, band_lo, band_hi, pad_rows, fk_engine,
+                            fk_dft)
 
 
 def mf_correlate_tiled(trf_fk: torch.Tensor, templates_true: torch.Tensor,
-                       mu: torch.Tensor, scale: torch.Tensor, tile: int):
+                       mu: torch.Tensor, scale: torch.Tensor, tile: int,
+                       mf_engine: str = "fft", fused=None, fir_half: int = 0):
     """Correlograms of ``trf_fk [..., C, n]`` over channel tiles, one tile
     at a time (the JAX package's ``lax.map``, here a Python loop; a
-    leading axis stacks files). Returns ``(corr_tiles, gmax)``: a list of
+    leading axis stacks files), on ``mf_engine`` (``ops.mxu.
+    correlograms_body``; ``fused``/``fir_half`` the tap-folded engine's
+    pair and FIR half-length). Returns ``(corr_tiles, gmax)``: a list of
     ``[nT, ..., rows, n]`` tiles (the last one ragged — no padding rows)
     and each template's max over all channels ``[nT, ...]``."""
     C = trf_fk.shape[-2]
     tiles, maxes = [], []
     for lo in range(0, C, tile):
-        corr = xcorr.compute_cross_correlograms_corrected(
-            trf_fk[..., lo : lo + tile, :], templates_true, mu, scale
+        corr = mxu.correlograms_body(
+            trf_fk[..., lo : lo + tile, :], templates_true, mu, scale, mf_engine,
+            fused=fused, fir_half=fir_half,
         )
         tiles.append(corr)
         maxes.append(corr.amax(dim=(-2, -1)))
@@ -388,6 +397,11 @@ def mf_detect_picks_program(
     with_health: bool = False,
     health_clip: float | None = None,
     stage_hook: Callable[[str], None] | None = None,
+    mf_engine: str = "fft",
+    fk_engine: str = "fft",
+    fk_dft=None,
+    mf_fused=None,
+    fir_half: int = 0,
 ) -> ProgramOutputs:
     """The whole detection step: [raw-wire conditioning ->] fused
     bandpass/f-k filter (``staged_bp``: the staged bandpass, then the
@@ -410,6 +424,13 @@ def mf_detect_picks_program(
     over its real samples ``[:, :cond_n_real]`` when that is given, to
     the outputs (``health``); ``health_clip`` is the clipped-sample
     magnitude (None: clip accounting off).
+
+    ``mf_engine``/``fk_engine`` are the correlate and f-k engines
+    (``ops.mxu``): ``fk_dft`` the matmul f-k's ``(wr, wi)`` pair,
+    ``mf_fused``/``fir_half`` the tap-folded engine's ``(folded_taps,
+    tcum)`` pair and FIR half-length (its caller hands the program the
+    GAINLESS mask and ``staged_bp=False``:
+    ``MatchedFilterDetector._program_inputs``).
 
     ``trace [B, C, T]`` runs every stage over the leading file axis at
     once (JAX's ``vmap`` of the program; ``parallel.batch``'s batched
@@ -436,9 +457,10 @@ def mf_detect_picks_program(
                                                   dtype=templates_true.dtype)
     hook("condition")
     if staged_bp:
-        trf = mf_filter_only(trace, mask_band, bp_gain, band_lo, band_hi, bp_padlen, pad_rows)
+        trf = mf_filter_only(trace, mask_band, bp_gain, band_lo, band_hi, bp_padlen, pad_rows,
+                             fk_engine, fk_dft)
     else:
-        trf = mf_filter_fused(trace, mask_band, band_lo, band_hi, pad_rows)
+        trf = mf_filter_fused(trace, mask_band, band_lo, band_hi, pad_rows, fk_engine, fk_dft)
     del trace   # the conditioned block is dead once filtered
     hook("fk")
 
@@ -450,10 +472,12 @@ def mf_detect_picks_program(
         return _relative_thresholds(gmax, thr_factors, thr_scope)
 
     if tile is None:
-        corr_tiles = [xcorr.compute_cross_correlograms_corrected(trf, templates_true, mu, scale)]
+        corr_tiles = [mxu.correlograms_body(trf, templates_true, mu, scale, mf_engine,
+                                            fused=mf_fused, fir_half=fir_half)]
         thr = resolve_thr(corr_tiles[0].amax(dim=(-2, -1)))
     else:
-        corr_tiles, gmax = mf_correlate_tiled(trf, templates_true, mu, scale, tile)
+        corr_tiles, gmax = mf_correlate_tiled(trf, templates_true, mu, scale, tile, mf_engine,
+                                              fused=mf_fused, fir_half=fir_half)
         thr = resolve_thr(gmax)
     del trf
     hook("correlate")
@@ -541,9 +565,13 @@ class MatchedFilterDetector:
 
     Plain counters on the instance: ``dispatches`` (program runs),
     ``syncs`` (device->host copies) and ``escalations`` (K0 -> K reruns).
-    The engine labels ``mf_engine``, ``fk_engine`` and ``pick_engine``
-    (the fused pick kernel on the card, its plain version on the CPU) go
-    into the campaign's downshift events.
+    The engine labels ``mf_engine``, ``fk_engine`` (resolved by
+    ``ops.mxu``'s routers, each with its ``*_engine_reason``) and
+    ``pick_engine`` (the fused pick kernel on the card, its plain version
+    on the CPU) go into the campaign's downshift events. ``mf_engine`` /
+    ``fk_engine`` None take ``DAS_MF_ENGINE`` / ``DAS_FK_ENGINE``, else
+    ``"fft"``; ``"auto"`` runs the calibrated router (the FFT route off a
+    CUDA device).
 
     ``pick_mode`` (``"auto"``: ``"sparse"`` on the card, ``"scipy"`` on
     the CPU, as the JAX package resolves it per backend), ``peak_block``
@@ -551,9 +579,6 @@ class MatchedFilterDetector:
     route; :meth:`detect_picks` is the one-program sparse route whatever
     the pick mode.
     """
-
-    mf_engine = "fft"
-    fk_engine = "fft"
 
     def __init__(
         self,
@@ -573,11 +598,10 @@ class MatchedFilterDetector:
         fused_bandpass: bool = True,
         pick_pack_cap: int = 1 << 18,
         wire: str = "conditioned",
-        mf_engine: str = "fft",
-        fk_engine: str = "fft",
+        mf_engine: str | None = None,
+        fk_engine: str | None = None,
         device=None,
     ):
-        check_engines(mf_engine, fk_engine)
         meta = as_metadata(metadata)
         bank = resolve_bank(templates)
         design = design_matched_filter(trace_shape, selected_channels, meta,
@@ -587,7 +611,7 @@ class MatchedFilterDetector:
                     max_peaks=max_peaks, channel_tile=channel_tile,
                     hbm_budget_bytes=hbm_budget_bytes, keep_correlograms=keep_correlograms,
                     fused_bandpass=fused_bandpass, pick_pack_cap=pick_pack_cap, wire=wire,
-                    device=device)
+                    mf_engine=mf_engine, fk_engine=fk_engine, device=device)
 
     @classmethod
     def from_design(cls, design: MatchedFilterDesign, metadata, *, templates=None,
@@ -596,7 +620,7 @@ class MatchedFilterDetector:
                     hbm_budget_bytes: int | None = None, keep_correlograms: bool = True,
                     fused_bandpass: bool = True,
                     pick_pack_cap: int = 1 << 18, wire: str = "conditioned",
-                    mf_engine: str = "fft", fk_engine: str = "fft",
+                    mf_engine: str | None = None, fk_engine: str | None = None,
                     device=None) -> "MatchedFilterDetector":
         """A detector on an existing design (e.g. one carried over from the
         JAX package by ``convert.design_from_arrays``, padded or not).
@@ -604,7 +628,6 @@ class MatchedFilterDetector:
         entry names must be the design's); without it the detector has no
         ``bank`` and takes the bank's split policy from the design's
         threshold scope."""
-        check_engines(mf_engine, fk_engine)
         bank = None
         if templates is not None:
             bank = resolve_bank(templates)
@@ -616,12 +639,12 @@ class MatchedFilterDetector:
                    pick_mode=pick_mode, max_peaks=max_peaks, channel_tile=channel_tile,
                    hbm_budget_bytes=hbm_budget_bytes, keep_correlograms=keep_correlograms,
                    fused_bandpass=fused_bandpass, pick_pack_cap=pick_pack_cap,
-                   wire=wire, device=device)
+                   wire=wire, mf_engine=mf_engine, fk_engine=fk_engine, device=device)
         return det
 
     def _setup(self, design, meta, *, bank, peak_block, pick_mode, max_peaks, channel_tile,
                hbm_budget_bytes, keep_correlograms, fused_bandpass, pick_pack_cap, wire,
-               device):
+               mf_engine, fk_engine, device):
         if wire not in ("conditioned", "raw"):
             raise ValueError(f"unknown wire {wire!r}; expected 'conditioned' or 'raw'")
         self.device = resolve_device(device)
@@ -652,10 +675,11 @@ class MatchedFilterDetector:
         self.dispatches = self.syncs = self.escalations = 0
 
         mask_band, self._band_lo, self._band_hi = fk_ops.banded_mask_half(design.fk_mask)
+        gainless = mask_band
+        gain_n = butter_zero_phase_gain(design.trace_shape[1], design.fs, design.bp_band,
+                                        order=design.bp_order)
         if fused_bandpass:
             # fold |H(f)|^2 into the mask; staged, the mask stays gainless
-            gain_n = butter_zero_phase_gain(design.trace_shape[1], design.fs, design.bp_band,
-                                            order=design.bp_order)
             mask_band = mask_band * gain_n[self._band_lo : self._band_hi][None, :]
         dev = self.device
         self._mask_band = torch.as_tensor(mask_band, device=dev)
@@ -668,6 +692,66 @@ class MatchedFilterDetector:
         self._thr_factors = torch.as_tensor(
             np.asarray(design.threshold_factors, np.float32), device=dev)
         self._cond_scale = float(np.float32(meta.scale_factor))
+        # the tap-fold pair (ops.mxu.resolve_mf_engine's fused_design): the
+        # truncated zero-phase FIR and the record-length circular gain its
+        # gate holds the fold against
+        self._bp_fir, _ = butter_zero_phase_fir(design.fs, design.bp_band, order=design.bp_order)
+        self._fused_design = (self._bp_fir, gain_n.astype(np.float32))
+        self._mf_engine_requested = mf_engine
+        self._fk_engine_requested = fk_engine
+        self._resolve_engines(t_true, t_mu, t_scale, gainless)
+
+    def _resolve_engines(self, t_true, t_mu, t_scale, gainless) -> None:
+        """Resolve the correlate and f-k engines for this device (``ops.mxu``)
+        and place what they run on: the DFT pair of the matmul f-k, and the
+        tap-folded engine's gainless mask and folded taps."""
+        dev = self.device
+        design = self.design
+        self.mf_engine, self.mf_engine_reason = mxu.resolve_mf_engine(
+            self._mf_engine_requested, design.trace_shape, t_true, t_mu, t_scale,
+            device=dev, fused_design=self._fused_design)
+        self.fk_engine, self.fk_engine_reason = mxu.resolve_fk_engine(
+            self._fk_engine_requested, design.fk_channels, design.trace_shape[1],
+            self._band_hi - self._band_lo, device=dev)
+        self._fk_dft = None
+        if self.fk_engine == "matmul":
+            self._fk_dft = tuple(torch.as_tensor(a, device=dev)
+                                 for a in mxu.dft_matrices(design.fk_channels))
+        self._mask_band_fused = self._mf_fused = None
+        self._mf_fir_half = 0
+        if self.mf_engine == "matmul-fused":
+            self._mask_band_fused = (self._mask_band if not self.fused_bandpass
+                                     else torch.as_tensor(gainless, device=dev))
+            self._mf_fused, self._mf_fir_half = self._fused_tap_arrays(t_true)
+
+    def _fused_tap_arrays(self, templates_true) -> tuple:
+        """The ``matmul-fused`` engine's ``((folded, tcum) device pair, FIR
+        half-length)`` for a template stack (``ops.mxu.fused_template_taps``);
+        a sub-bank view builds its own (the fold has an extra row)."""
+        t = templates_true.cpu().numpy() if isinstance(templates_true, torch.Tensor) \
+            else np.asarray(templates_true)
+        folded, tcum, L = mxu.fused_template_taps(t, self._bp_fir)
+        return (torch.as_tensor(folded, device=self.device),
+                torch.as_tensor(tcum, device=self.device)), L
+
+    def _program_inputs(self) -> tuple:
+        """``(mask, staged_bp, engine keyword arguments)`` of the
+        one-program routes: on the tap-folded engine the GAINLESS mask and
+        no staged bandpass (the bandpass rides the taps), else the
+        constructor's mask and bandpass mode."""
+        fused = self.mf_engine == "matmul-fused"
+        kw = dict(mf_engine=self.mf_engine, fk_engine=self.fk_engine, fk_dft=self._fk_dft,
+                  mf_fused=self._mf_fused, fir_half=self._mf_fir_half)
+        if fused:
+            return self._mask_band_fused, False, kw
+        return self._mask_band, not self.fused_bandpass, kw
+
+    @property
+    def _staged_mf_engine(self) -> str:
+        """The correlate engine of the STAGED routes, which correlate an
+        already bandpassed block: the tap-folded engine would apply the
+        bandpass twice there, so it runs as the float32 matmul."""
+        return "matmul" if self.mf_engine == "matmul-fused" else self.mf_engine
 
     def monolithic_temp_estimate(self) -> int:
         """Rough byte estimate of the untiled correlate+envelope temps at
@@ -713,8 +797,10 @@ class MatchedFilterDetector:
         where no card rung fits, detection still completes (slowly) in
         host memory. The same design and settings with ``device="cpu"``,
         where every stage runs its plain PyTorch version (the pick
-        kernel's included); channel-tiled, lean on the host too. Cached:
-        repeated calls return the same view."""
+        kernel's included); channel-tiled, lean on the host too. The
+        requested engines are resolved again for the CPU (an ``"auto"``
+        verdict of the card does not route the host; a gated engine earns
+        its verdict there). Cached: repeated calls return the same view."""
         view = getattr(self, "_host_view_cache", None)
         if view is None:
             view = self._host_view_cache = type(self).from_design(
@@ -723,7 +809,9 @@ class MatchedFilterDetector:
                 channel_tile=self.effective_channel_tile,
                 hbm_budget_bytes=self.hbm_budget_bytes,
                 keep_correlograms=self.keep_correlograms, fused_bandpass=self.fused_bandpass,
-                pick_pack_cap=self.pick_pack_cap, wire=self.wire, device="cpu")
+                pick_pack_cap=self.pick_pack_cap, wire=self.wire,
+                mf_engine=self._mf_engine_requested, fk_engine=self._fk_engine_requested,
+                device="cpu")
         return view
 
     @property
@@ -750,7 +838,12 @@ class MatchedFilterDetector:
         picks equal the full bank's rows bit for bit wherever the
         transforms are row-independent. A detector designed on the
         sub-bank alone would take its own ``m`` and FFT length. Shares the
-        f-k design and mask; cached per ``(lo, hi)``."""
+        f-k design, mask, DFT pair and resolved engines, except that a
+        ``"matmul-bf16"`` or ``"matmul-fused"`` parent's sub-bank is gated
+        again: the gates' verdicts are keyed on the template CONTENT, and a
+        sub-bank is another template set (it earns or loses the engine on
+        its own record, and a tap-folded sub-bank folds its own slice).
+        Cached per ``(lo, hi)``."""
         key = (int(lo), int(hi))
         cache = self.__dict__.setdefault("_bank_view_cache", {})
         view = cache.get(key)
@@ -773,6 +866,21 @@ class MatchedFilterDetector:
         for attr in ("_templates_dev", "_templates_true", "_template_mu", "_template_scale",
                      "_thr_factors"):
             setattr(view, attr, getattr(self, attr)[lo:hi])
+        if self.mf_engine in ("matmul-bf16", "matmul-fused"):
+            view.mf_engine, view.mf_engine_reason = mxu.resolve_mf_engine(
+                self._mf_engine_requested, self.design.trace_shape,
+                view._templates_true.cpu().numpy(), view._template_mu.cpu().numpy(),
+                view._template_scale.cpu().numpy(), device=self.device,
+                fused_design=self._fused_design)
+            view._mf_fused, view._mf_fir_half = None, 0
+            if view.mf_engine == "matmul-fused":
+                view._mf_fused, view._mf_fir_half = self._fused_tap_arrays(
+                    view._templates_true)
+                if view._mask_band_fused is None:
+                    view._mask_band_fused = (
+                        self._mask_band if not self.fused_bandpass else torch.as_tensor(
+                            fk_ops.banded_mask_half(self.design.fk_mask)[0],
+                            device=self.device))
         cache[key] = view
         return view
 
@@ -818,9 +926,10 @@ class MatchedFilterDetector:
         x = self.condition_input(trace)
         if self.fused_bandpass:
             return mf_filter_fused(x, self._mask_band, self._band_lo, self._band_hi,
-                                   self.fk_pad_rows)
+                                   self.fk_pad_rows, self.fk_engine, self._fk_dft)
         return mf_filter_only(x, self._mask_band, self._bp_gain, self._band_lo,
-                              self._band_hi, self.design.bp_padlen, self.fk_pad_rows)
+                              self._band_hi, self.design.bp_padlen, self.fk_pad_rows,
+                              self.fk_engine, self._fk_dft)
 
     def __call__(self, trace, threshold: float | None = None, with_snr: bool = False,
                  stage_hook: Callable[[str], None] | None = None) -> MatchedFilterResult:
@@ -922,7 +1031,8 @@ class MatchedFilterDetector:
         trf_fk = self.filter_block(trace)
         hook("fk")
         corr_tiles, gmax = mf_correlate_tiled(trf_fk, self._templates_true,
-                                              self._template_mu, self._template_scale, tile)
+                                              self._template_mu, self._template_scale, tile,
+                                              self._staged_mf_engine)
         hook("correlate")
         if threshold is None:
             fac = np.asarray(self.design.threshold_factors, np.float32)
@@ -1041,18 +1151,21 @@ class MatchedFilterDetector:
         # wire's pad is zeros, but it would dilute the rms)
         cond_nr = int(n_real) if ((self.wire == "raw" or with_health) and pad_real) else None
 
+        mask, staged_bp, engine_kw = self._program_inputs()
+
         def run(k):
             self.dispatches += 1
             return mf_detect_picks_program(
-                trace, self._mask_band, self._bp_gain, self._templates_true,
+                trace, mask, self._bp_gain, self._templates_true,
                 self._template_mu, self._template_scale, thr_in, self._thr_factors,
                 band_lo=self._band_lo, band_hi=self._band_hi,
-                bp_padlen=self.design.bp_padlen, staged_bp=not self.fused_bandpass, tile=tile,
+                bp_padlen=self.design.bp_padlen, staged_bp=staged_bp, tile=tile,
                 pad_rows=self.fk_pad_rows, max_peaks=k, capacity=cap, use_threshold=use_thr,
                 pick_method=peak_ops.escalation_method(k, self.max_peaks),
                 condition=self.wire == "raw", cond_scale=self._cond_scale,
                 cond_n_real=cond_nr, thr_scope=self.threshold_scope,
                 with_health=with_health, health_clip=health_clip, stage_hook=stage_hook,
+                **engine_kw,
             )
 
         health = {}

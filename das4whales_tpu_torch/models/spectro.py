@@ -33,7 +33,7 @@ import torch
 
 from ..config import SPECTRO_HF_KERNEL, SPECTRO_LF_KERNEL, as_metadata
 from ..ops import peaks as peak_ops
-from ..ops import spectral, xcorr
+from ..ops import mxu, spectral, xcorr
 from ..utils.device import resolve_device
 from ..utils.views import cached_shallow_view
 from .templates import gen_hyperbolic_chirp
@@ -78,7 +78,7 @@ def _normalise_slice(mag: torch.Tensor, band: slice) -> torch.Tensor:
 
 
 def sliced_spectrogram(trace: torch.Tensor, fs: float, fmin: float, fmax: float,
-                       nperseg: int, nhop: int, engine: str | None = "auto"):
+                       nperseg: int, nhop: int, engine: str = "fused"):
     """Max-normalized STFT magnitude sliced to ``[fmin, fmax]``, batched
     over leading axes (reference ``detect.get_sliced_nspectrogram``).
     Returns ``(p, ff, tt)``."""
@@ -190,7 +190,7 @@ def compute_cross_correlogram_spectrocorr(
     win_size: float,
     overlap_pct: float,
     batch_channels: int | None = None,
-    stft_engine: str | None = "auto",
+    stft_engine: str = "fused",
     stage_hook: Callable[[str], None] | None = None,
 ) -> torch.Tensor:
     """Spectrogram-correlation correlograms ``[C, n_frames]`` of every
@@ -203,7 +203,7 @@ def compute_cross_correlogram_spectrocorr(
     called after ``normalise`` and, per chunk, after ``stft``, ``slice``
     and ``xcorr2d``; it must not synchronize."""
     hook = stage_hook or (lambda name: None)
-    engine = spectral.resolve_stft_engine(stft_engine)
+    engine = spectral.check_stft_engine(stft_engine)
     if batch_channels is None:
         batch_channels = FUSED_DEFAULT_BATCH if engine == "fused" else RFFT_DEFAULT_BATCH
     nperseg = int(win_size * fs)
@@ -245,6 +245,13 @@ class SpectroCorrDetector:
     overlap, HF/LF hat kernels, absolute pick threshold 14. Plain
     counters on the instance: ``syncs`` (device->host reads) and
     ``escalations`` (K0 -> K reruns, one per kernel that saturated).
+
+    ``stft_engine``: ``"fused"`` (the kernel), ``"rfft"`` or ``"matmul"``
+    forced; None takes ``DAS4WHALES_STFT_ENGINE``, else ``"fused"``;
+    ``"auto"`` runs ``ops.mxu.resolve_stft_engine_ab`` at the first
+    block's shape (``"rfft"`` off a CUDA device, where it resolves at
+    once). The resolved engine and its reason land on ``stft_engine`` /
+    ``stft_engine_reason``.
     """
 
     def __init__(
@@ -269,9 +276,26 @@ class SpectroCorrDetector:
         self.threshold = threshold
         self.max_peaks = max_peaks
         self.batch_channels = batch_channels
-        # a forced "rfft" or "fused" as given, None/"auto" to "fused"
-        self.stft_engine = spectral.resolve_stft_engine(stft_engine)
+        self._stft_engine_req = stft_engine
+        self.stft_engine: str | None = None
+        self.stft_engine_reason: str | None = None
+        self.resolve_engine()
         self.syncs = self.escalations = 0
+
+    def resolve_engine(self, trace_shape=None) -> str | None:
+        """The STFT engine, resolved once and cached: a forced engine (or
+        ``"auto"`` off a CUDA device) at construction, ``"auto"`` on the
+        card at the sweep's ``[C, T]`` shape, the first block's."""
+        if self.stft_engine is None:
+            req = mxu.requested_stft_engine(self._stft_engine_req)
+            if req == "auto" and self.device.type == "cuda" and trace_shape is None:
+                return None
+            C, T = (0, 0) if trace_shape is None else tuple(trace_shape[-2:])
+            nperseg = int(self.win_size * self.metadata.fs)
+            nhop = max(1, int(np.floor(nperseg * (1 - self.overlap_pct))))
+            self.stft_engine, self.stft_engine_reason = mxu.resolve_stft_engine_ab(
+                req, C, T, nperseg, nhop, device=self.device)
+        return self.stft_engine
 
     def tiled_view(self) -> "SpectroCorrDetector":
         """A shallow view sweeping the spectrogram in smaller channel
@@ -306,6 +330,7 @@ class SpectroCorrDetector:
         the stage names reaching ``stage_hook`` are prefixed with the
         kernel's name (``"HF.stft"``)."""
         x = torch.as_tensor(trf_fk).to(self.device, torch.float32)
+        self.resolve_engine(x.shape)
         out = {}
         for name, ker in self.kernels.items():
             hook = None if stage_hook is None else (

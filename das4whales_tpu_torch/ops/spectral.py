@@ -7,6 +7,7 @@ the port's copy of ``das4whales_tpu.ops.spectral``. ``unwrap`` is
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Tuple
 
@@ -118,38 +119,73 @@ def stft(x: torch.Tensor, n_fft: int, hop: int, *, window: str = "hann",
 
 
 #: STFT-magnitude engines of the port. ``"rfft"`` is the batched-FFT
-#: path (:func:`stft`); ``"fused"`` the CUDA kernel of ``ops.fused_stft``
-#: (the counterpart of the JAX package's ``"pallas"``), its plain version
-#: on a CPU tensor; ``"matmul"`` is not in the port yet.
+#: path (:func:`stft`); ``"matmul"`` the framed windowed-DFT product
+#: (:func:`stft_magnitude_matmul`); ``"fused"`` the CUDA kernel of
+#: ``ops.fused_stft`` (the counterpart of the JAX package's ``"pallas"``),
+#: its plain version on a CPU tensor.
 STFT_ENGINES = ("rfft", "matmul", "fused")
 
 
-def resolve_stft_engine(engine: str | None = "auto") -> str:
-    """``None`` and ``"auto"`` resolve to ``"fused"`` on every device (on
-    the CPU that runs the kernel's plain version); ``"rfft"`` and
-    ``"fused"`` pass through; ``"matmul"`` raises ``NotImplementedError``."""
-    if engine is None or engine == "auto":
-        return "fused"
-    if engine == "matmul":
-        raise NotImplementedError(
-            "stft engine 'matmul' is not in this slice of the port; it comes with "
-            "the ROADMAP item 'Matmul engines' (ROADMAP.md, 'Open items', 1)"
-        )
+def check_stft_engine(engine: str) -> str:
+    """``engine`` when it is one of :data:`STFT_ENGINES`, else
+    ``ValueError``. The functions here take a concrete engine only: the
+    default, ``DAS4WHALES_STFT_ENGINE`` and ``"auto"`` are resolved in one
+    place, ``ops.mxu.resolve_stft_engine_ab``."""
     if engine not in STFT_ENGINES:
-        raise ValueError(f"unknown stft engine {engine!r}; expected one of "
-                         f"{STFT_ENGINES + ('auto',)}")
+        raise ValueError(f"unknown stft engine {engine!r}; expected one of {STFT_ENGINES} "
+                         "(resolve 'auto' with ops.mxu.resolve_stft_engine_ab)")
     return engine
 
 
+@functools.lru_cache(maxsize=8)
+def _stft_matmul_matrix(nfft: int) -> np.ndarray:
+    """The windowed real-DFT matrix ``[nfft, 2F]``, cos | sin halves for
+    bins ``0..nfft//2`` with the periodic Hann folded in: ``frames @ M``
+    is (re | -im) of ``rfft(frames * win)``. Float64 angle grid, cast to
+    float32 once an ``nfft``; read-only (the cache shares it)."""
+    k = np.arange(nfft)[:, None]
+    f = np.arange(nfft // 2 + 1)[None, :]
+    ang = 2.0 * np.pi * k * f / nfft
+    win = 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(nfft) / nfft)
+    out = np.concatenate([np.cos(ang) * win[:, None], np.sin(ang) * win[:, None]],
+                         axis=1).astype(np.float32)
+    out.flags.writeable = False
+    return out
+
+
+def stft_magnitude_matmul(x: torch.Tensor, nfft: int, hop: int) -> torch.Tensor:
+    """``|STFT|`` of ``x [..., T]`` as the framed ``[frames, tap] @ [tap,
+    2F]`` product: the framing of :func:`stft` (centred, zero-padded), the
+    window and the DFT in one matrix (:func:`_stft_matmul_matrix`), the
+    magnitude as ``sqrt(re*re + im*im)``. ``[..., nfft//2 + 1, frames]``,
+    equal to ``abs(stft(...))`` up to matmul-against-FFT rounding."""
+    n = x.shape[-1]
+    n_frames = 1 + n // hop
+    xp = F.pad(x, (nfft // 2, nfft // 2))
+    need = (n_frames - 1) * hop + nfft
+    if xp.shape[-1] < need:
+        # an odd nfft leaves the last frame one sample short: it reads zero
+        xp = F.pad(xp, (0, need - xp.shape[-1]))
+    frames = xp.unfold(-1, nfft, hop)[..., :n_frames, :]      # [..., frames, nfft]
+    mat = torch.tensor(_stft_matmul_matrix(nfft), device=x.device)
+    proj = torch.matmul(frames.to(torch.float32), mat)         # [..., frames, 2F]
+    nf = nfft // 2 + 1
+    re, im = proj[..., :nf], proj[..., nf:]
+    return torch.sqrt(re * re + im * im).to(x.dtype).transpose(-1, -2)
+
+
 def stft_magnitude(x: torch.Tensor, nfft: int, hop: int, *,
-                   engine: str | None = "auto") -> torch.Tensor:
+                   engine: str = "fused") -> torch.Tensor:
     """``|STFT|`` of ``x [..., T]``, ``[..., nfft//2 + 1, n_frames]``,
     centred, periodic Hann. ``"rfft"``: ``abs`` of :func:`stft`;
-    ``"fused"``: ``sqrt`` of the kernel's power (``ops.fused_stft``) —
-    each engine keeps its own form, as in the JAX package."""
-    engine = resolve_stft_engine(engine)
+    ``"matmul"``: :func:`stft_magnitude_matmul`; ``"fused"``: ``sqrt`` of
+    the kernel's power (``ops.fused_stft``) — each engine keeps its own
+    form, as in the JAX package."""
+    engine = check_stft_engine(engine)
     if engine == "rfft":
         return torch.abs(stft(x, nfft, hop))
+    if engine == "matmul":
+        return stft_magnitude_matmul(x, nfft, hop)
     from .fused_stft import stft_power
 
     lead = tuple(x.shape[:-1])

@@ -50,14 +50,13 @@ operations and bytes counted stage by stage.
 
 from __future__ import annotations
 
-import math
 from typing import Callable, Dict, List
 
 import numpy as np
 import torch
 
 from ..eval import GaborEvalAdapter, SpectroEvalAdapter
-from ..models.learned import LearnedDetector
+from ..models.learned import FEATURE_STFT_ENGINE, LearnedDetector
 from ..models.matched_filter import (
     InFlightResult,
     MatchedFilterDetector,
@@ -70,13 +69,11 @@ from ..models.matched_filter import (
 from ..ops import health as health_ops
 from ..ops import peaks as peak_ops
 from ..ops.xcorr import next_fast_len
+from ..telemetry import costs
 from ..utils.memory import ProgramSpec
 
 
-def _rfft_ops(n: int) -> float:
-    """Operations of one real FFT of length ``n``: 2.5 n log2 n (half a
-    complex one's 5 n log2 n)."""
-    return 2.5 * n * math.log2(max(n, 2))
+_rfft_ops = costs.rfft_ops
 
 
 def _counted(stages: list) -> dict:
@@ -89,14 +86,11 @@ def _counted(stages: list) -> dict:
 
 
 def _fk_stage(mf: MatchedFilterDetector, B: int) -> tuple:
-    """The f-k filter's counted row for ``B`` files on ``mf``'s design:
-    the rfft in time, the banded FFT in channel and back, the mask, the
-    inverse rfft."""
+    """The f-k filter's counted row for ``B`` files on ``mf``'s design and
+    f-k engine (``telemetry.costs.fk_stage``)."""
     C, T = mf.design.trace_shape
-    Fb = int(mf._band_hi - mf._band_lo)
-    Cf = int(mf.design.fk_channels)
-    return ("fk", 2 * B * _rfft_ops(T) * C + 2 * B * Fb * 2 * _rfft_ops(Cf) + 6.0 * B * Cf * Fb,
-            B * (2 * C * T * 4 + 2 * Cf * Fb * 8) + Cf * Fb * 4, 0.0)
+    return costs.fk_stage(mf.fk_engine, B, C, T, int(mf.design.fk_channels),
+                          int(mf._band_hi - mf._band_lo))
 
 
 def _fk_sizing(mf: MatchedFilterDetector) -> tuple:
@@ -197,15 +191,18 @@ class BatchedMatchedFilterDetector:
         cap = int(min(C * det.max_peaks, det.pick_pack_cap))
         thr_in = torch.zeros((nT,), dtype=torch.float32, device=det.device)
         tile = det.effective_channel_tile if det._route() == "tiled" else None
+        # the detector's engines: the matmul f-k's DFT pair and the tap-fold
+        # pair serve every file of the slab
+        mask, staged_bp, engine_kw = det._program_inputs()
         kw = dict(
             band_lo=det._band_lo, band_hi=det._band_hi, bp_padlen=det.design.bp_padlen,
-            staged_bp=not det.fused_bandpass, tile=tile, pad_rows=det.fk_pad_rows,
+            staged_bp=staged_bp, tile=tile, pad_rows=det.fk_pad_rows,
             capacity=cap, use_threshold=False,
             condition=det.wire == "raw", cond_scale=det._cond_scale,
             thr_scope=det.threshold_scope, with_health=with_health, health_clip=health_clip,
-            stage_hook=stage_hook,
+            stage_hook=stage_hook, **engine_kw,
         )
-        arrays = (det._mask_band, det._bp_gain, det._templates_true, det._template_mu,
+        arrays = (mask, det._bp_gain, det._templates_true, det._template_mu,
                   det._template_scale, thr_in, det._thr_factors)
         return arrays, kw, cap
 
@@ -240,10 +237,8 @@ class BatchedMatchedFilterDetector:
             # the raw wire's demean and scale, or the conditioned wire's cast
             ("condition", 3.0 * rows_in * T, rows_in * T * (itemsize + 4), 0.0),
             _fk_stage(det, B),
-            # one forward FFT a channel, nT products and inverse FFTs
-            ("correlate", rows_in * _rfft_ops(n_corr)
-             + rows_c * (6.0 * (n_corr // 2 + 1) + _rfft_ops(n_corr)),
-             rows_in * T * 4 + nT * (n_corr // 2 + 1) * 8 + rows_c * T * 4, 0.0),
+            costs.correlate_stage(det.mf_engine, rows_in, nT, T,
+                                  int(det._templates_true.shape[-1]), n_corr, det._mf_fir_half),
             # the threshold's max over each file's correlograms
             ("threshold", 1.0 * rows_c * T, rows_c * T * 4, 0.0),
             # the analytic signal: rfft, the one-sided mask, complex ifft
@@ -258,7 +253,7 @@ class BatchedMatchedFilterDetector:
         key = ("mf", C, T, B, np.dtype(stack_dtype).name, bool(with_health), nT,
                int(det.design.templates.shape[-1]), K, cap, kw["tile"], kw["pad_rows"],
                _fk_sizing(det), det.threshold_scope, bool(self.serial), det.wire,
-               str(det.device))
+               str(det.device), det.mf_engine, det.fk_engine)
         return ProgramSpec(family="mf", run=run, shape=(B, C, T), dtype=np.dtype(stack_dtype),
                            device=det.device, key=key, **_counted(stages))
 
@@ -604,10 +599,8 @@ class BatchedLearnedDetector(_BatchedFamilyDetector):
 
     @property
     def engine(self) -> str:
-        """The resolved STFT engine the features ride."""
-        from ..ops import spectral
-
-        return spectral.resolve_stft_engine()
+        """The STFT engine the features ride."""
+        return FEATURE_STFT_ENGINE
 
     def _heavy(self, stack):
         det = self.det

@@ -29,6 +29,7 @@ attribute check. Pure stdlib at import.
 
 from __future__ import annotations
 
+import math
 import os
 import threading
 from dataclasses import dataclass, replace
@@ -38,10 +39,61 @@ from . import metrics
 
 __all__ = [
     "CostCard", "DevicePeaks", "KNOWN_PEAKS", "REGISTRY", "bucket_label",
-    "capture_batched", "cards_payload", "device_name", "device_peaks", "disable",
-    "enable", "enabled", "ensure_batched_card", "export_json", "note_slab_resolved",
-    "reset", "resolve_enabled", "sample_hbm",
+    "capture_batched", "cards_payload", "correlate_stage", "device_name", "device_peaks",
+    "disable", "enable", "enabled", "ensure_batched_card", "export_json", "fk_stage",
+    "note_slab_resolved", "reset", "resolve_enabled", "rfft_ops", "sample_hbm",
 ]
+
+
+# ---------------------------------------------------------------------------
+# Counted stages of the matched filter, engine by engine
+# ---------------------------------------------------------------------------
+
+
+def rfft_ops(n: int) -> float:
+    """Operations of one real FFT of length ``n``: 2.5 n log2 n (half a
+    complex one's 5 n log2 n)."""
+    return 2.5 * n * math.log2(max(n, 2))
+
+
+def fk_stage(engine: str, B: int, C: int, T: int, Cf: int, Fb: int) -> tuple:
+    """The f-k filter's ``(name, operations, bytes, transcendentals)`` row
+    for ``B`` files of ``[C, T]`` on an f-k grid of ``Cf`` channels and
+    ``Fb`` in-band rfft bins. Both engines take the rfft in time and its
+    inverse; ``"fft"`` then the banded channel FFT pair and the mask,
+    ``"matmul"`` eight real ``[Cf, Cf] @ [Cf, Fb]`` products and the mask,
+    reading the two ``[Cf, Cf]`` DFT matrices once."""
+    time_ops = 2 * B * rfft_ops(T) * C
+    block = B * 2 * C * T * 4
+    if engine == "matmul":
+        return ("fk", time_ops + 8 * 2.0 * Cf * Cf * Fb * B + 2.0 * B * Cf * Fb,
+                block + 2 * Cf * Cf * 4 + 2 * B * Cf * Fb * 8 + Cf * Fb * 4, 0.0)
+    return ("fk", time_ops + 2 * B * Fb * 2 * rfft_ops(Cf) + 6.0 * B * Cf * Fb,
+            block + 2 * B * Cf * Fb * 8 + Cf * Fb * 4, 0.0)
+
+
+def correlate_stage(engine: str, rows: int, nT: int, T: int, m: int, n_corr: int,
+                    fir_half: int = 0) -> tuple:
+    """The correlate's ``(name, operations, bytes, transcendentals)`` row
+    for ``rows`` channels of ``T`` samples against ``nT`` templates of
+    ``m`` taps. ``"fft"``: one forward FFT of length ``n_corr`` a channel,
+    ``nT`` products and inverse FFTs. The matmul engines: the Toeplitz
+    contraction's ``2 rows T m nT`` operations (``"matmul-bf16"`` counts
+    the same; only its inputs round); ``"matmul-fused"``: ``nT + 1`` rows
+    of ``m + 2L`` taps over ``T + m - 1`` lags (the bandpassed block and
+    its ring-down ride the same contraction). Each input read once, each
+    correlogram written once."""
+    out_b = nT * rows * T * 4
+    if engine in ("matmul", "matmul-bf16"):
+        return ("correlate", 2.0 * rows * T * m * nT + 6.0 * rows * T * nT,
+                rows * T * 4 + nT * m * 4 + out_b, 0.0)
+    if engine == "matmul-fused":
+        P = m + 2 * int(fir_half)
+        return ("correlate", 2.0 * rows * (T + m - 1) * P * (nT + 1) + 8.0 * rows * T * nT,
+                rows * T * 4 + (nT + 1) * P * 4 + out_b, 0.0)
+    return ("correlate", rows * rfft_ops(n_corr) + nT * rows * (6.0 * (n_corr // 2 + 1)
+                                                               + rfft_ops(n_corr)),
+            rows * T * 4 + nT * (n_corr // 2 + 1) * 8 + out_b, 0.0)
 
 
 @dataclass(frozen=True)

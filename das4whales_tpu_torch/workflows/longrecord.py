@@ -24,7 +24,10 @@ and picks from the scores.
 Picks come back with sample indices from the first file's start. Multi-
 device meshes, the spectro and Gabor families and the staged (halo)
 bandpass raise ``NotImplementedError`` naming the ROADMAP item
-'Multi-GPU'; engines other than ``"fft"`` name 'Matmul engines'.
+'Multi-GPU'. ``mf_engine`` goes through ``ops.mxu.resolve_mf_engine``
+on the record's device, as the campaigns' detectors do (None: the FFT
+route; ``"matmul-fused"`` has no bandpass FIR here and runs as the
+float32 matmul, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ from ..config import SCRIPT_FK, as_metadata
 from ..config import not_in_slice as _not_in_slice
 from ..io.stream import stream_strain_blocks
 from ..models.matched_filter import design_matched_filter
-from ..ops import conditioning, spectral, xcorr
+from ..ops import conditioning, mxu, spectral, xcorr
 from ..ops import fk as fk_ops
 from ..ops import peaks as peak_ops
 from ..ops.filters import butter_zero_phase_gain_full
@@ -102,7 +105,7 @@ def _pack_record_picks(positions: torch.Tensor, selected: torch.Tensor, ns_eff: 
     return peak_ops.compact_picks_rowmajor(positions, sel, capacity)
 
 
-def _check_settings(family, wire, fam_kw, fused_bandpass, mesh, mf_engine):
+def _check_settings(family, wire, fam_kw, fused_bandpass, mesh):
     if family not in ("mf", "spectro", "gabor", "learned"):
         raise ValueError(f"unknown family {family!r}")
     if wire not in ("conditioned", "raw"):
@@ -136,8 +139,6 @@ def _check_settings(family, wire, fam_kw, fused_bandpass, mesh, mf_engine):
     if family == "mf" and not fused_bandpass:
         raise _not_in_slice("detect_long_record(fused_bandpass=False) (the halo bandpass)",
                             "Multi-GPU")
-    if family == "mf" and mf_engine not in (None, "auto", "fft"):
-        raise _not_in_slice(f"mf_engine={mf_engine!r}", "Matmul engines")
 
 
 def detect_long_record(
@@ -186,7 +187,7 @@ def detect_long_record(
     fam_kw = dict(family_kwargs or {})
     if fused_bandpass is None:
         fused_bandpass = family == "mf"
-    _check_settings(family, wire, fam_kw, fused_bandpass, mesh, mf_engine)
+    _check_settings(family, wire, fam_kw, fused_bandpass, mesh)
     files = list(files)
     if not files:
         raise ValueError("need at least one file")
@@ -223,8 +224,11 @@ def detect_long_record(
     hook("design")
     names = design.template_names
     fac, thr_scope = design.resolve_threshold_policy(hf_factor)
+    engine, _why = mxu.resolve_mf_engine(mf_engine, design.trace_shape,
+                                         *xcorr.padded_template_stats(design.templates),
+                                         device=dev)
     picks_sp, thres = _mf_record_picks(x, blocks, design, meta, wire, fac, thr_scope,
-                                       relative_threshold, max_peaks_per_channel, hook)
+                                       relative_threshold, max_peaks_per_channel, hook, engine)
     del x
 
     ns_eff = n_samples
@@ -265,9 +269,10 @@ def detect_long_record(
                             t0_utc=blocks[0].t0_utc, n_samples=n_samples, n_files=len(files))
 
 
-def _mf_record_correlograms(x, blocks, design, meta, wire, hook) -> torch.Tensor:
+def _mf_record_correlograms(x, blocks, design, meta, wire, hook, engine="fft") -> torch.Tensor:
     """Conditioning (raw wire), the fused bandpass/f-k pass and the
-    correlate over the whole record: ``[nT, C, T]`` correlograms."""
+    correlate on ``engine`` over the whole record: ``[nT, C, T]``
+    correlograms."""
     dev = x.device
     nnx, nns = x.shape
     if wire == "raw":
@@ -307,17 +312,17 @@ def _mf_record_correlograms(x, blocks, design, meta, wire, hook) -> torch.Tensor
     hook("fk")
 
     t_true, t_mu, t_scale = xcorr.padded_template_stats(design.templates)
-    return xcorr.compute_cross_correlograms_corrected(
+    return mxu.correlograms_body(
         trf, torch.as_tensor(t_true, device=dev), torch.as_tensor(t_mu, device=dev),
-        torch.as_tensor(t_scale, device=dev))
+        torch.as_tensor(t_scale, device=dev), engine)
 
 
 def _mf_record_picks(x, blocks, design, meta, wire, fac, thr_scope, relative_threshold,
-                     max_peaks, hook):
+                     max_peaks, hook, engine="fft"):
     """The matched-filter step over the whole record: ``(SparsePicks
     [nT, C, K], threshold base)`` (a scalar under the global scope, one a
     template under ``per_template``)."""
-    corr = _mf_record_correlograms(x, blocks, design, meta, wire, hook)
+    corr = _mf_record_correlograms(x, blocks, design, meta, wire, hook, engine)
     factors = torch.as_tensor(fac, device=corr.device)
     if thr_scope == "per_template":
         thres = relative_threshold * corr.amax(dim=(1, 2))

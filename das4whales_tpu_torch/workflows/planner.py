@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from .. import faults
+from ..ops.mxu import engine_labels
 from ..telemetry import trace as telemetry
 from ..utils.log import get_logger
 
@@ -68,19 +69,6 @@ def thresholds_for(result, picks) -> Dict[str, float]:
     if thresholds is None:
         return {name: float("nan") for name in picks}
     return dict(thresholds)
-
-
-def engine_labels(detector) -> Dict[str, str]:
-    """The resolved engine labels a detector rides (empty for families
-    without engine routing), stamped into the ladder's downshift events
-    so every rung's route is auditable."""
-    out = {}
-    for attr in ("mf_engine", "fk_engine", "pick_engine", "stft_engine",
-                 "gabor_engine"):
-        val = getattr(detector, attr, None)
-        if val:
-            out[attr] = str(val)
-    return out
 
 
 class DetectorProgram:

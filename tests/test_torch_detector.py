@@ -155,7 +155,18 @@ def test_detector_designs_like_jax_and_dispatches(scenes):
     {"mf_engine": "matmul"}, {"mf_engine": "auto"}, {"fk_engine": "matmul"},
     {"mf_engine": "matmul-fused"}, {"fk_engine": "auto"},
 ])
-def test_settings_outside_the_slice_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchDetector(SyntheticScene(nx=24, ns=900).metadata, [0, 24, 1], (24, 900),
-                      device="cpu", **kw)
+def test_settings_outside_the_slice_raise(kw, tmp_path, monkeypatch):
+    # the engine settings came with the matmul engines (ops.mxu): each one
+    # builds and resolves (forced as given, a gated engine to itself or to
+    # its float32 fallback, "auto" to the FFT route on the CPU), and the
+    # same setting with an unknown engine raises
+    monkeypatch.setenv("DAS_CALIBRATION_CACHE", str(tmp_path / "cal.json"))
+    meta = SyntheticScene(nx=24, ns=900).metadata
+    det = TorchDetector(meta, [0, 24, 1], (24, 900), device="cpu", **kw)
+    (key, value), = kw.items()
+    want = {"auto": ("fft",), "matmul-fused": ("matmul-fused", "matmul")}.get(value, (value,))
+    assert getattr(det, key) in want, getattr(det, f"{key}_reason")
+    if value == "auto":
+        assert "no MXU" in getattr(det, f"{key}_reason")
+    with pytest.raises(ValueError, match=key):
+        TorchDetector(meta, [0, 24, 1], (24, 900), device="cpu", **{key: "nope"})

@@ -267,7 +267,12 @@ def test_absolute_threshold_override_matches_jax(ref):
 def test_engine_resolution_and_conv_engine(ref, monkeypatch):
     det = tg.GaborDetector(TMETA, SEL, device="cpu", **KW)
     assert det.resolve_engine((NX, NS)) == "fft"
-    assert "'cpu'" in det.gabor_engine_reason and "Matmul engines" in det.gabor_engine_reason
+    # the default is the FFT route, forced; "auto" runs the A/B router,
+    # which off a CUDA device is the FFT route with the JAX package's reason
+    assert det.gabor_engine_reason == "forced"
+    auto = tg.GaborDetector(TMETA, SEL, device="cpu", gabor_engine="auto")
+    assert auto.resolve_engine((NX, NS)) == "fft"
+    assert "'cpu'" in auto.gabor_engine_reason and "no MXU" in auto.gabor_engine_reason
     monkeypatch.setenv("DAS_GABOR_ENGINE", "conv")
     conv = convert.gabor_detector_from_jax(ref["fields"], TMETA, device="cpu")
     assert conv.resolve_engine() == "conv" and conv.gabor_engine_reason == "forced"

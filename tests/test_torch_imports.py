@@ -58,7 +58,7 @@ def test_the_scan_covers_every_module_of_the_port():
                 "utils/memory.py", "telemetry/slo.py", "telemetry/quality.py",
                 "telemetry/costs.py", "service/__init__.py", "service/ingest.py",
                 "service/scheduler.py", "service/api.py", "service/runner.py",
-                "__main__.py"):
+                "__main__.py", "ops/mxu.py"):
         assert f"das4whales_tpu_torch/{mod}" in scanned
     assert "chip_smoke.py" in scanned
 

@@ -220,10 +220,12 @@ def test_settings_outside_the_slice_raise(campaign):
                      ({"mesh": ["cuda:0", "cuda:1"]}, "Multi-GPU"),
                      ({"family": "spectro"}, "Multi-GPU"),
                      ({"family": "gabor"}, "Multi-GPU"),
-                     ({"fused_bandpass": False}, "Multi-GPU"),
-                     ({"mf_engine": "matmul"}, "Matmul engines")):
+                     ({"fused_bandpass": False}, "Multi-GPU")):
         with pytest.raises(NotImplementedError, match=item):
             tlr.detect_long_record(paths, SEL, device="cpu", **kw)
+    # the correlate engines come through ops.mxu's router
+    with pytest.raises(ValueError, match="mf_engine"):
+        tlr.detect_long_record(paths, SEL, device="cpu", mf_engine="nope")
     with pytest.raises(ValueError, match="at least one file"):
         tlr.detect_long_record([], SEL, device="cpu")
     with pytest.raises(ValueError, match="learned"):

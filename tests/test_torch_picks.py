@@ -193,11 +193,19 @@ def test_escalation_policy_and_kernel_needs_cuda():
 
 
 def test_magnitude_is_the_kernel_envelope():
+    # three roundings, never a hypot: bitwise torch's sqrt of the sum of
+    # squares, which numpy forms bit for bit; torch's vectorised float32
+    # sqrt is not correctly rounded on every CPU, so against numpy's
+    # correctly rounded sqrt it is held within one float32 ulp
     rng = np.random.default_rng(4)
     z = torch.complex(torch.from_numpy(rng.normal(size=50).astype(np.float32)),
                       torch.from_numpy(rng.normal(size=50).astype(np.float32)))
-    np.testing.assert_array_equal(tspec.magnitude_sqrt(z).numpy(),
-                                  np.sqrt(z.real.numpy() ** 2 + z.imag.numpy() ** 2))
+    re, im = z.real.numpy(), z.imag.numpy()
+    sq = re * re + im * im
+    got = tspec.magnitude_sqrt(z).numpy()
+    np.testing.assert_array_equal(got, torch.sqrt(torch.from_numpy(sq)).numpy())
+    ulps = np.abs(got.view(np.int32).astype(np.int64) - np.sqrt(sq).view(np.int32))
+    assert ulps.max() <= 1, ulps.max()
 
 
 # --- a numpy model of the CUDA kernel's candidate logic -----------------------

@@ -254,9 +254,18 @@ def test_engine_resolution():
     meta = tcfg.AcquisitionMetadata(fs=200.0, dx=2.042, nx=4, ns=2000)
     det = ts.SpectroCorrDetector(meta, device="cpu")
     assert det.stft_engine == "fused"
-    assert ts.SpectroCorrDetector(meta, stft_engine="auto", device="cpu").stft_engine == "fused"
-    with pytest.raises(NotImplementedError, match="Matmul engines"):
-        ts.SpectroCorrDetector(meta, stft_engine="matmul", device="cpu")
+    # "auto" runs the A/B router: the rFFT route off a CUDA device
+    auto = ts.SpectroCorrDetector(meta, stft_engine="auto", device="cpu")
+    assert auto.stft_engine == "rfft" and "no MXU" in auto.stft_engine_reason
+    assert ts.SpectroCorrDetector(meta, stft_engine="matmul", device="cpu").stft_engine == "matmul"
+    with pytest.raises(ValueError, match="unknown stft engine"):
+        ts.SpectroCorrDetector(meta, stft_engine="nope", device="cpu")
+    # "auto" is the detector's word (ops.mxu.resolve_stft_engine_ab); the
+    # correlogram function takes the resolved engine only
+    with pytest.raises(ValueError, match="unknown stft engine"):
+        ts.compute_cross_correlogram_spectrocorr(torch.zeros((2, 2000)), 200.0, (14.0, 30.0),
+                                                 tcfg.SPECTRO_HF_KERNEL, 0.8, 0.95,
+                                                 stft_engine="auto")
     with pytest.raises(KeyError, match="spectro fields missing"):
         convert.spectro_from_jax_config({"flims": (14.0, 30.0)}, meta, device="cpu")
 

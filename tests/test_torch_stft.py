@@ -135,15 +135,23 @@ def test_stft_magnitude_engines_match_jax(engine, jax_engine):
     _assert_rel(ref, got, POWER_REL)
 
 
-def test_stft_engine_vocabulary():
+def test_stft_engine_vocabulary(monkeypatch):
+    from das4whales_tpu_torch.ops import mxu
+
     assert spectral.STFT_ENGINES == ("rfft", "matmul", "fused")
-    assert spectral.resolve_stft_engine(None) == "fused"
-    assert spectral.resolve_stft_engine("auto") == "fused"
-    assert spectral.resolve_stft_engine("rfft") == "rfft"
-    with pytest.raises(NotImplementedError, match="Matmul engines"):
-        spectral.resolve_stft_engine("matmul")
-    with pytest.raises(ValueError):
-        spectral.resolve_stft_engine("pallas")
+    for eng in spectral.STFT_ENGINES:
+        assert spectral.check_stft_engine(eng) == eng
+    # the default, the environment and "auto" resolve in one place
+    # (ops.mxu.resolve_stft_engine_ab); the functions here take a concrete
+    # engine only, so no word means two routes
+    monkeypatch.delenv("DAS4WHALES_STFT_ENGINE", raising=False)
+    assert mxu.resolve_stft_engine_ab(None, 8, 900, 160, 8, device="cpu") == ("fused", "forced")
+    monkeypatch.setenv("DAS4WHALES_STFT_ENGINE", "auto")
+    assert mxu.resolve_stft_engine_ab(None, 8, 900, 160, 8, device="cpu")[0] == "rfft"
+    x = torch.zeros((2, 400))
+    for bad in ("auto", None, "pallas"):
+        with pytest.raises(ValueError, match="unknown stft engine"):
+            spectral.stft_magnitude(x, 160, 8, engine=bad)
 
 
 def test_each_kernel_builds_with_its_own_flags():
