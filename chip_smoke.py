@@ -6,12 +6,14 @@
 Builds the port's two CUDA kernels from ``das4whales_tpu_torch/csrc`` with
 ``nvcc`` (sm_90a) and the native ingest reader from
 ``das4whales_tpu_torch/native/ingest.cpp`` with ``g++``, then runs
-thirty-one phases, one summary line each (more for the detector runs, with their
+thirty-three phases, one summary line each (more for the detector runs, with their
 profiles), and exits non-zero at the first failed check; no phase's
 failure is caught:
 
 1. ``device``   the card's name and power limit (``nvidia-smi``), torch and
-                CUDA versions; no CUDA device -> exit 1, nothing else runs;
+                CUDA versions, and which of h5py, pandas and matplotlib import
+                here (printed, not required); no CUDA device -> exit 1,
+                nothing else runs;
 2. ``build``    the ``nvcc`` builds of ``csrc/fused_picks.cu`` and
                 ``csrc/fused_stft.cu`` and the ``g++`` build of
                 ``native/ingest.cpp``, started together, each one's seconds
@@ -90,7 +92,8 @@ failure is caught:
                 pinned memory on a side stream, and detected by
                 ``BatchedMatchedFilterDetector.dispatch_batch(...,
                 with_health=True)`` in the batched and the serial mode (a
-                warm-up pass, then a timed pass each); per file the picks
+                timed pass each, the batched mode after a warm-up pass, the
+                serial mode after one noise slab); per file the picks
                 must equal ``detect_picks`` on the same card (serial:
                 bitwise; batched: thresholds within 1 ulp), every injected
                 call be picked, the health show 0 non-finite, 0 clipped,
@@ -132,8 +135,10 @@ failure is caught:
                 bitwise the slab phase's batched picks, every injected call
                 picked; then the same call again (resume) settles nothing
                 and reads nothing, ``summarize_campaign`` counts 5 done and
-                ``fsck_outdir`` finds nothing. It prints the pass a file,
-                the bucket's design seconds, the picks-artifact and
+                ``fsck_outdir`` finds nothing (on the slab phase's design
+                of the bucket, ``design=``, where that phase ran). It
+                prints the pass a file, the bucket's detector seconds, the
+                picks-artifact and
                 manifest write seconds, the peak device memory and the busy
                 share of one slab of the campaign's facade (profiler);
 16. ``campaign_cpu_vs_card`` both entries at 512 x 12000 on the card
@@ -307,7 +312,41 @@ failure is caught:
                 thresholds rtol 1e-5 (bf16: 1e-3), picks up to 1e-5 knife
                 edges (bf16: the margin its bound implies) where both
                 resolved the same engine, the gate verdicts side by side
-                (a difference is reported, not failed).
+                (a difference is reported, not failed);
+32. ``workflows`` the workflow mains as a user calls them: the flagship
+                ``workflows.mfdetect.main(path, interrogator="silixa")`` at
+                22050 x 12000 on a canonical Silixa TDMS file (raw int32,
+                the canonical six calls, seed 2026) in a spawned process that
+                runs beside phases 16-31's card-vs-CPU checks (its f-k
+                design takes tens of seconds of host): stage walls, 44
+                ``fused_picks`` launches an attempt bitwise plain at the first
+                and last, peak memory, every injected call picked, then the
+                detection figure's envelope (``viz.plot.envelope_np``);
+                then, in the same process, ``spectrodetect``, ``gabordetect``,
+                ``fkcomp``, ``plots`` and ``bathynoise`` at 2048 x 12000:
+                walls and launches, both
+                kernels held against their plain versions at their first and
+                last launch, every call picked where the family picks,
+                bathynoise's stats against float64 on the host; and ``python
+                -m das4whales_tpu_torch`` as subprocesses (on a thread beside
+                the same phases): ``list``, ``evaluate --family mf``,
+                ``longrecord --interrogator silixa``, ``mfdetect --outdir`` and
+                ``campaign`` at 2048 channels (their PNG files, JAX's names;
+                where matplotlib is missing both must exit 2 naming it before
+                reading the file), ``fsck``;
+33. ``workflows_cpu_vs_card`` each main at 512 x 12000 on the card against
+                ``device="cpu"``: thresholds rtol 1e-5, ``trf_fk``, the
+                envelopes the detection figures draw, the spectrogram (its
+                linear magnitude), the f-x panels (on one input) and fkcomp's
+                filtered blocks within 1e-5 * max, fkcomp's SNR within 0.01 dB where within
+                60 dB of its max, bathynoise's mean and std within 1e-5
+                relative, its median within 1e-5 relative or within its row's
+                largest envelope difference (an order statistic moves no more
+                than the samples do), its dB within 1e-3, picks up to knife
+                edges; the
+                ten image ops of ``ops.image`` on the Gabor family's binned
+                image within 1e-5 * max (Radon 1e-4), Canny up to counted
+                knife edges, Hough equal on the same edge map.
 
 Then it prints each phase's seconds, the kernel table as one JSON line, the run's total
 seconds, the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. It imports no JAX and nothing
@@ -319,6 +358,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import importlib
 import json
 import os
 import statistics
@@ -362,11 +402,21 @@ def phase_device():
     _SMI["line"] = smi_line
     say(f"device: {smi_line} | torch {torch.__version__} | CUDA {torch.version.cuda} "
         f"| {torch.cuda.device_count()} device(s)")
+    for name in ("h5py", "pandas", "matplotlib"):
+        try:
+            importlib.import_module(name)
+            _PKGS[name] = True
+        except ImportError:
+            _PKGS[name] = False
+    say("device: packages on this machine: "
+        + ", ".join(f"{k} {'imports' if v else 'missing'}" for k, v in _PKGS.items()))
     return smi_line
 
 
 #: the card's ``nvidia-smi`` name and power limit, kept by ``phase_device``
 _SMI: dict = {}
+#: whether h5py, pandas and matplotlib import here, kept by ``phase_device``
+_PKGS: dict = {}
 
 
 KERNELS = ("fused_picks", "fused_stft")
@@ -1874,9 +1924,17 @@ def phase_slab():
     for mode, serial in (("batched", False), ("serial", True)):
         det = MatchedFilterDetector.from_design(ref.design, meta, wire="conditioned")
         bd = BatchedMatchedFilterDetector(det, serial=serial)
-        # warm-up pass: FFT plans, allocator pools; the references ride it
-        _, r, _ = _slab_pass(stream(), bd, with_refs=ref if refs is None else None)
-        refs = refs or r
+        if refs is None:
+            # warm-up pass: FFT plans, allocator pools; the references ride it
+            _, refs, _ = _slab_pass(stream(), bd, with_refs=ref)
+        else:
+            # the serial mode runs the references' single-file programs, warm
+            # from that pass: one noise slab warms this facade without reading
+            # the files a third time (a cut for the run's time limit)
+            noise = torch.randn((SLAB_BATCH, nx, SLAB_BUCKET), device="cuda") * 1e-9
+            bd.dispatch_batch(noise, n_real=[CANONICAL[1]] * SLAB_BATCH,
+                              with_health=True).resolve()
+            del noise
         zero_launches()                          # the main path's timed pass starts here
         det.syncs = det.dispatches = det.escalations = 0
         slabs, _, wall = _slab_pass(stream(), bd)
@@ -2473,8 +2531,12 @@ def phase_campaign():
             _no_host_sync(BatchedMatchedFilterDetector, "dispatch_batch") as guard, \
             _first_slab(stream_mod) as first:
         t0 = time.perf_counter()
+        # the slab phase's design of this bucket where it ran (the bucket's
+        # f-k design is 35-48 s of host, timed in PERF.md several times over;
+        # a cut for the run's time limit)
         res = cmod.run_campaign_batched(paths, sel, str(out), metadata=meta,
-                                        interrogator="silixa")
+                                        interrogator="silixa",
+                                        design=_SLAB_DESIGN.get("design"))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = read_launches()["fused_picks"]
@@ -2563,7 +2625,8 @@ def phase_campaign():
         f"{dispatch_depth_default()}), "
         f"interrogator 'silixa', {len(paths)} files of {nx} channels "
         f"({', '.join(str(ns) for _, ns in SLAB_FILES)} samples): wall {wall:.3f} s, of which "
-        f"the bucket's design {t_design:.3f} s (one bucket of {SLAB_BUCKET}); pass "
+        f"the bucket's detector {t_design:.3f} s (one bucket of {SLAB_BUCKET}; the slab "
+        f"phase's design given, where it ran); pass "
         f"{per_file:.3f} s a file (wall less design, over {len(paths)} files; the slab phase's "
         f"timed pass is its yardstick); {slab_walls[1]} slabs, their resolve walls (each "
         f"slab's wait on its packed read, behind the pipelined dispatch; "
@@ -3130,7 +3193,7 @@ def phase_gabor(scene=None, raw=None, design=None):
                                               "batched": (b_served, b_peak), "fams": fams}
 
 
-def _gabor_knife_edges(label, score_ref, thr, got, rel):
+def _gabor_knife_edges(label, score_ref, thr, got, rel, where="gabor_cpu_vs_card"):
     """Pixels where the boolean image ``got`` differs from ``score_ref > thr``,
     each required to lie within ``rel * max|score_ref|`` of ``thr`` (a
     rounding knife edge). Returns the count."""
@@ -3138,7 +3201,7 @@ def _gabor_knife_edges(label, score_ref, thr, got, rel):
     edge = (score_ref - thr).abs() <= rel * float(score_ref.abs().max())
     bad = int((diff & ~edge).sum())
     if bad:
-        fail(f"gabor_cpu_vs_card: {label}: {bad} pixels flipped off the knife edge")
+        fail(f"{where}: {label}: {bad} pixels flipped off the knife edge")
     return int(diff.sum())
 
 
@@ -5827,6 +5890,666 @@ def phase_mxu_cpu_vs_card():
 _PHASE_SECONDS: dict = {}
 
 
+# ---------------------------------------------------------------------------
+# Phases 32-33: the command line and the workflow mains (ROADMAP item 12)
+# ---------------------------------------------------------------------------
+
+#: the other mains run at this many channels (each f-k design a few seconds
+#: of host work); the card against the CPU at WF_CPU_NX
+WF_NX = 2048
+WF_CPU_NX = 512
+WF_SEED = SEED + 20
+#: card against CPU: arrays an FFT op makes, of their max; the Radon
+#: transform's; SNR and spectrogram dB (within 60 dB of the max); the
+#: bathynoise SNR_1d and noise power dB
+WF_REL = 1e-5
+WF_RADON_REL = 1e-4
+WF_SNR_DB = 0.01
+WF_NOISE_DB = 1e-3
+#: a Canny pixel is a knife edge where its direction bin, suppression or
+#: threshold decision lies this close (relative; radians for the bin) to
+#: its edge in a float64 recomputation
+WF_CANNY_REL = 1e-5
+WF_CLI_TIMEOUT = 600
+#: the figures the rendering verbs write (the JAX package's names)
+MF_FIGURES = ("mf_detection.png", "mf_snr_HF.png", "mf_snr_LF.png", "mf_tx.png")
+
+#: the workflow phases' files and their background jobs (``workflows_start``)
+_WF: dict = {}
+
+
+def _flagship_job(d: str):
+    """``workflows.mfdetect.main`` at the canonical width in a spawned
+    process on the card: a canonical Silixa TDMS file (22050 x 12000 raw
+    int32, the canonical six calls, seed 2026) written with the port's
+    writer, the main run on it as a user calls it (it designs in-process),
+    its launches counted and the pick kernel held bitwise against its
+    plain version at the route's first and last launch, every injected
+    call checked, then the detection figure's device work
+    (``viz.plot.envelope_np`` of ``trf_fk``). Returns its numbers."""
+    from pathlib import Path
+
+    import torch
+
+    from das4whales_tpu_torch.ops import fused_picks
+    from das4whales_tpu_torch.viz.plot import envelope_np
+    from das4whales_tpu_torch.workflows import mfdetect
+
+    nx, ns = CANONICAL
+    paths, scenes, t_write = _write_files(Path(d), ((SEED, ns),), nx, n_calls=6)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()                           # the flagship main's run starts here
+    with _capture(fused_picks, "picks_cuda") as calls:
+        t0 = time.perf_counter()
+        res = mfdetect.main(paths[0], interrogator="silixa")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    nT = len(res["picks"])
+    tile = calls["first"][0][0].shape[0] // nT
+    n_tiles = -(-nx // tile)
+    if launches["fused_stft"] or launches["fused_picks"] % n_tiles or not launches["fused_picks"]:
+        fail(f"workflows: mfdetect launched {launches}, expected {n_tiles} fused_picks an "
+             "attempt and no fused_stft")
+    err, notes = _picks_at_main_path("workflows: mfdetect", calls, {
+        "first": nT * tile, "last": nT * (nx - (n_tiles - 1) * tile)})
+    misses = _check_calls(scenes[0], res["picks"])
+    if misses:
+        fail(f"workflows: mfdetect missed injected calls at (channel, onset) {misses}")
+    if not all(np.isfinite(t) and t > 0 for t in res["thresholds"].values()):
+        fail(f"workflows: mfdetect thresholds {res['thresholds']}")
+    t0 = time.perf_counter()
+    env = envelope_np(res["trf_fk"])
+    env_s = time.perf_counter() - t0
+    if env.shape != (nx, ns) or not np.isfinite(env).all():
+        fail(f"workflows: mfdetect's detection envelope {env.shape} not all finite")
+    return {"t_write": t_write, "wall": wall, "timings": dict(res["timings"]),
+            "launches": launches["fused_picks"], "attempts": launches["fused_picks"] // n_tiles,
+            "n_tiles": n_tiles, "peak_gib": peak / 2**30, "err": err, "notes": notes,
+            "n_picks": {k: int(v.shape[1]) for k, v in res["picks"].items()},
+            "env_s": env_s, "thresholds": res["thresholds"]}
+
+
+def _cli(d, name: str, argv: list, out: dict) -> None:
+    """``python -m das4whales_tpu_torch <argv>`` from ``d``, its result kept
+    in ``out[name]`` as ``(exit code, stdout, stderr, seconds)``."""
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, MPLBACKEND="Agg",
+               PYTHONPATH=os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")])))
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "das4whales_tpu_torch", *argv], cwd=str(d),
+                       env=env, capture_output=True, text=True, timeout=WF_CLI_TIMEOUT)
+    out[name] = (p.returncode, p.stdout, p.stderr, time.perf_counter() - t0)
+
+
+def _cli_jobs(d, f_wide: str, long_files: list, out: dict) -> None:
+    """The command line on the card, one verb after another (run on a
+    thread beside the card-vs-CPU phases): ``list``, ``evaluate --family mf``
+    (the default sweep), ``longrecord --interrogator silixa`` over two
+    files, ``mfdetect`` and ``campaign`` on the wide file, then ``fsck`` of
+    the campaign's outdir. Where matplotlib is missing, ``mfdetect`` and
+    ``campaign`` must exit 2 naming it."""
+    try:
+        _cli(d, "list", ["list"], out)
+        _cli(d, "evaluate", ["evaluate", "--family", "mf", "--out", str(d / "eval.json")], out)
+        _cli(d, "longrecord", ["longrecord", *long_files, "--interrogator", "silixa",
+                               "--outdir", str(d / "lr")], out)
+        _cli(d, "mfdetect", ["mfdetect", f_wide, "--interrogator", "silixa", "--outdir",
+                             str(d / "mf")], out)
+        _cli(d, "campaign", ["campaign", f_wide, "--interrogator", "silixa", "--outdir",
+                             str(d / "camp")], out)
+        _cli(d, "fsck", ["fsck", str(d / "camp")], out)
+    except Exception as exc:  # noqa: BLE001 — reported and failed by phase_workflows
+        out["error"] = repr(exc)
+
+
+def workflows_start() -> dict:
+    """Write the workflow phases' TDMS files under ``build/`` (a wide one of
+    ``WF_NX`` channels, two ``WF_CPU_NX``-channel segments for the long
+    record, one ``WF_CPU_NX``-channel file for the card-vs-CPU phase), then
+    start the mains' card work in a spawned process (:func:`_workflows_job`)
+    and the command line on a thread: both run beside the phases after
+    this one.
+    Idempotent; :func:`workflows_finish` removes the files."""
+    import tempfile
+    import threading
+    from concurrent.futures import ProcessPoolExecutor
+    from multiprocessing import get_context
+    from pathlib import Path
+
+    import torch
+
+    if _WF:
+        return _WF
+    # the flagship's process needs about 12 GiB of the card: give back what
+    # this process's allocator holds from the earlier phases
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    say(f"workflows: this process holds {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved, as the "
+        "flagship's process starts")
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    d = Path(tempfile.mkdtemp(prefix="workflows_", dir=root))
+    t0 = time.perf_counter()
+    (f_wide,), _, _ = _write_files(d, ((WF_SEED, CANONICAL[1]),), WF_NX, n_calls=6)
+    (f_cpu,), (s_cpu,), _ = _write_files(d, ((WF_SEED + 1, CANONICAL[1]),), WF_CPU_NX,
+                                         n_calls=6)
+    long_dir = d / "long"
+    long_dir.mkdir()
+    long_files, _, _ = _write_files(long_dir, ((WF_SEED + 2, CANONICAL[1]),
+                                               (WF_SEED + 3, CANONICAL[1])), WF_CPU_NX,
+                                    n_calls=2)
+    _WF.update(dir=d, cpu=(f_cpu, s_cpu), t_write=time.perf_counter() - t0)
+    (d / "flagship").mkdir()
+    pool = ProcessPoolExecutor(1, mp_context=get_context("spawn"))
+    _WF["pool"] = pool
+    _WF["job"] = pool.submit(_workflows_job, str(d / "flagship"), f_wide)
+    cli_dir = d / "cli"
+    cli_dir.mkdir()
+    _WF["cli"] = {}
+    _WF["cli_dir"] = cli_dir
+    th = threading.Thread(target=_cli_jobs, args=(cli_dir, f_wide, long_files, _WF["cli"]),
+                          daemon=True)
+    th.start()
+    _WF["cli_thread"] = th
+    return _WF
+
+
+def workflows_finish() -> None:
+    """Wait for the workflow phases' background jobs and remove their files."""
+    import shutil
+
+    if not _WF:
+        return
+    th = _WF.get("cli_thread")
+    if th is not None:
+        th.join()
+    pool = _WF.get("pool")
+    if pool is not None:
+        pool.shutdown(wait=True, cancel_futures=True)
+    shutil.rmtree(_WF["dir"], ignore_errors=True)
+    _WF.clear()
+
+
+def _check_cli(out: dict, d) -> tuple:
+    """Check the command line's runs (``_cli_jobs``); returns ``(notes,
+    which matplotlib branch ran)``."""
+    if "error" in out:
+        fail(f"workflows: the command line's runs failed: {out['error']}")
+
+    def ok(name, rc=0):
+        got = out.get(name)
+        if got is None:
+            fail(f"workflows: `{name}` did not run")
+        if got[0] != rc:
+            fail(f"workflows: `{name}` exited {got[0]}, expected {rc}: {got[2][-1500:]}")
+        return got
+
+    notes = []
+    rc, o, _, t = ok("list")
+    if "mfdetect" not in o or "bathynoise" not in o:
+        fail(f"workflows: `list` printed {o!r}")
+    notes.append(f"list {t:.1f} s")
+    rc, o, _, t = ok("evaluate")
+    rows = json.loads((d / "eval.json").read_text())
+    if len(rows) != 5 or rows[-1]["HF"]["recall"] <= 0 or json.loads(o) != rows:
+        fail(f"workflows: `evaluate` rows {rows}")
+    notes.append(f"evaluate --family mf {t:.1f} s (recall at amplitude 1.0: HF "
+                 f"{rows[-1]['HF']['recall']:.2f}, LF {rows[-1]['LF']['recall']:.2f})")
+    rc, o, _, t = ok("longrecord")
+    summ = json.loads((d / "lr" / "summary.json").read_text())
+    if summ["n_files"] != 2 or "2 files as one" not in o or not (d / "lr" / "picks.npz").exists():
+        fail(f"workflows: `longrecord` wrote {summ}")
+    notes.append(f"longrecord --interrogator silixa {t:.1f} s ({summ['n_picks']} picks)")
+    if _PKGS.get("matplotlib"):
+        rc, o, _, t = ok("mfdetect")
+        figs = sorted(os.listdir(d / "mf"))
+        if tuple(figs) != MF_FIGURES or not all((d / "mf" / f).stat().st_size > 0 for f in figs):
+            fail(f"workflows: `mfdetect` wrote {figs}, expected {MF_FIGURES}")
+        if not any(ln.startswith("mfdetect: template HF:") for ln in o.splitlines()):
+            fail("workflows: `mfdetect` printed no pick line")
+        notes.append(f"mfdetect --outdir {t:.1f} s ({', '.join(figs)})")
+        rc, o, _, t = ok("campaign")
+        for f in ("density.png", "summary.json"):
+            if not (d / "camp" / f).stat().st_size > 0:
+                fail(f"workflows: `campaign` wrote no {f}")
+        if "campaign: 1 done, 0 failed" not in o:
+            fail(f"workflows: `campaign` printed {o!r}")
+        notes.append(f"campaign {t:.1f} s (density.png, summary.json)")
+        branch = "matplotlib imports: mfdetect and campaign rendered their figures"
+    else:
+        for name in ("mfdetect", "campaign"):
+            rc, _, e, t = ok(name, rc=2)
+            if "needs matplotlib" not in e:
+                fail(f"workflows: `{name}` exited 2 without naming matplotlib: {e[-500:]}")
+        for sub in ("mf", "camp"):
+            if (d / sub).exists():
+                fail(f"workflows: `{sub}` wrote its outdir without matplotlib")
+        branch = ("matplotlib missing: mfdetect and campaign exited 2 naming it, before "
+                  "reading the file")
+    rc, o, _, t = ok("fsck")
+    notes.append(f"fsck {t:.1f} s ({o.strip()})")
+    return notes, branch
+
+
+def _wide_mains(f_wide: str, scene) -> dict:
+    """``spectrodetect``, ``gabordetect``, ``fkcomp``, ``plots`` and
+    ``bathynoise`` mains on the ``WF_NX``-channel file, each as a user
+    calls it (its own f-k design): walls, launches counted from 0 before
+    each main, both kernels held against their plain versions at their
+    first and last launch, every call picked where the family picks,
+    bathynoise's stats against float64 on the host. Returns the notes,
+    launches and errors."""
+    import torch
+
+    from das4whales_tpu_torch.ops import fused_picks, fused_stft, spectral
+    from das4whales_tpu_torch.workflows import (bathynoise, fkcomp, gabordetect, plots,
+                                                spectrodetect)
+
+    nx, ns = WF_NX, scene.ns
+    fs = scene.fs
+    walls, notes = {}, []
+
+    def run(name, main, capture=None):
+        zero_launches()                       # this main's run starts here
+        torch.cuda.reset_peak_memory_stats()
+        with contextlib.ExitStack() as st:
+            calls = st.enter_context(_capture(*capture)) if capture else None
+            t0 = time.perf_counter()
+            res = main(f_wide, interrogator="silixa")
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+        return res, read_launches(), calls, torch.cuda.max_memory_allocated()
+
+    res, la, calls, peak = run("spectrodetect", spectrodetect.main,
+                               (fused_stft, "stft_power_cuda"))
+    n_k = len(res["picks"])
+    if la != {"fused_picks": 0, "fused_stft": n_k * -(-nx // 4096)}:
+        fail(f"workflows: spectrodetect launched {la}")
+    stft_launches = la["fused_stft"]
+    stft_err, stft_rel, _ = _stft_at_main_path("workflows: spectrodetect", calls, (nx, ns))
+    picks = {k: np.asarray([v[0], np.round(v[1] * fs / res["spectro_fs"]).astype(int)])
+             for k, v in res["picks"].items()}
+    if _check_calls(scene, picks):
+        fail(f"workflows: spectrodetect missed calls {_check_calls(scene, picks)}")
+    notes.append(f"spectrodetect {walls['spectrodetect']:.2f} s, {stft_launches} fused_stft "
+                 f"(within {stft_rel:.2e}*max of plain at the first and last), peak "
+                 f"{peak / 2**30:.2f} GiB")
+    del res, calls
+
+    res, la, calls, peak = run("gabordetect", gabordetect.main, (fused_picks, "picks_cuda"))
+    n_notes = len(res["picks"])
+    if la["fused_stft"] or la["fused_picks"] < n_notes:
+        fail(f"workflows: gabordetect launched {la}, expected one fused_picks a note")
+    gabor_launches = la["fused_picks"]
+    gabor_err, _ = _picks_at_main_path("workflows: gabordetect", calls,
+                                       {"first": nx, "last": nx})
+    if _check_calls(scene, res["picks"]):
+        fail(f"workflows: gabordetect missed calls {_check_calls(scene, res['picks'])}")
+    notes.append(f"gabordetect {walls['gabordetect']:.2f} s (stages "
+                 f"{ {k: round(v, 2) for k, v in res['timings'].items()} }), {gabor_launches} "
+                 f"fused_picks bitwise plain at the first and last, peak "
+                 f"{peak / 2**30:.2f} GiB")
+    del res, calls
+
+    res, la, _, peak = run("fkcomp", fkcomp.main)
+    if any(la.values()):
+        fail(f"workflows: fkcomp launched {la}; its path has no kernel")
+    for name, trf in res["filtered"].items():
+        if tuple(trf.shape) != (nx, ns) or not bool(torch.isfinite(trf).all()):
+            fail(f"workflows: fkcomp {name} filtered block not finite")
+        if not res["compression"][name]["ratio"] > 1 or bool(torch.isnan(res["snr"][name]).any()):
+            fail(f"workflows: fkcomp {name}: compression {res['compression'][name]}")
+    notes.append(f"fkcomp {walls['fkcomp']:.2f} s (4 designs and applies), compression "
+                 f"{ {k: round(v['ratio'], 1) for k, v in res['compression'].items()} }")
+    del res
+
+    res, la, _, peak = run("plots", plots.main)
+    p, tt, ff = res["spectrogram"]
+    if any(la.values()) or not bool(torch.isfinite(p).any()) or p.shape[-1] != len(tt):
+        fail(f"workflows: plots launched {la} or gave a spectrogram of shape {tuple(p.shape)}")
+    notes.append(f"plots {walls['plots']:.2f} s (best channel {res['best_channel']})")
+    del res
+
+    res, la, _, peak = run("bathynoise", bathynoise.main)
+    if any(la.values()):
+        fail(f"workflows: bathynoise launched {la}; its path has no kernel")
+    st = res["stats"]
+    trf = res["trf_fk"]
+    env_card = spectral.envelope(trf).cpu().numpy()
+    trf64 = trf.cpu().numpy().astype(np.float64)
+    from scipy.signal import hilbert
+
+    env64 = np.abs(hilbert(trf64, axis=-1))
+    med64 = np.median(env64, axis=-1)
+    mean64 = env64.mean(axis=-1)
+    std64 = trf64.std(axis=-1)
+    snr64 = 20 * np.log10(std64 / med64)
+    i1 = int(5.0 * fs)
+    pow64 = 10 * np.log10(np.mean(trf64[:, :i1] ** 2, axis=-1) / 1e-22)
+    rel = {k: float(np.max(np.abs(st[k] - v) / np.abs(v)))
+           for k, v in (("med", med64), ("mean", mean64), ("std", std64))}
+    # the median is one envelope sample: held by its row's envelope difference
+    med_bound = np.abs(env_card - env64).max(axis=-1)
+    if not (rel["mean"] <= WF_REL and rel["std"] <= WF_REL
+            and np.all(np.abs(st["med"] - med64) <= np.maximum(WF_REL * med64, med_bound))):
+        fail(f"workflows: bathynoise stats against float64: {rel} (median bound: the row's "
+             f"envelope difference, max {float(med_bound.max()):.3e})")
+    d_snr = float(np.abs(st["snr_1d"] - snr64).max())
+    d_pow = float(np.abs(st["noise_power_db"] - pow64).max())
+    if not (d_snr <= WF_NOISE_DB and d_pow <= WF_NOISE_DB):
+        fail(f"workflows: bathynoise snr_1d {d_snr:.2e} dB, noise power {d_pow:.2e} dB from "
+             "float64")
+    notes.append(f"bathynoise {walls['bathynoise']:.2f} s (against float64 on the host: med "
+                 f"{rel['med']:.2e}, mean {rel['mean']:.2e}, std {rel['std']:.2e} relative, "
+                 f"snr_1d {d_snr:.2e} dB, noise power {d_pow:.2e} dB)")
+    return {"notes": notes, "gabor_launches": gabor_launches, "gabor_err": gabor_err,
+            "stft_launches": stft_launches, "stft_err": stft_err}
+
+
+def _workflows_job(d: str, f_wide: str) -> dict:
+    """The workflow phase's card work in a spawned process: the flagship
+    main (:func:`_flagship_job`), then the other five at ``WF_NX``
+    channels (:func:`_wide_mains`)."""
+    flagship = _flagship_job(d)
+    wide = _wide_mains(f_wide, _scene(WF_NX, CANONICAL[1], n_calls=6, seed=WF_SEED))
+    return {"flagship": flagship, "wide": wide}
+
+
+def phase_workflows():
+    """The workflow mains on the card as a user calls them (run by
+    :func:`workflows_start`'s spawned process beside the card-vs-CPU
+    phases): the flagship at full width, the other five at ``WF_NX`` x
+    12000; and the command line as subprocesses."""
+    wf = workflows_start()
+    t0 = time.perf_counter()
+    out = wf["job"].result()
+    t_wait = time.perf_counter() - t0
+    fl, wide = out["flagship"], out["wide"]
+    say(f"workflows: the mains at {WF_NX}x{CANONICAL[1]} (a Silixa TDMS file, raw int32, 6 "
+        f"calls; interrogator='silixa'), walls with each f-k design (beside the card-vs-CPU "
+        f"phases): {'; '.join(wide['notes'])}; spectro and gabor picked every injected call")
+    say(f"workflows: the flagship mfdetect.main at {CANONICAL[0]}x{CANONICAL[1]} in a spawned "
+        f"process beside the card-vs-CPU phases (file written in {fl['t_write']:.1f} s): "
+        f"wall {fl['wall']:.1f} s, stage walls "
+        f"{json.dumps({k: round(v, 3) for k, v in fl['timings'].items()})} s, "
+        f"{fl['launches']} fused_picks launches ({fl['attempts']} attempt(s) of "
+        f"{fl['n_tiles']}), peak {fl['peak_gib']:.2f} GiB, picks {json.dumps(fl['n_picks'])}, "
+        f"every injected call picked; the detection envelope (viz.plot.envelope_np) "
+        f"{fl['env_s']:.3f} s; fused_picks bitwise plain: {'; '.join(fl['notes'])} "
+        f"(waited {t_wait:.1f} s for the spawned process here)")
+
+    wf["cli_thread"].join()
+    cli_notes, branch = _check_cli(wf["cli"], wf["cli_dir"])
+    say(f"workflows: python -m das4whales_tpu_torch on the card: {'; '.join(cli_notes)}; "
+        f"{branch}")
+    return {"launches": {"workflows_mfdetect": fl["launches"],
+                         "workflows_gabor": wide["gabor_launches"]},
+            "stft_launches": {"workflows_spectro": wide["stft_launches"]},
+            "err": max(fl["err"], wide["gabor_err"]), "stft_err": wide["stft_err"]}
+
+
+def _canny_knife_seeds(img: np.ndarray, low: float, high: float) -> np.ndarray:
+    """Pixels of a float64 recomputation of the Canny stages whose direction
+    bin, suppression or threshold decision lies within ``WF_CANNY_REL`` of
+    its edge."""
+    from scipy import ndimage
+
+    x = np.pad(img.astype(np.float64), 1, mode="edge")
+    sx = np.array([[-1.0, 0, 1], [-2, 0, 2], [-1, 0, 1]])
+    gx = ndimage.correlate(x, sx, mode="constant")[1:-1, 1:-1]
+    gy = ndimage.correlate(x, sx.T, mode="constant")[1:-1, 1:-1]
+    mag = np.abs(gx) + np.abs(gy)
+    tol = WF_CANNY_REL * max(float(mag.max()), high)
+    ang = np.arctan2(gy, gx)
+    ang = np.where(ang < 0, ang + np.pi, ang)
+    q = (ang + np.pi / 8) / (np.pi / 4)
+    seeds = np.abs(q - np.round(q)) * (np.pi / 4) <= WF_CANNY_REL
+    mp = np.pad(mag, 1)
+    h, w = img.shape
+    for dy, dx in ((0, 1), (1, 1), (1, 0), (1, -1)):
+        for sgn in (1, -1):
+            nb = mp[1 + sgn * dy: 1 + sgn * dy + h, 1 + sgn * dx: 1 + sgn * dx + w]
+            seeds |= np.abs(mag - nb) <= tol
+    return seeds | (np.abs(mag - low) <= tol) | (np.abs(mag - high) <= tol)
+
+
+def _canny_flips(where: str, img: np.ndarray, low: float, high: float, ref, got) -> int:
+    """Canny maps equal up to counted knife edges: every flipped pixel
+    8-connected, through either map's edges, to a knife-edge pixel."""
+    from scipy import ndimage
+
+    diff = ref != got
+    if not diff.any():
+        return 0
+    seeds = _canny_knife_seeds(img, low, high)
+    comp, _ = ndimage.label(ref | got | seeds, structure=np.ones((3, 3)))
+    explained = np.isin(comp, np.unique(comp[seeds & (comp > 0)]))
+    bad = int((diff & ~explained).sum())
+    if bad:
+        fail(f"{where}: {bad} of {int(diff.sum())} flipped Canny pixels are not on a knife edge")
+    return int(diff.sum())
+
+
+def _near(where: str, label: str, card, cpu, rel: float) -> float:
+    """``card`` within ``rel * max|cpu|``; returns the relative error."""
+    a = card.cpu().numpy() if hasattr(card, "cpu") else np.asarray(card)
+    b = cpu.cpu().numpy() if hasattr(cpu, "cpu") else np.asarray(cpu)
+    if a.shape != b.shape:
+        fail(f"{where}: {label} shape {a.shape} vs {b.shape}")
+    scale = float(np.abs(b).max())
+    e = float(np.abs(a.astype(np.float64) - b).max()) / scale if scale else 0.0
+    if not e <= rel:
+        fail(f"{where}: {label} card vs CPU {e:.3e} * max (limit {rel})")
+    return e
+
+
+def _db_near(where: str, label: str, card, cpu, tol: float = WF_SNR_DB) -> float:
+    a, b = (x.cpu().numpy().astype(np.float64) for x in (card, cpu))
+    keep = np.isfinite(b) & (b >= np.nanmax(b) - 60.0)
+    d = float(np.abs(a[keep] - b[keep]).max())
+    if not d <= tol:
+        fail(f"{where}: {label} card vs CPU {d:.3e} dB within 60 dB of the max (limit {tol})")
+    return d
+
+
+def phase_workflows_cpu_vs_card():
+    """Each main at ``WF_CPU_NX`` x 12000 on the card and with
+    ``device="cpu"``, and the ten image ops on the Gabor family's binned
+    image."""
+    import torch
+
+    from das4whales_tpu_torch.models.gabor import GaborDetector, _gabor_score
+    from das4whales_tpu_torch.ops import image as timg
+    from das4whales_tpu_torch.ops import spectral
+    from das4whales_tpu_torch.utils.parity import unexplained_differences
+    from das4whales_tpu_torch.viz.plot import envelope_np, fx_panels
+    from das4whales_tpu_torch.workflows import (bathynoise, fkcomp, gabordetect, mfdetect,
+                                                plots, spectrodetect)
+
+    W = "workflows_cpu_vs_card"
+    wf = workflows_start()
+    path, scene = wf["cpu"]
+    nx, ns, fs = WF_CPU_NX, scene.ns, scene.fs
+    worst, notes = {}, []
+
+    def both(main, **kw):
+        return {dev: main(path, interrogator="silixa", device=dev, **kw)
+                for dev in ("cuda", "cpu")}
+
+    def panel(trf_g, trf_c):
+        return _near(W, "detection envelope", envelope_np(trf_g, "cuda"),
+                     envelope_np(trf_c, "cpu"), WF_REL)
+
+    # mfdetect: the full artifact route
+    r = both(mfdetect.main)
+    g, c = r["cuda"], r["cpu"]
+    for name in c["thresholds"]:
+        if not np.isclose(g["thresholds"][name], c["thresholds"][name], rtol=1e-5, atol=0):
+            fail(f"{W}: mfdetect {name} threshold {g['thresholds'][name]} vs "
+                 f"{c['thresholds'][name]}")
+    worst["mf trf_fk"] = _near(W, "mfdetect trf_fk", g["trf_fk"], c["trf_fk"], WF_REL)
+    worst["mf panel"] = panel(g["trf_fk"], c["trf_fk"])
+    names = list(c["picks"])
+    n_mf = _same_picks(f"{W}: mfdetect", g["picks"], c["picks"], lambda: np.stack(
+        [spectral.envelope_sqrt(c["correlograms"][n]).numpy() for n in names]),
+        c["thresholds"])
+    if _check_calls(scene, g["picks"]):
+        fail(f"{W}: mfdetect missed calls on the card")
+    notes.append(f"mfdetect {n_mf} picks differing")
+    del r, g, c
+
+    r = both(spectrodetect.main)
+    g, c = r["cuda"], r["cpu"]
+    worst["spectro trf_fk"] = _near(W, "spectrodetect trf_fk", g["trf_fk"], c["trf_fk"], WF_REL)
+    worst["spectro panel"] = panel(g["trf_fk"], c["trf_fk"])
+    n_sp = 0
+    for name, cc in c["correlograms"].items():
+        worst[f"spectro corr {name}"] = _near(W, f"spectrodetect {name} correlograms",
+                                              g["correlograms"][name], cc, 1e-4)
+        bad = unexplained_differences(g["picks"][name], c["picks"][name], cc.numpy(), 14.0)
+        if bad:
+            fail(f"{W}: spectrodetect {name} picks differ beyond rounding at {bad[:10]}")
+        n_sp += len({tuple(p) for p in np.asarray(g["picks"][name]).T.tolist()}
+                    ^ {tuple(p) for p in np.asarray(c["picks"][name]).T.tolist()})
+    if g["spectro_fs"] != c["spectro_fs"]:
+        fail(f"{W}: spectro_fs {g['spectro_fs']} vs {c['spectro_fs']}")
+    notes.append(f"spectrodetect {n_sp} picks differing")
+    del r, g, c
+
+    r = both(gabordetect.main)
+    g, c = r["cuda"], r["cpu"]
+    worst["gabor trf_fk"] = _near(W, "gabordetect trf_fk", g["trf_fk"], c["trf_fk"], WF_REL)
+    worst["gabor panel"] = panel(g["trf_fk"], c["trf_fk"])
+    worst["gabor score"] = _near(W, "gabordetect score", g["score"], c["score"], GABOR_CARD_REL)
+    det_c = GaborDetector(scene.metadata.with_shape(nx, ns), [0, nx, 1], device="cpu")
+    d = det_c.design
+    n_bin = _gabor_knife_edges("binary", c["score"], d.threshold1,
+                               g["score"].cpu() > d.threshold1, GABOR_CARD_REL, where=W)
+    up, down = det_c._kernels
+    s2 = _gabor_score((g["score"].cpu() > d.threshold1).float(), up, down)
+    n_mask = _gabor_knife_edges("mask", s2, d.threshold2, g["mask"].cpu(), GABOR_CARD_REL,
+                                where=W)
+    if n_bin or n_mask:
+        notes.append(f"gabordetect: {n_bin} binary and {n_mask} mask pixels on knife edges; "
+                     "picks not compared")
+    else:
+        n_gb = 0
+        for name, cc in c["correlograms"].items():
+            worst[f"gabor corr {name}"] = _near(W, f"gabordetect {name} correlograms",
+                                                g["correlograms"][name], cc, GABOR_CARD_REL)
+            if not np.isclose(g["thresholds"][name], c["thresholds"][name], rtol=1e-5, atol=0):
+                fail(f"{W}: gabordetect {name} threshold {g['thresholds'][name]} vs "
+                     f"{c['thresholds'][name]}")
+            bad = unexplained_differences(g["picks"][name], c["picks"][name],
+                                          spectral.envelope_sqrt(cc).numpy(),
+                                          c["thresholds"][name])
+            if bad:
+                fail(f"{W}: gabordetect {name} picks differ beyond rounding at {bad[:10]}")
+            n_gb += len({tuple(p) for p in np.asarray(g["picks"][name]).T.tolist()}
+                        ^ {tuple(p) for p in np.asarray(c["picks"][name]).T.tolist()})
+        notes.append(f"gabordetect binary image and mask equal, {n_gb} picks differing")
+    trf_cpu = c["trf_fk"]
+    del r, g, c
+
+    r = both(fkcomp.main)
+    for name, fc in r["cpu"]["filtered"].items():
+        worst[f"fkcomp {name}"] = _near(W, f"fkcomp {name}", r["cuda"]["filtered"][name], fc,
+                                        WF_REL)
+        worst[f"fkcomp snr {name} dB"] = _db_near(W, f"fkcomp {name} SNR",
+                                                  r["cuda"]["snr"][name], r["cpu"]["snr"][name])
+    del r
+
+    r = both(plots.main)
+    g, c = r["cuda"], r["cpu"]
+    worst["plots trf_fk"] = _near(W, "plots trf_fk", g["trf_fk"], c["trf_fk"], WF_REL)
+    if g["best_channel"] != c["best_channel"]:
+        fail(f"{W}: plots best channel {g['best_channel']} vs {c['best_channel']}")
+    (gp, gtt, gff), (cp, ctt, cff) = g["spectrogram"], c["spectrogram"]
+    if not (np.array_equal(gtt, ctt) and np.array_equal(gff, cff)):
+        fail(f"{W}: plots spectrogram axes differ")
+    # the spectrogram is dB re its max: held on its linear magnitude (max 1)
+    worst["plots spectrogram"] = _near(W, "plots spectrogram", 10 ** (gp.cpu() / 20),
+                                       10 ** (cp / 20), WF_REL)
+    # the f-x panels on one input (the CPU's filtered rows on both): a quiet
+    # window's panel is small against the block's max, where trf_fk's
+    # card-vs-CPU rounding sits
+    step = max(nx // 64, 1)
+    rows = c["trf_fk"][::step]
+    for k, (a, b) in enumerate(zip(fx_panels(rows.to("cuda"), fs, nfft=512, device="cuda"),
+                                   fx_panels(rows, fs, nfft=512, device="cpu"))):
+        worst[f"plots f-x {k}"] = _near(W, f"plots f-x panel {k}", a, b, WF_REL)
+    del r, g, c
+
+    r = both(bathynoise.main)
+    gs, cs = r["cuda"]["stats"], r["cpu"]["stats"]
+    for key in ("mean", "std"):
+        e = float(np.max(np.abs(gs[key] - cs[key]) / np.abs(cs[key])))
+        worst[f"bathynoise {key}"] = e
+        if not e <= WF_REL:
+            fail(f"{W}: bathynoise {key} card vs CPU {e:.3e} relative (limit {WF_REL})")
+    # the median is one envelope sample (or the mean of two): it moves no more
+    # than the samples do, and each sample's rounding scales with its row's
+    # max, where a mean averages it away
+    env_diff = (spectral.envelope(r["cuda"]["trf_fk"]).cpu()
+                - spectral.envelope(r["cpu"]["trf_fk"])).abs().amax(dim=-1).numpy()
+    d_med = np.abs(gs["med"] - cs["med"])
+    worst["bathynoise med"] = float(np.max(d_med / np.abs(cs["med"])))
+    if not np.all(d_med <= np.maximum(WF_REL * np.abs(cs["med"]), env_diff)):
+        fail(f"{W}: bathynoise med card vs CPU beyond its row's envelope difference")
+    for key in ("snr_1d", "noise_power_db"):
+        e = float(np.max(np.abs(gs[key] - cs[key])))
+        worst[f"bathynoise {key} dB"] = e
+        if not e <= WF_NOISE_DB:
+            fail(f"{W}: bathynoise {key} card vs CPU {e:.3e} dB (limit {WF_NOISE_DB})")
+    del r
+
+    # the ten image ops on the Gabor family's binned image (the CPU's, on both)
+    img_c = timg.binning(timg.trace2image(trf_cpu), 0.1, 0.1)
+    img_g = img_c.to("cuda")
+    ops = (("gaussian_blur_cv", lambda x: timg.gaussian_blur_cv(x, 5, 0.0), WF_REL),
+           ("gradient_oriented", lambda x: timg.gradient_oriented(x, (2, 1)), WF_REL),
+           ("detect_diagonal_edges", timg.detect_diagonal_edges, WF_REL),
+           ("diagonal_edge_detection", timg.diagonal_edge_detection, WF_REL),
+           ("bilateral_filter", lambda x: timg.bilateral_filter(x, 9, 75.0, 75.0), WF_REL),
+           ("radon_transform", timg.radon_transform, WF_RADON_REL),
+           ("compute_radon_transform", timg.compute_radon_transform, WF_RADON_REL))
+    for name, fn, rel in ops:
+        worst[name] = _near(W, name, fn(img_g), fn(img_c), rel)
+    smooth = timg.bilateral_filter(img_c, 9, 75.0, 75.0)
+    e_c = timg.canny_edges(smooth, 50.0, 150.0)
+    e_g = timg.canny_edges(smooth.to("cuda"), 50.0, 150.0).cpu()
+    n_canny = _canny_flips(f"{W}: canny_edges", smooth.numpy(), 50.0, 150.0, e_c.numpy(),
+                           e_g.numpy())
+    kw = dict(threshold=30, min_line_length=20, max_line_gap=5)
+    lines = timg.hough_lines(e_c, **kw)
+    if timg.hough_lines(e_c.to("cuda"), **kw) != lines:
+        fail(f"{W}: hough_lines on the same edge map differ card vs CPU")
+    ll_c, le_c = timg.detect_long_lines(img_c, **kw)
+    ll_g, le_g = timg.detect_long_lines(img_g, **kw)
+    n_long = _canny_flips(f"{W}: detect_long_lines", smooth.numpy(), 50.0, 150.0,
+                          le_c.numpy(), le_g.cpu().numpy())
+    if n_long == 0 and ll_g != ll_c:
+        fail(f"{W}: detect_long_lines on equal edge maps found different lines")
+    torch.cuda.synchronize()
+    notes.append(f"image ops on the {tuple(img_c.shape)} binned image: Canny {n_canny} "
+                 f"pixels on knife edges of {int(e_c.sum())} edges, Hough {len(lines)} "
+                 f"segments equal on the same edge map, detect_long_lines {len(ll_c)} "
+                 f"segments ({n_long} edge pixels on knife edges)")
+    say(f"{W}: the six mains at {nx}x{ns} (Silixa TDMS) on the card against "
+        f"device='cpu': thresholds rtol 1e-5, FFT-made arrays within {WF_REL}*max (the "
+        f"spectrogram on its linear magnitude; spectro correlograms 1e-4, Gabor score "
+        f"{GABOR_CARD_REL}, Radon {WF_RADON_REL}), SNR within {WF_SNR_DB} dB where within 60 "
+        f"dB of the max, bathynoise mean and std {WF_REL} relative, med {WF_REL} relative or "
+        f"within its row's envelope difference, dB within {WF_NOISE_DB}; "
+        f"{'; '.join(notes)}; measured "
+        f"{json.dumps({k: float(f'{v:.3g}') for k, v in worst.items()})}")
+
+
 def _time_phases() -> None:
     """Wrap every ``phase_*`` function so that its seconds are kept."""
     for name, fn in list(globals().items()):
@@ -5857,6 +6580,7 @@ def main(argv: list) -> int:
                 globals()[f"phase_{name}"]()
         finally:
             remove_slab_files()
+            workflows_finish()
         say(f"phase seconds: {json.dumps(_PHASE_SECONDS)}")
         return 0
     if argv:
@@ -5907,14 +6631,22 @@ def main(argv: list) -> int:
             import shutil
 
             shutil.rmtree(prep["dir"], ignore_errors=True)
-    campaign_stft_launches, campaign_stft_err = phase_campaign_cpu_vs_card()
-    phase_gabor_cpu_vs_card()
-    phase_learned_cpu_vs_card(learned["card"])
-    phase_dsp_cpu_vs_card()
-    phase_localize_cpu_vs_card()
-    phase_longrecord_cpu_vs_card()
-    phase_service_cpu_vs_card()
-    phase_mxu_cpu_vs_card()
+    try:
+        # the flagship main at full width and the command line run beside
+        # the card-vs-CPU phases, which time nothing
+        workflows_start()
+        campaign_stft_launches, campaign_stft_err = phase_campaign_cpu_vs_card()
+        phase_gabor_cpu_vs_card()
+        phase_learned_cpu_vs_card(learned["card"])
+        phase_dsp_cpu_vs_card()
+        phase_localize_cpu_vs_card()
+        phase_longrecord_cpu_vs_card()
+        phase_service_cpu_vs_card()
+        phase_mxu_cpu_vs_card()
+        phase_workflows_cpu_vs_card()
+        wf_out = phase_workflows()
+    finally:
+        workflows_finish()
     say(f"phase seconds: {json.dumps(_PHASE_SECONDS)}")
     pk = kern["pack"]
     print(json.dumps({"kernels": [{
@@ -5929,9 +6661,9 @@ def main(argv: list) -> int:
                              "campaign": campaign_launches, "gabor": gabor_launches,
                              "campaign_gabor": gabor_campaign_launches, **loc_launches,
                              "service": svc_launches["fused_picks"],
-                             "mxu": mxu_out["launches"]},
+                             "mxu": mxu_out["launches"], **wf_out["launches"]},
         "max_abs_err": max(err, slab_picks_err, full_err, bank_err, gabor_err, loc_err,
-                           svc_picks_err, mxu_out["err"]),
+                           svc_picks_err, mxu_out["err"], wf_out["err"]),
         "ms": pk["ms"],
         "device_ms": pk["device_ms"],
         "plain_ms": pk["plain_ms"],
@@ -5947,9 +6679,10 @@ def main(argv: list) -> int:
         "launches_by_path": {"spectro": stft_launches, "slab_spectro": slab_stft_launches,
                              "campaign_spectro": campaign_stft_launches, **learned_launches,
                              **long_launches, "service": svc_launches["fused_stft"],
-                             "mxu_calibrate_stft": mxu_out["stft_launches"]},
+                             "mxu_calibrate_stft": mxu_out["stft_launches"],
+                             **wf_out["stft_launches"]},
         "max_abs_err": max(stft_err, slab_stft_err, campaign_stft_err, learned_err, long_err,
-                           svc_stft_err, mxu_out["stft_err"]),
+                           svc_stft_err, mxu_out["stft_err"], wf_out["stft_err"]),
         "ms": stft["ms"],
         "device_ms": stft["device_ms"],
         "plain_ms": stft["plain_ms"],

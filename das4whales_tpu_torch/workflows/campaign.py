@@ -44,9 +44,9 @@ starts at the largest rung whose program fits ``DAS_HBM_BUDGET_GB``),
 ``<outdir>/cost_cards.json``) and ``quality`` (``telemetry.quality``: a
 manifest ``quality`` event and ``<outdir>/quality.json``).
 
-Not in this slice: the sharded and multi-process campaigns ('Multi-GPU')
-and the density plot ('Workflow mains and plots'). Each raises, naming
-its item.
+:func:`plot_campaign_density` draws a summary's density figure
+(matplotlib, imported where it draws). Not in this slice: the sharded
+and multi-process campaigns ('Multi-GPU'). Each raises, naming its item.
 """
 
 from __future__ import annotations
@@ -1700,6 +1700,27 @@ def summarize_campaign(outdir: str) -> dict:
 
 
 def plot_campaign_density(summary: dict, dx_km: float = 2.042e-3, show=None):
-    """Detection-density heatmaps of a :func:`summarize_campaign` dict;
-    not in this slice."""
-    raise _not_in_slice("plot_campaign_density", "Workflow mains and plots")
+    """Detection-density heatmaps (file index x cable distance) from a
+    :func:`summarize_campaign` dict — one panel per template. Returns the
+    matplotlib Figure (headless-safe, like ``viz.plot``)."""
+    import matplotlib
+
+    if not show:
+        matplotlib.use("Agg", force=False)
+    import matplotlib.pyplot as plt
+
+    names = list(summary["density"])
+    fig, axes = plt.subplots(1, max(len(names), 1), figsize=(7 * max(len(names), 1), 5),
+                             squeeze=False)
+    for ax, name in zip(axes[0], names):
+        d = summary["density"][name]
+        im = ax.imshow(d, aspect="auto", origin="lower", cmap="turbo",
+                       extent=[0, d.shape[1] * dx_km, -0.5, d.shape[0] - 0.5])
+        ax.set_xlabel("Distance [km]")
+        ax.set_ylabel("File index")
+        ax.set_title(f"{name}: {summary['total_picks'][name]} picks")
+        fig.colorbar(im, ax=ax, label="picks per channel")
+    fig.tight_layout()
+    if show:
+        plt.show()
+    return fig

@@ -1,8 +1,8 @@
 """Shared workflow prologue and prefilter (the port's copy of
 ``das4whales_tpu.workflows.common``): download -> metadata -> channel
 selection in meters -> load, with an offline synthetic scene when no
-file is given, and the bandpass + f-k prefilter every signal-processing
-family shares."""
+file is given, the bandpass + f-k prefilter every signal-processing
+family shares, and the figure writer of the mains."""
 
 from __future__ import annotations
 
@@ -50,7 +50,11 @@ def acquire(
 ):
     """Resolve ``url`` (remote URL, local path, or None -> the synthetic
     scene written to ``datadir``), read metadata, and load the strided
-    channel selection as strain onto ``device`` (``None``: the card).
+    channel selection as strain onto ``device`` (``None``: the card). An
+    OptaSense file loads with ``io.hdf5.load_das_data`` (``h5py``), a
+    Silixa TDMS file (``interrogator="silixa"`` or a ``.tdms`` name)
+    through the streams' TDMS reader, which needs no ``h5py``; the JAX
+    package's ``acquire`` reads HDF5 only.
 
     Returns ``(block, metadata, selected_channels)`` where ``block`` is a
     :class:`~das4whales_tpu_torch.io.hdf5.StrainBlock`.
@@ -76,6 +80,16 @@ def acquire(
             selected_channels_m = (0.0, meta.nx * meta.dx, meta.dx)
     selected_channels = channels_m_to_idx(selected_channels_m, meta.dx)
 
+    if filepath.lower().endswith(".tdms") or meta.interrogator == "silixa":
+        # a Silixa TDMS file reads through the streams' TDMS reader (no h5py)
+        from ..io.stream import stream_strain_blocks
+
+        (block,) = list(stream_strain_blocks([filepath], selected_channels, meta,
+                                             interrogator=interrogator, prefetch=1,
+                                             device=device))
+        if dtype is not None:
+            block.trace = block.trace.to(dtype)
+        return block, meta, selected_channels
     kwargs = {} if dtype is None else {"dtype": dtype}
     block = load_das_data(filepath, selected_channels, meta, device=device, **kwargs)
     return block, meta, selected_channels
@@ -93,3 +107,17 @@ def mf_prefilter(metadata, selected_channels, trace_shape=None, *,
         trace_shape = (sel.n_channels(meta.nx), meta.ns)
     return MatchedFilterDetector(meta, list(selected_channels), tuple(trace_shape),
                                  fused_bandpass=fused_bandpass, device=device)
+
+
+def maybe_savefig(fig, outdir: str | None, name: str) -> str | None:
+    """Write ``fig`` as ``outdir/name`` (80 dpi) and close it; None where
+    there is no figure or no ``outdir``."""
+    if fig is None or outdir is None:
+        return None
+    os.makedirs(outdir, exist_ok=True)
+    path = os.path.join(outdir, name)
+    fig.savefig(path, dpi=80)
+    import matplotlib.pyplot as plt
+
+    plt.close(fig)
+    return path

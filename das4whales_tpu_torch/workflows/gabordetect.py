@@ -4,20 +4,18 @@
 envelope image, the oriented Gabor score at the sound-speed slope, the
 binned mask, the masked matched filter and the picks — behind the eval
 adapter for the campaigns (``campaign_detector``), or as the workflow
-``main``. The figures come with the ROADMAP item 'Workflow mains and
-plots'."""
+``main`` with its detection figure."""
 
 from __future__ import annotations
 
 import torch
 
-from ..config import not_in_slice
 from ..eval import GaborEvalAdapter
 from ..models.gabor import GaborDetector
 from ..models.matched_filter import MatchedFilterDetector
 from ..utils.device import resolve_device
 from ..utils.profiling import StageTimer
-from .common import acquire, mf_prefilter
+from .common import acquire, maybe_savefig, mf_prefilter
 
 
 def campaign_detector(metadata, selected_channels, trace_shape=None, *,
@@ -43,20 +41,25 @@ def campaign_detector(metadata, selected_channels, trace_shape=None, *,
 
 
 def main(url: str | None = None, outdir: str | None = None, show: bool = False,
-         selected_channels_m=None, device=None, **gabor_kwargs):
+         selected_channels_m=None, interrogator: str = "optasense", device=None,
+         **gabor_kwargs):
     """Run the Gabor workflow on ``url`` (None: the offline synthetic
-    scene, written under ``data/``) on ``device`` (None: the card): the
-    matched filter's ``filter_block`` as prefilter, then
-    :class:`GaborDetector` (``gabor_kwargs`` go to it). Returns the
-    detector's result dict with ``trf_fk``, ``block``, ``figures`` and
-    ``timings`` added. ``outdir``/``show`` (the figures) raise: no plots in
-    this slice."""
+    scene, written under ``data/``; ``interrogator`` reads the file) on
+    ``device`` (None: the card): the matched filter's ``filter_block`` as
+    prefilter, then :class:`GaborDetector` (``gabor_kwargs`` go to it).
+    Returns the detector's result dict with ``trf_fk``, ``block``,
+    ``figures`` and ``timings`` added. With ``outdir`` or ``show`` it
+    draws ``gabor_detection.png``; matplotlib is checked for before the
+    file is read."""
     if outdir is not None or show:
-        raise not_in_slice("the figures (outdir, show)", "Workflow mains and plots")
+        from ..viz.plot import require_matplotlib
+
+        require_matplotlib("gabordetect with outdir or show")
     device = resolve_device(device)
     timer = StageTimer(sync=torch.cuda.synchronize if device.type == "cuda" else None)
     with timer.stage("acquire"):
-        block, meta, sel = acquire(url, selected_channels_m=selected_channels_m, device=device)
+        block, meta, sel = acquire(url, selected_channels_m=selected_channels_m,
+                                   interrogator=interrogator, device=device)
 
     with timer.stage("design"):
         mf = MatchedFilterDetector(meta, sel, tuple(block.trace.shape), device=device)
@@ -67,10 +70,21 @@ def main(url: str | None = None, outdir: str | None = None, show: bool = False,
         trf_fk = mf.filter_block(block.trace)
         res = det(trf_fk)
 
+    figures = {}
+    if outdir is not None or show:
+        from .. import viz
+
+        names = list(res["picks"])
+        fig = viz.detection_grad(
+            trf_fk, res["picks"][names[0]], block.tx, block.dist,
+            meta.fs, meta.dx, sel, file_begin_time_utc=block.t0_utc, show=show,
+            device=device)
+        figures["detection"] = maybe_savefig(fig, outdir, "gabor_detection.png")
+
     print(timer.report())
     res["trf_fk"] = trf_fk
     res["block"] = block
-    res["figures"] = {}
+    res["figures"] = figures
     res["timings"] = timer.totals
     return res
 
@@ -78,4 +92,4 @@ def main(url: str | None = None, outdir: str | None = None, show: bool = False,
 if __name__ == "__main__":
     import sys
 
-    main(sys.argv[1] if len(sys.argv) > 1 else None)
+    main(sys.argv[1] if len(sys.argv) > 1 else None, outdir="out_gabordetect")

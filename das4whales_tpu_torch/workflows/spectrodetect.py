@@ -2,16 +2,16 @@
 ``das4whales_tpu.workflows.spectrodetect``, the reference's
 ``main_spectrodetect.py``): the shared bandpass + f-k prefilter feeding a
 :class:`SpectroCorrDetector` — behind the eval adapter for the campaigns
-(``campaign_detector``), or as the workflow ``main``. The figures come
-with the ROADMAP item 'Workflow mains and plots'."""
+(``campaign_detector``), or as the workflow ``main`` with its detection
+figure."""
 
 from __future__ import annotations
 
-from ..config import not_in_slice
 from ..eval import SpectroEvalAdapter
 from ..models.matched_filter import MatchedFilterDetector
 from ..models.spectro import SpectroCorrDetector
-from .common import acquire, mf_prefilter
+from ..utils.device import resolve_device
+from .common import acquire, maybe_savefig, mf_prefilter
 
 
 def campaign_detector(metadata, selected_channels, trace_shape=None, *,
@@ -28,15 +28,22 @@ def campaign_detector(metadata, selected_channels, trace_shape=None, *,
 
 
 def main(url: str | None = None, outdir: str | None = None, show: bool = False,
-         selected_channels_m=None, threshold: float = 14.0, device=None):
+         selected_channels_m=None, threshold: float = 14.0, interrogator: str = "optasense",
+         device=None):
     """Run the spectro workflow on ``url`` (None: the offline synthetic
-    scene) on ``device`` (None: the card): the matched filter's
-    ``filter_block`` as prefilter, then the spectrogram correlation; picks
-    are in spectrogram frames (``spectro_fs``). ``outdir``/``show`` (the
-    figures) raise: no plots in this slice."""
+    scene; ``interrogator`` reads the file) on ``device`` (None: the
+    card): the matched filter's ``filter_block`` as prefilter, then the
+    spectrogram correlation; picks are in spectrogram frames
+    (``spectro_fs``). With ``outdir`` or ``show`` it draws
+    ``spectro_detection.png``; matplotlib is checked for before the file
+    is read."""
     if outdir is not None or show:
-        raise not_in_slice("the figures (outdir, show)", "Workflow mains and plots")
-    block, meta, sel = acquire(url, selected_channels_m=selected_channels_m, device=device)
+        from ..viz.plot import require_matplotlib
+
+        require_matplotlib("spectrodetect with outdir or show")
+    device = resolve_device(device)
+    block, meta, sel = acquire(url, selected_channels_m=selected_channels_m,
+                               interrogator=interrogator, device=device)
 
     mf = MatchedFilterDetector(meta, sel, tuple(block.trace.shape), device=device)
     trf_fk = mf.filter_block(block.trace)
@@ -44,17 +51,29 @@ def main(url: str | None = None, outdir: str | None = None, show: bool = False,
     det = SpectroCorrDetector(meta.with_shape(*block.trace.shape), threshold=threshold,
                               device=mf.device)
     correlograms, picks, spectro_fs = det(trf_fk)
+
+    figures = {}
+    if outdir is not None or show:
+        from .. import viz
+
+        names = list(picks)
+        fig = viz.detection_spectcorr(
+            trf_fk, picks[names[0]], picks[names[-1]],
+            block.tx, block.dist, spectro_fs, meta.dx, sel,
+            file_begin_time_utc=block.t0_utc, show=show, device=mf.device)
+        figures["detection"] = maybe_savefig(fig, outdir, "spectro_detection.png")
+
     return {
         "picks": picks,
         "correlograms": correlograms,
         "spectro_fs": spectro_fs,
         "trf_fk": trf_fk,
         "block": block,
-        "figures": {},
+        "figures": figures,
     }
 
 
 if __name__ == "__main__":
     import sys
 
-    main(sys.argv[1] if len(sys.argv) > 1 else None)
+    main(sys.argv[1] if len(sys.argv) > 1 else None, outdir="out_spectrodetect")

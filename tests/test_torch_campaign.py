@@ -762,8 +762,7 @@ def test_not_in_slice_settings_raise(data, tmp_path):
         params = inspect.signature(entry).parameters
         assert {"preflight", "cost_cards", "quality"} <= set(params)
     for fn, item in ((campaign.run_campaign_sharded, "Multi-GPU"),
-                     (campaign.run_campaign_multiprocess, "Multi-GPU"),
-                     (lambda: campaign.plot_campaign_density({}), "Workflow mains and plots")):
+                     (campaign.run_campaign_multiprocess, "Multi-GPU")):
         with pytest.raises(NotImplementedError, match=item):
             fn()
     assert not os.path.exists(tmp_path / "x" / "manifest.jsonl")

@@ -441,14 +441,6 @@ def test_gabordetect_main_matches_jax(tmp_path, monkeypatch):
     _assert_picks(jr["picks"], tr["picks"], _host(tr["correlograms"]), tr["thresholds"])
 
 
-@pytest.mark.parametrize("kw", [{"outdir": "figs"}, {"show": True}])
-def test_main_figure_branches_raise(tmp_path, monkeypatch, kw):
-    monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="Workflow mains and plots"):
-        tgd.main(None, device="cpu", **kw)
-    assert not (tmp_path / "data").exists()
-
-
 def test_entry_points_take_the_card_by_default(tmp_path, monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; this checks the refusal without one")

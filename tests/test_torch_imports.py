@@ -58,7 +58,10 @@ def test_the_scan_covers_every_module_of_the_port():
                 "utils/memory.py", "telemetry/slo.py", "telemetry/quality.py",
                 "telemetry/costs.py", "service/__init__.py", "service/ingest.py",
                 "service/scheduler.py", "service/api.py", "service/runner.py",
-                "__main__.py", "ops/mxu.py"):
+                "__main__.py", "ops/mxu.py", "viz/__init__.py", "viz/cmaps.py",
+                "viz/plot.py", "viz/map.py", "utils/audio.py", "workflows/fkcomp.py",
+                "workflows/plots.py", "workflows/bathynoise.py",
+                "workflows/spectrodetect.py", "workflows/gabordetect.py"):
         assert f"das4whales_tpu_torch/{mod}" in scanned
     assert "chip_smoke.py" in scanned
 
@@ -196,6 +199,55 @@ def test_service_and_serve_default_to_the_card(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA device"):
         main(["serve", str(reg), "--until-idle"])
     assert not out.exists()
+
+
+def test_cli_mains_and_figures_default_to_the_card(tmp_path, monkeypatch):
+    """Without a card: every computing verb without ``--device`` ends with
+    ``resolve_device``'s error (in-process it raises; as a module it exits
+    non-zero), before reading its file or writing its outdir; the mains
+    and the figures' device helpers raise it; ``import
+    das4whales_tpu_torch.viz`` works with matplotlib blocked."""
+    import numpy as np
+
+    from das4whales_tpu_torch.__main__ import WORKFLOWS, main
+    from das4whales_tpu_torch.io.hdf5 import write_optasense
+    from das4whales_tpu_torch.viz import plot
+    from das4whales_tpu_torch.workflows import (bathynoise, fkcomp, gabordetect, mfdetect,
+                                                plots, spectrodetect)
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the refusal without one")
+    monkeypatch.chdir(tmp_path)
+    path = write_optasense(str(tmp_path / "f.h5"), np.zeros((8, 64), np.int32), fs=200.0,
+                           dx=2.0)
+    verbs = [[w, path] for w in WORKFLOWS] + [["campaign", path], ["longrecord", path],
+                                              ["evaluate", "--nx", "8", "--ns", "400"]]
+    for argv in verbs:
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            main(argv)
+    assert sorted(os.listdir(tmp_path)) == ["f.h5"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT), MPLBACKEND="Agg")
+    out = subprocess.run([sys.executable, "-m", "das4whales_tpu_torch", "mfdetect", path,
+                          "--outdir", str(tmp_path / "o")], capture_output=True, text=True,
+                         env=env, timeout=120, cwd=str(tmp_path))
+    assert out.returncode != 0 and "device='cpu'" in out.stderr
+    for m in (mfdetect, spectrodetect, gabordetect, fkcomp, plots, bathynoise):
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            m.main(path)
+    x = np.zeros((4, 64), np.float32)
+    for fn, args in ((plot.envelope_np, (x,)), (plot.fx_panels, (x, 200.0)),
+                     (plot.instant_freq_np, (x[0], 200.0))):
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            fn(*args)
+    assert sorted(os.listdir(tmp_path)) == ["f.h5"]
+    code = ("import sys\nsys.modules['matplotlib'] = None\n"
+            "import das4whales_tpu_torch.viz as v\n"
+            "assert not v.plot.have_matplotlib() and 'matplotlib.pyplot' not in sys.modules\n"
+            "print(v.import_roseus.__name__)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, timeout=120, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "import_roseus"
 
 
 def test_telemetry_is_free_when_off_and_annotates_the_profiler_when_on():

@@ -661,8 +661,13 @@ def test_service_config_loader_round_trip(tmp_path):
 
 
 def test_other_cli_verbs_exit_nonzero_naming_their_item(capsys):
-    from das4whales_tpu_torch.__main__ import OTHER_VERBS, main
+    """What the port's command line still leaves to later items exits 2
+    naming it: the fleet ('Service and fleet') and the campaign's mesh
+    flags ('Multi-GPU'). The other verbs run (tests/test_torch_cli*.py)."""
+    from das4whales_tpu_torch.__main__ import main
 
-    for verb in OTHER_VERBS:
-        assert main([verb, "x"]) == 2
-        assert "'CLI'" in capsys.readouterr().err
+    for argv, item in ((["fleet", "x.json"], "'Service and fleet'"),
+                       (["campaign", "x.h5", "--sharded"], "'Multi-GPU'"),
+                       (["campaign", "x.h5", "--multihost"], "'Multi-GPU'")):
+        assert main(argv) == 2
+        assert item in capsys.readouterr().err

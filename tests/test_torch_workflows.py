@@ -7,7 +7,7 @@ picker. Contract: thresholds to rtol 1e-5; ``trf_fk`` within 1e-5 of its
 max; picks equal or differing only on rounding knife edges
 (``utils.parity``, on the port's own correlograms' envelopes; the
 spectro picks on its correlograms, in frames). The figure branches
-(``outdir``/``show``) raise, naming the ROADMAP item that brings them.
+(``outdir``/``show``) are held in ``tests/test_torch_mains.py``.
 """
 
 from __future__ import annotations
@@ -69,15 +69,6 @@ def test_spectrodetect_main_matches_jax(tmp_path, monkeypatch):
         assert float(np.abs(c.numpy() - jc).max()) <= 1e-4 * float(np.abs(jc).max())
     _assert_picks(jr["picks"], tr["picks"], lambda n: tr["correlograms"][n].numpy(),
                   lambda n: 14.0)
-
-
-@pytest.mark.parametrize("main", [mfdetect.main, spectrodetect.main])
-@pytest.mark.parametrize("kw", [{"outdir": "figs"}, {"show": True}])
-def test_figure_branches_raise(tmp_path, monkeypatch, main, kw):
-    monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="Workflow mains and plots"):
-        main(None, device="cpu", **kw)
-    assert not (tmp_path / "data").exists()      # refused before any work
 
 
 def test_mains_take_the_card_by_default(tmp_path, monkeypatch):
