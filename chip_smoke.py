@@ -6,7 +6,7 @@
 Builds the port's two CUDA kernels from ``das4whales_tpu_torch/csrc`` with
 ``nvcc`` (sm_90a) and the native ingest reader from
 ``das4whales_tpu_torch/native/ingest.cpp`` with ``g++``, then runs
-thirty-three phases, one summary line each (more for the detector runs, with their
+thirty-four phases, one summary line each (more for the detector runs, with their
 profiles), and exits non-zero at the first failed check; no phase's
 failure is caught:
 
@@ -346,7 +346,29 @@ failure is caught:
                 edges; the
                 ten image ops of ``ops.image`` on the Gabor family's binned
                 image within 1e-5 * max (Radon 1e-4), Canny up to counted
-                knife edges, Hough equal on the same edge map.
+                knife edges, Hough equal on the same edge map;
+34. ``fleet``    (run right after 28) the self-healing fleet: a
+                ``FleetSupervisor`` here spawns two ``python -m
+                das4whales_tpu_torch serve`` workers on the one card, each
+                with a ``DAS_HBM_BUDGET_GB`` share between the preflight's mf
+                B=2 and B=4 peaks, and places two mf tenants (batch 2, pow2,
+                the four 22050 x 12000 slab files each, one design
+                checkpoint, paced replay) one a worker; a client streams both
+                tenants' picks through the ``FleetRouter`` with cursors; one
+                graceful migration with a first slab in flight, then, once
+                both first slabs settled, a SIGKILL of the worker holding
+                both tenants: every file
+                done once at ``batched:2``, picks bitwise the preflight's
+                standalone batch-2 campaign (the kernel's launches there
+                held bitwise against its plain version), cursor streams
+                without gaps or duplicates, ``fsck_outdir`` clean, no tmp
+                left, ``fleet.jsonl`` replaying to the final assignment, the
+                router's ``/fleet``, worker-labelled ``/metrics``, ``/livez``
+                and ``/readyz`` 200, the survivor's exit 0 and no worker left
+                running, the service phase's 88 ``fused_picks`` launches; the
+                spawn, migration and recovery walls, each worker's device
+                memory (``nvidia-smi``) and the launches its slab counters
+                imply.
 
 Then it prints each phase's seconds, the kernel table as one JSON line, the run's total
 seconds, the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. It imports no JAX and nothing
@@ -4921,6 +4943,7 @@ def phase_preflight():
 
     import torch
 
+    from das4whales_tpu_torch.ops import fused_picks
     from das4whales_tpu_torch.parallel.batch import batched_detector_for
     from das4whales_tpu_torch.utils import memory
     from das4whales_tpu_torch.utils.artifacts import read_records
@@ -4987,15 +5010,28 @@ def phase_preflight():
     if summary["oom_recoveries"] or summary["n_failed"]:
         fail(f"preflight: {summary['oom_recoveries']} out-of-memory recoveries, "
              f"{summary['n_failed']} failed")
-    t0 = time.perf_counter()
-    ref = cmod.run_campaign_batched(paths, sel, str(ref_out), batch=2, **kw)
-    ref_wall = time.perf_counter() - t0
+    # the fleet phase holds its workers' picks to this run: its first pick
+    # launch (a full channel tile of the first slab of 2) and its last (the
+    # ragged tile of the last slab, of one file when the files are odd)
+    # against the plain version
+    with _capture(fused_picks, "picks_cuda") as calls:
+        t0 = time.perf_counter()
+        ref = cmod.run_campaign_batched(paths, sel, str(ref_out), batch=2, **kw)
+        ref_wall = time.perf_counter() - t0
+    tile, nT = mf.effective_channel_tile, design.templates.shape[0]
+    last_nv = len(paths) - 2 * ((len(paths) - 1) // 2)
+    picks_err, picks_notes = _picks_at_main_path("preflight", calls, {
+        "first": 2 * nT * tile, "last": last_nv * nT * (nx - (-(-nx // tile) - 1) * tile)})
+    n_ref_launches = calls["n"]
+    del calls
     if [(r.status, r.rung) for r in ref.records] != recs:
         fail(f"preflight: the batch-2 run's records {[(r.status, r.rung) for r in ref.records]}")
     ref_picks = _saved_picks(ref)
     n_same = _same_saved_picks("preflight", res, ref_picks)
-    # the service phase holds its mf tenant (batched:2) to this run's picks
-    _PREFLIGHT.update(peaks=peaks, secs=secs, budget=budget, mf_picks=ref_picks)
+    # the service and fleet phases hold their mf tenants (batched:2) to
+    # this run's picks
+    _PREFLIGHT.update(peaks=peaks, secs=secs, budget=budget, mf_picks=ref_picks,
+                      tile=mf.effective_channel_tile, picks_err=picks_err)
     shutil.rmtree(out, ignore_errors=True)
     shutil.rmtree(ref_out, ignore_errors=True)
     gib = 2**30
@@ -5010,7 +5046,9 @@ def phase_preflight():
         f"{wall:.1f} s, {camp_probes['n']} new probes ({camp_probes['s']:.2f} s; the rest "
         f"memoized), one preflight downshift batched:4 -> batched:2, every file done at "
         f"batched:2, 0 out-of-memory errors; {n_same} files' picks bitwise the batch-2 run's "
-        f"without the preflight ({ref_wall:.1f} s); phase {time.perf_counter() - t_phase:.1f} s")
+        f"without the preflight ({ref_wall:.1f} s), whose fused_picks launches "
+        f"({n_ref_launches}) were bitwise their plain version at the first and the last "
+        f"({'; '.join(picks_notes)}); phase {time.perf_counter() - t_phase:.1f} s")
     return _PREFLIGHT
 
 
@@ -5290,6 +5328,365 @@ def phase_service():
         f"{serve_s:.1f} s, both "
         f"manifests settled; phase {time.perf_counter() - t_phase:.1f} s")
     return launches, (picks_err, stft_err)
+
+
+#: the fleet drill: two workers on the one card and two live mf tenants
+#: whose files the smoke pushes through the router's ``/ingest``. Every step
+#: waits on state, never on a clock: a's first two files (one slab) are
+#: pushed and a is migrated with them in flight (the drain resolves that
+#: slab); b's first two settle on the worker a moved to; that worker, holding
+#: both tenants and no unsettled file, is SIGKILLed; once the survivor owns
+#: both, their last two files are pushed. Each slab is two files in the
+#: campaign's order, so every slab is the standalone batch-2 campaign's (the
+#: card's batched mode rounds by the slab it is given)
+FLEET_WORKERS = 2
+#: a worker's deadline to answer /livez (torch import, CUDA context)
+FLEET_SPAWN_TIMEOUT_S = 180.0
+#: the drill's deadline from the start to every file settled (a fault
+#: bound: no step of the drill waits for a clock)
+FLEET_SETTLE_TIMEOUT_S = 240.0
+
+
+def _fleet_stream(url: str, tenant: str, n_expect: int, out: list, errors: list, stop) -> None:
+    """A client's cursor stream through the router: long-poll
+    ``/picks/<tenant>``, resume from the last cursor, retry a 503 (the
+    migration window) and a refused connection."""
+    import urllib.error
+    import urllib.request
+
+    cursor = 0
+    while not stop.is_set():
+        if sum(1 for r in out if r.get("status") == "done") >= n_expect:
+            return
+        try:
+            with urllib.request.urlopen(f"{url}/picks/{tenant}?cursor={cursor}&wait_s=1",
+                                        timeout=30) as r:
+                body = r.read().decode()
+        except urllib.error.HTTPError as exc:
+            exc.read()
+            if exc.code != 503:
+                errors.append(f"/picks/{tenant}: HTTP {exc.code}")
+                return
+            stop.wait(0.2)
+            continue
+        except (urllib.error.URLError, OSError, TimeoutError):
+            stop.wait(0.2)
+            continue
+        for line in body.splitlines():
+            rec = json.loads(line)
+            rec["_t"] = time.perf_counter()   # when the client saw it
+            out.append(rec)
+            cursor = rec["cursor"]
+
+
+def _done_count(outdirs) -> int:
+    from das4whales_tpu_torch.utils.artifacts import read_records
+
+    return sum(1 for d in outdirs for r in read_records(os.path.join(d, "manifest.jsonl"))
+               if r.get("status") == "done")
+
+
+def _metric_by_worker(text: str, name: str) -> dict:
+    """``{worker: sum}`` of a counter's samples in the router's
+    worker-labelled exposition."""
+    got: dict = {}
+    for line in text.splitlines():
+        if line.startswith(name + "{") and 'worker="' in line:
+            w = line.split('worker="', 1)[1].split('"', 1)[0]
+            got[w] = got.get(w, 0.0) + float(line.rsplit(" ", 1)[1])
+    return got
+
+
+def phase_fleet(svc_launches=None):
+    """The self-healing fleet on the card: a ``FleetSupervisor`` in this
+    process spawns two ``python -m das4whales_tpu_torch serve`` workers
+    on the one H100, each with a memory share (``DAS_HBM_BUDGET_GB``)
+    between the preflight phase's mf B=2 and B=4 peaks, and places two
+    live mf tenants (``a``, ``b``: batch 2, pow2, its own outdir, a design
+    checkpoint saved once) one a worker. The slab phase's four 22050 x
+    12000 TDMS files are read as the replay source reads them and pushed
+    to each tenant through the ``FleetRouter``'s ``/ingest``, named by
+    their paths; a client streams both tenants' picks through the router
+    with cursors. The drill (each step gated on state): a's first slab
+    pushed, then one graceful migration of ``a`` onto ``b``'s worker with
+    that slab in flight; once ``b``'s first slab settled, SIGKILL of that
+    worker; the survivor adopts both from their manifests and takes their
+    last two files. Checks: every file ``done`` exactly once fleet-wide,
+    each tenant's picks bitwise the preflight phase's standalone batch-2
+    campaign (whose first and last ``fused_picks`` launches that phase
+    held bitwise against the plain version), the cursor streams gap- and
+    duplicate-free, ``fsck_outdir`` clean and no tmp left, ``fleet.jsonl``
+    replaying to the final assignment, the router's ``/fleet``,
+    ``/metrics`` (worker-labelled), ``/livez`` and ``/readyz`` 200, the
+    survivor's graceful exit 0 and no worker process left, and the
+    service phase's 88 ``fused_picks`` launches. The workers' launches are
+    not counted (they run in other processes, and this smoke adds no
+    counter to the service); the phase prints the figure the workers'
+    slab counters imply, one launch a channel tile of a slab."""
+    import gc
+    import shutil
+    import signal
+    import threading
+    import urllib.request
+
+    import torch
+
+    from das4whales_tpu_torch.fleet import FleetConfig, FleetRouter, FleetSupervisor
+    from das4whales_tpu_torch.fleet.supervisor import is_fleet_worker, settled_files
+    from das4whales_tpu_torch.fsck import fsck_outdir
+    from das4whales_tpu_torch.io.stream import stream_strain_blocks
+    from das4whales_tpu_torch.utils import artifacts
+    from das4whales_tpu_torch.utils.checkpoint import save_design
+    from das4whales_tpu_torch.workflows.campaign import load_picks
+
+    t_phase = time.perf_counter()
+    if svc_launches is not None and svc_launches != 88:
+        fail(f"fleet: the service phase launched fused_picks {svc_launches} times; 88 expected")
+    pre = _PREFLIGHT or phase_preflight()
+    nx = CANONICAL[0]
+    sel = [0, nx, 1]
+    shared = slab_files()
+    files = [p for p, (_, ns) in zip(shared["paths"], SLAB_FILES) if ns == CANONICAL[1]]
+    meta = shared["scenes"][0].metadata
+    d = shared["dir"] / "fleet"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir()
+    dpath = save_design(str(d / "design"), _service_design(meta, nx))
+    share_gb = pre["budget"] / 2**30
+
+    # each file's block as the replay source reads it (the tenant's
+    # metadata, channels, interrogator and wire), pushed to both tenants
+    t_read = time.perf_counter()
+    blocks = []
+    for b in stream_strain_blocks(files, sel, meta.to_dict(), interrogator="silixa",
+                                  engine="h5py", as_numpy=True, wire="conditioned"):
+        tr = np.ascontiguousarray(b.trace)
+        blocks.append((tr.tobytes(), f"{tr.shape[0]},{tr.shape[1]}", tr.dtype.name))
+        del b, tr
+    read_s = time.perf_counter() - t_read
+
+    def tenant(name):
+        return {"name": name, "channels": sel, "batch": 2, "bucket": "pow2",
+                "interrogator": "silixa", "metadata": meta.to_dict(),
+                "linger_s": SERVICE_LINGER_S,
+                "detector_kwargs": {"design": dpath, "channel_tile": pre["tile"]}}
+
+    root = str(d / "root")
+    cfg = FleetConfig(tenants=[tenant("a"), tenant("b")], root=root, workers=FLEET_WORKERS,
+                      health_interval_s=0.25, probe_timeout_s=5.0, dead_after=3,
+                      spawn_timeout_s=FLEET_SPAWN_TIMEOUT_S, drain_timeout_s=120.0,
+                      worker_env={"DAS_HBM_BUDGET_GB": repr(share_gb),
+                                  "PYTHONPATH": os.pathsep.join(filter(None, (
+                                      os.path.dirname(os.path.abspath(__file__)),
+                                      os.environ.get("PYTHONPATH"))))},
+                      device="cuda")
+    outdirs = {t: os.path.join(root, "tenants", t) for t in ("a", "b")}
+    # the workers' contexts and shares come on top of what this process
+    # holds: hand its cached blocks back first
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    sup = FleetSupervisor(cfg)
+    stop = threading.Event()
+    streams = {t: [] for t in outdirs}
+    errors: list = []
+    router = None
+    push_s = []
+
+    def push(t: str, i: int) -> None:
+        body, shape, dtype = blocks[i]
+        req = urllib.request.Request(
+            f"{router.url}/ingest/{t}", data=body, method="POST",
+            headers={"X-DAS-Shape": shape, "X-DAS-Dtype": dtype, "X-DAS-Name": files[i]})
+        tp = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=120) as r:
+            code, text = r.status, r.read().decode()
+        push_s.append(time.perf_counter() - tp)
+        if code != 202:
+            fail(f"fleet: /ingest/{t} of {os.path.basename(files[i])}: {code} {text}")
+
+    try:
+        t0 = time.perf_counter()
+        sup.start()                       # returns once both workers answer /livez
+        t_up = time.perf_counter()
+        first = dict(sup.status()["assignments"])
+        if sorted(first) != ["a", "b"] or first["a"] == first["b"]:
+            fail(f"fleet: placement {first}; one tenant a worker expected")
+        router = FleetRouter(sup, host=cfg.host, port=0).start()
+        clients = [threading.Thread(target=_fleet_stream, name=f"smoke-stream-{t}",
+                                    args=(router.url, t, len(files), streams[t], errors, stop),
+                                    daemon=True) for t in outdirs]
+        for c in clients:
+            c.start()
+        deadline = t0 + FLEET_SETTLE_TIMEOUT_S
+
+        def await_(what, cond):
+            while not cond():
+                if time.perf_counter() > deadline:
+                    fail(f"fleet: {what}: {sup.status()}")
+                time.sleep(0.05)
+
+        # each tenant's first slab; a is migrated with its slab in flight
+        for t in ("a", "b"):
+            push(t, 0)
+            push(t, 1)
+        tm = time.perf_counter()
+        mig = sup.migrate("a", trigger="rebalance")
+        mig_s = time.perf_counter() - tm
+        dst = mig["dst"]
+        if dst != first["b"]:
+            fail(f"fleet: a migrated to {dst}, not to b's worker {first['b']}")
+        if sorted(settled_files(outdirs["a"])) != files[:2]:
+            fail(f"fleet: a's drain settled {sorted(settled_files(outdirs['a']))}; its "
+                 "in-flight first slab and nothing else")
+        await_("b's first slab did not settle", lambda: len(settled_files(outdirs["b"])) >= 2)
+        t_first = time.perf_counter()
+        # the victim holds both tenants and no file that is not settled
+        if any(sorted(settled_files(o)) != files[:2] for o in outdirs.values()):
+            fail(f"fleet: settled before the kill "
+                 f"{[sorted(map(os.path.basename, settled_files(o))) for o in outdirs.values()]}")
+        with urllib.request.urlopen(router.url + "/metrics", timeout=30) as r:
+            text = r.read().decode()
+        slabs_before = _metric_by_worker(text, "das_service_slabs_total")
+        mem_before = {g: _metric_by_worker(text, g) for g in
+                      ("das_preflight_hbm_peak_bytes", "das_hbm_bytes_in_use")}
+        victim = next(w for w in sup.workers() if w.name == dst)
+        survivor = next(w.name for w in sup.workers() if w.name != dst)
+        done_before = _done_count(outdirs.values())
+        tk = time.perf_counter()
+        os.kill(victim.pid, signal.SIGKILL)
+        await_("the survivor did not adopt both tenants", lambda: all(
+            (w := sup.owner(t)) is not None and w.name == survivor for t in outdirs))
+        t_adopted = time.perf_counter()
+        for t in ("a", "b"):
+            push(t, 2)
+            push(t, 3)
+        t_pushed = time.perf_counter()
+        await_("no file settled after the SIGKILL",
+               lambda: _done_count(outdirs.values()) > done_before)
+        t_done = time.perf_counter()
+        await_("not every file settled", lambda: all(
+            set(files) <= settled_files(o) for o in outdirs.values()))
+        t_settled = time.perf_counter()
+        for c in clients:
+            c.join(60)
+        codes = {}
+        for path in ("/fleet", "/metrics", "/livez", "/readyz"):
+            with urllib.request.urlopen(router.url + path, timeout=30) as r:
+                codes[path] = (r.status, r.read().decode())
+        final_status = sup.status()
+    finally:
+        if router is not None:
+            router.stop()
+        sup.stop()
+        stop.set()
+    t_stopped = time.perf_counter()
+    push_gib = len(blocks[0][0]) / 2**30
+    del blocks
+    if errors:
+        fail(f"fleet: the cursor streams failed: {errors}")
+    if {p: c for p, (c, _) in codes.items()} != dict.fromkeys(codes, 200):
+        fail(f"fleet: router answers {[(p, c) for p, (c, _) in codes.items()]}")
+    metrics_text = codes["/metrics"][1]
+    if f'worker="{survivor}"' not in metrics_text or "das_fleet_migrations_total" not in metrics_text:
+        fail("fleet: the router's /metrics lacks the worker-labelled samples or the fleet's own")
+    slabs_after = _metric_by_worker(metrics_text, "das_service_slabs_total")
+    mem_after = {g: _metric_by_worker(metrics_text, g) for g in mem_before}
+    mem_text = "; ".join(
+        f"{g} {', '.join(f'{w} {v / 2**30:.2f} GiB' for w, v in sorted(m.items()))} before the "
+        f"kill, {', '.join(f'{w} {v / 2**30:.2f} GiB' for w, v in sorted(mem_after[g].items()))} "
+        "at the end" for g, m in mem_before.items())
+    done_t = {t: [round(r["_t"] - t0, 1) for r in streams[t] if r.get("status") == "done"]
+              for t in streams}
+    rcs = {w.name: w.proc.returncode for w in sup.workers()}
+    if any(rc is None for rc in rcs.values()) or rcs[survivor] != 0:
+        fail(f"fleet: worker exit codes {rcs}; the survivor must drain and exit 0")
+    alive = []
+    for pid in os.listdir("/proc"):
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as fh:
+                cmd = fh.read()
+            with open(f"/proc/{pid}/stat", "rb") as fh:
+                state = fh.read().rsplit(b")", 1)[-1].split()[0]
+        except (OSError, ValueError):
+            continue
+        if state != b"Z" and is_fleet_worker(cmd, root):
+            alive.append(int(pid))
+    if alive:
+        fail(f"fleet: worker processes still running after stop: {alive}")
+    ref = pre["mf_picks"]
+    for t, o in outdirs.items():
+        done = {}
+        for r in artifacts.read_records(os.path.join(o, "manifest.jsonl")):
+            if r.get("status") == "done":
+                done.setdefault(r["path"], []).append(r)
+        if sorted(done) != sorted(files) or any(len(v) != 1 for v in done.values()):
+            fail(f"fleet: tenant {t}: done records {[(os.path.basename(p), len(v)) for p, v in done.items()]}")
+        for path, (r,) in done.items():
+            if r.get("rung") != "batched:2":
+                fail(f"fleet: tenant {t}: {os.path.basename(path)} at {r.get('rung')}")
+            got, want = load_picks(r["picks_file"]), ref[path]
+            if set(got) != set(want) or any(not np.array_equal(got[k], want[k]) for k in got):
+                fail(f"fleet: tenant {t}: {os.path.basename(path)}: picks differ from the "
+                     "standalone batch-2 campaign's")
+        findings = fsck_outdir(o)
+        if findings:
+            fail(f"fleet: fsck_outdir {t}: {[f.as_dict() for f in findings]}")
+        cur = [r["cursor"] for r in streams[t]]
+        seen = [r["path"] for r in streams[t] if r.get("status") == "done"]
+        if cur != list(range(1, len(cur) + 1)) or sorted(seen) != sorted(files):
+            fail(f"fleet: tenant {t}'s cursor stream: cursors {cur}, done {len(seen)}")
+    tmps = artifacts.sweep_orphan_tmps(root, remove=False)
+    if tmps:
+        fail(f"fleet: tmp files left {tmps}")
+    ledger = artifacts.read_records(os.path.join(root, "fleet.jsonl"))
+    replay = {}
+    for r in ledger:
+        if r.get("event") == "assign":
+            replay[r["tenant"]] = r["worker"]
+    if replay != final_status["assignments"] or set(replay.values()) != {survivor}:
+        fail(f"fleet: fleet.jsonl replays to {replay}; final {final_status['assignments']}")
+    triggers = sorted(r["trigger"] for r in ledger if r.get("event") == "migrate")
+    if not any(r.get("event") == "dead" and r["worker"] == dst for r in ledger) \
+            or set(triggers) != {"rebalance", "failure"}:
+        fail(f"fleet: ledger migrations {triggers}, dead events "
+             f"{[r for r in ledger if r.get('event') == 'dead']}")
+    walls = {t: [r.get("wall_s") for r in artifacts.read_records(os.path.join(o, "manifest.jsonl"))
+                 if r.get("status") == "done"] for t, o in outdirs.items()}
+    # the victim's slabs as read before the kill, the survivor's at the end
+    slabs = slabs_before.get(dst, 0.0) + slabs_after.get(survivor, 0.0)
+    per_slab = -(-nx // pre["tile"])          # one launch a channel tile
+    say(f"fleet: FleetSupervisor + FleetRouter on the card ({_SMI.get('line', 'nvidia-smi not read')}), "
+        f"{FLEET_WORKERS} serve workers (share DAS_HBM_BUDGET_GB={share_gb:.2f}, between the "
+        f"mf B=2 and B=4 peaks), live tenants a and b (mf, batch 2, pow2, one design "
+        f"checkpoint), each fed the {len(files)} files of {nx} x {CANONICAL[1]} through the "
+        f"router's /ingest (read {read_s:.1f} s; {len(push_s)} pushes of "
+        f"{push_gib:.2f} GiB, "
+        f"{min(push_s):.2f}-{max(push_s):.2f} s each): fleet up (both workers spawned and "
+        f"answering /livez, both tenants adopted) {t_up - t0:.1f} s, placement {first}; "
+        f"graceful migration of a ({mig['src']} -> {dst}) with its first slab in flight "
+        f"{mig_s:.2f} s (the drain waits for the slab); both first slabs settled at "
+        f"{t_first - t0:.1f} s; SIGKILL of {dst} (pid {victim.pid}, both tenants, nothing "
+        f"unsettled): both adopted by {survivor} after {t_adopted - tk:.2f} s, the last two "
+        f"files of each pushed {t_pushed - tk:.1f} s after the kill, the survivor's first done "
+        f"{t_done - tk:.1f} s after it, every file settled {t_settled - tk:.1f} s after it; "
+        f"record walls a file a {np.mean(walls['a']):.3f} / b {np.mean(walls['b']):.3f} s, "
+        f"the pass {(t_settled - t_up) / len(files):.1f} s a file a tenant; each tenant's "
+        f"{len(files)} files done once at batched:2, picks bitwise the preflight phase's "
+        f"standalone batch-2 campaign, whose first and last fused_picks launches that phase "
+        f"held bitwise against the plain version; cursor streams a {len(streams['a'])} / b "
+        f"{len(streams['b'])} lines, gap- and duplicate-free; fsck_outdir clean, no tmp "
+        f"left; fleet.jsonl replays to {replay}; router /fleet /metrics /livez /readyz 200; "
+        f"slabs resolved by worker (das_service_slabs_total) before the kill "
+        f"{slabs_before}, at the end {slabs_after}: {int(per_slab * slabs)} fused_picks "
+        f"launches implied at {per_slab} a slab (not counted: the workers are other "
+        f"processes); worker exit "
+        f"codes {rcs} (the killed one {victim.proc.returncode}), none left running; each "
+        f"worker's device memory from its /metrics: {mem_text}; this process's peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; the clients saw each done "
+        f"record at (s from the start) {done_t}; stop {t_stopped - t_settled:.1f} s; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    shutil.rmtree(d, ignore_errors=True)
 
 
 @contextlib.contextmanager
@@ -6614,6 +7011,7 @@ def main(argv: list) -> int:
             learned_launches, learned_err, learned = phase_learned(scene, raw)
             phase_preflight()
             svc_launches, (svc_picks_err, svc_stft_err) = phase_service()
+            phase_fleet(svc_launches["fused_picks"])
         finally:
             remove_slab_files()
         prep = long_record_prep(pool)
@@ -6663,7 +7061,8 @@ def main(argv: list) -> int:
                              "service": svc_launches["fused_picks"],
                              "mxu": mxu_out["launches"], **wf_out["launches"]},
         "max_abs_err": max(err, slab_picks_err, full_err, bank_err, gabor_err, loc_err,
-                           svc_picks_err, mxu_out["err"], wf_out["err"]),
+                           _PREFLIGHT["picks_err"], svc_picks_err, mxu_out["err"],
+                           wf_out["err"]),
         "ms": pk["ms"],
         "device_ms": pk["device_ms"],
         "plain_ms": pk["plain_ms"],

@@ -18,9 +18,13 @@ Three differences from the JAX package's command line:
   --figure``) checks for matplotlib before it reads a file and exits 2
   naming it where it is missing.
 
-Not in this slice: ``fleet`` (exit 2, naming the ROADMAP item 'Service
-and fleet') and ``campaign --sharded`` / ``--multihost`` (exit 2,
-'Multi-GPU').
+``fleet`` reads its device from the fleet registry's ``device`` key
+(default the card) and writes it into every worker's registry;
+``--device`` overrides it, and a fleet without its card refuses before
+any worker spawns.
+
+Not in this slice: ``campaign --sharded`` / ``--multihost`` (exit 2,
+naming the ROADMAP item 'Multi-GPU').
 
 Examples::
 
@@ -28,6 +32,7 @@ Examples::
     python -m das4whales_tpu_torch mfdetect file.tdms --interrogator silixa
     python -m das4whales_tpu_torch longrecord seg0.h5 seg1.h5
     python -m das4whales_tpu_torch campaign *.h5 --outdir out_camp
+    python -m das4whales_tpu_torch fleet fleet.json --until-settled
     python -m das4whales_tpu_torch list
 """
 
@@ -161,10 +166,11 @@ def build_parser() -> argparse.ArgumentParser:
                          "(exports <outdir>/trace.json at drain)")
     pfl = sub.add_parser(
         "fleet",
-        help="run a supervised multi-worker fleet (not in this slice of the port: "
-             "'Service and fleet')",
+        help="run a supervised multi-worker fleet: N serve worker subprocesses, "
+             "cost-card placement, failure detection, migration-as-recovery, and the "
+             "tenant-keyed router (das4whales_tpu_torch.fleet)",
     )
-    pfl.add_argument("config", help="JSON fleet registry (tenants, workers, root)")
+    pfl.add_argument("config", help="JSON fleet registry (tenants, workers, root, device)")
     pfl.add_argument("--port", type=int, default=None,
                      help="override the router port (0: ephemeral)")
     pfl.add_argument("--root", default=None, help="override the fleet root directory")
@@ -174,6 +180,9 @@ def build_parser() -> argparse.ArgumentParser:
                           "fleet-wide (backfill mode) instead of serving until SIGTERM")
     pfl.add_argument("--settle-timeout", type=float, default=600.0,
                      help="--until-settled deadline in seconds")
+    pfl.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                     help="where every worker computes (default: the registry's "
+                          "device, else the CUDA card; no fallback to the CPU)")
     pl = sub.add_parser(
         "longrecord",
         help="continuous detection across file boundaries: consecutive files become ONE "
@@ -338,6 +347,47 @@ def _serve(args) -> int:
     return 0 if n_failed == 0 else 3
 
 
+def _fleet(args) -> int:
+    import signal
+    import threading
+
+    from .fleet import FleetRouter, FleetSupervisor, load_fleet_config
+    from .utils.device import resolve_device
+
+    fcfg = load_fleet_config(args.config)
+    if args.root is not None:
+        fcfg.root = args.root
+    if args.workers is not None:
+        fcfg.workers = args.workers
+    if args.port is not None:
+        fcfg.port = args.port
+    if args.device is not None:
+        fcfg.device = args.device
+    # before the root is made or a worker spawns: a fleet without its card
+    # refuses here, as every other computing verb does
+    resolve_device(fcfg.device)
+    sup = FleetSupervisor(fcfg)
+    router = None
+    stop_ev = threading.Event()
+    try:
+        sup.start()
+        router = FleetRouter(sup, host=fcfg.host, port=fcfg.port).start()
+        print(f"fleet: router at {router.url} ({fcfg.workers} workers)", file=sys.stderr)
+        if args.until_settled:
+            if not sup.wait_until_settled(timeout_s=args.settle_timeout):
+                print("fleet: settle timeout", file=sys.stderr)
+                return 3
+            return 0
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            signal.signal(sig, lambda *_a: stop_ev.set())
+        stop_ev.wait()
+        return 0
+    finally:
+        if router is not None:
+            router.stop()
+        sup.stop()
+
+
 def _longrecord(args) -> int:
     import numpy as np
 
@@ -479,9 +529,7 @@ def main(argv=None) -> int:
             print(render_findings(findings))
         return 1 if any(not f.repaired for f in findings) else 0
     if args.workflow == "fleet":
-        print(f"error: {not_in_slice('the fleet verb', 'Service and fleet')}",
-              file=sys.stderr)
-        return 2
+        return _fleet(args)
     if args.workflow == "evaluate":
         return _evaluate(args)
     if args.workflow == "serve":

@@ -254,6 +254,28 @@ def mf_filter_only(trace: torch.Tensor, fk_mask_band: torch.Tensor, bp_gain: tor
                             fk_dft)
 
 
+def mf_filter_and_correlate(trace: torch.Tensor, fk_mask, bp_gain: torch.Tensor,
+                            templates: torch.Tensor, bp_padlen: int):
+    """The untiled bandpass -> f-k -> correlograms core of the reference's
+    ``main_mfdetect.py:53-80``: the staged bandpass (odd extension by
+    ``bp_padlen``, one rfft round trip times ``bp_gain``), the f-k filter
+    on the whole fftshifted ``fk_mask`` (``ops.fk.fk_filter_apply_rfft``)
+    and the correlograms against ``templates``
+    (``ops.xcorr.compute_cross_correlograms_multi``). Returns ``(trf_fk,
+    correlograms [n_templates, channel, time])``. A channel-padded
+    design is refused, as in the JAX package."""
+    if fk_mask.shape[0] != trace.shape[0]:
+        raise ValueError(
+            f"fk_mask has {fk_mask.shape[0]} channel rows but trace has "
+            f"{trace.shape[0]}; channel-padded designs "
+            f"(design_matched_filter(channel_pad=...)) are not supported by "
+            f"this legacy entry point — use MatchedFilterDetector"
+        )
+    trf_fk = fk_ops.fk_filter_apply_rfft(fft_zero_phase_apply(trace, bp_gain, bp_padlen),
+                                         fk_mask)
+    return trf_fk, xcorr.compute_cross_correlograms_multi(trf_fk, templates)
+
+
 def mf_correlate_tiled(trf_fk: torch.Tensor, templates_true: torch.Tensor,
                        mu: torch.Tensor, scale: torch.Tensor, tile: int,
                        mf_engine: str = "fft", fused=None, fir_half: int = 0):
@@ -491,6 +513,23 @@ def mf_detect_picks_program(
     return ProgramOutputs(chan, times, count, sat_count,
                           thr.to(torch.float32).movedim(0, -1), sp.positions, sp.selected,
                           health)
+
+
+def mf_detect_picks_tiled_program(trace, mask_band, bp_gain, templates_true, mu, scale,
+                                  thr_in, thr_factors, *, tile: int, **kw) -> ProgramOutputs:
+    """The one-program TILED slab by name: :func:`mf_detect_picks_program`
+    with ``tile`` required (a positive int — the channel-tile walk whose
+    per-tile correlate -> envelope -> pick chain never holds the whole
+    correlogram grid). The same function under a second name, as in the
+    JAX package."""
+    if not isinstance(tile, int) or tile <= 0:
+        raise ValueError(
+            f"mf_detect_picks_tiled_program needs a positive int tile, "
+            f"got {tile!r}; use mf_detect_picks_program for the "
+            "monolithic (tile=None) route"
+        )
+    return mf_detect_picks_program(trace, mask_band, bp_gain, templates_true, mu, scale,
+                                   thr_in, thr_factors, tile=tile, **kw)
 
 
 @dataclass

@@ -175,10 +175,23 @@ def test_campaign_with_no_probeable_file_exits_3(files, tmp_path, capsys):
 @pytest.mark.parametrize("argv", [["campaign", "x.h5", "--sharded"],
                                   ["campaign", "x.h5", "--multihost"],
                                   ["fleet", "fleet.json"]])
-def test_mesh_flags_and_fleet_exit_2_naming_their_item(argv, capsys):
+def test_mesh_flags_and_fleet_exit_2_naming_their_item(argv, capsys, tmp_path):
+    """The mesh flags exit 2 naming 'Multi-GPU'. The fleet verb runs: a
+    registry with an unknown key fails naming it, in both packages, before
+    any worker starts (running fleets: tests/test_torch_fleet.py)."""
+    if argv[0] == "fleet":
+        cfg = tmp_path / argv[1]
+        cfg.write_text(json.dumps({"tenants": [], "root": str(tmp_path / "f"),
+                                   "bogus_knob": 1}))
+        for main in (jmain, tmain):
+            with pytest.raises(ValueError, match="bogus_knob"):
+                main(["fleet", str(cfg), "--device", "cpu"] if main is tmain
+                     else ["fleet", str(cfg)])
+        assert "Service and fleet" not in capsys.readouterr().err
+        assert not (tmp_path / "f").exists()
+        return
     assert tmain(argv) == 2
-    item = "'Service and fleet'" if argv[0] == "fleet" else "'Multi-GPU'"
-    assert item in capsys.readouterr().err
+    assert "'Multi-GPU'" in capsys.readouterr().err
 
 
 def _long_files(d):

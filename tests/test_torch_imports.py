@@ -61,7 +61,8 @@ def test_the_scan_covers_every_module_of_the_port():
                 "__main__.py", "ops/mxu.py", "viz/__init__.py", "viz/cmaps.py",
                 "viz/plot.py", "viz/map.py", "utils/audio.py", "workflows/fkcomp.py",
                 "workflows/plots.py", "workflows/bathynoise.py",
-                "workflows/spectrodetect.py", "workflows/gabordetect.py"):
+                "workflows/spectrodetect.py", "workflows/gabordetect.py",
+                "fleet/__init__.py", "fleet/supervisor.py", "fleet/router.py"):
         assert f"das4whales_tpu_torch/{mod}" in scanned
     assert "chip_smoke.py" in scanned
 
@@ -199,6 +200,43 @@ def test_service_and_serve_default_to_the_card(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA device"):
         main(["serve", str(reg), "--until-idle"])
     assert not out.exists()
+
+
+def test_fleet_defaults_to_the_card(tmp_path):
+    """``FleetConfig().device`` is the card and a registry without a
+    ``device`` key loads onto it; the ``fleet`` verb without ``--device``
+    raises ``resolve_device``'s error before it makes its root or spawns a
+    worker; a supervisor started on the card spawns its worker, which
+    exits non-zero naming the missing card, and ``start`` names the
+    worker's log — nothing runs on the CPU."""
+    import json
+
+    from das4whales_tpu_torch.__main__ import main
+    from das4whales_tpu_torch.fleet import FleetConfig, FleetSupervisor, load_fleet_config
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the refusal without one")
+    assert FleetConfig(tenants=[]).device == "cuda"
+    root = tmp_path / "fleet"
+    reg = tmp_path / "fleet.json"
+    reg.write_text(json.dumps({"root": str(root), "workers": 1, "tenants": [
+        {"name": "a", "files": ["x.h5"], "channels": [0, 8, 1]}]}))
+    assert load_fleet_config(str(reg)).device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        main(["fleet", str(reg), "--until-settled"])
+    assert not root.exists()
+    cfg = load_fleet_config(str(reg))
+    cfg.worker_env = {"PYTHONPATH": str(ROOT)}
+    sup = FleetSupervisor(cfg)
+    try:
+        with pytest.raises(RuntimeError, match="worker.log"):
+            sup.start()
+    finally:
+        sup.stop()
+    log = (root / "workers" / "w0" / "worker.log").read_text()
+    assert "CUDA device" in log and "device='cpu'" in log
+    assert json.loads((root / "workers" / "w0" / "registry.json").read_text())["device"] == "cuda"
+    assert not (root / "tenants" / "a").exists()
 
 
 def test_cli_mains_and_figures_default_to_the_card(tmp_path, monkeypatch):

@@ -34,6 +34,7 @@ import numpy as np
 import pytest
 
 from das4whales_tpu import service as jservice
+from das4whales_tpu.fleet import load_fleet_config as jload_fleet_config
 from das4whales_tpu.io.synth import SyntheticCall, SyntheticScene, write_synthetic_file
 from das4whales_tpu.models.matched_filter import MatchedFilterDetector as JaxDetector
 from das4whales_tpu.service import ingest as jingest
@@ -660,14 +661,26 @@ def test_service_config_loader_round_trip(tmp_path):
         service.TenantSpec(name="z", family="nope")
 
 
-def test_other_cli_verbs_exit_nonzero_naming_their_item(capsys):
+def test_other_cli_verbs_exit_nonzero_naming_their_item(capsys, tmp_path):
     """What the port's command line still leaves to later items exits 2
-    naming it: the fleet ('Service and fleet') and the campaign's mesh
-    flags ('Multi-GPU'). The other verbs run (tests/test_torch_cli*.py)."""
+    naming it: the campaign's mesh flags ('Multi-GPU'). The fleet verb
+    runs, and its registry is checked as the JAX package's is before any
+    worker starts: duplicate tenant names and zero workers fail naming
+    the fault (running fleets: tests/test_torch_fleet.py). The other verbs
+    run (tests/test_torch_cli*.py)."""
     from das4whales_tpu_torch.__main__ import main
 
-    for argv, item in ((["fleet", "x.json"], "'Service and fleet'"),
-                       (["campaign", "x.h5", "--sharded"], "'Multi-GPU'"),
+    for argv, item in ((["campaign", "x.h5", "--sharded"], "'Multi-GPU'"),
                        (["campaign", "x.h5", "--multihost"], "'Multi-GPU'")):
         assert main(argv) == 2
         assert item in capsys.readouterr().err
+    cfg = tmp_path / "fleet.json"
+    for raw, err in (({"tenants": [{"name": "a"}, {"name": "a"}]}, "duplicate tenant names"),
+                     ({"tenants": [{"name": "a"}], "workers": 0}, "at least one worker")):
+        cfg.write_text(json.dumps(dict(raw, root=str(tmp_path / "f"))))
+        with pytest.raises(ValueError, match=err):
+            jload_fleet_config(str(cfg))
+        with pytest.raises(ValueError, match=err):
+            main(["fleet", str(cfg), "--device", "cpu"])
+        assert "Service and fleet" not in capsys.readouterr().err
+    assert not (tmp_path / "f").exists()
