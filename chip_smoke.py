@@ -6,7 +6,7 @@
 Builds the port's two CUDA kernels from ``das4whales_tpu_torch/csrc`` with
 ``nvcc`` (sm_90a) and the native ingest reader from
 ``das4whales_tpu_torch/native/ingest.cpp`` with ``g++``, then runs
-thirty-four phases, one summary line each (more for the detector runs, with their
+thirty-six phases, one summary line each (more for the detector runs, with their
 profiles), and exits non-zero at the first failed check; no phase's
 failure is caught:
 
@@ -174,8 +174,9 @@ failure is caught:
                 within 1e-5 * max of ``"fft"``'s, walls in turns; the
                 batched facade's peak at [4, 22050, 16384] (a smaller B where
                 the card runs out); ``run_campaign_batched(family="gabor")``
-                over the slab files of 12000 samples: every file done, the
-                rung that served, every call picked;
+                over two of the slab files of 12000 samples (a partial slab
+                at batch 4): every file done, the rung that served, every
+                call picked;
 18. ``gabor_cpu_vs_card`` the Gabor family on the card against
                 ``device="cpu"`` at 512 x 12000 on one design and one set of
                 notes: score and correlograms within 1e-4 * max|cpu|, binary
@@ -200,7 +201,8 @@ failure is caught:
                 and batched (scores within 1e-5, picks up to knife edges),
                 with its peak and the kernel held again at the slab's launch;
                 ``run_campaign_batched`` (batch 4) and ``run_campaign`` with
-                ``family="learned"`` over the slab files of 12000 samples:
+                ``family="learned"`` over the slab files of 12000 samples
+                (``run_campaign`` over two of them):
                 every file done at ``batched:4`` / ``file`` (or the rung
                 served named), every call picked, one launch a slab / a file,
                 records equal to the same campaigns on the CPU over every
@@ -272,10 +274,10 @@ failure is caught:
                 lock-order inversion, peak memory under 80 GB, both
                 kernels launched on the route and held against their plain
                 versions at its first and last launch; the pass walls,
-                pick latency p95, admission seconds and cost cards; then
+                pick latency p95, admission seconds and cost cards; and
                 ``python -m das4whales_tpu_torch serve --until-idle`` as a
-                subprocess over one file a tenant: exit 0, both manifests
-                settled;
+                subprocess over one file a tenant, run beside the
+                card-vs-CPU phases: exit 0, both manifests settled;
 29. ``service_cpu_vs_card`` the same two-tenant service at 512 x 12000 on
                 the card and with ``device="cpu"``: records equal (status,
                 rung, attempts), mf picks up to knife edges, learned
@@ -368,7 +370,36 @@ failure is caught:
                 running, the service phase's 88 ``fused_picks`` launches; the
                 spawn, migration and recovery walls, each worker's device
                 memory (``nvidia-smi``) and the launches its slab counters
-                imply.
+                imply;
+35. ``mesh``     (run right after 23) the matched filter over a device mesh:
+                two rank processes of this script (``--mesh-rank``) share the
+                card over gloo (NCCL refuses two ranks on one device), each
+                on its own slice: (1) ``make_sharded_mf_step(wire="raw")``
+                through the campaigns' adaptive pair at (file=1, channel=2)
+                on the raw canonical block, 22 ``fused_picks`` launches a rank
+                and attempt, each rank's first and last launch bitwise its
+                plain version, picks equal ``detect_picks`` up to knife
+                edges, thresholds rtol 1e-5, ``outputs="full"``'s gathered
+                ``trf_fk`` within 1e-5 * max of ``filter_block``'s; (2) the
+                same step on a one-rank NCCL group; (3) the long record over
+                (time=2), the fused bandpass at full width held to the
+                ``longrecord`` phase's picks, the halo bandpass on the
+                ``MESH_HALO_CHANNELS`` channels around the straddling call,
+                which both pick; (4) ``run_campaign_sharded`` at (file=2,
+                channel=1) over the four 12000-sample slab files: every file
+                done, picks equal ``detect_picks`` at the files' shape up to
+                knife edges, only rank 0 writing, ``fsck_outdir`` clean, a
+                resume reading nothing; (5) ``python -m das4whales_tpu_torch
+                campaign --sharded`` as a subprocess without rank variables at
+                2048 channels against the one-device detector's
+                ``detect_picks`` on the same design. It prints
+                each collective's bytes, wall and host-staging share and
+                each rank's peak; a rank that dies fails the phase, naming
+                it and its log; budget ``MESH_BUDGET_S``;
+36. ``mesh_cpu_vs_card`` item 1's step at 512 x 12000, two card ranks against
+                two gloo CPU ranks at once: thresholds rtol 1e-5, ``trf_fk``
+                and correlograms within 1e-4 * max, picks up to knife edges;
+                budget ``MESH_CPU_BUDGET_S``.
 
 Then it prints each phase's seconds, the kernel table as one JSON line, the run's total
 seconds, the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. It imports no JAX and nothing
@@ -1792,11 +1823,12 @@ SLAB_BUCKET = 16384
 CARD_BYTES = 80e9
 
 
-def _write_files(d, specs, nx, n_calls, float_file=None):
+def _write_files(d, specs, nx, n_calls, float_file=None, k0: int = 0):
     """Silixa TDMS files of ``(seed, ns)`` scenes' raw int32 counts, through
     the port's writer (the card's machine has no ``h5py``, so no HDF5);
     returns ``(paths, scenes, seconds)``. ``float_file(raw)`` turns the
-    last file's counts into a float32 block (written as float32)."""
+    last file's counts into a float32 block (written as float32). ``k0``
+    numbers the first file (a list written in parts)."""
     from datetime import datetime
 
     from das4whales_tpu_torch.io.synth import synthesize_scene, to_raw_counts
@@ -1804,10 +1836,10 @@ def _write_files(d, specs, nx, n_calls, float_file=None):
 
     t0 = time.perf_counter()
     paths, scenes = [], []
-    for k, (seed, ns) in enumerate(specs):
+    for k, (seed, ns) in enumerate(specs, start=k0):
         scene = _scene(nx, ns, n_calls=n_calls, seed=seed)
         raw = to_raw_counts(synthesize_scene(scene), scene.metadata)
-        if float_file is not None and k == len(specs) - 1:
+        if float_file is not None and k == k0 + len(specs) - 1:
             raw = float_file(raw)
         props = {"SamplingFrequency[Hz]": float(scene.fs), "SpatialResolution[m]": float(scene.dx),
                  "FibreIndex": float(scene.n), "GaugeLength": float(scene.gauge_length),
@@ -1895,6 +1927,9 @@ def slab_files() -> dict:
             root.mkdir(exist_ok=True)
             _SHARED["dir"] = Path(tempfile.mkdtemp(prefix="slab_files_", dir=root))
         d = _SHARED["dir"]
+        if "slab_file0" in _EARLY:
+            _EARLY["slab_files"] = _JoinedFiles(
+                [_EARLY.pop(f"slab_file{k}") for k in range(len(SLAB_FILES))])
         t_write, (paths, scenes) = _early("slab_files", lambda: _write_files(
             d, SLAB_FILES, CANONICAL[0], n_calls=6)[:2])
         _SHARED.update(paths=paths, scenes=scenes, t_write=t_write, picks={})
@@ -2974,6 +3009,8 @@ GABOR_ENGINE_REL = 1e-5
 #: card against CPU: score and correlograms within this of max|cpu|
 GABOR_CARD_REL = 1e-4
 GABOR_BATCH = 4
+#: the Gabor campaign's files (of the slab phase's four 12000-sample ones)
+GABOR_CAMPAIGN_FILES = 2
 GABOR_CPU_FILES = ((2050, 12000), (2051, 12000), (2052, 12000))
 
 
@@ -3040,8 +3077,9 @@ def _gabor_batched_peak(meta, nx, x, notes):
 
 
 def _gabor_campaign(meta, nx, design, launches_before, notes):
-    """``run_campaign_batched(family="gabor", batch=4)`` over the slab
-    phase's four 12000-sample TDMS files (one exact bucket, [4, nx, 12000])
+    """``run_campaign_batched(family="gabor", batch=4)`` over
+    ``GABOR_CAMPAIGN_FILES`` of the slab phase's four 12000-sample TDMS
+    files (one exact bucket, a partial slab of [4, nx, 12000])
     on ``design``: every file done, the rung that served and any downshift
     reported, every injected call picked, two ``fused_picks`` launches a
     file (+1 a note that escalated). Returns the launches."""
@@ -3052,7 +3090,10 @@ def _gabor_campaign(meta, nx, design, launches_before, notes):
     from das4whales_tpu_torch.workflows import campaign as cmod
 
     shared = slab_files()
-    files = [p for p, (_, ns) in zip(shared["paths"], SLAB_FILES) if ns == CANONICAL[1]]
+    # two of the four files, a partial slab at batch 4 (a cut for the run's
+    # time limit: the read of the other two was half the campaign's wall)
+    files = [p for p, (_, ns) in zip(shared["paths"], SLAB_FILES)
+             if ns == CANONICAL[1]][:GABOR_CAMPAIGN_FILES]
     scenes = dict(zip(shared["paths"], shared["scenes"]))
     out = shared["dir"] / "gabor_out"
     shutil.rmtree(out, ignore_errors=True)
@@ -3398,6 +3439,8 @@ LEARNED_CPU_STRIDE = 40
 #: this, relative
 LEARNED_FIT_REL = 1e-3
 LEARNED_BATCH = 4
+#: the per-file learned campaign's files (the batched one takes all four)
+LEARNED_FILE_CAMPAIGN_FILES = 2
 #: the CNN's operations a window (multiply-adds as 2): conv0 16x4 outputs
 #: x 16 channels x 9 taps, conv1 8x2 outputs x 32 channels x 9 x 16 taps
 LEARNED_CONV_OPS = 2 * (16 * 4 * 16 * 9 + 8 * 2 * 32 * 9 * 16)
@@ -3493,7 +3536,7 @@ def _learned_facade(det, x, notes):
 
 def _learned_campaigns(meta, nx, notes):
     """Both campaign entries with ``family="learned"`` over the slab phase's
-    four 12000-sample TDMS files on the card (batch 4, full width), every
+    four 12000-sample TDMS files on the card (batch 4, full width; ``run_campaign`` over ``LEARNED_FILE_CAMPAIGN_FILES`` of them), every
     file done at ``batched:4`` (else the rung served is named) and every
     injected call picked; ``fused_stft`` launched once a slab and once a
     file; the same campaigns on the CPU over every ``LEARNED_CPU_STRIDE``-th
@@ -3513,19 +3556,25 @@ def _learned_campaigns(meta, nx, notes):
     scenes = dict(zip(shared["paths"], shared["scenes"]))
     sub = [0, nx, LEARNED_CPU_STRIDE]
     kw = dict(metadata=meta, interrogator="silixa", family="learned")
-    entries = ((cmod.run_campaign_batched, dict(batch=LEARNED_BATCH)), (cmod.run_campaign, {}))
+    # the per-file entry over LEARNED_FILE_CAMPAIGN_FILES of them (a cut for
+    # the run's time limit): the service phase's learned tenant is held to
+    # the batched entry's picks over all four
+    entries = ((cmod.run_campaign_batched, dict(batch=LEARNED_BATCH), files),
+               (cmod.run_campaign, {}, files[:LEARNED_FILE_CAMPAIGN_FILES]))
     res, walls, launches, err, rel = {}, {}, 0, 0.0, 0.0
-    for entry, extra in entries:
+    n_files = {}
+    for entry, extra, efiles in entries:
         out = shared["dir"] / f"learned_{entry.__name__}_cuda"
         shutil.rmtree(out, ignore_errors=True)
         zero_launches()
+        n_files[entry.__name__] = len(efiles)
         with _capture(fused_stft, "stft_power_cuda") as calls:
             t0 = time.perf_counter()
-            res[(entry.__name__, "cuda")] = entry(files, [0, nx, 1], str(out), **kw, **extra)
+            res[(entry.__name__, "cuda")] = entry(efiles, [0, nx, 1], str(out), **kw, **extra)
             torch.cuda.synchronize()
             walls[entry.__name__] = time.perf_counter() - t0
         got = read_launches()
-        want = 1 if entry is cmod.run_campaign_batched else len(files)
+        want = 1 if entry is cmod.run_campaign_batched else len(efiles)
         if got != {"fused_picks": 0, "fused_stft": want}:
             fail(f"learned: {entry.__name__} launched {got}, expected {want} fused_stft")
         launches += got["fused_stft"]
@@ -3537,7 +3586,7 @@ def _learned_campaigns(meta, nx, notes):
             shared["learned_picks"] = _saved_picks(res[(entry.__name__, "cuda")])
         err, rel = max(err, e), max(rel, r)
         del calls
-        res[(entry.__name__, "cpu")] = entry(files, sub, str(shared["dir"] / f"learned_"
+        res[(entry.__name__, "cpu")] = entry(efiles, sub, str(shared["dir"] / f"learned_"
                                              f"{entry.__name__}_cpu"), device="cpu", **kw, **extra)
     cpu_det = LearnedDetector(*load_pretrained(), device="cpu")
     blocks = {}
@@ -3569,7 +3618,7 @@ def _learned_campaigns(meta, nx, notes):
             r = cpu_det(blocks[x.path])
             n_diff += _learned_knife(f"learned: {name}: {x.path}", a, pb["CALL"], r.scores,
                                      r.centers, 0.5)
-        notes.append(f"{name}(family='learned') over {len(files)} canonical TDMS files: card "
+        notes.append(f"{name}(family='learned') over {n_files[name]} canonical TDMS files: card "
                      f"{walls[name]:.1f} s, reads included, at {sorted({r[2] for r in ra})}, "
                      f"every injected call picked; records equal to the CPU's over every "
                      f"{LEARNED_CPU_STRIDE}th channel, {n_diff} of those channels' picks "
@@ -3912,13 +3961,28 @@ def _design_job(shape: tuple, metadata, **kw):
     return time.perf_counter() - t0, d
 
 
-def _slab_files_job(d: str):
-    """:func:`_write_files` of the slab files in a worker: ``(seconds,
-    (paths, scenes))``."""
+def _slab_files_job(d: str, k: int | None = None):
+    """:func:`_write_files` of the slab files (or of file ``k`` alone) in a
+    worker: ``(seconds, (paths, scenes))``."""
     from pathlib import Path
 
-    paths, scenes, t_write = _write_files(Path(d), SLAB_FILES, CANONICAL[0], n_calls=6)
+    specs = SLAB_FILES if k is None else SLAB_FILES[k:k + 1]
+    paths, scenes, t_write = _write_files(Path(d), specs, CANONICAL[0], n_calls=6,
+                                          k0=0 if k is None else k)
     return t_write, (paths, scenes)
+
+
+class _JoinedFiles:
+    """The slab files written one a worker, read back as one job:
+    ``result()`` gives ``(the longest file's seconds, (paths, scenes))``."""
+
+    def __init__(self, futs):
+        self.futs = futs
+
+    def result(self):
+        parts = [f.result() for f in self.futs]
+        return (max(p[0] for p in parts),
+                ([q for p in parts for q in p[1][0]], [q for p in parts for q in p[1][1]]))
 
 
 #: host work of later phases started in the run's pool right after the
@@ -3931,8 +3995,8 @@ def early_host_jobs(pool) -> None:
     later, beside the ``detect`` phase's own set-up (which waits for it
     before its first timed run): the channel-padded canonical design
     (``channel_pad``), the slab files and the fin design at their 16384
-    bucket (``slab``). The directory for the files is made here
-    (``slab_files`` removes it)."""
+    bucket (``slab``), each slab file in a job of its own. The directory
+    for the files is made here (``slab_files`` removes it)."""
     import tempfile
     from pathlib import Path
 
@@ -3945,8 +4009,9 @@ def early_host_jobs(pool) -> None:
     _EARLY.update(
         channel_pad=pool.submit(_design_job, (nx, ns), _scene(nx, ns, 6, SEED).metadata,
                                 channel_pad="auto"),
-        slab_files=pool.submit(_slab_files_job, str(d)),
-        slab_design=pool.submit(_design_job, (nx, SLAB_BUCKET), slab_meta))
+        slab_design=pool.submit(_design_job, (nx, SLAB_BUCKET), slab_meta),
+        **{f"slab_file{k}": pool.submit(_slab_files_job, str(d), k)
+           for k in range(len(SLAB_FILES))})
 
 
 def _await_early() -> float:
@@ -3985,8 +4050,10 @@ def _long_files_job(d: str, nx: int, nfile: int, seed: int):
 def long_record_prep(pool) -> dict:
     """Start the long record's host work in ``pool``: its two TDMS files,
     written under ``build/``, and the record's fin design. Returns
-    ``{"dir", "files", "design"}`` (futures) for :func:`phase_longrecord`,
-    which removes the directory."""
+    ``{"dir", "files", "design", "halo_design"}`` (futures) for
+    :func:`phase_longrecord` (the last, a ``MESH_HALO_CHANNELS``-channel
+    design of the record, for the mesh phase's halo run); main removes
+    the directory."""
     import tempfile
     from pathlib import Path
 
@@ -3996,10 +4063,12 @@ def long_record_prep(pool) -> dict:
     root = Path(__file__).resolve().parent / "build"
     root.mkdir(exist_ok=True)
     d = Path(tempfile.mkdtemp(prefix="long_files_", dir=root))
+    meta = SyntheticScene(nx=nx, ns=LONG_FILES * nfile).metadata
     return {"dir": d,
             "files": pool.submit(_long_files_job, str(d), nx, nfile, SEED + 7),
-            "design": pool.submit(_design_job, (nx, LONG_FILES * nfile),
-                                  SyntheticScene(nx=nx, ns=LONG_FILES * nfile).metadata)}
+            "design": pool.submit(_design_job, (nx, LONG_FILES * nfile), meta),
+            "halo_design": pool.submit(_design_job, (MESH_HALO_CHANNELS, LONG_FILES * nfile),
+                                       meta)}
 
 
 def _unit_rms64(raw: np.ndarray) -> np.ndarray:
@@ -4746,10 +4815,16 @@ def phase_longrecord(prep=None, design12=None):
             fail(f"longrecord: learned: the straddling call (channel {ch_s}) was not picked")
         if pl.shape[1] and pl[1].max() >= ns:
             fail("longrecord: learned: a pick lies past the record")
+        # the mesh phase holds its time-split record to this one
+        _keep_long_reference(paths, design, scene, ch_s, onset, rec,
+                             None if prep is None else prep["halo_design"].result()[1])
     finally:
         import shutil
 
-        shutil.rmtree(d, ignore_errors=True)
+        if prep is None:
+            # run alone: nothing later needs the files (main removes prep's)
+            shutil.rmtree(d, ignore_errors=True)
+            _LONG_REF.clear()
     say(f"longrecord: {LONG_FILES} consecutive {nx}x{nfile} int32 TDMS files -> one {nx}x{ns} "
         f"record (written in {t_write:.1f} s) and the record's fin design {t_design:.1f} s on the "
         f"host (in spawned processes beside the earlier phases); detect_long_record mf: "
@@ -5134,12 +5209,12 @@ def phase_service():
     admission pins it at ``batched:2`` before its first dispatch) and
     ``learned`` (the pretrained ``fin_cnn``, exact buckets, batch 4), both
     with an SLO target, quality and cost cards, a client polling every
-    endpoint; then ``python -m das4whales_tpu_torch serve --until-idle``
-    as a subprocess over ``SERVE_FILES`` file(s) a tenant. Returns
+    endpoint; and prepares ``python -m das4whales_tpu_torch serve
+    --until-idle`` over ``SERVE_FILES`` file(s) a tenant, which
+    :func:`serve_start` runs beside the card-vs-CPU phases. Returns
     ``(launches, (picks_err, stft_err))``."""
     import dataclasses
     import shutil
-    from pathlib import Path
 
     import torch
 
@@ -5274,26 +5349,11 @@ def phase_service():
                service, files[:SERVE_FILES], sel, meta, mf_share, learned_share, dpath)]}
     reg_path = sub_dir / "registry.json"
     reg_path.write_text(json.dumps(reg))
-    import gc
-
-    gc.collect()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "das4whales_tpu_torch", "serve",
-                           str(reg_path), "--until-idle"], cwd=str(Path(__file__).parent),
-                          capture_output=True, text=True, timeout=600)
-    serve_s = time.perf_counter() - t0
-    if proc.returncode != 0:
-        fail(f"service: the serve subprocess exited {proc.returncode}: "
-             f"{proc.stderr[-3000:]}")
-    for t in ("mf", "learned"):
-        settled = cmod.load_settled(str(sub_dir / "out" / t))
-        if sorted(settled) != sorted(files[:SERVE_FILES]) \
-                or f"tenant {t}: {SERVE_FILES} done, 0 failed" not in proc.stdout:
-            fail(f"service: the serve subprocess settled {sorted(settled)} for {t}: "
-                 f"{proc.stdout[-1000:]}")
+    # the serve verb runs as a subprocess beside the card-vs-CPU phases,
+    # which time nothing (serve_start / serve_finish; a cut for the run's
+    # time limit)
+    _SERVE.update(reg_path=reg_path, sub_dir=sub_dir, files=files[:SERVE_FILES])
     shutil.rmtree(d, ignore_errors=True)
-    shutil.rmtree(sub_dir, ignore_errors=True)
     card_text = "; ".join(
         f"{c['program']} {c['bucket']} {c['engine']}: {c['flops'] / 1e12:.3f} Tops, "
         f"{c['bytes_accessed'] / 1e9:.2f} GB counted ({', '.join(c['stages'])}), peak "
@@ -5324,10 +5384,65 @@ def phase_service():
         f"preflight phase's batch-2 run, the learned phase's campaign; {std_wall:.1f} s here), "
         f"every injected call picked; host health stats of the learned tenant's slab "
         f"{health_t['s']:.2f} s over {health_t['n']} files; cost cards: {card_text}; "
-        f"serve --until-idle subprocess over {SERVE_FILES} file(s) a tenant exit 0 in "
-        f"{serve_s:.1f} s, both "
-        f"manifests settled; phase {time.perf_counter() - t_phase:.1f} s")
+        f"serve --until-idle subprocess over {SERVE_FILES} file(s) a tenant started beside "
+        f"the card-vs-CPU phases (its line below); phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
     return launches, (picks_err, stft_err)
+
+
+#: the service phase's ``serve --until-idle`` subprocess: its registry, and
+#: once started its process (serve_start / serve_finish)
+_SERVE: dict = {}
+
+
+def serve_start() -> None:
+    """Start the service phase's ``serve --until-idle`` subprocess on the
+    card, where that phase prepared one."""
+    import gc
+
+    import torch
+
+    if "reg_path" not in _SERVE or "proc" in _SERVE:
+        return
+    gc.collect()
+    torch.cuda.empty_cache()
+    _SERVE["t0"] = time.perf_counter()
+    _SERVE["proc"] = subprocess.Popen(
+        [sys.executable, "-m", "das4whales_tpu_torch", "serve", str(_SERVE["reg_path"]),
+         "--until-idle"], cwd=str(_root_dir()), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def serve_finish() -> None:
+    """Wait for the ``serve --until-idle`` subprocess: exit 0, both tenants'
+    manifests settled over their files; its line; its files removed."""
+    import shutil
+
+    from das4whales_tpu_torch.workflows import campaign as cmod
+
+    if "proc" not in _SERVE:
+        return
+    proc = _SERVE.pop("proc")
+    try:
+        out, err = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+        fail("service: the serve subprocess outlived 600 s")
+    serve_s = time.perf_counter() - _SERVE["t0"]
+    sub_dir, files = _SERVE["sub_dir"], _SERVE["files"]
+    if proc.returncode != 0:
+        fail(f"service: the serve subprocess exited {proc.returncode}: {err[-3000:]}")
+    for t in ("mf", "learned"):
+        settled = cmod.load_settled(str(sub_dir / "out" / t))
+        if sorted(settled) != sorted(files) or f"tenant {t}: {len(files)} done, 0 failed" \
+                not in out:
+            fail(f"service: the serve subprocess settled {sorted(settled)} for {t}: "
+                 f"{out[-1000:]}")
+    shutil.rmtree(sub_dir, ignore_errors=True)
+    _SERVE.clear()
+    say(f"service: serve --until-idle subprocess over {len(files)} file(s) a tenant, beside the "
+        f"card-vs-CPU phases: exit 0 in {serve_s:.1f} s, both manifests settled")
 
 
 #: the fleet drill: two workers on the one card and two live mf tenants
@@ -6947,6 +7062,947 @@ def phase_workflows_cpu_vs_card():
         f"{json.dumps({k: float(f'{v:.3g}') for k, v in worst.items()})}")
 
 
+
+# ---------------------------------------------------------------------------
+# Phases 35-36: the matched filter over a device mesh (ROADMAP item 14)
+# ---------------------------------------------------------------------------
+
+#: the mesh phase's ranks: two processes sharing the one card over gloo
+#: (NCCL refuses two ranks on one device: "Duplicate GPU detected")
+MESH_RANKS = 2
+#: every collective of a rank's process group is bounded by this: a rank
+#: that dies fails its peer within it
+MESH_GROUP_TIMEOUT_S = 90.0
+#: the launcher's wait for a pool of ranks, the kill after it
+MESH_POOL_TIMEOUT_S = 420.0
+MESH_BUDGET_S = 120.0
+MESH_CPU_BUDGET_S = 40.0
+#: the mesh phase's relative bound on trf_fk against filter_block's (one
+#: card, two FFT groupings), and the card-vs-CPU phase's
+MESH_REL = 1e-5
+MESH_CPU_REL = 1e-4
+MESH_THR_RTOL = 1e-5
+#: the command-line item's channel selection (the command designs in-process)
+MESH_CLI_CHANNELS = 2048
+#: the long record's halo (staged) bandpass runs on this many channels
+#: around the straddling call (a cut for the phase's budget: the full-width
+#: record takes the fused route)
+MESH_HALO_CHANNELS = 2048
+#: a rank waits this long for the phase's inputs (the ranks start while
+#: the smoke writes them)
+MESH_READY_TIMEOUT_S = 300.0
+#: the long record's items share the longrecord phase's files and design
+#: when it ran first (main keeps them until this phase has run)
+_LONG_REF: dict = {}
+#: a rank's one-card detector of the canonical design (item 1 builds it)
+_RANK_DET: dict = {}
+
+
+def _rank_kernel_check(calls: dict) -> tuple:
+    """This rank's first and last pick launch held against the plain
+    version on their own inputs, at the launch's own K and method: all
+    five outputs bitwise. Returns ``(max_abs_err, [rows first, rows
+    last])``; the comparison's own launches are made after the count was
+    read."""
+    import torch
+
+    from das4whales_tpu_torch.ops import fused_picks
+
+    err, rows = 0.0, []
+    for which in ("first", "last"):
+        (X, thr, K, method, *rest), kw = calls[which]
+        k_out = fused_picks.picks_cuda(X, thr, K, method, *rest, **kw)
+        p_out = fused_picks.picks_plain(X, thr, K, method)
+        torch.cuda.synchronize()
+        err = max(err, _compare(k_out, p_out, f"mesh: rank kernel check ({which} launch)"))
+        rows.append(int(X.shape[0]))
+    return err, rows
+
+
+def _rank_picks(sp, n_samples: int, names, row_offset: int) -> list:
+    """A rank's ``[nT, B, C, K]`` sparse picks as per-file ``{name: (2, n)}``
+    with the rank's channel offset (row-major)."""
+    from das4whales_tpu_torch.ops import peaks as peak_ops
+
+    pos = sp.positions.cpu().numpy()
+    sel = sp.selected.cpu().numpy() & (pos < n_samples)
+    out = []
+    for b in range(pos.shape[1]):
+        out.append({name: peak_ops.sparse_to_pick_times(pos[i, b], sel[i, b])
+                    + np.array([[row_offset], [0]]) for i, name in enumerate(names)})
+    return out
+
+
+def _rank_item_step(spec, rank):
+    """Item 1: two ranks on the card over gloo, mesh (file=1, channel=2),
+    the raw canonical block through the adaptive pair; then
+    ``outputs="full"``'s gathered ``trf_fk`` against ``filter_block``'s."""
+    import torch
+
+    from das4whales_tpu_torch.models.matched_filter import MatchedFilterDetector
+    from das4whales_tpu_torch.ops import fused_picks
+    from das4whales_tpu_torch.parallel import collectives as coll
+    from das4whales_tpu_torch.parallel.mesh import Sharding, make_mesh
+    from das4whales_tpu_torch.parallel.pipeline import input_sharding, make_sharded_mf_step
+    from das4whales_tpu_torch.utils.checkpoint import load_design
+    from das4whales_tpu_torch.workflows import campaign as cmod
+
+    dev = spec["device"]
+    design = load_design(spec["design"])
+    mesh = make_mesh((1, MESH_RANKS), ("file", "channel"), devices=[dev] * MESH_RANKS,
+                     backend="gloo")
+    raw = np.load(spec["raw"], mmap_mode="r")
+    x = input_sharding(mesh).place(raw[None])
+    wire = dict(wire="raw", scale_factor=spec["scale_factor"])
+    k0, full = cmod._adaptive_sharded_steps(make_sharded_mf_step, design, mesh, **wire)
+    k0(x)                                   # warm-up: cuFFT plans, the kernel's load
+    on_card = x.is_cuda
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    coll.reset_stats()
+    fused_picks.launches = 0                # the main path's run starts here
+    with _capture(fused_picks, "picks_cuda") as calls:
+        t0 = time.perf_counter()
+        sp, thres, esc = cmod._run_adaptive(k0, full, x, mesh)
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = fused_picks.launches
+    stats = coll.read_stats()
+    c_local = design.trace_shape[0] // MESH_RANKS
+    picks = _rank_picks(sp, design.trace_shape[1], design.template_names,
+                        mesh.axis_index("channel") * c_local)
+    err, rows = (_rank_kernel_check(calls) if on_card else (0.0, []))
+    parts = coll.all_gather_object(picks[0], mesh)
+    merged = {name: np.concatenate([p[name] for p in parts], axis=1)
+              for name in design.template_names}
+    out = dict(picks=merged, thres=thres.cpu().numpy(), escalated=esc, launches=launches,
+               attempts=1 + int(esc), kernel_err=err, kernel_rows=rows, wall=wall,
+               stats=stats, peak=torch.cuda.max_memory_allocated() if on_card else 0)
+    # the full outputs: trf_fk, correlograms and envelopes gathered
+    del sp
+    step_full = make_sharded_mf_step(design, mesh, outputs="full", **wire)
+    coll.reset_stats()
+    trf, corr, env, _, thres_f = step_full(x)
+    out["full_stats"] = coll.read_stats()
+    g_trf = Sharding(mesh, ("file", "channel", None)).gather(trf)[0]
+    del trf
+    if spec.get("full_outputs"):
+        sh4 = Sharding(mesh, (None, "file", "channel", None))
+        out["trf"] = g_trf.cpu().numpy()
+        out["corr"] = sh4.gather(corr)[:, 0].cpu().numpy()
+        out["env"] = sh4.gather(env)[:, 0].cpu().numpy()
+    del corr, env
+    if spec.get("against_filter_block") and mesh.rank == 0:
+        det = MatchedFilterDetector.from_design(design, spec["metadata"], wire="raw",
+                                                device=dev)
+        ref = det.filter_block(torch.as_tensor(np.asarray(raw)).to(dev))
+        scale = float(ref.abs().max())
+        out["trf_rel"] = float((g_trf - ref).abs().max()) / scale
+        _RANK_DET["det"] = det             # item 2's one-card filter, built once
+        del ref, det
+    del g_trf, x
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def _rank_item_nccl(spec, rank):
+    """Item 2: the same step on a one-rank NCCL group, on rank 0 (rank 1
+    builds the group with it, as ``new_group`` asks, and waits)."""
+    import torch
+    import torch.distributed as dist
+
+    from das4whales_tpu_torch.ops import fused_picks
+    from das4whales_tpu_torch.parallel import collectives as coll
+    from das4whales_tpu_torch.parallel.mesh import make_mesh
+    from das4whales_tpu_torch.parallel.pipeline import make_sharded_mf_step
+    from das4whales_tpu_torch.utils.checkpoint import load_design
+    from das4whales_tpu_torch.workflows import campaign as cmod
+
+    group = dist.new_group([0], backend="nccl")
+    out = {}
+    if rank == 0:
+        design = load_design(spec["design"])
+        mesh = make_mesh((1, 1), ("file", "channel"), devices=[spec["device"]],
+                         backend="nccl", group=group)
+        x = torch.as_tensor(np.load(spec["raw"])[None]).to(spec["device"])
+        k0, full = cmod._adaptive_sharded_steps(make_sharded_mf_step, design, mesh,
+                                                wire="raw", scale_factor=spec["scale_factor"])
+        k0(x)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        coll.reset_stats()
+        fused_picks.launches = 0
+        with _capture(fused_picks, "picks_cuda") as calls:
+            t0 = time.perf_counter()
+            sp, thres, esc = cmod._run_adaptive(k0, full, x, mesh)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = fused_picks.launches
+        stats = coll.read_stats()
+        err, rows = _rank_kernel_check(calls)
+        out = dict(picks=_rank_picks(sp, design.trace_shape[1], design.template_names, 0)[0],
+                   thres=thres.cpu().numpy(), escalated=esc, launches=launches,
+                   attempts=1 + int(esc), kernel_err=err, kernel_rows=rows, wall=wall,
+                   stats=stats, peak=torch.cuda.max_memory_allocated(),
+                   backend=mesh.backend)
+        del sp
+        out["apart"] = _rank_where_apart(spec, design, mesh, k0, x)
+        del x
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _rank_where_apart(spec, design, mesh, step, x) -> dict:
+    """Where the one-rank step's filter parts from the one-card
+    detector's, on the same block: the conditioning, the f-k transform
+    on the detector's own band and mask, and the step's band (its mask
+    carries the bandpass gain before the band crop, the detector's after)."""
+    import torch
+
+    from das4whales_tpu_torch.models.matched_filter import MatchedFilterDetector
+    from das4whales_tpu_torch.ops import conditioning as cond_ops
+    from das4whales_tpu_torch.ops.fk import fk_filter_apply_rfft_banded
+    from das4whales_tpu_torch.parallel.fft import fk_apply_local_banded
+
+    det = _RANK_DET.pop("det", None)
+    if det is None:
+        det = MatchedFilterDetector.from_design(design, spec["metadata"], wire="raw",
+                                                device=spec["device"])
+    xc = det.condition_input(x[0])
+    cond = cond_ops.condition(x, spec["scale_factor"], dtype=torch.float32)[0]
+    lo, hi = det._band_lo, det._band_hi
+    one = fk_filter_apply_rfft_banded(xc, det._mask_band, lo, hi)
+    same = fk_apply_local_banded(xc[None], det._mask_band, lo, hi, "channel", mesh=mesh)[0]
+    s_lo, s_hi = step.band
+    own = fk_apply_local_banded(xc[None], step.mask_band, s_lo, s_hi, "channel", mesh=mesh)[0]
+    scale = float(one.abs().max())
+    res = dict(cond_bitwise=bool(torch.equal(cond, xc)),
+               transform_bitwise=bool(torch.equal(same, one)),
+               transform_rel=float((same - one).abs().max()) / scale,
+               band_one=[lo, hi], band_step=[s_lo, s_hi],
+               crop_rel=float((own - one).abs().max()) / scale,
+               fk_engine=det.fk_engine)
+    del det, xc, cond, one, same, own
+    return res
+
+
+def _rank_sync(spec) -> None:
+    import torch
+
+    if spec["device"].startswith("cuda"):
+        torch.cuda.synchronize()
+
+
+def _rank_reset(spec) -> None:
+    import torch
+
+    if spec["device"].startswith("cuda"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _rank_peak(spec) -> int:
+    import torch
+
+    return torch.cuda.max_memory_allocated() if spec["device"].startswith("cuda") else 0
+
+
+def _rank_item_long(spec, rank):
+    """Item 3: the long record over a (time=2) mesh: the fused bandpass on
+    the conditioned wire, then the halo bandpass on the raw wire."""
+    from das4whales_tpu_torch.ops import fused_picks
+    from das4whales_tpu_torch.parallel import collectives as coll
+    from das4whales_tpu_torch.parallel.mesh import make_mesh
+    from das4whales_tpu_torch.utils.checkpoint import load_design
+    from das4whales_tpu_torch.workflows.longrecord import detect_long_record
+
+    mesh = make_mesh((MESH_RANKS,), ("time",), devices=[spec["device"]] * MESH_RANKS,
+                     backend="gloo")
+    t0 = time.perf_counter()
+    design = load_design(spec["long_design"])
+    t_load = time.perf_counter() - t0
+    out = {"design_load_s": t_load}
+    halo_design = load_design(spec["halo_design"])
+    for name, kw in (("fused", dict(wire="conditioned", engine="native", design=design,
+                                    selected_channels=spec["long_sel"])),
+                     ("halo", dict(wire="raw", fused_bandpass=False, engine="native",
+                                   design=halo_design, selected_channels=spec["halo_sel"]))):
+        _rank_reset(spec)
+        coll.reset_stats()
+        fused_picks.launches = 0
+        timer = StageTimer() if spec["device"].startswith("cuda") else None
+        t0 = time.perf_counter()
+        res = detect_long_record(spec["long_files"], interrogator="silixa", mesh=mesh,
+                                 stage_hook=timer, **kw)
+        _rank_sync(spec)
+        out[name] = dict(picks=res.picks, thresholds=res.thresholds, n_samples=res.n_samples,
+                         wall=time.perf_counter() - t0,
+                         stages=timer.walls() if timer is not None else {},
+                         stats=coll.read_stats(), peak=_rank_peak(spec),
+                         launches=fused_picks.launches, t0=str(res.t0_utc))
+    return out
+
+
+def _rank_item_campaign(spec, rank):
+    """Item 4: ``run_campaign_sharded`` at (file=2, channel=1) over the four
+    canonical slab files, then the same call again (resume)."""
+    from das4whales_tpu_torch.ops import fused_picks
+    from das4whales_tpu_torch.parallel import collectives as coll
+    from das4whales_tpu_torch.parallel.mesh import make_mesh
+    from das4whales_tpu_torch.workflows import campaign as cmod
+
+    mesh = make_mesh((MESH_RANKS, 1), ("file", "channel"), devices=[spec["device"]] * MESH_RANKS,
+                     backend="gloo")
+    reads = {"n": 0}
+    orig = cmod._read_local
+
+    def counted(*a, **k):
+        reads["n"] += 1
+        return orig(*a, **k)
+
+    cmod._read_local = counted
+    _rank_reset(spec)
+    coll.reset_stats()
+    fused_picks.launches = 0
+    t0 = time.perf_counter()
+    res = cmod.run_campaign_sharded(spec["camp_files"], spec["camp_sel"], spec["camp_out"],
+                                    mesh, interrogator="silixa", design=spec["design"],
+                                    engine="native")
+    _rank_sync(spec)
+    wall = time.perf_counter() - t0
+    out = dict(records=[(r.path, r.status, r.rung, r.picks_file) for r in res.records],
+               wall=wall, reads=reads["n"], launches=fused_picks.launches,
+               stats=coll.read_stats(), peak=_rank_peak(spec))
+    reads["n"] = 0
+    t0 = time.perf_counter()
+    again = cmod.run_campaign_sharded(spec["camp_files"], spec["camp_sel"], spec["camp_out"],
+                                      mesh, interrogator="silixa", design=spec["design"],
+                                      engine="native")
+    out.update(resume=[r.status for r in again.records], resume_reads=reads["n"],
+               resume_wall=time.perf_counter() - t0)
+    cmod._read_local = orig
+    return out
+
+
+MESH_ITEMS = {"step": _rank_item_step, "nccl": _rank_item_nccl, "long": _rank_item_long,
+              "campaign": _rank_item_campaign}
+
+
+def mesh_rank_main(spec_path: str, rank: int) -> int:
+    """One rank of a mesh phase (``chip_smoke.py --mesh-rank SPEC RANK``):
+    the gloo group through the spec's file rendezvous, every item of the
+    spec in order, the results pickled beside the spec. A rank without
+    its card exits 1: no rank carries on on the CPU."""
+    import pickle
+
+    import torch
+
+    from das4whales_tpu_torch.parallel import collectives as coll
+    from das4whales_tpu_torch.parallel import distributed
+
+    with open(spec_path, "rb") as fh:
+        spec = pickle.load(fh)
+    if spec["device"].startswith("cuda") and not torch.cuda.is_available():
+        fail(f"mesh rank {rank}: no CUDA device; a rank never carries on on the CPU")
+    torch.set_num_threads(spec.get("threads", 2))
+    distributed.initialize(spec["init"], spec["world"], rank, backend="gloo",
+                           timeout_s=MESH_GROUP_TIMEOUT_S)
+    coll.timing(spec["device"].startswith("cuda"))
+    ready = spec.get("ready")
+    t0 = time.perf_counter()
+    while ready and not os.path.exists(ready):
+        if time.perf_counter() - t0 > MESH_READY_TIMEOUT_S:
+            fail(f"mesh rank {rank}: the inputs were not ready in {MESH_READY_TIMEOUT_S:.0f} s")
+        time.sleep(0.2)
+    out = {}
+    for item in spec["items"]:
+        t0 = time.perf_counter()
+        out[item] = MESH_ITEMS[item](spec, rank)
+        out[item]["item_s"] = time.perf_counter() - t0
+        say(f"mesh rank {rank}: {item} done in {out[item]['item_s']:.1f} s")
+    with open(os.path.join(os.path.dirname(spec_path), f"rank{rank}.pkl"), "wb") as fh:
+        pickle.dump(out, fh)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return 0
+
+
+def _mesh_pool(d, spec: dict, tag: str) -> tuple:
+    """Start ``spec["world"]`` rank processes of this script (``--mesh-rank``)
+    under ``d``, each logging to ``rank<r>.log``; returns ``(procs, logs,
+    spec path)`` for :func:`_mesh_wait`."""
+    import pickle
+
+    d.mkdir(parents=True, exist_ok=True)
+    spec = dict(spec, init=f"file://{d}/rendezvous")
+    spec_path = str(d / "spec.pkl")
+    with open(spec_path, "wb") as fh:
+        pickle.dump(spec, fh)
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    procs, logs = [], []
+    for r in range(spec["world"]):
+        log = open(d / f"rank{r}.log", "w")
+        logs.append(log)
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-rank",
+                                       spec_path, str(r)], stdout=log,
+                                      stderr=subprocess.STDOUT, env=env,
+                                      cwd=str(_root_dir())))
+    return procs, logs, spec_path, tag
+
+
+def _root_dir():
+    from pathlib import Path
+
+    return Path(__file__).resolve().parent
+
+
+def _mesh_wait(pool) -> list:
+    """Wait for a pool's ranks; a rank that exits non-zero (or outlives
+    :data:`MESH_POOL_TIMEOUT_S`) fails the phase, naming the rank and its
+    log. Every rank is stopped on the way out. Returns each rank's
+    results."""
+    import pickle
+
+    procs, logs, spec_path, tag = pool
+    deadline = time.monotonic() + MESH_POOL_TIMEOUT_S
+    rcs = []
+    try:
+        for p in procs:
+            try:
+                rcs.append(p.wait(timeout=max(1.0, deadline - time.monotonic())))
+            except subprocess.TimeoutExpired:
+                rcs.append(None)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    d = os.path.dirname(spec_path)
+    for r, rc in enumerate(rcs):
+        if rc != 0:
+            path = os.path.join(d, f"rank{r}.log")
+            with open(path) as fh:
+                tail = fh.read()[-4000:]
+            fail(f"{tag}: rank {r} exited {rc if rc is not None else 'by the launcher (timeout)'}"
+                 f"; its log {path}:\n{tail}")
+    out = []
+    for r in range(len(procs)):
+        with open(os.path.join(d, f"rank{r}.pkl"), "rb") as fh:
+            out.append(pickle.load(fh))
+    return out
+
+
+def _stats_text(stats: dict) -> str:
+    """A rank's collectives: calls, bytes, wall and the host-staging share."""
+    parts = []
+    for name, s in sorted(stats.items()):
+        share = (100 * s["stage_seconds"] / s["seconds"]) if s["seconds"] else 0.0
+        parts.append(f"{name} {s['calls']}x {s['bytes'] / 1e6:.1f} MB sent, "
+                     f"{s['staged_bytes'] / 1e6:.1f} MB staged, {s['seconds'] * 1e3:.1f} ms "
+                     f"({share:.0f} % staging)")
+    return "; ".join(parts) or "none"
+
+
+def _cli_sharded(d, path: str, out: dict) -> None:
+    """Item 5 on a thread: ``campaign --sharded`` without rank variables (a
+    mesh of one on the card) at ``MESH_CLI_CHANNELS`` channels, designing
+    in-process."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "LOCAL_RANK")}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "das4whales_tpu_torch", "campaign", path,
+                           "--interrogator", "silixa", "--channels",
+                           f"0,{MESH_CLI_CHANNELS},1", "--no-figure", "--sharded",
+                           "--outdir", str(d / "cli_sharded")],
+                          cwd=str(_root_dir()), env=env, capture_output=True, text=True,
+                          timeout=600)
+    out["sharded"] = (proc.returncode, proc.stdout, proc.stderr, time.perf_counter() - t0)
+
+
+def _mesh_references(out: dict, design, raw, scene, camp_files) -> None:
+    """The single-card references the mesh items are held to, computed on
+    the card beside the ranks (a thread): ``detect_picks`` on the raw
+    canonical block and its envelopes (items 1, 2), each campaign file's
+    ``detect_picks`` at its own shape with its envelopes (item 4, the
+    native reader as the ranks'), and the one-card long record's envelopes
+    (item 3). Errors land in ``out["error"]``."""
+    import torch
+
+    from das4whales_tpu_torch.io.stream import stream_strain_blocks
+    from das4whales_tpu_torch.models.matched_filter import (
+        MatchedFilterDetector,
+        design_matched_filter,
+    )
+    from das4whales_tpu_torch.utils.parity import envelopes
+
+    t0 = time.perf_counter()
+    try:
+        det = MatchedFilterDetector.from_design(design, scene.metadata, wire="raw")
+        x = torch.as_tensor(raw).to("cuda")
+        out.update(ref=det.detect_picks(x), env=envelopes(det, x))
+        del x
+        det_c = MatchedFilterDetector.from_design(design, scene.metadata, wire="conditioned")
+        out["camp"] = {}
+        for blk in stream_strain_blocks(camp_files, [0, CANONICAL[0], 1], interrogator="silixa",
+                                        as_numpy=True, engine="native"):
+            path = camp_files[len(out["camp"])]
+            xb = torch.as_tensor(blk.trace).to("cuda")
+            one = det_c.detect_picks(xb)
+            out["camp"][path] = (one.picks, one.thresholds, envelopes(det_c, xb))
+            del xb
+        out["long_env"] = _LONG_REF["env_fn"]()
+        # item 5's selection, conditioned as the command reads it (its
+        # default reader, the format one)
+        sel = [0, MESH_CLI_CHANNELS, 1]
+        blk = next(stream_strain_blocks(camp_files[:1], sel, interrogator="silixa",
+                                        as_numpy=True, engine="h5py"))
+        dc = design_matched_filter((MESH_CLI_CHANNELS, CANONICAL[1]), sel, blk.metadata)
+        dcli = MatchedFilterDetector.from_design(dc, blk.metadata, wire="conditioned")
+        xc = torch.as_tensor(blk.trace).to("cuda")
+        one = dcli.detect_picks(xc)
+        out.update(cli_one=(one.picks, one.thresholds), cli_env=envelopes(dcli, xc))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    except Exception as exc:  # noqa: BLE001 — re-raised by phase_mesh after the pool
+        out["error"] = f"{type(exc).__name__}: {exc}"
+    out["seconds"] = time.perf_counter() - t0
+
+
+def _done_picks(outdir: str) -> tuple:
+    """``(picks, thresholds)`` of the one ``done`` record of a campaign
+    outdir."""
+    from das4whales_tpu_torch.utils import artifacts
+    from das4whales_tpu_torch.workflows import campaign as cmod
+
+    recs = [r for r in artifacts.read_records(cmod._manifest_path(outdir))
+            if r.get("status") == "done"]
+    if len(recs) != 1:
+        fail(f"mesh: {outdir} holds {len(recs)} done records, expected 1")
+    with np.load(recs[0]["picks_file"]) as z:
+        thr = dict(zip(z["template_names"].tolist(), z["thresholds"].tolist()))
+    return cmod.load_picks(recs[0]["picks_file"]), thr
+
+
+def phase_mesh(scene=None, raw=None, design=None):
+    """The matched filter over a device mesh on the card (module
+    docstring, phase 35): two ranks sharing the card over gloo, items 1-4
+    in one pool of ranks, item 5 (the command line) on a thread beside
+    them. Returns ``({path: launches}, max_abs_err)``."""
+    import shutil
+    import tempfile
+    import threading
+    from pathlib import Path
+
+    from das4whales_tpu_torch import fsck
+    from das4whales_tpu_torch.utils.checkpoint import save_design
+    from das4whales_tpu_torch.workflows import campaign as cmod
+
+    t_phase = time.perf_counter()
+    nx, ns = CANONICAL
+    root = _root_dir() / "build"
+    root.mkdir(exist_ok=True)
+    d = Path(tempfile.mkdtemp(prefix="mesh_", dir=root))
+    if scene is None or not _LONG_REF or "paths" not in _SHARED:
+        # run alone (--only): the canonical scene and design, the slab files
+        # and the long record's files and design, made here at once
+        canonical = _mesh_alone(d, scene is None)
+        if scene is None:
+            scene, raw, design = canonical
+        t_phase = time.perf_counter()
+    try:
+        shared = slab_files()
+        camp_files = [p for p, (_, fns) in zip(shared["paths"], SLAB_FILES)
+                      if fns == CANONICAL[1]]
+        ch_s = _LONG_REF["ch_s"]
+        h0 = ch_s - MESH_HALO_CHANNELS // 2
+        spec = dict(world=MESH_RANKS, device="cuda:0", threads=3,
+                    items=["step", "nccl", "long", "campaign"], design=str(d / "design.npz"),
+                    raw=str(d / "raw.npy"), scale_factor=scene.metadata.scale_factor,
+                    metadata=scene.metadata, against_filter_block=True,
+                    long_design=str(d / "long_design.npz"),
+                    halo_design=str(d / "halo_design.npz"), long_files=_LONG_REF["paths"],
+                    long_sel=[0, nx, 1], halo_sel=[h0, h0 + MESH_HALO_CHANNELS, 1],
+                    camp_files=camp_files, camp_sel=[0, nx, 1], camp_out=str(d / "camp"),
+                    ready=str(d / "ready"))
+        # the ranks start (import, group, meshes) while their inputs are written
+        t0 = time.perf_counter()
+        pool = _mesh_pool(d / "pool", spec, "mesh")
+        cli = {}
+        th = threading.Thread(target=_cli_sharded, args=(d, camp_files[0], cli), daemon=True)
+        th.start()
+        np.save(d / "raw.npy", raw)
+        save_design(spec["design"], design)
+        save_design(spec["long_design"], _LONG_REF["design"])
+        save_design(spec["halo_design"], _LONG_REF["halo_design"])
+        (d / "ready").touch()
+        t_prep = time.perf_counter() - t0
+        # the one-card references, computed on the card beside the ranks
+        refs = {}
+        rth = threading.Thread(target=_mesh_references,
+                               args=(refs, design, raw, scene, camp_files), daemon=True)
+        rth.start()
+        ranks = _mesh_wait(pool)
+        t_pool = time.perf_counter() - t0
+        rth.join()
+        t_refs_wait = time.perf_counter() - t0 - t_pool
+        t_checks0 = time.perf_counter()
+        if "error" in refs:
+            fail(f"mesh: the one-card references failed: {refs['error']}")
+        ref = refs["ref"]
+        launches, err = {}, 0.0
+
+        def env_canonical():
+            return refs["env"]
+
+        # item 1: two ranks over gloo
+        st = [rk["step"] for rk in ranks]
+        n_tiles = -(-(nx // MESH_RANKS) // 512)
+        for r, s in enumerate(st):
+            if s["launches"] != n_tiles * s["attempts"]:
+                fail(f"mesh: rank {r} launched fused_picks {s['launches']} times in "
+                     f"{s['attempts']} attempts, expected {n_tiles} an attempt")
+            if s["kernel_rows"] != [2 * 512, 2 * (nx // MESH_RANKS - (n_tiles - 1) * 512)]:
+                fail(f"mesh: rank {r} first/last pick launches of {s['kernel_rows']} rows")
+            err = max(err, s["kernel_err"])
+            launches[f"mesh_gloo_rank{r}"] = s["launches"]
+        if st[0]["escalated"] != st[1]["escalated"]:
+            fail("mesh: the ranks' escalation decisions differ")
+        for name, t in ref.thresholds.items():
+            i = design.template_names.index(name)
+            got = float(st[0]["thres"][0]) * float(design.threshold_factors[i])
+            if abs(got - t) > MESH_THR_RTOL * abs(t):
+                fail(f"mesh: gloo {name} threshold {got} against detect_picks' {t}")
+        thr = ref.thresholds
+        n_gloo = _same_picks("mesh: gloo picks against detect_picks", ref.picks,
+                             st[0]["picks"], env_canonical, thr)
+        for r in range(MESH_RANKS):
+            for name in ref.picks:
+                if not np.array_equal(st[r]["picks"][name], st[0]["picks"][name]):
+                    fail(f"mesh: rank {r}'s gathered {name} picks differ from rank 0's")
+        if st[0]["trf_rel"] > MESH_REL:
+            fail(f"mesh: the gathered trf_fk is {st[0]['trf_rel']:.2e} * max from "
+                 f"filter_block's (limit {MESH_REL})")
+        misses = _check_calls(scene, st[0]["picks"])
+        if misses:
+            fail(f"mesh: gloo: injected calls missed {misses}")
+        say(
+            f"mesh: item 1, two ranks on cuda:0 over gloo, mesh (file=1, channel=2), raw int32 "
+            f"{nx}x{ns} ({nx // MESH_RANKS} channels a rank), the adaptive pair (pack K0=64, "
+            f"topk K=256 on a mesh-wide saturation): {st[0]['attempts']} attempt(s), walls "
+            f"{', '.join(f'{s['wall'] * 1e3:.1f}' for s in st)} ms (ranks sharing the card), "
+            f"fused_picks launches {[s['launches'] for s in st]} ({n_tiles} an attempt), each "
+            f"rank's first and last launch ({st[0]['kernel_rows']} rows) bitwise the plain "
+            f"version; picks against detect_picks: "
+            f"{'equal' if n_gloo == 0 else f'{n_gloo} apart on knife edges'}; thresholds "
+            f"within rtol {MESH_THR_RTOL}; outputs='full' trf_fk gathered within "
+            f"{st[0]['trf_rel']:.2e} * max of filter_block's; collectives rank 0: "
+            f"{_stats_text(st[0]['stats'])}; the full step's: "
+            f"{_stats_text(st[0]['full_stats'])}; peak memory a rank "
+            f"{[round(s['peak'] / 2**30, 2) for s in st]} GiB; item {st[0]['item_s']:.1f} s")
+        # item 2: the one-rank NCCL group
+        nc = ranks[0]["nccl"]
+        n_tiles_full = -(-nx // 512)
+        if nc["launches"] != n_tiles_full * nc["attempts"] or nc["backend"] != "nccl":
+            fail(f"mesh: nccl: {nc['launches']} launches in {nc['attempts']} attempts "
+                 f"(backend {nc['backend']})")
+        err = max(err, nc["kernel_err"])
+        launches["mesh_nccl"] = nc["launches"]
+        bitwise = all(np.array_equal(nc["picks"][n], ref.picks[n]) for n in ref.picks)
+        n_nccl = 0 if bitwise else _same_picks("mesh: nccl picks against detect_picks",
+                                               ref.picks, nc["picks"], env_canonical, thr)
+        ap = nc["apart"]
+        if not ap["cond_bitwise"]:
+            fail("mesh: nccl: the step's conditioning is not bitwise the detector's")
+        say(
+            f"mesh: item 2, the same step on a one-rank NCCL group (rank 0, {nx} channels): "
+            f"{nc['wall'] * 1e3:.1f} ms, {nc['launches']} fused_picks launches in "
+            f"{nc['attempts']} attempt(s), first and last bitwise plain; picks "
+            + ("bitwise detect_picks'" if bitwise else
+               f"{n_nccl} apart from detect_picks' on knife edges")
+            + f"; collectives {_stats_text(nc['stats'])}; peak {nc['peak'] / 2**30:.2f} GiB")
+        say(
+            f"mesh: item 2, where the step's filter parts from the one-card detector's "
+            f"(f-k engine {ap['fk_engine']}), on the same block: conditioning bitwise; the "
+            f"step's f-k transform on the detector's band and mask "
+            + ("bitwise the detector's" if ap["transform_bitwise"] else
+               f"{ap['transform_rel']:.3e} * max from the detector's")
+            + f"; the step's own band {ap['band_step']} (the gain folded in before the "
+            f"crop) against the detector's {ap['band_one']}: {ap['crop_rel']:.3e} * max apart")
+        # item 3: the time-split long record
+        lg = [rk["long"] for rk in ranks]
+        lref = _LONG_REF
+        for r in range(MESH_RANKS):
+            for name in ("fused", "halo"):
+                if lg[r][name]["launches"]:
+                    fail(f"mesh: long record ({name}) rank {r} launched fused_picks "
+                         f"{lg[r][name]['launches']} times; its picker is the plain tiled one")
+                for pn in lg[0][name]["picks"]:
+                    if not np.array_equal(lg[r][name]["picks"][pn], lg[0][name]["picks"][pn]):
+                        fail(f"mesh: long record ({name}) rank {r}'s picks differ from rank 0's")
+        fused, halo = lg[0]["fused"], lg[0]["halo"]
+        if fused["n_samples"] != lref["n_samples"]:
+            fail(f"mesh: long record of {fused['n_samples']} samples")
+        for name, t in lref["thresholds"].items():
+            if abs(fused["thresholds"][name] - t) > MESH_THR_RTOL * abs(t):
+                fail(f"mesh: long record {name} threshold {fused['thresholds'][name]} "
+                     f"against the one-card {t}")
+        n_long = _same_picks("mesh: the time-split long record against the one-card one",
+                             lref["picks"], fused["picks"], lambda: refs["long_env"],
+                             lref["thresholds"])
+        for name, res, c in (("fused", fused, ch_s), ("halo", halo, ch_s - h0)):
+            if not _picked_near(res["picks"]["HF"], c, lref["onset"], 200.0):
+                fail(f"mesh: long record ({name}): the straddling call was not picked")
+        say(
+            f"mesh: item 3, the long record {nx}x{lref['n_samples']} over a (time=2) mesh (each rank "
+            f"reads its own file; the design loaded in {lg[0]['design_load_s']:.1f} s): fused "
+            f"bandpass, conditioned wire {fused['wall']:.2f} s (stages "
+            f"{json.dumps({k: round(v, 1) for k, v in fused['stages'].items()})} ms), picks "
+            f"against the one-card record's: "
+            f"{'equal' if n_long == 0 else f'{n_long} apart on knife edges'}, thresholds "
+            f"rtol {MESH_THR_RTOL}; halo bandpass, raw wire, on the {MESH_HALO_CHANNELS} "
+            f"channels around the straddling call (the native reader) {halo['wall']:.2f} s, "
+            f"{sum(p.shape[1] for p in halo['picks'].values())} picks; the straddling call "
+            f"picked by both; no fused_picks launch; collectives rank 0 fused: "
+            f"{_stats_text(fused['stats'])}; halo: {_stats_text(halo['stats'])}; peak a rank "
+            f"{[round(max(x['fused']['peak'], x['halo']['peak']) / 2**30, 2) for x in lg]} GiB")
+        # item 4: the sharded campaign
+        cp = [rk["campaign"] for rk in ranks]
+        recs = cp[0]["records"]
+        if [(s, g) for _, s, g, _ in recs] != [("done", "sharded")] * len(camp_files):
+            fail(f"mesh: campaign records {[(s, g) for _, s, g, _ in recs]}")
+        if [x[:3] for x in cp[1]["records"]] != [x[:3] for x in recs]:
+            fail("mesh: the ranks returned different campaign records")
+        lines = cmod._manifest_path(str(d / "camp"))
+        with open(lines) as fh:
+            n_lines = sum(1 for ln in fh if ln.strip())
+        if n_lines != len(camp_files):
+            fail(f"mesh: the manifest holds {n_lines} lines for {len(camp_files)} files: only "
+                 "rank 0 writes")
+        if any(c["resume"] != ["skipped"] * len(camp_files) or c["resume_reads"] for c in cp):
+            fail(f"mesh: resume {[c['resume'] for c in cp]}, reads "
+                 f"{[c['resume_reads'] for c in cp]}: it must settle nothing and read nothing")
+        if [c["reads"] for c in cp] != [len(camp_files) // MESH_RANKS] * MESH_RANKS:
+            fail(f"mesh: campaign reads a rank {[c['reads'] for c in cp]}")
+        findings = fsck.fsck_outdir(str(d / "camp"))
+        if findings:
+            fail(f"mesh: campaign fsck found {fsck.render_findings(findings)}")
+        n_camp = 0
+        scenes_by_path = dict(zip(shared["paths"], shared["scenes"]))
+        for path, _s, _g, pf in recs:
+            got = cmod.load_picks(pf)
+            one_picks, one_thr, one_env = refs["camp"][path]
+            n_camp += _same_picks(f"mesh: campaign {os.path.basename(path)} against "
+                                  "detect_picks", one_picks, got, lambda e=one_env: e, one_thr)
+            if _check_calls(scenes_by_path[path], got):
+                fail(f"mesh: campaign {os.path.basename(path)}: an injected call was missed")
+        for r, c in enumerate(cp):
+            launches[f"mesh_campaign_rank{r}"] = c["launches"]
+        say(
+            f"mesh: item 4, run_campaign_sharded at (file=2, channel=1) over {len(camp_files)} "
+            f"canonical TDMS files (the native reader): {cp[0]['wall']:.1f} s, every file done "
+            f"at 'sharded', reads "
+            f"a rank {[c['reads'] for c in cp]}, the manifest written by rank 0 alone "
+            f"({n_lines} lines), fsck_outdir clean, picks against detect_picks at the files' "
+            f"own shape, the native reader too (the campaign phase's run is at the 16384 "
+            f"pow2 bucket, another program): "
+            f"{'equal' if n_camp == 0 else f'{n_camp} apart on knife edges'}, every "
+            f"injected call picked; fused_picks launches a rank "
+            f"{[c['launches'] for c in cp]}; resume {cp[0]['resume_wall']:.2f} s, "
+            f"{len(camp_files)} skipped, 0 reads; collectives rank 0: "
+            f"{_stats_text(cp[0]['stats'])}; peak a rank "
+            f"{[round(c['peak'] / 2**30, 2) for c in cp]} GiB")
+        # item 5: the command line, a mesh of one on the card
+        t1 = time.perf_counter()
+        th.join()
+        t_cli_wait = time.perf_counter() - t1
+        rc, o, e, _ = cli["sharded"]
+        if rc != 0 or "campaign: 1 done, 0 failed" not in o:
+            fail(f"mesh: `campaign --sharded` exited {rc}: {o[-800:]} {e[-1500:]}")
+        ps, _ = _done_picks(str(d / "cli_sharded"))
+        po, tho = refs["cli_one"]
+        # the one-device route correlates the 2048 channels at once, the
+        # step in 512-row tiles: cuFFT's batches may round apart
+        n_cli = _same_picks("mesh: `campaign --sharded` against the one-device detector",
+                            po, ps, lambda: refs["cli_env"], tho)
+        say(
+            f"mesh: item 5, `python -m das4whales_tpu_torch campaign --sharded` without rank "
+            f"variables (a mesh of one on the card), {MESH_CLI_CHANNELS} channels of one file, "
+            f"designing in-process: exit 0 in {cli['sharded'][3]:.1f} s, picks against the "
+            f"one-device detector's (`detect_picks`, the same design) at that selection: "
+            f"{'bitwise' if n_cli == 0 else f'{n_cli} apart on knife edges'}, "
+            f"{sum(p.shape[1] for p in ps.values())} picks")
+        t_checks = time.perf_counter() - t_checks0
+    finally:
+        t1 = time.perf_counter()
+        shutil.rmtree(d, ignore_errors=True)
+        t_rm = time.perf_counter() - t1
+    wall = time.perf_counter() - t_phase
+    say(f"mesh: the block and three design checkpoints written in {t_prep:.1f} s while "
+        f"the ranks started, the pool of {MESH_RANKS} ranks {t_pool:.1f} s (the one-card "
+        f"references beside it, {refs.get('seconds', 0.0):.1f} s; waited for after the pool "
+        f"{t_refs_wait:.1f} s, the command line {t_cli_wait:.1f} s; the checks "
+        f"{t_checks:.1f} s, the clean-up {t_rm:.1f} s); phase {wall:.1f} s "
+        f"(budget {MESH_BUDGET_S:.0f} s)")
+    if wall > MESH_BUDGET_S:
+        fail(f"mesh: the phase took {wall:.1f} s, over its {MESH_BUDGET_S:.0f} s budget")
+    return launches, err
+
+
+def _mesh_alone(d, need_canonical: bool):
+    """What the mesh phase takes from earlier phases, made in the host pool
+    at once when it runs alone: the slab files, the long record's files,
+    designs and one-card picks (``_LONG_REF``), and (returned, where
+    asked) the canonical ``(scene, raw block, design)``."""
+    import torch
+
+    from das4whales_tpu_torch.io.synth import SyntheticScene, synthesize_scene, to_raw_counts
+    from das4whales_tpu_torch.workflows.longrecord import detect_long_record
+
+    nx, nfile = CANONICAL
+    pool = _host_pool()
+    try:
+        jobs, canonical = {}, None
+        if "paths" not in _SHARED:
+            _SHARED["dir"] = d / "slab"
+            _SHARED["dir"].mkdir()
+            _EARLY["slab_files"] = pool.submit(_slab_files_job, str(_SHARED["dir"]))
+        if not _LONG_REF:
+            meta_l = SyntheticScene(nx=nx, ns=LONG_FILES * nfile).metadata
+            jobs["long_files"] = pool.submit(_long_files_job, str(d), nx, nfile, SEED + 7)
+            jobs["long_design"] = pool.submit(_design_job, (nx, LONG_FILES * nfile), meta_l)
+            jobs["halo_design"] = pool.submit(
+                _design_job, (MESH_HALO_CHANNELS, LONG_FILES * nfile), meta_l)
+        if need_canonical:
+            scene = _scene(nx, nfile, n_calls=6, seed=SEED)
+            jobs["design"] = pool.submit(_design_job, (nx, nfile), scene.metadata)
+            raw = to_raw_counts(synthesize_scene(scene), scene.metadata)
+            canonical = (scene, raw, jobs["design"].result()[1])
+        slab_files()
+        if "long_files" in jobs:
+            paths, scene_l, ch_s, onset, _ = jobs["long_files"].result()
+            design = jobs["long_design"].result()[1]
+            r = detect_long_record(paths, [0, nx, 1], interrogator="silixa", design=design,
+                                   engine="h5py")
+            torch.cuda.synchronize()
+            _keep_long_reference(paths, design, scene_l, ch_s, onset, r,
+                                 jobs["halo_design"].result()[1])
+    finally:
+        pool.shutdown(cancel_futures=True)
+    return canonical
+
+
+def _keep_long_reference(paths, design, scene, ch_s, onset, res, halo_design) -> None:
+    """Keep the one-card long record (conditioned wire) for the mesh phase,
+    with the halo run's ``MESH_HALO_CHANNELS``-channel design: the files
+    stay until main removes their directory."""
+    import torch
+
+    from das4whales_tpu_torch.io.stream import stream_strain_blocks
+
+    def env_fn():
+        # the knife-edge margin only: the native reader (its float64 demean
+        # moves a value by an ulp at most)
+        blocks = list(stream_strain_blocks(paths, [0, CANONICAL[0], 1], interrogator="silixa",
+                                           as_numpy=True, engine="native"))
+        x = torch.as_tensor(np.concatenate([b.trace for b in blocks], axis=-1)).to("cuda")
+        return _record_env(x, blocks, design, blocks[0].metadata).cpu().numpy()
+
+    _LONG_REF.update(paths=list(paths), design=design, ch_s=ch_s, onset=onset,
+                     picks=res.picks, thresholds=res.thresholds, n_samples=res.n_samples,
+                     env_fn=env_fn, halo_design=halo_design)
+
+
+def phase_mesh_cpu_vs_card():
+    """Item 1's step at 512 x 12000: two ranks on the card against two gloo
+    CPU ranks, both pools at once (phase 36)."""
+    import shutil
+    import tempfile
+    import threading
+    from pathlib import Path
+
+    from das4whales_tpu_torch.io.synth import synthesize_scene, to_raw_counts
+    from das4whales_tpu_torch.utils.checkpoint import save_design
+    from das4whales_tpu_torch.utils.parity import unexplained_differences
+
+    t_phase = time.perf_counter()
+    nx, ns = 512, CANONICAL[1]
+    scene = _scene(nx, ns, n_calls=4, seed=SEED + 40)
+    raw = to_raw_counts(synthesize_scene(scene), scene.metadata)
+    t0 = time.perf_counter()
+    _, design = _design_job((nx, ns), scene.metadata)
+    t_design = time.perf_counter() - t0
+    root = _root_dir() / "build"
+    root.mkdir(exist_ok=True)
+    d = Path(tempfile.mkdtemp(prefix="mesh_cpu_", dir=root))
+    try:
+        np.save(d / "raw.npy", raw)
+        dpath = save_design(str(d / "design"), design)
+        base = dict(world=MESH_RANKS, items=["step"], design=dpath, raw=str(d / "raw.npy"),
+                    scale_factor=scene.metadata.scale_factor, metadata=scene.metadata,
+                    full_outputs=True)
+        out = {}
+
+        def run(tag, dev, threads):
+            out[tag] = _mesh_wait(_mesh_pool(d / tag, dict(base, device=dev, threads=threads),
+                                             f"mesh_cpu_vs_card ({tag})"))
+
+        ths = [threading.Thread(target=run, args=("card", "cuda:0", 1)),
+               threading.Thread(target=run, args=("cpu", "cpu", 3))]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join()
+        if set(out) != {"card", "cpu"}:
+            fail(f"mesh_cpu_vs_card: pools finished {sorted(out)}")
+        card, cpu = out["card"][0]["step"], out["cpu"][0]["step"]
+        if cpu["launches"] or not card["launches"]:
+            fail(f"mesh_cpu_vs_card: launches card {card['launches']}, cpu {cpu['launches']}")
+        rel = {}
+        for key in ("trf", "corr"):
+            scale = float(np.abs(cpu[key]).max())
+            rel[key] = float(np.abs(card[key] - cpu[key]).max()) / scale
+            if rel[key] > MESH_CPU_REL:
+                fail(f"mesh_cpu_vs_card: {key} {rel[key]:.2e} * max apart (limit {MESH_CPU_REL})")
+        thr = {}
+        for i, name in enumerate(design.template_names):
+            a = float(card["thres"][0]) * float(design.threshold_factors[i])
+            b = float(cpu["thres"][0]) * float(design.threshold_factors[i])
+            if abs(a - b) > MESH_THR_RTOL * abs(b):
+                fail(f"mesh_cpu_vs_card: {name} threshold card {a} cpu {b}")
+            thr[name] = b
+        n_diff = 0
+        for i, name in enumerate(design.template_names):
+            bad = unexplained_differences(cpu["picks"][name], card["picks"][name],
+                                          cpu["env"][i], thr[name])
+            if bad:
+                fail(f"mesh_cpu_vs_card: {name} picks differ beyond rounding at {bad[:10]}")
+            a = {tuple(p) for p in cpu["picks"][name].T.tolist()}
+            b = {tuple(p) for p in card["picks"][name].T.tolist()}
+            n_diff += len(a ^ b)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    say(f"mesh_cpu_vs_card: item 1's step at {nx}x{ns} raw int32 over (file=1, channel=2), two "
+        f"ranks on the card against two gloo CPU ranks (both pools at once; the design "
+        f"{t_design:.1f} s): trf_fk {rel['trf']:.2e} and correlograms {rel['corr']:.2e} * max "
+        f"apart (limit {MESH_CPU_REL}), thresholds within rtol {MESH_THR_RTOL}, picks "
+        f"{'equal' if n_diff == 0 else f'{n_diff} apart on knife edges'}; card launches "
+        f"{card['launches']} a rank, walls card {card['wall'] * 1e3:.1f} ms, cpu "
+        f"{cpu['wall'] * 1e3:.1f} ms; collectives card rank 0: {_stats_text(card['stats'])}; "
+        f"phase {wall:.1f} s (budget {MESH_CPU_BUDGET_S:.0f} s)")
+    if wall > MESH_CPU_BUDGET_S:
+        fail(f"mesh_cpu_vs_card: the phase took {wall:.1f} s, over its "
+             f"{MESH_CPU_BUDGET_S:.0f} s budget")
+
+
 def _time_phases() -> None:
     """Wrap every ``phase_*`` function so that its seconds are kept."""
     for name, fn in list(globals().items()):
@@ -6963,6 +8019,9 @@ def _time_phases() -> None:
 
 
 def main(argv: list) -> int:
+    if argv[:1] == ["--mesh-rank"]:
+        # one rank of a mesh phase's pool, started by _mesh_pool
+        return mesh_rank_main(argv[1], int(argv[2]))
     import torch
 
     _time_phases()
@@ -6975,7 +8034,12 @@ def main(argv: list) -> int:
         try:
             for name in argv[1].split(","):
                 globals()[f"phase_{name}"]()
+            serve_start()
+            serve_finish()
         finally:
+            if "proc" in _SERVE:
+                _SERVE["proc"].kill()
+                _SERVE["proc"].wait()
             remove_slab_files()
             workflows_finish()
         say(f"phase seconds: {json.dumps(_PHASE_SECONDS)}")
@@ -7013,38 +8077,51 @@ def main(argv: list) -> int:
             svc_launches, (svc_picks_err, svc_stft_err) = phase_service()
             phase_fleet(svc_launches["fused_picks"])
         finally:
-            remove_slab_files()
+            # the slab files stay for the mesh phase and the serve subprocess
+            # (the outer finally removes them)
+            pass
         prep = long_record_prep(pool)
         host_designs = dsp_host_designs(scene, pool)
         phase_dsp(scene, raw, design, host_designs)
         loc_launches, loc_err = phase_localize(design)
         long_launches, long_err = phase_longrecord(prep, design)
+        mesh_launches, mesh_err = phase_mesh(scene, raw, design)
         mxu_out = phase_mxu(scene, raw, design)
         del scene, raw, design
         report_host_designs(host_designs)
+    except BaseException:
+        remove_slab_files()
+        raise
     finally:
         pool.shutdown(cancel_futures=True)
-        remove_slab_files()
         if prep is not None:
             import shutil
 
             shutil.rmtree(prep["dir"], ignore_errors=True)
     try:
-        # the flagship main at full width and the command line run beside
-        # the card-vs-CPU phases, which time nothing
+        # the flagship main at full width, the command line and the serve
+        # verb run beside the card-vs-CPU phases, which time nothing
         workflows_start()
+        serve_start()
         campaign_stft_launches, campaign_stft_err = phase_campaign_cpu_vs_card()
         phase_gabor_cpu_vs_card()
         phase_learned_cpu_vs_card(learned["card"])
         phase_dsp_cpu_vs_card()
         phase_localize_cpu_vs_card()
         phase_longrecord_cpu_vs_card()
+        phase_mesh_cpu_vs_card()
         phase_service_cpu_vs_card()
         phase_mxu_cpu_vs_card()
         phase_workflows_cpu_vs_card()
         wf_out = phase_workflows()
+        serve_finish()
     finally:
         workflows_finish()
+        if "proc" in _SERVE:
+            _SERVE["proc"].kill()
+            _SERVE["proc"].wait()
+        # the serve subprocess read them
+        remove_slab_files()
     say(f"phase seconds: {json.dumps(_PHASE_SECONDS)}")
     pk = kern["pack"]
     print(json.dumps({"kernels": [{
@@ -7059,10 +8136,11 @@ def main(argv: list) -> int:
                              "campaign": campaign_launches, "gabor": gabor_launches,
                              "campaign_gabor": gabor_campaign_launches, **loc_launches,
                              "service": svc_launches["fused_picks"],
-                             "mxu": mxu_out["launches"], **wf_out["launches"]},
+                             "mxu": mxu_out["launches"], **wf_out["launches"],
+                             **mesh_launches},
         "max_abs_err": max(err, slab_picks_err, full_err, bank_err, gabor_err, loc_err,
                            _PREFLIGHT["picks_err"], svc_picks_err, mxu_out["err"],
-                           wf_out["err"]),
+                           wf_out["err"], mesh_err),
         "ms": pk["ms"],
         "device_ms": pk["device_ms"],
         "plain_ms": pk["plain_ms"],

@@ -23,8 +23,13 @@ Three differences from the JAX package's command line:
 ``--device`` overrides it, and a fleet without its card refuses before
 any worker spawns.
 
-Not in this slice: ``campaign --sharded`` / ``--multihost`` (exit 2,
-naming the ROADMAP item 'Multi-GPU').
+``campaign --sharded`` runs the campaign on a ``(file, channel)`` device
+mesh of every rank (``workflows.campaign.run_campaign_sharded``) and
+``--multihost`` on the multi-host layout (``run_campaign_multiprocess``):
+launch either under torchrun (one rank a card; ``parallel.distributed``
+reads its variables), or without its variables as a mesh of one. Rank 0
+alone writes the report. ``--no-figure`` skips ``density.png`` (and the
+matplotlib check).
 
 Examples::
 
@@ -32,6 +37,7 @@ Examples::
     python -m das4whales_tpu_torch mfdetect file.tdms --interrogator silixa
     python -m das4whales_tpu_torch longrecord seg0.h5 seg1.h5
     python -m das4whales_tpu_torch campaign *.h5 --outdir out_camp
+    torchrun --nproc_per_node 4 -m das4whales_tpu_torch campaign *.h5 --sharded
     python -m das4whales_tpu_torch fleet fleet.json --until-settled
     python -m das4whales_tpu_torch list
 """
@@ -43,7 +49,6 @@ import importlib
 import os
 import sys
 
-from .config import not_in_slice
 
 WORKFLOWS = {
     "mfdetect": "matched-filter detection (flagship: bandpass -> f-k -> "
@@ -126,11 +131,15 @@ def build_parser() -> argparse.ArgumentParser:
                     help="reprocess files already recorded done in the manifest")
     pc.add_argument("--interrogator", default="optasense")
     pc.add_argument("--sharded", action="store_true",
-                    help="detect batches on a (file x channel) device mesh (not in this "
-                         "slice of the port: 'Multi-GPU')")
+                    help="detect batches on a (file x channel) device mesh of every rank "
+                         "(workflows.campaign.run_campaign_sharded; launch under torchrun, "
+                         "or alone as a mesh of one)")
     pc.add_argument("--multihost", action="store_true",
-                    help="one SPMD campaign across all processes of a multi-process "
-                         "runtime (not in this slice of the port: 'Multi-GPU')")
+                    help="one lockstep campaign across every rank of a multi-host world "
+                         "(workflows.campaign.run_campaign_multiprocess; torchrun's "
+                         "variables)")
+    pc.add_argument("--no-figure", action="store_true",
+                    help="write summary.json without density.png (no matplotlib needed)")
     pc.add_argument("--bank", default=None,
                     help="mf-family TEMPLATE BANK: a registered name (fin, fin-variants, "
                          "blue) or a 'chirp-grid:T[:fmin-fmax[:durs]]' spec — all T "
@@ -442,13 +451,20 @@ def _campaign(args) -> int:
     from .utils.device import resolve_device
     from .workflows.campaign import CampaignAborted, run_campaign
 
-    if args.sharded or args.multihost:
-        flag = "--sharded" if args.sharded else "--multihost"
-        print(f"error: {not_in_slice(f'campaign {flag}', 'Multi-GPU')}", file=sys.stderr)
+    mesh_run = args.sharded or args.multihost
+    if not args.no_figure and _no_matplotlib("campaign (its density.png)"):
         return 2
-    if _no_matplotlib("campaign (its density.png)"):
-        return 2
-    dev = resolve_device(args.device)
+    if mesh_run:
+        from .parallel import distributed
+
+        distributed.initialize_from_env()
+        if args.device == "cpu":
+            resolve_device("cpu")
+        else:
+            resolve_device(None)     # raises without a card: no CPU fallback
+        dev = None
+    else:
+        dev = resolve_device(args.device)
     # ONE probe pass: the first probeable file supplies the default channel
     # selection; a corrupt head of the list must not crash the
     # fault-tolerant runner before it starts
@@ -466,10 +482,16 @@ def _campaign(args) -> int:
     else:
         print("campaign: no file in the list is probeable; nothing to do")
         return 3
-    if args.bank and args.family != "mf":
+    if args.bank and (args.family != "mf" or mesh_run):
         print("campaign: --bank applies to the single-chip/batched mf family (the bank "
               "axis rides the one-program route)")
         return 2
+    if mesh_run and args.family != "mf":
+        print("campaign: --multihost supports the mf family only" if args.multihost
+              else f"campaign: --family {args.family} is single-chip only")
+        return 2
+    if mesh_run:
+        return _mesh_campaign(args, sel)
     kwargs = {"fused_bandpass": args.fused}
     if args.family == "learned":
         if not args.model:
@@ -494,19 +516,62 @@ def _campaign(args) -> int:
     except CampaignAborted as exc:
         print(f"campaign aborted: {exc} (progress kept in {args.outdir})")
         return 4
+    return _campaign_report(args, res)
+
+
+def _campaign_report(args, res, writer: bool = True) -> int:
     print(f"campaign: {res.n_done} done, {res.n_failed} failed, "
           f"{res.n_skipped} skipped -> {res.outdir}")
-    if res.n_done:
+    if res.n_done and writer:
         from .utils.artifacts import atomic_json
         from .workflows.campaign import plot_campaign_density, summarize_campaign
 
         summary = summarize_campaign(args.outdir)
-        fig = plot_campaign_density(summary)
-        fig.savefig(os.path.join(args.outdir, "density.png"), dpi=120)
+        if not args.no_figure:
+            fig = plot_campaign_density(summary)
+            fig.savefig(os.path.join(args.outdir, "density.png"), dpi=120)
         slim = {k: v for k, v in summary.items() if k != "density"}
         atomic_json(os.path.join(args.outdir, "summary.json"), slim, indent=1)
-        print(f"campaign: report -> {args.outdir}/summary.json, density.png")
+        print(f"campaign: report -> {args.outdir}/summary.json"
+              + ("" if args.no_figure else ", density.png"))
     return 0 if res.n_failed == 0 else 3
+
+
+def _mesh_campaign(args, sel) -> int:
+    """``campaign --sharded`` / ``--multihost`` on every rank: the default
+    mesh (every rank on the channel axis) or the multi-host layout; the
+    device ``--device cpu``, else each rank's card. Rank 0 writes the
+    report."""
+    import torch.distributed as dist
+
+    from .parallel.mesh import make_mesh
+    from .workflows.campaign import (
+        CampaignAborted,
+        run_campaign_multiprocess,
+        run_campaign_sharded,
+    )
+
+    if args.trace:
+        print("campaign: --trace covers single-device campaigns only; proceeding "
+              "WITHOUT a trace")
+    world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    rank = dist.get_rank() if world > 1 else 0
+    devices = ["cpu"] * world if args.device == "cpu" else None
+    try:
+        if args.multihost:
+            res = run_campaign_multiprocess(
+                args.files, sel, args.outdir, resume=not args.no_resume,
+                max_failures=args.max_failures, interrogator=args.interrogator,
+                fused_bandpass=args.fused, device="cpu" if args.device == "cpu" else None)
+        else:
+            res = run_campaign_sharded(
+                args.files, sel, args.outdir, make_mesh(devices=devices),
+                resume=not args.no_resume, max_failures=args.max_failures,
+                interrogator=args.interrogator, fused_bandpass=args.fused)
+    except CampaignAborted as exc:
+        print(f"campaign aborted: {exc} (progress kept in {args.outdir})")
+        return 4
+    return _campaign_report(args, res, writer=rank == 0)
 
 
 def main(argv=None) -> int:

@@ -33,8 +33,12 @@ boundaries. Each read and each host->card copy is a ``read`` / ``h2d``
 span of the flight recorder (``telemetry.trace``; free when tracing is
 off).
 
-Not in this slice: ``sharding`` and ``stream_file_batches`` (the sharded
-multi-device stacks) come with the ROADMAP item 'Multi-GPU'.
+On a device mesh (``parallel.mesh``, one process a device) the streams
+take ``sharding`` (``parallel.mesh.Sharding``): each rank reads only its
+channel slice of each file (a narrowed channel selection: the per-channel
+demean makes that exact) and gets its local block on its device;
+:func:`stream_file_batches` stacks ``[file x channel x time]`` batches for
+the sharded step, each rank reading only its own files.
 """
 
 from __future__ import annotations
@@ -60,7 +64,6 @@ from ..config import (
     as_bucket_config,
     as_metadata,
 )
-from ..config import not_in_slice as _not_in_slice
 from ..telemetry import trace as _trace
 from ..utils.device import resolve_device
 from . import native
@@ -71,9 +74,30 @@ from .staging import PinnedStager, torch_dtype
 WIRE_FORMATS = ("conditioned", "raw")
 
 
-def _check_not_in_slice(sharding) -> None:
-    if sharding is not None:
-        raise _not_in_slice("sharding", "Multi-GPU")
+def _local_selection(sel: ChannelSelection, nx: int, sharding, dim: int) -> ChannelSelection:
+    """The part of ``sel`` (a selection of a file of ``nx`` channels) that
+    ``sharding`` gives this rank on its channel dimension ``dim``."""
+    spec = sharding.spec
+    axis = spec[dim] if dim < len(spec) else None
+    if axis is None:
+        return sel
+    C = sel.n_channels(nx)
+    p = sharding.mesh.axis_size(axis)
+    if C % p:
+        raise ValueError(f"{C} selected channels not divisible by mesh axis {axis}={p}")
+    w = C // p
+    lo = w * sharding.mesh.axis_index(axis)
+    return ChannelSelection(sel.start + lo * sel.step, sel.start + (lo + w) * sel.step,
+                            sel.step)
+
+
+def _sharded_selection(files, selected_channels, metadata, interrogator, sharding,
+                       dim: int):
+    """``(local selection, first file's spec)`` for a sharded stream."""
+    meta0 = metadata if not isinstance(metadata, (list, tuple)) else metadata[0]
+    first = _probe(files[0], interrogator, meta0)
+    sel = ChannelSelection.from_list(selected_channels)
+    return _local_selection(sel, first.meta.nx, sharding, dim), first
 
 
 @dataclass
@@ -238,8 +262,33 @@ def stream_strain_blocks(
     the transfer boundary (``on_transfer`` before the copy). Both need
     the threaded reader: ``engine="native"`` refuses them,
     ``engine="auto"`` takes the threaded reader when either is set.
+
+    ``sharding`` (``parallel.mesh.Sharding`` over ``[channel x time]``)
+    gives each rank of a mesh its block: only its channel slice is read,
+    its time slice is cut after the read, and the block lands on the
+    mesh's device (``device`` and ``as_numpy`` are then not taken).
     """
-    _check_not_in_slice(sharding)
+    if sharding is not None:
+        if as_numpy or device is not None:
+            raise ValueError("sharding places blocks on the mesh's device; drop "
+                             "as_numpy/device")
+        files = list(files)
+        if not files:
+            return
+        sel, _ = _sharded_selection(files, selected_channels, metadata, interrogator,
+                                    sharding, 0)
+        t_axis = sharding.spec[1] if len(sharding.spec) > 1 else None
+        for blk in stream_strain_blocks(files, sel.to_list(), metadata,
+                                        interrogator=interrogator, prefetch=prefetch,
+                                        engine=engine, as_numpy=True, wire=wire,
+                                        read_deadline_s=read_deadline_s,
+                                        fault_plan=fault_plan):
+            tr = blk.trace
+            if t_axis is not None:
+                tr = _time_slice(tr, sharding, t_axis)
+            blk.trace = torch.from_numpy(np.ascontiguousarray(tr)).to(sharding.mesh.device)
+            yield blk
+        return
     if prefetch < 1:
         raise ValueError("prefetch must be >= 1")
     if engine not in ("auto", "native", "h5py"):
@@ -415,10 +464,122 @@ def _native_stream(files, sel, specs, spec_for, prefetch, place, finish, as_nump
                 yield finish(*futs.popleft().result())
 
 
-def stream_file_batches(*args, **kwargs):
-    """The sharded ``[file x channel x time]`` stacks of the multi-device
-    step; not in this slice."""
-    raise _not_in_slice("stream_file_batches", "Multi-GPU")
+def _time_slice(trace: np.ndarray, sharding, axis: str) -> np.ndarray:
+    """This rank's time slice of a host ``[..., time]`` block."""
+    p = sharding.mesh.axis_size(axis)
+    T = trace.shape[-1]
+    if T % p:
+        raise ValueError(f"time length {T} not divisible by mesh axis {axis}={p}")
+    w = T // p
+    i = sharding.mesh.axis_index(axis)
+    return trace[..., i * w:(i + 1) * w]
+
+
+def stream_file_batches(
+    files: Sequence[str],
+    selected_channels,
+    metadata=None,
+    *,
+    batch: int,
+    mesh=None,
+    interrogator: str = "optasense",
+    prefetch: int = 2,
+    engine: str = "auto",
+    tail: str = "pad",
+    wire: str = "conditioned",
+    device=None,
+    file_axis: str = "file",
+    channel_axis: str = "channel",
+) -> Iterator[tuple]:
+    """Stack consecutive files into ``[file x channel x time]`` batches for
+    the sharded detection step (``parallel.pipeline``).
+
+    Yields ``(stack, blocks)``. Without ``mesh`` the stack is the whole
+    batch on ``device`` (None: the card) and ``blocks`` its real files'
+    blocks. With a ``mesh`` every rank gets its LOCAL ``[B/Pf, C/Pc, T]``
+    slice on the mesh's device, reading only its own files of each batch
+    (file slots ``[f B/Pf, (f+1) B/Pf)`` for its file coordinate ``f``)
+    and only its channel slice; ``blocks`` are then this rank's real
+    blocks (their ``selection`` the narrowed one). ``wire="raw"`` stacks
+    the stored dtype, for a ``wire="raw"`` step.
+
+    ``tail`` handles trailing files that do not fill a batch: ``"pad"``
+    (default) zero-pads the last stack to the batch size (padded slots
+    carry no real block); ``"drop"`` discards them with a warning;
+    ``"error"`` raises at call time, before any file is read."""
+    if batch < 1:
+        raise ValueError("batch must be >= 1")
+    if tail not in ("pad", "drop", "error"):
+        raise ValueError(f"tail must be 'pad', 'drop' or 'error', got {tail!r}")
+    files = list(files)
+    n_full = (len(files) // batch) * batch
+    if n_full != len(files):
+        if tail == "error":
+            raise ValueError(
+                f"{len(files) - n_full} trailing file(s) do not fill a batch "
+                f"of {batch} (tail='error')"
+            )
+        if tail == "drop":
+            import warnings
+
+            warnings.warn(
+                f"dropping {len(files) - n_full} trailing file(s) not filling a batch of {batch}"
+            )
+            files = files[:n_full]
+    if mesh is not None:
+        pf = mesh.axis_size(file_axis)
+        if batch % pf:
+            raise ValueError(f"batch {batch} not divisible by mesh axis {file_axis}={pf}")
+    dev = None if mesh is not None else resolve_device(device)
+    return _file_batches_gen(files, selected_channels, metadata, batch=batch, mesh=mesh,
+                             interrogator=interrogator, prefetch=prefetch, engine=engine,
+                             wire=wire, device=dev, file_axis=file_axis,
+                             channel_axis=channel_axis)
+
+
+def _file_batches_gen(files, selected_channels, metadata, *, batch, mesh, interrogator,
+                      prefetch, engine, wire, device, file_axis, channel_axis):
+    metas = (list(metadata) if isinstance(metadata, (list, tuple))
+             else [metadata] * len(files))
+    n_batches = -(-len(files) // batch)
+    if mesh is None:
+        mine = list(range(len(files)))
+        per, lo = batch, 0
+        sel = selected_channels
+    else:
+        from ..parallel.mesh import Sharding
+
+        per = batch // mesh.axis_size(file_axis)
+        lo = per * mesh.axis_index(file_axis)
+        mine = [b * batch + j for b in range(n_batches) for j in range(lo, lo + per)
+                if b * batch + j < len(files)]
+        sel = (_sharded_selection(files, selected_channels, metadata, interrogator,
+                                  Sharding(mesh, (channel_axis, None)), 0)[0].to_list()
+               if files else selected_channels)
+    it = stream_strain_blocks([files[i] for i in mine], sel, [metas[i] for i in mine],
+                              interrogator=interrogator, prefetch=prefetch, engine=engine,
+                              as_numpy=True, wire=wire) if mine else iter(())
+    # traces stay host numpy until the batch is assembled, so the stack
+    # crosses to the device once
+    mine_set = set(mine)
+    like = None            # (shape, dtype) of this rank's blocks
+    target = device if mesh is None else mesh.device
+    for b in range(n_batches):
+        blocks = [next(it) for i in range(b * batch + lo, b * batch + lo + per)
+                  if i in mine_set]
+        if blocks:
+            like = (blocks[0].trace.shape, blocks[0].trace.dtype)
+        elif like is None:
+            # no real file of this rank yet (fewer files than the batch):
+            # one read of the batch's first file gives the slab's layout
+            ref = next(stream_strain_blocks([files[b * batch]], sel, [metas[b * batch]],
+                                            interrogator=interrogator, engine=engine,
+                                            as_numpy=True, wire=wire))
+            like = (ref.trace.shape, ref.trace.dtype)
+        stack = np.zeros((per,) + tuple(like[0]), like[1])
+        for j, blk in enumerate(blocks):
+            stack[j] = blk.trace
+        yield torch.from_numpy(stack).to(target), tuple(blocks)
 
 
 # ---------------------------------------------------------------------------
@@ -605,8 +766,22 @@ def stream_batched_slabs(
     to the underlying stream (see :func:`stream_strain_blocks`); a
     deadline violation or injected read fault surfaces wrapped in the
     same :class:`SlabReadError` attribution.
+
+    ``sharding`` (``parallel.mesh.Sharding`` over ``[file x channel x
+    time]``) gives each rank of a mesh its slice of every slab on the
+    mesh's device: only its channel slice of each file is read (all the
+    slab's files), its file slots ``[f B/Pf, (f+1) B/Pf)`` kept; ``blocks``,
+    ``paths`` and ``n_real`` stay the whole slab's.
     """
-    _check_not_in_slice(sharding)
+    if sharding is not None:
+        if as_numpy or device is not None:
+            raise ValueError("sharding places slabs on the mesh's device; drop "
+                             "as_numpy/device")
+        yield from _sharded_slabs(files, selected_channels, metadata, batch, sharding,
+                                  bucket=bucket, interrogator=interrogator,
+                                  prefetch=prefetch, engine=engine, wire=wire,
+                                  read_deadline_s=read_deadline_s, fault_plan=fault_plan)
+        return
     if batch < 1:
         raise ValueError("batch must be >= 1")
     if in_flight < 1:
@@ -627,6 +802,27 @@ def stream_batched_slabs(
         return
     yield from _device_slabs(files, selected_channels, metadata, batch=batch,
                              in_flight=in_flight, device=dev, **kw)
+
+
+def _sharded_slabs(files, selected_channels, metadata, batch, sharding, **kw):
+    """Each rank's slice of every host slab (:func:`stream_batched_slabs`
+    with ``sharding``)."""
+    files = list(files)
+    if not files:
+        return
+    axis_f = sharding.spec[0] if sharding.spec else None
+    pf = sharding.mesh.axis_size(axis_f) if axis_f is not None else 1
+    if batch % pf:
+        raise ValueError(f"batch {batch} not divisible by mesh axis {axis_f}={pf}")
+    per = batch // pf
+    lo = per * (sharding.mesh.axis_index(axis_f) if axis_f is not None else 0)
+    sel, _ = _sharded_selection(files, selected_channels, metadata,
+                                kw.get("interrogator", "optasense"), sharding, 1)
+    for slab in stream_batched_slabs(files, sel.to_list(), metadata, batch=batch,
+                                     as_numpy=True, **kw):
+        local = np.ascontiguousarray(slab.stack[lo:lo + per])
+        yield dataclasses.replace(slab,
+                                  stack=torch.from_numpy(local).to(sharding.mesh.device))
 
 
 def _device_slabs(files, selected_channels, metadata, *, batch, in_flight, device, **kw):

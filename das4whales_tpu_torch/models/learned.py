@@ -30,7 +30,7 @@ other. ``load_pretrained("fin_cnn")`` reads the port's own copy of the
 shipped model (``models/pretrained/fin_cnn.npz``).
 
 Not in this slice: ``make_sharded_train_step`` and
-``make_sharded_inference`` (ROADMAP item 'Multi-GPU'); they raise.
+``make_sharded_inference`` (ROADMAP item 'Multi-GPU families'); they raise.
 """
 
 from __future__ import annotations
@@ -277,11 +277,11 @@ def train_step(model: LearnedCNN, opt: torch.optim.Optimizer, windows, labels,
 
 
 def make_sharded_train_step(mesh, batch_axis: str = "batch"):
-    raise not_in_slice("make_sharded_train_step", "Multi-GPU")
+    raise not_in_slice("make_sharded_train_step", "Multi-GPU families")
 
 
 def make_sharded_inference(params, cfg: LearnedConfig, mesh, channel_axis: str = "channel"):
-    raise not_in_slice("make_sharded_inference", "Multi-GPU")
+    raise not_in_slice("make_sharded_inference", "Multi-GPU families")
 
 
 def fit(cfg: LearnedConfig, scenes: Sequence, epochs: int = 8, batch: int = 1024,
@@ -296,7 +296,7 @@ def fit(cfg: LearnedConfig, scenes: Sequence, epochs: int = 8, batch: int = 1024
     from ..io.synth import synthesize_scene
 
     if mesh is not None:
-        raise not_in_slice("fit(mesh=...)", "Multi-GPU")
+        raise not_in_slice("fit(mesh=...)", "Multi-GPU families")
     dev = resolve_device(device)
     xs, ys = [], []
     for scene in scenes:

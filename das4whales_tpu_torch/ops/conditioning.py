@@ -45,6 +45,29 @@ def condition_padded(trace: torch.Tensor, scale, n_real, *,
     return x * _scalar(scale, dtype)
 
 
+def condition_time_sharded(trace: torch.Tensor, scale, axis_name: str,
+                           n_time_global: int, *, mesh, demean: bool = True,
+                           dtype=torch.float32) -> torch.Tensor:
+    """:func:`condition` for a block whose TIME axis is split over
+    ``axis_name`` of ``mesh`` (``parallel.timeshard``): the per-channel
+    mean spans the shards, so it is a ``psum`` of local sums divided by
+    the GLOBAL time length (one scalar a channel crosses the mesh; the
+    order of the sum differs from the one-device mean by roundoff). A
+    record padded past ``n_time_global`` samples (divisibility zeros)
+    has its pad masked back to exactly 0 after the demean, as the
+    conditioned wire pads after conditioning."""
+    from ..parallel import collectives
+
+    x = trace.to(dtype)
+    if demean:
+        m = collectives.psum(x.sum(dim=-1, keepdim=True), mesh, axis_name)
+        x = x - m / n_time_global
+        local = x.shape[-1]
+        pos = mesh.axis_index(axis_name) * local + torch.arange(local, device=x.device)
+        x = torch.where(pos < n_time_global, x, torch.zeros((), dtype=dtype, device=x.device))
+    return x * _scalar(scale, dtype)
+
+
 def condition_segmented(trace: torch.Tensor, scale, seg_ids, seg_means, *,
                         dtype=torch.float32) -> torch.Tensor:
     """:func:`condition` for a record joined from several files (the long

@@ -138,6 +138,16 @@ def padded_template_stats(templates_padded):
     return t[:, :m].copy(), mu.astype(t.dtype), scale.astype(t.dtype)
 
 
+def padded_template_stats_device(templates_padded, device=None):
+    """:func:`padded_template_stats` with the triple as tensors on
+    ``device`` (None: the card)."""
+    from ..utils.device import resolve_device
+
+    dev = resolve_device(device)
+    return tuple(torch.as_tensor(a, device=dev)
+                 for a in padded_template_stats(templates_padded))
+
+
 def compute_cross_correlograms_corrected(
     data: torch.Tensor, templates_true: torch.Tensor, mu: torch.Tensor,
     scale: torch.Tensor,

@@ -45,8 +45,10 @@ starts at the largest rung whose program fits ``DAS_HBM_BUDGET_GB``),
 manifest ``quality`` event and ``<outdir>/quality.json``).
 
 :func:`plot_campaign_density` draws a summary's density figure
-(matplotlib, imported where it draws). Not in this slice: the sharded
-and multi-process campaigns ('Multi-GPU'). Each raises, naming its item.
+(matplotlib, imported where it draws). The sharded and multi-process
+campaigns run over a device mesh
+(:func:`run_campaign_sharded`, :func:`run_campaign_multiprocess`; every
+rank calls them, ``parallel.mesh``).
 """
 
 from __future__ import annotations
@@ -1619,14 +1621,352 @@ def _file_record(outdir, path, picks, thresholds, wall_s, records,
     return rec
 
 
-def run_campaign_sharded(*args, **kwargs):
-    """The SPMD campaign over a device mesh; not in this slice."""
-    raise _not_in_slice("run_campaign_sharded", "Multi-GPU")
+# per-(template, file) pack capacity for the sharded campaigns' pick
+# transfer; counts above it take the exact full-grid route
+_PICK_PACK_CAP = 1 << 18
 
 
-def run_campaign_multiprocess(*args, **kwargs):
-    """The multi-host campaign; not in this slice."""
-    raise _not_in_slice("run_campaign_multiprocess", "Multi-GPU")
+def _adaptive_sharded_steps(factory, design, mesh, pick_k0: int = 64, max_peaks: int = 256,
+                            **kw):
+    """``(K0 pack, full-capacity topk)`` step pair over ``mesh``: the
+    adaptive-K policy of ``ops.peaks.picks_with_escalation`` across the
+    mesh's programs. The full-capacity step is built lazily, only if a
+    batch saturates; :func:`_run_adaptive` decides the rerun for every
+    rank at once."""
+    step_k0 = factory(design, mesh, outputs="picks", max_peaks=pick_k0, pick_method="pack",
+                      **kw)
+    full: dict = {}
+
+    def step_full(stack):
+        if "fn" not in full:
+            full["fn"] = factory(design, mesh, outputs="picks", max_peaks=max_peaks,
+                                 pick_method="topk", **kw)
+        return full["fn"](stack)
+
+    return step_k0, step_full
+
+
+def _run_adaptive(step_k0, step_full, stack, mesh):
+    """One batch through the adaptive pair IN LOCKSTEP: the K0 step, then
+    the saturation flag all-reduced (MAX) over the whole mesh, and the
+    full-capacity rerun on every rank when any row of any rank saturated
+    (a rank that reran alone would leave its peers in other collectives).
+    Returns ``(picks, thresholds, escalated)``."""
+    import torch
+
+    from ..parallel import collectives as coll
+
+    sp_picks, thres = step_k0(stack)
+    flag = sp_picks.saturated.any().to(torch.int32).reshape(1)
+    faults.count("syncs")
+    if int(coll.pmax(flag, mesh, None).item()):
+        sp_picks, thres = step_full(stack)
+        return sp_picks, thres, True
+    return sp_picks, thres, False
+
+
+def _read_local(spec, sel, wire: str, engine: str, interrogator: str):
+    """One file's block of this rank's channel slice (host numpy)."""
+    blk = next(stream_strain_blocks([spec.path], sel.to_list(), [spec.meta],
+                                    interrogator=interrogator, engine=engine,
+                                    as_numpy=True, wire=wire))
+    return blk.trace
+
+
+def _mesh_campaign(files, selected_channels, outdir, mesh, *, metadata, batch, resume,
+                   max_failures, interrogator, engine, relative_threshold, hf_factor,
+                   fused_bandpass, wire, retry, design, rung, on_read_error, elastic):
+    """The campaign over a ``(file, channel)`` mesh, on every rank (the
+    body of :func:`run_campaign_sharded` and
+    :func:`run_campaign_multiprocess`)."""
+    import types
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from ..config import ChannelSelection
+    from ..io.stream import _local_selection
+    from ..models.matched_filter import design_matched_filter
+    from ..ops.peaks import compacted_to_host
+    from ..parallel import collectives as coll
+    from ..parallel.mesh import Sharding
+    from ..parallel.pipeline import make_sharded_mf_step
+    from ..eval import sharded_picks_to_dict
+
+    writer = mesh.rank == 0
+    if writer:
+        os.makedirs(outdir, exist_ok=True)
+        # only the writer repairs (a torn tail, stray tmps); the others
+        # read the manifest after it
+        fsck.startup_check(outdir, label="campaign")
+    coll.barrier(mesh)
+    metas = _normalize_metas(metadata, list(files))
+    records: List[FileRecord] = []
+    pending, pend_idx = _split_resume(list(files), outdir, resume, records)
+    pend_metas = [metas[j] for j in pend_idx]
+    rz = _Resilience(outdir, records, max_failures, retry, health=False, write=writer)
+    rz.family = "mf"
+    fail = rz.fail
+    # every rank probes every pending file (an attribute read for HDF5),
+    # and keeps only what every rank could probe: the healthy lists must
+    # be the same on every rank, or the ranks fall out of lockstep
+    healthy_specs, spec0 = _probe_healthy(zip(pending, pend_metas), interrogator, fail, rz=rz)
+    ok_probe = torch.tensor([p in {q for q, _ in healthy_specs} for p in pending],
+                            dtype=torch.int32, device=mesh.device)
+    if pending:
+        ok_probe = coll.pmin(ok_probe, mesh, None).cpu().numpy().astype(bool)
+        mine = {q for q, _ in healthy_specs}
+        for p, good in zip(pending, ok_probe):
+            if not good and p in mine:
+                fail(p, RuntimeError("probe failed on another rank of the mesh"))
+        healthy_specs = [(p, sp) for p, sp in healthy_specs
+                         if ok_probe[pending.index(p)]]
+        spec0 = healthy_specs[0][1] if healthy_specs else None
+    if wire == "raw" and healthy_specs:
+        # the raw wire conditions with ONE scale (spec0's); another one
+        # fails at probe granularity
+        for p, sp in healthy_specs:
+            if sp.meta.scale_factor != spec0.meta.scale_factor:
+                fail(p, ValueError(
+                    f"scale_factor {sp.meta.scale_factor!r} != campaign scale "
+                    f"{spec0.meta.scale_factor!r}; wire='raw' conditions with one scale "
+                    "— use wire='conditioned' for heterogeneous file sets"))
+        healthy_specs = [(p, sp) for p, sp in healthy_specs
+                         if sp.meta.scale_factor == spec0.meta.scale_factor]
+    if not healthy_specs:
+        rz.flush_tallies()
+        coll.barrier(mesh)
+        return CampaignResult(outdir=outdir, records=records)
+
+    sel = ChannelSelection.from_list(selected_channels)
+    C, ns = sel.n_channels(spec0.meta.nx), spec0.meta.ns
+    design = _load_design(design)
+    if design is None:
+        design = design_matched_filter((C, ns), selected_channels, spec0.meta)
+    elif tuple(design.trace_shape) != (C, ns):
+        raise ValueError(f"design for {tuple(design.trace_shape)} does not fit the "
+                         f"campaign's [{C} x {ns}] files")
+    pf, pc = mesh.shape.get("file", 1), mesh.shape.get("channel", 1)
+    if batch is None:
+        batch = max(int(pf), 1)
+    if batch % pf:
+        raise ValueError(f"batch {batch} not divisible by the mesh's file axis {pf}")
+    per = batch // pf
+    lo = per * mesh.coords.get("file", 0)
+    local_sel = _local_selection(sel, spec0.meta.nx, Sharding(mesh, ("channel", None)), 0) \
+        if "channel" in mesh.shape else sel
+    c_local = C // pc
+    c_off = c_local * mesh.coords.get("channel", 0)
+    wire_kw = {"wire": "raw", "scale_factor": spec0.meta.scale_factor} if wire == "raw" else {}
+    step_k0, step_full = _adaptive_sharded_steps(
+        make_sharded_mf_step, design, mesh, relative_threshold=relative_threshold,
+        hf_factor=hf_factor, fused_bandpass=fused_bandpass, **wire_kw)
+    fac_vec, _ = design.resolve_threshold_policy(hf_factor)
+    names = design.template_names
+
+    def read_group(group):
+        """This rank's slots of a batch: ``{slot: trace | exception}``."""
+        out = {}
+        for k in range(lo, min(lo + per, len(group))):
+            try:
+                out[k] = _read_local(group[k][1], local_sel, wire, engine, interrogator)
+            except Exception as exc:  # noqa: BLE001 — settled in lockstep below
+                out[k] = exc
+        return out
+
+    groups = [healthy_specs[s:s + batch] for s in range(0, len(healthy_specs), batch)]
+    with ThreadPoolExecutor(max_workers=1, thread_name_prefix="das-mesh-read") as pool:
+        nxt = pool.submit(read_group, groups[0])
+        for gi, group in enumerate(groups):
+            t0 = time.perf_counter()
+            got = nxt.result()
+            if gi + 1 < len(groups):
+                nxt = pool.submit(read_group, groups[gi + 1])   # read ahead
+            n_real = len(group)
+            ok_local = torch.ones(batch, dtype=torch.int32, device=mesh.device)
+            errs = {}
+            for k, v in got.items():
+                if isinstance(v, Exception):
+                    ok_local[k] = 0
+                    errs[k] = f"{type(v).__name__}: {v}"
+            ok = coll.pmin(ok_local, mesh, None).cpu().numpy().astype(bool)
+            if on_read_error == "abort" and not ok[:n_real].all():
+                bad = [group[k][0] for k in range(n_real) if not ok[k]]
+                raise RuntimeError(f"read failed after a clean probe on {bad} "
+                                   f"({errs or 'on another rank'}); a half-read batch "
+                                   "cannot be attributed, the run stops")
+            like = next((v for v in got.values() if not isinstance(v, Exception)), None)
+            stack = np.zeros((per, c_local, ns), like.dtype if like is not None else np.float32)
+            for k, v in got.items():
+                if not isinstance(v, Exception):
+                    stack[k - lo] = v
+            x = torch.from_numpy(stack).to(mesh.device)
+            try:
+                sp_picks, thres, _esc = _run_adaptive(step_k0, step_full, x, mesh)
+                nT, _B, Cr, K = sp_picks.positions.shape
+                cap = min(Cr * K, _PICK_PACK_CAP)
+                rows_d, times_d, cnt_d = _compact_batch_picks(sp_picks.positions,
+                                                              sp_picks.selected, ns, cap)
+                faults.count("syncs")
+                packed = compacted_to_host(rows_d, times_d, cnt_d, cap)
+                host_picks = None
+                if packed is None:     # pack overflow: the exact full-grid route
+                    host_picks = types.SimpleNamespace(
+                        positions=sp_picks.positions.cpu().numpy(),
+                        selected=sp_picks.selected.cpu().numpy())
+                base = thres.detach().cpu().numpy().astype(np.float32)
+            except Exception as exc:
+                if elastic and faults.classify_failure(exc) != "fatal":
+                    raise _not_in_slice("the elastic mesh downshift after a step failure "
+                                        f"({type(exc).__name__}: {exc})",
+                                        "Multi-GPU families") from exc
+                raise
+            local = {}
+            for k in range(lo, min(lo + per, n_real)):
+                j = k - lo
+                if host_picks is None:
+                    rows_np, times_np, cnt = packed
+                    pk = {name: np.asarray([rows_np[i, j, :cnt[i, j]] + c_off,
+                                            times_np[i, j, :cnt[i, j]]])
+                          for i, name in enumerate(names)}
+                else:
+                    pk = {name: v + np.array([[c_off], [0]])
+                          for name, v in sharded_picks_to_dict(
+                              host_picks, names, file_index=j, n_samples=ns).items()}
+                thr = {name: float(base[i, j] if base.ndim == 2 else base[j]) * float(fac_vec[i])
+                       for i, name in enumerate(names)}
+                local[k] = (pk, thr)
+            parts = coll.all_gather_object((mesh.coords.get("channel", 0), local), mesh)
+            wall = time.perf_counter() - t0
+            for k in range(n_real):
+                path = group[k][0]
+                if not ok[k]:
+                    fail(path, RuntimeError(errs.get(k, "read failed (see the owning "
+                                                        "rank's log)")))
+                    continue
+                shards = sorted((c, loc[k]) for c, loc in parts if k in loc)
+                picks = {name: np.concatenate([pt[0][name] for _, pt in shards], axis=1)
+                         .astype(np.int64) for name in names}
+                _file_record(outdir, path, picks, shards[0][1][1],
+                             round(wall / max(n_real, 1), 3), records, write=writer,
+                             family="mf", rung=rung)
+    rz.flush_tallies()
+    # the writer's artifacts are complete before any rank returns
+    coll.barrier(mesh)
+    return CampaignResult(outdir=outdir, records=records)
+
+
+def run_campaign_sharded(
+    files: Sequence[str],
+    selected_channels,
+    outdir: str,
+    mesh,
+    metadata=None,
+    batch: int | None = None,
+    resume: bool = True,
+    max_failures: int | None = None,
+    interrogator: str = "optasense",
+    prefetch: int = 2,
+    engine: str = "h5py",
+    relative_threshold: float = 0.5,
+    hf_factor: float | None = None,
+    fused_bandpass: bool = True,
+    wire: str = "conditioned",
+    retry=None,
+    elastic: bool = True,
+    design=None,
+) -> CampaignResult:
+    """The campaign over a device mesh: every rank of ``mesh``
+    (``parallel.mesh.make_mesh``, a ``(file, channel)`` layout) calls it
+    with the same arguments; each batch of ``batch`` files (default: the
+    file axis's size) detects in ONE lockstep step
+    (``parallel.pipeline.make_sharded_mf_step``), data-parallel over
+    files and channel-parallel within each. Same manifest, resume and
+    picks-artifact contract as :func:`run_campaign`; rung ``"sharded"``.
+
+    Each rank reads only its file slots of each batch and its channel
+    slice (one batch read ahead on a thread). The K0 = 64 ``pack`` step
+    runs first and the K = 256 ``topk`` rerun follows on every rank when
+    any rank saturated (the flag is all-reduced first). The packed picks
+    (a few kB) are gathered to every rank; rank 0 alone writes the
+    manifest and the picks, and every rank returns the same records.
+
+    Fault isolation is at the probe, as in JAX: every rank probes every
+    pending file and unprobeable ones are recorded failed before any batch
+    forms; a read error after a clean probe stops the run on every rank.
+    ``wire="raw"`` conditions on the mesh with the probed scale factor.
+    ``design`` takes a ``MatchedFilterDesign`` of the files' shape or its
+    checkpoint path (default: designed here, on every rank). ``prefetch``
+    is the JAX signature's (one batch is read ahead).
+
+    ``elastic=True``, JAX's mesh downshift after a device loss, is not in
+    this slice: the campaign runs as usual, and a step failure raises
+    naming the ROADMAP item 'Multi-GPU families' instead of rebuilding the
+    mesh. ``elastic=False`` re-raises the step's own error."""
+    if wire not in ("conditioned", "raw"):
+        raise ValueError(f"unknown wire {wire!r}; expected 'conditioned' or 'raw'")
+    return _mesh_campaign(files, selected_channels, outdir, mesh, metadata=metadata,
+                          batch=batch, resume=resume, max_failures=max_failures,
+                          interrogator=interrogator, engine=engine,
+                          relative_threshold=relative_threshold, hf_factor=hf_factor,
+                          fused_bandpass=fused_bandpass, wire=wire, retry=retry,
+                          design=design, rung="sharded", on_read_error="abort",
+                          elastic=elastic)
+
+
+def run_campaign_multiprocess(
+    files: Sequence[str],
+    selected_channels,
+    outdir: str,
+    metadata=None,
+    resume: bool = True,
+    max_failures: int | None = None,
+    interrogator: str = "optasense",
+    relative_threshold: float = 0.5,
+    hf_factor: float | None = None,
+    fused_bandpass: bool = True,
+    wire: str = "conditioned",
+    design=None,
+    device=None,
+) -> CampaignResult:
+    """The multi-host campaign: every rank of the world
+    (``parallel.distributed.initialize_from_env``; a world of one without
+    torchrun's variables) calls it with the same arguments, on the
+    DCN-friendly ``parallel.distributed.global_mesh`` (the file axis
+    process-major, one file shard a host). Each host reads only its own
+    files; only the packed picks cross hosts. The file list and
+    ``outdir`` must be on storage every rank reads; rank 0 alone writes.
+    A read failure after a clean probe becomes a zero slot and a
+    ``failed`` record on every rank (the ranks stay in lockstep); rung
+    ``"multihost"``. ``device``: every rank's device (None: its card by
+    ``LOCAL_RANK``; ``"cpu"``). ``wire="raw"`` and per-template banks are
+    refused, as in JAX."""
+    from ..parallel import distributed
+
+    if wire != "conditioned":
+        raise ValueError(
+            "run_campaign_multiprocess supports wire='conditioned' only "
+            "(raw dtype must be known identically on every process)"
+        )
+    import torch.distributed as dist
+
+    world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    if device is not None:
+        resolve_device(device)
+    mesh = distributed.global_mesh(devices=None if device is None else [device] * world)
+    d = _load_design(design)
+    if d is not None and d.resolve_threshold_policy(hf_factor)[1] == "per_template":
+        raise ValueError(
+            "run_campaign_multiprocess does not support threshold_scope='per_template' "
+            "banks yet; use the single-device, batched or single-host sharded campaign, "
+            "or a global-scope bank")
+    return _mesh_campaign(files, selected_channels, outdir, mesh, metadata=metadata,
+                          batch=int(mesh.shape["file"]), resume=resume,
+                          max_failures=max_failures, interrogator=interrogator,
+                          engine="h5py", relative_threshold=relative_threshold,
+                          hf_factor=hf_factor, fused_bandpass=fused_bandpass, wire=wire,
+                          retry=False, design=d, rung="multihost", on_read_error="fail",
+                          elastic=False)
 
 
 def summarize_campaign(outdir: str) -> dict:

@@ -21,10 +21,20 @@ learned family scores the whole record with ``models.learned.
 LearnedDetector`` (on the card its features launch the STFT kernel once)
 and picks from the scores.
 
-Picks come back with sample indices from the first file's start. Multi-
-device meshes, the spectro and Gabor families and the staged (halo)
-bandpass raise ``NotImplementedError`` naming the ROADMAP item
-'Multi-GPU'. ``mf_engine`` goes through ``ops.mxu.resolve_mf_engine``
+Picks come back with sample indices from the first file's start.
+
+Over a device mesh (``mesh=``, a ``parallel.mesh.Mesh`` with a ``time``
+axis; every rank calls this with the same arguments) the matched filter
+runs ``parallel.timeshard.make_sharded_mf_step_time``: each rank reads
+only the files that overlap its time slice of the record, conditions
+(raw wire: the per-file host means of its own files), filters and
+relabels, and picks its channel rows with the same plain tiled picker;
+the packed picks are gathered, so every rank returns the same result.
+The staged bandpass (``fused_bandpass=False``, the halo exchange) runs
+there too, on one device as a mesh of one. The spectro and Gabor
+families, and the learned family over a mesh, raise
+``NotImplementedError`` naming the ROADMAP item 'Multi-GPU families'.
+``mf_engine`` goes through ``ops.mxu.resolve_mf_engine``
 on the record's device, as the campaigns' detectors do (None: the FFT
 route; ``"matmul-fused"`` has no bandpass FIR here and runs as the
 float32 matmul, as in the JAX package).
@@ -79,13 +89,29 @@ _PICK_PACK_CAP = 1 << 20
 PICK_TILE = 512
 
 
-def _mesh_size(mesh) -> int:
-    """Devices in ``mesh``: a count, a mesh object with ``devices``, or a
-    sequence of devices."""
-    if isinstance(mesh, int):
+def _as_mesh(mesh, time_axis: str, device):
+    """``mesh`` as a ``parallel.mesh.Mesh`` over ``time_axis``, or None
+    for the one-device route: None (in a world of one) and 1 mean one
+    device; None in a world of several ranks is every rank on one
+    ``time`` axis, as JAX's default mesh spans every device."""
+    from ..parallel.mesh import Mesh, make_mesh
+    from ..parallel.timeshard import _world_size
+
+    if isinstance(mesh, Mesh):
+        if time_axis not in mesh.shape:
+            raise ValueError(f"mesh {mesh.shape} has no axis {time_axis!r}")
         return mesh
-    devices = getattr(mesh, "devices", mesh)
-    return int(np.size(np.asarray(devices, dtype=object)))
+    if mesh is None or (isinstance(mesh, int) and mesh == 1):
+        n = _world_size()
+        if n == 1:
+            return None
+        return make_mesh(shape=(n,), axis_names=(time_axis,),
+                         devices=None if device is None else [str(device)] * n)
+    raise ValueError(
+        f"mesh={mesh!r}: pass a parallel.mesh.Mesh built by every rank "
+        "(make_mesh(shape=(P,), axis_names=('time',)), one rank a device), "
+        "or None / 1 for one device"
+    )
 
 
 def _host_means(trace: np.ndarray, rows: int = 4096) -> np.ndarray:
@@ -131,14 +157,11 @@ def _check_settings(family, wire, fam_kw, fused_bandpass, mesh):
             "fused_bandpass applies to the flagship family only; the "
             "spectro/gabor front end designs its own bandpass"
         )
-    if mesh is not None and _mesh_size(mesh) > 1:
-        raise _not_in_slice("detect_long_record over a mesh of more than one device",
-                            "Multi-GPU")
     if family in ("spectro", "gabor"):
-        raise _not_in_slice(f"detect_long_record(family={family!r})", "Multi-GPU")
-    if family == "mf" and not fused_bandpass:
-        raise _not_in_slice("detect_long_record(fused_bandpass=False) (the halo bandpass)",
-                            "Multi-GPU")
+        raise _not_in_slice(f"detect_long_record(family={family!r})", "Multi-GPU families")
+    if family == "learned" and mesh is not None:
+        raise _not_in_slice("detect_long_record(family='learned') over a mesh",
+                            "Multi-GPU families")
 
 
 def detect_long_record(
@@ -182,17 +205,32 @@ def detect_long_record(
     ``stage_hook(name)`` is called after each stage (``read``,
     ``design``, ``condition``, ``mask``, ``fk``, ``correlate``, ``pick``,
     ``compact``; ``read``, ``score``, ``finalize`` for the learned
-    family). ``mesh`` (one device only), ``time_axis`` and ``halo`` are
-    the JAX signature's; ``halo`` has no effect on the fused route."""
+    family; ``read``, ``design``, ``step``, ``compact`` over a mesh).
+    ``mesh`` is a ``parallel.mesh.Mesh`` with a ``time_axis`` (module
+    docstring; its device is the record's); ``halo`` is the staged
+    bandpass's exchange width and has no effect on the fused route."""
     fam_kw = dict(family_kwargs or {})
     if fused_bandpass is None:
         fused_bandpass = family == "mf"
-    _check_settings(family, wire, fam_kw, fused_bandpass, mesh)
     files = list(files)
     if not files:
         raise ValueError("need at least one file")
-    dev = resolve_device(device)
+    mesh = _as_mesh(mesh, time_axis, device)
+    _check_settings(family, wire, fam_kw, fused_bandpass, mesh)
     hook = stage_hook or (lambda name: None)
+    if family == "mf" and (mesh is not None or not fused_bandpass):
+        if mesh is None:
+            from ..parallel.mesh import make_mesh
+
+            mesh = make_mesh(shape=(1,), axis_names=(time_axis,),
+                             devices=[str(resolve_device(device))])
+        return _mesh_record(files, selected_channels, metadata, mesh, time_axis=time_axis,
+                            halo=halo, engine=engine, interrogator=interrogator,
+                            relative_threshold=relative_threshold, hf_factor=hf_factor,
+                            templates=templates, bp_band=bp_band, fk_config=fk_config,
+                            max_peaks=max_peaks_per_channel, fused_bandpass=fused_bandpass,
+                            wire=wire, mf_engine=mf_engine, design=design, hook=hook)
+    dev = resolve_device(device)
 
     with telemetry.span("longrecord.read", n_files=len(files), family=family):
         blocks = list(stream_strain_blocks(
@@ -202,8 +240,6 @@ def detect_long_record(
     meta = as_metadata(blocks[0].metadata)
     record = np.concatenate([b.trace for b in blocks], axis=-1)
     n_samples = record.shape[-1]
-    # the time shards' divisibility pad (one device: none)
-    record = _pad_to_multiple(record, 1 if mesh is None else _mesh_size(mesh))
     nnx, nns = record.shape
     log.info("continuous record: %d files -> [%d x %d] (%.1f s)",
              len(files), nnx, nns, n_samples / meta.fs)
@@ -267,6 +303,121 @@ def detect_long_record(
         thr_out[name] = float(base[i]) * float(fac[i])
     return LongRecordResult(picks=picks, pick_times_s=times_s, thresholds=thr_out,
                             t0_utc=blocks[0].t0_utc, n_samples=n_samples, n_files=len(files))
+
+
+def _mesh_record(files, selected_channels, metadata, mesh, *, time_axis, halo, engine,
+                 interrogator, relative_threshold, hf_factor, templates, bp_band, fk_config,
+                 max_peaks, fused_bandpass, wire, mf_engine, design, hook):
+    """The matched-filter record over a ``time`` mesh (module docstring):
+    this rank's time slice of the record, the time-split step, the
+    gathered picks."""
+    from ..config import ChannelSelection
+    from ..io.stream import _probe
+    from ..parallel import collectives as coll
+    from ..parallel.timeshard import make_sharded_mf_step_time
+
+    p = mesh.axis_size(time_axis)
+    i = mesh.axis_index(time_axis)
+    metas = (list(metadata) if isinstance(metadata, (list, tuple))
+             else [metadata] * len(files))
+    specs = [_probe(f, interrogator, m) for f, m in zip(files, metas)]
+    meta = specs[0].meta
+    lens = [int(sp_.meta.ns) for sp_ in specs]
+    starts = np.concatenate([[0], np.cumsum(lens)])
+    n_samples = int(starts[-1])
+    nns = n_samples + (-n_samples) % p
+    L = nns // p
+    lo, hi = i * L, (i + 1) * L
+    mine = [k for k in range(len(files)) if starts[k] < hi and starts[k + 1] > lo]
+    with telemetry.span("longrecord.read", n_files=len(mine), family="mf"):
+        blocks = dict(zip(mine, stream_strain_blocks(
+            [files[k] for k in mine], selected_channels, [metas[k] for k in mine],
+            interrogator=interrogator, engine=engine, as_numpy=True, wire=wire))) \
+            if mine else {}
+    nnx = ChannelSelection.from_list(selected_channels).n_channels(meta.nx)
+    like = next(iter(blocks.values())).trace if blocks else np.zeros((nnx, 1), np.float32)
+    local = np.zeros((nnx, L), like.dtype)
+    for k, b in blocks.items():
+        a, z = max(lo, starts[k]), min(hi, starts[k + 1])
+        local[:, a - lo:z - lo] = b.trace[:, a - starts[k]:z - starts[k]]
+    log.info("continuous record over %d ranks: %d files -> [%d x %d] (%.1f s), rank %d "
+             "reads %d", p, len(files), nnx, nns, n_samples / meta.fs, i, len(mine))
+    x = torch.from_numpy(local).to(mesh.device)
+    del local
+    hook("read")
+    sel_list = ChannelSelection.from_list(selected_channels).to_list()
+    if design is None:
+        design = design_matched_filter((nnx, nns), sel_list, meta,
+                                       fk_config=fk_config or SCRIPT_FK, bp_band=bp_band,
+                                       templates=templates)
+    elif tuple(design.trace_shape) != (nnx, nns) or design.fk_channels != nnx:
+        raise ValueError(f"design for {tuple(design.trace_shape)} (f-k rows "
+                         f"{design.fk_channels}) does not fit the record [{nnx} x {nns}]")
+    hook("design")
+    cond_kw = {}
+    if wire == "raw":
+        scales = {sp_.meta.scale_factor for sp_ in specs}
+        if len(scales) > 1:
+            raise ValueError(
+                f"wire='raw' conditions the record with one scale but the files "
+                f"probed {sorted(scales)}; use wire='conditioned' for heterogeneous "
+                "file sets"
+            )
+        # per-file host means of this rank's own files (the columns of the
+        # others are never indexed by its time slice)
+        means = np.zeros((nnx, len(files)), np.float32)
+        for k, b in blocks.items():
+            means[:, k] = _host_means(b.trace)
+        cond_kw = dict(scale_factor=meta.scale_factor, cond_segments=lens, cond_means=means)
+    blocks_t0 = blocks[0].t0_utc if 0 in blocks else None
+    blocks.clear()
+    fac, _scope = design.resolve_threshold_policy(hf_factor)
+    resolved, _why = mxu.resolve_mf_engine(mf_engine, design.trace_shape,
+                                           *xcorr.padded_template_stats(design.templates),
+                                           device=mesh.device)
+    step = make_sharded_mf_step_time(
+        design, mesh, time_axis=time_axis, halo=halo, relative_threshold=relative_threshold,
+        hf_factor=hf_factor, pick_mode="sparse", max_peaks=max_peaks,
+        fused_bandpass=fused_bandpass, outputs="picks", pick_tile=PICK_TILE,
+        wire=wire, mf_engine=resolved, **cond_kw)
+    sp_picks, thres = step(x)
+    del x
+    hook("step")
+    names = design.template_names
+    rows = nnx // p
+    cap = min(int(np.prod(tuple(sp_picks.positions.shape[-2:]))), _PICK_PACK_CAP)
+    with telemetry.span("longrecord.resolve", family="mf", n_samples=n_samples):
+        rows_d, times_d, cnt_d = _pack_record_picks(sp_picks.positions, sp_picks.selected,
+                                                    n_samples, cap)
+        faults.count("syncs")
+        packed = peak_ops.compacted_to_host(rows_d, times_d, cnt_d, cap)
+        saturated = sp_picks.saturated.cpu().numpy()
+        base = np.broadcast_to(thres.detach().cpu().numpy().astype(np.float32), fac.shape)
+    local_picks = {}
+    for t, name in enumerate(names):
+        if saturated[t].any():
+            log.warning("%s: peak capacity saturated on %d/%d channels of rank %d; picks "
+                        "beyond the %d tallest per channel were dropped — raise "
+                        "max_peaks_per_channel to keep them", name, int(saturated[t].sum()),
+                        rows, i, max_peaks)
+        if packed is not None:
+            rows_np, times_np, cnt = packed
+            k = int(cnt[t])
+            pk = np.asarray([rows_np[t, :k], times_np[t, :k]])
+        else:   # pack overflow: the exact full-grid route
+            pos = sp_picks.positions[t].cpu().numpy()
+            sel = sp_picks.selected[t].cpu().numpy()
+            pk = peak_ops.sparse_to_pick_times(pos, sel & (pos < n_samples))
+        local_picks[name] = pk + np.array([[i * rows], [0]])
+    parts = sorted(coll.all_gather_object((i, local_picks, blocks_t0), mesh),
+                   key=lambda part: part[0])
+    hook("compact")
+    picks = {name: np.concatenate([pt[1][name] for pt in parts], axis=1).astype(np.int64)
+             for name in names}
+    return LongRecordResult(
+        picks=picks, pick_times_s={name: pk[1] / meta.fs for name, pk in picks.items()},
+        thresholds={name: float(base[t]) * float(fac[t]) for t, name in enumerate(names)},
+        t0_utc=parts[0][2], n_samples=n_samples, n_files=len(files))
 
 
 def _mf_record_correlograms(x, blocks, design, meta, wire, hook, engine="fft") -> torch.Tensor:

@@ -27,10 +27,11 @@ per-file program as two sub-bank halves, splittable banks only),
 ``tiled`` (the
 family's memory-lean view — channel-tiled correlation for the matched
 filter, smaller spectrogram chunks for spectro, window-row chunks of the
-CNN for the learned family), ``timeshard`` (time-
-sharded over a multi-device mesh — the port shards nothing, ROADMAP
-item 'Multi-GPU': the ladder never lists it, and a pinned ``timeshard``
-rung raises the resource text so the ladder moves on) and ``host`` (the family's detector views with
+CNN for the learned family), ``timeshard`` (the matched filter's
+time-split step over every rank of the world, ``parallel.timeshard``:
+offered only where ``viable_time_mesh_size(shape, world size)`` allows,
+so never in a world of one; every rank must run the campaign for it)
+and ``host`` (the family's detector views with
 ``device="cpu"``: the design tensors on the CPU, every stage the plain
 PyTorch version). The host rung is reached only through a resource-class
 failure, and the move is a ``downshift`` event like any other.
@@ -202,12 +203,17 @@ class MatchedFilterProgram(DetectorProgram):
                     stats = res.health
             return picks, thresholds, stats
         if stage == "timeshard":
-            # one card holds no time-shard mesh: the resource text moves
-            # the ladder on, as where the JAX package finds no mesh
-            raise RuntimeError(
-                "RESOURCE_EXHAUSTED: no viable time-shard mesh for "
-                f"shape {np.asarray(trace).shape}"  # -> next rung (host)
-            )
+            from ..parallel.timeshard import detect_picks_time_sharded, ladder_time_mesh
+
+            mesh = ladder_time_mesh(np.asarray(trace).shape, device=det.device)
+            if mesh is None:
+                # the resource text moves the ladder on, as in JAX
+                raise RuntimeError(
+                    "RESOURCE_EXHAUSTED: no viable time-shard mesh for "
+                    f"shape {np.asarray(trace).shape}"  # -> next rung (host)
+                )
+            picks, thresholds = detect_picks_time_sharded(det, trace, mesh, n_real=n_real)
+            return picks, thresholds, self._host_stats(trace, with_health, clip)
         if stage == "tiled":
             det = det.tiled_view()
         elif stage == "host":
@@ -326,7 +332,8 @@ class DownshiftLadder:
     B)`` where the key's bank split is enabled), then ``("file", 1)`` (the
     per-file route; ``("bank", 1)`` after it likewise), ``("tiled", 1)``
     (the family's memory-lean view),
-    (never ``("timeshard", 1)``: the port shards nothing),
+    ``("timeshard", 1)`` (where the world's ranks can split the shape's
+    time axis; ``timeshard=False`` never offers it),
     ``("host", 1)`` (the CPU). ``stages`` filters the ladder to the
     family's declared support; ``family`` labels the manifest's
     ``downshift`` events. A resource-class failure advances the bucket's
@@ -336,13 +343,14 @@ class DownshiftLadder:
     """
 
     def __init__(self, rz, outdir: str, batch: int = 1,
-                 write: bool = True,
+                 write: bool = True, timeshard: bool = True,
                  stages=faults.DOWNSHIFT_STAGES, family: str = "",
                  engines: Dict[str, str] | None = None):
         self.rz = rz
         self.outdir = outdir
         self.batch = int(batch)
         self.write = write
+        self.allow_timeshard = timeshard
         self.stages = tuple(stages)
         self.family = family
         self.engines = dict(engines or {})
@@ -371,7 +379,7 @@ class DownshiftLadder:
     def engines_for(self, key) -> Dict[str, str]:
         return self._engines_by_key.get(key, self.engines)
 
-    def rungs(self, key=None) -> list:
+    def rungs(self, key=None, trace_shape=None) -> list:
         bank = self.bank_split_enabled(key)
         out = []
         if "batched" in self.stages:
@@ -388,6 +396,12 @@ class DownshiftLadder:
             out.append(("bank", 1))
         if "tiled" in self.stages:
             out.append(("tiled", 1))
+        if ("timeshard" in self.stages and self.allow_timeshard
+                and trace_shape is not None):
+            from ..parallel.timeshard import _world_size, viable_time_mesh_size
+
+            if viable_time_mesh_size(tuple(trace_shape)[-2:], _world_size()):
+                out.append(("timeshard", 1))
         if "host" in self.stages:
             out.append(("host", 1))
         return out
@@ -443,12 +457,12 @@ class DownshiftLadder:
             log.info("preflight: bucket %s starts at rung %s (%s)",
                      key, faults.rung_label(rung), reason)
 
-    def downshift(self, key, rung, exc):
+    def downshift(self, key, rung, exc, trace_shape=None):
         """Advance ``key``'s sticky rung past ``rung`` after a
         resource-class failure; returns the new rung, or None when the
         ladder is exhausted (the failure dispositions per-file)."""
         nxt = None
-        for cand in self.rungs(key):
+        for cand in self.rungs(key, trace_shape):
             if faults.rung_rank(cand) > faults.rung_rank(rung):
                 nxt = cand
                 break
@@ -539,7 +553,8 @@ class RoutePlanner:
                 except Exception as exc:  # noqa: BLE001 — ladder absorbs resource
                     inflight = None   # spent/abandoned: never consume twice
                     if (faults.classify_failure(exc) == "resource"
-                            and self.ladder.downshift(key, rung, exc)):
+                            and self.ladder.downshift(key, rung, exc,
+                                                      trace_shape=np.shape(trace))):
                         recovered = True
                         continue
                     raise

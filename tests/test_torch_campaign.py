@@ -364,11 +364,11 @@ def test_timeshard_rung_is_absent_and_raises_on_one_device(data, monkeypatch):
 
     ladder = DownshiftLadder(_Rz(), "", batch=4, write=False)
     assert ("timeshard", 1) not in ladder.rungs()
-    # the port shards nothing: a host with several cards lists no
-    # time-shard rung either
+    # the rung needs a world of several ranks (tests/test_torch_timeshard.py):
+    # a process alone lists none, however many cards its host has
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
-    assert ("timeshard", 1) not in ladder.rungs()
+    assert ("timeshard", 1) not in ladder.rungs(trace_shape=(NX, T_BUCKET))
     td = MatchedFilterDetector.from_design(campaign._load_design(
         data["designs"][T_BUCKET][1]), data["meta"], device="cpu")
     with pytest.raises(RuntimeError, match="RESOURCE_EXHAUSTED: no viable time-shard mesh") as ei:
@@ -761,8 +761,32 @@ def test_not_in_slice_settings_raise(data, tmp_path):
     for entry in (campaign.run_campaign_batched, campaign.run_campaign):
         params = inspect.signature(entry).parameters
         assert {"preflight", "cost_cards", "quality"} <= set(params)
-    for fn, item in ((campaign.run_campaign_sharded, "Multi-GPU"),
-                     (campaign.run_campaign_multiprocess, "Multi-GPU")):
-        with pytest.raises(NotImplementedError, match=item):
-            fn()
+    # the mesh campaigns run (tests/test_torch_campaign_sharded.py) with
+    # JAX's signatures; what they still leave to a later item is the
+    # elastic mesh downshift, which a step failure names
+    for fn, jfn in ((campaign.run_campaign_sharded, jcampaign.run_campaign_sharded),
+                    (campaign.run_campaign_multiprocess,
+                     jcampaign.run_campaign_multiprocess)):
+        params = list(inspect.signature(fn).parameters)
+        assert params[:len(inspect.signature(jfn).parameters)] == \
+            list(inspect.signature(jfn).parameters)
+    from das4whales_tpu_torch.parallel import pipeline
+    from das4whales_tpu_torch.parallel.mesh import make_mesh
+
+    def lost(*a, **k):
+        def step(x):
+            raise RuntimeError("CUDA error: an illegal memory access was encountered")
+        return step
+
+    files = _files(data, CLEAN[:2])
+    mesh = make_mesh(devices=["cpu"])
+    orig = pipeline.make_sharded_mf_step
+    pipeline.make_sharded_mf_step = lost
+    try:
+        with pytest.raises(NotImplementedError, match="'Multi-GPU families'"):
+            campaign.run_campaign_sharded(files, SEL, str(tmp_path / "e"), mesh)
+        with pytest.raises(RuntimeError, match="illegal memory access"):
+            campaign.run_campaign_sharded(files, SEL, str(tmp_path / "f"), mesh, elastic=False)
+    finally:
+        pipeline.make_sharded_mf_step = orig
     assert not os.path.exists(tmp_path / "x" / "manifest.jsonl")

@@ -40,6 +40,7 @@ from das4whales_tpu_torch.__main__ import main as tmain  # noqa: E402
 from das4whales_tpu_torch.io.stream import stream_strain_blocks  # noqa: E402
 from das4whales_tpu_torch.models.matched_filter import MatchedFilterDetector  # noqa: E402
 from das4whales_tpu_torch.utils.parity import envelopes, unexplained_differences  # noqa: E402
+from das4whales_tpu_torch.utils.artifacts import read_records  # noqa: E402
 from das4whales_tpu_torch.workflows.campaign import load_picks  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -175,10 +176,13 @@ def test_campaign_with_no_probeable_file_exits_3(files, tmp_path, capsys):
 @pytest.mark.parametrize("argv", [["campaign", "x.h5", "--sharded"],
                                   ["campaign", "x.h5", "--multihost"],
                                   ["fleet", "fleet.json"]])
-def test_mesh_flags_and_fleet_exit_2_naming_their_item(argv, capsys, tmp_path):
-    """The mesh flags exit 2 naming 'Multi-GPU'. The fleet verb runs: a
-    registry with an unknown key fails naming it, in both packages, before
-    any worker starts (running fleets: tests/test_torch_fleet.py)."""
+def test_mesh_flags_and_fleet_exit_2_naming_their_item(argv, capsys, tmp_path, files):
+    """The mesh flags run: without torchrun's variables a mesh of one on
+    the CPU, whose records are the one-device campaign's (tests/
+    test_torch_campaign_sharded.py holds them against JAX's). The fleet
+    verb runs: a registry with an unknown key fails naming it, in both
+    packages, before any worker starts (running fleets:
+    tests/test_torch_fleet.py)."""
     if argv[0] == "fleet":
         cfg = tmp_path / argv[1]
         cfg.write_text(json.dumps({"tenants": [], "root": str(tmp_path / "f"),
@@ -190,8 +194,25 @@ def test_mesh_flags_and_fleet_exit_2_naming_their_item(argv, capsys, tmp_path):
         assert "Service and fleet" not in capsys.readouterr().err
         assert not (tmp_path / "f").exists()
         return
-    assert tmain(argv) == 2
-    assert "'Multi-GPU'" in capsys.readouterr().err
+    paths = [files["f0"], files["bad"], files["f1"]]
+    rc, out, _ = _run(tmain, ["campaign", *paths, argv[2], "--no-figure",
+                              "--outdir", str(tmp_path / "m")], capsys)
+    assert rc == 3 and "campaign: 2 done, 1 failed, 0 skipped" in out
+    rc1, _, _ = _run(tmain, ["campaign", *paths, "--no-figure", "--outdir",
+                             str(tmp_path / "one")], capsys)
+    assert rc1 == 3
+    rung = "multihost" if argv[2] == "--multihost" else "sharded"
+    recs = {r["path"]: r for r in read_records(str(tmp_path / "m" / "manifest.jsonl"))}
+    ones = {r["path"]: r for r in read_records(str(tmp_path / "one" / "manifest.jsonl"))}
+    assert sorted(recs) == sorted(ones)
+    for path, r in recs.items():
+        assert r["status"] == ones[path]["status"] and r["family"] == "mf"
+        if r["status"] == "done":
+            assert r["rung"] == rung
+            a, b = load_picks(r["picks_file"]), load_picks(ones[path]["picks_file"])
+            for name in a:
+                np.testing.assert_array_equal(a[name], b[name])
+    assert not (tmp_path / "m" / "density.png").exists()
 
 
 def _long_files(d):
@@ -235,19 +256,22 @@ def test_longrecord_matches_jax(tmp_path, capsys):
 @pytest.mark.parametrize("argv", [["--family", "learned"], ["--family", "gabor"],
                                   ["--staged"]])
 def test_longrecord_refusals(tmp_path, capsys, argv):
-    """``--family learned`` without ``--model`` exits 2 as JAX's; the
-    families and the staged (halo) bandpass a mesh brings exit 2 naming
-    'Multi-GPU' (``detect_long_record`` refuses them on one device)."""
+    """``--family learned`` without ``--model`` exits 2 as JAX's; the Gabor
+    family over a record exits 2 naming 'Multi-GPU families'; the staged
+    (halo) bandpass runs, as a mesh of one."""
     paths = _long_files(tmp_path)
     rc, out, err = _run(tmain, ["longrecord", *paths, "--outdir", str(tmp_path / "o"), *argv],
                         capsys)
+    if argv == ["--staged"]:
+        assert rc == 0 and "2 files as one" in out
+        return
     assert rc == 2
     if argv == ["--family", "learned"]:
         rj, oj, _ = _run(jmain, ["longrecord", *paths, "--outdir", str(tmp_path / "j"), *argv],
                          capsys, jax_side=True)
         assert rj == 2 and _verb_lines("longrecord", out) == _verb_lines("longrecord", oj)
     else:
-        assert "'Multi-GPU'" in err
+        assert "'Multi-GPU families'" in err
 
 
 def _sweep(main, argv, capsys, jax_side, tmp_path, tag):

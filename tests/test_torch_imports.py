@@ -62,7 +62,10 @@ def test_the_scan_covers_every_module_of_the_port():
                 "viz/plot.py", "viz/map.py", "utils/audio.py", "workflows/fkcomp.py",
                 "workflows/plots.py", "workflows/bathynoise.py",
                 "workflows/spectrodetect.py", "workflows/gabordetect.py",
-                "fleet/__init__.py", "fleet/supervisor.py", "fleet/router.py"):
+                "fleet/__init__.py", "fleet/supervisor.py", "fleet/router.py",
+                "parallel/__init__.py", "parallel/mesh.py", "parallel/collectives.py",
+                "parallel/distributed.py", "parallel/fft.py", "parallel/pipeline.py",
+                "parallel/timeshard.py"):
         assert f"das4whales_tpu_torch/{mod}" in scanned
     assert "chip_smoke.py" in scanned
 
@@ -176,6 +179,20 @@ def test_campaigns_default_to_the_card(tmp_path):
         with pytest.raises(RuntimeError, match="CUDA device"):
             entry([path], [0, 8, 1], str(out))
         assert not (out / "manifest.jsonl").exists()
+    # the mesh routes: a mesh's ranks take their cards, the multi-host
+    # campaign and the batch stream too
+    from das4whales_tpu_torch.io.stream import stream_file_batches
+    from das4whales_tpu_torch.parallel.mesh import make_mesh
+    from das4whales_tpu_torch.workflows.campaign import run_campaign_multiprocess
+
+    out = tmp_path / "mesh"
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        run_campaign_multiprocess([path], [0, 8, 1], str(out))
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        stream_file_batches([path], [0, 8, 1], batch=1)
+    assert not out.exists()
 
 
 def test_service_and_serve_default_to_the_card(tmp_path):

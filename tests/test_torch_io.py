@@ -147,16 +147,17 @@ def test_stream_probes_per_file_and_keeps_order(file_set):
 
 def test_stream_refusals(file_set):
     paths, _ = file_set
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
+    # a sharded stream places blocks on its mesh's device: no host arrays
+    with pytest.raises(ValueError, match="mesh's device"):
         list(stream.stream_strain_blocks(paths, SEL, as_numpy=True, sharding=object()))
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
+    with pytest.raises(ValueError, match="mesh's device"):
         list(stream.stream_batched_slabs(paths, SEL, batch=2, as_numpy=True, sharding=object()))
     # the reader deadline and the chaos hooks need the threaded reader
     for kw in (dict(read_deadline_s=1.0), dict(fault_plan=object())):
         with pytest.raises(ValueError, match="threaded reader"):
             list(stream.stream_strain_blocks(paths, SEL, as_numpy=True, engine="native", **kw))
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
-        stream.stream_file_batches(paths, SEL, batch=2)
+    with pytest.raises(ValueError, match="tail='error'"):
+        stream.stream_file_batches(paths[:1], SEL, batch=2, tail="error")
     with pytest.raises(ValueError, match="as_numpy"):
         list(stream.stream_batched_slabs(paths, SEL, batch=2, as_numpy=True, device="cpu"))
     with pytest.raises(ValueError):
