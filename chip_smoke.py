@@ -221,7 +221,7 @@ failure is caught:
                 float64 at full width (fewer channels, printed, where a
                 probe predicts more than 60 s), against scipy on 64
                 channels; the five f-k designers' and fk_filt's speed fan's
-                host seconds at 22050 x 12000, in spawned processes beside
+                host seconds at 22050 x 3000, in spawned processes beside
                 phases 21-23 and printed after 23;
 22. ``localize`` detect -> localize -> evaluate: a 22050 x 12000 scene with
                 three off-cable calls (|y0| 300 m to 3 km, z0 -20 m), the
@@ -237,13 +237,18 @@ failure is caught:
 23. ``longrecord`` ``detect_long_record`` over two consecutive 22050 x 12000
                 int32 TDMS files with a call straddling the boundary: the
                 matched filter on both wires (the record's design made in a
-                spawned process beside phases 21-22), the straddling call
+                spawned process beside phases 17-22), the straddling call
                 picked on both and their picks equal, no pick kernel launch
                 (the plain tiled picker, as JAX's route); ``detect_picks``
                 file by file beside it and the correlogram peaks that show
                 the straddle weakened; the learned family over the record:
                 one ``fused_stft`` launch within 5e-6 * max of its plain
-                version, its peak;
+                version, its peak; the spectro and Gabor families over the
+                same record at full width on a mesh of one (the halo
+                bandpass, the pencil f-k on the record's own mask, their
+                time-split steps), the straddling call picked by both, the
+                Gabor step's ``fused_picks`` launch bitwise its plain
+                version;
 24. ``dsp_cpu_vs_card``, 25. ``localize_cpu_vs_card``, 26.
                 ``longrecord_cpu_vs_card`` the three at 512 channels on the
                 card against ``device="cpu"``: FFT ops within 1e-5 * max,
@@ -383,16 +388,35 @@ failure is caught:
                 ``trf_fk`` within 1e-5 * max of ``filter_block``'s; (2) the
                 same step on a one-rank NCCL group; (3) the long record over
                 (time=2), the fused bandpass at full width held to the
-                ``longrecord`` phase's picks, the halo bandpass on the
-                ``MESH_HALO_CHANNELS`` channels around the straddling call,
-                which both pick; (4) ``run_campaign_sharded`` at (file=2,
+                ``longrecord`` phase's picks (the plain picker's route) up to
+                knife edges, its picks through ``fused_picks`` (22 launches a
+                rank, the first and last bitwise plain), the halo bandpass on
+                the ``MESH_HALO_CHANNELS`` channels around the straddling
+                call, which both pick; (4) ``run_campaign_sharded`` at (file=2,
                 channel=1) over the four 12000-sample slab files: every file
                 done, picks equal ``detect_picks`` at the files' shape up to
                 knife edges, only rank 0 writing, ``fsck_outdir`` clean, a
                 resume reading nothing; (5) ``python -m das4whales_tpu_torch
                 campaign --sharded`` as a subprocess without rank variables at
                 2048 channels against the one-device detector's
-                ``detect_picks`` on the same design. It prints
+                ``detect_picks`` on the same design; the families (ROADMAP
+                14b): (6) ``make_sharded_spectro_step`` at (file=1,
+                channel=2) on the prefiltered canonical block, each rank's
+                ``fused_stft`` launches (one a 256-channel tile) counted and
+                its first and last held within 5e-6 * max of plain, picks
+                equal the one-card ``SpectroCorrDetector``'s up to knife
+                edges; (7) ``make_sharded_gabor_step`` at (file=2) on two
+                prefiltered slab files, one ``fused_picks`` launch a rank
+                bitwise plain, picks equal ``GaborDetector``'s up to knife
+                edges; (8) the learned long record over the mesh
+                (``make_sharded_inference`` at (channel=2), full width)
+                against the same scoring on one card; (9) the spectro long
+                record over (time=2) on ``MESH_SPECTRO_CHANNELS`` channels
+                around the straddling call and (10) the Gabor long record on
+                its first ``MESH_GABOR_CHANNELS`` rows (22050 fail the
+                binning grain at P = 2), each against the same record on a
+                mesh of one on the card up to knife edges, the straddling
+                call picked, the Gabor launches bitwise plain. It prints
                 each collective's bytes, wall and host-staging share and
                 each rank's peak; a rank that dies fails the phase, naming
                 it and its log; budget ``MESH_BUDGET_S``;
@@ -478,10 +502,10 @@ KERNELS = ("fused_picks", "fused_stft")
 #: frames a thread; the span fits in shared memory)
 STFT_MAIN_INSTANCE = (4, True)
 
-#: the pick kernel's instantiation at the main launch (pack, untimed), and
-#: the CTAs an SM its design holds for each method at the main launch's
-#: row length (pack K=64, topk K=256)
-PICKS_MAIN_INSTANCE = (0, False)
+#: the pick kernel's instantiation at the main launch (pack, untimed, the
+#: shared-memory form), and the CTAs an SM its design holds for each method
+#: at the main launch's row length (pack K=64, topk K=256)
+PICKS_MAIN_INSTANCE = (0, False, False)
 PICKS_CTAS_PER_SM = {"pack": 4, "topk": 3}
 
 #: an H100 SM's shared memory for resident CTAs, and what CUDA reserves of
@@ -923,14 +947,43 @@ def phase_kernels():
         out[method] = dict(K=K, ms=ms, device_ms=device_ms, host_us=host_us, plain_ms=plain_ms,
                            bound_ms=bound_ms,
                            n_sel=n_sel, n_sat=n_sat, timed_ms=timed_ms, split=split, ctas=ctas)
-    # edge rows at T and at a length that is no multiple of nb = 128
+    # the long-row form: rows past one CTA's shared memory, their envelope
+    # in a device-memory workspace; an odd length, so odd rows start 8
+    # bytes past a 16-byte boundary
+    TL = LONG_ROW_SAMPLES + 7
+    if fused_picks.fits(TL, 64, "pack", dev) or not fused_picks.fits(T, 256, "topk", dev):
+        fail(f"kernels: a row of {TL} samples must need the long-row form and one of {T} not")
+    XL = spectral.analytic_signal(torch.as_tensor(
+        rng.standard_normal((LONG_ROW_ROWS, TL)).astype(np.float32), device=dev))
+    thr_l = torch.as_tensor(np.linspace(2.0, 4.5, LONG_ROW_ROWS).astype(np.float32), device=dev)
+    long_row = {}
+    for method, K in (("pack", 64), ("topk", 256)):
+        fused_picks.long_launches = 0
+        k_out = fused_picks.picks_cuda(XL, thr_l, K, method)
+        p_out = fused_picks.picks_plain(XL, thr_l, K, method)
+        torch.cuda.synchronize()
+        err = max(err, _compare(k_out, p_out))
+        if fused_picks.long_launches != 1:
+            fail(f"kernels: {method}: {LONG_ROW_ROWS}x{TL} took the shared-memory form")
+        long_row[method] = dict(
+            K=K, ms=_cuda_ms(lambda: fused_picks.picks_cuda(XL, thr_l, K, method), 5),
+            plain_ms=_cuda_ms(lambda: fused_picks.picks_plain(XL, thr_l, K, method), 1),
+            bound_ms=max((LONG_ROW_ROWS * TL * 8 + LONG_ROW_ROWS * K * 13) / HBM_BYTES_PER_S,
+                         LONG_ROW_ROWS * TL * 4 / F32_OPS_PER_S) * 1e3,
+            n_sel=int(k_out.selected.sum()))
+    del XL
+    out["long_row"] = long_row
+    # edge rows at T and at a length that is no multiple of nb = 128, and
+    # at a long row
     cases = []
-    for TT in (T, T - 37):
+    for TT in (T, T - 37, TL):
         cases.append((f"edge rows T={TT}", _edge_rows(TT, rng), (("pack", 64), ("topk", 256))))
     for method, K in (("pack", 64), ("topk", 256)):
         cases.append((f"K and K+1 candidates ({method} K={K})", _count_rows(T, K, rng),
                       ((method, K),)))
     cases.append(("every other sample a maximum", _alternating_row(T, rng),
+                  (("pack", 64), ("topk", 256))))
+    cases.append((f"every other sample a maximum, T={TL}", _alternating_row(TL, rng),
                   (("pack", 64), ("topk", 256))))
     short = (rng.standard_normal((3, 40)).astype(np.float32),
              rng.standard_normal((3, 40)).astype(np.float32),
@@ -958,8 +1011,12 @@ def phase_kernels():
         f"SM); topk K=256: {tk['ms']:.4f} / {tk['device_ms']:.4f} ms / {tk['host_us']:.1f} us "
         f"(bound {tk['bound_ms']:.4f} ms, plain {tk['plain_ms']:.3f} ms, {tk['n_sel']} "
         f"selected, {tk['ctas']} CTAs an SM); the timed instantiation "
-        f"{pk['timed_ms']:.4f} / {tk['timed_ms']:.4f} ms of device time, equal too; cases "
-        + ", ".join(c[0] for c in cases) + " equal")
+        f"{pk['timed_ms']:.4f} / {tk['timed_ms']:.4f} ms of device time, equal too; the "
+        f"long-row form at {LONG_ROW_ROWS}x{TL} (CUDA events, 5 in a row): "
+        + ", ".join(f"{m} K={v['K']} {v['ms']:.4f} ms (bound {v['bound_ms']:.4f} ms, plain "
+                    f"{v['plain_ms']:.3f} ms, {v['n_sel']} selected)"
+                    for m, v in long_row.items())
+        + ", equal; cases " + ", ".join(c[0] for c in cases) + " equal")
     for method in ("pack", "topk"):
         _say_phase_split(f"1024x{T} {method} K={out[method]['K']}", out[method]["split"])
     return out, err
@@ -1036,9 +1093,11 @@ def phase_detect():
     scene = _scene(nx, ns, n_calls=6, seed=SEED)
     raw = to_raw_counts(synthesize_scene(scene), scene.metadata)
     t_scene = time.perf_counter() - t0
+    # the detector's own design (design_matched_filter at the constructor's
+    # defaults), made by a host job started before the build
     t0 = time.perf_counter()
-    det = MatchedFilterDetector(scene.metadata, [0, nx, 1], (nx, ns), wire="raw",
-                                templates="fin")
+    t_host, design = _early("canonical_design", lambda: _design_job((nx, ns), scene.metadata)[1])
+    det = MatchedFilterDetector.from_design(design, scene.metadata, templates="fin", wire="raw")
     t_design = time.perf_counter() - t0
     if det._route() != "tiled":
         fail(f"detect: the auto route resolved to {det._route()!r}, expected 'tiled'")
@@ -1094,7 +1153,8 @@ def phase_detect():
         f"thresholds {json.dumps({k: round(v, 6) for k, v in res.thresholds.items()})}; "
         f"escalations {det.escalations} in 3 runs; per run (kernel launches, syncs, "
         f"attempts) {[r for r in per_run]}; all {len(scene.calls)} injected calls picked; "
-        f"set-up: scene {t_scene:.1f} s, design {t_design:.1f} s, H2D {t_h2d * 1e3:.1f} ms, "
+        f"set-up: scene {t_scene:.1f} s, design {t_host:.1f} s on the host (waited for "
+        f"{t_design:.1f} s), H2D {t_h2d * 1e3:.1f} ms, "
         f"the early host jobs awaited {t_wait:.1f} s; "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     _profile("detect_picks", lambda: det.detect_picks(x), statistics.median(walls),
@@ -1939,9 +1999,9 @@ def slab_files() -> dict:
 def remove_slab_files() -> None:
     import shutil
 
-    if _SHARED:
+    if "dir" in _SHARED:   # a run that failed before the slab files has none
         shutil.rmtree(_SHARED["dir"], ignore_errors=True)
-        _SHARED.clear()
+    _SHARED.clear()
 
 
 def phase_slab():
@@ -3009,8 +3069,9 @@ GABOR_ENGINE_REL = 1e-5
 #: card against CPU: score and correlograms within this of max|cpu|
 GABOR_CARD_REL = 1e-4
 GABOR_BATCH = 4
-#: the Gabor campaign's files (of the slab phase's four 12000-sample ones)
-GABOR_CAMPAIGN_FILES = 2
+#: the Gabor campaign's files (of the slab phase's four 12000-sample ones;
+#: one, not two, for the run's time limit: a partial slab either way)
+GABOR_CAMPAIGN_FILES = 1
 GABOR_CPU_FILES = ((2050, 12000), (2051, 12000), (2052, 12000))
 
 
@@ -3090,8 +3151,8 @@ def _gabor_campaign(meta, nx, design, launches_before, notes):
     from das4whales_tpu_torch.workflows import campaign as cmod
 
     shared = slab_files()
-    # two of the four files, a partial slab at batch 4 (a cut for the run's
-    # time limit: the read of the other two was half the campaign's wall)
+    # GABOR_CAMPAIGN_FILES of the four files, a partial slab at batch 4 (a
+    # cut for the run's time limit: the reads are most of the campaign's wall)
     files = [p for p, (_, ns) in zip(shared["paths"], SLAB_FILES)
              if ns == CANONICAL[1]][:GABOR_CAMPAIGN_FILES]
     scenes = dict(zip(shared["paths"], shared["scenes"]))
@@ -3439,8 +3500,9 @@ LEARNED_CPU_STRIDE = 40
 #: this, relative
 LEARNED_FIT_REL = 1e-3
 LEARNED_BATCH = 4
-#: the per-file learned campaign's files (the batched one takes all four)
-LEARNED_FILE_CAMPAIGN_FILES = 2
+#: the per-file learned campaign's files (the batched one takes all four;
+#: one, not two, for the run's time limit)
+LEARNED_FILE_CAMPAIGN_FILES = 1
 #: the CNN's operations a window (multiply-adds as 2): conv0 16x4 outputs
 #: x 16 channels x 9 taps, conv1 8x2 outputs x 32 channels x 9 x 16 taps
 LEARNED_CONV_OPS = 2 * (16 * 4 * 16 * 9 + 8 * 2 * 32 * 9 * 16)
@@ -3574,13 +3636,14 @@ def _learned_campaigns(meta, nx, notes):
             torch.cuda.synchronize()
             walls[entry.__name__] = time.perf_counter() - t0
         got = read_launches()
-        want = 1 if entry is cmod.run_campaign_batched else len(efiles)
+        batched = entry is cmod.run_campaign_batched
+        want = 1 if batched else len(efiles)
         if got != {"fused_picks": 0, "fused_stft": want}:
             fail(f"learned: {entry.__name__} launched {got}, expected {want} fused_stft")
         launches += got["fused_stft"]
         e, r, _ = _stft_at_main_path(f"learned: {entry.__name__}", calls,
-                                     ((LEARNED_BATCH if want == 1 else 1) * nx, CANONICAL[1]))
-        if want == 1 and {x.rung for x in res[(entry.__name__, "cuda")].records} == {
+                                     ((LEARNED_BATCH if batched else 1) * nx, CANONICAL[1]))
+        if batched and {x.rung for x in res[(entry.__name__, "cuda")].records} == {
                 f"batched:{LEARNED_BATCH}"}:
             # the service phase holds its learned tenant to these picks
             shared["learned_picks"] = _saved_picks(res[(entry.__name__, "cuda")])
@@ -3852,6 +3915,10 @@ def phase_learned_cpu_vs_card(card=None):
 #: beside the card's work (each job peaks at 8-25 GB of host memory at
 #: full width)
 HOST_WORKERS = 4
+#: the samples of the designers' and the speed fan's host jobs (the
+#: canonical channels; 3000, not 12000, for the run's time limit: at 12000
+#: their ~230 s of host CPU ran beside the long record's design and reads)
+DSP_DESIGN_SAMPLES = 3000
 #: the five f-k designers of the reference's dsp.py
 FK_DESIGNERS = ("fk_filter_design", "hybrid_filter_design", "hybrid_ninf_filter_design",
                 "hybrid_gs_filter_design", "hybrid_ninf_gs_filter_design")
@@ -3890,6 +3957,18 @@ LOC_RTOL = 1e-9
 #: before the break: the HF note's 137 samples split 68 / 69)
 LONG_FILES = 2
 LONG_STRADDLE = 68
+#: the long-row item of the longrecord phase: a record of LONG_ROW_FILES
+#: consecutive files at LONG_ROW_CHANNELS channels, whose rows of
+#: LONG_ROW_SAMPLES samples are past one CTA's shared memory (about 52800 at
+#: K = 512 topk, 55000 at K = 256), so every pick launch takes the kernel's
+#: long-row form. 2000 channels: the Gabor step needs C x 0.1 whole and more
+#: rows than its channel halo (1040 at the defaults); a channel cut of the
+#: canonical 22050, listed in PERF.md
+LONG_ROW_FILES = 5
+LONG_ROW_CHANNELS = 2000
+LONG_ROW_SAMPLES = LONG_ROW_FILES * CANONICAL[1]
+#: rows of the kernels phase's long-row launch
+LONG_ROW_ROWS = 512
 
 
 def _host_pool():
@@ -3927,7 +4006,7 @@ def dsp_host_designs(scene, pool) -> list:
     """Start the DSP phase's host jobs in ``pool``: the five f-k designers
     and the speed fan at the block's shape. Returns their futures for
     :func:`report_host_designs`."""
-    nx, ns = CANONICAL
+    nx, ns = CANONICAL[0], DSP_DESIGN_SAMPLES
     meta = scene.metadata
     return ([pool.submit(_speed_fan_job, (nx, ns), meta.fs, meta.dx)]
             + [pool.submit(_designer_job, n, (nx, ns), meta.dx, meta.fs) for n in FK_DESIGNERS])
@@ -3937,7 +4016,7 @@ def report_host_designs(futures: list) -> dict:
     """Wait for :func:`dsp_host_designs`' jobs, check each design (the
     block's shape, finite, a positive maximum) and print their host
     seconds. Returns ``{name: seconds}``."""
-    nx, ns = CANONICAL
+    nx, ns = CANONICAL[0], DSP_DESIGN_SAMPLES
     secs = {}
     for f in futures:
         name, s, shape, mx, finite = f.result()
@@ -3951,14 +4030,30 @@ def report_host_designs(futures: list) -> dict:
     return secs
 
 
-def _design_job(shape: tuple, metadata, **kw):
+def _design_job(shape: tuple, metadata, path: str | None = None, **kw):
     """A fin design over every channel in a worker: ``(host seconds,
-    design)``; ``kw`` goes to ``design_matched_filter``."""
+    design)``; ``kw`` goes to ``design_matched_filter``. With ``path`` the
+    design goes to that checkpoint (``utils.checkpoint.save_design``) and
+    the job returns the path in its place: a worker's result crosses to
+    the main process as one pickle, and a record's design is gigabytes
+    (the main process took a minute and more to take one while it ran a
+    phase)."""
     from das4whales_tpu_torch.models.matched_filter import design_matched_filter
+    from das4whales_tpu_torch.utils.checkpoint import save_design
 
     t0 = time.perf_counter()
     d = design_matched_filter(shape, [0, shape[0], 1], metadata, templates="fin", **kw)
-    return time.perf_counter() - t0, d
+    s = time.perf_counter() - t0
+    return s, (d if path is None else save_design(path, d))
+
+
+def _loaded(result) -> tuple:
+    """``(host seconds, design)`` of a :func:`_design_job` result, its
+    checkpoint loaded where it gave a path."""
+    from das4whales_tpu_torch.utils.checkpoint import load_design
+
+    s, d = result
+    return s, (load_design(d) if isinstance(d, str) else d)
 
 
 def _slab_files_job(d: str, k: int | None = None):
@@ -4008,10 +4103,28 @@ def early_host_jobs(pool) -> None:
     slab_meta = _scene(nx, SLAB_FILES[0][1], n_calls=6, seed=SLAB_FILES[0][0]).metadata
     _EARLY.update(
         channel_pad=pool.submit(_design_job, (nx, ns), _scene(nx, ns, 6, SEED).metadata,
-                                channel_pad="auto"),
-        slab_design=pool.submit(_design_job, (nx, SLAB_BUCKET), slab_meta),
+                                path=str(d / "channel_pad_design.npz"), channel_pad="auto"),
+        slab_design=pool.submit(_design_job, (nx, SLAB_BUCKET), slab_meta,
+                                path=str(d / "slab_design.npz")),
         **{f"slab_file{k}": pool.submit(_slab_files_job, str(d), k)
            for k in range(len(SLAB_FILES))})
+
+
+def _build_tmp():
+    """A directory of this run under ``build/`` for host jobs' checkpoints
+    (removed with the others at the end of main)."""
+    import tempfile
+    from pathlib import Path
+
+    if "tmp" not in _HOST_TMP:
+        root = Path(__file__).resolve().parent / "build"
+        root.mkdir(exist_ok=True)
+        _HOST_TMP["tmp"] = Path(tempfile.mkdtemp(prefix="host_jobs_", dir=root))
+    return _HOST_TMP["tmp"]
+
+
+#: the run's host-job directory (:func:`_build_tmp`)
+_HOST_TMP: dict = {}
 
 
 def _await_early() -> float:
@@ -4031,29 +4144,32 @@ def _early(name: str, make):
     ``make()`` here when none was started (``--only``)."""
     fut = _EARLY.pop(name, None)
     if fut is not None:
-        return fut.result()
+        return _loaded(fut.result())
     t0 = time.perf_counter()
     value = make()
     return time.perf_counter() - t0, value
 
 
-def _long_files_job(d: str, nx: int, nfile: int, seed: int):
+def _long_files_job(d: str, nx: int, nfile: int, seed: int, n_files: int = LONG_FILES):
     """:func:`_long_files` in a worker: ``(paths, scene, straddle channel,
     straddle onset, seconds)``."""
     from pathlib import Path
 
     t0 = time.perf_counter()
-    out = _long_files(Path(d), nx, nfile, seed)
+    Path(d).mkdir(parents=True, exist_ok=True)
+    out = _long_files(Path(d), nx, nfile, seed, n_files)
     return (*out, time.perf_counter() - t0)
 
 
 def long_record_prep(pool) -> dict:
     """Start the long record's host work in ``pool``: its two TDMS files,
     written under ``build/``, and the record's fin design. Returns
-    ``{"dir", "files", "design", "halo_design"}`` (futures) for
-    :func:`phase_longrecord` (the last, a ``MESH_HALO_CHANNELS``-channel
-    design of the record, for the mesh phase's halo run); main removes
-    the directory."""
+    ``{"dir", "files", "design", "halo_design", "spectro_design",
+    "gabor_design"}`` (futures) for :func:`phase_longrecord` (the last
+    three, designs of the record's ``MESH_HALO_CHANNELS``,
+    ``MESH_SPECTRO_CHANNELS`` and ``MESH_GABOR_CHANNELS`` channels, for the
+    mesh phase's halo, spectro and Gabor runs); main removes the
+    directory."""
     import tempfile
     from pathlib import Path
 
@@ -4064,11 +4180,21 @@ def long_record_prep(pool) -> dict:
     root.mkdir(exist_ok=True)
     d = Path(tempfile.mkdtemp(prefix="long_files_", dir=root))
     meta = SyntheticScene(nx=nx, ns=LONG_FILES * nfile).metadata
-    return {"dir": d,
-            "files": pool.submit(_long_files_job, str(d), nx, nfile, SEED + 7),
-            "design": pool.submit(_design_job, (nx, LONG_FILES * nfile), meta),
-            "halo_design": pool.submit(_design_job, (MESH_HALO_CHANNELS, LONG_FILES * nfile),
-                                       meta)}
+    out = {"dir": d, "files": pool.submit(_long_files_job, str(d), nx, nfile, SEED + 7),
+           "long_rows": pool.submit(_long_files_job, str(d / "long_rows"), LONG_ROW_CHANNELS,
+                                    nfile, SEED + 11, LONG_ROW_FILES),
+           "long_rows_design_path": str(d / "long_rows_design.npz")}
+    out["long_rows_design"] = pool.submit(
+        _design_job, (LONG_ROW_CHANNELS, LONG_ROW_SAMPLES),
+        SyntheticScene(nx=LONG_ROW_CHANNELS, ns=LONG_ROW_SAMPLES).metadata,
+        path=out["long_rows_design_path"])
+    for key, rows in (("design", nx), ("halo_design", MESH_HALO_CHANNELS),
+                      ("spectro_design", MESH_SPECTRO_CHANNELS),
+                      ("gabor_design", MESH_GABOR_CHANNELS)):
+        out[f"{key}_path"] = str(d / f"{key}.npz")
+        out[key] = pool.submit(_design_job, (rows, LONG_FILES * nfile), meta,
+                               path=out[f"{key}_path"])
+    return out
 
 
 def _unit_rms64(raw: np.ndarray) -> np.ndarray:
@@ -4115,7 +4241,7 @@ def phase_dsp(scene=None, raw=None, design=None, host_jobs=None):
     CUDA events; the exact IIR (``sosfiltfilt_chunked``,
     ``bp_filt(mode="exact")``) in float64 at full width, against scipy on
     ``IIR_SCIPY_ROWS`` channels. The five f-k designers' and the speed
-    fan's host seconds at 22050 x 12000 come from ``host_jobs``
+    fan's host seconds at 22050 x ``DSP_DESIGN_SAMPLES`` come from ``host_jobs``
     (:func:`dsp_host_designs`, reported by the caller later), or from a
     pool of its own here. Returns the walls."""
     import scipy.signal as sps
@@ -4599,12 +4725,13 @@ def phase_localize_cpu_vs_card():
         f"cond(G^T G) up to {cond:.2e}")
 
 
-def _long_files(d, nx: int, nfile: int, seed: int):
-    """``LONG_FILES`` consecutive Silixa TDMS files of ``nfile`` samples
-    cut from one ``[nx, LONG_FILES * nfile]`` scene: an HF call mid-file
+def _long_files(d, nx: int, nfile: int, seed: int, n_files: int = LONG_FILES):
+    """``n_files`` consecutive Silixa TDMS files of ``nfile`` samples
+    cut from one ``[nx, n_files * nfile]`` scene: an HF call mid-file
     0, one straddling the first boundary (onset ``LONG_STRADDLE`` samples
-    before it on its nearest channel), an LF call mid-file 1. Returns
-    ``(paths, scene, straddle channel, straddle onset)``."""
+    before it on its nearest channel), an LF call mid-file 1; past two
+    files, an HF call straddling the last boundary and one mid the last
+    file. Returns ``(paths, scene, straddle channel, straddle onset)``."""
     from datetime import datetime, timedelta
 
     from das4whales_tpu_torch.io.synth import (
@@ -4615,7 +4742,7 @@ def _long_files(d, nx: int, nfile: int, seed: int):
     )
     from das4whales_tpu_torch.io.tdms import write_tdms
 
-    ns = LONG_FILES * nfile
+    ns = n_files * nfile
     fs, dx = 200.0, 2.042
     ch_s = int(0.55 * nx)
     onset = nfile - LONG_STRADDLE
@@ -4623,11 +4750,16 @@ def _long_files(d, nx: int, nfile: int, seed: int):
              SyntheticCall(t0=onset / fs, x0_m=ch_s * dx, amplitude=1.0),
              SyntheticCall(t0=1.5 * nfile / fs, x0_m=0.75 * nx * dx, amplitude=1.0,
                            fmin=14.7, fmax=21.8, duration=0.78)]
+    if n_files > 2:
+        calls += [SyntheticCall(t0=((n_files - 1) * nfile - LONG_STRADDLE) / fs,
+                                x0_m=0.45 * nx * dx, amplitude=1.0),
+                  SyntheticCall(t0=(n_files - 0.5) * nfile / fs, x0_m=0.2 * nx * dx,
+                                amplitude=1.0)]
     scene = SyntheticScene(nx=nx, ns=ns, noise_rms=0.05, calls=calls, seed=seed)
     raw = to_raw_counts(synthesize_scene(scene), scene.metadata)
     paths = []
     start = datetime(2021, 11, 4, 2, 0, 0)
-    for k in range(LONG_FILES):
+    for k in range(n_files):
         props = {"SamplingFrequency[Hz]": fs, "SpatialResolution[m]": dx,
                  "FibreIndex": float(scene.n), "GaugeLength": float(scene.gauge_length),
                  "GPSTimeStamp": start + timedelta(seconds=k * nfile / fs)}
@@ -4672,6 +4804,56 @@ def _same_picks(label, a: dict, b: dict, env_fn, thr: dict) -> int:
     return n
 
 
+def _record_pickers(corr, rec, design) -> dict:
+    """The pick stage of the time-split mf step on one card, on the
+    record's own correlograms ``[nT, C, T]`` at the record's thresholds:
+    the kernel's route (``models.matched_filter.mf_pick_tiled``: per
+    512-row tile the Hilbert transform and ``fused_picks``, K=512
+    ``topk``, as ``timeshard.make_sharded_mf_step_time`` runs it) against
+    the plain tiled picker it replaces (the envelope, then
+    ``ops.peaks.find_peaks_sparse_tiled``), each once by CUDA events after
+    a warm-up; the picks compared. A measurement: its launches count on
+    no path."""
+    import torch
+
+    from das4whales_tpu_torch.models.matched_filter import mf_pick_tiled
+    from das4whales_tpu_torch.ops import peaks as peak_ops
+    from das4whales_tpu_torch.ops import spectral
+    from das4whales_tpu_torch.workflows.longrecord import PICK_TILE
+
+    thr = torch.as_tensor([rec.thresholds[n] for n in design.template_names],
+                          dtype=torch.float32, device=corr.device)
+    K = 512
+
+    def kernel():
+        return mf_pick_tiled(list(corr.split(PICK_TILE, dim=-2)), thr, K, "topk")
+
+    def plain():
+        return peak_ops.find_peaks_sparse_tiled(spectral.envelope_sqrt(corr, dim=-1),
+                                                thr[:, None], max_peaks=K, tile=PICK_TILE,
+                                                method="topk")
+
+    out = {}
+    for name, fn in (("kernel", kernel), ("plain", plain)):
+        fn()
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        sp = fn()
+        b.record()
+        torch.cuda.synchronize()
+        out[name] = (a.elapsed_time(b), sp)
+    n_diff = 0
+    for t in range(len(design.template_names)):
+        ka = peak_ops.sparse_to_pick_times(out["kernel"][1].positions[t].cpu().numpy(),
+                                           out["kernel"][1].selected[t].cpu().numpy())
+        pa = peak_ops.sparse_to_pick_times(out["plain"][1].positions[t].cpu().numpy(),
+                                           out["plain"][1].selected[t].cpu().numpy())
+        n_diff += len({tuple(p) for p in ka.T.tolist()} ^ {tuple(p) for p in pa.T.tolist()})
+    return {"kernel_ms": out["kernel"][0], "plain_ms": out["plain"][0], "n_diff": n_diff,
+            "tiles": -(-corr.shape[-2] // PICK_TILE)}
+
+
 def phase_longrecord(prep=None, design12=None):
     """``detect_long_record`` on the card over two consecutive 22050 x
     12000 int32 TDMS files (written, with the record's design, by
@@ -4684,7 +4866,11 @@ def phase_longrecord(prep=None, design12=None):
     design, made here when None); then the learned family over
     the same record: one ``fused_stft`` launch of 22050 x 24000 within
     ``STFT_REL_TOL`` * max of the plain version, the straddling call
-    picked. Returns ``({"longrecord_learned": launches}, err)``."""
+    picked; then the spectro and Gabor families over the record at full
+    width on a mesh of one, the straddling call picked by both, the Gabor
+    step's one ``fused_picks`` launch bitwise plain. Returns
+    ``({"longrecord_learned": launches}, err, {"longrecord_gabor":
+    launches}, picks err)``."""
     import tempfile
     from pathlib import Path
 
@@ -4696,7 +4882,7 @@ def phase_longrecord(prep=None, design12=None):
         MatchedFilterDetector,
         design_matched_filter,
     )
-    from das4whales_tpu_torch.ops import fused_stft, xcorr
+    from das4whales_tpu_torch.ops import fused_picks, fused_stft, xcorr
     from das4whales_tpu_torch.workflows import longrecord as lr
     from das4whales_tpu_torch.workflows.longrecord import detect_long_record
 
@@ -4713,9 +4899,13 @@ def phase_longrecord(prep=None, design12=None):
         if prep is None:
             paths, scene, ch_s, onset, t_write = _long_files_job(str(d), nx, nfile, SEED + 7)
             t_design, design = _design_job((nx, ns), scene.metadata)
+            t_wait = t_wait_files = 0.0
         else:
+            t0 = time.perf_counter()
             paths, scene, ch_s, onset, t_write = prep["files"].result()
-            t_design, design = prep["design"].result()
+            t_wait_files = time.perf_counter() - t0
+            t_design, design = _loaded(prep["design"].result())
+            t_wait = time.perf_counter() - t0
         sel = [0, nx, 1]
         runs = {}
         for wire in ("conditioned", "raw"):
@@ -4785,11 +4975,15 @@ def phase_longrecord(prep=None, design12=None):
                 peaks_pf["straddle_next"] = float(corr[1, :300].max())
             del xb, trf, corr
         x = torch.as_tensor(np.concatenate([b.trace for b in blocks], axis=-1)).to("cuda")
-        cc = lr._mf_record_correlograms(x, blocks, design, meta, "conditioned",
-                                        lambda n: None)[0].abs()
+        corr = lr._mf_record_correlograms(x, blocks, design, meta, "conditioned",
+                                          lambda n: None)
+        del x
+        cc = corr[0].abs()
         peak_c = {"mid": float(cc[ch_m, on_m - 100:on_m + 300].max()),
                   "straddle": float(cc[ch_s, onset - 50:onset + 300].max())}
-        del cc, x
+        del cc
+        pick_cmp = _record_pickers(corr, rec, design)
+        del corr
         torch.cuda.empty_cache()
 
         # the learned family over the same record
@@ -4815,9 +5009,50 @@ def phase_longrecord(prep=None, design12=None):
             fail(f"longrecord: learned: the straddling call (channel {ch_s}) was not picked")
         if pl.shape[1] and pl[1].max() >= ns:
             fail("longrecord: learned: a pick lies past the record")
+
+        # the spectro and Gabor families over the same record, full width, on
+        # a mesh of one (the record's own design gives the f-k mask)
+        fam_runs, fam_err = {}, 0.0
+        for fam in ("spectro", "gabor"):
+            zero_launches()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            timer = StageTimer()
+            with _capture(fused_picks, "picks_cuda") as calls:
+                t0 = time.perf_counter()
+                rf = detect_long_record(paths, sel, interrogator="silixa", family=fam,
+                                        design=design, engine="native", stage_hook=timer)
+                torch.cuda.synchronize()
+                wall_f = time.perf_counter() - t0
+            fl = read_launches()
+            want = {"fused_picks": 1 if fam == "gabor" else 0, "fused_stft": 0}
+            if fl != want:
+                fail(f"longrecord: {fam}: launches {fl}, expected {want} (one pick launch of "
+                     "both notes' rows for the Gabor step; rFFT framing for the spectro step)")
+            rows = []
+            if fam == "gabor":
+                fam_err, rows = _rank_kernel_check(calls, "longrecord: gabor")
+                if rows != [2 * nx, 2 * nx]:
+                    fail(f"longrecord: gabor: the pick launch had {rows} rows, expected {2 * nx}")
+            del calls
+            if rf.n_samples != ns:
+                fail(f"longrecord: {fam}: a record of {rf.n_samples} samples")
+            if not _picked_near(rf.picks["HF"], ch_s, onset + 68, 1.5 * scene.fs):
+                fail(f"longrecord: {fam}: the straddling call (channel {ch_s}) was not picked")
+            fam_runs[fam] = dict(res=rf, wall=wall_f, stages=timer.walls(), rows=rows,
+                                 peak=torch.cuda.max_memory_allocated(), launches=fl)
+            torch.cuda.empty_cache()
+        long_rows = _long_rows_item(d, prep)
+        fam_err = max(fam_err, long_rows["err"])
         # the mesh phase holds its time-split record to this one
-        _keep_long_reference(paths, design, scene, ch_s, onset, rec,
-                             None if prep is None else prep["halo_design"].result()[1])
+        if prep is not None:
+            # the mesh phase's designs: futures, resolved there (their host
+            # jobs run on beside this phase)
+            _keep_long_reference(paths, design, scene, ch_s, onset, rec,
+                                 {k: prep[f"{k}_design"] for k in ("halo", "spectro", "gabor")},
+                                 {k: prep[f"{k}_design_path"]
+                                  for k in ("halo", "spectro", "gabor")}
+                                 | {"long": prep["design_path"]})
     finally:
         import shutil
 
@@ -4827,7 +5062,9 @@ def phase_longrecord(prep=None, design12=None):
             _LONG_REF.clear()
     say(f"longrecord: {LONG_FILES} consecutive {nx}x{nfile} int32 TDMS files -> one {nx}x{ns} "
         f"record (written in {t_write:.1f} s) and the record's fin design {t_design:.1f} s on the "
-        f"host (in spawned processes beside the earlier phases); detect_long_record mf: "
+        f"host (in spawned processes beside the earlier phases; waited for {t_wait:.1f} s, "
+        f"{t_wait_files:.1f} s of it for the files); "
+        f"detect_long_record mf: "
         + "; ".join(f"{w} wire {v['wall']:.2f} s (stage walls "
                     f"{json.dumps({k: round(s, 1) for k, s in v['stages'].items()})} ms), peak "
                     f"{v['peak'] / 2**30:.2f} GiB, picks "
@@ -4842,12 +5079,107 @@ def phase_longrecord(prep=None, design12=None):
         f"picked in file 0 {per_file[0]}, in file 1 {per_file[1]}; |correlogram| peak "
         f"straddle / mid-file call: per file {peaks_pf['straddle'] / peaks_pf['mid']:.3f} "
         f"(file 1's head {peaks_pf['straddle_next'] / peaks_pf['mid']:.3f}), continuous "
-        f"{peak_c['straddle'] / peak_c['mid']:.3f}; learned family (pretrained fin_cnn): "
+        f"{peak_c['straddle'] / peak_c['mid']:.3f}; the time-split step's pick stage on "
+        f"this record's correlograms on one card (K=512 topk, 512-row tiles, CUDA events): "
+        f"through fused_picks ({pick_cmp['tiles']} launches) {pick_cmp['kernel_ms']:.1f} ms "
+        f"against the plain tiled picker it replaces {pick_cmp['plain_ms']:.1f} ms, picks "
+        f"{'equal' if pick_cmp['n_diff'] == 0 else f'{pick_cmp['n_diff']} apart'}; learned "
+        f"family (pretrained fin_cnn): "
         f"{t_learned:.2f} s with the read, 1 fused_stft launch of {nx}x{ns} within "
         f"{rel:.2e} * max of its plain version, peak {peak_l / 2**30:.2f} GiB, "
-        f"{pl.shape[1]} picks, the straddling call picked; phase "
-        f"{time.perf_counter() - t_phase:.1f} s")
-    return {"longrecord_learned": launches_l["fused_stft"]}, err
+        f"{pl.shape[1]} picks, the straddling call picked; "
+        + "; ".join(f"{fam} family on a mesh of one (the native reader) {v['wall']:.2f} s "
+                    f"(stages {json.dumps({k: round(s, 1) for k, s in v['stages'].items()})} "
+                    f"ms), peak {v['peak'] / 2**30:.2f} GiB, picks "
+                    f"{json.dumps({k: int(p.shape[1]) for k, p in v['res'].picks.items()})}, "
+                    f"thresholds "
+                    f"{json.dumps({k: float(f'{t:.6e}') for k, t in v['res'].thresholds.items()})}"
+                    f", the straddling call picked"
+                    + (f", 1 fused_picks launch of {v['rows'][0]} x {ns} bitwise plain"
+                       if fam == "gabor" else ", no kernel launch (rFFT framing)")
+                    for fam, v in fam_runs.items())
+        + f"; {long_rows['say']}; phase {time.perf_counter() - t_phase:.1f} s")
+    return ({"longrecord_learned": launches_l["fused_stft"]}, err,
+            {"longrecord_gabor": fam_runs["gabor"]["launches"]["fused_picks"],
+             **{f"longrecord_long_rows_{fam}": v["launches"]
+                for fam, v in long_rows["runs"].items()}}, fam_err)
+
+
+def _long_rows_item(d, prep) -> dict:
+    """The pick kernel's long-row form on the main path:
+    ``detect_long_record`` over ``LONG_ROW_FILES`` consecutive
+    ``LONG_ROW_CHANNELS`` x 12000 files, whose rows of ``LONG_ROW_SAMPLES``
+    samples are past one CTA's shared memory: the matched filter on a mesh
+    of one (the time-split step) and the Gabor family (its time-split step
+    on a mesh of one). Every ``fused_picks`` launch must be the long-row
+    form, the first and last bitwise plain, every injected call picked by
+    the matched filter (two of them in the last file, past the shared-memory
+    limit), the calls straddling the first and the last boundary by Gabor.
+    Returns ``{"runs", "err", "say"}``."""
+    import torch
+
+    from das4whales_tpu_torch.ops import fused_picks
+    from das4whales_tpu_torch.parallel.mesh import make_mesh
+    from das4whales_tpu_torch.workflows.longrecord import detect_long_record
+
+    nx, nfile = LONG_ROW_CHANNELS, CANONICAL[1]
+    ns = LONG_ROW_SAMPLES
+    t0 = time.perf_counter()
+    if prep is None:
+        paths, scene, ch_s, onset, _ = _long_files_job(str(d / "long_rows"), nx, nfile,
+                                                       SEED + 11, LONG_ROW_FILES)
+        _, design = _design_job((nx, ns), scene.metadata)
+    else:
+        paths, scene, ch_s, onset, _ = prep["long_rows"].result()
+        _, design = _loaded(prep["long_rows_design"].result())
+    t_wait = time.perf_counter() - t0
+    last = scene.calls[3]
+    ch_l = int(round(last.x0_m / scene.dx))
+    on_l = (LONG_ROW_FILES - 1) * nfile - LONG_STRADDLE
+    mesh = make_mesh((1,), ("time",), devices=["cuda:0"])
+    runs, err = {}, 0.0
+    for fam, kw in (("mf", dict(mesh=mesh)), ("gabor", dict(family="gabor"))):
+        zero_launches()
+        fused_picks.long_launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with _capture(fused_picks, "picks_cuda") as calls:
+            t0 = time.perf_counter()
+            r = detect_long_record(paths, [0, nx, 1], interrogator="silixa", design=design,
+                                   engine="native", **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        n = read_launches()["fused_picks"]
+        if n == 0 or fused_picks.long_launches != n:
+            fail(f"longrecord: long rows {fam}: {n} fused_picks launches, "
+                 f"{fused_picks.long_launches} of them the long-row form; want every one")
+        e, rows = _rank_kernel_check(calls, f"longrecord: long rows {fam}")
+        err = max(err, e)
+        del calls
+        if r.n_samples != ns:
+            fail(f"longrecord: long rows {fam}: a record of {r.n_samples} samples, want {ns}")
+        if fam == "mf":
+            misses = _check_calls(scene, r.picks)
+            if misses:
+                fail(f"longrecord: long rows mf: injected calls missed {misses}")
+        else:
+            for ch, on in ((ch_s, onset), (ch_l, on_l)):
+                if not _picked_near(r.picks["HF"], ch, on + 68, 1.5 * scene.fs):
+                    fail(f"longrecord: long rows gabor: the call straddling a boundary "
+                         f"(channel {ch}, onset {on}) was not picked")
+        runs[fam] = dict(wall=wall, launches=n, rows=rows,
+                         peak=torch.cuda.max_memory_allocated(),
+                         picks={k: int(p.shape[1]) for k, p in r.picks.items()})
+        torch.cuda.empty_cache()
+    text = (f"long rows ({LONG_ROW_FILES} consecutive {nx}x{nfile} files, rows of {ns} "
+            f"samples; waited {t_wait:.1f} s for their host jobs): "
+            + "; ".join(f"{'mf on a mesh of one' if fam == 'mf' else 'gabor'} {v['wall']:.2f} s, "
+                        f"{v['launches']} fused_picks launches, every one the long-row form, "
+                        f"rows {v['rows']} first and last bitwise plain, peak "
+                        f"{v['peak'] / 2**30:.2f} GiB, picks {json.dumps(v['picks'])}"
+                        for fam, v in runs.items())
+            + ", every injected call picked (mf), the boundary calls picked (gabor)")
+    return {"runs": runs, "err": err, "say": text}
 
 
 def phase_longrecord_cpu_vs_card():
@@ -7074,8 +7406,11 @@ MESH_RANKS = 2
 #: that dies fails its peer within it
 MESH_GROUP_TIMEOUT_S = 90.0
 #: the launcher's wait for a pool of ranks, the kill after it
-MESH_POOL_TIMEOUT_S = 420.0
+MESH_POOL_TIMEOUT_S = 600.0
+#: the phase's budget less its family items (6-11) and their checks, which
+#: have their own (the ranks run items 6-10 after items 1-4; 11 is a pool apart)
 MESH_BUDGET_S = 120.0
+MESH_FAMILY_BUDGET_S = 100.0
 MESH_CPU_BUDGET_S = 40.0
 #: the mesh phase's relative bound on trf_fk against filter_block's (one
 #: card, two FFT groupings), and the card-vs-CPU phase's
@@ -7088,6 +7423,26 @@ MESH_CLI_CHANNELS = 2048
 #: around the straddling call (a cut for the phase's budget: the full-width
 #: record takes the fused route)
 MESH_HALO_CHANNELS = 2048
+#: the spectro long record over the mesh runs on this many channels around
+#: the straddling call (a cut for the phase's budget: its time-split step
+#: frames every band row of a channel before the relabel, through gloo)
+MESH_SPECTRO_CHANNELS = 4096
+#: the Gabor long record over the mesh runs on the record's first rows: at
+#: P = 2 the canonical 22050 rows fail the binning grain (11025 x 0.1)
+MESH_GABOR_CHANNELS = 22000
+#: the channel-sharded spectro step's tile (its default): one STFT launch a
+#: tile of a rank's channels
+MESH_SPECTRO_TILE = 256
+#: rows of the pick kernel's plain version a pass when a rank holds a
+#: launch against it
+PICK_CHECK_ROWS = 8192
+#: the elastic drill's probe deadline (the campaign's own is 30 s,
+#: ``workflows.campaign._DEVICE_PROBE_DEADLINE_S``) and its pool's
+#: collective timeout: the survivor's check-in waits their sum, since the
+#: drill's victim never checks in (and a peer of a rank that failed alone
+#: would reach the check-in only after its collective's timeout)
+MESH_ELASTIC_DEADLINE_S = 5.0
+MESH_ELASTIC_GROUP_TIMEOUT_S = 45.0
 #: a rank waits this long for the phase's inputs (the ranks start while
 #: the smoke writes them)
 MESH_READY_TIMEOUT_S = 300.0
@@ -7098,7 +7453,7 @@ _LONG_REF: dict = {}
 _RANK_DET: dict = {}
 
 
-def _rank_kernel_check(calls: dict) -> tuple:
+def _rank_kernel_check(calls: dict, where: str = "mesh: rank kernel check") -> tuple:
     """This rank's first and last pick launch held against the plain
     version on their own inputs, at the launch's own K and method: all
     five outputs bitwise. Returns ``(max_abs_err, [rows first, rows
@@ -7111,10 +7466,16 @@ def _rank_kernel_check(calls: dict) -> tuple:
     err, rows = 0.0, []
     for which in ("first", "last"):
         (X, thr, K, method, *rest), kw = calls[which]
-        k_out = fused_picks.picks_cuda(X, thr, K, method, *rest, **kw)
-        p_out = fused_picks.picks_plain(X, thr, K, method)
-        torch.cuda.synchronize()
-        err = max(err, _compare(k_out, p_out, f"mesh: rank kernel check ({which} launch)"))
+        # in row blocks (each row is its own CTA, so a block's rows are the
+        # launch's bit for bit): a long record's launch of 22000 x 24000
+        # would take its plain version's tables at once
+        for lo in range(0, X.shape[0], PICK_CHECK_ROWS):
+            blk = slice(lo, lo + PICK_CHECK_ROWS)
+            k_out = fused_picks.picks_cuda(X[blk], thr[blk], K, method, *rest, **kw)
+            p_out = fused_picks.picks_plain(X[blk], thr[blk], K, method)
+            torch.cuda.synchronize()
+            err = max(err, _compare(k_out, p_out, f"{where} ({which} launch)"))
+            del k_out, p_out
         rows.append(int(X.shape[0]))
     return err, rows
 
@@ -7317,6 +7678,7 @@ def _rank_item_long(spec, rank):
     the conditioned wire, then the halo bandpass on the raw wire."""
     from das4whales_tpu_torch.ops import fused_picks
     from das4whales_tpu_torch.parallel import collectives as coll
+    from das4whales_tpu_torch.parallel import timeshard
     from das4whales_tpu_torch.parallel.mesh import make_mesh
     from das4whales_tpu_torch.utils.checkpoint import load_design
     from das4whales_tpu_torch.workflows.longrecord import detect_long_record
@@ -7336,16 +7698,193 @@ def _rank_item_long(spec, rank):
         coll.reset_stats()
         fused_picks.launches = 0
         timer = StageTimer() if spec["device"].startswith("cuda") else None
+        with _capture(fused_picks, "picks_cuda") as calls:
+            t0 = time.perf_counter()
+            res = detect_long_record(spec["long_files"], interrogator="silixa", mesh=mesh,
+                                     stage_hook=timer, **kw)
+            _rank_sync(spec)
+            wall = time.perf_counter() - t0
+        out[name] = dict(picks=res.picks, thresholds=res.thresholds, n_samples=res.n_samples,
+                         wall=wall, stages=timer.walls() if timer is not None else {},
+                         stats=coll.read_stats(), peak=_rank_peak(spec),
+                         launches=fused_picks.launches, t0=str(res.t0_utc),
+                         route=timeshard.pick_route(res.n_samples, 512, "topk", mesh.device))
+        if calls["n"]:
+            out[name]["kernel_err"], out[name]["kernel_rows"] = _rank_kernel_check(calls)
+        del calls
+    return out
+
+
+def _rank_filtered(spec, wire: str, block, dev):
+    """The canonical design's prefilter (``filter_block``) of a host block
+    on ``dev``: the input the spectro and Gabor families take."""
+    import torch
+
+    from das4whales_tpu_torch.models.matched_filter import MatchedFilterDetector
+    from das4whales_tpu_torch.utils.checkpoint import load_design
+
+    det = MatchedFilterDetector.from_design(load_design(spec["design"]), spec["metadata"],
+                                            wire=wire, device=dev)
+    return det.filter_block(torch.from_numpy(np.array(block)).to(dev))
+
+
+def _rank_gather_picks(mesh, picks: dict, names) -> dict:
+    """Every rank's ``{name: (2, n)}`` picks (channel offsets applied),
+    joined in mesh rank order."""
+    from das4whales_tpu_torch.parallel import collectives as coll
+
+    parts = coll.all_gather_object(picks, mesh)
+    return {name: np.concatenate([p[name] for p in parts], axis=1) for name in names}
+
+
+def _rank_item_spectro(spec, rank):
+    """Item 6: ``make_sharded_spectro_step`` at (file=1, channel=2) on the
+    prefiltered canonical block, this rank's ``fused_stft`` launches
+    counted and its first and last held against the plain version."""
+    import torch
+
+    from das4whales_tpu_torch.ops import fused_stft
+    from das4whales_tpu_torch.parallel.mesh import make_mesh
+    from das4whales_tpu_torch.parallel.pipeline import input_sharding
+    from das4whales_tpu_torch.parallel.spectro import make_sharded_spectro_step
+
+    dev = spec["device"]
+    mesh = make_mesh((1, MESH_RANKS), ("file", "channel"), devices=[dev] * MESH_RANKS,
+                     backend="gloo")
+    trf = _rank_filtered(spec, "raw", np.load(spec["raw"], mmap_mode="r"), dev)
+    x = input_sharding(mesh).place(trf[None]).clone()
+    del trf
+    step, names = make_sharded_spectro_step(spec["metadata"], mesh, outputs="picks",
+                                            channel_tile=MESH_SPECTRO_TILE)
+    step(x)                                  # warm-up: cuFFT plans, the kernel's load
+    _rank_reset(spec)
+    fused_stft.launches = 0                  # the main path's run starts here
+    with _capture(fused_stft, "stft_power_cuda") as calls:
+        t0 = time.perf_counter()
+        sp = step(x)
+        _rank_sync(spec)
+        wall = time.perf_counter() - t0
+    launches = fused_stft.launches
+    c_local = x.shape[1]
+    n_frames = 1 + x.shape[-1] // 8
+    out = dict(launches=launches, wall=wall, peak=_rank_peak(spec))
+    if x.is_cuda:
+        out["rows"] = [int(calls[w][0][0].shape[0]) for w in ("first", "last")]
+        out["err"], out["rel"], _ = _stft_at_main_path(
+            f"mesh: spectro rank {rank}", calls, (MESH_SPECTRO_TILE, x.shape[-1]))
+    del calls
+    local = _rank_picks(sp, n_frames, names, mesh.axis_index("channel") * c_local)[0]
+    out["picks"] = _rank_gather_picks(mesh, local, names)
+    del sp, x
+    _rank_reset(spec)
+    return out
+
+
+def _gabor_design(meta, nx: int):
+    from das4whales_tpu_torch.models.gabor import design_gabor
+
+    return design_gabor(meta, [0, nx, 1], threshold1=GABOR_THRESHOLDS[0],
+                        threshold2=GABOR_THRESHOLDS[1])
+
+
+def _rank_item_gabor(spec, rank):
+    """Item 7: ``make_sharded_gabor_step`` at (file=2) on two prefiltered
+    slab files, each rank reading and filtering only its own (its slot of
+    ``gabor_input_sharding``), one ``fused_picks`` launch a rank held
+    bitwise against the plain version."""
+    import torch
+
+    from das4whales_tpu_torch.io.stream import stream_strain_blocks
+    from das4whales_tpu_torch.ops import fused_picks
+    from das4whales_tpu_torch.parallel.gabor import make_sharded_gabor_step
+    from das4whales_tpu_torch.parallel.mesh import make_mesh
+
+    dev = spec["device"]
+    mesh = make_mesh((MESH_RANKS,), ("file",), devices=[dev] * MESH_RANKS, backend="gloo")
+    path = spec["camp_files"][mesh.axis_index("file")]
+    blk = next(stream_strain_blocks([path], spec["camp_sel"], interrogator="silixa",
+                                    as_numpy=True, engine="native"))
+    x = _rank_filtered(spec, "conditioned", blk.trace, dev)[None]
+    meta = blk.metadata
+    del blk
+    step, names = make_sharded_gabor_step(meta, spec["camp_sel"], mesh,
+                                          design=_gabor_design(meta, x.shape[1]))
+    step(x)                                  # warm-up
+    _rank_reset(spec)
+    fused_picks.launches = 0
+    with _capture(fused_picks, "picks_cuda") as calls:
+        t0 = time.perf_counter()
+        corr, sp, thres = step(x)
+        _rank_sync(spec)
+        wall = time.perf_counter() - t0
+    del corr
+    launches = fused_picks.launches
+    out = dict(path=path, launches=launches, wall=wall, peak=_rank_peak(spec),
+               thres=float(thres[0]), picks=_rank_picks(sp, x.shape[-1], names, 0)[0])
+    if x.is_cuda:
+        out["kernel_err"], out["kernel_rows"] = _rank_kernel_check(calls)
+    del calls, sp, x
+    _rank_reset(spec)
+    return out
+
+
+def _rank_long_family(spec, mesh, **kw) -> dict:
+    """One long record over ``mesh`` (the native reader), its picks, walls,
+    collectives and peak, and the pick kernel's launches held bitwise."""
+    from das4whales_tpu_torch.ops import fused_picks, fused_stft
+    from das4whales_tpu_torch.parallel import collectives as coll
+    from das4whales_tpu_torch.workflows.longrecord import detect_long_record
+
+    _rank_reset(spec)
+    coll.reset_stats()
+    fused_picks.launches = fused_stft.launches = 0
+    timer = StageTimer() if spec["device"].startswith("cuda") else None
+    with _capture(fused_picks, "picks_cuda") as calls:
         t0 = time.perf_counter()
         res = detect_long_record(spec["long_files"], interrogator="silixa", mesh=mesh,
-                                 stage_hook=timer, **kw)
+                                 engine="native", stage_hook=timer, **kw)
         _rank_sync(spec)
-        out[name] = dict(picks=res.picks, thresholds=res.thresholds, n_samples=res.n_samples,
-                         wall=time.perf_counter() - t0,
-                         stages=timer.walls() if timer is not None else {},
-                         stats=coll.read_stats(), peak=_rank_peak(spec),
-                         launches=fused_picks.launches, t0=str(res.t0_utc))
+        wall = time.perf_counter() - t0
+    out = dict(picks=res.picks, thresholds=res.thresholds, n_samples=res.n_samples, wall=wall,
+               stages=timer.walls() if timer is not None else {}, stats=coll.read_stats(),
+               peak=_rank_peak(spec), launches=fused_picks.launches,
+               stft_launches=fused_stft.launches)
+    if calls["n"]:
+        out["kernel_err"], out["kernel_rows"] = _rank_kernel_check(calls)
     return out
+
+
+def _rank_time_mesh(spec):
+    from das4whales_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh((MESH_RANKS,), ("time",), devices=[spec["device"]] * MESH_RANKS,
+                     backend="gloo")
+
+
+def _rank_item_learned_long(spec, rank):
+    """Item 8: the learned long record over the mesh at full width: the
+    record channel-sharded over (channel=2) (``make_sharded_inference``)."""
+    from das4whales_tpu_torch.models import learned as lmod
+
+    model, cfg = lmod.load_pretrained()
+    return _rank_long_family(spec, _rank_time_mesh(spec), selected_channels=spec["long_sel"],
+                             family="learned", family_kwargs={"params": model, "cfg": cfg})
+
+
+def _rank_item_spectro_long(spec, rank):
+    """Item 9: the spectro long record over (time=2) on the channel cut."""
+    from das4whales_tpu_torch.utils.checkpoint import load_design
+
+    return _rank_long_family(spec, _rank_time_mesh(spec), selected_channels=spec["spectro_sel"],
+                             family="spectro", design=load_design(spec["spectro_design"]))
+
+
+def _rank_item_gabor_long(spec, rank):
+    """Item 10: the Gabor long record over (time=2) on the first rows."""
+    from das4whales_tpu_torch.utils.checkpoint import load_design
+
+    return _rank_long_family(spec, _rank_time_mesh(spec), selected_channels=spec["gabor_sel"],
+                             family="gabor", design=load_design(spec["gabor_design"]))
 
 
 def _rank_item_campaign(spec, rank):
@@ -7389,8 +7928,48 @@ def _rank_item_campaign(spec, rank):
     return out
 
 
+def _rank_item_elastic(spec, rank):
+    """Item 11, the elastic drill (a pool of its own): ``run_campaign_sharded
+    (elastic=True)`` at (file=1, channel=2) over the slab files at
+    ``MESH_CLI_CHANNELS`` channels, batches of two; rank 1 dies
+    (``os._exit``) as its second batch starts, and rank 0 carries on. The
+    survivor check-in waits ``MESH_ELASTIC_GROUP_TIMEOUT_S +
+    MESH_ELASTIC_DEADLINE_S`` for the dead rank."""
+    from das4whales_tpu_torch.parallel.mesh import make_mesh
+    from das4whales_tpu_torch.utils import artifacts
+    from das4whales_tpu_torch.workflows import campaign as cmod
+
+    mesh = make_mesh((1, MESH_RANKS), ("file", "channel"), devices=[spec["device"]] * MESH_RANKS,
+                     backend="gloo")
+    cmod._DEVICE_PROBE_DEADLINE_S = MESH_ELASTIC_DEADLINE_S
+    orig, batches = cmod._run_adaptive, {"n": 0}
+
+    def victim(*a, **k):
+        batches["n"] += 1
+        if batches["n"] == 2 and rank == 1:
+            say("mesh rank 1: the elastic drill's victim exits")
+            os._exit(3)
+        return orig(*a, **k)
+
+    cmod._run_adaptive = victim
+    t0 = time.perf_counter()
+    res = cmod.run_campaign_sharded(spec["camp_files"], [0, MESH_CLI_CHANNELS, 1],
+                                    spec["elastic_out"], mesh, interrogator="silixa",
+                                    engine="native", batch=2)
+    _rank_sync(spec)
+    return dict(records=[(r.path, r.status, r.rung, r.picks_file) for r in res.records],
+                wall=time.perf_counter() - t0, batches=batches["n"],
+                events=[e for e in artifacts.read_records(cmod._manifest_path(spec["elastic_out"]))
+                        if "event" in e and "path" not in e])
+
+
 MESH_ITEMS = {"step": _rank_item_step, "nccl": _rank_item_nccl, "long": _rank_item_long,
-              "campaign": _rank_item_campaign}
+              "campaign": _rank_item_campaign, "spectro": _rank_item_spectro,
+              "gabor": _rank_item_gabor, "learned_long": _rank_item_learned_long,
+              "spectro_long": _rank_item_spectro_long, "gabor_long": _rank_item_gabor_long,
+              "elastic": _rank_item_elastic}
+#: the family items (ROADMAP 14b), budgeted apart from items 1-5
+MESH_FAMILY_ITEMS = ("spectro", "gabor", "learned_long", "spectro_long", "gabor_long")
 
 
 def mesh_rank_main(spec_path: str, rank: int) -> int:
@@ -7411,7 +7990,7 @@ def mesh_rank_main(spec_path: str, rank: int) -> int:
         fail(f"mesh rank {rank}: no CUDA device; a rank never carries on on the CPU")
     torch.set_num_threads(spec.get("threads", 2))
     distributed.initialize(spec["init"], spec["world"], rank, backend="gloo",
-                           timeout_s=MESH_GROUP_TIMEOUT_S)
+                           timeout_s=spec.get("group_timeout_s", MESH_GROUP_TIMEOUT_S))
     coll.timing(spec["device"].startswith("cuda"))
     ready = spec.get("ready")
     t0 = time.perf_counter()
@@ -7425,11 +8004,16 @@ def mesh_rank_main(spec_path: str, rank: int) -> int:
         out[item] = MESH_ITEMS[item](spec, rank)
         out[item]["item_s"] = time.perf_counter() - t0
         say(f"mesh rank {rank}: {item} done in {out[item]['item_s']:.1f} s")
+        if spec["device"].startswith("cuda"):
+            # the pools and the main process's references share one card: a
+            # rank's cache between items is memory its peers may need
+            torch.cuda.empty_cache()
     with open(os.path.join(os.path.dirname(spec_path), f"rank{rank}.pkl"), "wb") as fh:
         pickle.dump(out, fh)
     import torch.distributed as dist
 
-    dist.destroy_process_group()
+    if dist.is_initialized():    # the elastic drill's survivor ends on a mesh of one
+        dist.destroy_process_group()
     return 0
 
 
@@ -7462,11 +8046,12 @@ def _root_dir():
     return Path(__file__).resolve().parent
 
 
-def _mesh_wait(pool) -> list:
-    """Wait for a pool's ranks; a rank that exits non-zero (or outlives
-    :data:`MESH_POOL_TIMEOUT_S`) fails the phase, naming the rank and its
+def _mesh_wait(pool, expect_rc: dict | None = None) -> list:
+    """Wait for a pool's ranks; a rank that exits otherwise than
+    ``expect_rc`` says (0 by default), or outlives
+    :data:`MESH_POOL_TIMEOUT_S`, fails the phase, naming the rank and its
     log. Every rank is stopped on the way out. Returns each rank's
-    results."""
+    results (``{}`` for a rank expected to die)."""
     import pickle
 
     procs, logs, spec_path, tag = pool
@@ -7487,7 +8072,7 @@ def _mesh_wait(pool) -> list:
             log.close()
     d = os.path.dirname(spec_path)
     for r, rc in enumerate(rcs):
-        if rc != 0:
+        if rc != (expect_rc or {}).get(r, 0):
             path = os.path.join(d, f"rank{r}.log")
             with open(path) as fh:
                 tail = fh.read()[-4000:]
@@ -7495,6 +8080,9 @@ def _mesh_wait(pool) -> list:
                  f"; its log {path}:\n{tail}")
     out = []
     for r in range(len(procs)):
+        if r in (expect_rc or {}):
+            out.append({})
+            continue
         with open(os.path.join(d, f"rank{r}.pkl"), "rb") as fh:
             out.append(pickle.load(fh))
     return out
@@ -7549,6 +8137,7 @@ def _mesh_references(out: dict, design, raw, scene, camp_files) -> None:
         x = torch.as_tensor(raw).to("cuda")
         out.update(ref=det.detect_picks(x), env=envelopes(det, x))
         del x
+        torch.cuda.empty_cache()     # the ranks share the card
         det_c = MatchedFilterDetector.from_design(design, scene.metadata, wire="conditioned")
         out["camp"] = {}
         for blk in stream_strain_blocks(camp_files, [0, CANONICAL[0], 1], interrogator="silixa",
@@ -7558,7 +8147,9 @@ def _mesh_references(out: dict, design, raw, scene, camp_files) -> None:
             one = det_c.detect_picks(xb)
             out["camp"][path] = (one.picks, one.thresholds, envelopes(det_c, xb))
             del xb
+        torch.cuda.empty_cache()
         out["long_env"] = _LONG_REF["env_fn"]()
+        torch.cuda.empty_cache()
         # item 5's selection, conditioned as the command reads it (its
         # default reader, the format one)
         sel = [0, MESH_CLI_CHANNELS, 1]
@@ -7569,11 +8160,91 @@ def _mesh_references(out: dict, design, raw, scene, camp_files) -> None:
         xc = torch.as_tensor(blk.trace).to("cuda")
         one = dcli.detect_picks(xc)
         out.update(cli_one=(one.picks, one.thresholds), cli_env=envelopes(dcli, xc))
+        del xc
+        # item 11's references: each slab file at those channels, the native
+        # reader as the drill's ranks read it
+        out["elastic"] = {}
+        for k, blk in enumerate(stream_strain_blocks(camp_files, sel, interrogator="silixa",
+                                                     as_numpy=True, engine="native")):
+            xb = torch.as_tensor(blk.trace).to("cuda")
+            one = dcli.detect_picks(xb)
+            out["elastic"][camp_files[k]] = (one.picks, one.thresholds, envelopes(dcli, xb))
+            del xb
+        del dcli
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
+        _family_references(out, det, det_c, raw, scene, camp_files)
     except Exception as exc:  # noqa: BLE001 — re-raised by phase_mesh after the pool
         out["error"] = f"{type(exc).__name__}: {exc}"
     out["seconds"] = time.perf_counter() - t0
+
+
+def _family_references(out: dict, det, det_c, raw, scene, camp_files) -> None:
+    """The one-card references of the family items (6-10), beside the
+    ranks: the ``SpectroCorrDetector`` on the prefiltered canonical block
+    (its correlograms kept for the margin), ``GaborDetector`` on each of
+    the two prefiltered slab files, the learned record's rFFT-feature
+    scores on one card (``make_sharded_inference`` on a mesh of one), and
+    the spectro and Gabor long records on a mesh of one on the card with
+    their margins (``detect_long_record(keep_envelopes=True)``). The Gabor
+    files' margins are closures, run only where picks differ."""
+    import torch
+
+    from das4whales_tpu_torch.io.stream import stream_strain_blocks
+    from das4whales_tpu_torch.models import learned as lmod
+    from das4whales_tpu_torch.models.gabor import GaborDetector
+    from das4whales_tpu_torch.models.spectro import SpectroCorrDetector
+    from das4whales_tpu_torch.ops import spectral
+    from das4whales_tpu_torch.parallel.mesh import make_mesh
+    from das4whales_tpu_torch.workflows.longrecord import detect_long_record
+
+    meta, nx = scene.metadata, CANONICAL[0]
+    x = torch.as_tensor(raw).to("cuda")
+    corr, picks, _ = SpectroCorrDetector(meta)(det.filter_block(x))
+    out["spectro"] = (picks, {k: v.cpu().numpy() for k, v in corr.items()})
+    del x, corr
+    out["gabor"] = {}
+    for blk in stream_strain_blocks(camp_files[:MESH_RANKS], [0, nx, 1], interrogator="silixa",
+                                    as_numpy=True, engine="native"):
+        path = camp_files[len(out["gabor"])]
+        gdet = GaborDetector(blk.metadata, [0, nx, 1], design=_gabor_design(blk.metadata, nx))
+
+        def env_fn(trace=blk.trace, gdet=gdet):
+            g = gdet(det_c.filter_block(torch.as_tensor(trace).to("cuda")))
+            return np.stack([spectral.envelope_sqrt(c).cpu().numpy()
+                             for c in g["correlograms"].values()])
+
+        g = gdet(det_c.filter_block(torch.as_tensor(blk.trace).to("cuda")))
+        out["gabor"][path] = (g["picks"], g["thresholds"], env_fn)
+        del g
+    torch.cuda.empty_cache()
+    lr = _LONG_REF
+    blocks = list(stream_strain_blocks(lr["paths"], [0, nx, 1], interrogator="silixa",
+                                       as_numpy=True, engine="native"))
+    record = np.concatenate([b.trace for b in blocks], axis=-1)
+    del blocks
+    model, cfg = lmod.load_pretrained()
+    score_fn, _ = lmod.make_sharded_inference(
+        model, cfg, make_mesh(shape=(1,), axis_names=("channel",), devices=["cuda:0"]))
+    # in channel blocks (scores are per channel): the rFFT features of the
+    # whole record would take tens of GB beside the ranks
+    scores = np.concatenate([score_fn(torch.from_numpy(record[i:i + 4096]).to("cuda"))
+                             .cpu().numpy() for i in range(0, record.shape[0], 4096)])
+    ldet = lmod.LearnedDetector(model, cfg, device="cpu")
+    pk = ldet.picks_from_scores(scores).picks[ldet.name]
+    out["learned_long"] = (pk[:, pk[1] < record.shape[-1]], scores,
+                           lmod.window_centers(scores.shape[1], cfg))
+    torch.cuda.empty_cache()
+    for fam, sel_key, design_key in (("spectro", "spectro_sel", "spectro_design"),
+                                     ("gabor", "gabor_sel", "gabor_design")):
+        sel, design = lr[sel_key], lr[design_key]
+        # the margin from the same run, beside the ranks, rather than after the pool
+        res = detect_long_record(lr["paths"], sel, interrogator="silixa", family=fam,
+                                 design=design, engine="native", keep_envelopes=True)
+        margin = (list(res.thresholds), res.envelopes, res.pos_scale, res.thresholds)
+        out[f"{fam}_long"] = (res.picks, res.thresholds, lambda m=margin: m)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
 
 
 def _done_picks(outdir: str) -> tuple:
@@ -7601,6 +8272,8 @@ def phase_mesh(scene=None, raw=None, design=None):
     import threading
     from pathlib import Path
 
+    import torch
+
     from das4whales_tpu_torch import fsck
     from das4whales_tpu_torch.utils.checkpoint import save_design
     from das4whales_tpu_torch.workflows import campaign as cmod
@@ -7624,24 +8297,35 @@ def phase_mesh(scene=None, raw=None, design=None):
         ch_s = _LONG_REF["ch_s"]
         h0 = ch_s - MESH_HALO_CHANNELS // 2
         spec = dict(world=MESH_RANKS, device="cuda:0", threads=3,
-                    items=["step", "nccl", "long", "campaign"], design=str(d / "design.npz"),
+                    items=["step", "nccl", "long", "campaign", *MESH_FAMILY_ITEMS],
+                    design=str(d / "design.npz"),
                     raw=str(d / "raw.npy"), scale_factor=scene.metadata.scale_factor,
                     metadata=scene.metadata, against_filter_block=True,
-                    long_design=str(d / "long_design.npz"),
-                    halo_design=str(d / "halo_design.npz"), long_files=_LONG_REF["paths"],
+                    long_design=_LONG_REF["design_paths"]["long"],
+                    halo_design=_LONG_REF["design_paths"]["halo"], long_files=_LONG_REF["paths"],
                     long_sel=[0, nx, 1], halo_sel=[h0, h0 + MESH_HALO_CHANNELS, 1],
                     camp_files=camp_files, camp_sel=[0, nx, 1], camp_out=str(d / "camp"),
+                    spectro_design=_LONG_REF["design_paths"]["spectro"],
+                    gabor_design=_LONG_REF["design_paths"]["gabor"],
+                    spectro_sel=_LONG_REF["spectro_sel"], gabor_sel=_LONG_REF["gabor_sel"],
                     ready=str(d / "ready"))
-        # the ranks start (import, group, meshes) while their inputs are written
+        # the ranks start (import, group, meshes) while their inputs are
+        # written; this process's cache goes back to the card they share
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
         t0 = time.perf_counter()
         pool = _mesh_pool(d / "pool", spec, "mesh")
+        # item 11, the elastic drill: a pool of its own beside the main one
+        epool = _mesh_pool(d / "elastic_pool", dict(
+            world=MESH_RANKS, device="cuda:0", threads=1, items=["elastic"],
+            group_timeout_s=MESH_ELASTIC_GROUP_TIMEOUT_S,
+            camp_files=camp_files, elastic_out=str(d / "elastic")), "mesh (elastic drill)")
         cli = {}
         th = threading.Thread(target=_cli_sharded, args=(d, camp_files[0], cli), daemon=True)
         th.start()
+        t_designs = _long_designs()
         np.save(d / "raw.npy", raw)
         save_design(spec["design"], design)
-        save_design(spec["long_design"], _LONG_REF["design"])
-        save_design(spec["halo_design"], _LONG_REF["halo_design"])
         (d / "ready").touch()
         t_prep = time.perf_counter() - t0
         # the one-card references, computed on the card beside the ranks
@@ -7739,11 +8423,17 @@ def phase_mesh(scene=None, raw=None, design=None):
         # item 3: the time-split long record
         lg = [rk["long"] for rk in ranks]
         lref = _LONG_REF
+        long_tiles = {"fused": -(-(nx // MESH_RANKS) // 512),
+                      "halo": -(-(MESH_HALO_CHANNELS // MESH_RANKS) // 512)}
         for r in range(MESH_RANKS):
             for name in ("fused", "halo"):
-                if lg[r][name]["launches"]:
-                    fail(f"mesh: long record ({name}) rank {r} launched fused_picks "
-                         f"{lg[r][name]['launches']} times; its picker is the plain tiled one")
+                got = lg[r][name]
+                if got["route"] != "fused_picks" or got["launches"] != long_tiles[name]:
+                    fail(f"mesh: long record ({name}) rank {r}: picker route {got['route']!r}, "
+                         f"{got['launches']} fused_picks launches, expected {long_tiles[name]} "
+                         "(one a 512-row tile of its channels)")
+                err = max(err, got["kernel_err"])
+                launches[f"mesh_long_{name}_rank{r}"] = got["launches"]
                 for pn in lg[0][name]["picks"]:
                     if not np.array_equal(lg[r][name]["picks"][pn], lg[0][name]["picks"][pn]):
                         fail(f"mesh: long record ({name}) rank {r}'s picks differ from rank 0's")
@@ -7766,11 +8456,16 @@ def phase_mesh(scene=None, raw=None, design=None):
             f"bandpass, conditioned wire {fused['wall']:.2f} s (stages "
             f"{json.dumps({k: round(v, 1) for k, v in fused['stages'].items()})} ms), picks "
             f"against the one-card record's: "
-            f"{'equal' if n_long == 0 else f'{n_long} apart on knife edges'}, thresholds "
+            f"{'equal' if n_long == 0 else f'{n_long} apart on knife edges'} (the one-card "
+            f"record picks with the plain tiled picker), thresholds "
             f"rtol {MESH_THR_RTOL}; halo bandpass, raw wire, on the {MESH_HALO_CHANNELS} "
             f"channels around the straddling call (the native reader) {halo['wall']:.2f} s, "
             f"{sum(p.shape[1] for p in halo['picks'].values())} picks; the straddling call "
-            f"picked by both; no fused_picks launch; collectives rank 0 fused: "
+            f"picked by both; the picks through fused_picks (route "
+            f"{fused['route']!r}): launches a rank fused {[x['fused']['launches'] for x in lg]}"
+            f", halo {[x['halo']['launches'] for x in lg]}, each rank's first and last launch "
+            f"({fused['kernel_rows']} and {halo['kernel_rows']} rows x {lref['n_samples']}) "
+            f"bitwise plain; collectives rank 0 fused: "
             f"{_stats_text(fused['stats'])}; halo: {_stats_text(halo['stats'])}; peak a rank "
             f"{[round(max(x['fused']['peak'], x['halo']['peak']) / 2**30, 2) for x in lg]} GiB")
         # item 4: the sharded campaign
@@ -7839,21 +8534,244 @@ def phase_mesh(scene=None, raw=None, design=None):
             f"one-device detector's (`detect_picks`, the same design) at that selection: "
             f"{'bitwise' if n_cli == 0 else f'{n_cli} apart on knife edges'}, "
             f"{sum(p.shape[1] for p in ps.values())} picks")
+        t1 = time.perf_counter()
+        stft_launches, stft_err = _mesh_family_checks(ranks, refs, launches, nx, ns)
+        err = max(err, stft_launches.pop("_picks_err"))
+        t_fam_checks = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        _mesh_elastic_checks(_mesh_wait(epool, expect_rc={1: 3}), refs, str(d / "elastic"))
+        t_elastic_wait = time.perf_counter() - t1
         t_checks = time.perf_counter() - t_checks0
     finally:
         t1 = time.perf_counter()
         shutil.rmtree(d, ignore_errors=True)
         t_rm = time.perf_counter() - t1
     wall = time.perf_counter() - t_phase
-    say(f"mesh: the block and three design checkpoints written in {t_prep:.1f} s while "
-        f"the ranks started, the pool of {MESH_RANKS} ranks {t_pool:.1f} s (the one-card "
+    # the family items' seconds (the slower rank's: the ranks run in lockstep)
+    # with their checks and the elastic drill's wait after the pool
+    fam_s = (max(sum(rk[item]["item_s"] for item in MESH_FAMILY_ITEMS) for rk in ranks)
+             + t_fam_checks + t_elastic_wait)
+    say(f"mesh: the block and the canonical design's checkpoint written in {t_prep:.1f} s "
+        f"while the ranks started (of which {t_designs:.1f} s waiting for the record designs' "
+        f"host jobs, whose checkpoints the ranks load), the pool of {MESH_RANKS} ranks {t_pool:.1f} s (the one-card "
         f"references beside it, {refs.get('seconds', 0.0):.1f} s; waited for after the pool "
-        f"{t_refs_wait:.1f} s, the command line {t_cli_wait:.1f} s; the checks "
-        f"{t_checks:.1f} s, the clean-up {t_rm:.1f} s); phase {wall:.1f} s "
-        f"(budget {MESH_BUDGET_S:.0f} s)")
-    if wall > MESH_BUDGET_S:
-        fail(f"mesh: the phase took {wall:.1f} s, over its {MESH_BUDGET_S:.0f} s budget")
-    return launches, err
+        f"{t_refs_wait:.1f} s, the command line {t_cli_wait:.1f} s, the elastic drill "
+        f"{t_elastic_wait:.1f} s; the checks "
+        f"{t_checks:.1f} s, of which the families' {t_fam_checks:.1f} s, the clean-up "
+        f"{t_rm:.1f} s); phase {wall:.1f} s, of which the family items 6-11 with their "
+        f"checks {fam_s:.1f} s (budgets {MESH_BUDGET_S:.0f} s without them, "
+        f"{MESH_FAMILY_BUDGET_S:.0f} s for them)")
+    if wall - fam_s > MESH_BUDGET_S:
+        fail(f"mesh: the phase less its family items took {wall - fam_s:.1f} s, over its "
+             f"{MESH_BUDGET_S:.0f} s budget")
+    if fam_s > MESH_FAMILY_BUDGET_S:
+        fail(f"mesh: the family items took {fam_s:.1f} s, over their "
+             f"{MESH_FAMILY_BUDGET_S:.0f} s budget")
+    return launches, err, stft_launches, stft_err
+
+
+def _mesh_elastic_checks(ranks, refs, outdir: str) -> None:
+    """Item 11: the survivor finished every file once at ``sharded`` after
+    exactly one ``mesh_downshift`` (2 -> 1), the outdir is ``fsck_outdir``
+    clean, and its picks equal ``detect_picks``' at the same channels up
+    to knife edges."""
+    from das4whales_tpu_torch import fsck
+    from das4whales_tpu_torch.utils import artifacts
+    from das4whales_tpu_torch.workflows import campaign as cmod
+
+    el = ranks[0]["elastic"]
+    recs = el["records"]
+    files = list(refs["elastic"])
+    if [(p, st, g) for p, st, g, _ in recs] != [(p, "done", "sharded") for p in files]:
+        fail(f"mesh: elastic drill: records {[(os.path.basename(p), st, g) for p, st, g, _ in recs]}")
+    lines = [r for r in artifacts.read_records(cmod._manifest_path(outdir)) if "path" in r]
+    if sorted(r["path"] for r in lines) != sorted(files):
+        fail(f"mesh: elastic drill: the manifest holds {len(lines)} file records for "
+             f"{len(files)} files")
+    downs = [e for e in el["events"] if e["event"] == "mesh_downshift"]
+    if len(downs) != 1 or (downs[0]["from_devices"], downs[0]["to_devices"]) != (2, 1):
+        fail(f"mesh: elastic drill: mesh_downshift events {downs}")
+    findings = fsck.fsck_outdir(outdir)
+    if findings:
+        fail(f"mesh: elastic drill: fsck found {fsck.render_findings(findings)}")
+    n = 0
+    for path, _s, _g, pf in recs:
+        one_picks, one_thr, env = refs["elastic"][path]
+        n += _same_picks(f"mesh: elastic drill {os.path.basename(path)} against detect_picks",
+                         one_picks, cmod.load_picks(pf), lambda e=env: e, one_thr)
+    say(f"mesh: item 11, the elastic drill: run_campaign_sharded(elastic=True) at (file=1, "
+        f"channel=2) over {len(files)} slab files at {MESH_CLI_CHANNELS} channels in batches "
+        f"of 2 (its own pool beside the main one), rank 1 exiting as its second batch "
+        f"starts: the survivor's check-in waited "
+        f"{MESH_ELASTIC_GROUP_TIMEOUT_S + MESH_ELASTIC_DEADLINE_S:.0f} s for it (the pool's "
+        f"collective timeout and the probe deadline), one "
+        f"mesh_downshift {downs[0]['from_devices']} -> {downs[0]['to_devices']} ("
+        f"{downs[0]['error'][:80]}...), the second batch rerun on a mesh of one, every file "
+        f"done once at 'sharded' in {el['wall']:.1f} s, fsck_outdir clean, picks against "
+        f"detect_picks at those channels: {'equal' if n == 0 else f'{n} apart on knife edges'}")
+
+
+def _record_knife(label, ref: dict, got: dict, margin_fn, scale: int = 1) -> int:
+    """:func:`_same_picks` for a family's long record: picks in samples,
+    compared at the positions its margin indexes (``t // scale``, the
+    spectro family's frames); ``margin_fn()`` gives ``(names, env, scale,
+    thresholds)`` (a ``detect_long_record(keep_envelopes=True)`` run's) and runs only
+    where the picks differ. Returns the count of differing picks."""
+    from das4whales_tpu_torch.utils.parity import unexplained_differences
+
+    div = np.array([[1], [scale]])
+    n, margin = 0, None
+    for name in ref:
+        a, b = ref[name] // div, got[name] // div
+        sa = {tuple(p) for p in a.T.tolist()}
+        sb = {tuple(p) for p in b.T.tolist()}
+        if sa == sb:
+            continue
+        if margin is None:
+            margin = margin_fn()
+        names, env, _, thr = margin
+        bad = unexplained_differences(a, b, env[list(names).index(name)], thr[name])
+        if bad:
+            fail(f"{label}: {name} picks differ beyond rounding at {bad[:10]}")
+        n += len(sa ^ sb)
+    return n
+
+
+def _mesh_family_checks(ranks, refs, launches: dict, nx: int, ns: int) -> tuple:
+    """Items 6-10 of the mesh phase (module docstring) against their
+    one-card references; adds the pick kernel's launches to ``launches``
+    and returns ``({path: fused_stft launches, "_picks_err": pick kernel
+    error}, fused_stft error)``."""
+    from das4whales_tpu_torch.utils.parity import unexplained_learned_differences
+
+    lref = _LONG_REF
+    picks_err = stft_err = 0.0
+    stft_launches = {}
+    # item 6: the channel-sharded spectro step
+    sp = [rk["spectro"] for rk in ranks]
+    c_local = nx // MESH_RANKS
+    n_tiles = -(-c_local // MESH_SPECTRO_TILE)
+    last_rows = c_local - (n_tiles - 1) * MESH_SPECTRO_TILE
+    for r, s in enumerate(sp):
+        if s["launches"] != n_tiles or s["rows"] != [MESH_SPECTRO_TILE, last_rows]:
+            fail(f"mesh: spectro rank {r}: {s['launches']} fused_stft launches of "
+                 f"{s['rows']} rows (first, last), expected {n_tiles} of "
+                 f"[{MESH_SPECTRO_TILE}, {last_rows}]")
+        stft_err = max(stft_err, s["err"])
+        stft_launches[f"mesh_spectro_rank{r}"] = s["launches"]
+        for name in s["picks"]:
+            if not np.array_equal(s["picks"][name], sp[0]["picks"][name]):
+                fail(f"mesh: spectro rank {r}'s gathered {name} picks differ from rank 0's")
+    s_picks, s_corr = refs["spectro"]
+    n_sp = _same_picks("mesh: sharded spectro step against SpectroCorrDetector", s_picks,
+                       sp[0]["picks"], lambda: np.stack([s_corr[n] for n in s_picks]),
+                       {n: 14.0 for n in s_picks})
+    say(f"mesh: item 6, make_sharded_spectro_step at (file=1, channel=2) on the prefiltered "
+        f"canonical block ({c_local} channels a rank, tiles of {MESH_SPECTRO_TILE}): walls "
+        f"{', '.join(f'{s['wall'] * 1e3:.1f}' for s in sp)} ms, fused_stft launches "
+        f"{[s['launches'] for s in sp]} (one a tile), each rank's first and last launch "
+        f"({sp[0]['rows']} rows) within {max(s['rel'] for s in sp):.2e} * max of plain "
+        f"(limit {STFT_REL_TOL}); picks against the one-card SpectroCorrDetector: "
+        f"{'equal' if n_sp == 0 else f'{n_sp} apart on knife edges'} "
+        f"({sum(p.shape[1] for p in sp[0]['picks'].values())}); peak a rank "
+        f"{[round(s['peak'] / 2**30, 2) for s in sp]} GiB")
+    # item 7: the file-sharded Gabor step
+    gb = [rk["gabor"] for rk in ranks]
+    n_gb = 0
+    for r, g in enumerate(gb):
+        if g["launches"] != 1 or g["kernel_rows"] != [2 * nx, 2 * nx]:
+            fail(f"mesh: gabor rank {r}: {g['launches']} fused_picks launches of "
+                 f"{g['kernel_rows']} rows, expected one of {2 * nx} (both notes)")
+        picks_err = max(picks_err, g["kernel_err"])
+        launches[f"mesh_gabor_rank{r}"] = g["launches"]
+        one_picks, one_thr, env_fn = refs["gabor"][g["path"]]
+        for name, t in one_thr.items():
+            got = g["thres"] * (0.9 if name == "HF" else 1.0)
+            if abs(got - t) > MESH_THR_RTOL * abs(t):
+                fail(f"mesh: gabor rank {r} {name} threshold {got} against GaborDetector's {t}")
+        n_gb += _same_picks(f"mesh: gabor rank {r} against GaborDetector", one_picks,
+                            g["picks"], env_fn, one_thr)
+    say(f"mesh: item 7, make_sharded_gabor_step at (file=2) on two prefiltered slab files "
+        f"(each rank reads and filters its own): walls "
+        f"{', '.join(f'{g['wall'] * 1e3:.1f}' for g in gb)} ms, one fused_picks launch a "
+        f"rank of {gb[0]['kernel_rows'][0]} x {ns}, bitwise plain; thresholds within rtol "
+        f"{MESH_THR_RTOL} and picks against GaborDetector's on the same file: "
+        f"{'equal' if n_gb == 0 else f'{n_gb} apart on knife edges'} "
+        f"({[sum(p.shape[1] for p in g['picks'].values()) for g in gb]}); peak a rank "
+        f"{[round(g['peak'] / 2**30, 2) for g in gb]} GiB")
+    # item 8: the learned long record over the mesh
+    ll = [rk["learned_long"] for rk in ranks]
+    one_pk, scores, centers = refs["learned_long"]
+    for r, x in enumerate(ll):
+        if x["launches"] or x["stft_launches"]:
+            fail(f"mesh: learned long record rank {r} launched {x['launches']} / "
+                 f"{x['stft_launches']}: its features are the rFFT engine's")
+        if not np.array_equal(x["picks"]["CALL"], ll[0]["picks"]["CALL"]):
+            fail(f"mesh: learned long record rank {r}'s picks differ from rank 0's")
+    bad = unexplained_learned_differences(one_pk, ll[0]["picks"]["CALL"], scores, centers,
+                                          0.5, LEARNED_CARD_ABS)
+    if bad:
+        fail(f"mesh: learned long record against one card: picks differ beyond knife edges "
+             f"at {bad[:10]}")
+    n_ll = len({tuple(p) for p in one_pk.T.tolist()}
+               ^ {tuple(p) for p in ll[0]['picks']['CALL'].T.tolist()})
+    if not _picked_near(ll[0]["picks"]["CALL"], lref["ch_s"], lref["onset"] + 68,
+                        1.5 * 200.0):
+        fail("mesh: learned long record: the straddling call was not picked")
+    say(f"mesh: item 8, the learned long record {nx}x{lref['n_samples']} over the mesh, "
+        f"channel-sharded at (channel=2) (make_sharded_inference, rFFT features): "
+        f"{ll[0]['wall']:.2f} s (stages "
+        f"{json.dumps({k: round(v, 1) for k, v in ll[0]['stages'].items()})} ms), no kernel "
+        f"launch, picks against the same scoring on one card: "
+        f"{'equal' if n_ll == 0 else f'{n_ll} apart on knife edges'} "
+        f"({ll[0]['picks']['CALL'].shape[1]}), the straddling call picked; collectives rank "
+        f"0: {_stats_text(ll[0]['stats'])}; peak a rank "
+        f"{[round(x['peak'] / 2**30, 2) for x in ll]} GiB")
+    # items 9 and 10: the spectro and Gabor long records over (time=2)
+    for item, fam, sel_key in ((9, "spectro", "spectro_sel"), (10, "gabor", "gabor_sel")):
+        fl = [rk[f"{fam}_long"] for rk in ranks]
+        one_picks, one_thr, margin_fn = refs[f"{fam}_long"]
+        sel = lref[sel_key]
+        rows = (sel[1] - sel[0]) // MESH_RANKS
+        for r, x in enumerate(fl):
+            for name in x["picks"]:
+                if not np.array_equal(x["picks"][name], fl[0]["picks"][name]):
+                    fail(f"mesh: {fam} long record rank {r}'s picks differ from rank 0's")
+            if fam == "gabor":
+                if x["launches"] != 1 or x["kernel_rows"] != [2 * rows, 2 * rows]:
+                    fail(f"mesh: gabor long record rank {r}: {x['launches']} fused_picks "
+                         f"launches of {x.get('kernel_rows')} rows, expected one of {2 * rows}")
+                picks_err = max(picks_err, x["kernel_err"])
+                launches[f"mesh_gabor_long_rank{r}"] = x["launches"]
+            elif x["launches"] or x["stft_launches"]:
+                fail(f"mesh: spectro long record rank {r} launched {x['launches']} / "
+                     f"{x['stft_launches']}: its frames are rFFT framing")
+        got = fl[0]
+        for name, t in one_thr.items():
+            if abs(got["thresholds"][name] - t) > MESH_THR_RTOL * abs(t):
+                fail(f"mesh: {fam} long record {name} threshold {got['thresholds'][name]} "
+                     f"against the mesh of one's {t}")
+        scale = 8 if fam == "spectro" else 1
+        n_fl = _record_knife(f"mesh: {fam} long record over (time=2) against a mesh of one",
+                             one_picks, got["picks"], margin_fn, scale)
+        if not _picked_near(got["picks"]["HF"], lref["ch_s"] - sel[0], lref["onset"] + 68,
+                            1.5 * 200.0):
+            fail(f"mesh: {fam} long record: the straddling call was not picked")
+        say(f"mesh: item {item}, the {fam} long record over (time=2) on channels "
+            f"[{sel[0]}, {sel[1]}) x {lref['n_samples']} (the halo bandpass, the pencil f-k "
+            f"on the cut's own mask, the time-split step): {got['wall']:.2f} s (stages "
+            f"{json.dumps({k: round(v, 1) for k, v in got['stages'].items()})} ms), picks "
+            f"against the same record on a mesh of one on the card: "
+            f"{'equal' if n_fl == 0 else f'{n_fl} apart on knife edges'} "
+            f"({json.dumps({k: int(v.shape[1]) for k, v in got['picks'].items()})}), "
+            f"thresholds rtol {MESH_THR_RTOL}, the straddling call picked"
+            + (f"; fused_picks launches a rank {[x['launches'] for x in fl]} of "
+               f"{got['kernel_rows'][0]} x {lref['n_samples']}, bitwise plain"
+               if fam == "gabor" else "; no kernel launch (rFFT framing, as JAX's)")
+            + f"; collectives rank 0: {_stats_text(got['stats'])}; peak a rank "
+            f"{[round(x['peak'] / 2**30, 2) for x in fl]} GiB")
+    stft_launches["_picks_err"] = picks_err
+    return stft_launches, stft_err
 
 
 def _mesh_alone(d, need_canonical: bool):
@@ -7877,32 +8795,42 @@ def _mesh_alone(d, need_canonical: bool):
         if not _LONG_REF:
             meta_l = SyntheticScene(nx=nx, ns=LONG_FILES * nfile).metadata
             jobs["long_files"] = pool.submit(_long_files_job, str(d), nx, nfile, SEED + 7)
-            jobs["long_design"] = pool.submit(_design_job, (nx, LONG_FILES * nfile), meta_l)
-            jobs["halo_design"] = pool.submit(
-                _design_job, (MESH_HALO_CHANNELS, LONG_FILES * nfile), meta_l)
+            for key, rows in (("long_design", nx), ("halo_design", MESH_HALO_CHANNELS),
+                              ("spectro_design", MESH_SPECTRO_CHANNELS),
+                              ("gabor_design", MESH_GABOR_CHANNELS)):
+                jobs[f"{key}_path"] = str(d / f"{key}.npz")
+                jobs[key] = pool.submit(_design_job, (rows, LONG_FILES * nfile), meta_l,
+                                        path=jobs[f"{key}_path"])
         if need_canonical:
             scene = _scene(nx, nfile, n_calls=6, seed=SEED)
             jobs["design"] = pool.submit(_design_job, (nx, nfile), scene.metadata)
             raw = to_raw_counts(synthesize_scene(scene), scene.metadata)
-            canonical = (scene, raw, jobs["design"].result()[1])
+            canonical = (scene, raw, _loaded(jobs["design"].result())[1])
         slab_files()
         if "long_files" in jobs:
             paths, scene_l, ch_s, onset, _ = jobs["long_files"].result()
-            design = jobs["long_design"].result()[1]
+            design = _loaded(jobs["long_design"].result())[1]
             r = detect_long_record(paths, [0, nx, 1], interrogator="silixa", design=design,
                                    engine="h5py")
             torch.cuda.synchronize()
             _keep_long_reference(paths, design, scene_l, ch_s, onset, r,
-                                 jobs["halo_design"].result()[1])
+                                 {k: jobs[f"{k}_design"] for k in ("halo", "spectro", "gabor")},
+                                 {k: jobs[f"{k}_design_path"]
+                                  for k in ("halo", "spectro", "gabor", "long")})
     finally:
         pool.shutdown(cancel_futures=True)
     return canonical
 
 
-def _keep_long_reference(paths, design, scene, ch_s, onset, res, halo_design) -> None:
+def _keep_long_reference(paths, design, scene, ch_s, onset, res, design_jobs,
+                         design_paths) -> None:
     """Keep the one-card long record (conditioned wire) for the mesh phase,
-    with the halo run's ``MESH_HALO_CHANNELS``-channel design: the files
-    stay until main removes their directory."""
+    with the futures of the halo run's ``MESH_HALO_CHANNELS``-channel
+    design and the family items' designs (``{"halo", "spectro", "gabor"}``;
+    :func:`_long_designs` resolves them), the checkpoints those jobs and
+    the record's design wrote (``design_paths``, the ranks load them) and
+    the family items' cuts: the files stay until main removes their
+    directory."""
     import torch
 
     from das4whales_tpu_torch.io.stream import stream_strain_blocks
@@ -7915,9 +8843,22 @@ def _keep_long_reference(paths, design, scene, ch_s, onset, res, halo_design) ->
         x = torch.as_tensor(np.concatenate([b.trace for b in blocks], axis=-1)).to("cuda")
         return _record_env(x, blocks, design, blocks[0].metadata).cpu().numpy()
 
+    s0 = ch_s - MESH_SPECTRO_CHANNELS // 2
     _LONG_REF.update(paths=list(paths), design=design, ch_s=ch_s, onset=onset,
                      picks=res.picks, thresholds=res.thresholds, n_samples=res.n_samples,
-                     env_fn=env_fn, halo_design=halo_design)
+                     env_fn=env_fn, design_jobs=design_jobs, design_paths=design_paths,
+                     spectro_sel=[s0, s0 + MESH_SPECTRO_CHANNELS, 1],
+                     gabor_sel=[0, MESH_GABOR_CHANNELS, 1])
+
+
+def _long_designs() -> float:
+    """Resolve the mesh phase's record designs into ``_LONG_REF``
+    (``halo_design``, ``spectro_design``, ``gabor_design``); returns the
+    seconds waited for their host jobs."""
+    t0 = time.perf_counter()
+    for k, fut in _LONG_REF.pop("design_jobs", {}).items():
+        _LONG_REF[f"{k}_design"] = _loaded(fut.result())[1]
+    return time.perf_counter() - t0
 
 
 def phase_mesh_cpu_vs_card():
@@ -8048,11 +8989,16 @@ def main(argv: list) -> int:
         fail(f"unknown arguments {argv}; run with none, or --only PHASE[,PHASE]")
     t_start = time.perf_counter()
     smi_line = phase_device()
-    phase_build()
-    kern, err = phase_kernels()
     pool = _host_pool()
     prep = None
     try:
+        # the detect phase's design, on one host core beside the build and
+        # the kernels phase (it took 35.6 s of the detect phase's set-up)
+        _EARLY["canonical_design"] = pool.submit(
+            _design_job, CANONICAL, _scene(*CANONICAL, n_calls=6, seed=SEED).metadata,
+            path=str(_build_tmp() / "canonical_design.npz"))
+        phase_build()
+        kern, err = phase_kernels()
         # the slab files and two designs are made on the host beside the
         # detect phase's set-up, the long record's files and design beside
         # the later phases
@@ -8084,8 +9030,10 @@ def main(argv: list) -> int:
         host_designs = dsp_host_designs(scene, pool)
         phase_dsp(scene, raw, design, host_designs)
         loc_launches, loc_err = phase_localize(design)
-        long_launches, long_err = phase_longrecord(prep, design)
-        mesh_launches, mesh_err = phase_mesh(scene, raw, design)
+        long_launches, long_err, long_picks_launches, long_picks_err = phase_longrecord(
+            prep, design)
+        mesh_launches, mesh_err, mesh_stft_launches, mesh_stft_err = phase_mesh(scene, raw,
+                                                                                design)
         mxu_out = phase_mxu(scene, raw, design)
         del scene, raw, design
         report_host_designs(host_designs)
@@ -8093,11 +9041,13 @@ def main(argv: list) -> int:
         remove_slab_files()
         raise
     finally:
+        import shutil
+
         pool.shutdown(cancel_futures=True)
         if prep is not None:
-            import shutil
-
             shutil.rmtree(prep["dir"], ignore_errors=True)
+        if "tmp" in _HOST_TMP:
+            shutil.rmtree(_HOST_TMP.pop("tmp"), ignore_errors=True)
     try:
         # the flagship main at full width, the command line and the serve
         # verb run beside the card-vs-CPU phases, which time nothing
@@ -8137,10 +9087,10 @@ def main(argv: list) -> int:
                              "campaign_gabor": gabor_campaign_launches, **loc_launches,
                              "service": svc_launches["fused_picks"],
                              "mxu": mxu_out["launches"], **wf_out["launches"],
-                             **mesh_launches},
+                             **long_picks_launches, **mesh_launches},
         "max_abs_err": max(err, slab_picks_err, full_err, bank_err, gabor_err, loc_err,
                            _PREFLIGHT["picks_err"], svc_picks_err, mxu_out["err"],
-                           wf_out["err"], mesh_err),
+                           wf_out["err"], long_picks_err, mesh_err),
         "ms": pk["ms"],
         "device_ms": pk["device_ms"],
         "plain_ms": pk["plain_ms"],
@@ -8157,9 +9107,10 @@ def main(argv: list) -> int:
                              "campaign_spectro": campaign_stft_launches, **learned_launches,
                              **long_launches, "service": svc_launches["fused_stft"],
                              "mxu_calibrate_stft": mxu_out["stft_launches"],
-                             **wf_out["stft_launches"]},
+                             **wf_out["stft_launches"], **mesh_stft_launches},
         "max_abs_err": max(stft_err, slab_stft_err, campaign_stft_err, learned_err, long_err,
-                           svc_stft_err, mxu_out["stft_err"], wf_out["stft_err"]),
+                           svc_stft_err, mxu_out["stft_err"], wf_out["stft_err"],
+                           mesh_stft_err),
         "ms": stft["ms"],
         "device_ms": stft["device_ms"],
         "plain_ms": stft["plain_ms"],

@@ -416,15 +416,11 @@ def _longrecord(args) -> int:
             print("longrecord: --family learned requires --model")
             return 2
         fam_kw = {"model": args.model}
-    try:
-        res = detect_long_record(
-            args.files, sel, meta, family=args.family, halo=args.halo,
-            fused_bandpass=args.fused, max_peaks_per_channel=args.max_peaks,
-            interrogator=args.interrogator, family_kwargs=fam_kw, device=dev,
-        )
-    except NotImplementedError as exc:
-        print(f"error: {exc}", file=sys.stderr)
-        return 2
+    res = detect_long_record(
+        args.files, sel, meta, family=args.family, halo=args.halo,
+        fused_bandpass=args.fused, max_peaks_per_channel=args.max_peaks,
+        interrogator=args.interrogator, family_kwargs=fam_kw, device=dev,
+    )
     os.makedirs(args.outdir, exist_ok=True)
     with atomic_file(os.path.join(args.outdir, "picks.npz"), "wb") as fh:
         np.savez(fh, **{f"picks_{k}": v for k, v in res.picks.items()},

@@ -32,6 +32,15 @@
 // max/min tables of nb samples, and every later phase works from shared
 // memory. The envelope never reaches device memory.
 //
+// Long rows. A row whose shared layout exceeds the device's opt-in limit
+// (about 55k samples at K = 256; the envelope alone is 4 T bytes) takes
+// the long-row form: the envelope, the block tables and the candidate
+// bits live in a device-memory workspace of the caller's, one 16-byte
+// aligned slice a row, and only the slots, the histogram and the scratch
+// stay in shared memory. The phases and their arithmetic are the same, so
+// the outputs are too; the envelope is written once and read back through
+// L2 by the later phases.
+//
 // What bounded the first design (512 threads a CTA; times from its
 // phase-timed instantiation at the main launch, pack K = 64, on an H100
 // 80GB HBM3 at 700 W; PERF.md has the split): each CTA reserved 24 KB for
@@ -89,12 +98,16 @@ constexpr int kMaxDevices = 64;  // devices whose opt-in prepare() records
 
 struct Layout {
   int T, K, nb, B, W;
-  size_t env, bmax, bmin, bits, slot_pos, slot_h, slot_prom, slot_sel,
+  // env, bmax, bmin and bits: offsets in shared memory, or (long rows) in
+  // the row's workspace slice of `row_bytes`
+  size_t env, bmax, bmin, bits, row_bytes, slot_pos, slot_h, slot_prom, slot_sel,
       sel_list, hist, scratch, bytes;
 };
 
-// method 0 (pack) keeps no selection list and no histogram
-__host__ __device__ inline Layout make_layout(int T, int K, int nb, int method) {
+// method 0 (pack) keeps no selection list and no histogram; `long_row`
+// moves the four row-sized arrays to the workspace
+__host__ __device__ inline Layout make_layout(int T, int K, int nb, int method,
+                                              bool long_row = false) {
   Layout L;
   L.T = T;
   L.K = K;
@@ -106,6 +119,8 @@ __host__ __device__ inline Layout make_layout(int T, int K, int nb, int method) 
   L.bmax = o;      o += 4 * (size_t)L.B;
   L.bmin = o;      o += 4 * (size_t)L.B;
   L.bits = o;      o += 4 * (size_t)L.W;
+  L.row_bytes = long_row ? (o + 15) & ~(size_t)15 : 0;
+  if (long_row) o = 0;
   L.slot_pos = o;  o += 4 * (size_t)K;
   L.slot_h = o;    o += 4 * (size_t)K;
   L.slot_prom = o; o += 4 * (size_t)K;
@@ -276,14 +291,15 @@ __device__ float right_base_min(const float* env, const float* bmax,
 
 // kMethod: 0 pack, 1 topk. kTimed: thread 0 stamps %globaltimer and
 // clock64 at the start and after each phase's closing __syncthreads into
-// stamps[row][2][kPhases + 1]; the outputs are the same.
-template <int kMethod, bool kTimed>
+// stamps[row][2][kPhases + 1]; the outputs are the same. kLong: the
+// long-row form, its row arrays in `work` (rows x Layout::row_bytes).
+template <int kMethod, bool kTimed, bool kLong>
 __global__ void __launch_bounds__(kThreads, kMethod == 0 ? 4 : 3)
 fused_picks_kernel(const float2* __restrict__ X, const float* __restrict__ thr_in,
                    int32_t* __restrict__ pos_out, float* __restrict__ h_out,
                    float* __restrict__ prom_out, uint8_t* __restrict__ sel_out,
                    uint8_t* __restrict__ sat_out, int T, int K, int nb,
-                   long long* __restrict__ stamps) {
+                   unsigned char* work, long long* __restrict__ stamps) {
   const size_t row = blockIdx.x;
   long long* const st = stamps + (kTimed ? row * 2 * (kPhases + 1) : 0);
   auto stamp = [&](int k) {
@@ -294,11 +310,12 @@ fused_picks_kernel(const float2* __restrict__ X, const float* __restrict__ thr_i
   };
   stamp(0);
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L = make_layout(T, K, nb, kMethod);
-  float* env = reinterpret_cast<float*>(smem + L.env);
-  float* bmax = reinterpret_cast<float*>(smem + L.bmax);
-  float* bmin = reinterpret_cast<float*>(smem + L.bmin);
-  unsigned* bits = reinterpret_cast<unsigned*>(smem + L.bits);
+  const Layout L = make_layout(T, K, nb, kMethod, kLong);
+  unsigned char* const rowmem = kLong ? work + row * L.row_bytes : smem;
+  float* env = reinterpret_cast<float*>(rowmem + L.env);
+  float* bmax = reinterpret_cast<float*>(rowmem + L.bmax);
+  float* bmin = reinterpret_cast<float*>(rowmem + L.bmin);
+  unsigned* bits = reinterpret_cast<unsigned*>(rowmem + L.bits);
   int* slot_pos = reinterpret_cast<int*>(smem + L.slot_pos);
   float* slot_h = reinterpret_cast<float*>(smem + L.slot_h);
   float* slot_prom = reinterpret_cast<float*>(smem + L.slot_prom);
@@ -312,7 +329,8 @@ fused_picks_kernel(const float2* __restrict__ X, const float* __restrict__ thr_i
   const float thr = thr_in[row];
   const int B = L.B, W = L.W;
 
-  // 1. envelope into shared memory (the only read of device memory): a
+  // 1. envelope into shared memory (the only read of X; the workspace
+  //    for a long row): a
   //    head sample where the row starts 8 bytes past a 16-byte boundary
   //    (odd row * T), then two samples a float4, then an odd tail sample
   for (int w = tid; w < W; w += kThreads) bits[w] = 0;
@@ -607,7 +625,7 @@ fused_picks_kernel(const float2* __restrict__ X, const float* __restrict__ thr_i
 // current device, once a device for the largest size asked there so far
 // (function attributes are per device). Callers on several threads may set
 // the same attributes twice, which is harmless; the record only grows.
-template <int kMethod, bool kTimed>
+template <int kMethod, bool kTimed, bool kLong>
 cudaError_t prepare(size_t bytes) {
   static std::atomic<size_t> granted[kMaxDevices];
   int dev = 0;
@@ -615,12 +633,12 @@ cudaError_t prepare(size_t bytes) {
   if (err != cudaSuccess) return err;
   const bool kept = dev >= 0 && dev < kMaxDevices;
   if (kept && bytes <= granted[dev].load(std::memory_order_acquire)) return cudaSuccess;
-  err = cudaFuncSetAttribute(fused_picks_kernel<kMethod, kTimed>,
+  err = cudaFuncSetAttribute(fused_picks_kernel<kMethod, kTimed, kLong>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   // all of the SM's unified memory as shared memory: four CTAs need 4 x
   // 52 KB of it, more than the carveout CUDA may choose by itself
-  err = cudaFuncSetAttribute(fused_picks_kernel<kMethod, kTimed>,
+  err = cudaFuncSetAttribute(fused_picks_kernel<kMethod, kTimed, kLong>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess || !kept) return err;
@@ -630,44 +648,52 @@ cudaError_t prepare(size_t bytes) {
   return cudaSuccess;
 }
 
-template <int kMethod, bool kTimed>
+template <int kMethod, bool kTimed, bool kLong>
 int launch(const void* X, const void* thr, void* pos, void* heights, void* prom,
-           void* sel, void* sat, int rows, int T, int K, int nb, void* stamps,
-           void* stream) {
-  const size_t bytes = make_layout(T, K, nb, kMethod).bytes;
-  const cudaError_t err = prepare<kMethod, kTimed>(bytes);
+           void* sel, void* sat, void* work, int rows, int T, int K, int nb,
+           void* stamps, void* stream) {
+  const size_t bytes = make_layout(T, K, nb, kMethod, kLong).bytes;
+  const cudaError_t err = prepare<kMethod, kTimed, kLong>(bytes);
   if (err != cudaSuccess) return (int)err;
   if (rows == 0) return 0;
-  fused_picks_kernel<kMethod, kTimed>
+  fused_picks_kernel<kMethod, kTimed, kLong>
       <<<rows, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const float2*>(X), static_cast<const float*>(thr),
           static_cast<int32_t*>(pos), static_cast<float*>(heights),
           static_cast<float*>(prom), static_cast<uint8_t*>(sel),
-          static_cast<uint8_t*>(sat), T, K, nb, static_cast<long long*>(stamps));
+          static_cast<uint8_t*>(sat), T, K, nb, static_cast<unsigned char*>(work),
+          static_cast<long long*>(stamps));
   return (int)cudaGetLastError();
 }
 
+// `work` null: the shared-memory form; else the long-row form
 template <bool kTimed>
 int launch_method(const void* X, const void* thr, void* pos, void* heights,
-                  void* prom, void* sel, void* sat, int rows, int T, int K,
-                  int method, int nb, void* stamps, void* stream) {
+                  void* prom, void* sel, void* sat, void* work, int rows, int T,
+                  int K, int method, int nb, void* stamps, void* stream) {
+  if (method == 0 && !work)
+    return launch<0, kTimed, false>(X, thr, pos, heights, prom, sel, sat, work,
+                                    rows, T, K, nb, stamps, stream);
   if (method == 0)
-    return launch<0, kTimed>(X, thr, pos, heights, prom, sel, sat, rows, T, K,
-                             nb, stamps, stream);
+    return launch<0, kTimed, true>(X, thr, pos, heights, prom, sel, sat, work,
+                                   rows, T, K, nb, stamps, stream);
+  if (method == 1 && !work)
+    return launch<1, kTimed, false>(X, thr, pos, heights, prom, sel, sat, work,
+                                    rows, T, K, nb, stamps, stream);
   if (method == 1)
-    return launch<1, kTimed>(X, thr, pos, heights, prom, sel, sat, rows, T, K,
-                             nb, stamps, stream);
+    return launch<1, kTimed, true>(X, thr, pos, heights, prom, sel, sat, work,
+                                   rows, T, K, nb, stamps, stream);
   return (int)cudaErrorInvalidValue;
 }
 
-template <int kMethod>
+template <int kMethod, bool kLong>
 int ctas_per_sm(int T, int K, int nb) {
-  const size_t bytes = make_layout(T, K, nb, kMethod).bytes;
+  const size_t bytes = make_layout(T, K, nb, kMethod, kLong).bytes;
   int n = -1;
-  cudaError_t err = prepare<kMethod, false>(bytes);
+  cudaError_t err = prepare<kMethod, false, kLong>(bytes);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, fused_picks_kernel<kMethod, false>, kThreads, bytes);
+        &n, fused_picks_kernel<kMethod, false, kLong>, kThreads, bytes);
   return err == cudaSuccess ? n : -1;
 }
 
@@ -676,9 +702,14 @@ int ctas_per_sm(int T, int K, int nb) {
 extern "C" {
 
 // dynamic shared memory one CTA of `method` needs for a row of T samples
-// at K slots: the layout its launch uses
-long long fused_picks_smem_bytes(int T, int K, int method, int nb) {
-  return (long long)make_layout(T, K, nb, method).bytes;
+// at K slots: the layout its launch uses (`long_row`: the long-row form's)
+long long fused_picks_smem_bytes(int T, int K, int method, int nb, int long_row) {
+  return (long long)make_layout(T, K, nb, method, long_row != 0).bytes;
+}
+
+// the long-row form's workspace a row, in bytes (a multiple of 16)
+long long fused_picks_row_bytes(int T, int K, int method, int nb) {
+  return (long long)make_layout(T, K, nb, method, true).row_bytes;
 }
 
 // the most dynamic shared memory a block may opt in to on this device
@@ -697,28 +728,32 @@ const char* fused_picks_error_string(int code) {
 
 // CTAs of the untimed kernel that fit on one SM at once for this shape
 // (registers, threads and shared memory), or -1 on error
-int fused_picks_ctas_per_sm(int T, int K, int method, int nb) {
-  if (method == 0) return ctas_per_sm<0>(T, K, nb);
-  if (method == 1) return ctas_per_sm<1>(T, K, nb);
+int fused_picks_ctas_per_sm(int T, int K, int method, int nb, int long_row) {
+  if (method == 0)
+    return long_row ? ctas_per_sm<0, true>(T, K, nb) : ctas_per_sm<0, false>(T, K, nb);
+  if (method == 1)
+    return long_row ? ctas_per_sm<1, true>(T, K, nb) : ctas_per_sm<1, false>(T, K, nb);
   return -1;
 }
 
-// Launch on `stream`; returns cudaGetLastError() after the launch.
+// Launch on `stream`; returns cudaGetLastError() after the launch. `work`
+// null launches the shared-memory form; else the long-row form, with
+// `work` rows x fused_picks_row_bytes() bytes of device memory.
 int fused_picks_launch(const void* X, const void* thr, void* pos, void* heights,
-                       void* prom, void* sel, void* sat, int rows, int T, int K,
-                       int method, int nb, void* stream) {
-  return launch_method<false>(X, thr, pos, heights, prom, sel, sat, rows, T, K,
-                              method, nb, nullptr, stream);
+                       void* prom, void* sel, void* sat, void* work, int rows,
+                       int T, int K, int method, int nb, void* stream) {
+  return launch_method<false>(X, thr, pos, heights, prom, sel, sat, work, rows,
+                              T, K, method, nb, nullptr, stream);
 }
 
 // The phase-timed instantiation: the same outputs, and `stamps`
 // [rows, 2, kPhases + 1] int64 (%globaltimer ns, then clock64 cycles).
 int fused_picks_launch_timed(const void* X, const void* thr, void* pos,
                              void* heights, void* prom, void* sel, void* sat,
-                             int rows, int T, int K, int method, int nb,
-                             void* stamps, void* stream) {
-  return launch_method<true>(X, thr, pos, heights, prom, sel, sat, rows, T, K,
-                             method, nb, stamps, stream);
+                             void* work, int rows, int T, int K, int method,
+                             int nb, void* stamps, void* stream) {
+  return launch_method<true>(X, thr, pos, heights, prom, sel, sat, work, rows,
+                             T, K, method, nb, stamps, stream);
 }
 
 }  // extern "C"

@@ -29,8 +29,13 @@ package's ``.npz`` layout, so a file saved by either package loads in the
 other. ``load_pretrained("fin_cnn")`` reads the port's own copy of the
 shipped model (``models/pretrained/fin_cnn.npz``).
 
-Not in this slice: ``make_sharded_train_step`` and
-``make_sharded_inference`` (ROADMAP item 'Multi-GPU families'); they raise.
+Over a device mesh (``parallel.mesh``, one rank a device; every rank
+calls these with the same arguments): :func:`make_sharded_train_step`
+averages each step's gradients over the batch axis with one ``psum``
+before the AdamW step (the parameters stay replicated, bitwise equal on
+every rank), ``fit(mesh=...)`` trains data-parallel on it, and
+:func:`make_sharded_inference` scores this rank's channel slice of a
+block with no collective.
 """
 
 from __future__ import annotations
@@ -45,7 +50,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..config import not_in_slice
 from ..ops import spectral
 from ..utils import artifacts
 from ..utils.device import resolve_device
@@ -277,11 +281,66 @@ def train_step(model: LearnedCNN, opt: torch.optim.Optimizer, windows, labels,
 
 
 def make_sharded_train_step(mesh, batch_axis: str = "batch"):
-    raise not_in_slice("make_sharded_train_step", "Multi-GPU families")
+    """Data-parallel training over ``mesh``'s ``batch_axis``: returns
+    ``(step, put)``. ``put(windows, labels)`` places this rank's slice of
+    a host batch (its block of the batch axis) on its device; ``step`` is
+    :func:`train_step` with the gradients averaged over the axis before
+    the AdamW step — one ``psum`` of the flattened gradients divided by
+    the axis size. The shards are equal, so that is the gradient of the
+    global batch's mean loss (what GSPMD computes in JAX); the parameters
+    stay replicated and the returned loss is the global mean."""
+    from ..parallel import collectives as coll
+    from ..parallel.mesh import Sharding
+
+    sh = Sharding(mesh, (batch_axis,))
+    p = mesh.axis_size(batch_axis)
+
+    def put(windows, labels):
+        return (sh.place(np.asarray(windows, np.float32)),
+                sh.place(np.asarray(labels, np.float32)))
+
+    def step(model: LearnedCNN, opt: torch.optim.Optimizer, windows, labels,
+             compute_dtype: str = "float32"):
+        opt.zero_grad(set_to_none=True)
+        loss = bce_loss(model, windows, labels, compute_dtype)
+        loss.backward()
+        params = [q for q in model.parameters() if q.grad is not None]
+        flat = torch.cat([q.grad.reshape(-1) for q in params])
+        flat = coll.psum(flat, mesh, batch_axis) / p
+        for q, g in zip(params, flat.split([q.numel() for q in params])):
+            q.grad.copy_(g.view_as(q.grad))
+        opt.step()
+        return model, opt, coll.psum(loss.detach(), mesh, batch_axis) / p
+
+    step.mesh = mesh
+    return step, put
 
 
 def make_sharded_inference(params, cfg: LearnedConfig, mesh, channel_axis: str = "channel"):
-    raise not_in_slice("make_sharded_inference", "Multi-GPU families")
+    """Channel-sharded scoring over ``mesh``: returns ``(score_fn, put)``.
+    ``put(block)`` places this rank's channel slice of a host ``[C, T]``
+    block on its device (``parallel.mesh.shard_block``); ``score_fn``
+    maps it to this rank's ``[C/P, n_win]`` sigmoid scores. Channels are
+    independent end to end, so there is no collective; the features take
+    the STFT engine ``"rfft"``, as the JAX package's sharded inference
+    does. The threshold and NMS stay on the host
+    (``LearnedDetector.picks_from_scores``)."""
+    from ..parallel.mesh import shard_block
+
+    model = _as_model(params, cfg).to(mesh.device).eval()
+
+    def score_fn(block):
+        win, _ = window_features(block, cfg, engine="rfft", device=mesh.device)
+        C, n_win = win.shape[0], win.shape[1]
+        flat = win.reshape(C * n_win, *win.shape[-2:])
+        del win
+        return score_windows(model, flat, cfg.compute_dtype).reshape(C, n_win)
+
+    def put(block):
+        return shard_block(np.asarray(block, np.float32), mesh, channel_axis)
+
+    score_fn.mesh = mesh
+    return score_fn, put
 
 
 def fit(cfg: LearnedConfig, scenes: Sequence, epochs: int = 8, batch: int = 1024,
@@ -292,12 +351,14 @@ def fit(cfg: LearnedConfig, scenes: Sequence, epochs: int = 8, batch: int = 1024
     gradient; the windows of every scene are pooled on the host,
     positives duplicated to about 1:4 and the pool shuffled each epoch
     with the JAX package's numpy draws, so the batches are the same.
-    ``mesh`` (data-parallel training) is not in this slice."""
+    With ``mesh`` (every rank calls ``fit`` with the same arguments) the
+    batches run data-parallel over its ``batch`` axis
+    (:func:`make_sharded_train_step`) on the mesh's device, the batch
+    rounded to a multiple of the mesh's size as in JAX; every rank sees
+    the same global batches and returns the same model."""
     from ..io.synth import synthesize_scene
 
-    if mesh is not None:
-        raise not_in_slice("fit(mesh=...)", "Multi-GPU families")
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     xs, ys = [], []
     for scene in scenes:
         win, centers = window_features(synthesize_scene(scene), cfg, device=dev)
@@ -315,10 +376,19 @@ def fit(cfg: LearnedConfig, scenes: Sequence, epochs: int = 8, batch: int = 1024
             y = np.concatenate([y] + [y[pos]] * dup)
 
     model, opt = init_train_state(cfg, seed, device=dev)
-    batch = min(batch, len(y))
+    if mesh is not None:
+        step, put = make_sharded_train_step(mesh)
+    else:
+        step = train_step
+
+        def put(w, lab):
+            return torch.from_numpy(w).to(dev), torch.from_numpy(lab).to(dev)
+    bmult = mesh.size if mesh is not None else 1
+    batch = min(batch, (len(y) // bmult) * bmult)
     if batch <= 0:
-        raise ValueError(f"pool of {len(y)} windows cannot fill one batch — use more or "
-                         "larger scenes")
+        raise ValueError(f"pool of {len(y)} windows cannot fill one batch over {bmult} "
+                         "devices — use more or larger scenes")
+    batch = -(-batch // bmult) * bmult
     rng = np.random.default_rng(seed)
     history = []
     n = len(y)
@@ -327,9 +397,8 @@ def fit(cfg: LearnedConfig, scenes: Sequence, epochs: int = 8, batch: int = 1024
         losses = []
         for s in range(0, n - batch + 1, batch):
             sel = order[s : s + batch]
-            wb = torch.from_numpy(x[sel]).to(dev)
-            lb = torch.from_numpy(y[sel]).to(dev)
-            model, opt, loss = train_step(model, opt, wb, lb, cfg.compute_dtype)
+            wb, lb = put(x[sel], y[sel])
+            model, opt, loss = step(model, opt, wb, lb, cfg.compute_dtype)
             losses.append(float(loss))
         history.append(float(np.mean(losses)) if losses else float("nan"))
         if log_every and (ep + 1) % log_every == 0:

@@ -8,7 +8,9 @@ the same five outputs, bit for bit.
 
 Routing is by the tensor's device and nothing else: a CUDA tensor
 launches the kernel (or the call raises), a CPU tensor runs the plain
-version. There is no fallback from the kernel to the plain version and
+version. A row too long for one CTA's shared memory (:func:`fits`) takes
+the kernel's long-row form, whose row arrays live in a device-memory
+workspace the wrapper allocates; the outputs are the same. There is no fallback from the kernel to the plain version and
 no switch that sends a CUDA tensor to it. The Hilbert transform stays
 outside the kernel, on ``torch.fft``, as the JAX package leaves it to XLA.
 """
@@ -28,6 +30,9 @@ from . import spectral
 #: launch and nowhere else. ``chip_smoke.py`` zeroes and reads it to show
 #: that a run went through the kernel.
 launches = 0
+#: Of :data:`launches`, those of the long-row form (rows that do not fit
+#: one CTA's shared memory).
+long_launches = 0
 
 _METHODS = {"pack": 0, "topk": 1}
 
@@ -40,16 +45,18 @@ def _lib():
     from ..utils import build
 
     lib = build.load("fused_picks")
-    lib.fused_picks_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.fused_picks_launch.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.fused_picks_launch.restype = ctypes.c_int
     lib.fused_picks_launch_timed.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
     lib.fused_picks_launch_timed.restype = ctypes.c_int
-    lib.fused_picks_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.fused_picks_smem_bytes.argtypes = [ctypes.c_int] * 5
     lib.fused_picks_smem_bytes.restype = ctypes.c_longlong
+    lib.fused_picks_row_bytes.argtypes = [ctypes.c_int] * 4
+    lib.fused_picks_row_bytes.restype = ctypes.c_longlong
     lib.fused_picks_smem_limit.argtypes = []
     lib.fused_picks_smem_limit.restype = ctypes.c_int
-    lib.fused_picks_ctas_per_sm.argtypes = [ctypes.c_int] * 4
+    lib.fused_picks_ctas_per_sm.argtypes = [ctypes.c_int] * 5
     lib.fused_picks_ctas_per_sm.restype = ctypes.c_int
     lib.fused_picks_error_string.argtypes = [ctypes.c_int]
     lib.fused_picks_error_string.restype = ctypes.c_char_p
@@ -76,41 +83,72 @@ def picks_cuda_timed(X: torch.Tensor, thr: torch.Tensor, max_peaks: int,
 
 
 def ctas_per_sm(T: int, max_peaks: int, method: str, nb: int = 128) -> int:
-    """CTAs of the kernel that fit on one SM at once for rows of ``T``
-    samples (CUDA's occupancy calculator: registers, threads, shared
-    memory)."""
-    n = _lib().fused_picks_ctas_per_sm(T, min(int(max_peaks), T), _METHODS[method], nb)
+    """CTAs of the kernel's shared-memory form that fit on one SM at once
+    for rows of ``T`` samples (CUDA's occupancy calculator: registers,
+    threads, shared memory)."""
+    n = _lib().fused_picks_ctas_per_sm(T, min(int(max_peaks), T), _METHODS[method], nb, 0)
     if n < 0:
         raise RuntimeError("fused_picks: the occupancy query failed")
     return n
 
 
 def smem_bytes(T: int, max_peaks: int, method: str, nb: int = 128) -> int:
-    """Shared memory of one CTA for rows of ``T`` samples, in the layout
-    its method launches with (what bounds :func:`ctas_per_sm` at long
-    rows: the envelope alone takes ``4 T`` bytes)."""
-    return int(_lib().fused_picks_smem_bytes(T, min(int(max_peaks), T), _METHODS[method], nb))
+    """Shared memory of one CTA of the shared-memory form for rows of ``T``
+    samples, in the layout its method launches with (what bounds
+    :func:`ctas_per_sm` at long rows: the envelope alone takes ``4 T``
+    bytes)."""
+    return int(_lib().fused_picks_smem_bytes(T, min(int(max_peaks), T), _METHODS[method], nb,
+                                             0))
+
+
+def row_bytes(T: int, max_peaks: int, method: str, nb: int = 128) -> int:
+    """The long-row form's device-memory workspace a row: the envelope,
+    the block tables and the candidate bits, 16-byte aligned."""
+    return int(_lib().fused_picks_row_bytes(T, min(int(max_peaks), T), _METHODS[method], nb))
+
+
+def smem_limit(device) -> int:
+    """The most dynamic shared memory one block may opt in to on the CUDA
+    ``device``, in bytes."""
+    with torch.cuda.device(torch.device(device)):
+        n = int(_lib().fused_picks_smem_limit())
+    if n < 0:
+        raise RuntimeError("fused_picks: the shared-memory limit query failed")
+    return n
+
+
+def fits(T: int, max_peaks: int, method: str, device, nb: int = 128) -> bool:
+    """Whether rows of ``T`` samples go through the kernel's shared-memory
+    form on ``device``: on a CUDA device, one CTA's shared memory
+    (:func:`smem_bytes`) within the device's opt-in limit
+    (:func:`smem_limit`); off CUDA always (the plain version takes any
+    row). A row that does not fit takes the long-row form."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return True
+    return smem_bytes(T, max_peaks, method, nb) <= smem_limit(device)
 
 
 @functools.lru_cache(maxsize=None)
-def _check_fits(T: int, K: int, method: str, nb: int, device_index: int) -> None:
-    """Raise unless one CTA's shared memory for this shape, in the layout
-    its method launches with, fits the device's opt-in limit; a shape is
-    checked once a device."""
+def _long_row(T: int, K: int, method: str, nb: int, device_index: int) -> bool:
+    """Whether this shape takes the long-row form on the device (its
+    shared layout over the opt-in limit); raises where even the long-row
+    form's slots do not fit. Asked once a shape and device."""
     lib = _lib()
     with torch.cuda.device(device_index):
-        need = lib.fused_picks_smem_bytes(T, K, _METHODS[method], nb)
+        need = lib.fused_picks_smem_bytes(T, K, _METHODS[method], nb, 0)
+        need_long = lib.fused_picks_smem_bytes(T, K, _METHODS[method], nb, 1)
         limit = lib.fused_picks_smem_limit()
-    if need > limit:
+    if need_long > limit:
         raise ValueError(
-            f"a row of T={T} samples at K={K} ({method}) needs {need} bytes of "
-            f"shared memory; this device allows {limit} per block. Longer "
-            "records come with a later slice of the port"
+            f"K={K} slots ({method}) need {need_long} bytes of shared memory even in "
+            f"the long-row form; this device allows {limit} per block"
         )
+    return need > limit
 
 
 def _launch(X, thr, max_peaks, method, nb, timed):
-    global launches
+    global launches, long_launches
     if not X.is_cuda:
         raise ValueError(f"the CUDA pick kernel needs a CUDA tensor, got one on {X.device}")
     if X.dtype != torch.complex64 or X.ndim != 2:
@@ -122,13 +160,13 @@ def _launch(X, thr, max_peaks, method, nb, timed):
         with torch.cuda.device(idx):
             return _launch(X, thr, max_peaks, method, nb, timed)
     # A launch at the main path's shape takes less time on the card than
-    # this function on the host, so it keeps to the calls it needs: the fit
-    # check is cached, the stream is read raw, and the five outputs are
+    # this function on the host, so it keeps to the calls it needs: the
+    # form's choice is cached, the stream is read raw, and the five outputs are
     # views of two allocations (an allocation costs the host about what the
     # launch does).
     rows, T = X.shape
     K = min(int(max_peaks), T)
-    _check_fits(T, K, method, nb, idx)
+    long_row = _long_row(T, K, method, nb, idx)
     X = X.contiguous()  # complex64 is interleaved (re, im): the kernel's float2
     thr = thr.to(device=X.device, dtype=torch.float32).contiguous()
     dev = X.device
@@ -139,9 +177,11 @@ def _launch(X, thr, max_peaks, method, nb, timed):
     sel = sel.view(rows, K)
     stamps = (torch.empty((rows, 2, len(PHASES) + 1), dtype=torch.int64, device=dev)
               if timed else None)
+    work = (torch.empty((rows * row_bytes(T, K, method, nb),), dtype=torch.uint8, device=dev)
+            if long_row else None)
     args = (X.data_ptr(), thr.data_ptr(), pos.data_ptr(), heights.data_ptr(),
             prom.data_ptr(), sel.data_ptr(), sat.data_ptr(),
-            rows, T, K, _METHODS[method], nb)
+            work.data_ptr() if long_row else None, rows, T, K, _METHODS[method], nb)
     stream = torch._C._cuda_getCurrentRawStream(idx)
     lib = _lib()
     rc = (lib.fused_picks_launch_timed(*args, stamps.data_ptr(), stream) if timed
@@ -151,6 +191,7 @@ def _launch(X, thr, max_peaks, method, nb, timed):
             f"fused_picks kernel launch failed: {lib.fused_picks_error_string(rc).decode()}"
         )
     launches += 1
+    long_launches += long_row
     return peak_ops.SparsePicks(pos, heights, prom, sel, sat), stamps
 
 

@@ -32,6 +32,10 @@ from .mesh import Mesh, make_mesh
 #: the variables :func:`initialize_from_env` reads (torchrun's)
 ENV_VARS = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")
 
+#: the collective timeout :func:`initialize` gave the process group it
+#: formed last, in seconds
+_TIMEOUT_S: float | None = None
+
 
 def default_backend() -> str:
     """NCCL with a card, gloo without (the CPU tests). Two ranks that
@@ -45,6 +49,7 @@ def initialize(init_method: str, world_size: int, rank: int, *, backend: str | N
     """Form the process group (``dist.init_process_group``) with every
     collective bounded by ``timeout_s``. Returns False when it was
     already formed (idempotent re-entry)."""
+    global _TIMEOUT_S
     import torch.distributed as dist
 
     if dist.is_initialized():
@@ -52,7 +57,24 @@ def initialize(init_method: str, world_size: int, rank: int, *, backend: str | N
     dist.init_process_group(backend or default_backend(), init_method=init_method,
                             world_size=int(world_size), rank=int(rank),
                             timeout=datetime.timedelta(seconds=float(timeout_s)))
+    _TIMEOUT_S = float(timeout_s)
     return True
+
+
+def collective_timeout_s() -> float:
+    """How long a collective of the default process group waits for its
+    peers before it raises, in seconds: the ``timeout_s`` :func:`initialize`
+    formed it with, else the timeout the backend reports, else torch's
+    default."""
+    import torch.distributed as dist
+
+    if _TIMEOUT_S is not None:
+        return _TIMEOUT_S
+    try:  # a group formed outside initialize(): its backend's own setting
+        opts = dist.group.WORLD._get_backend(torch.device("cpu")).options
+        return float(opts._timeout.total_seconds())
+    except Exception:  # noqa: BLE001 — no such accessor on this torch or backend
+        return float(dist.default_pg_timeout.total_seconds())
 
 
 def initialize_from_env(timeout_s: int = 300) -> bool:

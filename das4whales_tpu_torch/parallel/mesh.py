@@ -212,6 +212,16 @@ def make_mesh(shape: Sequence[int] | None = None,
                 {a: dm.get_group(a) for a in axis_names}, group=None, device_mesh=dm)
 
 
+def flat_mesh(mesh: Mesh, axis_name: str) -> Mesh:
+    """The ranks of ``mesh`` as a one-axis mesh named ``axis_name``, in
+    row-major order (JAX's ``make_mesh(devices=mesh.devices.reshape(-1))``),
+    on ``mesh``'s own process groups: the new axis's collectives run over
+    the whole mesh's group. Not collective (no group is created)."""
+    groups = {} if mesh.backend is None else {axis_name: mesh.group}
+    return Mesh((axis_name,), (mesh.size,), mesh.ranks.reshape(-1), mesh.rank, mesh.device,
+                mesh.backend, groups, group=mesh.group, device_mesh=None)
+
+
 @dataclass(frozen=True)
 class Sharding:
     """The port of ``NamedSharding(mesh, PartitionSpec(*spec))``: ``spec``

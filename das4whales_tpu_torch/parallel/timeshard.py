@@ -16,10 +16,14 @@ split over the mesh's ``time`` axis, each rank holding ``[C, T/P]``:
   FFT and the mask, one transpose back;
 * the detection step transposes once more into the channel-split layout
   (a row then holds the whole record) and correlates, thresholds (one
-  ``pmax``) and picks there. It picks with the long record's plain tiled
-  picker (``ops.peaks.find_peaks_sparse_tiled`` on the envelope, as
-  ``workflows.longrecord`` does on one device and as JAX's route does):
-  the pick kernel's rows are a file's 12000 samples, not a record's.
+  ``pmax``) and picks there. Its sparse picks go through the pick kernel
+  in ``pick_tile`` row tiles (``models.matched_filter.mf_pick_tiled``, as
+  ``parallel.pipeline`` does): the Hilbert analytic signal, then
+  ``ops.fused_picks`` (the kernel on a card, its plain version on the
+  CPU). A row of the record too long for one CTA's shared memory (about
+  52800 samples on an H100 at K = 512, ``topk``) takes the kernel's
+  long-row form, its envelope in device memory (:func:`pick_route`, asked
+  by shape; ``step.route`` names the form).
 
 Every rank calls these with its local block (``parallel.mesh``).
 """
@@ -33,7 +37,9 @@ import numpy as np
 import scipy.signal as sp
 import torch
 
+from ..models.matched_filter import mf_pick_tiled
 from ..ops import conditioning as cond_ops
+from ..ops import fused_picks
 from ..ops import mxu as mxu_ops
 from ..ops import peaks as peak_ops
 from ..ops import spectral, xcorr
@@ -112,6 +118,31 @@ def prepare_mask_full(mask: np.ndarray) -> np.ndarray:
     return symmetrize_mask_fftorder(mask).astype(np.float32)
 
 
+def _mask_rows(mask, mesh: Mesh, time_axis: str, device, gain=None) -> torch.Tensor:
+    """This rank's rows ``[C/P, T]`` of :func:`prepare_mask_full`'s mask
+    (times ``gain [1, T]`` first, where given), made on ``device`` in the
+    mask's own dtype with the host's arithmetic, so bitwise the host's: a
+    record's mask is gigabytes, which numpy takes seconds over. Row ``i``
+    of the symmetrised mask needs rows ``i`` and ``-i`` of the unshifted
+    one, so only those ``2 C/P`` rows of the design reach the device."""
+    mask = np.asarray(mask)
+    C = mask.shape[0]
+    n = C // mesh.axis_size(time_axis)
+    i = mesh.axis_index(time_axis) * n + np.arange(n)
+
+    def unshifted(rows):
+        # ifftshift on the channel axis: row r of the result is row
+        # (r + C // 2) % C of the design; then along time on the device
+        m = torch.from_numpy(mask[(rows + C // 2) % C]).to(device)
+        if gain is not None:
+            m = m * torch.as_tensor(np.asarray(gain).astype(mask.dtype)).to(device)
+        return torch.fft.ifftshift(m, dim=1)
+
+    mu = unshifted(i)
+    reflected = torch.roll(torch.flip(unshifted((-i) % C), (1,)), 1, dims=1)  # [-i, -j]
+    return (0.5 * (mu + reflected)).to(torch.float32).contiguous()
+
+
 def fk_apply_time_local(x: torch.Tensor, mask_rows: torch.Tensor, axis_name: str, *,
                         mesh: Mesh) -> torch.Tensor:
     """f-k filter a time-split ``[C, T/P]`` block against this rank's rows
@@ -136,8 +167,18 @@ def sharded_fk_apply_time(trace: torch.Tensor, mask, mesh: Mesh,
     if nnx % p or mask.shape != (nnx, local * p):
         raise ValueError(f"mask {mask.shape} / block {tuple(trace.shape)} must divide "
                          f"the mesh axis size {p}")
-    rows = Sharding(mesh, (time_axis, None)).place(prepare_mask_full(mask))
-    return fk_apply_time_local(trace, rows.to(trace.device), time_axis, mesh=mesh)
+    rows = _mask_rows(mask, mesh, time_axis, trace.device)
+    return fk_apply_time_local(trace, rows, time_axis, mesh=mesh)
+
+
+def pick_route(n_samples: int, max_peaks: int, method: str, device) -> str:
+    """The pick kernel's form for the time-split step's rows of
+    ``n_samples`` (the whole record) on ``device``: ``"fused_picks"``
+    where one CTA's shared memory takes the row (``ops.fused_picks.fits``:
+    always off a card, where the plain version runs), else
+    ``"fused_picks_long"``, the long-row form. Decided by shape."""
+    return ("fused_picks" if fused_picks.fits(n_samples, max_peaks, method, device)
+            else "fused_picks_long")
 
 
 def make_sharded_mf_step_time(
@@ -174,9 +215,10 @@ def make_sharded_mf_step_time(
     bandpass (or, ``fused_bandpass=True``, ``|H(f)|²`` folded into the
     mask) -> the two-collective pencil f-k filter -> one ``all_to_all``
     into the channel-split layout ``[C/P, T]`` -> correlograms on
-    ``mf_engine`` (``ops.mxu.correlograms_body``), envelopes, one ``pmax``
-    for the threshold, picks with the plain tiled picker (module
-    docstring).
+    ``mf_engine`` (``ops.mxu.correlograms_body``), one ``pmax`` for the
+    threshold, the sparse picks through the pick kernel in ``pick_tile``
+    row tiles (its long-row form where the record's rows do not fit one
+    CTA's shared memory: :func:`pick_route`; ``step.route`` names it).
 
     ``outputs="full"``: ``(trf_fk [C, T/P] time-split, corr, env [nT, C/P,
     T] channel-split, picks, thres)``; ``"picks"``: ``(picks, thres)``.
@@ -205,24 +247,23 @@ def make_sharded_mf_step_time(
         raise ValueError(f"trace shape {design.trace_shape} must divide mesh axis {p}")
     local = nns // p
     dev = mesh.device
-    fk_mask = design.fk_mask
     band, order, fs = design.bp_band, design.bp_order, design.fs
     gain = None
-    if fused_bandpass:
-        fk_mask = fk_mask * butter_zero_phase_gain_full(nns, fs, band, order)[None, :].astype(
-            fk_mask.dtype)
-    else:
+    if not fused_bandpass:
         if halo >= local:
             raise ValueError(f"halo {halo} must be < local shard length {local}")
         # the design's bandpass at the shard window's length
         gain = torch.from_numpy(_bp_time_gain(order, float(fs), float(band[0]),
                                               float(band[1]), local, halo)).to(dev)
-    mask_rows = Sharding(mesh, (time_axis, None)).place(prepare_mask_full(fk_mask))
+    mask_rows = _mask_rows(design.fk_mask, mesh, time_axis, dev,
+                           butter_zero_phase_gain_full(nns, fs, band, order)[None, :]
+                           if fused_bandpass else None)
     templates_true, template_mu, template_scale = xcorr.padded_template_stats_device(
         design.templates, dev)
     factors_np, thr_scope = design.resolve_threshold_policy(
         hf_factor, threshold_factors, threshold_scope)
     factors = torch.as_tensor(factors_np, device=dev)
+    route = pick_route(nns, max_peaks, pick_method, dev) if pick_mode == "sparse" else "dense"
 
     condition = wire == "raw"
     cond_scale = 0.0 if scale_factor is None else scale_factor
@@ -274,25 +315,27 @@ def make_sharded_mf_step_time(
         corr = mxu_ops.correlograms_body(y, templates_true, template_mu, template_scale,
                                          mf_engine)
         del y
-        env = spectral.envelope_sqrt(corr, dim=-1)
         if thr_scope == "per_template":
             thres = relative_threshold * coll.pmax(corr.amax(dim=(1, 2)), mesh, time_axis)
             thr = (thres * factors)[:, None, None]
         else:
             thres = relative_threshold * coll.pmax(corr.amax(), mesh, time_axis)
             thr = thres * factors[:, None, None]
-        if outputs == "picks":
-            del corr
-        if pick_mode == "sparse":
-            picks = peak_ops.find_peaks_sparse_tiled(env, thr[..., 0], max_peaks=max_peaks,
-                                                     tile=pick_tile, method=pick_method)
+        env = (spectral.envelope_sqrt(corr, dim=-1)
+               if outputs == "full" or route == "dense" else None)
+        if route != "dense":
+            picks = mf_pick_tiled(list(corr.split(pick_tile, dim=-2)), thr.reshape(-1),
+                                  max_peaks, pick_method, release=True)
         else:
             picks = peak_ops.local_maxima(env) & (peak_ops.peak_prominences_dense(env) >= thr)
+        if outputs == "picks":
+            del corr
         if outputs == "picks":
             return picks, thres
         return trf, corr, env, picks, thres
 
     step.mesh = mesh
+    step.route = route
     return step
 
 

@@ -55,6 +55,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import shutil
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Sequence
@@ -63,7 +64,6 @@ import numpy as np
 
 from .. import faults, fsck
 from ..config import as_health_config
-from ..config import not_in_slice as _not_in_slice
 from ..io.stream import stream_strain_blocks
 from ..models.matched_filter import MatchedFilterDetector
 from ..telemetry import costs as tcosts
@@ -278,7 +278,8 @@ def _failure_recorder(outdir: str, records: List[FileRecord], max_failures,
                       write: bool = True, family: str = ""):
     """Shared per-file failure bookkeeping: manifest record + warning +
     max_failures enforcement (every non-done disposition — failed,
-    quarantined, timeout — counts toward the tolerance)."""
+    quarantined, timeout — counts toward the tolerance). ``write`` may be
+    a callable, asked at each record (a mesh's writer can change)."""
     state = {"n": 0}
 
     def fail(path: str, exc: Exception, status: str = "failed",
@@ -291,7 +292,7 @@ def _failure_recorder(outdir: str, records: List[FileRecord], max_failures,
                          health=dict(health or {}),
                          family=family, rung=rung)
         records.append(rec)
-        if write:
+        if write() if callable(write) else write:
             _append_manifest(outdir, rec)
         log.warning("file %s (%d non-done so far): %s — %s",
                     status, state["n"], path, rec.error)
@@ -316,7 +317,7 @@ class _Resilience:
         #: family label stamped on this run's failure records
         self.family = ""
         self._fail = _failure_recorder(outdir, records, max_failures,
-                                       write=write)
+                                       write=lambda: self.write)
         self.outdir = outdir
         self.write = write
         # per-CAMPAIGN resource-resilience tallies (faults.counters()
@@ -1699,6 +1700,8 @@ def _mesh_campaign(files, selected_channels, outdir, mesh, *, metadata, batch, r
         # only the writer repairs (a torn tail, stray tmps); the others
         # read the manifest after it
         fsck.startup_check(outdir, label="campaign")
+        # an earlier run's elastic check-ins would seal this run's at once
+        shutil.rmtree(os.path.join(outdir, ELASTIC_DIR), ignore_errors=True)
     coll.barrier(mesh)
     metas = _normalize_metas(metadata, list(files))
     records: List[FileRecord] = []
@@ -1746,114 +1749,285 @@ def _mesh_campaign(files, selected_channels, outdir, mesh, *, metadata, batch, r
     elif tuple(design.trace_shape) != (C, ns):
         raise ValueError(f"design for {tuple(design.trace_shape)} does not fit the "
                          f"campaign's [{C} x {ns}] files")
-    pf, pc = mesh.shape.get("file", 1), mesh.shape.get("channel", 1)
+    pf = mesh.shape.get("file", 1)
     if batch is None:
         batch = max(int(pf), 1)
     if batch % pf:
         raise ValueError(f"batch {batch} not divisible by the mesh's file axis {pf}")
-    per = batch // pf
-    lo = per * mesh.coords.get("file", 0)
-    local_sel = _local_selection(sel, spec0.meta.nx, Sharding(mesh, ("channel", None)), 0) \
-        if "channel" in mesh.shape else sel
-    c_local = C // pc
-    c_off = c_local * mesh.coords.get("channel", 0)
     wire_kw = {"wire": "raw", "scale_factor": spec0.meta.scale_factor} if wire == "raw" else {}
-    step_k0, step_full = _adaptive_sharded_steps(
-        make_sharded_mf_step, design, mesh, relative_threshold=relative_threshold,
-        hf_factor=hf_factor, fused_bandpass=fused_bandpass, **wire_kw)
     fac_vec, _ = design.resolve_threshold_policy(hf_factor)
     names = design.template_names
 
-    def read_group(group):
+    def layout(mesh):
+        """This rank's part of a batch on ``mesh``: its file slots, its
+        channel slice, and the adaptive step pair."""
+        per = batch // mesh.shape.get("file", 1)
+        lo = per * mesh.coords.get("file", 0)
+        local_sel = _local_selection(sel, spec0.meta.nx, Sharding(mesh, ("channel", None)), 0) \
+            if "channel" in mesh.shape else sel
+        c_local = C // mesh.shape.get("channel", 1)
+        steps = _adaptive_sharded_steps(
+            make_sharded_mf_step, design, mesh, relative_threshold=relative_threshold,
+            hf_factor=hf_factor, fused_bandpass=fused_bandpass, **wire_kw)
+        return types.SimpleNamespace(mesh=mesh, per=per, lo=lo, local_sel=local_sel,
+                                     c_off=c_local * mesh.coords.get("channel", 0),
+                                     steps=steps, writer=mesh.rank == 0)
+
+    def read_group(group, lay):
         """This rank's slots of a batch: ``{slot: trace | exception}``."""
         out = {}
-        for k in range(lo, min(lo + per, len(group))):
+        for k in range(lay.lo, min(lay.lo + lay.per, len(group))):
             try:
-                out[k] = _read_local(group[k][1], local_sel, wire, engine, interrogator)
+                out[k] = _read_local(group[k][1], lay.local_sel, wire, engine, interrogator)
             except Exception as exc:  # noqa: BLE001 — settled in lockstep below
                 out[k] = exc
         return out
 
+    def run_batch(group, got, lay):
+        """One batch in lockstep on ``lay.mesh``: the read status, the step,
+        the gathered picks, the records (the writer alone writes)."""
+        mesh, per, lo, c_off = lay.mesh, lay.per, lay.lo, lay.c_off
+        t0 = time.perf_counter()
+        n_real = len(group)
+        ok_local = torch.ones(batch, dtype=torch.int32, device=mesh.device)
+        errs = {}
+        for k, v in got.items():
+            if isinstance(v, Exception):
+                ok_local[k] = 0
+                errs[k] = f"{type(v).__name__}: {v}"
+        ok = coll.pmin(ok_local, mesh, None).cpu().numpy().astype(bool)
+        if on_read_error == "abort" and not ok[:n_real].all():
+            bad = [group[k][0] for k in range(n_real) if not ok[k]]
+            raise RuntimeError(f"read failed after a clean probe on {bad} "
+                               f"({errs or 'on another rank'}); a half-read batch "
+                               "cannot be attributed, the run stops")
+        like = next((v for v in got.values() if not isinstance(v, Exception)), None)
+        c_local = C // mesh.shape.get("channel", 1)
+        stack = np.zeros((per, c_local, ns), like.dtype if like is not None else np.float32)
+        for k, v in got.items():
+            if not isinstance(v, Exception):
+                stack[k - lo] = v
+        x = torch.from_numpy(stack).to(mesh.device)
+        sp_picks, thres, _esc = _run_adaptive(*lay.steps, x, mesh)
+        nT, _B, Cr, K = sp_picks.positions.shape
+        cap = min(Cr * K, _PICK_PACK_CAP)
+        rows_d, times_d, cnt_d = _compact_batch_picks(sp_picks.positions,
+                                                      sp_picks.selected, ns, cap)
+        faults.count("syncs")
+        packed = compacted_to_host(rows_d, times_d, cnt_d, cap)
+        host_picks = None
+        if packed is None:     # pack overflow: the exact full-grid route
+            host_picks = types.SimpleNamespace(
+                positions=sp_picks.positions.cpu().numpy(),
+                selected=sp_picks.selected.cpu().numpy())
+        base = thres.detach().cpu().numpy().astype(np.float32)
+        local = {}
+        for k in range(lo, min(lo + per, n_real)):
+            j = k - lo
+            if host_picks is None:
+                rows_np, times_np, cnt = packed
+                pk = {name: np.asarray([rows_np[i, j, :cnt[i, j]] + c_off,
+                                        times_np[i, j, :cnt[i, j]]])
+                      for i, name in enumerate(names)}
+            else:
+                pk = {name: v + np.array([[c_off], [0]])
+                      for name, v in sharded_picks_to_dict(
+                          host_picks, names, file_index=j, n_samples=ns).items()}
+            thr = {name: float(base[i, j] if base.ndim == 2 else base[j]) * float(fac_vec[i])
+                   for i, name in enumerate(names)}
+            local[k] = (pk, thr)
+        parts = coll.all_gather_object((mesh.coords.get("channel", 0), local), mesh)
+        wall = time.perf_counter() - t0
+        # an elastic rerun replays the whole in-flight batch: a file already
+        # recorded gains no second record
+        recorded = {r.path for r in records}
+        for k in range(n_real):
+            path = group[k][0]
+            if path in recorded:
+                continue
+            if not ok[k]:
+                fail(path, RuntimeError(errs.get(k, "read failed (see the owning "
+                                                    "rank's log)")))
+                continue
+            shards = sorted((c, loc[k]) for c, loc in parts if k in loc)
+            picks = {name: np.concatenate([pt[0][name] for _, pt in shards], axis=1)
+                     .astype(np.int64) for name in names}
+            _file_record(outdir, path, picks, shards[0][1][1],
+                         round(wall / max(n_real, 1), 3), records, write=lay.writer,
+                         family="mf", rung=rung)
+
+    lay = layout(mesh)
     groups = [healthy_specs[s:s + batch] for s in range(0, len(healthy_specs), batch)]
+    rebuilds, gi = 0, 0
     with ThreadPoolExecutor(max_workers=1, thread_name_prefix="das-mesh-read") as pool:
-        nxt = pool.submit(read_group, groups[0])
-        for gi, group in enumerate(groups):
-            t0 = time.perf_counter()
+        nxt = pool.submit(read_group, groups[0], lay)
+        while gi < len(groups):
             got = nxt.result()
             if gi + 1 < len(groups):
-                nxt = pool.submit(read_group, groups[gi + 1])   # read ahead
-            n_real = len(group)
-            ok_local = torch.ones(batch, dtype=torch.int32, device=mesh.device)
-            errs = {}
-            for k, v in got.items():
-                if isinstance(v, Exception):
-                    ok_local[k] = 0
-                    errs[k] = f"{type(v).__name__}: {v}"
-            ok = coll.pmin(ok_local, mesh, None).cpu().numpy().astype(bool)
-            if on_read_error == "abort" and not ok[:n_real].all():
-                bad = [group[k][0] for k in range(n_real) if not ok[k]]
-                raise RuntimeError(f"read failed after a clean probe on {bad} "
-                                   f"({errs or 'on another rank'}); a half-read batch "
-                                   "cannot be attributed, the run stops")
-            like = next((v for v in got.values() if not isinstance(v, Exception)), None)
-            stack = np.zeros((per, c_local, ns), like.dtype if like is not None else np.float32)
-            for k, v in got.items():
-                if not isinstance(v, Exception):
-                    stack[k - lo] = v
-            x = torch.from_numpy(stack).to(mesh.device)
+                nxt = pool.submit(read_group, groups[gi + 1], lay)   # read ahead
             try:
-                sp_picks, thres, _esc = _run_adaptive(step_k0, step_full, x, mesh)
-                nT, _B, Cr, K = sp_picks.positions.shape
-                cap = min(Cr * K, _PICK_PACK_CAP)
-                rows_d, times_d, cnt_d = _compact_batch_picks(sp_picks.positions,
-                                                              sp_picks.selected, ns, cap)
-                faults.count("syncs")
-                packed = compacted_to_host(rows_d, times_d, cnt_d, cap)
-                host_picks = None
-                if packed is None:     # pack overflow: the exact full-grid route
-                    host_picks = types.SimpleNamespace(
-                        positions=sp_picks.positions.cpu().numpy(),
-                        selected=sp_picks.selected.cpu().numpy())
-                base = thres.detach().cpu().numpy().astype(np.float32)
+                run_batch(groups[gi], got, lay)
             except Exception as exc:
-                if elastic and faults.classify_failure(exc) != "fatal":
-                    raise _not_in_slice("the elastic mesh downshift after a step failure "
-                                        f"({type(exc).__name__}: {exc})",
-                                        "Multi-GPU families") from exc
-                raise
-            local = {}
-            for k in range(lo, min(lo + per, n_real)):
-                j = k - lo
-                if host_picks is None:
-                    rows_np, times_np, cnt = packed
-                    pk = {name: np.asarray([rows_np[i, j, :cnt[i, j]] + c_off,
-                                            times_np[i, j, :cnt[i, j]]])
-                          for i, name in enumerate(names)}
-                else:
-                    pk = {name: v + np.array([[c_off], [0]])
-                          for name, v in sharded_picks_to_dict(
-                              host_picks, names, file_index=j, n_samples=ns).items()}
-                thr = {name: float(base[i, j] if base.ndim == 2 else base[j]) * float(fac_vec[i])
-                       for i, name in enumerate(names)}
-                local[k] = (pk, thr)
-            parts = coll.all_gather_object((mesh.coords.get("channel", 0), local), mesh)
-            wall = time.perf_counter() - t0
-            for k in range(n_real):
-                path = group[k][0]
-                if not ok[k]:
-                    fail(path, RuntimeError(errs.get(k, "read failed (see the owning "
-                                                        "rank's log)")))
-                    continue
-                shards = sorted((c, loc[k]) for c, loc in parts if k in loc)
-                picks = {name: np.concatenate([pt[0][name] for _, pt in shards], axis=1)
-                         .astype(np.int64) for name in names}
-                _file_record(outdir, path, picks, shards[0][1][1],
-                             round(wall / max(n_real, 1), 3), records, write=writer,
-                             family="mf", rung=rung)
+                if not elastic or faults.classify_failure(exc) == "fatal":
+                    raise
+                if rebuilds >= _MAX_MESH_REBUILDS:
+                    log.error("elastic recovery exhausted after %d mesh rebuilds", rebuilds)
+                    raise
+                rebuilds += 1
+                if gi + 1 < len(groups):
+                    nxt.result()             # the read-ahead was laid out for the old mesh
+                new_mesh = _rebuild_mesh_after_device_loss(lay.mesh, C, exc, outdir, rebuilds)
+                lay = layout(new_mesh)
+                rz.write = lay.writer
+                nxt = pool.submit(read_group, groups[gi], lay)   # only this batch reruns
+                continue
+            gi += 1
     rz.flush_tallies()
     # the writer's artifacts are complete before any rank returns
-    coll.barrier(mesh)
+    coll.barrier(lay.mesh)
     return CampaignResult(outdir=outdir, records=records)
+
+
+#: the elastic campaign's survivor check-ins, under the outdir
+ELASTIC_DIR = ".elastic"
+
+#: the elastic campaign gives up after this many mesh rebuilds: a failure
+#: that survives repeated shrinking is not a lost device
+_MAX_MESH_REBUILDS = 4
+
+#: a rank's bound on probing its own device; a survivor waits for the
+#: others to check in this long past the process group's collective
+#: timeout (a peer still blocked in a collective with the failed rank gets
+#: there within it): a wedged card neither fails nor answers, and a dead
+#: rank never checks in
+_DEVICE_PROBE_DEADLINE_S = 30.0
+
+
+def _probe_own_device(device) -> bool:
+    """Whether this rank's device answers a transfer and compute round
+    trip within :data:`_DEVICE_PROBE_DEADLINE_S` (a lost card raises, a
+    wedged one times out; the probe thread is abandoned). On a card the
+    probe first returns the allocator's cache."""
+    import torch
+
+    def probe():
+        if torch.device(device).type == "cuda":
+            # the check-in's wait can be long: the cache goes back to the
+            # card, which other processes may share
+            torch.cuda.empty_cache()
+        x = torch.ones(8, dtype=torch.float32).to(device)
+        return float(x.sum().cpu()) == 8.0
+
+    try:
+        return bool(faults.call_with_deadline(probe, _DEVICE_PROBE_DEADLINE_S, str(device)))
+    except Exception:  # noqa: BLE001 — a dead or wedged device: this rank drops out
+        return False
+
+
+def _survivors(outdir: str, incarnation: int, old_world: int, rank: int,
+               healthy: bool, wait_s: float) -> list:
+    """The survivor check-in of mesh incarnation ``incarnation``: through
+    files under ``outdir`` (a store no single rank hosts), every rank whose
+    device probed healthy checks in, then waits for the rest of the old
+    world for ``wait_s``; the first rank to finish waiting seals the list
+    (an atomic link: first wins) and every rank reads the sealed one, so
+    all survivors agree. Returns the sealed sorted old ranks."""
+    import json
+
+    d = os.path.join(outdir, ELASTIC_DIR, f"mesh{incarnation}")
+    os.makedirs(d, exist_ok=True)
+
+    def checked_in():
+        return sorted(int(f[len("rank"):]) for f in os.listdir(d)
+                      if f.startswith("rank") and f[len("rank"):].isdigit())
+
+    if healthy:
+        tmp = os.path.join(d, f".rank{rank}.tmp")
+        with open(tmp, "w") as fh:
+            fh.write(str(rank))
+        os.replace(tmp, os.path.join(d, f"rank{rank}"))
+    sealed = os.path.join(d, "survivors.json")
+    t_end = time.monotonic() + wait_s
+    while (time.monotonic() < t_end and len(checked_in()) < old_world
+           and not os.path.exists(sealed)):
+        time.sleep(0.05)
+    if not os.path.exists(sealed):
+        tmp = os.path.join(d, f".survivors.{rank}.tmp")
+        with open(tmp, "w") as fh:
+            json.dump(checked_in(), fh)
+        try:
+            os.link(tmp, sealed)
+        except FileExistsError:
+            pass
+        os.remove(tmp)
+    with open(sealed) as fh:
+        return json.load(fh)
+
+
+def _rebuild_mesh_after_device_loss(mesh, n_channels: int, exc, outdir: str,
+                                    incarnation: int):
+    """The elastic mesh downshift after a step failure, on every rank that
+    is still alive: each probes its own device and checks in
+    (:func:`_survivors`). A rank whose peer failed alone sits in its next
+    collective until the process group's timeout, then comes here too, so
+    the check-in waits that timeout plus :data:`_DEVICE_PROBE_DEADLINE_S`.
+    Where every rank of the old world checks in, the failure was not a
+    device loss and ``exc`` is raised. Else the survivors form a new
+    process group (a file rendezvous under ``outdir``, the old group's
+    timeout) of the largest count that divides the channel axis, on a
+    ``(1, n)`` mesh with the old axis names, and its rank 0 appends the
+    ``mesh_downshift`` event. Returns the new mesh. A rank left out of it
+    (it checked in after the list was sealed, or the new mesh has no room
+    for it) raises, as does every rank where no survivor configuration
+    exists: no rank returns a campaign it did not finish."""
+    import torch.distributed as dist
+
+    from ..parallel import collectives as coll
+    from ..parallel import distributed
+    from ..parallel.mesh import make_mesh
+
+    old = mesh.size
+    timeout_s = distributed.collective_timeout_s() if mesh.backend else 0.0
+    healthy = _probe_own_device(mesh.device)
+    alive = _survivors(outdir, incarnation, old, mesh.rank, healthy,
+                       timeout_s + _DEVICE_PROBE_DEADLINE_S)
+    if len(alive) == old:
+        # every device answers: a program or data error would fail the same
+        # way on a rebuilt mesh of the same size; surface it instead
+        log.error("all %d mesh devices probe healthy; step failure is not device loss — "
+                  "re-raising", old)
+        raise exc
+    n = next((c for c in range(len(alive), 0, -1) if n_channels % c == 0), 0)
+    if n < 1:
+        log.error("no surviving device configuration divides the channel axis (%d "
+                  "survivors of %d)", len(alive), old)
+        raise exc
+    keep = alive[:n]
+    backend = mesh.backend
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+    if mesh.rank not in keep:
+        why = ("it checked in after the survivors were sealed" if mesh.rank not in alive
+               else "the new mesh has no room for it")
+        raise RuntimeError(f"elastic recovery: rank {mesh.rank} is not in the rebuilt mesh "
+                           f"of ranks {keep} ({why}); its campaign is incomplete") from exc
+    new_rank = keep.index(mesh.rank)
+    devices = [str(mesh.device)]
+    if n > 1:
+        rendezvous = os.path.join(outdir, ELASTIC_DIR, f"mesh{incarnation}", "rendezvous")
+        distributed.initialize(f"file://{rendezvous}", n, new_rank, backend=backend,
+                               timeout_s=timeout_s)
+        devices = [None] * n
+        dist.all_gather_object(devices, str(mesh.device))
+    new_mesh = make_mesh(shape=(1, n), axis_names=tuple(mesh.axis_names), devices=devices,
+                         backend=backend if n > 1 else None)
+    if new_mesh.rank == 0:
+        _append_event(outdir, {"event": "mesh_downshift", "from_devices": old,
+                               "to_devices": n, "error": f"{type(exc).__name__}: {exc}"})
+    log.warning("elastic recovery: mesh rebuilt on %d/%d devices after %s: %s", n, old,
+                type(exc).__name__, exc)
+    coll.barrier(new_mesh)
+    return new_mesh
 
 
 def run_campaign_sharded(
@@ -1899,10 +2073,21 @@ def run_campaign_sharded(
     checkpoint path (default: designed here, on every rank). ``prefetch``
     is the JAX signature's (one batch is read ahead).
 
-    ``elastic=True``, JAX's mesh downshift after a device loss, is not in
-    this slice: the campaign runs as usual, and a step failure raises
-    naming the ROADMAP item 'Multi-GPU families' instead of rebuilding the
-    mesh. ``elastic=False`` re-raises the step's own error."""
+    ``elastic=True`` is JAX's mesh downshift after a device loss, in the
+    multi-controller world: a batch's failure that is not ``"fatal"``
+    (``faults.classify_failure``; a peer rank's death fails the next
+    collective; a peer of a rank that failed alone waits in its collective
+    until the group's timeout) sends every live rank to a survivor check-in
+    through files under ``outdir``, each probing its own device within
+    ``_DEVICE_PROBE_DEADLINE_S``; the check-in waits the group's timeout
+    plus that deadline. Where every rank of the old world checks in, the
+    failure was not a device loss and re-raises, as JAX's does. Otherwise
+    the survivors form a new process group of the largest count that
+    divides the channel axis, at mesh shape ``(1, n)``, append the
+    ``mesh_downshift`` event (``from_devices``, ``to_devices``, ``error``),
+    rebuild the step pair and rerun the in-flight batch only; at most
+    ``_MAX_MESH_REBUILDS`` times. A live rank left out of the new mesh
+    raises. ``elastic=False`` re-raises the step's own error."""
     if wire not in ("conditioned", "raw"):
         raise ValueError(f"unknown wire {wire!r}; expected 'conditioned' or 'raw'")
     return _mesh_campaign(files, selected_channels, outdir, mesh, metadata=metadata,

@@ -28,12 +28,25 @@ axis; every rank calls this with the same arguments) the matched filter
 runs ``parallel.timeshard.make_sharded_mf_step_time``: each rank reads
 only the files that overlap its time slice of the record, conditions
 (raw wire: the per-file host means of its own files), filters and
-relabels, and picks its channel rows with the same plain tiled picker;
-the packed picks are gathered, so every rank returns the same result.
-The staged bandpass (``fused_bandpass=False``, the halo exchange) runs
-there too, on one device as a mesh of one. The spectro and Gabor
-families, and the learned family over a mesh, raise
-``NotImplementedError`` naming the ROADMAP item 'Multi-GPU families'.
+relabels, and picks its channel rows through the pick kernel (its
+long-row form where a row of the record does not fit one CTA's shared
+memory, ``timeshard.pick_route``); the packed picks are gathered, so every rank
+returns the same result. The staged bandpass (``fused_bandpass=False``,
+the halo exchange) runs there too, on one device as a mesh of one.
+
+The spectro and Gabor families take the time-split front end (the halo
+bandpass ``timeshard.sharded_bp_filt_time``, then the pencil f-k
+``sharded_fk_apply_time`` on the ``hybrid_ninf`` mask) and then their own
+time-split steps (``parallel.spectro.make_sharded_spectro_step_time``,
+``parallel.gabor.make_sharded_gabor_step_time``) with ``outputs=
+"picks"``, on the mesh or, without one, on a mesh of one (JAX's default
+mesh of every device). The spectro record is padded to a multiple of
+``P · nhop`` and its frame positions scaled by ``nhop``; both need the
+channel count divisible by ``P``. Over a mesh the learned family
+channel-shards the record (each rank reads its channel slice of every
+file) and scores it through ``models.learned.make_sharded_inference`` on
+a ``channel`` mesh of the same ranks; without a mesh it keeps its
+one-device route.
 ``mf_engine`` goes through ``ops.mxu.resolve_mf_engine``
 on the record's device, as the campaigns' detectors do (None: the FFT
 route; ``"matmul-fused"`` has no bandpass FIR here and runs as the
@@ -50,7 +63,6 @@ import torch
 
 from .. import faults
 from ..config import SCRIPT_FK, as_metadata
-from ..config import not_in_slice as _not_in_slice
 from ..io.stream import stream_strain_blocks
 from ..models.matched_filter import design_matched_filter
 from ..ops import conditioning, mxu, spectral, xcorr
@@ -72,6 +84,13 @@ class LongRecordResult:
     t0_utc: object
     n_samples: int
     n_files: int
+    #: ``keep_envelopes=True`` (spectro and Gabor): what the family picks on,
+    #: this rank's channel rows ``[nT, C/P, n]`` as host numpy (the spectro
+    #: correlograms, the Gabor correlograms' Hilbert envelopes), and the
+    #: factor from its positions to samples (a pick's ``t // pos_scale``
+    #: indexes ``envelopes``): the knife-edge margin of ``utils.parity``
+    envelopes: np.ndarray | None = None
+    pos_scale: int = 1
 
 
 def _pad_to_multiple(x: np.ndarray, mult: int) -> np.ndarray:
@@ -157,11 +176,6 @@ def _check_settings(family, wire, fam_kw, fused_bandpass, mesh):
             "fused_bandpass applies to the flagship family only; the "
             "spectro/gabor front end designs its own bandpass"
         )
-    if family in ("spectro", "gabor"):
-        raise _not_in_slice(f"detect_long_record(family={family!r})", "Multi-GPU families")
-    if family == "learned" and mesh is not None:
-        raise _not_in_slice("detect_long_record(family='learned') over a mesh",
-                            "Multi-GPU families")
 
 
 def detect_long_record(
@@ -188,6 +202,7 @@ def detect_long_record(
     design=None,
     device=None,
     stage_hook: Callable[[str], None] | None = None,
+    keep_envelopes: bool = False,
 ) -> LongRecordResult:
     """Detect calls over a continuous multi-file record on one device.
 
@@ -196,19 +211,27 @@ def detect_long_record(
     stored dtype and conditions on the device, subtracting each file's
     own host mean (the conditioned wire demeans file by file, so a
     whole-record demean would be the wrong map where files carry
-    different DC offsets). ``family``: ``"mf"`` or ``"learned"``
-    (``family_kwargs``: ``{"model": <npz path>}`` or ``{"params": ...,
-    "cfg": ...}``, and ``"threshold"``). ``design`` takes a
-    ``MatchedFilterDesign`` for the record's shape instead of designing
-    one (the f-k design of a long record takes minutes on the host).
+    different DC offsets). ``family``: ``"mf"``, ``"spectro"`` (picks at
+    frame resolution, converted to samples by the hop), ``"gabor"`` or
+    ``"learned"`` (``family_kwargs``: ``{"model": <npz path>}`` or
+    ``{"params": ..., "cfg": ...}``, and ``"threshold"``); the spectro and
+    Gabor ``family_kwargs`` go to their step factories. ``design`` takes a
+    ``MatchedFilterDesign`` for the record's (padded) shape instead of
+    designing one (the f-k design of a long record takes minutes on the
+    host); the spectro and Gabor families use its f-k mask.
     ``device`` is where the record is detected (``None``: the card).
     ``stage_hook(name)`` is called after each stage (``read``,
     ``design``, ``condition``, ``mask``, ``fk``, ``correlate``, ``pick``,
     ``compact``; ``read``, ``score``, ``finalize`` for the learned
-    family; ``read``, ``design``, ``step``, ``compact`` over a mesh).
+    family; ``read``, ``design``, ``step``, ``compact`` over a mesh and
+    for the spectro and Gabor families, with ``front`` (bandpass and f-k)
+    before ``step``; ``read``, ``score``, ``compact`` for the learned
+    family over a mesh).
     ``mesh`` is a ``parallel.mesh.Mesh`` with a ``time_axis`` (module
     docstring; its device is the record's); ``halo`` is the staged
-    bandpass's exchange width and has no effect on the fused route."""
+    bandpass's exchange width and has no effect on the fused route.
+    ``keep_envelopes`` (spectro and Gabor) runs the family's step with
+    ``outputs="full"`` and returns what it picks on in ``envelopes``."""
     fam_kw = dict(family_kwargs or {})
     if fused_bandpass is None:
         fused_bandpass = family == "mf"
@@ -217,13 +240,28 @@ def detect_long_record(
         raise ValueError("need at least one file")
     mesh = _as_mesh(mesh, time_axis, device)
     _check_settings(family, wire, fam_kw, fused_bandpass, mesh)
+    if keep_envelopes and family not in ("spectro", "gabor"):
+        raise ValueError(f"keep_envelopes applies to family='spectro'/'gabor', not {family!r}")
     hook = stage_hook or (lambda name: None)
-    if family == "mf" and (mesh is not None or not fused_bandpass):
+    if family == "learned" and mesh is not None:
+        return _learned_mesh_record(files, selected_channels, metadata, mesh, fam_kw,
+                                    time_axis=time_axis, engine=engine,
+                                    interrogator=interrogator, hook=hook)
+    if family in ("spectro", "gabor") or (family == "mf" and (mesh is not None
+                                                              or not fused_bandpass)):
         if mesh is None:
             from ..parallel.mesh import make_mesh
 
             mesh = make_mesh(shape=(1,), axis_names=(time_axis,),
                              devices=[str(resolve_device(device))])
+    if family in ("spectro", "gabor"):
+        return _family_record(files, selected_channels, metadata, mesh, family, fam_kw,
+                              time_axis=time_axis, halo=halo, engine=engine,
+                              interrogator=interrogator, relative_threshold=relative_threshold,
+                              hf_factor=hf_factor, bp_band=bp_band, fk_config=fk_config,
+                              max_peaks=max_peaks_per_channel, design=design, hook=hook,
+                              keep_envelopes=keep_envelopes)
+    if family == "mf" and mesh is not None:
         return _mesh_record(files, selected_channels, metadata, mesh, time_axis=time_axis,
                             halo=halo, engine=engine, interrogator=interrogator,
                             relative_threshold=relative_threshold, hf_factor=hf_factor,
@@ -305,16 +343,16 @@ def detect_long_record(
                             t0_utc=blocks[0].t0_utc, n_samples=n_samples, n_files=len(files))
 
 
-def _mesh_record(files, selected_channels, metadata, mesh, *, time_axis, halo, engine,
-                 interrogator, relative_threshold, hf_factor, templates, bp_band, fk_config,
-                 max_peaks, fused_bandpass, wire, mf_engine, design, hook):
-    """The matched-filter record over a ``time`` mesh (module docstring):
-    this rank's time slice of the record, the time-split step, the
-    gathered picks."""
+def _read_time_slice(files, selected_channels, metadata, mesh, time_axis, *, engine,
+                     interrogator, wire, pad_mult, family):
+    """This rank's time slice ``[C, L]`` of the record (host numpy) over
+    ``mesh``'s ``time_axis``: each rank reads only the files that overlap
+    its slice; the record is zero-padded to a multiple of ``pad_mult``.
+    Returns ``(local, specs, lens, n_samples, nns, blocks, t0)`` with
+    ``blocks`` this rank's ``{file index: StrainBlock}`` and ``t0`` the
+    first file's start where this rank read it (else None)."""
     from ..config import ChannelSelection
     from ..io.stream import _probe
-    from ..parallel import collectives as coll
-    from ..parallel.timeshard import make_sharded_mf_step_time
 
     p = mesh.axis_size(time_axis)
     i = mesh.axis_index(time_axis)
@@ -325,11 +363,11 @@ def _mesh_record(files, selected_channels, metadata, mesh, *, time_axis, halo, e
     lens = [int(sp_.meta.ns) for sp_ in specs]
     starts = np.concatenate([[0], np.cumsum(lens)])
     n_samples = int(starts[-1])
-    nns = n_samples + (-n_samples) % p
+    nns = n_samples + (-n_samples) % pad_mult
     L = nns // p
     lo, hi = i * L, (i + 1) * L
     mine = [k for k in range(len(files)) if starts[k] < hi and starts[k + 1] > lo]
-    with telemetry.span("longrecord.read", n_files=len(mine), family="mf"):
+    with telemetry.span("longrecord.read", n_files=len(mine), family=family):
         blocks = dict(zip(mine, stream_strain_blocks(
             [files[k] for k in mine], selected_channels, [metas[k] for k in mine],
             interrogator=interrogator, engine=engine, as_numpy=True, wire=wire))) \
@@ -342,6 +380,70 @@ def _mesh_record(files, selected_channels, metadata, mesh, *, time_axis, halo, e
         local[:, a - lo:z - lo] = b.trace[:, a - starts[k]:z - starts[k]]
     log.info("continuous record over %d ranks: %d files -> [%d x %d] (%.1f s), rank %d "
              "reads %d", p, len(files), nnx, nns, n_samples / meta.fs, i, len(mine))
+    t0 = blocks[0].t0_utc if 0 in blocks else None
+    return local, specs, lens, n_samples, nns, blocks, t0
+
+
+def _gather_record_picks(sp_picks, names, mesh, time_axis, *, n_samples, pos_scale, rows,
+                         max_peaks, t0):
+    """This rank's ``[nT, C/P, K]`` picks of its channel rows packed on
+    the device (positions at or past the record's end dropped, then
+    scaled by ``pos_scale``), gathered from every rank in channel order.
+    Returns ``({name: (2, n)}, t0 of the rank that read the first file)``."""
+    from ..parallel import collectives as coll
+
+    i = mesh.axis_index(time_axis)
+    ns_eff = (n_samples - 1) // pos_scale + 1
+    cap = min(int(np.prod(tuple(sp_picks.positions.shape[-2:]))), _PICK_PACK_CAP)
+    with telemetry.span("longrecord.resolve", n_samples=n_samples):
+        rows_d, times_d, cnt_d = _pack_record_picks(sp_picks.positions, sp_picks.selected,
+                                                    ns_eff, cap)
+        faults.count("syncs")
+        packed = peak_ops.compacted_to_host(rows_d, times_d, cnt_d, cap)
+        saturated = sp_picks.saturated.cpu().numpy()
+    local_picks = {}
+    for t, name in enumerate(names):
+        if saturated[t].any():
+            log.warning("%s: peak capacity saturated on %d/%d channels of rank %d; picks "
+                        "beyond the %d tallest per channel were dropped — raise "
+                        "max_peaks_per_channel to keep them", name, int(saturated[t].sum()),
+                        rows, i, max_peaks)
+        if packed is not None:
+            rows_np, times_np, cnt = packed
+            k = int(cnt[t])
+            pk = np.asarray([rows_np[t, :k], times_np[t, :k]])
+        else:   # pack overflow: the exact full-grid route
+            pos = sp_picks.positions[t].cpu().numpy()
+            sel = sp_picks.selected[t].cpu().numpy()
+            pk = peak_ops.sparse_to_pick_times(pos, sel & (pos < ns_eff))
+        local_picks[name] = np.asarray([pk[0] + i * rows, pk[1] * pos_scale])
+    parts = sorted(coll.all_gather_object((i, local_picks, t0), mesh), key=lambda pt: pt[0])
+    picks = {name: np.concatenate([pt[1][name] for pt in parts], axis=1).astype(np.int64)
+             for name in names}
+    return picks, next((pt[2] for pt in parts if pt[2] is not None), None)
+
+
+def _check_design(design, nnx, nns):
+    if tuple(design.trace_shape) != (nnx, nns) or design.fk_channels != nnx:
+        raise ValueError(f"design for {tuple(design.trace_shape)} (f-k rows "
+                         f"{design.fk_channels}) does not fit the record [{nnx} x {nns}]")
+
+
+def _mesh_record(files, selected_channels, metadata, mesh, *, time_axis, halo, engine,
+                 interrogator, relative_threshold, hf_factor, templates, bp_band, fk_config,
+                 max_peaks, fused_bandpass, wire, mf_engine, design, hook):
+    """The matched-filter record over a ``time`` mesh (module docstring):
+    this rank's time slice of the record, the time-split step, the
+    gathered picks."""
+    from ..config import ChannelSelection
+    from ..parallel.timeshard import make_sharded_mf_step_time
+
+    p = mesh.axis_size(time_axis)
+    local, specs, lens, n_samples, nns, blocks, blocks_t0 = _read_time_slice(
+        files, selected_channels, metadata, mesh, time_axis, engine=engine,
+        interrogator=interrogator, wire=wire, pad_mult=p, family="mf")
+    meta = specs[0].meta
+    nnx = local.shape[0]
     x = torch.from_numpy(local).to(mesh.device)
     del local
     hook("read")
@@ -350,9 +452,8 @@ def _mesh_record(files, selected_channels, metadata, mesh, *, time_axis, halo, e
         design = design_matched_filter((nnx, nns), sel_list, meta,
                                        fk_config=fk_config or SCRIPT_FK, bp_band=bp_band,
                                        templates=templates)
-    elif tuple(design.trace_shape) != (nnx, nns) or design.fk_channels != nnx:
-        raise ValueError(f"design for {tuple(design.trace_shape)} (f-k rows "
-                         f"{design.fk_channels}) does not fit the record [{nnx} x {nns}]")
+    else:
+        _check_design(design, nnx, nns)
     hook("design")
     cond_kw = {}
     if wire == "raw":
@@ -369,7 +470,6 @@ def _mesh_record(files, selected_channels, metadata, mesh, *, time_axis, halo, e
         for k, b in blocks.items():
             means[:, k] = _host_means(b.trace)
         cond_kw = dict(scale_factor=meta.scale_factor, cond_segments=lens, cond_means=means)
-    blocks_t0 = blocks[0].t0_utc if 0 in blocks else None
     blocks.clear()
     fac, _scope = design.resolve_threshold_policy(hf_factor)
     resolved, _why = mxu.resolve_mf_engine(mf_engine, design.trace_shape,
@@ -384,40 +484,178 @@ def _mesh_record(files, selected_channels, metadata, mesh, *, time_axis, halo, e
     del x
     hook("step")
     names = design.template_names
-    rows = nnx // p
-    cap = min(int(np.prod(tuple(sp_picks.positions.shape[-2:]))), _PICK_PACK_CAP)
-    with telemetry.span("longrecord.resolve", family="mf", n_samples=n_samples):
-        rows_d, times_d, cnt_d = _pack_record_picks(sp_picks.positions, sp_picks.selected,
-                                                    n_samples, cap)
-        faults.count("syncs")
-        packed = peak_ops.compacted_to_host(rows_d, times_d, cnt_d, cap)
-        saturated = sp_picks.saturated.cpu().numpy()
-        base = np.broadcast_to(thres.detach().cpu().numpy().astype(np.float32), fac.shape)
-    local_picks = {}
-    for t, name in enumerate(names):
-        if saturated[t].any():
-            log.warning("%s: peak capacity saturated on %d/%d channels of rank %d; picks "
-                        "beyond the %d tallest per channel were dropped — raise "
-                        "max_peaks_per_channel to keep them", name, int(saturated[t].sum()),
-                        rows, i, max_peaks)
-        if packed is not None:
-            rows_np, times_np, cnt = packed
-            k = int(cnt[t])
-            pk = np.asarray([rows_np[t, :k], times_np[t, :k]])
-        else:   # pack overflow: the exact full-grid route
-            pos = sp_picks.positions[t].cpu().numpy()
-            sel = sp_picks.selected[t].cpu().numpy()
-            pk = peak_ops.sparse_to_pick_times(pos, sel & (pos < n_samples))
-        local_picks[name] = pk + np.array([[i * rows], [0]])
-    parts = sorted(coll.all_gather_object((i, local_picks, blocks_t0), mesh),
-                   key=lambda part: part[0])
+    base = np.broadcast_to(thres.detach().cpu().numpy().astype(np.float32), fac.shape)
+    picks, t0 = _gather_record_picks(sp_picks, names, mesh, time_axis, n_samples=n_samples,
+                                     pos_scale=1, rows=nnx // p, max_peaks=max_peaks,
+                                     t0=blocks_t0)
     hook("compact")
-    picks = {name: np.concatenate([pt[1][name] for pt in parts], axis=1).astype(np.int64)
-             for name in names}
     return LongRecordResult(
         picks=picks, pick_times_s={name: pk[1] / meta.fs for name, pk in picks.items()},
         thresholds={name: float(base[t]) * float(fac[t]) for t, name in enumerate(names)},
-        t0_utc=parts[0][2], n_samples=n_samples, n_files=len(files))
+        t0_utc=t0, n_samples=n_samples, n_files=len(files))
+
+
+def _family_record(files, selected_channels, metadata, mesh, family, fam_kw, *, time_axis,
+                   halo, engine, interrogator, relative_threshold, hf_factor, bp_band,
+                   fk_config, max_peaks, design, hook, keep_envelopes=False):
+    """The spectro or Gabor record over a ``time`` mesh (module docstring):
+    this rank's time slice, the halo bandpass and the pencil f-k, the
+    family's time-split step, the gathered picks (and, ``keep_envelopes``,
+    what the step picks on)."""
+    from dataclasses import replace as _dc_replace
+
+    from ..config import ChannelSelection
+    from ..io.stream import _probe
+    from ..parallel.timeshard import sharded_bp_filt_time, sharded_fk_apply_time
+
+    p = mesh.axis_size(time_axis)
+    pad_mult, nhop = p, None
+    if family == "spectro":
+        # each local shard a whole number of hops, from the knobs the step
+        # factory will take (family_kwargs may set win_size/overlap_pct)
+        meta0 = metadata[0] if isinstance(metadata, (list, tuple)) else metadata
+        fs = _probe(files[0], interrogator, meta0).meta.fs
+        nperseg = int(float(fam_kw.get("win_size", 0.8)) * fs)
+        nhop = int(np.floor(nperseg * (1 - float(fam_kw.get("overlap_pct", 0.95)))))
+        pad_mult = p * nhop
+    local, specs, _lens, n_samples, nns, blocks, blocks_t0 = _read_time_slice(
+        files, selected_channels, metadata, mesh, time_axis, engine=engine,
+        interrogator=interrogator, wire="conditioned", pad_mult=pad_mult, family=family)
+    blocks.clear()
+    meta = specs[0].meta
+    nnx = local.shape[0]
+    if nnx % p:
+        raise ValueError(
+            f"family={family!r} relabels channels across the mesh: "
+            f"channel count {nnx} must be divisible by {p}"
+        )
+    x = torch.from_numpy(local).to(mesh.device)
+    del local
+    hook("read")
+    sel_list = ChannelSelection.from_list(selected_channels).to_list()
+    if design is None:
+        fk_cfg = fk_config or SCRIPT_FK
+        fk_mask = fk_ops.hybrid_ninf_filter_design(
+            (nnx, nns), sel_list, meta.dx, meta.fs, cs_min=fk_cfg.cs_min,
+            cp_min=fk_cfg.cp_min, cp_max=fk_cfg.cp_max, cs_max=fk_cfg.cs_max,
+            fmin=fk_cfg.fmin, fmax=fk_cfg.fmax).astype(np.float32)
+    else:
+        _check_design(design, nnx, nns)
+        fk_mask = np.asarray(design.fk_mask, np.float32)
+    hook("design")
+    trf = sharded_fk_apply_time(
+        sharded_bp_filt_time(x, mesh, meta.fs, bp_band[0], bp_band[1], halo=halo,
+                             time_axis=time_axis),
+        fk_mask, mesh, time_axis=time_axis)
+    del x, fk_mask
+    hook("front")
+    meta_rec = _dc_replace(meta, nx=nnx, ns=nns)
+    outputs = "full" if keep_envelopes else "picks"
+    env = None
+    if family == "spectro":
+        from ..parallel.spectro import make_sharded_spectro_step_time
+
+        step, names = make_sharded_spectro_step_time(
+            meta_rec, mesh, outputs=outputs, max_peaks=max_peaks, time_axis=time_axis,
+            **fam_kw)
+        sp_picks = step(trf)
+        if keep_envelopes:
+            corr, sp_picks = sp_picks
+            env = corr.cpu().numpy()
+            del corr
+        thresholds = {name: step.threshold for name in names}
+        pos_scale = nhop
+    else:
+        from ..parallel.gabor import make_sharded_gabor_step_time
+
+        # the original selection sets the Gabor angle only; the record's row
+        # count drives the validation; the family keeps its HF/LF factor pair
+        hf_leg = 0.9 if hf_factor is None else float(hf_factor)
+        step, names = make_sharded_gabor_step_time(
+            meta_rec, sel_list, mesh, relative_threshold=relative_threshold,
+            hf_factor=hf_leg, max_peaks=max_peaks, time_axis=time_axis, n_channels=nnx,
+            outputs=outputs, **fam_kw)
+        if keep_envelopes:
+            from ..ops import spectral
+
+            corr, sp_picks, thres = step(trf)
+            env = torch.stack([spectral.envelope_sqrt(c) for c in corr]).cpu().numpy()
+            del corr
+        else:
+            sp_picks, thres = step(trf)
+        base = float(thres)
+        thresholds = {name: base * (hf_leg if name == "HF" else 1.0) for name in names}
+        pos_scale = 1
+    del trf
+    hook("step")
+    picks, t0 = _gather_record_picks(sp_picks, names, mesh, time_axis, n_samples=n_samples,
+                                     pos_scale=pos_scale, rows=nnx // p, max_peaks=max_peaks,
+                                     t0=blocks_t0)
+    hook("compact")
+    return LongRecordResult(
+        picks=picks, pick_times_s={name: pk[1] / meta.fs for name, pk in picks.items()},
+        thresholds=thresholds, t0_utc=t0, n_samples=n_samples, n_files=len(files),
+        envelopes=env, pos_scale=pos_scale)
+
+
+def _learned_mesh_record(files, selected_channels, metadata, mesh, fam_kw, *, time_axis,
+                         engine, interrogator, hook):
+    """The learned record over a mesh (module docstring): the record
+    channel-sharded over a ``channel`` mesh of the same ranks, each rank
+    reading its channel slice of every file (the record zero-padded to a
+    multiple of ``P`` samples, as in JAX), scored through
+    ``make_sharded_inference``; each rank's threshold and NMS on the host,
+    padding picks dropped, the picks gathered in channel order."""
+    from ..config import ChannelSelection
+    from ..io.stream import _local_selection, _probe
+    from ..models import learned as _learned
+    from ..parallel import collectives as coll
+    from ..parallel.mesh import channel_sharding, flat_mesh
+
+    if "model" in fam_kw:
+        params_l, cfg_l = _learned.load_params(fam_kw["model"])
+    else:
+        params_l, cfg_l = fam_kw["params"], fam_kw["cfg"]
+    thr_l = float(fam_kw.get("threshold", 0.5))
+    cmesh = flat_mesh(mesh, "channel")
+    p = cmesh.size
+    meta0 = metadata[0] if isinstance(metadata, (list, tuple)) else metadata
+    first = _probe(files[0], interrogator, meta0)
+    sel = ChannelSelection.from_list(selected_channels)
+    nnx = sel.n_channels(first.meta.nx)
+    if nnx % p:
+        raise ValueError(f"family='learned' channel-shards the record: channel count {nnx} "
+                         f"must be divisible by {p}")
+    local_sel = _local_selection(sel, first.meta.nx, channel_sharding(cmesh), 0)
+    with telemetry.span("longrecord.read", n_files=len(files), family="learned"):
+        blocks = list(stream_strain_blocks(files, local_sel.to_list(), metadata,
+                                           interrogator=interrogator, engine=engine,
+                                           as_numpy=True))
+    meta = as_metadata(blocks[0].metadata)
+    record = np.concatenate([b.trace for b in blocks], axis=-1)
+    t0 = blocks[0].t0_utc
+    del blocks
+    n_samples = record.shape[-1]
+    record = _pad_to_multiple(record, p)
+    score_fn, _put = _learned.make_sharded_inference(params_l, cfg_l, cmesh)
+    x = torch.from_numpy(record).to(cmesh.device)
+    del record
+    hook("read")
+    scores = score_fn(x).cpu().numpy()
+    del x
+    faults.count("syncs")
+    hook("score")
+    det = _learned.LearnedDetector(params_l, cfg_l, threshold=thr_l, device="cpu")
+    pk = det.picks_from_scores(scores).picks[det.name]
+    pk = pk[:, pk[1] < n_samples]
+    i = cmesh.axis_index("channel")
+    parts = sorted(coll.all_gather_object((i, pk + np.array([[i * (nnx // p)], [0]])), cmesh),
+                   key=lambda pt: pt[0])
+    picks = np.concatenate([pt[1] for pt in parts], axis=1).astype(np.int64)
+    hook("compact")
+    return LongRecordResult(picks={det.name: picks}, pick_times_s={det.name: picks[1] / meta.fs},
+                            thresholds={det.name: thr_l}, t0_utc=t0, n_samples=n_samples,
+                            n_files=len(files))
 
 
 def _mf_record_correlograms(x, blocks, design, meta, wire, hook, engine="fft") -> torch.Tensor:

@@ -762,8 +762,9 @@ def test_not_in_slice_settings_raise(data, tmp_path):
         params = inspect.signature(entry).parameters
         assert {"preflight", "cost_cards", "quality"} <= set(params)
     # the mesh campaigns run (tests/test_torch_campaign_sharded.py) with
-    # JAX's signatures; what they still leave to a later item is the
-    # elastic mesh downshift, which a step failure names
+    # JAX's signatures; the elastic mesh downshift (tests/test_torch_elastic.py)
+    # re-raises a step failure where every rank checks in: on a mesh of one
+    # it always does, as JAX's re-raises when every device probes healthy
     for fn, jfn in ((campaign.run_campaign_sharded, jcampaign.run_campaign_sharded),
                     (campaign.run_campaign_multiprocess,
                      jcampaign.run_campaign_multiprocess)):
@@ -783,8 +784,10 @@ def test_not_in_slice_settings_raise(data, tmp_path):
     orig = pipeline.make_sharded_mf_step
     pipeline.make_sharded_mf_step = lost
     try:
-        with pytest.raises(NotImplementedError, match="'Multi-GPU families'"):
+        with pytest.raises(RuntimeError, match="illegal memory access"):
             campaign.run_campaign_sharded(files, SEL, str(tmp_path / "e"), mesh)
+        assert not any(r.get("event") == "mesh_downshift" for r in jartifacts.read_records(
+            os.path.join(str(tmp_path / "e"), "manifest.jsonl")))
         with pytest.raises(RuntimeError, match="illegal memory access"):
             campaign.run_campaign_sharded(files, SEL, str(tmp_path / "f"), mesh, elastic=False)
     finally:

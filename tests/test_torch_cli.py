@@ -253,12 +253,75 @@ def test_longrecord_matches_jax(tmp_path, capsys):
             np.testing.assert_array_equal(zt[key], zj[key])
 
 
+#: the Gabor image settings of ``tests/test_gabor_timeshard.py``: the verb
+#: has no flag for them, so both packages' workflow takes them through a
+#: patch (the default receptive field needs thousands of channels a shard)
+GABOR_KW = dict(bin_factor=0.5, ksize=6, threshold1=2000.0, threshold2=10.0)
+#: channels of the Gabor verb's files: JAX's verb shards the record over
+#: the 8 CPU devices, and 24 rows a shard hold the 20-row channel halo
+GABOR_NX = 192
+
+
+def _gabor_files(d):
+    fs, ns = 200.0, 1536
+    calls = [SyntheticCall(t0=5.0, x0_m=90 * 4.0, amplitude=2.0),
+             SyntheticCall(t0=7.4, x0_m=40 * 4.0, amplitude=2.0)]
+    scene = SyntheticScene(nx=GABOR_NX, ns=2 * ns, dx=4.0, noise_rms=0.05, seed=61,
+                           calls=calls)
+    from das4whales_tpu.io.synth import synthesize_scene, to_raw_counts
+
+    raw = to_raw_counts(synthesize_scene(scene), scene.metadata)
+    return [write_optasense(str(d / f"gseg{k}.h5"), raw[:, k * ns:(k + 1) * ns], fs=fs,
+                            dx=4.0) for k in range(2)]
+
+
+def _gabor_kw(fn):
+    def wrapped(*a, **kw):
+        if kw.get("family") == "gabor" and not kw.get("family_kwargs"):
+            kw["family_kwargs"] = dict(GABOR_KW)
+        return fn(*a, **kw)
+    return wrapped
+
+
 @pytest.mark.parametrize("argv", [["--family", "learned"], ["--family", "gabor"],
                                   ["--staged"]])
-def test_longrecord_refusals(tmp_path, capsys, argv):
+def test_longrecord_refusals(tmp_path, capsys, monkeypatch, argv):
     """``--family learned`` without ``--model`` exits 2 as JAX's; the Gabor
-    family over a record exits 2 naming 'Multi-GPU families'; the staged
-    (halo) bandpass runs, as a mesh of one."""
+    family over a record, once refused, exits 0 with JAX's verb lines,
+    thresholds within rtol 1e-5 and picks up to knife edges of the port's
+    own envelopes (both packages' workflow given the test-size image
+    settings); the staged (halo) bandpass runs, as a mesh of one."""
+    if argv == ["--family", "gabor"]:
+        from das4whales_tpu.workflows import longrecord as jlr
+        from das4whales_tpu_torch.workflows import longrecord as tlr
+
+        monkeypatch.setattr(jlr, "detect_long_record", _gabor_kw(jlr.detect_long_record))
+        monkeypatch.setattr(tlr, "detect_long_record", _gabor_kw(tlr.detect_long_record))
+        paths = _gabor_files(tmp_path)
+        outs = {}
+        for side, main in (("j", jmain), ("t", tmain)):
+            outdir = tmp_path / side
+            # JAX's verb splits the record over 8 devices: 384 samples a
+            # shard, under the default bandpass halo of 512
+            rc, out, _ = _run(main, ["longrecord", *paths, "--outdir", str(outdir), *argv,
+                                     "--halo", "256"], capsys, jax_side=side == "j")
+            outs[side] = (rc, _verb_lines("longrecord", out, [outdir]), outdir)
+        (rj, lj, dj), (rt, lt, dt) = outs["j"], outs["t"]
+        assert rj == rt == 0 and lt == lj and "2 files as one" in lt[-1]
+        sj = json.loads((dj / "summary.json").read_text())
+        st = json.loads((dt / "summary.json").read_text())
+        for name, thr in sj.pop("thresholds").items():
+            np.testing.assert_allclose(st["thresholds"][name], thr, rtol=1e-5)
+        st.pop("thresholds")
+        assert st == sj and sum(sj["n_picks"].values()) > 0
+        one = tlr.detect_long_record(paths, [0, GABOR_NX, 1], device="cpu", family="gabor",
+                                     family_kwargs=GABOR_KW, halo=256, keep_envelopes=True)
+        names, env, thr = list(one.thresholds), one.envelopes, one.thresholds
+        with np.load(dj / "picks.npz") as zj, np.load(dt / "picks.npz") as zt:
+            for i, name in enumerate(names):
+                assert not unexplained_differences(zj[f"picks_{name}"], zt[f"picks_{name}"],
+                                                   env[i], thr[name])
+        return
     paths = _long_files(tmp_path)
     rc, out, err = _run(tmain, ["longrecord", *paths, "--outdir", str(tmp_path / "o"), *argv],
                         capsys)
@@ -266,12 +329,9 @@ def test_longrecord_refusals(tmp_path, capsys, argv):
         assert rc == 0 and "2 files as one" in out
         return
     assert rc == 2
-    if argv == ["--family", "learned"]:
-        rj, oj, _ = _run(jmain, ["longrecord", *paths, "--outdir", str(tmp_path / "j"), *argv],
-                         capsys, jax_side=True)
-        assert rj == 2 and _verb_lines("longrecord", out) == _verb_lines("longrecord", oj)
-    else:
-        assert "'Multi-GPU families'" in err
+    rj, oj, _ = _run(jmain, ["longrecord", *paths, "--outdir", str(tmp_path / "j"), *argv],
+                     capsys, jax_side=True)
+    assert rj == 2 and _verb_lines("longrecord", out) == _verb_lines("longrecord", oj)
 
 
 def _sweep(main, argv, capsys, jax_side, tmp_path, tag):

@@ -65,7 +65,7 @@ def test_the_scan_covers_every_module_of_the_port():
                 "fleet/__init__.py", "fleet/supervisor.py", "fleet/router.py",
                 "parallel/__init__.py", "parallel/mesh.py", "parallel/collectives.py",
                 "parallel/distributed.py", "parallel/fft.py", "parallel/pipeline.py",
-                "parallel/timeshard.py"):
+                "parallel/timeshard.py", "parallel/spectro.py", "parallel/gabor.py"):
         assert f"das4whales_tpu_torch/{mod}" in scanned
     assert "chip_smoke.py" in scanned
 
@@ -136,6 +136,10 @@ def test_loc_eval_and_long_record_default_to_the_card(tmp_path):
                            dx=2.0)
     with pytest.raises(RuntimeError, match="CUDA device"):
         detect_long_record([path], [0, 8, 1])
+    # the spectro and Gabor families (a mesh of one on the card)
+    for family in ("spectro", "gabor"):
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            detect_long_record([path], [0, 8, 1], family=family)
     assert loc.localize(ti, cable, 1500.0, device="cpu").position.device.type == "cpu"
 
 

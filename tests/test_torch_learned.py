@@ -375,11 +375,46 @@ def test_window_labels_match_jax():
         np.testing.assert_array_equal(arrival_times(call, scene), jeval.arrival_times(call, scene))
 
 
-def test_sharded_entries_and_cudnn_allocation_failures():
-    for fn in (lambda: tl.make_sharded_train_step(None), lambda: tl.make_sharded_inference(
-            None, CFG, None), lambda: tl.fit(CFG, [], mesh=object(), device="cpu")):
-        with pytest.raises(NotImplementedError, match="Multi-GPU"):
-            fn()
+def test_sharded_entries_and_cudnn_allocation_failures(pretrained):
+    """The three sharded entries, once refused, run on a mesh of one and
+    match JAX's on a one-device mesh: a data-parallel AdamW step (loss
+    ``LOSS_REL``, parameters ``PARAM_ABS``), ``fit(mesh=)``'s history
+    (``FIT_REL``) and the sharded scores (``SCORE_ABS``; both on the rFFT
+    engine). Two ranks: ``tests/test_torch_learned_sharded.py``."""
+    from das4whales_tpu.parallel.mesh import make_mesh as jmake_mesh
+    from das4whales_tpu_torch.parallel.mesh import make_mesh
+
+    scene = _scene(7, [0.9])
+    train = [_scene(s, [0.6, 0.9]) for s in range(2)]
+    jp, _, model, _ = pretrained
+    block = _block(_scene(55, [0.8]))
+    with jax.enable_x64(False):
+        win, centers = jl.window_features(_block(scene), JCFG, engine="rfft")
+        x = np.array(win).reshape(-1, 32, 8)[:256]
+        y = np.asarray(jl.window_labels(scene, np.asarray(centers), JCFG)).reshape(-1)[:256]
+        jm = {a: jmake_mesh(shape=(1,), axis_names=(a,), devices=jax.devices()[:1])
+              for a in ("batch", "channel")}
+        p, o, tx = jl.init_train_state(JCFG, seed=3)
+        jstep, jput = jl.make_sharded_train_step(jm["batch"])
+        p, o, jloss = jstep(p, o, tx, *jput(x, y))
+        jparams = {k: {kk: np.array(v) for kk, v in sub.items()} for k, sub in p.items()}
+        _, jhist = jl.fit(JCFG, train, epochs=2, batch=512, seed=0, mesh=jm["batch"])
+        score_fn, put = jl.make_sharded_inference(jp, JCFG, jm["channel"])
+        jscores = np.array(score_fn(put(block)))
+    tm = {a: make_mesh(shape=(1,), axis_names=(a,), devices=["cpu"]) for a in ("batch",
+                                                                           "channel")}
+    m, opt = tl.init_train_state(CFG, seed=3, device="cpu")
+    step, tput = tl.make_sharded_train_step(tm["batch"])
+    m, opt, loss = step(m, opt, *tput(x, y))
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=LOSS_REL)
+    got = convert.learned_params_to_arrays(m)
+    for k in jparams:
+        for kk in jparams[k]:
+            np.testing.assert_allclose(got[k][kk], jparams[k][kk], rtol=0, atol=PARAM_ABS)
+    _, hist = tl.fit(CFG, train, epochs=2, batch=512, seed=0, mesh=tm["batch"])
+    np.testing.assert_allclose(hist, jhist, rtol=FIT_REL)
+    score_fn, put = tl.make_sharded_inference(model, CFG, tm["channel"])
+    np.testing.assert_allclose(score_fn(put(block)).numpy(), jscores, rtol=0, atol=SCORE_ABS)
     # cuDNN's workspace allocation, by text, moves the ladder like cuFFT's
     assert faults.classify_failure(
         RuntimeError("cuDNN error: CUDNN_STATUS_ALLOC_FAILED")) == "resource"

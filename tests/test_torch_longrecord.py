@@ -215,11 +215,32 @@ def test_learned_family_loads_a_model_file(campaign, tmp_path):
 
 
 def test_settings_outside_the_slice_raise(campaign):
+    """The spectro and Gabor families, once refused, now run on one device
+    (a mesh of one) and pick as JAX's on a one-device mesh, up to knife
+    edges of the port's own correlograms (the Gabor family at
+    ``tests/test_gabor_timeshard.py``'s image settings: 32 channels are too
+    few for the default receptive field); the settings that stay invalid
+    raise as before."""
     paths, _ = campaign
-    for kw, item in (({"family": "spectro"}, "'Multi-GPU families'"),
-                     ({"family": "gabor"}, "'Multi-GPU families'")):
-        with pytest.raises(NotImplementedError, match=item):
-            tlr.detect_long_record(paths, SEL, device="cpu", **kw)
+    n_picks = {}
+    for fam, kw in (("spectro", {}), ("gabor", dict(bin_factor=0.5, ksize=6,
+                                                     threshold1=2000.0, threshold2=10.0))):
+        tres = tlr.detect_long_record(paths, SEL, device="cpu", family=fam, family_kwargs=kw,
+                                      keep_envelopes=True)
+        jres = _jax_run(paths, family=fam, family_kwargs=kw)
+        names, env, scale = list(tres.thresholds), tres.envelopes, tres.pos_scale
+        assert set(tres.picks) == set(jres.picks) == set(names)
+        assert tres.n_samples == jres.n_samples and tres.t0_utc == jres.t0_utc
+        for i, name in enumerate(names):
+            np.testing.assert_allclose(tres.thresholds[name], jres.thresholds[name], rtol=REL)
+            bad = unexplained_differences(jres.picks[name] // [[1], [scale]],
+                                          tres.picks[name] // [[1], [scale]], env[i],
+                                          tres.thresholds[name], REL)
+            assert not bad, f"{fam} {name}: picks differ beyond rounding at {bad}"
+        n_picks[fam] = sum(pk.shape[1] for pk in tres.picks.values())
+    # the one-channel calls of this scene survive the f-k fan in the Gabor
+    # family's masked matched filter
+    assert n_picks["gabor"] > 0, n_picks
     # a mesh is a parallel.mesh.Mesh built by every rank (test_torch_timeshard.py)
     for mesh in (2, ["cuda:0", "cuda:1"]):
         with pytest.raises(ValueError, match="parallel.mesh.Mesh"):

@@ -524,17 +524,18 @@ def test_chip_smoke_holds_the_ctas_an_sm_to_the_shared_memory(monkeypatch, T, pa
 
 def test_chip_smoke_reads_the_pick_kernels_ptxas():
     """chip_smoke.py reads registers and spills of each
-    ``fused_picks_kernel<method, timed>``, to show that the main launch's
-    ``pack`` instantiation does not spill."""
+    ``fused_picks_kernel<method, timed, long_row>``, to show that the main
+    launch's ``pack`` instantiation (the shared-memory form) does not
+    spill."""
     import chip_smoke
 
-    fn = "_ZN46_GLOBAL__N__0e7b6d0a_14_fused_picks_cu_b1f9c1a118fused_picks_kernelILi{}ELb{}EEEvPK6float2PKfPiPfS7_PhS8_iiiPx"
+    fn = "_ZN46_GLOBAL__N__0e7b6d0a_14_fused_picks_cu_b1f9c1a118fused_picks_kernelILi{}ELb{}ELb{}EEEvPK6float2PKfPiPfS7_PhS8_iiiS8_Px"
     report = "\n".join(
-        line for m, t, regs, spill in ((0, 0, 56, 0), (1, 1, 72, 8)) for line in (
-            f"ptxas info    : Compiling entry function '{fn.format(m, t)}' for 'sm_90a'",
-            f"ptxas info    : Function properties for {fn.format(m, t)}",
+        line for m, t, lr, regs, spill in ((0, 0, 0, 56, 0), (1, 1, 1, 72, 8)) for line in (
+            f"ptxas info    : Compiling entry function '{fn.format(m, t, lr)}' for 'sm_90a'",
+            f"ptxas info    : Function properties for {fn.format(m, t, lr)}",
             f"    0 bytes stack frame, {spill} bytes spill stores, {spill} bytes spill loads",
             f"ptxas info    : Used {regs} registers, used 1 barriers"))
     got = chip_smoke.ptxas_instances(report, "fused_picks_kernel")
-    assert got == {(0, False): (56, 0, 0), (1, True): (72, 8, 8)}
-    assert chip_smoke.PICKS_MAIN_INSTANCE == (0, False)
+    assert got == {(0, False, False): (56, 0, 0), (1, True, True): (72, 8, 8)}
+    assert chip_smoke.PICKS_MAIN_INSTANCE == (0, False, False)

@@ -1,6 +1,8 @@
 """Rank processes for the port's mesh tests (``tests/test_torch_mesh.py``,
 ``test_torch_parallel_mf.py``, ``test_torch_timeshard.py``,
-``test_torch_campaign_sharded.py``).
+``test_torch_campaign_sharded.py``, ``test_torch_spectro_sharded.py``,
+``test_torch_gabor_sharded.py``, ``test_torch_learned_sharded.py``,
+``test_torch_longrecord_families.py``).
 
 :func:`run_pool` starts ``world`` fresh interpreters (``python
 torch_mesh_worker.py <spec> <rank>``: a spawn, never a fork of the test
@@ -233,6 +235,10 @@ def case_longrecord(mesh, files, sel, kw):
 
     if "design" in kw:
         kw = dict(kw, design=_design(kw["design"]))
+    if "model" in kw:       # the learned family: JAX's parameter pytree
+        from das4whales_tpu_torch.models import learned
+
+        kw = dict(kw, family_kwargs={"params": kw.pop("model"), "cfg": learned.LearnedConfig()})
     res = detect_long_record(files, sel, mesh=mesh, **kw)
     return {"picks": res.picks, "thresholds": res.thresholds, "n_samples": res.n_samples,
             "t0": str(res.t0_utc)}
@@ -287,6 +293,154 @@ def case_cli(mesh, argv):
     return {"rc": main(argv)}
 
 
+def _meta(m):
+    from das4whales_tpu_torch.config import AcquisitionMetadata
+
+    return AcquisitionMetadata(**m)
+
+
+def case_spectro_step(mesh, meta, batch, kw):
+    """The channel-sharded spectro step on a (file, channel) mesh."""
+    from das4whales_tpu_torch.parallel.pipeline import input_sharding
+    from das4whales_tpu_torch.parallel.spectro import make_sharded_spectro_step
+
+    step, names = make_sharded_spectro_step(_meta(meta), mesh, **kw)
+    res = step(input_sharding(mesh).place(batch))
+    picks = res if kw.get("outputs") == "picks" else res[1]
+    out = {"names": names, "picks": _gather_picks(picks, mesh, (None, "file", "channel"))}
+    if kw.get("outputs", "full") == "full":
+        out["corr"] = _gather(res[0], mesh, (None, "file", "channel", None))
+    return out
+
+
+def case_spectro_step_time(mesh, meta, record, kw):
+    from das4whales_tpu_torch.parallel.spectro import make_sharded_spectro_step_time
+    from das4whales_tpu_torch.parallel.timeshard import time_sharding
+
+    step, names = make_sharded_spectro_step_time(_meta(meta), mesh, **kw)
+    res = step(time_sharding(mesh).place(record))
+    picks = res if kw.get("outputs") == "picks" else res[1]
+    out = {"names": names, "picks": _gather_picks(picks, mesh, (None, "time"))}
+    if kw.get("outputs", "full") == "full":
+        out["corr"] = _gather(res[0], mesh, (None, "time", None))
+    return out
+
+
+def _gabor_kw(kw):
+    from das4whales_tpu_torch import convert
+
+    kw = dict(kw)
+    fields = kw.pop("fields", None)
+    if fields is not None:
+        kw.update(design=convert.gabor_design_from_arrays(fields), note_arrays=fields["notes"])
+    return kw
+
+
+def case_gabor_step(mesh, meta, sel, batch, kw):
+    from das4whales_tpu_torch.parallel.gabor import gabor_input_sharding, make_sharded_gabor_step
+
+    step, names = make_sharded_gabor_step(_meta(meta), sel, mesh, **_gabor_kw(kw))
+    corr, picks, thres = step(gabor_input_sharding(mesh).place(batch))
+    return {"names": names, "corr": _gather(corr, mesh, (None, "file", None, None)),
+            "picks": _gather_picks(picks, mesh, (None, "file", None)),
+            "thres": _gather(thres, mesh, ("file",))}
+
+
+def case_gabor_step_time(mesh, meta, sel, record, kw):
+    from das4whales_tpu_torch.parallel.gabor import make_sharded_gabor_step_time
+    from das4whales_tpu_torch.parallel.timeshard import time_sharding
+
+    step, names = make_sharded_gabor_step_time(_meta(meta), sel, mesh, **_gabor_kw(kw))
+    res = step(time_sharding(mesh).place(record))
+    out = {"names": names, "thres": _np(res[-1]),
+           "picks": _gather_picks(res[-2], mesh, (None, "time"))}
+    if kw.get("outputs", "full") == "full":
+        out["corr"] = _gather(res[0], mesh, (None, "time", None))
+    return out
+
+
+def _params(model):
+    from das4whales_tpu_torch import convert
+
+    return convert.learned_params_to_arrays(model)
+
+
+def case_learned_train(mesh, x, y, steps, rows, seed):
+    """``steps`` data-parallel AdamW steps of ``rows`` windows each."""
+    from das4whales_tpu_torch.models import learned
+
+    cfg = learned.LearnedConfig()
+    model, opt = learned.init_train_state(cfg, seed=seed, device="cpu")
+    step, put = learned.make_sharded_train_step(mesh)
+    losses = []
+    for s in range(steps):
+        wb, lb = put(x[rows * s:rows * (s + 1)], y[rows * s:rows * (s + 1)])
+        model, opt, loss = step(model, opt, wb, lb)
+        losses.append(float(loss))
+    return {"losses": losses, "params": _params(model), "local_rows": int(wb.shape[0])}
+
+
+def case_learned_fit(mesh, scenes, kw):
+    from das4whales_tpu_torch.io.synth import SyntheticCall, SyntheticScene
+    from das4whales_tpu_torch.models import learned
+
+    sc = [SyntheticScene(**dict(d, calls=[SyntheticCall(**c) for c in d["calls"]]))
+          for d in scenes]
+    model, hist = learned.fit(learned.LearnedConfig(), sc, mesh=mesh, **kw)
+    return {"history": hist, "params": _params(model)}
+
+
+def case_learned_inference(mesh, params, block):
+    from das4whales_tpu_torch.models import learned
+    from das4whales_tpu_torch.parallel.mesh import gather_block
+
+    score_fn, put = learned.make_sharded_inference(params, learned.LearnedConfig(), mesh)
+    return {"scores": _np(gather_block(score_fn(put(block)), mesh))}
+
+
+def case_campaign_elastic(mesh, files, sel, outdir, kw, fail_at, victim=None,
+                          raiser=None, deadline_s=3.0):
+    """``run_campaign_sharded(elastic=True)`` with a failure at batch
+    ``fail_at`` (1-based): ``victim`` set, that rank dies there
+    (``os._exit(3)``, results unwritten) and its peers' next collective
+    fails; None, rank ``raiser`` (None: every rank) raises an injected
+    non-loss ``RuntimeError`` there, and a peer that did not waits in its
+    next collective until the group's timeout. The survivor check-in
+    waits that timeout plus ``deadline_s``. Returns the records and
+    manifest events, or the error a rank re-raised."""
+    from das4whales_tpu_torch.workflows import campaign
+
+    campaign._DEVICE_PROBE_DEADLINE_S = deadline_s
+    orig = campaign._run_adaptive
+    calls = {"n": 0}
+
+    def injected(*a, **k):
+        calls["n"] += 1
+        if calls["n"] == fail_at:
+            if victim is None and raiser in (None, mesh.rank):
+                raise RuntimeError("injected step failure on a healthy mesh")
+            if mesh.rank == victim:
+                sys.stdout.flush()
+                os._exit(3)
+        return orig(*a, **k)
+
+    campaign._run_adaptive = injected
+    try:
+        res = campaign.run_campaign_sharded(files, sel, outdir, mesh, **kw)
+    except RuntimeError as exc:
+        return {"error": str(exc)}
+    finally:
+        campaign._run_adaptive = orig
+    return {"records": _records(res), "events": [
+        r for r in _manifest_lines(outdir) if "event" in r and "path" not in r]}
+
+
+def _manifest_lines(outdir):
+    from das4whales_tpu_torch.utils import artifacts
+
+    return artifacts.read_records(os.path.join(outdir, "manifest.jsonl"))
+
+
 def case_kill(mesh, victim):
     """The last case of a pool: ``victim`` has exited (``main``, after
     writing its results); this rank's next collective must fail."""
@@ -319,6 +473,16 @@ def main(argv) -> int:
                            timeout_s=spec["timeout_s"])
     meshes, results = {}, {}
     for case in spec["cases"]:
+        if case.get("fresh_group"):
+            # a case that may leave the group broken (a collective timed out)
+            # gets one of its own, through a rendezvous of its own
+            import torch.distributed as dist
+
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            distributed.initialize(f"{spec['init']}.{case['name']}", spec["world"], rank,
+                                   backend="gloo", timeout_s=spec["timeout_s"])
+            meshes.clear()
         key = (tuple(case.get("shape", (spec["world"],))),
                tuple(case.get("axis_names", ("channel",))))
         if key not in meshes:
@@ -333,10 +497,14 @@ def main(argv) -> int:
             traceback.print_exc()
             sys.stdout.flush()
             os._exit(2)     # the peers fail on their next collective
-    _dump(spec, rank, results)
-    if not any(c["fn"] == "kill" for c in spec["cases"]):
-        import torch.distributed as dist
+        # kept case by case: a rank that dies in a later case (an elastic
+        # drill's victim) keeps its earlier results
+        _dump(spec, rank, results)
+    import torch.distributed as dist
 
+    # a killed peer leaves the group unusable; an elastic rebuild may have
+    # replaced it by a mesh of one, with no group at all
+    if not any(c["fn"] == "kill" for c in spec["cases"]) and dist.is_initialized():
         dist.destroy_process_group()
     return 0
 
