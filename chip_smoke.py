@@ -6,9 +6,15 @@
 Builds the port's two CUDA kernels from ``das4whales_tpu_torch/csrc`` with
 ``nvcc`` (sm_90a) and the native ingest reader from
 ``das4whales_tpu_torch/native/ingest.cpp`` with ``g++``, then runs
-thirty-six phases, one summary line each (more for the detector runs, with their
+thirty-seven phases, one summary line each (more for the detector runs, with their
 profiles), and exits non-zero at the first failed check; no phase's
-failure is caught:
+failure is caught. The ``dsp`` and ``localize`` phases (on the canonical
+block and design this process hands over), then the card-vs-CPU phases
+but the learned and the mesh ones (numerics and contracts at 512
+channels, timing nothing) run one after another in a spawned process
+beside the card's phases after the ``gabor`` phase (``BESIDE_PHASES``);
+a failure there fails the run when this process next looks, between two
+of its phases, and that process ends before the ``mesh`` phase:
 
 1. ``device``   the card's name and power limit (``nvidia-smi``), torch and
                 CUDA versions, and which of h5py, pandas and matplotlib import
@@ -222,7 +228,7 @@ failure is caught:
                 probe predicts more than 60 s), against scipy on 64
                 channels; the five f-k designers' and fk_filt's speed fan's
                 host seconds at 22050 x 3000, in spawned processes beside
-                phases 21-23 and printed after 23;
+                phases 27, 28 and 34 and printed after 30;
 22. ``localize`` detect -> localize -> evaluate: a 22050 x 12000 scene with
                 three off-cable calls (|y0| 300 m to 3 km, z0 -20 m), the
                 matched filter's ``__call__`` (44 ``fused_picks`` launches,
@@ -237,7 +243,7 @@ failure is caught:
 23. ``longrecord`` ``detect_long_record`` over two consecutive 22050 x 12000
                 int32 TDMS files with a call straddling the boundary: the
                 matched filter on both wires (the record's design made in a
-                spawned process beside phases 17-22), the straddling call
+                spawned process beside phases 27, 28 and 34), the straddling call
                 picked on both and their picks equal, no pick kernel launch
                 (the plain tiled picker, as JAX's route); ``detect_picks``
                 file by file beside it and the correlogram peaks that show
@@ -279,10 +285,12 @@ failure is caught:
                 lock-order inversion, peak memory under 80 GB, both
                 kernels launched on the route and held against their plain
                 versions at its first and last launch; the pass walls,
-                pick latency p95, admission seconds and cost cards; and
+                pick latency p95, admission seconds and cost cards, each
+                card's program-contract verdict ``clean`` (recorded on the
+                preflight phase's probes); and
                 ``python -m das4whales_tpu_torch serve --until-idle`` as a
                 subprocess over one file a tenant, run beside the
-                card-vs-CPU phases: exit 0, both manifests settled;
+                fleet phase: exit 0, both manifests settled;
 29. ``service_cpu_vs_card`` the same two-tenant service at 512 x 12000 on
                 the card and with ``device="cpu"``: records equal (status,
                 rung, attempts), mf picks up to knife edges, learned
@@ -324,7 +332,7 @@ failure is caught:
                 ``workflows.mfdetect.main(path, interrogator="silixa")`` at
                 22050 x 12000 on a canonical Silixa TDMS file (raw int32,
                 the canonical six calls, seed 2026) in a spawned process that
-                runs beside phases 16-31's card-vs-CPU checks (its f-k
+                runs beside the card's phases after ``gabor`` (its f-k
                 design takes tens of seconds of host): stage walls, 44
                 ``fused_picks`` launches an attempt bitwise plain at the first
                 and last, peak memory, every injected call picked, then the
@@ -393,7 +401,7 @@ failure is caught:
                 rank, the first and last bitwise plain), the halo bandpass on
                 the ``MESH_HALO_CHANNELS`` channels around the straddling
                 call, which both pick; (4) ``run_campaign_sharded`` at (file=2,
-                channel=1) over the four 12000-sample slab files: every file
+                channel=1) over ``MESH_CAMPAIGN_FILES`` slab files: every file
                 done, picks equal ``detect_picks`` at the files' shape up to
                 knife edges, only rank 0 writing, ``fsck_outdir`` clean, a
                 resume reading nothing; (5) ``python -m das4whales_tpu_torch
@@ -423,7 +431,26 @@ failure is caught:
 36. ``mesh_cpu_vs_card`` item 1's step at 512 x 12000, two card ranks against
                 two gloo CPU ranks at once: thresholds rtol 1e-5, ``trf_fk``
                 and correlograms within 1e-4 * max, picks up to knife edges;
-                budget ``MESH_CPU_BUDGET_S``.
+                budget ``MESH_CPU_BUDGET_S``;
+37. ``analysis`` (run inside 4, while it waits for the early host jobs and
+                the card is idle) the port's own analyzer: the static
+                gate (``python -m das4whales_tpu_torch.analysis --check``
+                on this machine's Python) must exit 0; the canonical program
+                variants (five matched-filter engine pairs at 24 x 900, the
+                spectro, Gabor and learned facades at 16 x 2000) recorded on
+                the card through the memory preflight's probe, audited
+                clean against the checked-in ``analysis/contracts.json``,
+                each stream's ``kernel:*`` entries equal to the launches
+                ``torch.profiler`` saw and the wrappers counted; the
+                contract gate on and off over a batch-2 campaign of mf and
+                of learned at 512 x 12000: picks bitwise, cards ``clean``
+                against ``unchecked``, measured peaks equal; the canonical
+                mf probe at B=1 recorded and not, in turns (the recording's
+                cost on the cold wall, peaks equal); a second
+                ``detect_picks`` at the canonical shape probing and building
+                nothing; both kernels' first and last launch in the phase
+                held against their plain versions (picks bitwise, STFT
+                within 5e-6 * max); its seconds against a 30 s target.
 
 Then it prints each phase's seconds, the kernel table as one JSON line, the run's total
 seconds, the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. It imports no JAX and nothing
@@ -442,6 +469,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -1081,7 +1109,10 @@ class StageTimer:
         return out
 
 
-def phase_detect():
+def phase_detect(while_waiting=None):
+    """``while_waiting(scene, raw, design)``, when given, runs once the
+    block and its design are ready, before the phase waits for the early
+    host jobs (the card is idle there: the run's ``analysis`` phase)."""
     import torch
 
     from das4whales_tpu_torch.io.synth import synthesize_scene, to_raw_counts
@@ -1106,6 +1137,11 @@ def phase_detect():
     x = torch.as_tensor(raw).to("cuda")
     torch.cuda.synchronize()
     t_h2d = time.perf_counter() - t0
+    if while_waiting is not None:
+        while_waiting(scene, raw, design)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
     t_wait = _await_early()
 
     det.detect_picks(x)                      # warm-up: cuFFT plans, kernel load
@@ -1155,7 +1191,9 @@ def phase_detect():
         f"attempts) {[r for r in per_run]}; all {len(scene.calls)} injected calls picked; "
         f"set-up: scene {t_scene:.1f} s, design {t_host:.1f} s on the host (waited for "
         f"{t_design:.1f} s), H2D {t_h2d * 1e3:.1f} ms, "
-        f"the early host jobs awaited {t_wait:.1f} s; "
+        f"the early host jobs awaited {t_wait:.1f} s"
+        + (f" (after the analysis phase, {_PHASE_SECONDS['analysis']:.1f} s, ran in the wait)"
+           if while_waiting is not None and "analysis" in _PHASE_SECONDS else "") + "; "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     _profile("detect_picks", lambda: det.detect_picks(x), statistics.median(walls),
              "fused_picks")
@@ -1925,11 +1963,12 @@ def _within_ulp(a: float, b: float) -> bool:
     return bool(abs(a - b) <= np.spacing(max(abs(a), abs(b))))
 
 
-def _slab_pass(stream, bd, with_refs=None):
+def _slab_pass(stream, bd, with_refs=None, keep_first: bool = False):
     """One pass over the slab stream: dispatch + resolve each slab as it
     arrives. Returns per-slab records and the pass's wall. ``with_refs``
     (a detector) also computes each file's ``detect_picks`` reference and
-    float64 rms, outside the pass's timing."""
+    float64 rms, outside the pass's timing. ``keep_first`` keeps the first
+    slab's stack on the card in its record (``"stack"``)."""
     import torch
 
     from das4whales_tpu_torch.ops import fused_picks
@@ -1951,6 +1990,8 @@ def _slab_pass(stream, bd, with_refs=None):
             read_s=[b.read_s for b in slab.blocks], cond_s=[b.condition_s for b in slab.blocks],
             launches=fused_picks.launches - before[0], syncs=det.syncs - before[1],
             dispatches=det.dispatches - before[2], escalations=det.escalations - before[3]))
+        if keep_first and len(slabs) == 1:
+            slabs[0]["stack"] = slab.stack
         if with_refs is not None:
             t1 = time.perf_counter()
             for j in range(slab.n_valid):
@@ -2054,7 +2095,7 @@ def phase_slab():
             del noise
         zero_launches()                          # the main path's timed pass starts here
         det.syncs = det.dispatches = det.escalations = 0
-        slabs, _, wall = _slab_pass(stream(), bd)
+        slabs, _, wall = _slab_pass(stream(), bd, keep_first=True)
         launch_by_mode[mode] = read_launches()["fused_picks"]
         # per-file checks against detect_picks on the same card
         files = [(s, j) for s in slabs for j in range(s["n_valid"])]
@@ -2098,8 +2139,11 @@ def phase_slab():
             if s["launches"] != want:
                 fail(f"slab: {mode}: {s['launches']} fused_picks launches in a slab of "
                      f"{s['n_valid']} files, expected {want}")
-        # the first (full) slab again, already on the card: detect wall, stages
-        first = next(stream())
+        # the first (full) slab again, kept on the card from the timed pass
+        # (not read a second time: a cut for the run's time limit): detect
+        # wall, stages
+        first = types.SimpleNamespace(stack=slabs[0].pop("stack"), n_real=slabs[0]["n_real"],
+                                      n_valid=slabs[0]["n_valid"])
         walls, stages = [], []
         for _ in range(3):
             timer = StageTimer()
@@ -3046,7 +3090,8 @@ def phase_campaign_cpu_vs_card():
                 fail("campaign_cpu_vs_card: the reloaded design's picks differ")
         notes.append("a design saved by the port and loaded again: bitwise the same picks")
         # 6. the bank-split rung, on the card and on the CPU
-        notes += _bank_split_campaigns(d, clean[:4], sel, meta, design)
+        # two files, one slab of 2: every check of the split holds on one slab
+        notes += _bank_split_campaigns(d, clean[:2], sel, meta, design)
         torch.cuda.synchronize()
         say(f"campaign_cpu_vs_card: {nx} channels x 12000 samples, 5 int32 files, a corrupt and "
             f"a NaN file, batch 4, pow2 bucket {SLAB_BUCKET}: {'; '.join(notes)}; phase "
@@ -5279,27 +5324,33 @@ _PREFLIGHT: dict = {}
 def _probes_marked():
     """Mark the memory preflight's probes for the block: yields ``{"n",
     "s", "active"}`` (probes run, their seconds, and true while one runs:
-    its launches run on a zero slab, and :func:`_capture` skips them)."""
+    its launches run on a zero slab, and :func:`_capture` skips them). On
+    the CPU, where no probe measures, the contract gate's recording run of
+    a priced program (``memory._run_recorded``) is marked the same way."""
     from das4whales_tpu_torch.utils import memory
 
-    orig = memory._measure
+    orig = {name: getattr(memory, name) for name in ("_measure", "_run_recorded")}
     got = {"n": 0, "s": 0.0, "active": False}
 
-    def marked(spec):
-        got["active"] = True
-        t0 = time.perf_counter()
-        try:
-            return orig(spec)
-        finally:
-            got["s"] += time.perf_counter() - t0
-            got["n"] += 1
-            got["active"] = False
+    def marker(fn):
+        def marked(spec):
+            got["active"] = True
+            t0 = time.perf_counter()
+            try:
+                return fn(spec)
+            finally:
+                got["s"] += time.perf_counter() - t0
+                got["n"] += 1
+                got["active"] = False
+        return marked
 
-    memory._measure = marked
+    for name, fn in orig.items():
+        setattr(memory, name, marker(fn))
     try:
         yield got
     finally:
-        memory._measure = orig
+        for name, fn in orig.items():
+            setattr(memory, name, fn)
 
 
 def _service_design(meta, nx: int):
@@ -5543,7 +5594,7 @@ def phase_service():
     with an SLO target, quality and cost cards, a client polling every
     endpoint; and prepares ``python -m das4whales_tpu_torch serve
     --until-idle`` over ``SERVE_FILES`` file(s) a tenant, which
-    :func:`serve_start` runs beside the card-vs-CPU phases. Returns
+    :func:`serve_start` runs beside the next phases. Returns
     ``(launches, (picks_err, stft_err))``."""
     import dataclasses
     import shutil
@@ -5609,6 +5660,12 @@ def phase_service():
     peak = torch.cuda.max_memory_allocated()
     inversions = locks.inversions()
     cards = costs.cards_payload()["cards"]
+    # the contract gate's verdict rides each card (recorded on the
+    # preflight phase's memoized probes: no program ran again for it)
+    verdicts = {f"{c['program']} {c['bucket']} {c['engine']}": c["contract"] for c in cards}
+    if not cards or set(verdicts.values()) != {"clean"}:
+        fail(f"service: the cost cards' contract verdicts {verdicts} must all be clean: "
+             f"{[c['contract_findings'] for c in cards]}")
     bad = [c for c in poll.codes if c[1] != 200]
     if poll.errors or bad or not poll.codes:
         fail(f"service: endpoints answered {bad[:5]}, errors {poll.errors[:3]} over "
@@ -5681,15 +5738,16 @@ def phase_service():
                service, files[:SERVE_FILES], sel, meta, mf_share, learned_share, dpath)]}
     reg_path = sub_dir / "registry.json"
     reg_path.write_text(json.dumps(reg))
-    # the serve verb runs as a subprocess beside the card-vs-CPU phases,
-    # which time nothing (serve_start / serve_finish; a cut for the run's
-    # time limit)
+    # the serve verb runs as a subprocess beside the fleet, dsp and
+    # localize phases (serve_start / serve_finish; a cut for the run's time
+    # limit)
     _SERVE.update(reg_path=reg_path, sub_dir=sub_dir, files=files[:SERVE_FILES])
     shutil.rmtree(d, ignore_errors=True)
     card_text = "; ".join(
         f"{c['program']} {c['bucket']} {c['engine']}: {c['flops'] / 1e12:.3f} Tops, "
         f"{c['bytes_accessed'] / 1e9:.2f} GB counted ({', '.join(c['stages'])}), peak "
-        f"{c['peak_bytes'] / gib:.2f} GiB, first run {c['compile_seconds']:.3f} s, roofline "
+        f"{c['peak_bytes'] / gib:.2f} GiB, first run {c['compile_seconds']:.3f} s, contract "
+        f"{c['contract']}, roofline "
         + (f"{c['predicted_wall_s'] * 1e3:.2f} ms" if c["predicted_wall_s"] is not None
            else "none")
         for c in cards)
@@ -5717,7 +5775,7 @@ def phase_service():
         f"every injected call picked; host health stats of the learned tenant's slab "
         f"{health_t['s']:.2f} s over {health_t['n']} files; cost cards: {card_text}; "
         f"serve --until-idle subprocess over {SERVE_FILES} file(s) a tenant started beside "
-        f"the card-vs-CPU phases (its line below); phase "
+        f"the next phases (its line below); phase "
         f"{time.perf_counter() - t_phase:.1f} s")
     return launches, (picks_err, stft_err)
 
@@ -5731,6 +5789,7 @@ def serve_start() -> None:
     """Start the service phase's ``serve --until-idle`` subprocess on the
     card, where that phase prepared one."""
     import gc
+    import threading
 
     import torch
 
@@ -5739,10 +5798,21 @@ def serve_start() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     _SERVE["t0"] = time.perf_counter()
-    _SERVE["proc"] = subprocess.Popen(
+    # its output goes to files: a pipe that nobody reads until the end
+    # would stall the subprocess once full
+    logs = [open(_SERVE["sub_dir"] / f"serve.{k}", "w") for k in ("out", "err")]
+    _SERVE["proc"] = proc = subprocess.Popen(
         [sys.executable, "-m", "das4whales_tpu_torch", "serve", str(_SERVE["reg_path"]),
-         "--until-idle"], cwd=str(_root_dir()), stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True)
+         "--until-idle"], cwd=str(_root_dir()), stdout=logs[0], stderr=logs[1],
+        env=dict(os.environ, OMP_NUM_THREADS=str(BESIDE_THREADS)))
+    for log in logs:
+        log.close()
+
+    def waiter():
+        proc.wait()
+        _SERVE["t_exit"] = time.perf_counter()
+
+    threading.Thread(target=waiter, name="smoke-serve-wait", daemon=True).start()
 
 
 def serve_finish() -> None:
@@ -5755,14 +5825,17 @@ def serve_finish() -> None:
     if "proc" not in _SERVE:
         return
     proc = _SERVE.pop("proc")
+    t_wait = time.perf_counter()
     try:
-        out, err = proc.communicate(timeout=600)
+        proc.wait(timeout=600)
     except subprocess.TimeoutExpired:
         proc.kill()
-        out, err = proc.communicate()
+        proc.wait()
         fail("service: the serve subprocess outlived 600 s")
-    serve_s = time.perf_counter() - _SERVE["t0"]
+    t_wait = time.perf_counter() - t_wait
     sub_dir, files = _SERVE["sub_dir"], _SERVE["files"]
+    out, err = ((sub_dir / f"serve.{k}").read_text() for k in ("out", "err"))
+    serve_s = _SERVE.get("t_exit", time.perf_counter()) - _SERVE["t0"]
     if proc.returncode != 0:
         fail(f"service: the serve subprocess exited {proc.returncode}: {err[-3000:]}")
     for t in ("mf", "learned"):
@@ -5774,7 +5847,8 @@ def serve_finish() -> None:
     shutil.rmtree(sub_dir, ignore_errors=True)
     _SERVE.clear()
     say(f"service: serve --until-idle subprocess over {len(files)} file(s) a tenant, beside the "
-        f"card-vs-CPU phases: exit 0 in {serve_s:.1f} s, both manifests settled")
+        f"fleet phase: exit 0 in {serve_s:.1f} s, both manifests settled "
+        f"(waited {t_wait:.1f} s for it here)")
 
 
 #: the fleet drill: two workers on the one card and two live mf tenants
@@ -6755,6 +6829,11 @@ WF_NOISE_DB = 1e-3
 #: its edge in a float64 recomputation
 WF_CANNY_REL = 1e-5
 WF_CLI_TIMEOUT = 600
+#: intra-op threads of the processes that run beside the card's phases
+#: (the flagship's spawned process, the command line's and the serve verb's
+#: subprocesses): their work is on the card, and a thread a core each would
+#: crowd the host the CPU side of those phases computes on
+BESIDE_THREADS = 2
 #: the figures the rendering verbs write (the JAX package's names)
 MF_FIGURES = ("mf_detection.png", "mf_snr_HF.png", "mf_snr_LF.png", "mf_tx.png")
 
@@ -6821,8 +6900,11 @@ def _cli(d, name: str, argv: list, out: dict) -> None:
     from pathlib import Path
 
     root = str(Path(__file__).resolve().parent)
-    env = dict(os.environ, MPLBACKEND="Agg",
+    env = dict(os.environ, MPLBACKEND="Agg", OMP_NUM_THREADS=str(BESIDE_THREADS),
                PYTHONPATH=os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")])))
+    # the preflight phase sets a memory budget in this process's
+    # environment for one campaign; a verb run beside it takes none
+    env.pop("DAS_HBM_BUDGET_GB", None)
     t0 = time.perf_counter()
     p = subprocess.run([sys.executable, "-m", "das4whales_tpu_torch", *argv], cwd=str(d),
                        env=env, capture_output=True, text=True, timeout=WF_CLI_TIMEOUT)
@@ -6831,7 +6913,7 @@ def _cli(d, name: str, argv: list, out: dict) -> None:
 
 def _cli_jobs(d, f_wide: str, long_files: list, out: dict) -> None:
     """The command line on the card, one verb after another (run on a
-    thread beside the card-vs-CPU phases): ``list``, ``evaluate --family mf``
+    thread beside the card's phases): ``list``, ``evaluate --family mf``
     (the default sweep), ``longrecord --interrogator silixa`` over two
     files, ``mfdetect`` and ``campaign`` on the wide file, then ``fsck`` of
     the campaign's outdir. Where matplotlib is missing, ``mfdetect`` and
@@ -6866,7 +6948,7 @@ def workflows_start() -> dict:
 
     import torch
 
-    if _WF:
+    if "job" in _WF:
         return _WF
     # the flagship's process needs about 12 GiB of the card: give back what
     # this process's allocator holds from the earlier phases
@@ -6880,14 +6962,12 @@ def workflows_start() -> dict:
     d = Path(tempfile.mkdtemp(prefix="workflows_", dir=root))
     t0 = time.perf_counter()
     (f_wide,), _, _ = _write_files(d, ((WF_SEED, CANONICAL[1]),), WF_NX, n_calls=6)
-    (f_cpu,), (s_cpu,), _ = _write_files(d, ((WF_SEED + 1, CANONICAL[1]),), WF_CPU_NX,
-                                         n_calls=6)
     long_dir = d / "long"
     long_dir.mkdir()
     long_files, _, _ = _write_files(long_dir, ((WF_SEED + 2, CANONICAL[1]),
                                                (WF_SEED + 3, CANONICAL[1])), WF_CPU_NX,
                                     n_calls=2)
-    _WF.update(dir=d, cpu=(f_cpu, s_cpu), t_write=time.perf_counter() - t0)
+    _WF.update(dir=d, t_write=time.perf_counter() - t0)
     (d / "flagship").mkdir()
     pool = ProcessPoolExecutor(1, mp_context=get_context("spawn"))
     _WF["pool"] = pool
@@ -6915,8 +6995,36 @@ def workflows_finish() -> None:
     pool = _WF.get("pool")
     if pool is not None:
         pool.shutdown(wait=True, cancel_futures=True)
-    shutil.rmtree(_WF["dir"], ignore_errors=True)
+    for key in ("dir", "cpu_dir"):
+        if key in _WF:
+            shutil.rmtree(_WF[key], ignore_errors=True)
     _WF.clear()
+
+
+def workflows_reap() -> None:
+    """Shut down the mains' spawned process once its job is done (the
+    files stay for :func:`workflows_finish`)."""
+    pool = _WF.pop("pool", None)
+    if pool is not None:
+        pool.shutdown(wait=True)
+
+
+def _wf_cpu() -> tuple:
+    """``(path, scene)`` of the card-vs-CPU mains' Silixa TDMS file
+    (``WF_CPU_NX`` channels, six calls), written once a process under
+    ``build/``; :func:`workflows_finish` removes it."""
+    import tempfile
+    from pathlib import Path
+
+    if "cpu" not in _WF:
+        root = Path(__file__).resolve().parent / "build"
+        root.mkdir(exist_ok=True)
+        d = Path(tempfile.mkdtemp(prefix="workflows_cpu_", dir=root))
+        _WF["cpu_dir"] = d
+        (f_cpu,), (s_cpu,), _ = _write_files(d, ((WF_SEED + 1, CANONICAL[1]),), WF_CPU_NX,
+                                             n_calls=6)
+        _WF["cpu"] = (f_cpu, s_cpu)
+    return _WF["cpu"]
 
 
 def _check_cli(out: dict, d) -> tuple:
@@ -7098,7 +7206,11 @@ def _wide_mains(f_wide: str, scene) -> dict:
 def _workflows_job(d: str, f_wide: str) -> dict:
     """The workflow phase's card work in a spawned process: the flagship
     main (:func:`_flagship_job`), then the other five at ``WF_NX``
-    channels (:func:`_wide_mains`)."""
+    channels (:func:`_wide_mains`), on ``BESIDE_THREADS`` intra-op
+    threads."""
+    import torch
+
+    torch.set_num_threads(BESIDE_THREADS)
     flagship = _flagship_job(d)
     wide = _wide_mains(f_wide, _scene(WF_NX, CANONICAL[1], n_calls=6, seed=WF_SEED))
     return {"flagship": flagship, "wide": wide}
@@ -7106,7 +7218,7 @@ def _workflows_job(d: str, f_wide: str) -> dict:
 
 def phase_workflows():
     """The workflow mains on the card as a user calls them (run by
-    :func:`workflows_start`'s spawned process beside the card-vs-CPU
+    :func:`workflows_start`'s spawned process beside the card's
     phases): the flagship at full width, the other five at ``WF_NX`` x
     12000; and the command line as subprocesses."""
     wf = workflows_start()
@@ -7115,10 +7227,10 @@ def phase_workflows():
     t_wait = time.perf_counter() - t0
     fl, wide = out["flagship"], out["wide"]
     say(f"workflows: the mains at {WF_NX}x{CANONICAL[1]} (a Silixa TDMS file, raw int32, 6 "
-        f"calls; interrogator='silixa'), walls with each f-k design (beside the card-vs-CPU "
+        f"calls; interrogator='silixa'), walls with each f-k design (beside the card's "
         f"phases): {'; '.join(wide['notes'])}; spectro and gabor picked every injected call")
     say(f"workflows: the flagship mfdetect.main at {CANONICAL[0]}x{CANONICAL[1]} in a spawned "
-        f"process beside the card-vs-CPU phases (file written in {fl['t_write']:.1f} s): "
+        f"process beside the card's phases (file written in {fl['t_write']:.1f} s): "
         f"wall {fl['wall']:.1f} s, stage walls "
         f"{json.dumps({k: round(v, 3) for k, v in fl['timings'].items()})} s, "
         f"{fl['launches']} fused_picks launches ({fl['attempts']} attempt(s) of "
@@ -7216,8 +7328,7 @@ def phase_workflows_cpu_vs_card():
                                                 plots, spectrodetect)
 
     W = "workflows_cpu_vs_card"
-    wf = workflows_start()
-    path, scene = wf["cpu"]
+    path, scene = _wf_cpu()
     nx, ns, fs = WF_CPU_NX, scene.ns, scene.fs
     worst, notes = {}, []
 
@@ -7419,6 +7530,10 @@ MESH_CPU_REL = 1e-4
 MESH_THR_RTOL = 1e-5
 #: the command-line item's channel selection (the command designs in-process)
 MESH_CLI_CHANNELS = 2048
+#: item 4's files: the first two slab files, one a rank at (file=2) (two,
+#: not four, for the run's time limit: each rank still reads, writes and
+#: resumes its own)
+MESH_CAMPAIGN_FILES = 2
 #: the long record's halo (staged) bandpass runs on this many channels
 #: around the straddling call (a cut for the phase's budget: the full-width
 #: record takes the fused route)
@@ -7442,7 +7557,7 @@ PICK_CHECK_ROWS = 8192
 #: drill's victim never checks in (and a peer of a rank that failed alone
 #: would reach the check-in only after its collective's timeout)
 MESH_ELASTIC_DEADLINE_S = 5.0
-MESH_ELASTIC_GROUP_TIMEOUT_S = 45.0
+MESH_ELASTIC_GROUP_TIMEOUT_S = 20.0
 #: a rank waits this long for the phase's inputs (the ranks start while
 #: the smoke writes them)
 MESH_READY_TIMEOUT_S = 300.0
@@ -8140,7 +8255,8 @@ def _mesh_references(out: dict, design, raw, scene, camp_files) -> None:
         torch.cuda.empty_cache()     # the ranks share the card
         det_c = MatchedFilterDetector.from_design(design, scene.metadata, wire="conditioned")
         out["camp"] = {}
-        for blk in stream_strain_blocks(camp_files, [0, CANONICAL[0], 1], interrogator="silixa",
+        for blk in stream_strain_blocks(camp_files[:MESH_CAMPAIGN_FILES], [0, CANONICAL[0], 1],
+                                        interrogator="silixa",
                                         as_numpy=True, engine="native"):
             path = camp_files[len(out["camp"])]
             xb = torch.as_tensor(blk.trace).to("cuda")
@@ -8304,7 +8420,8 @@ def phase_mesh(scene=None, raw=None, design=None):
                     long_design=_LONG_REF["design_paths"]["long"],
                     halo_design=_LONG_REF["design_paths"]["halo"], long_files=_LONG_REF["paths"],
                     long_sel=[0, nx, 1], halo_sel=[h0, h0 + MESH_HALO_CHANNELS, 1],
-                    camp_files=camp_files, camp_sel=[0, nx, 1], camp_out=str(d / "camp"),
+                    camp_files=camp_files[:MESH_CAMPAIGN_FILES], camp_sel=[0, nx, 1],
+                    camp_out=str(d / "camp"),
                     spectro_design=_LONG_REF["design_paths"]["spectro"],
                     gabor_design=_LONG_REF["design_paths"]["gabor"],
                     spectro_sel=_LONG_REF["spectro_sel"], gabor_sel=_LONG_REF["gabor_sel"],
@@ -8470,21 +8587,22 @@ def phase_mesh(scene=None, raw=None, design=None):
             f"{[round(max(x['fused']['peak'], x['halo']['peak']) / 2**30, 2) for x in lg]} GiB")
         # item 4: the sharded campaign
         cp = [rk["campaign"] for rk in ranks]
+        item4 = spec["camp_files"]
         recs = cp[0]["records"]
-        if [(s, g) for _, s, g, _ in recs] != [("done", "sharded")] * len(camp_files):
+        if [(s, g) for _, s, g, _ in recs] != [("done", "sharded")] * len(item4):
             fail(f"mesh: campaign records {[(s, g) for _, s, g, _ in recs]}")
         if [x[:3] for x in cp[1]["records"]] != [x[:3] for x in recs]:
             fail("mesh: the ranks returned different campaign records")
         lines = cmod._manifest_path(str(d / "camp"))
         with open(lines) as fh:
             n_lines = sum(1 for ln in fh if ln.strip())
-        if n_lines != len(camp_files):
-            fail(f"mesh: the manifest holds {n_lines} lines for {len(camp_files)} files: only "
+        if n_lines != len(item4):
+            fail(f"mesh: the manifest holds {n_lines} lines for {len(item4)} files: only "
                  "rank 0 writes")
-        if any(c["resume"] != ["skipped"] * len(camp_files) or c["resume_reads"] for c in cp):
+        if any(c["resume"] != ["skipped"] * len(item4) or c["resume_reads"] for c in cp):
             fail(f"mesh: resume {[c['resume'] for c in cp]}, reads "
                  f"{[c['resume_reads'] for c in cp]}: it must settle nothing and read nothing")
-        if [c["reads"] for c in cp] != [len(camp_files) // MESH_RANKS] * MESH_RANKS:
+        if [c["reads"] for c in cp] != [len(item4) // MESH_RANKS] * MESH_RANKS:
             fail(f"mesh: campaign reads a rank {[c['reads'] for c in cp]}")
         findings = fsck.fsck_outdir(str(d / "camp"))
         if findings:
@@ -8501,7 +8619,7 @@ def phase_mesh(scene=None, raw=None, design=None):
         for r, c in enumerate(cp):
             launches[f"mesh_campaign_rank{r}"] = c["launches"]
         say(
-            f"mesh: item 4, run_campaign_sharded at (file=2, channel=1) over {len(camp_files)} "
+            f"mesh: item 4, run_campaign_sharded at (file=2, channel=1) over {len(item4)} "
             f"canonical TDMS files (the native reader): {cp[0]['wall']:.1f} s, every file done "
             f"at 'sharded', reads "
             f"a rank {[c['reads'] for c in cp]}, the manifest written by rank 0 alone "
@@ -8511,7 +8629,7 @@ def phase_mesh(scene=None, raw=None, design=None):
             f"{'equal' if n_camp == 0 else f'{n_camp} apart on knife edges'}, every "
             f"injected call picked; fused_picks launches a rank "
             f"{[c['launches'] for c in cp]}; resume {cp[0]['resume_wall']:.2f} s, "
-            f"{len(camp_files)} skipped, 0 reads; collectives rank 0: "
+            f"{len(item4)} skipped, 0 reads; collectives rank 0: "
             f"{_stats_text(cp[0]['stats'])}; peak a rank "
             f"{[round(c['peak'] / 2**30, 2) for c in cp]} GiB")
         # item 5: the command line, a mesh of one on the card
@@ -8944,6 +9062,427 @@ def phase_mesh_cpu_vs_card():
              f"{MESH_CPU_BUDGET_S:.0f} s budget")
 
 
+#: the analysis phase's gate campaigns: two files of ``ANALYSIS_NX`` x 12000
+#: a family, batch 2
+ANALYSIS_FILES = ((2070, 12000), (2071, 12000))
+ANALYSIS_NX = 512
+#: the analysis phase's time target, seconds (a miss is reported, not failed)
+ANALYSIS_TARGET_S = 30.0
+#: profiler sessions a canonical variant may take to show its launches
+ANALYSIS_PROFILER_SESSIONS = 5
+#: small kernels a variant's profiler session launches, after its settle
+#: and before the variant, so that records the profiler drops at a
+#: session's start are not the variant's
+PROFILER_WARM_KERNELS = 256
+
+
+def _profiled_launches(prof) -> dict:
+    """``{kernel: launches}`` of the two kernels in a ``torch.profiler``
+    session, from its CUDA kernel records."""
+    got = {k: 0 for k in KERNELS}
+    for ev in prof.key_averages():
+        if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            continue
+        for k in KERNELS:
+            if f"{k}_kernel" in ev.key:
+                got[k] += ev.count
+    return got
+
+
+def _same_campaign_picks(where: str, a, b) -> int:
+    """Two campaign results' saved picks bitwise equal, file by file;
+    returns the files compared."""
+    from das4whales_tpu_torch.workflows.campaign import load_picks
+
+    ref = {r.path: load_picks(r.picks_file) for r in b.records}
+    n = 0
+    for r in a.records:
+        x, y = load_picks(r.picks_file), ref[r.path]
+        if r.status != "done" or set(x) != set(y) or any(
+                not np.array_equal(x[k], y[k]) for k in x):
+            fail(f"{where}: {os.path.basename(r.path)}: picks differ (status {r.status})")
+        n += 1
+    return n
+
+
+def phase_analysis(scene=None, raw=None, design=None):
+    """The port's own analyzer on the card: the static gate
+    (``python -m das4whales_tpu_torch.analysis --check``, exit 0); the
+    canonical program variants recorded on the card through the memory
+    preflight's probe and audited clean against the checked-in
+    ``analysis/contracts.json`` (the CPU's snapshot), each stream's
+    ``kernel:*`` entries equal to the launches ``torch.profiler`` saw;
+    the contract gate on and off over a batch-2 campaign of each of mf
+    and learned at 512 x 12000: picks bitwise, cards ``clean`` against
+    ``unchecked``, peaks equal; the recording's cost on a probe's cold wall
+    (the canonical mf program at B=1, recorded and not, in turns); a
+    second ``detect_picks`` at the canonical shape probing and building
+    nothing; both kernels' first and last launch in the phase against
+    their plain versions. Returns ``{"launches", "picks_err",
+    "stft_err"}``."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from das4whales_tpu_torch.analysis import programs, runtime
+    from das4whales_tpu_torch.models.matched_filter import MatchedFilterDetector
+    from das4whales_tpu_torch.ops import fused_picks, fused_stft
+    from das4whales_tpu_torch.parallel.batch import BatchedMatchedFilterDetector
+    from das4whales_tpu_torch.telemetry import costs
+    from das4whales_tpu_torch.utils import memory
+    from das4whales_tpu_torch.workflows import campaign as cmod
+
+    t_phase = time.perf_counter()
+    if design is None:
+        scene, raw, design = _canonical_inputs()
+    secs = {}
+    # -- the static gate, on this machine's Python
+    t0 = time.perf_counter()
+    gate = subprocess.run([sys.executable, "-m", "das4whales_tpu_torch.analysis", "--check"],
+                          capture_output=True, text=True, cwd=str(_root_dir()), timeout=300)
+    secs["gate"] = time.perf_counter() - t0
+    if gate.returncode != 0:
+        fail(f"analysis: the static gate exited {gate.returncode}:\n{gate.stdout[-2000:]}"
+             f"\n{gate.stderr[-2000:]}")
+    gate_line = (gate.stderr.strip().splitlines() or ["(no summary)"])[-1]
+    d = Path(tempfile.mkdtemp(prefix="analysis_", dir=_build_tmp()))
+    zero_launches()                      # the phase's main path starts here
+    # the launches held against plain are the first and last on data: a
+    # probe runs its program on a zero slab (the spectro family normalises
+    # it to NaN)
+    with _probes_marked() as probes, \
+            _capture(fused_picks, "picks_cuda", skip=lambda: probes["active"]) as pcalls, \
+            _capture(fused_stft, "stft_power_cuda", skip=lambda: probes["active"]) as scalls, \
+            _mxu_table():
+        # -- the canonical variants on the card: the gates run while the
+        # facades are built, the recording is the probes' own runs
+        t0 = time.perf_counter()
+        facades = programs.canonical_facades(device="cuda")
+        secs["facades"] = time.perf_counter() - t0
+        # each variant in a profiler session of its own, so each recorded
+        # stream is held against the launches the profiler saw for it; the
+        # profiler has dropped the records of a session's first kernels in a
+        # long run (PROFILER_SETTLE_S; the learned variant's one fused_stft
+        # launch is its first kernel after the probe's zero slab), so each
+        # session launches PROFILER_WARM_KERNELS first, and a session that
+        # kept fewer launches than the wrapper counted records its variant
+        # again, up to ANALYSIS_PROFILER_SESSIONS times
+        arts, rec_s, per, sessions = [], [], [], 0
+        t0 = time.perf_counter()
+        for b, k in facades:
+            for attempt in range(ANALYSIS_PROFILER_SESSIONS):
+                memory.clear_probe_cache()
+                n1 = read_launches()
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    time.sleep(PROFILER_SETTLE_S)
+                    warm = torch.zeros(1, device="cuda")
+                    for _ in range(PROFILER_WARM_KERNELS):
+                        warm.add_(1.0)
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    art = programs.record_artifact(b, k)
+                    torch.cuda.synchronize()
+                    took = time.perf_counter() - t1
+                sessions += 1
+                counted = {n: c - n1[n] for n, c in read_launches().items() if c > n1[n]}
+                seen = {n: c for n, c in _profiled_launches(prof).items() if c}
+                if seen == counted:
+                    break
+            arts.append(art)
+            rec_s.append(round(took, 2))
+            per.append((art.engine, programs.kernel_entries(art.ops), counted, seen))
+        secs["record"] = time.perf_counter() - t0
+        secs["sessions"] = sessions
+        bad = [p_ for p_ in per if not p_[1] == p_[2] == p_[3]]
+        entries = {k: sum(p_[1].get(k, 0) for p_ in per) for k in KERNELS}
+        if bad or not all(entries.values()):
+            fail("analysis: each recorded stream's kernel entries, the wrapper's launches and "
+                 "the profiler's must agree, both kernels launched (engine, entries, "
+                 f"launches, profiler): {per}")
+        findings = programs.audit_canonical(artifacts=arts)
+        if findings:
+            fail("analysis: the canonical variants breach their contracts on the card:\n"
+                 + "\n".join(f.format() for f in findings))
+        snap = programs.load_contracts()
+        card = {a.key: programs.op_counts(a.ops) for a in arts}
+        drift = {k: (v, snap["programs"].get(k)) for k, v in card.items()
+                 if v != snap["programs"].get(k)}
+        # -- the contract gate on and off: picks bitwise, verdicts, peaks
+        nx = ANALYSIS_NX
+        sel = [0, nx, 1]
+        paths, fscenes, _ = _write_files(d, ANALYSIS_FILES, nx, n_calls=2)
+        meta = fscenes[0].metadata
+        t0 = time.perf_counter()
+        gate_notes = []
+        for fam in ("mf", "learned"):
+            got = {}
+            # the first run (gate off) makes what the shape caches on the
+            # card, which would count in its probe's peak alone: the peaks
+            # compared are the second and third runs', each from an emptied
+            # allocator cache (a reused cached block counts whole, so the
+            # peak above the slab depends on what the cache held)
+            for k, on in enumerate((False, True, False)):
+                costs.reset()
+                memory.clear_probe_cache()
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                (costs.enable_contracts if on else costs.disable_contracts)()
+                try:
+                    res = cmod.run_campaign_batched(
+                        paths, sel, str(d / f"{fam}_{k}"), batch=2, family=fam,
+                        cost_cards=True, metadata=meta, interrogator="silixa")
+                    got["warm" if k == 0 else on] = (
+                        res, [c.as_dict() for c in costs.REGISTRY.cards()])
+                finally:
+                    costs.enable_contracts()
+                    costs.reset()
+            n = _same_campaign_picks(f"analysis: {fam} gate on vs off", got[True][0],
+                                     got[False][0])
+            _same_campaign_picks(f"analysis: {fam} gate on vs the first run", got[True][0],
+                                 got["warm"][0])
+            v_on = [c["contract"] for c in got[True][1]]
+            v_off = [c["contract"] for c in got[False][1]]
+            p_on = [c["peak_bytes"] for c in got[True][1]]
+            p_off = [c["peak_bytes"] for c in got[False][1]]
+            if not v_on or set(v_on) != {"clean"} or set(v_off) != {"unchecked"}:
+                fail(f"analysis: {fam} cards' verdicts {v_on} with the gate on, {v_off} off")
+            if p_on != p_off or not all(p_on):
+                fail(f"analysis: {fam} cards' measured peaks {p_on} with the gate on, "
+                     f"{p_off} off")
+            gate_notes.append(f"{fam}: {n} files' picks bitwise, cards {v_on} / {v_off}, "
+                              f"peaks {[round(p / 2**30, 3) for p in p_on]} GiB both, first "
+                              f"runs {[c['compile_seconds'] for c in got[True][1]]} / "
+                              f"{[c['compile_seconds'] for c in got[False][1]]} s")
+        secs["gate_campaigns"] = time.perf_counter() - t0
+        # -- the recording on a cold wall: the canonical mf program at B=1
+        det = MatchedFilterDetector.from_design(design, scene.metadata, templates="fin",
+                                                wire="raw")
+        bdet = BatchedMatchedFilterDetector(det, donate=False)
+        walls, peaks, n_ops = {False: [], True: []}, {False: [], True: []}, 0
+        t0 = time.perf_counter()
+        memory.clear_probe_cache()
+        memory.batched_program_memory(bdet, 1, np.int32, capture_ops=False)   # warm-up
+        for cap in (False, True, True, False):
+            memory.clear_probe_cache()
+            torch.cuda.empty_cache()
+            an = memory.batched_program_analysis(bdet, 1, np.int32, capture_ops=cap)
+            walls[cap].append(an.compile_seconds)
+            peaks[cap].append(an.memory.peak)
+            n_ops = len(an.ops) if cap else n_ops
+        memory.clear_probe_cache()
+        secs["recording_ab"] = time.perf_counter() - t0
+        if len(set(peaks[False] + peaks[True])) != 1:
+            fail(f"analysis: the canonical probe's peak {peaks} changes with recording")
+        # -- the compile guard: a second detect_picks probes and builds nothing
+        x = torch.as_tensor(raw).to("cuda")
+        first, n_first = runtime.count_compiles(det.detect_picks, x)
+        second, n_second = runtime.count_compiles(det.detect_picks, x)
+        torch.cuda.synchronize()
+        if n_second != 0:
+            fail(f"analysis: the second detect_picks at {tuple(x.shape)} probed or built "
+                 f"{n_second} times")
+        if any(not np.array_equal(first.picks[k], second.picks[k]) for k in first.picks):
+            fail("analysis: two detect_picks calls on one block picked differently")
+        if _check_calls(scene, second.picks):
+            fail("analysis: detect_picks missed an injected call")
+        del x
+    launches = read_launches()
+    if not all(launches.values()):
+        fail(f"analysis: launches {launches}; both kernels must run in the phase")
+    # -- each kernel's first and last launch of the phase against plain
+    picks_err, held = 0.0, []
+    for which in ("first", "last"):
+        (X, thr, K, method, *rest), kw = pcalls[which]
+        k_out = fused_picks.picks_cuda(X, thr, K, method, *rest, **kw)
+        p_out = fused_picks.picks_plain(X, thr, K, method, *rest, **kw)
+        torch.cuda.synchronize()
+        picks_err = max(picks_err, _compare(k_out, p_out, "analysis"))
+        n_sel = int(k_out.selected.sum())
+        held.append(f"{which} pick launch {tuple(X.shape)} {method} K={K}: {n_sel} selected, "
+                    "bitwise")
+    if n_sel == 0:
+        fail("analysis: the last pick launch selected nothing; the comparison proves nothing")
+    stft_err, stft_rel, _ = _stft_at_main_path("analysis", scalls,
+                                                tuple(scalls["first"][0][0].shape))
+    held.append(f"STFT first {tuple(scalls['first'][0][0].shape)} and last "
+                f"{tuple(scalls['last'][0][0].shape)} within {stft_rel:.2e} * max")
+    del pcalls, scalls
+    shutil.rmtree(d, ignore_errors=True)
+    total = time.perf_counter() - t_phase
+    ms = {c: [round(w * 1e3, 1) for w in walls[c]] for c in walls}
+    say(f"analysis ({_SMI.get('line', 'nvidia-smi not read')}): static gate {gate_line} "
+        f"({secs['gate']:.1f} s); {len(arts)} canonical variants built in "
+        f"{secs['facades']:.1f} s, recorded through the probe, each in a profiler session of "
+        f"its own ({secs['sessions']} sessions), in {secs['record']:.1f} s (seconds a "
+        f"recording {dict(zip((a.engine for a in arts), rec_s))}) and audited clean "
+        f"against contracts.json on the card; each stream's kernel entries = its launches = "
+        f"the profiler's, in all {entries}; op counts on the card "
+        + (f"differing from the CPU snapshot: {drift}" if drift else "equal to the CPU snapshot")
+        + f"; gate on/off ({secs['gate_campaigns']:.1f} s): {'; '.join(gate_notes)}; the "
+        f"canonical mf probe at [1, {CANONICAL[0]}, {CANONICAL[1]}] raw: cold walls "
+        f"unrecorded {ms[False]} ms, recorded {ms[True]} ms ({n_ops} ops), peak "
+        f"{peaks[True][0] / 2**30:.3f} GiB both; second detect_picks: {n_second} probes or "
+        f"builds (first {n_first}); launches {launches}; {'; '.join(held)}; phase "
+        f"{total:.1f} s (target {ANALYSIS_TARGET_S:.0f} s"
+        + (")" if total <= ANALYSIS_TARGET_S else ", MISSED)"))
+    return {"launches": launches, "picks_err": picks_err, "stft_err": stft_err}
+
+
+#: the phases that run in one spawned process beside the card's phases
+#: (:func:`beside_start`): first ``dsp`` and ``localize`` at full width, on
+#: the canonical block and design this process hands over (their peaks, 15
+#: GiB at most, fit beside the learned, preflight and service phases'), then
+#: the card-vs-CPU phases, each holding numerics and contracts at 512
+#: channels. None shares state with this process. The learned card-vs-CPU
+#: phase (it takes the learned phase's scores) and the mesh one (its own
+#: pools, under its own budget) stay here
+BESIDE_PHASES = ("dsp", "localize", "full_cpu_vs_card", "cpu_vs_card", "spectro_cpu_vs_card",
+                 "slab_cpu_vs_card", "campaign_cpu_vs_card", "gabor_cpu_vs_card",
+                 "dsp_cpu_vs_card", "localize_cpu_vs_card", "longrecord_cpu_vs_card",
+                 "service_cpu_vs_card", "mxu_cpu_vs_card", "workflows_cpu_vs_card")
+#: the phases whose results the kernel table reads
+BESIDE_RESULTS = ("localize", "slab_cpu_vs_card", "campaign_cpu_vs_card")
+#: the full-width beside phases' arguments from the canonical inputs
+#: (``scene``, ``raw``, ``design``); ``dsp``'s host designs are this
+#: process's jobs (:func:`dsp_host_designs`), so it gets none
+BESIDE_ARGS = {"dsp": lambda c: (c["scene"], c["raw"], c["design"], []),
+               "localize": lambda c: (c["design"],)}
+#: that process's intra-op threads (the card's phases keep the other cores)
+BESIDE_CPU_THREADS = 3
+
+#: the beside process: its handle, its pipe and, once sent, its message
+_BESIDE: dict = {}
+
+
+def _beside_canonical(inputs: dict) -> dict:
+    """The canonical block and design in the beside process: the scene
+    (its metadata), the raw counts and the design from the files
+    :func:`beside_start` wrote."""
+    from das4whales_tpu_torch.models.matched_filter import MatchedFilterDesign
+    from das4whales_tpu_torch.utils.checkpoint import load_design
+
+    return {"scene": _scene(*CANONICAL, n_calls=6, seed=SEED), "raw": np.load(inputs["raw"]),
+            "design": load_design(inputs["design"], cls=MatchedFilterDesign)}
+
+
+def _beside_main(tx, names: tuple, threads: int, inputs: dict) -> None:
+    """The beside process's body: ``names``' phases in order, on
+    ``threads`` intra-op threads (those of :data:`BESIDE_ARGS` on the
+    canonical ``inputs``); sends ``("ok", {"results", "seconds"})``,
+    ``("fail", None)`` after a failed check (its FAIL line is printed), or
+    ``("error", traceback)``."""
+    import traceback
+
+    import torch
+
+    from das4whales_tpu_torch.utils.device import disable_tf32
+
+    t0 = time.perf_counter()
+    torch.set_num_threads(threads)
+    disable_tf32()                       # as the port's entry points in this process
+    _time_phases()
+    try:
+        out = {}
+        canonical = None
+        last_full = max((i for i, n in enumerate(names) if n in BESIDE_ARGS), default=-1)
+        try:
+            for i, name in enumerate(names):
+                args = ()
+                if name in BESIDE_ARGS:
+                    canonical = canonical or _beside_canonical(inputs)
+                    args = BESIDE_ARGS[name](canonical)
+                r = globals()[f"phase_{name}"](*args)
+                if name in BESIDE_RESULTS:
+                    out[name] = r
+                if i == last_full:
+                    # the full-width phases are done: give their memory back
+                    canonical = None
+                    torch.cuda.empty_cache()
+        finally:
+            workflows_finish()
+        msg = ("ok", {"results": out, "seconds": dict(_PHASE_SECONDS),
+                      "wall": time.perf_counter() - t0})
+    except SystemExit:
+        msg = ("fail", None)
+    except BaseException:  # noqa: BLE001 — sent to the main process, which fails
+        msg = ("error", traceback.format_exc())
+    tx.send(msg)
+    tx.close()
+
+
+def beside_start(raw: np.ndarray) -> None:
+    """Start :data:`BESIDE_PHASES` in one spawned process on the card: the
+    canonical ``raw`` block goes to a file beside the canonical design's
+    checkpoint (the early host job's), which that process loads."""
+    from multiprocessing import get_context
+
+    if "proc" in _BESIDE:
+        return
+    inputs = {"raw": str(_build_tmp() / "canonical_raw.npy"),
+              "design": str(_build_tmp() / "canonical_design.npz")}
+    np.save(inputs["raw"], raw)
+    ctx = get_context("spawn")
+    rx, tx = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=_beside_main,
+                       args=(tx, BESIDE_PHASES, BESIDE_CPU_THREADS, inputs),
+                       name="smoke-beside")
+    proc.start()
+    tx.close()
+    _BESIDE.update(proc=proc, rx=rx, t0=time.perf_counter())
+
+
+def _beside_message(block: bool):
+    """The beside process's message (None while it runs and ``block`` is
+    false); fails the run at once when that process failed."""
+    if "msg" not in _BESIDE and (block or _BESIDE["rx"].poll()):
+        try:
+            _BESIDE["msg"] = _BESIDE["rx"].recv()
+        except EOFError:
+            _BESIDE["proc"].join()
+            _BESIDE["msg"] = ("error", f"exit code {_BESIDE['proc'].exitcode}, no message")
+    msg = _BESIDE.get("msg")
+    if msg is not None and msg[0] != "ok":
+        fail("beside: the card-vs-CPU process failed"
+             + (" (its FAIL line above)" if msg[0] == "fail" else f": {msg[1]}"))
+    return msg
+
+
+def beside_check() -> None:
+    """Between the card's phases: fail now if the beside process failed."""
+    if "proc" in _BESIDE:
+        _beside_message(block=False)
+
+
+def beside_finish() -> dict:
+    """Wait for the beside process; its phases' seconds join this
+    process's; returns the results of :data:`BESIDE_RESULTS`."""
+    t0 = time.perf_counter()
+    _, out = _beside_message(block=True)
+    _BESIDE["proc"].join()
+    _PHASE_SECONDS.update(out["seconds"])
+    say(f"beside: {len(BESIDE_PHASES)} phases ({', '.join(BESIDE_ARGS)} at full width, then "
+        f"the card-vs-CPU ones) in a spawned process on "
+        f"{BESIDE_CPU_THREADS} intra-op threads beside the card's phases: {out['wall']:.1f} s "
+        f"in that process ({sum(out['seconds'].values()):.1f} s of phases), started "
+        f"{time.perf_counter() - _BESIDE['t0']:.1f} s before this line; waited "
+        f"{time.perf_counter() - t0:.1f} s for it here")
+    _BESIDE.clear()
+    return out["results"]
+
+
+def beside_stop() -> None:
+    """On the way out of a failed run: stop the beside process."""
+    proc = _BESIDE.pop("proc", None)
+    if proc is not None and proc.is_alive():
+        proc.kill()
+        proc.join()
+    _BESIDE.clear()
+
+
 def _time_phases() -> None:
     """Wrap every ``phase_*`` function so that its seconds are kept."""
     for name, fn in list(globals().items()):
@@ -9003,42 +9542,68 @@ def main(argv: list) -> int:
         # detect phase's set-up, the long record's files and design beside
         # the later phases
         early_host_jobs(pool)
-        launches, scene, raw, design = phase_detect()
+        # the analysis phase runs inside the detect phase, while that phase
+        # waits for the early host jobs (its seconds are its own, not
+        # detect's)
+        analysis_out = {}
+        launches, scene, raw, design = phase_detect(
+            lambda s_, r_, d_: analysis_out.update(phase_analysis(s_, r_, d_)))
+        _PHASE_SECONDS["detect"] = round(_PHASE_SECONDS["detect"]
+                                         - _PHASE_SECONDS.get("analysis", 0.0), 1)
         full_launches, full_err, _ = phase_full(scene, raw, design)
-        phase_full_cpu_vs_card()
         phase_channel_pad(scene, raw, design)
         bank_launches, bank_err, _ = phase_bank(scene, raw, design)
-        phase_cpu_vs_card()
         stft, stft_err = phase_stft_kernel()
         stft_launches = phase_spectro(scene, raw, design)
-        phase_spectro_cpu_vs_card()
-        try:
-            slab_launches, slab_picks_err = phase_slab()
-            slab_stft_launches, slab_stft_err = phase_slab_cpu_vs_card()
-            campaign_launches = phase_campaign()
-            gabor_launches, gabor_campaign_launches, gabor_err, _ = phase_gabor(scene, raw,
-                                                                                design)
-            learned_launches, learned_err, learned = phase_learned(scene, raw)
-            phase_preflight()
-            svc_launches, (svc_picks_err, svc_stft_err) = phase_service()
-            phase_fleet(svc_launches["fused_picks"])
-        finally:
-            # the slab files stay for the mesh phase and the serve subprocess
-            # (the outer finally removes them)
-            pass
+        slab_launches, slab_picks_err = phase_slab()
+        campaign_launches = phase_campaign()
+        gabor_launches, gabor_campaign_launches, gabor_err, _ = phase_gabor(scene, raw, design)
+        # from here, once the gabor phase's 66 GiB batched peak is given
+        # back, the dsp and localize phases and then the card-vs-CPU phases
+        # run in a process of their own and the mains and the command line
+        # in theirs, beside the card's phases (a cut for the run's time
+        # limit)
+        workflows_start()
+        beside_start(raw)
+        learned_launches, learned_err, learned = phase_learned(scene, raw)
+        phase_learned_cpu_vs_card(learned["card"])
+        beside_check()
+        # the long record's files and designs and the dsp phase's f-k
+        # designs, on the host beside the preflight, service and fleet
+        # phases
         prep = long_record_prep(pool)
         host_designs = dsp_host_designs(scene, pool)
-        phase_dsp(scene, raw, design, host_designs)
-        loc_launches, loc_err = phase_localize(design)
+        phase_preflight()
+        svc_launches, (svc_picks_err, svc_stft_err) = phase_service()
+        # the serve verb's subprocess beside the fleet phase; waited for
+        # before the long record's peak
+        serve_start()
+        beside_check()
+        phase_fleet(svc_launches["fused_picks"])
+        serve_finish()
+        # the mains' process is done long before: it goes, with the memory
+        # its allocator holds, before the long record's peak
+        wf_out = phase_workflows()
+        workflows_reap()
         long_launches, long_err, long_picks_launches, long_picks_err = phase_longrecord(
             prep, design)
+        # every process beside this one ends before the mesh's ranks share
+        # the card
+        beside = beside_finish()
         mesh_launches, mesh_err, mesh_stft_launches, mesh_stft_err = phase_mesh(scene, raw,
                                                                                 design)
         mxu_out = phase_mxu(scene, raw, design)
         del scene, raw, design
         report_host_designs(host_designs)
+        pool.shutdown(cancel_futures=True)
+        # last, with every process beside this one done: its two CPU ranks
+        # run under the phase's own budget
+        phase_mesh_cpu_vs_card()
+        loc_launches, loc_err = beside["localize"]
+        slab_stft_launches, slab_stft_err = beside["slab_cpu_vs_card"]
+        campaign_stft_launches, campaign_stft_err = beside["campaign_cpu_vs_card"]
     except BaseException:
-        remove_slab_files()
+        beside_stop()
         raise
     finally:
         import shutil
@@ -9048,29 +9613,11 @@ def main(argv: list) -> int:
             shutil.rmtree(prep["dir"], ignore_errors=True)
         if "tmp" in _HOST_TMP:
             shutil.rmtree(_HOST_TMP.pop("tmp"), ignore_errors=True)
-    try:
-        # the flagship main at full width, the command line and the serve
-        # verb run beside the card-vs-CPU phases, which time nothing
-        workflows_start()
-        serve_start()
-        campaign_stft_launches, campaign_stft_err = phase_campaign_cpu_vs_card()
-        phase_gabor_cpu_vs_card()
-        phase_learned_cpu_vs_card(learned["card"])
-        phase_dsp_cpu_vs_card()
-        phase_localize_cpu_vs_card()
-        phase_longrecord_cpu_vs_card()
-        phase_mesh_cpu_vs_card()
-        phase_service_cpu_vs_card()
-        phase_mxu_cpu_vs_card()
-        phase_workflows_cpu_vs_card()
-        wf_out = phase_workflows()
-        serve_finish()
-    finally:
         workflows_finish()
         if "proc" in _SERVE:
             _SERVE["proc"].kill()
             _SERVE["proc"].wait()
-        # the serve subprocess read them
+        # the serve subprocess and the mesh phase read them
         remove_slab_files()
     say(f"phase seconds: {json.dumps(_PHASE_SECONDS)}")
     pk = kern["pack"]
@@ -9087,10 +9634,11 @@ def main(argv: list) -> int:
                              "campaign_gabor": gabor_campaign_launches, **loc_launches,
                              "service": svc_launches["fused_picks"],
                              "mxu": mxu_out["launches"], **wf_out["launches"],
+                             "analysis": analysis_out["launches"]["fused_picks"],
                              **long_picks_launches, **mesh_launches},
         "max_abs_err": max(err, slab_picks_err, full_err, bank_err, gabor_err, loc_err,
                            _PREFLIGHT["picks_err"], svc_picks_err, mxu_out["err"],
-                           wf_out["err"], long_picks_err, mesh_err),
+                           wf_out["err"], long_picks_err, mesh_err, analysis_out["picks_err"]),
         "ms": pk["ms"],
         "device_ms": pk["device_ms"],
         "plain_ms": pk["plain_ms"],
@@ -9107,10 +9655,11 @@ def main(argv: list) -> int:
                              "campaign_spectro": campaign_stft_launches, **learned_launches,
                              **long_launches, "service": svc_launches["fused_stft"],
                              "mxu_calibrate_stft": mxu_out["stft_launches"],
-                             **wf_out["stft_launches"], **mesh_stft_launches},
+                             **wf_out["stft_launches"], **mesh_stft_launches,
+                             "analysis": analysis_out["launches"]["fused_stft"]},
         "max_abs_err": max(stft_err, slab_stft_err, campaign_stft_err, learned_err, long_err,
                            svc_stft_err, mxu_out["stft_err"], wf_out["stft_err"],
-                           mesh_stft_err),
+                           mesh_stft_err, analysis_out["stft_err"]),
         "ms": stft["ms"],
         "device_ms": stft["device_ms"],
         "plain_ms": stft["plain_ms"],

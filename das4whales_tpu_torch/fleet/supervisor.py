@@ -437,7 +437,7 @@ class FleetSupervisor:
             for i in range(self.config.workers):
                 w = self._spawn_worker(f"w{i}")
                 self._workers[w.name] = w
-        for w in list(self._workers.values()):
+        for w in self.workers():
             self._wait_ready(w)
         placement = self._place(list(self._specs), affinity)
         for tenant, wname in placement.items():
@@ -446,7 +446,7 @@ class FleetSupervisor:
             target=self._health_loop, name="fleet-health", daemon=True)
         self._health_thread.start()
         log.info("fleet up: %d worker(s), %d tenant(s)",
-                 len(self._workers), len(self._specs))
+                 len(self.workers()), len(self._specs))
         return self
 
     def _adopt(self, tenant: str, wname: str) -> None:
@@ -525,7 +525,7 @@ class FleetSupervisor:
 
     def _health_loop(self) -> None:
         while not self._stop.wait(self.config.health_interval_s):
-            for w in list(self._workers.values()):
+            for w in self.workers():
                 if self._stop.is_set():
                     return
                 if not w.up:
@@ -639,14 +639,14 @@ class FleetSupervisor:
         self._stop.set()
         if self._health_thread is not None:
             self._health_thread.join(timeout=10)
-        for w in list(self._workers.values()):
+        for w in self.workers():
             if w.proc is None or w.proc.poll() is not None:
                 continue
             try:
                 w.proc.terminate()
             except OSError:
                 continue
-        for w in list(self._workers.values()):
+        for w in self.workers():
             if w.proc is None:
                 continue
             try:

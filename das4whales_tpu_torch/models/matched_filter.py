@@ -94,6 +94,7 @@ from ..ops import fk as fk_ops
 from ..ops import peaks as peak_ops
 from ..ops.filters import butter_zero_phase_fir, butter_zero_phase_gain, fft_zero_phase_apply
 from ..utils.checkpoint import register_design
+from ..utils import oprecord
 from ..utils.device import resolve_device
 from ..utils.views import _VIEW_CACHE_ATTRS, cached_shallow_view
 from .templates import resolve_bank
@@ -564,13 +565,14 @@ class PackedFetch:
         self._shapes = [tuple(p.shape) for p in parts]
         flat = torch.cat([p.reshape(-1) for p in parts])
         self._event = None
-        if flat.is_cuda:
-            self._host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
-            self._host.copy_(flat, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record()
-        else:
-            self._host = flat
+        with oprecord.counted_read():
+            if flat.is_cuda:
+                self._host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+                self._host.copy_(flat, non_blocking=True)
+                self._event = torch.cuda.Event()
+                self._event.record()
+            else:
+                self._host = flat
 
     def wait(self) -> list:
         if self._event is not None:

@@ -179,6 +179,10 @@ def _hat_kernel(kernel_items: tuple, n: int, fs: float, nperseg: int, nhop: int,
     ff, tt = spectro_axes(n, fs, nperseg, nhop)
     _, _, ker = buildkernel(k["f0"], k["f1"], k["bdwidth"], k["dur"], ff[_band(ff, fmin, fmax)],
                             tt, fs, fmin, fmax)
+    if dtype == torch.float32:
+        # rounded on the host (as torch would round it), so no float64
+        # tensor enters the program
+        ker = np.asarray(ker, dtype=np.float32)
     return torch.as_tensor(ker, dtype=dtype, device=device)
 
 

@@ -23,6 +23,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils import oprecord
 from . import peaks as peak_ops
 from . import spectral
 
@@ -215,12 +216,13 @@ def _envelope_peaks(X: torch.Tensor, threshold, max_peaks: int, nb: int,
     thr = torch.as_tensor(threshold, dtype=torch.float32, device=X.device)
     thr = thr.expand(lead).reshape(rows)
     X2 = X.reshape(rows, T)
-    if X.is_cuda:
-        sp = picks_cuda(X2, thr, max_peaks, method, nb)
-    elif X.device.type == "cpu":
-        sp = picks_plain(X2, thr, max_peaks, method, nb)
-    else:
-        raise ValueError(f"no pick route for device {X.device}")
+    with oprecord.kernel("fused_picks"):
+        if X.is_cuda:
+            sp = picks_cuda(X2, thr, max_peaks, method, nb)
+        elif X.device.type == "cpu":
+            sp = picks_plain(X2, thr, max_peaks, method, nb)
+        else:
+            raise ValueError(f"no pick route for device {X.device}")
     K = sp.positions.shape[-1]
     return peak_ops.SparsePicks(
         sp.positions.reshape(lead + (K,)), sp.heights.reshape(lead + (K,)),

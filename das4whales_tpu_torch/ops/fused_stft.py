@@ -28,6 +28,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils import oprecord
+
 #: Launches of the CUDA kernel in this process: the wrapper adds one per
 #: launch and nowhere else. ``chip_smoke.py`` zeroes and reads it to show
 #: that a run went through the kernel.
@@ -149,8 +151,9 @@ def stft_power(x: torch.Tensor, nfft: int, hop: int, *, window: str = "hann",
     kernel on a CUDA tensor, its plain version on a CPU tensor. Raises
     ``ValueError`` on the JAX kernel's argument errors."""
     x = x.to(torch.float32).contiguous()
-    if x.is_cuda:
-        return stft_power_cuda(x, nfft, hop, window=window, center=center)
-    if x.device.type == "cpu":
-        return stft_power_plain(x, nfft, hop, window=window, center=center)
+    with oprecord.kernel("fused_stft"):
+        if x.is_cuda:
+            return stft_power_cuda(x, nfft, hop, window=window, center=center)
+        if x.device.type == "cpu":
+            return stft_power_plain(x, nfft, hop, window=window, center=center)
     raise ValueError(f"no STFT route for device {x.device}")

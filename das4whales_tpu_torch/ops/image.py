@@ -179,7 +179,12 @@ def _gaussian_1d(sigma: float, radius: int) -> np.ndarray:
 @functools.lru_cache(maxsize=16)
 def _gaussian_taps(sigma: float, radius: int, dtype: torch.dtype,
                    device: torch.device) -> torch.Tensor:
-    return torch.as_tensor(_gaussian_1d(sigma, radius), dtype=dtype, device=device)
+    k = _gaussian_1d(sigma, radius)
+    if dtype == torch.float32:
+        # rounded on the host (as torch would round it), so no float64
+        # tensor enters the program
+        k = k.astype(np.float32)
+    return torch.as_tensor(k, dtype=dtype, device=device)
 
 
 def gaussian_filter2d(img: torch.Tensor, sigma: float, truncate: float = 4.0,
@@ -237,15 +242,16 @@ def gradient_oriented(image: torch.Tensor, direction: Tuple[int, int]) -> torch.
              - 0.5 * image[: -2 * dfx, dft:])
 
 
-#: the 5x5 anti-diagonal edge kernel of improcess.py:172-226, host float64
-#: (cast to the image's dtype at use)
+#: the 5x5 anti-diagonal edge kernel of improcess.py:172-226, host float32
+#: (small integers, exact in any float width; cast to the image's dtype
+#: at use)
 _DIAG5 = np.array(
     [[0, 1, 1, 1, 1],
      [-1, 0, 1, 1, 1],
      [-1, -1, 0, 1, 1],
      [-1, -1, -1, 0, 1],
      [-1, -1, -1, -1, 0]],
-    dtype=np.float64,
+    dtype=np.float32,
 )
 #: the 3x3 diagonal-enhance kernel of improcess.py:229-266
 _DIAG3 = np.array([[2.0, -1.0, -1.0], [-1.0, 2.0, -1.0], [-1.0, -1.0, 2.0]])

@@ -245,7 +245,8 @@ def dft_matrices(n: int, dtype=np.float32) -> Tuple[np.ndarray, np.ndarray]:
         cos[lo : lo + rows] = np.cos(ang)
         sin[lo : lo + rows] = np.sin(ang)
 
-    with ThreadPoolExecutor(max(1, min(8, os.cpu_count() or 1))) as pool:
+    with ThreadPoolExecutor(max(1, min(8, os.cpu_count() or 1)),
+                            thread_name_prefix="das-dft") as pool:
         list(pool.map(block, range(0, n, rows)))
     return cos, sin
 

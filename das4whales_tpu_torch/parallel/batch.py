@@ -70,6 +70,7 @@ from ..ops import health as health_ops
 from ..ops import peaks as peak_ops
 from ..ops.xcorr import next_fast_len
 from ..telemetry import costs
+from ..utils import oprecord
 from ..utils.memory import ProgramSpec
 
 
@@ -634,7 +635,8 @@ class BatchedLearnedDetector(_BatchedFamilyDetector):
     def _fetch(self, heavy):
         # the slab's one device->host read: every file's scores
         self.det.syncs += 1
-        return heavy.cpu().numpy()
+        with oprecord.counted_read():
+            return heavy.cpu().numpy()
 
     def _finalize_one(self, heavy, b: int):
         res = self.det.picks_from_scores(heavy[b])

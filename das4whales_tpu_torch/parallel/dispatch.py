@@ -46,6 +46,7 @@ import numpy as np
 from .. import faults
 from ..config import dispatch_depth_default
 from ..telemetry import metrics, probes, trace
+from ..utils import oprecord
 
 _resolves = metrics.counter(
     "das_rung_resolves_total",
@@ -167,7 +168,7 @@ def fetch(tree):
     """Counted blocking fetch: every tensor in ``tree`` (nested tuples,
     lists, dicts) to host numpy — the ONE sync its dispatch chain pays."""
     faults.count("syncs")
-    with trace.span("fetch"):
+    with trace.span("fetch"), oprecord.counted_read():
         out = _to_host(tree)
     probes.note_dispatch_ok()   # the runtime answered: liveness heartbeat
     return out
@@ -178,7 +179,7 @@ def sync(tree):
     (for callers that need the tensors resident on the card, not on
     the host)."""
     faults.count("syncs")
-    with trace.span("sync"):
+    with trace.span("sync"), oprecord.counted_read():
         trace._block(tree)
     probes.note_dispatch_ok()
     return tree

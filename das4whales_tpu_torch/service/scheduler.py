@@ -294,7 +294,9 @@ class TenantRuntime:
         """Async K0 launch at the tenant's healthy top rung (the
         multi-stream pipeline's dispatch phase); None routes the slab
         to the synchronous path with identical attribution."""
-        if self.aborted:
+        with self._lock:
+            aborted = self.aborted
+        if aborted:
             return None
         return self.executor.try_dispatch(slab)
 

@@ -18,9 +18,19 @@ resolve with the priced footprint.
 
 :class:`DevicePeaks` are keyed on the card's name
 (``torch.cuda.get_device_name``); only cards in :data:`KNOWN_PEAKS`
-have peaks, and a card without them gets no roofline share. The
-program-contract audit of the JAX package's cards reads jaxpr and HLO;
-the port has neither, so every card's ``contract`` is ``"unchecked"``.
+have peaks, and a card without them gets no roofline share.
+
+The program-contract gate rides the capture (``DAS_CONTRACT_GATE``,
+default on; :func:`contracts_enabled`): the probe that prices a card also
+records its run's stream of aten operations (``utils.memory``: the same
+run, no program runs twice), the R11/R13 audit of
+``analysis.programs`` reads it against ``analysis/contracts.json``, and
+the card's ``contract`` reads ``"clean"`` or ``"breach"`` with its
+``contract_findings``; ``das_contract_audits_total{verdict}`` and
+``das_contract_findings_total{rule}`` count them. A card says
+``"unchecked"`` only with the gate off, or when the audit itself failed
+(the observatory never breaks a capture). On the CPU, where no probe
+runs, the recording is one run of the program.
 
 Disabled (the default — ``DAS_COST_CARDS`` / :func:`enable` /
 ``run_campaign_batched(cost_cards=True)``), every hook is one module
@@ -39,9 +49,10 @@ from . import metrics
 
 __all__ = [
     "CostCard", "DevicePeaks", "KNOWN_PEAKS", "REGISTRY", "bucket_label",
-    "capture_batched", "cards_payload", "correlate_stage", "device_name", "device_peaks",
-    "disable", "enable", "enabled", "ensure_batched_card", "export_json", "fk_stage",
-    "note_slab_resolved", "reset", "resolve_enabled", "rfft_ops", "sample_hbm",
+    "capture_batched", "cards_payload", "contract_engine", "contracts_enabled",
+    "correlate_stage", "device_name", "device_peaks", "disable", "disable_contracts",
+    "enable", "enable_contracts", "enabled", "ensure_batched_card", "export_json",
+    "fk_stage", "note_slab_resolved", "reset", "resolve_enabled", "rfft_ops", "sample_hbm",
 ]
 
 
@@ -160,6 +171,19 @@ _g_pricing = metrics.gauge(
 )
 
 
+_c_contract_audits = metrics.counter(
+    "das_contract_audits_total",
+    "program-contract audits run at cost-card capture (analysis/programs.py, "
+    "over the probe's recorded run), by verdict",
+    ("verdict",),
+)
+_c_contract_findings = metrics.counter(
+    "das_contract_findings_total",
+    "R11/R13 findings of program-contract audits at cost-card capture, by rule",
+    ("rule",),
+)
+
+
 def _env_truthy(name: str) -> bool:
     return os.environ.get(name, "") not in ("", "0", "false")
 
@@ -185,6 +209,25 @@ def disable() -> None:
 def resolve_enabled(flag: bool | None) -> bool:
     """Per-campaign resolution: None defers to the process switch."""
     return _enabled if flag is None else bool(flag)
+
+
+_contracts_enabled = os.environ.get("DAS_CONTRACT_GATE", "1") not in ("", "0", "false")
+
+
+def contracts_enabled() -> bool:
+    """Is the program-contract gate on (``DAS_CONTRACT_GATE``, default
+    on)? It records each priced program's run and stamps its card."""
+    return _contracts_enabled
+
+
+def enable_contracts() -> None:
+    global _contracts_enabled
+    _contracts_enabled = True
+
+
+def disable_contracts() -> None:
+    global _contracts_enabled
+    _contracts_enabled = False
 
 
 # ---------------------------------------------------------------------------
@@ -319,6 +362,59 @@ def _program_engine(bdet) -> str:
     return str(eng or "fft")
 
 
+def contract_engine(bdet) -> str:
+    """The engine a program's contract is keyed by
+    (``analysis.programs.ProgramArtifact.key``): the matched filter's
+    ``mf+fk`` pair, or a family facade's family-qualified engine (two
+    families can ride the same engine at one bucket)."""
+    det = bdet.det
+    if getattr(bdet, "family", "") == "mf":
+        return f"{det.mf_engine or 'fft'}+{det.fk_engine or 'fft'}"
+    inner = getattr(det, "det", None)
+    eng = (getattr(bdet, "engine", None) or getattr(inner, "stft_engine", None)
+           or getattr(inner, "gabor_engine", None) or "fft")
+    return f"{getattr(bdet, 'family', 'generic')}-{eng}"
+
+
+_snapshot_lock = threading.Lock()
+_snapshot: object = False  # False: not loaded yet; None: absent
+
+
+def _contract_snapshot():
+    """The checked-in ``analysis/contracts.json``, loaded once."""
+    global _snapshot
+    with _snapshot_lock:
+        if _snapshot is False:
+            from ..analysis import programs
+
+            _snapshot = programs.load_contracts()
+        return _snapshot
+
+
+def _audit_capture(ops, engine: str, *, bucket: str, program: str, stack_dtype,
+                   peak_bytes: int, device: str):
+    """The R11/R13 audit of one capture's recorded run, feeding the
+    ``das_contract_*`` counters and the card's verdict. Any failure
+    degrades to ``"unchecked"``: the observatory never breaks a capture."""
+    try:
+        import numpy as np
+
+        from ..analysis import programs
+
+        art = programs.ProgramArtifact(
+            bucket=str(bucket), label=str(program), engine=str(engine),
+            wire_dtype=np.dtype(stack_dtype).name, ops=tuple(ops),
+            peak_bytes=int(peak_bytes), device=device)
+        findings = programs.audit_program(art, snapshot=_contract_snapshot())
+    except Exception:  # noqa: BLE001
+        return "unchecked", ()
+    verdict = "breach" if findings else "clean"
+    _c_contract_audits.inc(verdict=verdict)
+    for f in findings:
+        _c_contract_findings.inc(rule=f.rule)
+    return verdict, tuple(f"{f.rule}[{f.code}] {f.message}" for f in findings)
+
+
 def _template_count(det) -> int:
     """Templates/kernels/notes the program sweeps (1 for the learned
     family's single classifier head)."""
@@ -343,22 +439,31 @@ def capture_batched(bdet, batch: int, stack_dtype, *, bucket: str, program: str,
     and register its :class:`CostCard`. Returns the program's
     ``MemoryStats`` (None off the card) so the memory preflight takes
     this as a drop-in for ``batched_program_memory``: one probe serves
-    the admission decision and the card."""
+    the admission decision and the card. With the contract gate on
+    (:func:`contracts_enabled`) the same probe's run is recorded and
+    audited, and the card carries the verdict."""
     from ..utils import memory as memutils
 
+    audit = contracts_enabled()
     an = memutils.batched_program_analysis(bdet, batch, stack_dtype, with_health=with_health,
-                                           health_clip=health_clip)
+                                           health_clip=health_clip, capture_ops=audit)
     _c_compiles.inc(program=program)
     _h_compile.observe(an.compile_seconds, program=program)
+    device = device_name(_facade_device(bdet))
+    peak = int(an.memory.peak if an.memory else 0)
+    verdict, notes = "unchecked", ()
+    if audit and an.ops is not None:
+        verdict, notes = _audit_capture(an.ops, contract_engine(bdet), bucket=bucket,
+                                        program=program, stack_dtype=stack_dtype,
+                                        peak_bytes=peak, device=device)
     REGISTRY.record(CostCard(
         program=str(program), bucket=str(bucket), engine=_program_engine(bdet),
         batch=int(batch), templates=_template_count(bdet.det),
         flops=an.flops, bytes_accessed=an.bytes_accessed,
-        transcendentals=an.transcendentals,
-        peak_bytes=int(an.memory.peak if an.memory else 0),
+        transcendentals=an.transcendentals, peak_bytes=peak,
         argument_bytes=int(an.memory.argument_bytes if an.memory else 0),
-        compile_seconds=an.compile_seconds, device=device_name(_facade_device(bdet)),
-        stages=tuple(an.stages),
+        compile_seconds=an.compile_seconds, device=device,
+        stages=tuple(an.stages), contract=verdict, contract_findings=notes,
     ))
     return an.memory
 

@@ -100,10 +100,17 @@ def build(name: str) -> tuple[Path, float, str]:
     return out, seconds, report
 
 
+#: Kernel libraries built or loaded in this process (each :func:`load`
+#: that is not memoized adds one; ``analysis.runtime`` reads it).
+loads = 0
+
+
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """The built library for ``csrc/<name>.cu``, compiled on first use.
     Memoized per process: the library is content-addressed, so the cache
     can only ever hold the one build of the current source."""
+    global loads
     path, _, _ = build(name)
+    loads += 1
     return ctypes.CDLL(str(path))

@@ -39,13 +39,22 @@ On the CPU there is no device memory to admit against: the probe
 returns None, JAX's rule for a backend without ``memory_analysis()``,
 which :func:`first_fitting` treats as fitting. Tests inject a pricer by
 replacing :func:`batched_program_memory`.
+
+The program-contract audit (``analysis.programs``) reads the stream of
+aten operations of the probe's own run: with ``capture_ops`` (None: the
+contract gate, ``telemetry.costs.contracts_enabled``) the probe's run is
+recorded and the stream memoized beside the peak, so no program runs
+twice. Recording keeps no tensor and changes no value or peak. On the
+CPU, where no probe runs, ``capture_ops=True`` runs the program once
+under the recorder (memoized the same way) and measures nothing.
+:data:`probes` counts these cold runs (``analysis.runtime``).
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Callable, Dict, Sequence, Tuple
 
 import numpy as np
@@ -60,7 +69,12 @@ __all__ = [
     "first_fitting",
     "max_fitting_batch",
     "probe_program",
+    "probes",
 ]
+
+#: Cold runs of a priced program in this process: a probe on the card, a
+#: recording run on the CPU. Memoized repeats do not count.
+probes = 0
 
 
 @dataclass(frozen=True)
@@ -106,6 +120,9 @@ class ProgramAnalysis:
     transcendentals: float
     compile_seconds: float
     stages: Tuple[str, ...] = ()
+    #: the run's recorded op stream (``analysis.programs.OpRecord``s),
+    #: None where it was not recorded
+    ops: Tuple[Any, ...] | None = None
 
 
 @dataclass
@@ -130,7 +147,7 @@ class ProgramSpec:
 
 
 _memo_lock = threading.Lock()
-_memo: Dict[tuple, Tuple[MemoryStats, float]] = {}
+_memo: Dict[tuple, Tuple[MemoryStats | None, float, tuple | None]] = {}
 
 
 def clear_probe_cache() -> None:
@@ -181,25 +198,62 @@ def _measure(spec: ProgramSpec) -> Tuple[MemoryStats, float]:
         torch.cuda.empty_cache()
 
 
-def probe_program(spec: ProgramSpec) -> ProgramAnalysis | None:
+def _want_ops(capture_ops: bool | None) -> bool:
+    if capture_ops is None:
+        from ..telemetry import costs
+
+        return costs.contracts_enabled()
+    return bool(capture_ops)
+
+
+def _run_recorded(spec: ProgramSpec) -> None:
+    """The CPU's recording run: the program once on a zero slab."""
+    import torch
+
+    spec.run(torch.zeros(spec.shape, dtype=_torch_dtype(spec.dtype), device=spec.device))
+
+
+def probe_program(spec: ProgramSpec, capture_ops: bool | None = None) -> ProgramAnalysis | None:
     """Measure ``spec`` once (memoized by ``spec.key``; an out-of-memory
     answer is not kept) and return its :class:`ProgramAnalysis`; None off
-    the card. The caller drains any work of its own in flight on the card
-    first, so that no other program's buffers count."""
-    if getattr(spec.device, "type", "cpu") != "cuda":
+    the card unless ``capture_ops`` is True (module docstring). With
+    ``capture_ops`` (None: the contract gate) the probe's run is recorded
+    (:attr:`ProgramAnalysis.ops`); a memoized probe that was not recorded
+    is probed again to record it. The caller drains any work of its own
+    in flight on the card first, so that no other program's buffers
+    count."""
+    global probes
+    on_card = getattr(spec.device, "type", "cpu") == "cuda"
+    if not on_card and capture_ops is not True:
         return None
+    want = _want_ops(capture_ops)
     with _memo_lock:
         hit = _memo.get(spec.key)
-    if hit is None:
-        hit = _measure(spec)
-        if not hit[0].exhausted:
+    if hit is None or (want and hit[2] is None):
+        rec = None
+        run_spec = spec
+        if want:
+            from ..analysis import programs
+
+            rec = programs.OpRecorder()
+            run_spec = replace(spec, run=rec.wrap(spec.run))
+        if on_card:
+            stats, wall = _measure(run_spec)
+        else:
+            stats, wall = None, 0.0
+            _run_recorded(run_spec)
+        probes += 1
+        exhausted = stats is not None and stats.exhausted
+        hit = (stats, wall, rec.records() if rec is not None and not exhausted else None)
+        if not exhausted:
             with _memo_lock:
                 _memo[spec.key] = hit
-    stats, wall = hit
+    stats, wall, ops = hit
     return ProgramAnalysis(memory=stats, flops=spec.flops,
                            bytes_accessed=spec.bytes_accessed,
                            transcendentals=spec.transcendentals,
-                           compile_seconds=wall, stages=spec.stages)
+                           compile_seconds=wall, stages=spec.stages,
+                           ops=ops if want else None)
 
 
 def _spec(bdet, batch: int, stack_dtype, *, with_health: bool = False,
@@ -209,26 +263,29 @@ def _spec(bdet, batch: int, stack_dtype, *, with_health: bool = False,
 
 
 def batched_program_memory(bdet, batch: int, stack_dtype, *, with_health: bool = False,
-                           health_clip: float | None = None) -> MemoryStats | None:
+                           health_clip: float | None = None,
+                           capture_ops: bool | None = None) -> MemoryStats | None:
     """Price the batched detection program of ``bdet`` (any batched
     facade of ``parallel.batch``) at batch size ``batch`` and wire dtype
     ``stack_dtype``: the preflight unit the batched campaign compares
     against its budget. Prices the FULL-CAPACITY (escalation) variant:
     the K0 attempt is smaller, so a fitting full program certifies
-    both. None off the card."""
+    both. None off the card. ``capture_ops`` as :func:`probe_program`'s."""
     an = probe_program(_spec(bdet, batch, stack_dtype, with_health=with_health,
-                             health_clip=health_clip))
+                             health_clip=health_clip), capture_ops=capture_ops)
     return an.memory if an is not None else None
 
 
 def batched_program_analysis(bdet, batch: int, stack_dtype, *, with_health: bool = False,
-                             health_clip: float | None = None) -> ProgramAnalysis:
+                             health_clip: float | None = None,
+                             capture_ops: bool | None = None) -> ProgramAnalysis:
     """:func:`batched_program_memory`'s full-record twin for the cost
     observatory (``telemetry.costs.capture_batched``): the SAME program's
-    counts, and its measured memory and cold wall on the card (None and
-    0.0 off it)."""
+    counts, its measured memory and cold wall on the card (None and 0.0
+    off it), and its recorded op stream where ``capture_ops`` asked for
+    one (:func:`probe_program`)."""
     spec = _spec(bdet, batch, stack_dtype, with_health=with_health, health_clip=health_clip)
-    an = probe_program(spec)
+    an = probe_program(spec, capture_ops=capture_ops)
     if an is not None:
         return an
     return ProgramAnalysis(memory=None, flops=spec.flops, bytes_accessed=spec.bytes_accessed,

@@ -27,6 +27,7 @@ from das4whales_tpu.viz.map import latlon_to_utm as jlatlon_to_utm
 from das4whales_tpu_torch.config import FIN_HF_NOTE, FIN_LF_NOTE
 from das4whales_tpu_torch.io import annotations as tann
 from das4whales_tpu_torch.io import coords as tcoords
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 FS = 200.0
 

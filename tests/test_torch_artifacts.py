@@ -29,6 +29,7 @@ from das4whales_tpu_torch.models.matched_filter import MatchedFilterDesign
 from das4whales_tpu_torch.models.matched_filter import design_matched_filter as tdesign
 from das4whales_tpu_torch.utils import artifacts as tart
 from das4whales_tpu_torch.utils import checkpoint as tckpt
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 RECORDS = [
     {"path": "/data/a.h5", "status": "done", "n_picks": {"HF": 3, "LF": 0}, "wall_s": 0.125,

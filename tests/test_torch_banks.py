@@ -38,6 +38,7 @@ from das4whales_tpu_torch.models.matched_filter import MatchedFilterDetector
 from das4whales_tpu_torch.parallel.batch import BatchedMatchedFilterDetector
 from das4whales_tpu_torch.utils.parity import envelopes, unexplained_differences
 from das4whales_tpu_torch.workflows import campaign, planner
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 NX, NS = 24, 900
 SEL = [0, NX, 1]

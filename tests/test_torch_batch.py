@@ -48,6 +48,7 @@ from das4whales_tpu_torch.parallel.batch import (
 )
 from das4whales_tpu_torch.utils.parity import envelopes, unexplained_differences
 from das4whales_tpu_torch.workflows.spectrodetect import campaign_detector
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 NX = 64
 SEL = [0, NX, 1]

@@ -39,6 +39,7 @@ from das4whales_tpu_torch import convert, faults
 from das4whales_tpu_torch.models.matched_filter import MatchedFilterDetector
 from das4whales_tpu_torch.utils.parity import envelopes, unexplained_differences
 from das4whales_tpu_torch.workflows import campaign
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 NX = 64
 SEL = [0, NX, 1]
@@ -552,23 +553,42 @@ def _gabor_oom_plan(mod, files):
     return _JaxPinnedPlan(pinned) if mod is jfaults else mod.FaultPlan(0, pinned=pinned)
 
 
+def _gabor_port_kw(gabor_data):
+    return dict(family="gabor", batch=2, device="cpu", design=gabor_data["design"],
+                **gabor_data["port_kw"])
+
+
+@pytest.fixture(scope="module")
+def gabor_port_batched(gabor_data, tmp_path_factory):
+    """The port's healthy batched Gabor campaign over the file set, run
+    once for the module: the JAX comparison and the per-file comparison
+    read the same run."""
+    out = tmp_path_factory.mktemp("gabor_port") / "port"
+    res = campaign.run_campaign_batched(gabor_data["files"], gabor_data["sel"], str(out),
+                                        **_gabor_port_kw(gabor_data))
+    return dict(res=res, out=out)
+
+
 @pytest.mark.parametrize("oom", [False, True], ids=["healthy", "oom_to_host"])
-def test_gabor_family_batched_matches_jax(gabor_data, tmp_path, oom):
+def test_gabor_family_batched_matches_jax(gabor_data, gabor_port_batched, tmp_path, oom):
     """``run_campaign_batched(family="gabor")`` at batch 2 on both packages:
     manifests equal record by record (status, rung, family, attempts,
     error, health, the downshift events); with a pinned oom at every
     dispatch the ladder walks ``batched:2 -> file -> host`` on both."""
     files, sel = gabor_data["files"], gabor_data["sel"]
     jkw = dict(family="gabor", batch=2, persistent_cache=False, **GABOR_KW)
-    tkw = dict(family="gabor", batch=2, device="cpu", design=gabor_data["design"],
-               **gabor_data["port_kw"])
     if oom:
         jkw["fault_plan"] = _gabor_oom_plan(jfaults, files)
-        tkw["fault_plan"] = _gabor_oom_plan(faults, files)
     with jax.enable_x64(False):
         jcampaign.run_campaign_batched(files, sel, str(tmp_path / "jax"), **jkw)
-    tres = campaign.run_campaign_batched(files, sel, str(tmp_path / "port"), **tkw)
-    jm, tm = _assert_manifests_match(tmp_path / "jax", tmp_path / "port")
+    if oom:
+        port = tmp_path / "port"
+        tres = campaign.run_campaign_batched(files, sel, str(port),
+                                             fault_plan=_gabor_oom_plan(faults, files),
+                                             **_gabor_port_kw(gabor_data))
+    else:
+        port, tres = gabor_port_batched["out"], gabor_port_batched["res"]
+    jm, tm = _assert_manifests_match(tmp_path / "jax", port)
     rung = "host" if oom else "batched:2"
     assert [(r.status, r.rung, r.family) for r in tres.records] == [
         ("done", rung, "gabor"), ("done", rung, "gabor"), ("failed", "", "gabor"),
@@ -578,7 +598,9 @@ def test_gabor_family_batched_matches_jax(gabor_data, tmp_path, oom):
     _assert_gabor_picks(jm, tm)
 
 
-def test_gabor_family_serial_batched_is_bitwise_the_per_file_campaign(gabor_data, tmp_path):
+def test_gabor_family_serial_batched_is_bitwise_the_per_file_campaign(gabor_data,
+                                                                    gabor_port_batched,
+                                                                    tmp_path):
     """Within the port, one device: the serial facade's saved picks equal
     the per-file ``run_campaign(family="gabor")``'s bit for bit, and that
     campaign's manifest equals JAX's ``run_campaign`` on its Gabor
@@ -587,8 +609,7 @@ def test_gabor_family_serial_batched_is_bitwise_the_per_file_campaign(gabor_data
 
     files, sel, meta = gabor_data["files"], gabor_data["sel"], gabor_data["meta"]
     tkw = dict(device="cpu", design=gabor_data["design"], **gabor_data["port_kw"])
-    batched = campaign.run_campaign_batched(files, sel, str(tmp_path / "b"), family="gabor",
-                                            batch=2, **tkw)
+    batched = gabor_port_batched["res"]
     with jax.enable_x64(False):
         jdet = jcampaign_detector(meta, sel, (GABOR_NX, GABOR_NS), **GABOR_KW)
         jcampaign.run_campaign(files, sel, str(tmp_path / "jax"), detector=jdet)

@@ -39,6 +39,7 @@ from das4whales_tpu_torch.utils.checkpoint import load_design
 from das4whales_tpu_torch.utils.parity import envelopes, unexplained_differences
 from das4whales_tpu_torch.workflows import campaign
 from torch_mesh_worker import run_pool
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 NX, NS = 64, 1000
 SEL = [0, NX, 1]

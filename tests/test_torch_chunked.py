@@ -23,6 +23,7 @@ import torch
 
 from das4whales_tpu.ops import chunked as jch
 from das4whales_tpu_torch.ops import chunked as tch
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 FS = 200.0
 

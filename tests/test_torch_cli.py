@@ -26,6 +26,7 @@ import subprocess
 import sys
 
 import matplotlib
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 matplotlib.use("Agg")
 

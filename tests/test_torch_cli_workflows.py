@@ -15,6 +15,7 @@ from __future__ import annotations
 import os
 
 import matplotlib
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 matplotlib.use("Agg")
 

@@ -29,6 +29,7 @@ from das4whales_tpu_torch.models import templates as ttpl
 from das4whales_tpu_torch.ops import filters as tfilters
 from das4whales_tpu_torch.ops import fk as tfk
 from das4whales_tpu_torch.ops import xcorr as txcorr
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = 1e-6
 SHAPES = [(24, 900), (64, 3000), (33, 1001)]

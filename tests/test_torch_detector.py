@@ -26,6 +26,7 @@ from das4whales_tpu_torch import convert
 from das4whales_tpu_torch.models.matched_filter import InFlightResult
 from das4whales_tpu_torch.models.matched_filter import MatchedFilterDetector as TorchDetector
 from das4whales_tpu_torch.utils.parity import envelopes, unexplained_differences
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 PAIR = jtpl.TemplateBank(
     name="pair", entries=(("HF", jcfg.FIN_HF_NOTE), ("LF", jcfg.FIN_LF_NOTE)),

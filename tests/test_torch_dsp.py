@@ -36,6 +36,7 @@ from das4whales_tpu_torch.ops import fk as tfk
 from das4whales_tpu_torch.ops import peaks as tpeaks
 from das4whales_tpu_torch.ops import spectral as tspec
 from das4whales_tpu_torch.ops import xcorr as txcorr
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REL = 1e-5
 FS = 200.0

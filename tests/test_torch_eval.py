@@ -36,6 +36,7 @@ from das4whales_tpu_torch import eval as teval
 from das4whales_tpu_torch.io.synth import SyntheticCall, SyntheticScene, synthesize_scene
 from das4whales_tpu_torch.models.matched_filter import MatchedFilterDetector
 from das4whales_tpu_torch.ops.peaks import SparsePicks
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TRUTH = dict(t0=3.0, x0_m=500.0, y0_m=300.0, z0_m=-20.0)
 

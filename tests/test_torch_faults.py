@@ -23,6 +23,7 @@ from das4whales_tpu import faults as jf
 from das4whales_tpu.parallel import dispatch as jdispatch
 from das4whales_tpu_torch import faults as tf
 from das4whales_tpu_torch.parallel import dispatch as tdispatch
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 class XlaRuntimeError(RuntimeError):

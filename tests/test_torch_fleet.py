@@ -64,6 +64,7 @@ from das4whales_tpu_torch.utils import artifacts
 from das4whales_tpu_torch.workflows import campaign
 
 from tests.conftest import CHAOS_N_FILES, CHAOS_NS, CHAOS_NX, CHAOS_SEL
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DRIVER = os.path.join(ROOT, "tests", "torch_fleet_worker.py")

@@ -44,6 +44,7 @@ from das4whales_tpu_torch.ops import spectral as tspectral
 from das4whales_tpu_torch.parallel.batch import BatchedMatchedFilterDetector
 from das4whales_tpu_torch.utils import checkpoint as tckpt
 from das4whales_tpu_torch.utils.parity import envelopes, unexplained_differences
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REL = 1e-5
 SNR_DB = 0.01
@@ -199,16 +200,34 @@ def test_auto_pick_mode_and_the_campaign_configuration(scenes):
     assert full.trf_fk is not None and set(full.snr) == set(ref.picks)
 
 
+@pytest.fixture(scope="module")
+def sparse_designs(scenes):
+    """JAX's sparse-route designs of the ``med`` scene carried across, one
+    per (bank, wire), each built once for the module (the cases of
+    ``test_tiled_sparse_route_is_detect_picks_bitwise`` share them)."""
+    scene, _ = scenes["med"]
+    cache = {}
+
+    def get(bank, wire):
+        key = (getattr(bank, "name", bank), wire)
+        if key not in cache:
+            with jax.enable_x64(False):
+                cache[key] = _carry(_jax_det(scene, templates=bank, wire=wire,
+                                             pick_mode="sparse"))
+        return cache[key]
+
+    return get
+
+
 @pytest.mark.parametrize("wire,k0", [("raw", None), ("conditioned", None), ("raw", 1)])
-def test_tiled_sparse_route_is_detect_picks_bitwise(scenes, wire, k0):
+def test_tiled_sparse_route_is_detect_picks_bitwise(scenes, sparse_designs, wire, k0):
     """``_call_tiled``'s sparse picks and host thresholds against the
     one-program route on the same detector: bit for bit, escalation
     included."""
     scene, blocks = scenes["med"]
     x = blocks[wire]
     for bank in ("fin", PAIR):
-        with jax.enable_x64(False):
-            design = _carry(_jax_det(scene, templates=bank, wire=wire, pick_mode="sparse"))
+        design = sparse_designs(bank, wire)
         td = tmf.MatchedFilterDetector.from_design(design, scene.metadata, wire=wire,
                                                    channel_tile=16, pick_mode="sparse",
                                                    device="cpu")

@@ -50,6 +50,7 @@ from das4whales_tpu_torch.parallel.batch import BatchedGaborDetector, batched_de
 from das4whales_tpu_torch.utils.parity import unexplained_differences
 from das4whales_tpu_torch.workflows import gabordetect as tgd
 from das4whales_tpu_torch.workflows import planner
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 NOTE_ABS = 2e-5
 SCORE_REL = 2e-6

@@ -37,6 +37,7 @@ from das4whales_tpu_torch.parallel import gabor as tgb
 from das4whales_tpu_torch.parallel.mesh import Mesh
 from das4whales_tpu_torch.utils.parity import unexplained_differences
 from torch_mesh_worker import run_pool
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 P = 2
 REL = 1e-5

@@ -22,6 +22,7 @@ from das4whales_tpu_torch import convert
 from das4whales_tpu_torch.models.matched_filter import MatchedFilterDetector
 from das4whales_tpu_torch.ops import health as th
 from das4whales_tpu_torch.utils.parity import envelopes, unexplained_differences
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _block(shape, seed=0):

@@ -22,6 +22,7 @@ import torch
 
 from das4whales_tpu.ops import image as jimg
 from das4whales_tpu_torch.ops import image as timg
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REL = 2e-6
 REL_CONV = 1e-5

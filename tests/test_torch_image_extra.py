@@ -28,6 +28,7 @@ from scipy import ndimage
 
 from das4whales_tpu.ops import image as jimg
 from das4whales_tpu_torch.ops import image as timg
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REL = 1e-5
 RADON_REL = 1e-4

@@ -13,6 +13,7 @@ from pathlib import Path
 
 import pytest
 import torch
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "das4whales_tpu_torch"

@@ -25,6 +25,7 @@ from das4whales_tpu.io import synth as jsynth
 from das4whales_tpu.io import tdms as jtdms
 from das4whales_tpu_torch.io import hdf5, interrogators, native, stream, synth, tdms
 from das4whales_tpu_torch.workflows import common
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 NX, NS = 32, 400
 SEL = [2, 30, 2]

@@ -51,6 +51,7 @@ from das4whales_tpu_torch.parallel import batch as tbatch
 from das4whales_tpu_torch.utils.parity import unexplained_learned_differences
 from das4whales_tpu_torch.workflows import campaign as tcampaign
 from das4whales_tpu_torch.workflows import planner as tplanner
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 FEAT_ABS = 2e-3
 LOGIT_REL = 1e-5

@@ -34,6 +34,7 @@ from das4whales_tpu_torch import convert
 from das4whales_tpu_torch.models import learned as tl
 from das4whales_tpu_torch.parallel.mesh import make_mesh
 from torch_mesh_worker import run_pool
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 P = 2
 LOSS_REL = 1e-5

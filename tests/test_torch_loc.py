@@ -19,6 +19,7 @@ import torch
 
 from das4whales_tpu import loc as jloc
 from das4whales_tpu_torch import loc as tloc
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 C0 = 1480.0
 RTOL = 1e-9

@@ -31,6 +31,7 @@ from das4whales_tpu_torch.utils.parity import (
     unexplained_learned_differences,
 )
 from das4whales_tpu_torch.workflows import longrecord as tlr
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 FS, DX = 200.0, 4.0
 NX, NS_FILE = 32, 4096

@@ -40,6 +40,7 @@ from das4whales_tpu_torch.utils.parity import (
 )
 from das4whales_tpu_torch.workflows import longrecord as tlr
 from torch_mesh_worker import run_pool
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 P = 2
 NX, NS_FILE, FS, DX = 64, 2048, 200.0, 4.084

@@ -28,6 +28,7 @@ from das4whales_tpu_torch.ops import fk as tfk
 from das4whales_tpu_torch.parallel import collectives as coll
 from das4whales_tpu_torch.parallel import mesh as tmesh
 from torch_mesh_worker import run_pool
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 P2 = 2
 COMBOS = ((0, 1), (1, 0), (2, 1), (1, 2), (0, 0))

@@ -28,6 +28,7 @@ from das4whales_tpu_torch import io as tio
 from das4whales_tpu_torch.models import matched_filter as tmf
 from das4whales_tpu_torch.ops import peaks as tpeaks
 from das4whales_tpu_torch.utils.parity import envelopes, unexplained_differences
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REL = 1e-5
 TILE = 8

@@ -34,6 +34,7 @@ from das4whales_tpu_torch.ops import spectral as tspectral
 from das4whales_tpu_torch.ops import xcorr as txcorr
 from das4whales_tpu_torch.utils import device as tdevice
 from das4whales_tpu_torch.utils.parity import envelopes, unexplained_differences
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 FS = 200.0
 #: value tolerance against JAX: a fraction of the reference's max |value|

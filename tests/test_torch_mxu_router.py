@@ -28,6 +28,7 @@ from das4whales_tpu_torch.ops import mxu
 from das4whales_tpu_torch.ops import xcorr as txcorr
 from das4whales_tpu_torch.parallel.batch import BatchedMatchedFilterDetector
 from das4whales_tpu_torch.telemetry import costs
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CARD = "cuda:NVIDIA H100 80GB HBM3"
 FS, NS = 200.0, 6000

@@ -27,6 +27,7 @@ from das4whales_tpu.utils import locks as jlocks
 from das4whales_tpu_torch.ops import health as thealth
 from das4whales_tpu_torch.telemetry import costs, metrics, quality, slo
 from das4whales_tpu_torch.utils import locks
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REL = 1e-6
 

@@ -25,6 +25,7 @@ from das4whales_tpu_torch.ops import conditioning as tcond
 from das4whales_tpu_torch.ops import fk as tfk
 from das4whales_tpu_torch.ops import spectral as tspec
 from das4whales_tpu_torch.ops import xcorr as txcorr
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REL = 1e-5
 

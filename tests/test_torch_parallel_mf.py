@@ -35,6 +35,7 @@ from das4whales_tpu_torch.models.matched_filter import MatchedFilterDetector
 from das4whales_tpu_torch.ops import peaks as tpeaks
 from das4whales_tpu_torch.utils.parity import envelopes, unexplained_differences
 from torch_mesh_worker import run_pool
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 NX, NS, B = 32, 1000, 2
 REL = 1e-5

@@ -27,6 +27,7 @@ from das4whales_tpu.ops import spectral as jspec
 from das4whales_tpu_torch.ops import fused_picks as tfused
 from das4whales_tpu_torch.ops import peaks as tpeaks
 from das4whales_tpu_torch.ops import spectral as tspec
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SHAPES = [(3, 10, 777), (2, 8, 512), (1, 3, 1000)]
 

@@ -28,6 +28,7 @@ from das4whales_tpu_torch.ops import peaks as tpeaks
 from das4whales_tpu_torch.utils.parity import envelopes, unexplained_differences
 from das4whales_tpu_torch.workflows.common import mf_prefilter
 from das4whales_tpu_torch.workflows.spectrodetect import campaign_detector
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REL = 1e-5
 

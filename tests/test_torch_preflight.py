@@ -31,6 +31,7 @@ from das4whales_tpu_torch.utils import memory
 from das4whales_tpu_torch.workflows import campaign
 
 from tests.conftest import CHAOS_SEL
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SEL = CHAOS_SEL
 GIB = 2**30

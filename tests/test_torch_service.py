@@ -52,6 +52,7 @@ from das4whales_tpu_torch.utils import locks, memory
 from das4whales_tpu_torch.workflows import campaign
 
 from tests.conftest import CHAOS_NS, CHAOS_NX, CHAOS_SEL
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 SEL = CHAOS_SEL

@@ -33,6 +33,7 @@ from das4whales_tpu_torch.models import spectro as ts
 from das4whales_tpu_torch.ops import xcorr as txcorr
 from das4whales_tpu_torch.utils.parity import unexplained_differences
 from das4whales_tpu_torch.workflows import spectrodetect as tsd
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REL = 1e-5
 

@@ -33,6 +33,7 @@ from das4whales_tpu_torch.parallel import spectro as tsp
 from das4whales_tpu_torch.parallel.mesh import Mesh
 from das4whales_tpu_torch.utils.parity import unexplained_differences
 from torch_mesh_worker import run_pool
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 P = 2
 NX, NS, B = 32, 6400, 2

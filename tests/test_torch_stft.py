@@ -22,6 +22,7 @@ from das4whales_tpu.ops import pallas_stft as jps
 from das4whales_tpu.ops import spectral as jspec
 from das4whales_tpu_torch.ops import fused_stft, spectral
 from das4whales_tpu_torch.utils import build
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 POWER_REL = 5e-6
 

@@ -40,6 +40,7 @@ from das4whales_tpu_torch.utils.parity import unexplained_differences
 from das4whales_tpu_torch.workflows import longrecord as tlr
 from das4whales_tpu_torch.workflows.planner import DownshiftLadder
 from torch_mesh_worker import run_pool
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 P = 2
 NX, NS = 32, 2000

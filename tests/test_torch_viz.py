@@ -21,6 +21,7 @@ from __future__ import annotations
 from datetime import datetime
 
 import matplotlib
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 matplotlib.use("Agg")
 

@@ -23,6 +23,7 @@ from das4whales_tpu_torch.ops import spectral
 from das4whales_tpu_torch.utils.parity import unexplained_differences
 from das4whales_tpu_torch.utils.profiling import StageTimer
 from das4whales_tpu_torch.workflows import mfdetect, spectrodetect
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _assert_picks(jpicks, tpicks, env_of, thr_of):
