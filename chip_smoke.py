@@ -6,7 +6,7 @@
 Builds the port's two CUDA kernels from ``das4whales_tpu_torch/csrc`` with
 ``nvcc`` (sm_90a) and the native ingest reader from
 ``das4whales_tpu_torch/native/ingest.cpp`` with ``g++``, then runs
-thirty-seven phases, one summary line each (more for the detector runs, with their
+thirty-eight phases, one summary line each (more for the detector runs, with their
 profiles), and exits non-zero at the first failed check; no phase's
 failure is caught. The ``dsp`` and ``localize`` phases (on the canonical
 block and design this process hands over), then the card-vs-CPU phases
@@ -450,7 +450,25 @@ of its phases, and that process ends before the ``mesh`` phase:
                 ``detect_picks`` at the canonical shape probing and building
                 nothing; both kernels' first and last launch in the phase
                 held against their plain versions (picks bitwise, STFT
-                within 5e-6 * max); its seconds against a 30 s target.
+                within 5e-6 * max); its seconds against a 30 s target;
+38. ``surface`` (run at the end of 4, on its detector and block) the port's
+                public surface: a fresh ``import das4whales_tpu_torch as dw``
+                on this machine's Python has its eager attributes, none of
+                its lazy ones until accessed, each lazy one its module, no
+                ``jax``, ``das4whales_tpu``, ``matplotlib`` or ``h5py``
+                module and no kernel built;
+                ``dw.utils.device.probe_backend(60)`` equals the device
+                count (its seconds); ``dw.utils.block_and_time(
+                det.detect_picks, x, repeats=3)`` beside ``detect``'s median
+                wall, its picks bitwise ``detect``'s; one ``detect_picks``
+                inside ``dw.utils.device_trace`` and
+                ``dw.utils.annotate("surface/detect_picks")``: the Chrome
+                trace written parses, holds the span and 44 ``fused_picks``
+                launches, each with a positive duration (up to three
+                sessions, as a profiler loses records), the traced picks
+                bitwise the untraced ones, the pick kernel bitwise its plain
+                version at the traced call's first and last launch; its
+                seconds against a 15 s target.
 
 Then it prints each phase's seconds, the kernel table as one JSON line, the run's total
 seconds, the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. It imports no JAX and nothing
@@ -678,18 +696,14 @@ def _host_us(fn, reps: int) -> float:
     return us
 
 
-#: host seconds a profiler session waits, the card idle, before the work it
-#: times: in a long run the profiler has lost the records of the first
-#: kernels of a session (a learned call's first 33 of 53 launches, once;
-#: all 20 launches of a 5 ms kernel, once)
-PROFILER_SETTLE_S = 0.5
-
-
 def _profiled(run):
-    """``torch.profiler`` over ``run()`` after ``PROFILER_SETTLE_S`` of
-    idle time inside the session; returns the profile."""
+    """``torch.profiler`` over ``run()`` after ``utils.profiling.
+    PROFILER_SETTLE_S`` of idle time inside the session; returns the
+    profile."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from das4whales_tpu_torch.utils.profiling import PROFILER_SETTLE_S
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1197,7 +1211,170 @@ def phase_detect(while_waiting=None):
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     _profile("detect_picks", lambda: det.detect_picks(x), statistics.median(walls),
              "fused_picks")
+    phase_surface(det, x, res, statistics.median(walls))
     return launches["fused_picks"], scene, raw, det.design
+
+
+#: the surface phase's time target, seconds (a miss is reported, not failed)
+SURFACE_TARGET_S = 15.0
+#: device_trace sessions the surface phase tries before it fails: a profiler
+#: session has lost the records of launches in a long run (see _device_ms)
+SURFACE_TRACE_SESSIONS = 3
+#: the surface phase's results for the kernel table: launches and max error
+_SURFACE: dict = {}
+
+#: a fresh interpreter's import of the package (the surface phase): its
+#: eager and lazy attributes, the modules it pulled in, the kernels built
+_SURFACE_IMPORT_SRC = """
+import importlib, json, sys
+import das4whales_tpu_torch as dw
+eager = ("config", "faults", "io", "loc", "ops", "models", "utils")
+lazy = ("viz", "parallel", "workflows", "eval", "service")
+out = {"eager_missing": [k for k in eager if k not in vars(dw)],
+       "lazy_early": [k for k in lazy if k in vars(dw)]}
+out["lazy_wrong"] = [k for k in lazy
+                     if getattr(dw, k) is not importlib.import_module("das4whales_tpu_torch." + k)]
+out["foreign"] = sorted({m.split(".")[0] for m in sys.modules}
+                        & {"jax", "jaxlib", "das4whales_tpu", "matplotlib", "h5py"})
+build = sys.modules.get("das4whales_tpu_torch.utils.build")
+native = sys.modules.get("das4whales_tpu_torch.io.native")
+out["kernel_builds"] = 0 if build is None else build.loads
+out["native_built"] = native is not None and (native._lib is not None or native._lib_failed)
+print(json.dumps(out))
+"""
+
+
+def _trace_events(logdir: str) -> list:
+    """The events of the one Chrome trace ``device_trace`` wrote under
+    ``logdir``."""
+    from pathlib import Path
+
+    paths = sorted(Path(logdir).glob("*.pt.trace.json"))
+    if len(paths) != 1:
+        fail(f"surface: device_trace wrote {len(paths)} traces under {logdir}, expected 1")
+    with open(paths[0]) as f:
+        return json.load(f)["traceEvents"]
+
+
+def phase_surface(det=None, x=None, ref=None, wall_s=None):
+    """The port's public surface on the card, on ``detect``'s detector
+    ``det``, block ``x`` and result ``ref`` (its median wall ``wall_s``):
+    the package import in a fresh interpreter, ``probe_backend``,
+    ``block_and_time`` and one ``detect_picks`` under ``device_trace`` and
+    ``annotate``. Alone (``--only surface``) it runs the ``detect`` phase,
+    which runs it."""
+    if det is None:
+        phase_detect()
+        return
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    import das4whales_tpu_torch as dw
+    from das4whales_tpu_torch.ops import fused_picks
+
+    root = str(Path(__file__).resolve().parent)
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")])))
+    # the fresh import beside the probe (both start an interpreter)
+    t0 = time.perf_counter()
+    imp = subprocess.Popen([sys.executable, "-c", _SURFACE_IMPORT_SRC], cwd=root, env=env,
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    n_dev = dw.utils.device.probe_backend(60)
+    t_probe = time.perf_counter() - t0
+    try:
+        out, err = imp.communicate(timeout=120)
+    finally:
+        if imp.poll() is None:
+            imp.kill()
+            imp.wait()
+    t_import = time.perf_counter() - t0
+    if imp.returncode != 0:
+        fail(f"surface: the fresh import exited {imp.returncode}:\n{err[-2000:]}")
+    got = json.loads(out.strip().splitlines()[-1])
+    if (got["eager_missing"] or got["lazy_early"] or got["lazy_wrong"] or got["foreign"]
+            or got["kernel_builds"] or got["native_built"]):
+        fail(f"surface: import das4whales_tpu_torch: {got}")
+    if n_dev != torch.cuda.device_count():
+        fail(f"surface: probe_backend(60) = {n_dev}, torch.cuda.device_count() = "
+             f"{torch.cuda.device_count()}")
+
+    def same_picks(res, what):
+        for name, p in ref.picks.items():
+            if not np.array_equal(res.picks[name], p):
+                fail(f"surface: {what}: template {name}'s picks differ from detect's")
+        if res.thresholds != ref.thresholds:
+            fail(f"surface: {what}: thresholds {res.thresholds} differ from detect's "
+                 f"{ref.thresholds}")
+
+    best, res = dw.utils.block_and_time(det.detect_picks, x, repeats=3)
+    same_picks(res, "block_and_time")
+
+    tile = det.effective_channel_tile
+    nx = x.shape[0]
+    n_tiles = -(-nx // tile)
+    nT = len(det.design.template_names)
+    tmp = Path(tempfile.mkdtemp(prefix="surface_", dir=_build_tmp()))
+    try:
+        for session in range(1, SURFACE_TRACE_SESSIONS + 1):
+            logdir = str(tmp / f"session{session}")
+            zero_launches()
+            d0 = det.dispatches
+            try:
+                with _capture(fused_picks, "picks_cuda") as calls:
+                    with dw.utils.device_trace(logdir):
+                        with dw.utils.annotate("surface/detect_picks"):
+                            traced = det.detect_picks(x)
+            except RuntimeError as exc:
+                if "recorded no CUDA activity" not in str(exc):
+                    raise
+                say(f"surface: session {session}: {exc}")
+                continue
+            launches = read_launches()["fused_picks"]
+            attempts = det.dispatches - d0
+            events = _trace_events(logdir)
+            spans = [e for e in events if e.get("name") == "surface/detect_picks"]
+            kern = [e for e in events
+                    if e.get("cat") == "kernel" and "fused_picks" in e.get("name", "")]
+            if len(kern) >= launches:
+                break
+            say(f"surface: session {session}: the trace kept {len(kern)} of {launches} "
+                f"fused_picks launches")
+        else:
+            fail(f"surface: no device_trace session of {SURFACE_TRACE_SESSIONS} kept every "
+                 "fused_picks launch")
+        same_picks(traced, "the traced call")
+        if launches != n_tiles * attempts or len(kern) != launches:
+            fail(f"surface: the traced call launched fused_picks {launches} times in "
+                 f"{attempts} attempts, the trace holds {len(kern)}, expected {n_tiles} an "
+                 "attempt")
+        if not spans:
+            fail("surface: the trace holds no 'surface/detect_picks' span")
+        durs = [float(e.get("dur", 0.0)) for e in kern]
+        if min(durs) <= 0:
+            fail(f"surface: {sum(d <= 0 for d in durs)} fused_picks launches in the trace "
+                 "have no positive duration")
+        size = sum(p.stat().st_size for p in Path(logdir).glob("*.pt.trace.json"))
+        err, notes = _picks_at_main_path("surface", calls, {
+            "first": nT * tile, "last": nT * (nx - (n_tiles - 1) * tile)})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _SURFACE.update(launches=launches, err=err)
+    seconds = time.perf_counter() - t0
+    say(f"surface: fresh import das4whales_tpu_torch (eager attributes present, lazy ones "
+        f"loaded on access, no jax, das4whales_tpu, matplotlib or h5py, no kernel built) in "
+        f"{t_import:.1f} s beside probe_backend(60) = {n_dev} = torch.cuda.device_count() in "
+        f"{t_probe:.1f} s; block_and_time(det.detect_picks, x, repeats=3) best "
+        f"{best * 1e3:.1f} ms against detect's median wall {wall_s * 1e3:.1f} ms, picks bitwise "
+        f"detect's; device_trace session {session}: {len(spans)} 'surface/detect_picks' "
+        f"spans, {len(kern)} fused_picks launches of {launches} counted, durations "
+        f"{min(durs):.1f}-{max(durs):.1f} us (sum {sum(durs) / 1e3:.3f} ms), "
+        f"{len(events)} events, {size / 2**20:.1f} MiB; traced picks bitwise the untraced; "
+        f"fused_picks bitwise its plain version at the traced call's first and last launch: "
+        f"{'; '.join(notes)}; {seconds:.1f} s (target {SURFACE_TARGET_S:.0f} s"
+        + (")" if seconds <= SURFACE_TARGET_S else ", MISSED)"))
 
 
 def _profile(label: str, run, wall_s: float, kernel: str) -> dict:
@@ -9133,6 +9310,7 @@ def phase_analysis(scene=None, raw=None, design=None):
     from das4whales_tpu_torch.parallel.batch import BatchedMatchedFilterDetector
     from das4whales_tpu_torch.telemetry import costs
     from das4whales_tpu_torch.utils import memory
+    from das4whales_tpu_torch.utils.profiling import PROFILER_SETTLE_S
     from das4whales_tpu_torch.workflows import campaign as cmod
 
     t_phase = time.perf_counter()
@@ -9549,7 +9727,8 @@ def main(argv: list) -> int:
         launches, scene, raw, design = phase_detect(
             lambda s_, r_, d_: analysis_out.update(phase_analysis(s_, r_, d_)))
         _PHASE_SECONDS["detect"] = round(_PHASE_SECONDS["detect"]
-                                         - _PHASE_SECONDS.get("analysis", 0.0), 1)
+                                         - _PHASE_SECONDS.get("analysis", 0.0)
+                                         - _PHASE_SECONDS.get("surface", 0.0), 1)
         full_launches, full_err, _ = phase_full(scene, raw, design)
         phase_channel_pad(scene, raw, design)
         bank_launches, bank_err, _ = phase_bank(scene, raw, design)
@@ -9635,10 +9814,12 @@ def main(argv: list) -> int:
                              "service": svc_launches["fused_picks"],
                              "mxu": mxu_out["launches"], **wf_out["launches"],
                              "analysis": analysis_out["launches"]["fused_picks"],
+                             "surface": _SURFACE["launches"],
                              **long_picks_launches, **mesh_launches},
         "max_abs_err": max(err, slab_picks_err, full_err, bank_err, gabor_err, loc_err,
                            _PREFLIGHT["picks_err"], svc_picks_err, mxu_out["err"],
-                           wf_out["err"], long_picks_err, mesh_err, analysis_out["picks_err"]),
+                           wf_out["err"], long_picks_err, mesh_err, analysis_out["picks_err"],
+                           _SURFACE["err"]),
         "ms": pk["ms"],
         "device_ms": pk["device_ms"],
         "plain_ms": pk["plain_ms"],

@@ -35,4 +35,23 @@ This package imports neither ``jax`` nor anything of ``das4whales_tpu``.
 __version__ = "0.1.0"
 
 from . import config  # noqa: F401
+from . import faults  # noqa: F401
+from . import io  # noqa: F401
+from . import loc  # noqa: F401
+from . import ops  # noqa: F401
+from . import models  # noqa: F401
+from . import utils  # noqa: F401
 from .config import AcquisitionMetadata, ChannelSelection  # noqa: F401
+
+
+def __getattr__(name):
+    # viz renders with matplotlib (not on every host) and the others pull
+    # in the campaign and mesh machinery: each loads on first use, as in
+    # the JAX package. No eager import builds a kernel.
+    if name in ("viz", "parallel", "workflows", "eval", "service"):
+        import importlib
+
+        module = importlib.import_module(f".{name}", __name__)
+        globals()[name] = module
+        return module
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -35,6 +35,16 @@ class AcquisitionMetadata:
     scale_factor: float = 1.0
     interrogator: str = "optasense"
 
+    @property
+    def duration(self) -> float:
+        """File duration in seconds."""
+        return self.ns / self.fs
+
+    @property
+    def cable_span(self) -> float:
+        """Total sensed cable length in meters."""
+        return self.nx * self.dx
+
     def to_dict(self) -> dict:
         """The reference-compatible metadata dict."""
         return {
@@ -68,6 +78,20 @@ class ChannelSelection:
     step: int = 1
 
     @classmethod
+    def from_meters(cls, start_m: float, stop_m: float, step_m: float,
+                    dx: float) -> "ChannelSelection":
+        """A selection in meters along the cable as channel indices, by
+        integer division by ``dx`` (the reference's caller-side idiom,
+        ``main_mfdetect.py:30-34``)."""
+        if step_m < dx:
+            raise ValueError(
+                f"step_m={step_m} is below the spatial sampling dx={dx}; the "
+                f"integer-divide convention would yield a zero stride. Use "
+                f"step_m >= dx (every channel = dx)."
+            )
+        return cls(int(start_m // dx), int(stop_m // dx), int(step_m // dx))
+
+    @classmethod
     def from_list(cls, sel) -> "ChannelSelection":
         if isinstance(sel, ChannelSelection):
             return sel
@@ -79,6 +103,18 @@ class ChannelSelection:
     def n_channels(self, nx: int | None = None) -> int:
         stop = self.stop if nx is None else min(self.stop, nx)
         return max(0, -(-(stop - self.start) // self.step))
+
+    @property
+    def spacing(self) -> int:
+        """Effective inter-channel stride in raw-channel units."""
+        return self.step
+
+    def distances(self, dx: float, n: int):
+        """Distance axis [m] of the first ``n`` selected channels (the
+        reference's axis convention, ``data_handle.py:228``), numpy."""
+        import numpy as np
+
+        return (np.arange(n) * self.step + self.start) * dx
 
 
 @dataclass(frozen=True)

@@ -27,6 +27,7 @@ from typing import Callable, Dict, Sequence
 import numpy as np
 import torch
 
+from .config import as_metadata  # noqa: F401 — the JAX module's name
 from .io.synth import SyntheticCall, SyntheticScene, synthesize_scene
 from .utils.device import resolve_device
 from .utils.views import cached_shallow_view

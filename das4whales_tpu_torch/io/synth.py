@@ -17,6 +17,16 @@ _LASER_WAVELENGTH_M = 1550.12e-9
 _PHOTOELASTIC = 0.78
 
 
+def __getattr__(name):
+    # the JAX module's ``write_optasense``: io.hdf5 imports this module, so
+    # it is looked up on first access, not imported here
+    if name == "write_optasense":
+        from .hdf5 import write_optasense
+
+        return write_optasense
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 def optasense_scale_factor(n: float, gauge_length: float) -> float:
     """Raw counts -> strain conversion of an OptaSense interrogator."""
     return (2 * np.pi) / 2**16 * _LASER_WAVELENGTH_M / (_PHOTOELASTIC * 4 * np.pi * n * gauge_length)

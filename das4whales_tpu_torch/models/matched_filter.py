@@ -80,9 +80,11 @@ import numpy as np
 import scipy.signal as sp
 import torch
 
-from ..config import (
+from ..config import (  # noqa: F401 — FIN_LF_NOTE, CallTemplateConfig: the JAX module's names
     FIN_HF_NOTE,
+    FIN_LF_NOTE,
     SCRIPT_FK,
+    CallTemplateConfig,
     ChannelSelection,
     FkFilterConfig,
     as_metadata,
@@ -93,11 +95,12 @@ from ..ops import health as health_ops
 from ..ops import fk as fk_ops
 from ..ops import peaks as peak_ops
 from ..ops.filters import butter_zero_phase_fir, butter_zero_phase_gain, fft_zero_phase_apply
+from ..ops.filters import zero_phase_gain  # noqa: F401 — the JAX module's name
 from ..utils.checkpoint import register_design
 from ..utils import oprecord
 from ..utils.device import resolve_device
 from ..utils.views import _VIEW_CACHE_ATTRS, cached_shallow_view
-from .templates import resolve_bank
+from .templates import TemplateBank, gen_template_fincall, resolve_bank  # noqa: F401
 
 #: The reference threshold policy: ``thres = REL_THRESHOLD * max``, scaled
 #: per template by its factor; HF_FACTOR is the HF fin note's factor.
@@ -1148,6 +1151,15 @@ class MatchedFilterDetector:
             hook("snr")
         return MatchedFilterResult(picks=picks, thresholds=thr_out, trf_fk=trf_fk,
                                    correlograms=correlograms, peak_masks=peak_masks, snr=snr)
+
+    @property
+    def supports_fused_health(self) -> bool:
+        """True: :meth:`detect_picks` fuses the data-health stats
+        (``ops.health``) into its one program, and the campaign takes
+        them from there rather than from the host block. Here that holds
+        on every ``pick_mode``, since :meth:`detect_picks` is always the
+        sparse route (the JAX package's: on ``pick_mode="sparse"``)."""
+        return True
 
     def detect_picks(self, trace, threshold: float | None = None,
                      n_real: int | None = None, with_health: bool = False,

@@ -43,6 +43,9 @@ from .templates import gen_hyperbolic_chirp
 #: 95 %-overlap frame tensor (``nfft/hop`` times the block) on the device.
 FUSED_DEFAULT_BATCH = 4096
 RFFT_DEFAULT_BATCH = 1024
+#: the JAX package's name for :data:`FUSED_DEFAULT_BATCH` (its STFT kernel
+#: is the Pallas one)
+PALLAS_DEFAULT_BATCH = FUSED_DEFAULT_BATCH
 
 
 def median_midpoint(x: torch.Tensor, ndim: int) -> torch.Tensor:

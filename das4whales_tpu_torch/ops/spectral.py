@@ -137,6 +137,24 @@ def check_stft_engine(engine: str) -> str:
     return engine
 
 
+def resolve_stft_engine(engine: str = "auto", device=None) -> str:
+    """A concrete STFT engine without the shape: ``engine`` when concrete,
+    else ``DAS4WHALES_STFT_ENGINE`` when set and concrete, else the
+    device's kernel route: ``"fused"`` on a CUDA device (None: the card),
+    ``"rfft"`` elsewhere (the JAX package: ``"pallas"`` on a TPU, else
+    ``"rfft"``). The per-shape A/B router is
+    ``ops.mxu.resolve_stft_engine_ab``; forced engines and the env
+    override resolve identically through both."""
+    import os
+
+    if engine == "auto":
+        engine = os.environ.get("DAS4WHALES_STFT_ENGINE", "") or "auto"
+    if engine == "auto":
+        dev = torch.device("cuda" if device is None else device)
+        engine = "fused" if dev.type == "cuda" else "rfft"
+    return check_stft_engine(engine)
+
+
 @functools.lru_cache(maxsize=8)
 def _stft_matmul_matrix(nfft: int) -> np.ndarray:
     """The windowed real-DFT matrix ``[nfft, 2F]``, cos | sin halves for

@@ -383,6 +383,11 @@ class _BatchedFamilyDetector:
     def _device(self) -> torch.device:
         raise NotImplementedError
 
+    @property
+    def engine(self) -> str:
+        """The resolved engine label, for cost cards and ledgers."""
+        return "fft"
+
     def _design_shape(self):
         return None
 
@@ -488,6 +493,12 @@ class BatchedSpectroDetector(_BatchedFamilyDetector):
     def _device(self) -> torch.device:
         return self.det.det.device
 
+    @property
+    def engine(self) -> str:
+        """The spectro detector's resolved STFT engine (``"rfft"`` until
+        it has resolved one)."""
+        return self.det.det.stft_engine or "rfft"
+
     def _design_shape(self):
         design = getattr(self.det.prefilter, "design", None)
         return getattr(design, "trace_shape", None)
@@ -546,6 +557,12 @@ class BatchedGaborDetector(_BatchedFamilyDetector):
 
     def _device(self) -> torch.device:
         return self.det.det.device
+
+    @property
+    def engine(self) -> str:
+        """The Gabor detector's resolved 2-D correlation engine (``"fft"``
+        until it has resolved one)."""
+        return self.det.det.gabor_engine or "fft"
 
     def _design_shape(self):
         design = getattr(self.det.prefilter, "design", None)

@@ -38,6 +38,7 @@ import torch
 from ..config import C0_WATER, ChannelSelection, as_metadata
 from ..models.gabor import DEFAULT_NOTES, design_gabor, gabor_mask, masked_matched_filter
 from ..models.gabor import synthesize_notes
+from ..models.templates import gen_hyperbolic_chirp  # noqa: F401 — the JAX module's name
 from ..ops import fused_picks
 from ..ops import image as img_ops
 from ..ops import peaks as peak_ops

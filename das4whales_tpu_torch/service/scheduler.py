@@ -49,6 +49,7 @@ import numpy as np
 from .. import faults
 from .. import fsck
 from ..parallel.dispatch import PipelinedDispatch
+from ..parallel.dispatch import resolve_watchdogged  # noqa: F401 — the JAX module's name
 from ..telemetry import costs as tcosts
 from ..telemetry import metrics
 from ..telemetry import quality as tquality
@@ -57,6 +58,8 @@ from ..utils import artifacts, locks
 from ..utils.log import get_logger
 from ..workflows import campaign as camp
 from ..workflows.planner import DownshiftLadder, family_ladder_stages
+# the JAX module's names
+from ..workflows.planner import DetectorProgram, program_for  # noqa: F401
 from .ingest import IngestItem, RingBuffer, SlabSlicer
 
 log = get_logger("das4whales_tpu_torch.service.scheduler")
@@ -299,6 +302,14 @@ class TenantRuntime:
         if aborted:
             return None
         return self.executor.try_dispatch(slab)
+
+    def handle_slab(self, slab, inflight=None) -> None:
+        """One slab through the elastic ladder, the per-file degradation,
+        the health gate and the bookkeeping of each of its files: the
+        batch campaign's contract, per tenant (the tenant's
+        ``SlabExecutor.handle_slab``). ``inflight`` is the slab's
+        dispatched program (:meth:`try_dispatch`), or None."""
+        self.executor.handle_slab(slab, inflight)
 
     def handle_error_item(self, item: IngestItem) -> None:
         """Disposition a source-side read failure at its own position

@@ -1,4 +1,4 @@
-"""Device resolution for the port's entry points.
+"""Device resolution for the port's entry points, and the card probe.
 
 Every entry point takes an explicit ``device``. ``None`` means the card:
 the port is written for an NVIDIA H100, and a run that silently landed
@@ -17,8 +17,18 @@ package is float32, so both switches are set to False here, once, by
 
 from __future__ import annotations
 
+import subprocess
+import sys
+
 import numpy as np
 import torch
+
+_PROBE_SRC = (
+    "import torch;"
+    "torch.ones((8, 8), device='cuda').sum().item();"
+    "torch.cuda.synchronize();"
+    "print(torch.cuda.device_count())"
+)
 
 
 def disable_tf32() -> None:
@@ -41,6 +51,25 @@ def resolve_device(device=None) -> torch.device:
         raise ValueError(f"unsupported device {dev}; expected cuda or cpu")
     disable_tf32()
     return dev
+
+
+def probe_backend(timeout_s: float) -> int:
+    """Number of CUDA devices a fresh interpreter sees, or 0 if it fails
+    to run one op on ``cuda`` and synchronize within ``timeout_s``.
+    Probed in a subprocess so a wedged card cannot hang the caller. A
+    probe only: no entry point chooses its device by it."""
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-c", _PROBE_SRC],
+            timeout=timeout_s, capture_output=True, text=True,
+        )
+        if proc.returncode != 0:
+            return 0
+        # the last stdout token: a runtime may print banners before the count
+        tokens = proc.stdout.split()
+        return int(tokens[-1]) if tokens else 0
+    except (subprocess.TimeoutExpired, ValueError):
+        return 0
 
 
 def to_device_async(v, dtype, device: torch.device) -> torch.Tensor:

@@ -74,9 +74,10 @@ from ..telemetry import trace as telemetry
 from ..utils import artifacts
 from ..utils.device import resolve_device
 from ..utils.log import get_logger
-from .planner import (
+from .planner import (  # noqa: F401 — MatchedFilterProgram: the JAX module's name
     DetectorProgram,
     DownshiftLadder,
+    MatchedFilterProgram,
     RoutePlanner,
     family_ladder_stages,
     program_for,
@@ -888,7 +889,7 @@ def run_campaign(
         for a family whose ``dispatch`` returns None)."""
         if not pipe.enabled or not placed or skip_reason is not None or rz.health_cfg is None:
             return None
-        if route.current(_BUCKET) != ("file", 1):
+        if not route.program.supports_fused_health or route.current(_BUCKET) != ("file", 1):
             return None
         if scale_mismatch(block):
             return None   # detect_one fails it per-file on the sync path

@@ -16,6 +16,7 @@ from ..io.download import dl_file
 from ..io.hdf5 import load_das_data
 from ..io.interrogators import get_acquisition_parameters
 from ..models.matched_filter import MatchedFilterDetector
+from ..utils.log import get_logger, log_metadata  # noqa: F401 — the JAX module's names
 
 log = logging.getLogger("das4whales_tpu_torch.workflows")
 

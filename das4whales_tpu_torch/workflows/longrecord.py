@@ -69,6 +69,8 @@ from ..ops import conditioning, mxu, spectral, xcorr
 from ..ops import fk as fk_ops
 from ..ops import peaks as peak_ops
 from ..ops.filters import butter_zero_phase_gain_full
+from ..parallel.mesh import make_mesh  # noqa: F401 — the JAX module's names
+from ..parallel.timeshard import make_sharded_mf_step_time, time_sharding  # noqa: F401
 from ..telemetry import trace as telemetry
 from ..utils.device import resolve_device
 from ..utils.log import get_logger

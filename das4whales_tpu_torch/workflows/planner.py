@@ -83,6 +83,10 @@ class DetectorProgram:
     * ``stages`` — the ladder stages this family's math supports, in
       ladder order. Must include ``"file"`` (the entry rung) and should
       include ``"host"`` (the rung of last resort).
+    * ``supports_fused_health`` — the family fuses ``ops.health`` stats
+      into its detection program (they ride the program's own read);
+      otherwise they come from the host block (same values, one numpy
+      pass). The campaign dispatches asynchronously only where it is set.
     * :meth:`dispatch` — launches the program asynchronously (the depth-D
       pipelined campaign dispatch), or returns None where the family has
       no async route; its health stats then come from the host block.
@@ -90,6 +94,7 @@ class DetectorProgram:
 
     family = "generic"
     stages: Tuple[str, ...] = ("file", "host")
+    supports_fused_health = False
 
     def __init__(self, detector):
         self.det = detector
@@ -168,6 +173,7 @@ class MatchedFilterProgram(DetectorProgram):
 
     def __init__(self, detector):
         super().__init__(detector)
+        self.supports_fused_health = bool(getattr(detector, "supports_fused_health", False))
         if getattr(detector, "supports_bank_split", False):
             # a splittable template bank: the ladder gains the bank-split
             # rung, T/2 sub-bank dispatches before the route itself goes

@@ -6,6 +6,7 @@ instead of falling back to the CPU."""
 from __future__ import annotations
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -89,6 +90,24 @@ def test_port_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 20
+
+
+def test_package_import_pulls_in_no_jax_matplotlib_or_h5py_and_builds_no_kernel():
+    """A fresh ``import das4whales_tpu_torch`` (the smoke's ``surface``
+    phase runs the same source on the card) has its eager attributes and
+    none of its lazy ones; each lazy one loads on access as its module;
+    none of it imports ``jax``, ``das4whales_tpu``, ``matplotlib`` or
+    ``h5py`` (the card's machine has neither of the last two, this image
+    both), and no kernel library or native reader is built."""
+    import chip_smoke
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", chip_smoke._SURFACE_IMPORT_SRC], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == {
+        "eager_missing": [], "lazy_early": [], "lazy_wrong": [], "foreign": [],
+        "kernel_builds": 0, "native_built": False}
 
 
 def test_default_device_is_the_card_and_never_the_cpu():
